@@ -13,8 +13,9 @@
 // What bounds them on an H100: all three are elementwise passes that do a
 // handful of flops per element, so they are bound by device-memory bytes:
 // local_step moves 12 B/element (f32, no momentum; 20 with momentum),
-// weighted_delta (4K + 8) B/element, server_update 16 B/element under
-// momentum.  At LeNet-5 size (137,216 padded elements) every one of them
+// weighted_delta (4K + 8) B/element, server_update 20 B/element under
+// momentum (reads p, d, m; writes p, m) and 28 B/element under adam
+// (reads p, d, mu, nu; writes p, mu, nu), all in f32.  At LeNet-5 size (137,216 padded elements) every one of them
 // is far below a microsecond of bytes, so on the main path the launch
 // itself dominates; batching launches is later work.
 //

@@ -195,6 +195,46 @@ def test_device_sampling_is_seeded(torch_side):
     assert runs[0] != runs[2]
 
 
+class _RecordIds:
+    """Wraps a strategy: its round body records the client ids the
+    engine drew and leaves the params as they are."""
+
+    def __init__(self, inner):
+        self.inner, self.ids = inner, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def build_round(self, task, dev):
+        def body(params, inputs, lr_scale, algo_state):
+            self.ids.append(inputs.ids.clone())
+            return params, algo_state, torch.zeros(())
+        return body
+
+
+def test_device_sampling_statistics(torch_side):
+    """sampling="device" draws K distinct in-range ids per round, and
+    over many rounds each client is chosen about rounds·K/n times, as
+    the JAX engine's permutation draw chooses them."""
+    task, data = torch_side
+    rounds = 400
+    rec = _RecordIds(AggregateStrategy(spec=FLConfig(
+        participation=0.25, local_steps=1, batch_size=4).local_spec(),
+        participation=0.25))
+    run_rounds(task, data, rec, RoundSchedule(rounds=rounds, eval_every=0,
+                                              sampling="device"),
+               device="cpu")
+    ids = torch.stack(rec.ids).numpy()
+    n, K = data.n_clients, rec.n_selected(data.n_clients)
+    assert ids.shape == (rounds, K) and K > 1
+    assert ((ids >= 0) & (ids < n)).all()
+    assert all(len(set(row)) == K for row in ids.tolist())
+    counts = np.bincount(ids.ravel(), minlength=n)
+    p = K / n
+    sd = np.sqrt(rounds * p * (1 - p))
+    assert np.all(np.abs(counts - rounds * p) < 4 * sd), counts
+
+
 def _entry_points(task, data):
     cyc = CyclicConfig(rounds=1, local_steps=1, batch_size=4, eval_every=0)
     fed = FLConfig(rounds=1, local_steps=1, batch_size=4, eval_every=0)
