@@ -3,24 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds the fused-update kernels from ``src/repro_torch/kernels/csrc``
-into ``build/`` (nvcc, sm_90a), then prints one JSON line per phase:
+Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
+``build/`` (one nvcc per source, all at once; sm_90a), then prints one
+JSON line per phase:
 
-  1. env       — the card (nvidia-smi name, power limit), torch/CUDA
-                 versions, the kernel build time;
-  2. kernel    — each CUDA kernel against its plain PyTorch version on
-                 the card, over its variants at N = 137,216 (LeNet-5,
-                 padded) and N = 16,777,216: max abs error, kernel and
-                 plain ms (median of CUDA-event timings), one PyTorch
-                 library call's ms where one computes the same function,
-                 and the bound (bytes ÷ the card's data-sheet bandwidth);
-  3. main_path — the paper pipeline at full width: LeNet-5 on
-                 cifar10-like (100 clients, β = 0.5, 20,000 samples), P1
-                 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds) through
-                 ``run_cyclic_then_federated``, launch counts asserted;
-  4. e2e       — 1 P1 + 1 P2 round with update_impl "fused" and
-                 "fused_interpret" from the same init and index stream,
-                 final params compared;
+  1. env           — the card (nvidia-smi name, power limit), torch/CUDA
+                     versions, the kernel build time;
+  2. kernel        — each CUDA kernel against its plain PyTorch version
+                     on the card, over its variants: max abs error under
+                     the stated tolerance, kernel and plain ms (median of
+                     CUDA-event timings), one PyTorch library call's ms
+                     where one computes the same function, and the bound
+                     (the larger of bytes ÷ bandwidth and unmasked
+                     operations ÷ the data-sheet peak for their type).
+                     K1–K3 at N = 137,216 (LeNet-5, padded) and
+                     16,777,216, bitwise; K7 (flash_attention) and K8
+                     (ssd_scan) at hymba-1.5b's shapes and beside them;
+  3. main_path     — the paper pipeline at full width: LeNet-5 on
+                     cifar10-like (100 clients, β = 0.5, 20,000 samples),
+                     P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
+                     through ``run_cyclic_then_federated``, launch counts
+                     asserted, then one profiled round of each phase;
+  4. e2e           — 1 P1 + 1 P2 round with update_impl "fused" and
+                     "fused_interpret" from the same init and index
+                     stream, final params compared;
+  5. serve         — hymba-1.5b at full width (1,640,872,320 params,
+                     bf16, random weights from a seed) through
+                     ``Engine.generate`` with attn_impl = ssd_impl =
+                     "pallas": batch 8, prompt 2048, 64 greedy tokens;
+                     K7 launched 32 + 32 × 64 = 2080 times and K8 32
+                     times, asserted; prefill ms, decode ms per step,
+                     tok/s, peak memory;
+  6. serve_e2e     — the same weights and prompt through the plain
+                     versions ("pallas_interpret") and through the plain
+                     versions in f32: prefill logits and teacher-forced
+                     decode logits compared, greedy-token agreement;
+  7. serve_profile — one prefill and one decode step under torch.profiler:
+                     device-busy share, top device ops;
 then the ``kernels`` summary, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the last line; without a CUDA device it exits 1 and prints no result.
@@ -40,12 +59,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N_SMALL = 137_216          # LeNet-5's 136,886 params padded to 1024
 N_LARGE = 16_777_216
-KERNEL_TOL = 0.0    # bitwise: kernels round where the plain versions do
+KERNEL_TOL = 0.0    # bitwise: K1-K3 round where the plain versions do
 SEED = 0
 
-# data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s.
-# Other cards raise in card_peaks until a run on one adds its row.
-_PEAKS = (("H100 HBM3", 3.35e12, 67e12),)
+# hymba-1.5b serving shapes: batch 8, prompt 2048, 64 new tokens
+SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
+SERVE_T = SERVE_S + SERVE_NEW
+HYMBA_PARAMS = 1_640_872_320
+DEV = "cuda"
+
+# data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
+# (CUDA cores), bf16 FLOP/s (dense tensor cores).  Other cards raise in
+# card_peaks until a run on one adds its row.
+_PEAKS = (("H100 HBM3", 3.35e12, 67e12, 989e12),)
 
 
 def emit(obj) -> None:
@@ -54,9 +80,9 @@ def emit(obj) -> None:
 
 def card_peaks(name: str):
     up = name.upper()
-    for key, bw, flops in _PEAKS:
+    for key, bw, f32, bf16 in _PEAKS:
         if all(part in up for part in key.split()):
-            return bw, flops
+            return bw, f32, bf16
     raise SystemExit(f"chip_smoke: no data-sheet peaks for {name!r}")
 
 
@@ -67,12 +93,13 @@ def nvidia_smi() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, trials: int = 5, reps: int = 20) -> float:
+def time_ms(torch, fn, trials: int = 5, reps: int = 20,
+            warmup: int = 3) -> float:
     """Median over ``trials`` of the mean device time per call of
     ``reps`` back-to-back calls.  A sleep kernel queued first keeps the
     device busy while the host enqueues the calls, so the events time
     the device work, not the host's launch rate."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
@@ -94,16 +121,16 @@ class KernelBench:
 
     def __init__(self, torch, fu, peaks):
         self.torch, self.fu = torch, fu
-        self.bw, self.flops = peaks
+        self.bw, self.flops, self.flops_bf16 = peaks
         self.gen = torch.Generator(device="cuda")
         self.gen.manual_seed(SEED)
 
     def rand(self, *shape, dtype=None):
-        t = self.torch.randn(*shape, generator=self.gen, device="cuda")
+        t = self.torch.randn(*shape, generator=self.gen, device=self.gen.device)
         return t.to(dtype or self.torch.float32)
 
-    def bound_ms(self, n_bytes: float, n_ops: float):
-        t_bytes, t_ops = n_bytes / self.bw, n_ops / self.flops
+    def bound_ms(self, n_bytes: float, n_ops: float, peak=None):
+        t_bytes, t_ops = n_bytes / self.bw, n_ops / (peak or self.flops)
         return max(t_bytes, t_ops) * 1e3, \
             "bytes" if t_bytes >= t_ops else "operations"
 
@@ -239,6 +266,155 @@ class KernelBench:
                     bound_by=by)
 
 
+    # --- K7 flash_attention ------------------------------------------------
+
+    def flash_attention(self, B, S, T, H, KH, hd, dtype, window, q_offset,
+                        kv_len=None, label=""):
+        torch = self.torch
+        from repro_torch.kernels import flash_attention as fa
+        q = self.rand(B, S, H, hd, dtype=dtype)
+        k = self.rand(B, T, KH, hd, dtype=dtype)
+        v = self.rand(B, T, KH, hd, dtype=dtype)
+        kw = dict(window=window, q_offset=q_offset, kv_len=kv_len)
+        out = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        err, ok, tol = close(torch, out, ref, 2e-5)
+        del out, ref
+        t = dict(trials=3, reps=3, warmup=1) if S * T > 1 << 20 else {}
+        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), **t)
+        plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+                        **t)
+        win = fa.FULL_WINDOW if window is None else window
+        kvl = T if kv_len is None else kv_len
+        qpos = q_offset + torch.arange(S, device=DEV)[:, None]
+        kpos = torch.arange(T, device=DEV)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - win) & (kpos < kvl)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True), **t)
+        # the unmasked work: (query, key) pairs and the key rows they read
+        pairs = 0
+        for i in range(S):
+            qp = q_offset + i
+            pairs += max(0, min(qp, kvl - 1) - max(0, qp - win + 1) + 1)
+        rows = max(0, min(q_offset + S - 1, kvl - 1)
+                   - max(0, q_offset - win + 1) + 1)
+        e = q.element_size()
+        n_bytes = 2 * B * S * H * hd * e + 2 * B * rows * KH * hd * e
+        n_ops = 4 * hd * pairs * B * H
+        peak = self.flops_bf16 if dtype == torch.bfloat16 else self.flops
+        bound, by = self.bound_ms(n_bytes, n_ops, peak)
+        return dict(kernel="flash_attention", case=label, B=B, S=S, T=T, H=H,
+                    KH=KH, hd=hd, dtype=str(dtype)[6:], window=window,
+                    q_offset=q_offset, kv_len=kv_len, max_abs_err=err,
+                    tol=tol, within_tol=ok, ms=ms, plain_ms=plain,
+                    library_ms=library,
+                    library_note="F.scaled_dot_product_attention(enable_gqa="
+                    "True) with an explicit boolean mask",
+                    bound_ms=bound, bound_by=by, unmasked_pairs=pairs * B * H)
+
+    # --- K8 ssd_scan ---------------------------------------------------------
+
+    def ssd_scan(self, b, s, h, p, n, g, chunk, dtype, label=""):
+        torch = self.torch
+        from repro_torch.kernels import ssd_scan as ssd
+        x = self.rand(b, s, h, p, dtype=dtype)
+        Bm = self.rand(b, s, g, n, dtype=dtype)
+        Cm = self.rand(b, s, g, n, dtype=dtype)
+        dt = torch.nn.functional.softplus(self.rand(b, s, h) - 4.0)
+        A = -torch.linspace(1.0, 16.0, h, device=DEV)
+        y, final = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, f_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+        ey, oky, tol = close(torch, y, y_p, 1e-4)
+        ef, okf, _ = close(torch, final, f_p, 1e-4)
+        ms = time_ms(torch, lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+        plain = time_ms(torch, lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm,
+                                                          chunk=chunk),
+                        trials=3, reps=3, warmup=1)
+        e = x.element_size()
+        n_bytes = (2 * b * s * h * p * e + 2 * b * s * g * n * e
+                   + 4 * b * s * h + 4 * h + 4 * b * h * p * n)
+        n_ops = 0
+        for c0 in range(0, s, chunk):
+            lc = min(chunk, s - c0)
+            n_ops += lc * (lc + 1) * (n + p) + 4 * lc * p * n
+        n_ops *= b * h
+        peak = self.flops_bf16 if dtype == torch.bfloat16 else self.flops
+        bound, by = self.bound_ms(n_bytes, n_ops, peak)
+        return dict(kernel="ssd_scan", case=label, b=b, s=s, h=h, p=p, n=n,
+                    g=g, chunk=chunk, dtype=str(dtype)[6:],
+                    max_abs_err=max(ey, ef), max_abs_err_y=ey,
+                    max_abs_err_state=ef, tol=tol, within_tol=oky and okf,
+                    ms=ms, plain_ms=plain, library_ms=None,
+                    library_note="no single PyTorch call computes the SSD "
+                    "chunked scan", bound_ms=bound, bound_by=by)
+
+
+def close(torch, got, want, f32_tol):
+    """Max abs error and whether every element is within tolerance: f32
+    at f32_tol absolute + relative (the kernels sum in another order than
+    the plain versions: online softmax, sequential cumsum); a bf16 output
+    within one bf16 ulp (2^-7 relative) + f32_tol, since both sides round
+    an f32 value once and may land on neighbouring bf16 values."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    if got.dtype == torch.float32:
+        tol = f"{f32_tol} + {f32_tol}*|ref|"
+        bad = diff > f32_tol + f32_tol * b.abs()
+    else:
+        tol = f"2^-7*|ref| + {f32_tol}"
+        bad = diff > 2.0 ** -7 * b.abs() + f32_tol
+    ok = bool(torch.isfinite(a).all()) and not bool(bad.any())
+    return float(diff.max()), ok, tol
+
+
+def check_attention_kernels(torch, bench) -> dict:
+    """Phase 2, K7 and K8: every variant at hymba-1.5b's serving shapes
+    (and mamba2's d_state for K8), then the main path's shapes
+    (returned)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, T, H, KH, hd, W = SERVE_B, SERVE_S, SERVE_T, 25, 5, 64, 1024
+    rows, main = [], {}
+    for dtype in (bf16, f32):
+        tag = str(dtype)[6:]
+        cases = {
+            "prefill_global": (B, S, T, None, 0),
+            "prefill_swa": (B, S, T, W, 0),
+            f"decode_{S}_swa": (B, 1, T, W, S),
+            f"decode_{S}_global": (B, 1, T, None, S),
+            f"decode_{T - 1}_swa": (B, 1, T, W, T - 1),
+            f"decode_{T - 1}_global": (B, 1, T, None, T - 1),
+            "ragged_777": (2, 777, 777, None, 0),
+        }
+        for label, (b, s_, t, w, off) in cases.items():
+            r = bench.flash_attention(b, s_, t, H, KH, hd, dtype, w, off,
+                                      label=f"{label}_{tag}")
+            rows.append(r)
+            if dtype == bf16 and label != "ragged_777":
+                main[label] = r
+        ssd_cases = {
+            "hymba": (B, S, 50, 64, 16, 1, 128),
+            "grouped": (2, S, 48, 64, 16, 4, 128),
+            "mamba2_n128": (2, S, 64, 64, 128, 1, 128),
+            "ragged_2000": (2, 2000, 50, 64, 16, 1, 128),
+        }
+        for label, args in ssd_cases.items():
+            r = bench.ssd_scan(*args, dtype, label=f"{label}_{tag}")
+            rows.append(r)
+            if dtype == bf16 and label == "hymba":
+                main["ssd_scan"] = r
+    for r in rows:
+        emit(dict(phase="kernel", **r))
+    bad = [r["case"] for r in rows if not r["within_tol"]]
+    if bad:
+        raise SystemExit(f"chip_smoke: K7/K8 variants disagree with their "
+                         f"plain versions: {bad}")
+    return main
+
+
 def check_kernels(torch, fu, bench) -> dict:
     """Phase 2: every variant, then the main path's shapes (returned)."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -352,7 +528,6 @@ def profile_rounds(torch, task, data, cyc, fed, init) -> None:
     host pays little for it).  Reports the device's busy share of the
     round's wall time and the kernels by device time."""
     import dataclasses
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.cyclic import cyclic_pretrain
     from repro_torch.fl.simulation import run_federated
@@ -368,28 +543,37 @@ def profile_rounds(torch, task, data, cyc, fed, init) -> None:
             run(task, data, cfg, init_params=init)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        spans, by_name = [], {}
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            spans.append((e.time_range.start, e.time_range.end))
-            tot, cnt = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (tot + e.time_range.end - e.time_range.start,
-                               cnt + 1)
-        busy, end = 0.0, -math.inf
-        for a, b in sorted(spans):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+        busy, n_ops, top = device_activity(prof)
         emit(dict(phase="profile", round=name, sgd_steps=steps,
                   wall_ms=wall_us / 1e3, ms_per_step=wall_us / 1e3 / steps,
                   device_busy_ms=busy / 1e3,
-                  device_busy_share=busy / wall_us if spans else None,
-                  device_ops=len(spans),
-                  device_ops_per_step=len(spans) / steps,
-                  top_device_ops=[dict(name=k[:90], total_ms=v[0] / 1e3,
-                                       count=v[1]) for k, v in top]))
+                  device_busy_share=busy / wall_us if n_ops else None,
+                  device_ops=n_ops,
+                  device_ops_per_step=n_ops / steps,
+                  top_device_ops=top))
+
+
+def device_activity(prof, n_top: int = 12):
+    """From a CUDA-activity trace: the device's busy microseconds (the
+    union of its kernel and copy spans), the number of device ops, and
+    the top ops by device time."""
+    from torch.autograd import DeviceType
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.end - e.time_range.start,
+                           cnt + 1)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
+    return busy, len(spans), [dict(name=k[:90], total_ms=v[0] / 1e3,
+                                   count=v[1]) for k, v in top]
 
 
 def fused_vs_plain(torch):
@@ -432,6 +616,158 @@ def fused_vs_plain(torch):
         raise SystemExit("chip_smoke: fused and plain paths disagree")
 
 
+def serve(torch):
+    """Phase 5: hymba-1.5b at full width through Engine.generate on the
+    kernel path, launch counts asserted."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.serve import Engine
+    from repro_torch.utils.tree_math import count_params
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), attn_impl="pallas",
+                              ssd_impl="pallas")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(eng.params)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                                      generator=gen, device=DEV)}
+
+    fu.reset_launch_counts()
+    fa.flash_attention.launches = ssd.ssd_scan.launches = 0
+    tokens, cold = eng.generate(prompt, SERVE_NEW)
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "ssd_scan": ssd.ssd_scan.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"flash_attention": cfg.n_layers * (1 + SERVE_NEW),
+            "ssd_scan": cfg.n_layers}
+    again, warm = eng.generate(prompt, SERVE_NEW)
+    emit(dict(phase="serve", model=cfg.name, params=n_params,
+              dtype=str(cfg.dtype)[6:], batch=SERVE_B, prompt=SERVE_S,
+              new_tokens=SERVE_NEW, window=cfg.window,
+              global_layers=list(cfg.global_attn_layers), init_s=init_s,
+              prefill_ms=cold.prefill_s * 1e3,
+              decode_ms_per_step=cold.decode_s * 1e3 / SERVE_NEW,
+              tok_per_s=cold.tok_per_s,
+              warm_prefill_ms=warm.prefill_s * 1e3,
+              warm_decode_ms_per_step=warm.decode_s * 1e3 / SERVE_NEW,
+              warm_tok_per_s=warm.tok_per_s,
+              prefill_tok_per_s=SERVE_B * SERVE_S / warm.prefill_s,
+              peak_memory_gb=peak_gb, launches=launches,
+              expected_launches=want,
+              repeat_tokens_identical=bool(torch.equal(tokens, again)),
+              first_tokens=tokens[0, :16].tolist()))
+    if n_params != HYMBA_PARAMS:
+        raise SystemExit(f"chip_smoke: hymba-1.5b has {n_params} params, "
+                         f"expected {HYMBA_PARAMS}")
+    if launches != want:
+        raise SystemExit(f"chip_smoke: serve launches {launches} != {want}")
+    if tokens.shape != (SERVE_B, SERVE_NEW) or \
+            not 0 <= int(tokens.min()) <= int(tokens.max()) < cfg.vocab_size:
+        raise SystemExit("chip_smoke: generated tokens out of range")
+    return eng, prompt, tokens, launches
+
+
+def forced_logits(torch, params, cfg, prompt, tokens):
+    """Prefill logits, then one decode step per generated token, fed the
+    given tokens (teacher forcing): (B, 1 + new, V) f32."""
+    from repro_torch.models.transformer import decode_step, prefill
+    with torch.inference_mode():
+        logits, cache, _ = prefill(params, cfg, prompt, SERVE_T)
+        out = [logits[:, -1].float()]
+        for i in range(tokens.shape[1]):
+            logits, cache = decode_step(params, cfg, tokens[:, i:i + 1],
+                                        cache, SERVE_S + i)
+            out.append(logits[:, -1].float())
+        del cache
+    return torch.stack(out, dim=1)
+
+
+def serve_e2e(torch, eng, prompt, tokens):
+    """Phase 6: the kernel path against the plain path on the same
+    weights and prompt.  Tolerance: the kernels may move the logits no
+    further from the plain bf16 path than bf16 rounding itself does, i.e.
+    the kernel-vs-plain gap (max and RMS over the prefill and the 64
+    teacher-forced decode steps) must not exceed the plain bf16 path's
+    gap to the same computation in f32."""
+    import dataclasses
+    from repro_torch.launch.serve import Engine
+    from repro_torch.utils.tree_math import tree_map
+
+    cfg = eng.cfg
+    plain_cfg = dataclasses.replace(cfg, attn_impl="pallas_interpret",
+                                    ssd_impl="pallas_interpret")
+    f32_cfg = dataclasses.replace(plain_cfg, dtype=torch.float32,
+                                  param_dtype=torch.float32)
+    kern = forced_logits(torch, eng.params, cfg, prompt, tokens)
+    plain = forced_logits(torch, eng.params, plain_cfg, prompt, tokens)
+    p32 = tree_map(lambda t: t.float(), eng.params)
+    ref32 = forced_logits(torch, p32, f32_cfg, prompt, tokens)
+    del p32
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return dict(max=float(d.max()), rms=float(d.square().mean().sqrt()),
+                    prefill_max=float(d[:, 0].max()),
+                    decode_max=float(d[:, 1:].max()),
+                    argmax_agree=float((a.argmax(-1) == b.argmax(-1))
+                                       .float().mean()))
+    kp, pf, kf = gap(kern, plain), gap(plain, ref32), gap(kern, ref32)
+    reproduces = bool(torch.equal(kern.argmax(-1)[:, :SERVE_NEW], tokens))
+    plain_eng = Engine(plain_cfg, params=eng.params, device=DEV)
+    plain_tokens, _ = plain_eng.generate(prompt, SERVE_NEW)
+    agree = (plain_tokens == tokens)
+    diverged = (~agree).float().argmax(dim=1)
+    first_div = [int(d) if not bool(a.all()) else None
+                 for d, a in zip(diverged, agree)]
+    ok = bool(torch.isfinite(kern).all()) and kp["max"] <= pf["max"] and \
+        kp["rms"] <= pf["rms"]
+    emit(dict(phase="serve_e2e", steps=SERVE_NEW,
+              tolerance="kernel-vs-plain max and rms <= plain-bf16-vs-f32",
+              kernel_vs_plain=kp, plain_vs_f32=pf, kernel_vs_f32=kf,
+              teacher_forced_run_reproduces_generate=reproduces,
+              greedy_token_agreement=float(agree.float().mean()),
+              first_divergent_step=first_div, ok=ok))
+    if not ok:
+        raise SystemExit("chip_smoke: the kernel path leaves the plain "
+                         "path's bf16 noise")
+
+
+def serve_profile(torch, eng, prompt):
+    """Phase 7: one prefill and one decode step under torch.profiler
+    (CUDA activity only): device-busy share and top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg = eng.cfg
+    with torch.inference_mode():
+        logits, cache, _ = prefill(eng.params, cfg, prompt, SERVE_T)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        runs = {"prefill": lambda: prefill(eng.params, cfg, prompt, SERVE_T),
+                "decode_step": lambda: decode_step(eng.params, cfg, tok, cache,
+                                                   SERVE_S)}
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            busy, n_ops, top = device_activity(prof, n_top=15)
+            emit(dict(phase="serve_profile", run=name, wall_ms=wall_us / 1e3,
+                      device_busy_ms=busy / 1e3,
+                      device_busy_share=busy / wall_us if n_ops else None,
+                      device_ops=n_ops, top_device_ops=top))
+            if not n_ops:
+                raise SystemExit("chip_smoke: the profiler saw no device op")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -441,14 +777,21 @@ def main() -> int:
 
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
-    _, build_s = fu.build_library()
+    from repro_torch.kernels import library
+    _, build_s = library.build_library()
     emit(dict(phase="env", nvidia_smi=smi, device=name,
               torch=torch.__version__, cuda=torch.version.cuda,
+              kernel_sources=[src.name for src in library.sources()],
               kernel_build_s=build_s))
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
+    attn_shapes = check_attention_kernels(torch, bench)
     launches = main_path(torch, fu)
     fused_vs_plain(torch)
+    eng, prompt, tokens, serve_launches = serve(torch)
+    serve_e2e(torch, eng, prompt, tokens)
+    serve_profile(torch, eng, prompt)
+    del eng
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
     replaces = {"local_step": "src/repro/kernels/fused_update.py:131",
@@ -465,6 +808,35 @@ def main() -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+    # K7 at its main-path shapes: the row is a sliding-window prefill
+    # layer (29 of 32 layers); the global prefill and decode shapes ride
+    # along under "shapes"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    fa_main = attn_shapes["prefill_swa"]
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:81",
+        launches=serve_launches["flash_attention"],
+        **{k: fa_main[k] for k in keys}, tol=fa_main["tol"],
+        shape="q (8,2048,25,64) bf16 vs k/v (8,2112,5,64), window 1024",
+        shapes={lbl: {k: r[k] for k in keys} for lbl, r in attn_shapes.items()
+                if lbl != "ssd_scan"},
+        launches_per_prefill=32, launches_per_decode_step=32))
+    sm = attn_shapes["ssd_scan"]
+    kernels.append(dict(
+        name="ssd_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:81",
+        launches=serve_launches["ssd_scan"], **{k: sm[k] for k in keys},
+        tol=sm["tol"],
+        shape="x (8,2048,50,64) bf16, B/C (8,2048,1,16), chunk 128",
+        launches_per_prefill=32, launches_per_decode_step=0))
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise SystemExit(f"chip_smoke: {k['name']} never launched on "
+                             "its main path")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

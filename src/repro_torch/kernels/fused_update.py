@@ -28,22 +28,19 @@ other length takes a one-element-per-thread path.  Pad lanes stay zero.
 
 The CUDA library is built at first use with ``nvcc`` from the sources
 in this package into ``build/repro_torch/`` at the repository root and
-loaded with ctypes; nothing is compiled at import.
+loaded with ctypes (``kernels/library.py``); nothing is compiled at
+import.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.kernels.library import (  # noqa: F401  (re-exported)
+    BUILD_DIR, DTYPE_CODE as _DTYPE_CODE, build_library,
+    check_launch as _check_launch, lib as _lib, ptr as _ptr,
+    stream as _stream)
 
 LANES = 128
 # carried buffers are padded to a multiple of this many elements (the
@@ -51,76 +48,7 @@ LANES = 128
 # 16-byte vector path
 GRID_ALIGN = 8 * LANES
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fused_update.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OPT_CODE = {"none": 0, "momentum": 1, "adam": 2}
-
-
-# ---------------------------------------------------------------------------
-# build + bind
-# ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the fused-update kernels are "
-                           "built from source at first use on the card")
-    return path
-
-
-def build_library() -> Tuple[Path, float]:
-    """Compile ``csrc/*.cu`` into ``BUILD_DIR`` (skipped when a library
-    built from the same sources and flags exists).  Returns the library
-    path and the seconds spent compiling (0.0 when reused)."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
-    lib = BUILD_DIR / f"libfused_update_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [str(_CSRC / n) for n in _SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()[0]))
-    P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    lib.fu_local_step.argtypes = [P, P, P, P, P, L, I, I, I, F, F, P]
-    lib.fu_weighted_delta.argtypes = [P, P, P, P, P, L, I, I, I, P]
-    lib.fu_server_update.argtypes = [P, P, P, P, P, L, I, I,
-                                     F, F, F, F, F, F, P]
-    for fn in (lib.fu_local_step, lib.fu_weighted_delta, lib.fu_server_update):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check_launch(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch "
-                           f"(cudaError {err})")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,128 @@
+"""Build and bind the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source is compiled by ``nvcc`` for sm_90a into ONE
+shared library under ``build/repro_torch/`` at the repository root, at
+first use, and loaded with ctypes; nothing is compiled at import.  The
+library's name carries a hash over all sources and the flags, so an
+edit to any kernel rebuilds it and a stale library is never loaded.
+
+Each source exports plain C launchers that enqueue on the stream they
+are given and return ``cudaGetLastError()``; ``check_launch`` turns a
+non-zero code into an exception.  Pointers and the stream cross as
+``c_void_p``, never as 32-bit ints.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+NVCC_FLAGS = ARCH_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
+
+P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+# C entry point -> argument types (every launcher returns an int error code)
+SIGNATURES = {
+    "fu_local_step": [P, P, P, P, P, L, I, I, I, F, F, P],
+    "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, P],
+    "fu_server_update": [P, P, P, P, P, L, I, I, F, F, F, F, F, F, P],
+    # out, q, k, v, B, S, T, H, KH, hd, q_offset, window, kv_len, dtype,
+    # stream
+    "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    # y, final, x, dt, A, Bm, Cm, b, s, h, p, g, n, chunk, dtype, stream
+    "ssd_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+}
+
+
+def sources() -> Tuple[Path, ...]:
+    return tuple(sorted(CSRC.glob("*.cu")))
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are "
+                           "built from source at first use on the card")
+    return path
+
+
+def build_library() -> Tuple[Path, float]:
+    """Compile every ``csrc/*.cu`` into one library in ``BUILD_DIR``
+    (skipped when a library built from the same sources and flags
+    exists).  Each source is compiled to an object by its own ``nvcc``,
+    all at once, then linked.  Returns the library path and the seconds
+    spent compiling and linking (0.0 when reused)."""
+    srcs = sources()
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in srcs:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    lib = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+
+        def compile_one(pair):
+            src, obj = pair
+            return subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-Xcompiler", "-fPIC", "-c", "-o",
+                 str(obj), str(src)], capture_output=True, text=True)
+
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            procs = list(pool.map(compile_one, zip(srcs, objs)))
+        for src, proc in zip(srcs, procs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{proc.stderr}")
+        out = Path(tmp) / "lib.so"
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(out),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(out, lib)
+    return lib, time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=1)
+def lib() -> ctypes.CDLL:
+    cdll = ctypes.CDLL(str(build_library()[0]))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return cdll
+
+
+def check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {err})")
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -1,8 +1,14 @@
-"""Public entry points of the fused FL-update kernels.
+"""Public entry points of the port's kernels.
 
-The counterpart of the ``fused_*`` half of ``repro/kernels/ops.py``.
-The FL layers call these through ``repro_torch.fl.local.FlatParamOps``
-(one call per dtype bucket) with ``interpret=fused_interpret(impl)``:
+The counterpart of ``repro/kernels/ops.py``.  The models call
+``flash_attention``, ``ssd`` and ``ssd_with_state`` when a config selects
+``attn_impl``/``ssd_impl`` ``"pallas"`` (the wrapper: the CUDA kernel on a
+CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
+(``interpret=True``: the plain version on any device).
+
+The FL layers call the ``fused_*`` half through
+``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
+``interpret=fused_interpret(impl)``:
 
   ``update_impl="fused"``            the kernel wrapper — the CUDA
                                      kernel on a CUDA tensor, the plain
@@ -13,11 +19,39 @@ The FL layers call these through ``repro_torch.fl.local.FlatParamOps``
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_update as _fu
+from repro_torch.kernels import ssd_scan as _ssd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, kv_len: Optional[int] = None,
+                    interpret: bool = False) -> torch.Tensor:
+    """Causal GQA attention, q (B, S, H, hd) against k/v (B, T, KH, hd)."""
+    if not causal:
+        raise NotImplementedError("only causal attention is implemented "
+                                  "(decoder-only archs)")
+    fn = _fa.flash_attention_plain if interpret else _fa.flash_attention
+    return fn(q, k, v, window=window, q_offset=q_offset, kv_len=kv_len)
+
+
+def ssd_with_state(x, dt, A, B, C, *, chunk: int = 128,
+                   interpret: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan; returns ``(y, final_state)``."""
+    fn = _ssd.ssd_scan_plain if interpret else _ssd.ssd_scan
+    return fn(x, dt, A, B, C, chunk=chunk)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128,
+        interpret: bool = False) -> torch.Tensor:
+    """Mamba2 SSD scan; returns ``y``."""
+    return ssd_with_state(x, dt, A, B, C, chunk=chunk, interpret=interpret)[0]
 
 
 def fused_interpret(update_impl: str) -> bool:

@@ -1,28 +1,256 @@
-"""Initializers (the counterpart of ``repro/models/layers.py``'s
-``he_normal`` and ``normal_init``), drawing from a ``torch.Generator``.
+"""Core layers (the counterpart of ``repro/models/layers.py``): init/apply
+pairs over nested-dict params with the JAX package's layout.
+
+Conventions, as in the JAX package: params are nested dicts of tensors;
+``init_*`` draws from a ``torch.Generator`` (on the device the params
+live on) and returns params; the apply functions are plain functions on
+tensors; params stay in their dtype and activations run in ``x``'s dtype
+with f32 normalisation and softmax.  Linear weights are ``(d_in,
+d_out)``.
 
 The draws differ from ``jax.random``'s for the same seed; tests that
 compare the two packages carry the JAX package's weights across with
-``repro_torch.bridge.params_from_numpy``.
+``repro_torch.bridge.params_from_numpy``.  ``gen=None`` draws nothing
+and returns tensors on the ``meta`` device, which is how parameter
+counts are taken without allocating.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
+
+Pytree = Any
+FULL_WINDOW = 2 ** 30
 
 
-def he_normal(gen: torch.Generator, shape: Sequence[int],
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def _randn(gen: Optional[torch.Generator], shape: Sequence[int]) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(tuple(shape), device="meta")
+    return torch.randn(tuple(shape), generator=gen, device=gen.device)
+
+
+def _rand(gen: Optional[torch.Generator], shape: Sequence[int]) -> torch.Tensor:
+    if gen is None:
+        return torch.empty(tuple(shape), device="meta")
+    return torch.rand(tuple(shape), generator=gen, device=gen.device)
+
+
+def gen_device(gen: Optional[torch.Generator]) -> torch.device:
+    return torch.device("meta") if gen is None else gen.device
+
+
+def he_normal(gen: Optional[torch.Generator], shape: Sequence[int],
               dtype=torch.float32, fan_in: Optional[int] = None
               ) -> torch.Tensor:
     fan = fan_in if fan_in is not None else shape[0]
     std = math.sqrt(2.0 / max(fan, 1))
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * std).to(dtype)
+    return (_randn(gen, shape) * std).to(dtype)
 
 
-def normal_init(gen: torch.Generator, shape: Sequence[int], std=0.02,
-                dtype=torch.float32) -> torch.Tensor:
-    return (torch.randn(tuple(shape), generator=gen, device=gen.device)
-            * std).to(dtype)
+def normal_init(gen: Optional[torch.Generator], shape: Sequence[int],
+                std=0.02, dtype=torch.float32) -> torch.Tensor:
+    return (_randn(gen, shape) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# linear / norm
+# ---------------------------------------------------------------------------
+
+def init_linear(gen, d_in: int, d_out: int, bias: bool = False,
+                dtype=torch.float32, std: Optional[float] = None,
+                lora_rank: int = 0) -> Pytree:
+    if lora_rank:
+        raise NotImplementedError("LoRA adapters are not ported yet "
+                                  "(ROADMAP M11)")
+    p = {"w": normal_init(gen, (d_in, d_out),
+                          std=std if std is not None else d_in ** -0.5,
+                          dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=gen_device(gen))
+    return p
+
+
+def linear(p: Pytree, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    if "lora_a" in p:
+        raise NotImplementedError("LoRA adapters are not ported yet "
+                                  "(ROADMAP M11)")
+    dtype = dtype or x.dtype
+    y = torch.matmul(x, p["w"].to(dtype))
+    if "b" in p:
+        y = y + p["b"].to(dtype)
+    return y
+
+
+def init_rmsnorm(d: int, dtype=torch.float32, device=None) -> Pytree:
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Pytree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, hd) or (B, S, hd); positions: (S,)."""
+    if positions.dim() != 1:
+        raise ValueError(f"positions must be 1-D, got {tuple(positions.shape)}")
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    angles = positions[:, None].float() * freqs               # (S, hd/2)
+    if x.dim() == 4:
+        angles = angles[:, None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (GQA, optional qk-norm / qkv-bias / sliding window)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    window: Optional[int] = None  # sliding window; None = full causal
+    attn_impl: str = "xla"  # xla | pallas | pallas_interpret
+    lora_rank: int = 0
+
+
+def init_attention(gen, cfg: AttnConfig, dtype=torch.float32) -> Pytree:
+    d, H, KH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    r = cfg.lora_rank
+    p = {
+        "wq": init_linear(gen, d, H * hd, bias=cfg.qkv_bias, dtype=dtype,
+                          lora_rank=r),
+        "wk": init_linear(gen, d, KH * hd, bias=cfg.qkv_bias, dtype=dtype,
+                          lora_rank=r),
+        "wv": init_linear(gen, d, KH * hd, bias=cfg.qkv_bias, dtype=dtype,
+                          lora_rank=r),
+        "wo": init_linear(gen, H * hd, d, bias=False, dtype=dtype,
+                          lora_rank=r),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, gen_device(gen))
+        p["k_norm"] = init_rmsnorm(hd, dtype, gen_device(gen))
+    return p
+
+
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
+          impl: str = "xla") -> torch.Tensor:
+    """q: (B, S, H, hd); k/v: (B, T, KH, hd); GQA broadcast inside.
+    ``q_offset`` is the position of q[0] relative to k[0] (decode)."""
+    if impl in ("pallas", "pallas_interpret"):
+        from repro_torch.kernels import ops as kops
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset,
+                                    interpret=(impl == "pallas_interpret"))
+    if impl != "xla":
+        raise ValueError(f"unknown attn_impl {impl!r}")
+    B, S, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, S, KH, G, hd)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) * hd ** -0.5
+    qpos = q_offset + torch.arange(S, device=q.device)
+    kpos = torch.arange(T, device=q.device)
+    mask = torch.ones(S, T, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
+              positions: torch.Tensor,
+              kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_len: Optional[int] = None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence (train/prefill) or incremental (decode) attention.
+
+    kv_cache: (k_cache, v_cache) of shape (B, T_max, KH, hd).  When given,
+    the new k/v are written into it IN PLACE at ``cache_len`` (a host
+    int) and attention runs over the whole cache; the returned cache is
+    the same pair of tensors.  Returns (out, cache).
+    """
+    B, S, d = x.shape
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(p["wq"], x).reshape(B, S, H, hd)
+    k = linear(p["wk"], x).reshape(B, S, KH, hd)
+    v = linear(p["wv"], x).reshape(B, S, KH, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is None:
+        out = _sdpa(q, k, v, causal=True, window=cfg.window, q_offset=0,
+                    impl=cfg.attn_impl)
+        new_cache = (k, v)
+    else:
+        kc, vc = kv_cache
+        if not 0 <= cache_len <= kc.shape[1] - S:
+            raise ValueError(f"cache_len {cache_len} + {S} new positions "
+                             f"exceed the cache's {kc.shape[1]}")
+        kc[:, cache_len:cache_len + S] = k.to(kc.dtype)
+        vc[:, cache_len:cache_len + S] = v.to(vc.dtype)
+        out = _sdpa(q, kc, vc, causal=True, window=cfg.window,
+                    q_offset=cache_len, impl=cfg.attn_impl)
+        new_cache = (kc, vc)
+    out = out.reshape(B, S, H * hd)
+    return linear(p["wo"], out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32,
+             lora_rank: int = 0) -> Pytree:
+    return {
+        "w_gate": init_linear(gen, d_model, d_ff, dtype=dtype,
+                              lora_rank=lora_rank),
+        "w_up": init_linear(gen, d_model, d_ff, dtype=dtype,
+                            lora_rank=lora_rank),
+        "w_down": init_linear(gen, d_ff, d_model, dtype=dtype,
+                              lora_rank=lora_rank),
+    }
+
+
+def mlp(p: Pytree, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP."""
+    return linear(p["w_down"],
+                  F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))

@@ -1,0 +1,412 @@
+"""Decoder-LM assembly (the counterpart of ``repro/models/transformer.py``)
+for the dense (GQA), SSM (Mamba2) and hybrid (parallel attention + SSM
+heads, Hymba) families.
+
+One ``TransformerConfig`` with every field of the JAX package's, so a
+JAX config maps over one to one.  The blocks' params are stacked along a
+leading layer axis, as the JAX package stacks them for ``lax.scan``; the
+port walks that axis in a Python loop, so a JAX ``init_lm`` tree carries
+across as a copy (``repro_torch.bridge``) and each layer is a view.
+
+Entry points:
+    init_lm(cfg, seed, device)                 -> params
+    lm_forward(params, cfg, batch)             -> (logits, aux, hidden)
+    init_decode_cache(cfg, batch, max_len)     -> cache
+    prefill(params, cfg, batch, max_len)       -> (logits_last, cache, S)
+    decode_step(params, cfg, token, cache, cache_len) -> (logits, cache)
+
+``cache_len`` is a host int: the decode loop knows it, and the attention
+kernel takes it (and each layer's window) as a launch argument, so no
+step waits on the device.  The cache is updated in place.  MoE, MLA,
+multi-token prediction, non-token inputs, dense prefix layers and LoRA
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import (
+    FULL_WINDOW, AttnConfig, attention, gen_device, init_attention,
+    init_mlp, init_rmsnorm, mlp, normal_init, rmsnorm)
+from repro_torch.models.ssm import (
+    SSMConfig, init_ssm, init_ssm_state, ssm_decode_step, ssm_forward)
+from repro_torch.utils import tree_math as tm
+from repro_torch.utils.device import Device, resolve_device, seeded_generator
+
+Pytree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    arch_type: str                       # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    vocab_size: int
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    head_dim: Optional[int] = None
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # attention variant
+    attention: str = "gqa"               # gqa | mla | none
+    window: Optional[int] = None         # sliding-window size (SWA layers)
+    global_attn_layers: Tuple[int, ...] = ()
+    # MLA
+    kv_lora_rank: int = 0
+    q_lora_rank: Optional[int] = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    d_ff_shared: int = 0
+    n_dense_layers: int = 0
+    router_scoring: str = "softmax"
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.001
+    # SSM
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_n_groups: int = 1
+    ssm_chunk: int = 128
+    # multi-token prediction
+    mtp: bool = False
+    mtp_loss_weight: float = 0.3
+    # PEFT
+    lora_rank: int = 0
+    # input handling
+    input_mode: str = "tokens"           # tokens | vlm | embeddings
+    n_prefix_tokens: int = 0
+    n_codebooks: int = 1
+    # numerics / impl (the JAX package's sharding and scan knobs are kept
+    # so configs map over; the port ignores them)
+    dtype: Any = torch.float32
+    param_dtype: Any = torch.float32
+    attn_impl: str = "xla"
+    ssd_impl: str = "xla"
+    scan_unroll: Any = 1
+    shard_activations: bool = False
+    batch_axes: Tuple[str, ...] = ("data",)
+    remat: bool = False
+    norm_eps: float = 1e-6
+    logit_dtype: Any = torch.float32
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    def attn_cfg(self) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
+            qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta, window=self.window,
+            attn_impl=self.attn_impl, lora_rank=self.lora_rank)
+
+    def ssm_cfg(self) -> SSMConfig:
+        return SSMConfig(
+            d_model=self.d_model, d_state=self.ssm_state,
+            head_dim=self.ssm_head_dim, expand=self.ssm_expand,
+            n_groups=self.ssm_n_groups, chunk=self.ssm_chunk,
+            ssd_impl=self.ssd_impl)
+
+    @property
+    def has_attn(self) -> bool:
+        return self.arch_type != "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.arch_type in ("ssm", "hybrid")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def has_ffn(self) -> bool:
+        return self.d_ff > 0 or self.is_moe
+
+    def validate(self) -> None:
+        if self.arch_type not in ("dense", "moe", "ssm", "hybrid", "vlm",
+                                  "audio"):
+            raise ValueError(f"unknown arch_type {self.arch_type!r}")
+        if self.has_attn and self.attention == "gqa" and \
+                self.n_heads % max(self.n_kv_heads, 1):
+            raise ValueError("GQA head mismatch")
+        if self.is_moe and not 0 < self.top_k <= self.n_experts:
+            raise ValueError("top_k must lie in (0, n_experts]")
+        if self.arch_type == "ssm" and self.ssm_state <= 0:
+            raise ValueError("an ssm arch needs ssm_state > 0")
+        _check_ported(self)
+
+
+def _check_ported(cfg: TransformerConfig) -> None:
+    """The dense, ssm and hybrid token models are ported; the rest of the
+    zoo raises, naming its ROADMAP item."""
+    missing = []
+    if cfg.is_moe or cfg.n_dense_layers:
+        missing.append("MoE")
+    if cfg.has_attn and cfg.attention == "mla":
+        missing.append("MLA")
+    if cfg.mtp:
+        missing.append("multi-token prediction")
+    if cfg.input_mode != "tokens" or cfg.arch_type in ("vlm", "audio"):
+        missing.append(f"input_mode {cfg.input_mode!r} ({cfg.arch_type})")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
+                                  "ported yet (ROADMAP M12)")
+    if cfg.lora_rank:
+        raise NotImplementedError("LoRA adapters are not ported yet "
+                                  "(ROADMAP M11)")
+
+
+# ---------------------------------------------------------------------------
+# block init / apply
+# ---------------------------------------------------------------------------
+
+def _init_block(gen, cfg: TransformerConfig) -> Pytree:
+    pd, dev = cfg.param_dtype, gen_device(gen)
+    p: Dict[str, Pytree] = {}
+    if cfg.has_attn:
+        p["attn_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
+        p["attn"] = init_attention(gen, cfg.attn_cfg(), pd)
+    if cfg.has_ssm:
+        if cfg.arch_type == "ssm":
+            p["ssm_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
+        p["ssm"] = init_ssm(gen, cfg.ssm_cfg(), pd)
+    if cfg.d_ff > 0:
+        p["ffn_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, pd)
+    return p
+
+
+def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
+                 positions: torch.Tensor, is_global: Optional[bool] = None,
+                 cache: Optional[Pytree] = None,
+                 cache_len: Optional[int] = None):
+    """One decoder block.  Returns (x, new_cache, aux_loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache: Dict[str, Pytree] = {}
+
+    if cfg.arch_type == "hybrid":
+        # Hymba: attention heads and mamba heads consume the same normed
+        # input in parallel; outputs are averaged (arXiv:2411.13676 eq. 3).
+        xn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        attn_out, kv = _run_attention(p, xn, cfg, positions, is_global,
+                                      cache["kv"] if cache else None,
+                                      cache_len)
+        if cache is not None:
+            ssm_out, new_cache["ssm"] = _run_ssm_cached(p["ssm"], xn,
+                                                        cache["ssm"], cfg)
+        else:
+            ssm_out = ssm_forward(p["ssm"], xn, cfg.ssm_cfg())
+        new_cache["kv"] = kv
+        x = x + 0.5 * (attn_out + ssm_out)
+    elif cfg.arch_type == "ssm":
+        xn = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+        if cache is not None:
+            out, new_cache["ssm"] = _run_ssm_cached(p["ssm"], xn,
+                                                    cache["ssm"], cfg)
+        else:
+            out = ssm_forward(p["ssm"], xn, cfg.ssm_cfg())
+        x = x + out
+    else:
+        xn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        attn_out, new_cache["kv"] = _run_attention(
+            p, xn, cfg, positions, is_global,
+            cache["kv"] if cache else None, cache_len)
+        x = x + attn_out
+
+    if cfg.d_ff > 0:
+        x = x + mlp(p["mlp"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
+    return x, new_cache, aux
+
+
+def _run_ssm_cached(ssm_params, xn, ssm_state, cfg: TransformerConfig):
+    """Cached SSM: a single token updates the recurrent state; a multi-
+    token call (prefill) runs the chunked scan and emits the final state
+    for the decode steps that follow."""
+    if xn.shape[1] == 1:
+        return ssm_decode_step(ssm_params, xn, ssm_state, cfg.ssm_cfg())
+    out, (final, conv_tail) = ssm_forward(ssm_params, xn, cfg.ssm_cfg(),
+                                          return_final_state=True)
+    return out, (final, conv_tail.to(ssm_state[1].dtype))
+
+
+def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
+                   kv_cache, cache_len):
+    acfg = cfg.attn_cfg()
+    if cfg.window is not None and is_global is not None:
+        # the layer's SWA/global choice: a "window" longer than any
+        # sequence is full causal attention
+        acfg = dataclasses.replace(
+            acfg, window=FULL_WINDOW if is_global else cfg.window)
+    return attention(p["attn"], xn, acfg, positions, kv_cache=kv_cache,
+                     cache_len=cache_len)
+
+
+# ---------------------------------------------------------------------------
+# model init
+# ---------------------------------------------------------------------------
+
+def init_lm(cfg: TransformerConfig, seed: int = 0,
+            device: Device = None) -> Pytree:
+    """Params drawn on ``device`` (CUDA unless the caller asks for the
+    CPU; ``"meta"`` draws nothing, for counting) from a generator on that
+    device, with the JAX package's distributions: normal(0.02) embedding,
+    normal(d_in^-0.5) linears and lm_head, normal(d_conv^-0.5) conv,
+    ``A_log = log(linspace(1, 16))``, the inverse-softplus ``dt_bias``."""
+    cfg.validate()
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else seeded_generator(seed, dev)
+    pd = cfg.param_dtype
+    params: Dict[str, Pytree] = {
+        "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), std=0.02,
+                             dtype=pd)}
+    blocks = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    params["blocks"] = tm.tree_map(lambda *xs: torch.stack(xs), *blocks)
+    del blocks
+    params["final_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal_init(
+            gen, (cfg.d_model, cfg.vocab_size * cfg.n_codebooks),
+            std=cfg.d_model ** -0.5, dtype=pd)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params, cfg: TransformerConfig,
+                  batch: Dict[str, torch.Tensor]):
+    """Returns (x, positions, text_offset)."""
+    _check_ported(cfg)
+    x = params["embed"][batch["tokens"]].to(cfg.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    return x, positions, 0
+
+
+def _global_flags(cfg: TransformerConfig) -> Optional[List[bool]]:
+    if cfg.window is None:
+        return None
+    return [i in cfg.global_attn_layers for i in range(cfg.n_layers)]
+
+
+def _layer(tree: Pytree, i: int) -> Pytree:
+    return tm.tree_map(lambda t: t[i], tree)
+
+
+def _store(dst: Pytree, src: Pytree) -> None:
+    """Write a layer's new cache into its views of the stacked cache
+    (attention already wrote its k/v there in place)."""
+    for d, s in zip(tm.tree_leaves(dst), tm.tree_leaves(src)):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)
+
+
+def _run_blocks(params, cfg: TransformerConfig, x, positions,
+                caches=None, cache_len=None):
+    """The stacked blocks in order.  ``caches`` is None for a full-
+    sequence pass, else ``{"dense": [], "scan": stacked}``, updated in
+    place.  Returns (x, caches, total_aux)."""
+    flags = _global_flags(cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        cache_l = _layer(caches["scan"], i) if caches is not None else None
+        x, new_cache, aux = _block_apply(
+            _layer(params["blocks"], i), x, cfg, positions,
+            is_global=None if flags is None else flags[i], cache=cache_l,
+            cache_len=cache_len)
+        if caches is not None:
+            _store(cache_l, new_cache)
+        aux_total = aux_total + aux
+    return x, caches, aux_total
+
+
+def _logits(params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    logits = torch.matmul(x, head.to(cfg.dtype))
+    if cfg.n_codebooks > 1:
+        B, S, _ = logits.shape
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_size)
+    return logits.to(cfg.logit_dtype)
+
+
+def lm_forward(params, cfg: TransformerConfig,
+               batch: Dict[str, torch.Tensor]):
+    """Full-sequence forward -> (logits, aux_loss, hidden)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch)
+    x, _, aux = _run_blocks(params, cfg, x, positions)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), aux, x
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
+
+def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
+                        device, n: int):
+    """The cache of ``n`` stacked blocks (leading layer axis)."""
+    c: Dict[str, Any] = {}
+    if cfg.has_attn:
+        hd, KH = cfg.resolved_head_dim, cfg.n_kv_heads
+        c["kv"] = tuple(torch.zeros(n, batch, max_len, KH, hd,
+                                    dtype=cfg.dtype, device=device)
+                        for _ in range(2))
+    if cfg.has_ssm:
+        one = init_ssm_state(cfg.ssm_cfg(), batch, cfg.dtype, device)
+        c["ssm"] = tuple(torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                     device=device) for t in one)
+    return c
+
+
+def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                      device: Device = None):
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    return {"dense": [],
+            "scan": _layer_cache_struct(cfg, batch, max_len, dev,
+                                        cfg.n_layers)}
+
+
+def prefill(params, cfg: TransformerConfig, batch: Dict[str, torch.Tensor],
+            max_len: int):
+    """Process the prompt and build the decode cache.  Returns
+    (last-position logits (B, 1, V), cache, prompt_len)."""
+    x, positions, _ = _embed_inputs(params, cfg, batch)
+    S = x.shape[1]
+    caches = init_decode_cache(cfg, x.shape[0], max_len, device=x.device)
+    # a full-sequence pass that writes k/v into the preallocated cache
+    x, caches, _ = _run_blocks(params, cfg, x, positions, caches=caches,
+                               cache_len=0)
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _logits(params, cfg, x), caches, S
+
+
+def decode_step(params, cfg: TransformerConfig, token: torch.Tensor,
+                caches, cache_len: int):
+    """One decode step.  token: (B, 1) int64; cache_len: the host count of
+    valid cache positions.  Returns (logits (B, 1, V), caches), the cache
+    updated in place."""
+    _check_ported(cfg)
+    x = params["embed"][token].to(cfg.dtype)
+    positions = torch.arange(cache_len, cache_len + 1, device=x.device)
+    x, caches, _ = _run_blocks(params, cfg, x, positions, caches=caches,
+                               cache_len=cache_len)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), caches

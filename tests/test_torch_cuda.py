@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_update as fu
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ssd
 
 
 @pytest.fixture
@@ -62,4 +64,96 @@ def test_launch_counts_and_checks(gen):
     assert [k.launches for k in fu.KERNELS] == [1, 1, 1]
     with pytest.raises(ValueError):
         fu.local_step(p, p.cpu(), None, None, sc)
+    torch.cuda.synchronize()
+
+
+# K7 / K8 against their plain versions at small odd shapes.  Tolerances:
+# both sides compute in f32 from the same inputs but sum in another order
+# (the kernel's online softmax and sequential cumsum against dense torch
+# ops), so f32 agrees to ~1e-5 and a bf16 output to one bf16 ulp.
+
+def _close(got, want, f32_tol):
+    a, b = got.float(), want.float()
+    tol = (f32_tol + f32_tol * b.abs() if got.dtype == torch.float32
+           else 2.0 ** -7 * b.abs() + f32_tol)
+    bad = (a - b).abs() > tol
+    assert torch.isfinite(a).all()
+    assert not bad.any(), (float((a - b).abs().max()), int(bad.sum()))
+
+
+FA_CASES = [
+    # B, S, T, H, KH, hd, window, q_offset, kv_len
+    (2, 100, 100, 25, 5, 64, None, 0, None),      # hymba heads, prefill
+    (2, 100, 130, 25, 5, 64, 16, 0, None),        # SWA against a longer cache
+    (3, 1, 300, 25, 5, 64, None, 200, None),      # decode
+    (3, 1, 300, 25, 5, 64, 64, 299, None),        # decode, window, last slot
+    (1, 77, 77, 6, 2, 32, None, 0, None),         # ragged S, G = 3
+    (1, 9, 40, 4, 4, 128, None, 31, None),        # hd 128, MHA, 9 queries
+    (2, 33, 50, 2, 1, 16, 7, 10, 45),             # hd 16, kv_len < T
+    (1, 20, 20, 4, 2, 64, 0, 0, None),            # window 0: all zero
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KH,hd,window,q_offset,kv_len", FA_CASES)
+def test_flash_attention_matches_plain(gen, dtype, B, S, T, H, KH, hd, window,
+                                       q_offset, kv_len):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = r(B, S, H, hd), r(B, T, KH, hd), r(B, T, KH, hd)
+    kw = dict(window=window, q_offset=q_offset, kv_len=kv_len)
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(got, fa.flash_attention_plain(q, k, v, **kw), 2e-5)
+    if window == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+SSD_CASES = [
+    # b, s, h, p, n, g, chunk
+    (2, 300, 6, 64, 16, 1, 128),     # hymba-like n, s not a chunk multiple
+    (1, 200, 4, 64, 128, 2, 128),    # mamba2's n = 128, grouped B/C
+    (2, 70, 3, 32, 16, 3, 32),       # g = h, padded
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", SSD_CASES)
+def test_ssd_scan_matches_plain(gen, dtype, b, s, h, p, n, g, chunk):
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    x, B, C = r(b, s, h, p).to(dtype), r(b, s, g, n).to(dtype), \
+        r(b, s, g, n).to(dtype)
+    dt = torch.nn.functional.softplus(r(b, s, h) - 3.0)
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    y, final = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    y_p, f_p = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    _close(y, y_p, 1e-4)
+    _close(final, f_p, 1e-4)
+
+
+@pytest.mark.cuda
+def test_attention_and_scan_count_launches_and_check(gen):
+    q = torch.randn(1, 4, 4, 64, generator=gen, device="cuda")
+    fa.flash_attention.launches = ssd.ssd_scan.launches = 0
+    fa.flash_attention(q, q, q)
+    x = torch.randn(1, 8, 2, 64, generator=gen, device="cuda")
+    Bm = torch.randn(1, 8, 1, 16, generator=gen, device="cuda")
+    dt = torch.rand(1, 8, 2, generator=gen, device="cuda")
+    A = -torch.ones(2, device="cuda")
+    ssd.ssd_scan(x, dt, A, Bm, Bm, chunk=4)
+    assert (fa.flash_attention.launches, ssd.ssd_scan.launches) == (1, 1)
+    with pytest.raises(ValueError):        # no kernel for head_dim 48
+        q48 = torch.randn(1, 4, 4, 48, device="cuda")
+        fa.flash_attention(q48, q48, q48)
+    with pytest.raises(ValueError):        # non-contiguous
+        fa.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError):        # too much shared memory
+        xb = torch.randn(1, 8, 2, 256, device="cuda")
+        Bb = torch.randn(1, 8, 1, 256, device="cuda")
+        ssd.ssd_scan(xb, dt, A, Bb, Bb, chunk=128)
+    assert (fa.flash_attention.launches, ssd.ssd_scan.launches) == (1, 1)
     torch.cuda.synchronize()

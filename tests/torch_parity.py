@@ -4,7 +4,10 @@ Inputs are made with numpy from a seed and handed to both packages; the
 JAX package's threefry batch draws are recomputed here with ``jax`` and
 injected into the port through its ``batch_indices`` source.
 """
+import dataclasses
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -52,5 +55,26 @@ def jax_numpy_params(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def torch_config(jcfg):
+    """A JAX ``TransformerConfig`` mapped over field for field to the
+    port's (jnp dtypes become torch dtypes)."""
+    from repro_torch.models.transformer import TransformerConfig
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(jcfg)}
+    for k in ("dtype", "param_dtype", "logit_dtype"):
+        fields[k] = _DTYPES[fields[k]]
+    return TransformerConfig(**fields)
+
+
+def to_torch_params(jparams, device="cpu"):
+    """A JAX param tree carried across through numpy and the bridge."""
+    from repro_torch.bridge import params_from_numpy
+    return params_from_numpy(jax_numpy_params(jparams), device)
+
+
 __all__ = ["jax_local_indices", "jax_engine_indices", "index_source",
-           "jax_leaves", "torch_leaves", "jax_numpy_params"]
+           "jax_leaves", "torch_leaves", "jax_numpy_params", "torch_config",
+           "to_torch_params"]
