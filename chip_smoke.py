@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, result line last
+    python3 chip_smoke.py --kernels-only   # build, check and time K7/K8
 
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
 ``build/`` (one nvcc per source, all at once; sm_90a), then prints one
@@ -768,7 +769,14 @@ def serve_profile(torch, eng, prompt):
                 raise SystemExit("chip_smoke: the profiler saw no device op")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
+                                 "on one NVIDIA GPU (see the module doc).")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build the kernels, check and time the K7/K8 "
+                    "variants, and stop (no main path, no result line)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -784,6 +792,10 @@ def main() -> int:
               kernel_sources=[src.name for src in library.sources()],
               kernel_build_s=build_s))
     bench = KernelBench(torch, fu, card_peaks(name))
+    if args.kernels_only:
+        check_attention_kernels(torch, bench)
+        print(smi, flush=True)
+        return 0
     main_shapes = check_kernels(torch, fu, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches = main_path(torch, fu)

@@ -167,15 +167,17 @@ fa_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restrict__ k,
     for (int j = w; j < C::BK; j += W) {
       const int key = t0 + j;
       const float* kr = ks + j * C::LD;
-      float sdot = 0.0f;
+      // four independent partial sums, so the FMA chain is a quarter long
+      float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int c = 0; c < C::CH; ++c) {
         const float4 kk = *reinterpret_cast<const float4*>(kr + (c * C::D + d) * 4);
-        sdot = fmaf(qv[c * 4 + 0], kk.x, sdot);
-        sdot = fmaf(qv[c * 4 + 1], kk.y, sdot);
-        sdot = fmaf(qv[c * 4 + 2], kk.z, sdot);
-        sdot = fmaf(qv[c * 4 + 3], kk.w, sdot);
+        s4[0] = fmaf(qv[c * 4 + 0], kk.x, s4[0]);
+        s4[1] = fmaf(qv[c * 4 + 1], kk.y, s4[1]);
+        s4[2] = fmaf(qv[c * 4 + 2], kk.z, s4[2]);
+        s4[3] = fmaf(qv[c * 4 + 3], kk.w, s4[3]);
       }
+      float sdot = (s4[0] + s4[1]) + (s4[2] + s4[3]);
 #pragma unroll
       for (int off = 1; off < C::D; off <<= 1) sdot += __shfl_xor_sync(kFull, sdot, off);
 

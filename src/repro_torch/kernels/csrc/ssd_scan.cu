@@ -32,6 +32,13 @@
 //  - The decay mask is a select: exp(cum_i - cum_j) is only evaluated for
 //    j <= i, where its argument is <= 0, so the overflow to inf above the
 //    diagonal (and inf * 0 = NaN) cannot happen.
+//  - Products are register-tiled: warp w takes 4 rows of a 32-row slab and
+//    lane l the columns l + 32q, so each thread carries 16 (C.B^T) or
+//    4 * p/32 (M.x, C.state) independent sums, every shared-memory value
+//    feeds 4 FMAs, and the FMA chains overlap instead of waiting on each
+//    other; the state update owns (l + 32q, w + 8k) entries the same way.
+//    The head size p is a template parameter (32, 64 or 128), d_state and
+//    the chunk at most 128.
 //  - The L x L matrix M = (C.B^T) * decay * dt is built 32 rows at a time,
 //    so that mamba2's n = 128 fits: x (L*p), B and C (L*(n+1) each, rows
 //    padded to an odd stride for conflict-free column reads), 32 rows of M
@@ -57,6 +64,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMB = 32;               // rows of M held at once
 constexpr int kMaxSmem = 232448;      // bytes a block may use on sm_90
+constexpr int kMaxN = 128;            // d_state the kernel takes
+constexpr int kMaxL = 128;            // chunk length the kernel takes
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -72,15 +81,16 @@ size_t smem_floats(int L, int p, int n) {
   return static_cast<size_t>(L) * p + 2 * L * ldn + kMB * L + p * ldn + 4 * L;
 }
 
-template <typename T>
+template <typename T, int CY>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(T* __restrict__ y, float* __restrict__ fin, const T* __restrict__ x,
            const float* __restrict__ dt, const float* __restrict__ A,
-           const T* __restrict__ Bm, const T* __restrict__ Cm, int s, int h, int p,
-           int g, int n, int L) {
+           const T* __restrict__ Bm, const T* __restrict__ Cm, int s, int h, int g,
+           int n, int L) {
+  constexpr int p = 32 * CY;
   extern __shared__ __align__(16) float sm[];
   const int ldn = n + 1;
-  float* xs = sm;                  // L x p      x of the chunk
+  float* xs = sm;                  // L x p      x of the chunk (then w = cw * x)
   float* bs = xs + L * p;          // L x ldn    B
   float* cs = bs + L * ldn;        // L x ldn    C
   float* ms = cs + L * ldn;        // kMB x L    rows of M
@@ -91,6 +101,7 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ fin, const T* __restrict__ x,
   float* ec = cw + L;              // L          exp(cum_i)
 
   const int hi = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const int gi = hi / (h / g);
   const float a = A[hi];
   for (int e = tid; e < p * ldn; e += kThreads) st[e] = 0.0f;
@@ -129,47 +140,131 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ fin, const T* __restrict__ x,
       ec[i] = expf(cum[i]);
     }
 
+    // Rows i0 .. i0 + mb - 1 at a time.  Warp w owns rows rb .. rb + 3
+    // (rb = i0 + 4w); lane l owns the columns l + 32q of M and of y.
+    // Every thread keeps 16 (M) or 4*CY (y) independent sums in registers,
+    // so the FMA chains overlap and each shared-memory value feeds 4 FMAs.
     for (int i0 = 0; i0 < L; i0 += kMB) {
       const int mb = min(kMB, L - i0);
-      // M[i][j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j for j <= i, else 0
-      for (int e = tid; e < mb * L; e += kThreads) {
-        const int i = i0 + e / L, j = e % L;
-        float val = 0.0f;
-        if (j <= i) {
-          const float* cr = cs + i * ldn;
-          const float* br = bs + j * ldn;
-          float cb = 0.0f;
-          for (int k = 0; k < n; ++k) cb = fmaf(cr[k], br[k], cb);
-          val = cb * expf(cum[i] - cum[j]) * dts[j];
+      const int rb = i0 + warp * 4;
+      const bool rows = warp * 4 < mb;
+      // column groups holding some j <= the warp's last row (M is zero past
+      // the diagonal, so later groups are skipped)
+      const int rlast = min(rb + 3, i0 + mb - 1);
+      const int ng = rows ? min((L + 31) / 32, rlast / 32 + 1) : 0;
+      float mac[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) mac[r][q] = 0.0f;
+      if (rows) {
+        for (int k = 0; k < n; ++k) {
+          float cr[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cr[r] = rb + r < L ? cs[(rb + r) * ldn + k] : 0.0f;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q < ng) {
+              const int j = lane + 32 * q;
+              const float bj = j < L ? bs[j * ldn + k] : 0.0f;
+#pragma unroll
+              for (int r = 0; r < 4; ++r) mac[r][q] = fmaf(cr[r], bj, mac[r][q]);
+            }
+          }
         }
-        ms[e] = val;
+      }
+      // M[i][j] = (C_i . B_j) * exp(cum_i - cum_j) * dt_j for j <= i, else 0
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = rb + r;
+        if (i >= i0 + mb) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = lane + 32 * q;
+          if (j >= L) continue;
+          float val = 0.0f;
+          if (q < ng && j <= i) val = mac[r][q] * expf(cum[i] - cum[j]) * dts[j];
+          ms[(i - i0) * L + j] = val;
+        }
       }
       __syncthreads();
       // y_i = M_i . x + exp(cum_i) * C_i . state_in
-      for (int e = tid; e < mb * p; e += kThreads) {
-        const int il = e / p, i = i0 + il, pp = e % p;
-        const float* mr = ms + il * L;
-        float acc = 0.0f;
-        for (int j = 0; j <= i; ++j) acc = fmaf(mr[j], xs[j * p + pp], acc);
-        const float* cr = cs + i * ldn;
-        const float* sr = st + pp * ldn;
-        float cst = 0.0f;
-        for (int k = 0; k < n; ++k) cst = fmaf(cr[k], sr[k], cst);
-        acc += ec[i] * cst;
-        const int t = t0 + i;
-        if (t < s)
-          y[((static_cast<long long>(bi) * s + t) * h + hi) * p + pp] = from_f32<T>(acc);
+      if (rows) {
+        float acc[4][CY], cst[4][CY];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < CY; ++q) acc[r][q] = cst[r][q] = 0.0f;
+        const float* mrow = ms + (rb - i0) * L;
+        for (int j = 0; j <= rlast; ++j) {
+          float mv[4], xv[CY];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) mv[r] = mrow[r * L + j];
+#pragma unroll
+          for (int q = 0; q < CY; ++q) xv[q] = xs[j * p + lane + 32 * q];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < CY; ++q) acc[r][q] = fmaf(mv[r], xv[q], acc[r][q]);
+        }
+        for (int k = 0; k < n; ++k) {
+          float cr[4], sv[CY];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) cr[r] = rb + r < L ? cs[(rb + r) * ldn + k] : 0.0f;
+#pragma unroll
+          for (int q = 0; q < CY; ++q) sv[q] = st[(lane + 32 * q) * ldn + k];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < CY; ++q) cst[r][q] = fmaf(cr[r], sv[q], cst[r][q]);
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = rb + r, t = t0 + i;
+          if (i >= i0 + mb || t >= s) continue;
+          T* yrow = y + ((static_cast<long long>(bi) * s + t) * h + hi) * p;
+#pragma unroll
+          for (int q = 0; q < CY; ++q)
+            yrow[lane + 32 * q] = from_f32<T>(acc[r][q] + ec[i] * cst[r][q]);
+        }
       }
       __syncthreads();   // M is rewritten next; the state is read no more
     }
 
-    // state' = exp(total) * state_in + sum_i (cw_i x_i) B_i^T
+    // state' = exp(total) * state_in + sum_i (cw_i x_i) B_i^T.  x is read
+    // no more in this chunk, so it turns into w = cw * x in place; thread
+    // (warp, lane) then owns the state entries (lane + 32q, warp + 8k).
+    for (int e = tid; e < L * p; e += kThreads) xs[e] *= cw[e / p];
+    __syncthreads();
     const float etot = expf(total);
-    for (int e = tid; e < p * n; e += kThreads) {
-      const int pp = e / n, k = e % n;
-      float acc = 0.0f;
-      for (int i = 0; i < L; ++i) acc = fmaf(cw[i] * xs[i * p + pp], bs[i * ldn + k], acc);
-      st[pp * ldn + k] = st[pp * ldn + k] * etot + acc;
+    float acc[kMaxN / 8][CY];
+#pragma unroll
+    for (int kk = 0; kk < kMaxN / 8; ++kk)
+#pragma unroll
+      for (int q = 0; q < CY; ++q) acc[kk][q] = 0.0f;
+    for (int i = 0; i < L; ++i) {
+      float wv[CY];
+#pragma unroll
+      for (int q = 0; q < CY; ++q) wv[q] = xs[i * p + lane + 32 * q];
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 8; ++kk) {
+        const int k = warp + 8 * kk;
+        if (k < n) {
+          const float bk = bs[i * ldn + k];
+#pragma unroll
+          for (int q = 0; q < CY; ++q) acc[kk][q] = fmaf(wv[q], bk, acc[kk][q]);
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kMaxN / 8; ++kk) {
+      const int k = warp + 8 * kk;
+      if (k >= n) continue;
+#pragma unroll
+      for (int q = 0; q < CY; ++q) {
+        float* sp = st + (lane + 32 * q) * ldn + k;
+        *sp = *sp * etot + acc[kk][q];
+      }
     }
   }
   __syncthreads();
@@ -179,20 +274,32 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ fin, const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, int CY>
 int launch(void* y, float* fin, const void* x, const float* dt, const float* A,
-           const void* Bm, const void* Cm, int b, int s, int h, int p, int g, int n, int L,
+           const void* Bm, const void* Cm, int b, int s, int h, int g, int n, int L,
            cudaStream_t stream) {
-  const size_t bytes = smem_floats(L, p, n) * sizeof(float);
+  const size_t bytes = smem_floats(L, 32 * CY, n) * sizeof(float);
   if (bytes > static_cast<size_t>(kMaxSmem)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(ssd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(ssd_kernel<T, CY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_kernel<T><<<dim3(h, b), kThreads, bytes, stream>>>(
+  ssd_kernel<T, CY><<<dim3(h, b), kThreads, bytes, stream>>>(
       static_cast<T*>(y), fin, static_cast<const T*>(x), dt, A,
-      static_cast<const T*>(Bm), static_cast<const T*>(Cm), s, h, p, g, n, L);
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), s, h, g, n, L);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(void* y, float* fin, const void* x, const float* dt, const float* A,
+             const void* Bm, const void* Cm, int b, int s, int h, int p, int g, int n,
+             int L, cudaStream_t stream) {
+  switch (p) {
+    case 32: return launch<T, 1>(y, fin, x, dt, A, Bm, Cm, b, s, h, g, n, L, stream);
+    case 64: return launch<T, 2>(y, fin, x, dt, A, Bm, Cm, b, s, h, g, n, L, stream);
+    case 128: return launch<T, 4>(y, fin, x, dt, A, Bm, Cm, b, s, h, g, n, L, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -204,15 +311,16 @@ int ssd_forward(void* y, void* fin, const void* x, const void* dt, const void* A
                 const void* Bm, const void* Cm, int b, int s, int h, int p, int g,
                 int n, int chunk, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || s <= 0 || h <= 0 || p <= 0 || g <= 0 || n <= 0 || chunk <= 0 || h % g != 0)
+  if (b <= 0 || s <= 0 || h <= 0 || g <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
+      chunk > kMaxL || h % g != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto finf = static_cast<float*>(fin);
   auto dtf = static_cast<const float*>(dt);
   auto af = static_cast<const float*>(A);
   if (dtype == 0)
-    return launch<float>(y, finf, x, dtf, af, Bm, Cm, b, s, h, p, g, n, chunk, st);
+    return dispatch<float>(y, finf, x, dtf, af, Bm, Cm, b, s, h, p, g, n, chunk, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(y, finf, x, dtf, af, Bm, Cm, b, s, h, p, g, n, chunk, st);
+    return dispatch<__nv_bfloat16>(y, finf, x, dtf, af, Bm, Cm, b, s, h, p, g, n, chunk, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

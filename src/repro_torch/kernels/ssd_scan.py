@@ -26,6 +26,8 @@ from repro_torch.kernels import library
 
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (sm_90)
 _MB = 32                   # rows of the L x L matrix the kernel holds at once
+HEAD_DIMS = (32, 64, 128)  # the head sizes the kernel is built for
+MAX_STATE = 128            # the largest d_state and chunk it takes
 
 
 def smem_bytes(chunk: int, p: int, n: int) -> int:
@@ -105,6 +107,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    if p not in HEAD_DIMS or n > MAX_STATE or chunk > MAX_STATE:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS} and "
+                         f"d_state, chunk <= {MAX_STATE}; got {p}, {n}, "
+                         f"{chunk}")
     if smem_bytes(chunk, p, n) > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk}, head_dim {p}, d_state {n} need "
                          f"{smem_bytes(chunk, p, n)} bytes of shared memory "
