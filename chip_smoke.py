@@ -67,7 +67,6 @@ SEED = 0
 SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
 SERVE_T = SERVE_S + SERVE_NEW
 HYMBA_PARAMS = 1_640_872_320
-DEV = "cuda"
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
 # (CUDA cores), bf16 FLOP/s (dense tensor cores).  Other cards raise in
@@ -288,8 +287,8 @@ class KernelBench:
                         **t)
         win = fa.FULL_WINDOW if window is None else window
         kvl = T if kv_len is None else kv_len
-        qpos = q_offset + torch.arange(S, device=DEV)[:, None]
-        kpos = torch.arange(T, device=DEV)[None, :]
+        qpos = q_offset + torch.arange(S, device="cuda")[:, None]
+        kpos = torch.arange(T, device="cuda")[None, :]
         mask = (kpos <= qpos) & (kpos > qpos - win) & (kpos < kvl)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -325,7 +324,7 @@ class KernelBench:
         Bm = self.rand(b, s, g, n, dtype=dtype)
         Cm = self.rand(b, s, g, n, dtype=dtype)
         dt = torch.nn.functional.softplus(self.rand(b, s, h) - 4.0)
-        A = -torch.linspace(1.0, 16.0, h, device=DEV)
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
         y, final = ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
         y_p, f_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
@@ -632,13 +631,13 @@ def serve(torch):
                               ssd_impl="pallas")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    eng = Engine(cfg, seed=SEED, device=DEV)
+    eng = Engine(cfg, seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = count_params(eng.params)
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
-                                      generator=gen, device=DEV)}
+                                      generator=gen, device="cuda")}
 
     fu.reset_launch_counts()
     fa.flash_attention.launches = ssd.ssd_scan.launches = 0
@@ -721,7 +720,7 @@ def serve_e2e(torch, eng, prompt, tokens):
                                        .float().mean()))
     kp, pf, kf = gap(kern, plain), gap(plain, ref32), gap(kern, ref32)
     reproduces = bool(torch.equal(kern.argmax(-1)[:, :SERVE_NEW], tokens))
-    plain_eng = Engine(plain_cfg, params=eng.params, device=DEV)
+    plain_eng = Engine(plain_cfg, params=eng.params)
     plain_tokens, _ = plain_eng.generate(prompt, SERVE_NEW)
     agree = (plain_tokens == tokens)
     diverged = (~agree).float().argmax(dim=1)

@@ -32,6 +32,9 @@
 //  - The decay mask is a select: exp(cum_i - cum_j) is only evaluated for
 //    j <= i, where its argument is <= 0, so the overflow to inf above the
 //    diagonal (and inf * 0 = NaN) cannot happen.
+//  - Each chunk's x, B and C are staged with 16-byte loads, four in flight
+//    per thread (B and C rows must be a multiple of 16 bytes: d_state a
+//    multiple of 8).
 //  - Products are register-tiled: warp w takes 4 rows of a 32-row slab and
 //    lane l the columns l + 32q, so each thread carries 16 (C.B^T) or
 //    4 * p/32 (M.x, C.state) independent sums, every shared-memory value
@@ -76,6 +79,40 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// Copy `rows` rows of `width` T values (width a multiple of 16 bytes) from
+// src + r * row_stride into dst + r * ld as floats; rows at or past `valid`
+// read as zero.  Each thread issues four 16-byte loads before it uses any,
+// so the chunk's loads overlap instead of waiting one after another.
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int ld,
+                                           const T* __restrict__ src, long long row_stride,
+                                           int rows, int valid, int width) {
+  constexpr int VN = 16 / sizeof(T);
+  const int per_row = width / VN;
+  const int total = rows * per_row;
+  for (int base = 0; base < total; base += 4 * kThreads) {
+    uint4 raw[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * kThreads + static_cast<int>(threadIdx.x);
+      const int r = idx / per_row, v = idx % per_row;
+      raw[u] = idx < total && r < valid
+                   ? __ldg(reinterpret_cast<const uint4*>(src + r * row_stride + v * VN))
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int idx = base + u * kThreads + static_cast<int>(threadIdx.x);
+      if (idx >= total) continue;
+      const int r = idx / per_row, v = idx % per_row;
+      const T* e = reinterpret_cast<const T*>(&raw[u]);
+      float* d = dst + r * ld + v * VN;
+#pragma unroll
+      for (int j = 0; j < VN; ++j) d[j] = to_f32(e[j]);
+    }
+  }
+}
+
 size_t smem_floats(int L, int p, int n) {
   const size_t ldn = n + 1;
   return static_cast<size_t>(L) * p + 2 * L * ldn + kMB * L + p * ldn + 4 * L;
@@ -110,17 +147,11 @@ ssd_kernel(T* __restrict__ y, float* __restrict__ fin, const T* __restrict__ x,
   for (int c = 0; c < nc; ++c) {
     const int t0 = c * L;
     __syncthreads();   // the previous chunk is no longer read
-    for (int e = tid; e < L * p; e += kThreads) {
-      const int t = t0 + e / p;
-      xs[e] = t < s ? to_f32(x[((static_cast<long long>(bi) * s + t) * h + hi) * p + e % p])
-                    : 0.0f;
-    }
-    for (int e = tid; e < L * n; e += kThreads) {
-      const int i = e / n, k = e % n, t = t0 + i;
-      const long long off = ((static_cast<long long>(bi) * s + t) * g + gi) * n + k;
-      bs[i * ldn + k] = t < s ? to_f32(Bm[off]) : 0.0f;
-      cs[i * ldn + k] = t < s ? to_f32(Cm[off]) : 0.0f;
-    }
+    const int valid = min(L, s - t0);
+    const long long row0 = static_cast<long long>(bi) * s + t0;
+    stage_rows<T>(xs, p, x + (row0 * h + hi) * p, static_cast<long long>(h) * p, L, valid, p);
+    stage_rows<T>(bs, ldn, Bm + (row0 * g + gi) * n, static_cast<long long>(g) * n, L, valid, n);
+    stage_rows<T>(cs, ldn, Cm + (row0 * g + gi) * n, static_cast<long long>(g) * n, L, valid, n);
     for (int i = tid; i < L; i += kThreads) {
       const int t = t0 + i;
       dts[i] = t < s ? dt[(static_cast<long long>(bi) * s + t) * h + hi] : 0.0f;
@@ -311,7 +342,7 @@ int ssd_forward(void* y, void* fin, const void* x, const void* dt, const void* A
                 const void* Bm, const void* Cm, int b, int s, int h, int p, int g,
                 int n, int chunk, int dtype, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || s <= 0 || h <= 0 || g <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
+  if (b <= 0 || s <= 0 || h <= 0 || g <= 0 || n <= 0 || n > kMaxN || n % 8 || chunk <= 0 ||
       chunk > kMaxL || h % g != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   auto finf = static_cast<float*>(fin);

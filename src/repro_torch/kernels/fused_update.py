@@ -37,10 +37,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.library import (  # noqa: F401  (re-exported)
-    BUILD_DIR, DTYPE_CODE as _DTYPE_CODE, build_library,
-    check_launch as _check_launch, lib as _lib, ptr as _ptr,
-    stream as _stream)
+from repro_torch.kernels.library import (
+    DTYPE_CODE as _DTYPE_CODE, check_launch as _check_launch, lib as _lib,
+    ptr as _ptr, stream as _stream)
 
 LANES = 128
 # carried buffers are padded to a multiple of this many elements (the

@@ -107,17 +107,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    if p not in HEAD_DIMS or n > MAX_STATE or chunk > MAX_STATE:
-        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS} and "
-                         f"d_state, chunk <= {MAX_STATE}; got {p}, {n}, "
-                         f"{chunk}")
+    if p not in HEAD_DIMS or n % 8 or n > MAX_STATE or chunk > MAX_STATE:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, "
+                         f"d_state a multiple of 8 and d_state, chunk <= "
+                         f"{MAX_STATE}; got {p}, {n}, {chunk}")
     if smem_bytes(chunk, p, n) > SMEM_LIMIT:
         raise ValueError(f"chunk {chunk}, head_dim {p}, d_state {n} need "
                          f"{smem_bytes(chunk, p, n)} bytes of shared memory "
                          f"(limit {SMEM_LIMIT})")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     y = torch.empty_like(x)
     final = torch.empty(b, h, p, n, dtype=torch.float32, device=x.device)
     if s == 0:

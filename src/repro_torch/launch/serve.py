@@ -106,26 +106,22 @@ class Engine:
 
 
 def main(argv=None) -> int:
-    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.configs import get_reduced
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="hymba-1.5b")
-    ap.add_argument("--full", action="store_true",
-                    help="the published widths instead of the reduced config")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--impl", default="pallas",
-                    choices=("xla", "pallas", "pallas_interpret"),
-                    help="attn_impl and ssd_impl")
     ap.add_argument("--sample", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = (get_config if args.full else get_reduced)(args.arch)
-    cfg = dataclasses.replace(cfg, attn_impl=args.impl, ssd_impl=args.impl)
+    # the kernel path: the CUDA kernels on the card, their plain versions
+    # on the CPU
+    cfg = dataclasses.replace(get_reduced(args.arch), attn_impl="pallas",
+                              ssd_impl="pallas")
     eng = Engine(cfg, seed=args.seed, device=args.device)
     gen = seeded_generator(args.seed, eng.device)
     B, S = args.batch, args.prompt_len

@@ -25,9 +25,11 @@ import torch
 import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
+from repro.models import ssm as jssm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.models import ssm as tssm
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -91,6 +93,30 @@ def test_plain_matches_sequential_oracles(b, s, h, p, n, g, chunk):
     ty, tf = tref.ssd_ref(*tin)
     _close(ty, y_ref, "float32", 1e-4)
     _close(tf, f_ref, "float32", 1e-4)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", SHAPES)
+def test_ssd_chunked_matches_jax(b, s, h, p, n, g, chunk, with_state):
+    """The models' "xla" SSD path (every chunk at once, then a short
+    loop over the chunk states) against the JAX package's, from a given
+    entering state too, and against the sequential oracle."""
+    jin, tin = _inputs(9, b, s, h, p, n, g, "float32")
+    init = np.random.default_rng(9).standard_normal(
+        (b, h, p, n)).astype(np.float32) if with_state else None
+    y_want, f_want = jssm.ssd_chunked(
+        *jin, chunk, initial_state=None if init is None else jnp.asarray(init),
+        return_final_state=True)
+    tinit = None if init is None else torch.from_numpy(init)
+    y, final = tssm.ssd_chunked(*tin, chunk, initial_state=tinit,
+                                return_final_state=True)
+    _close(y, y_want, "float32", 1e-4)
+    _close(final, f_want, "float32", 1e-4)
+    y_ref, f_ref = tssm.ssd_reference(*tin, initial_state=tinit)
+    _close(y, y_ref.numpy(), "float32", 2e-3)
+    _close(final, f_ref.numpy(), "float32", 2e-3)
+    assert torch.equal(tssm.ssd_chunked(*tin, chunk, initial_state=tinit),
+                       y)
 
 
 def test_chunk_invariance():
