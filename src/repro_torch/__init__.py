@@ -18,4 +18,11 @@ The fused update path (``update_impl="fused"``) runs three hand-written
 CUDA kernels (``kernels/csrc/fused_update.cu``): ``local_step`` on every
 client SGD step, ``weighted_delta`` on every P2 aggregation and
 ``server_update`` on every P2 round under FedAvgM/FedAdam.
+
+``launch.serve.Engine`` serves the LLM zoo's dense, SSM and hybrid
+models (``configs``: hymba-1.5b, qwen1.5-0.5b, mamba2-1.3b) in bf16.
+With ``attn_impl = ssd_impl = "pallas"`` every layer runs the
+hand-written attention kernel (``kernels/csrc/flash_attention.cu``) in
+prefill and in every decode step, and the Mamba2 SSD scan kernel
+(``kernels/csrc/ssd_scan.cu``) in prefill.
 """

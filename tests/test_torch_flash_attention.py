@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_fa
@@ -28,6 +29,9 @@ from repro_torch.kernels.flash_attention import (
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# one compile per case instead of one per op
+jattention_ref = jax.jit(jref.attention_ref,
+                         static_argnames=("causal", "window", "q_offset"))
 
 
 def _inputs(seed, B, S, T, H, KH, hd, dtype):
@@ -84,11 +88,10 @@ def test_plain_matches_dense_oracles(B, S, T, H, KH, hd, window, q_offset):
     softmax: against the JAX oracle and the port's own."""
     (jq, jk, jv), (tq, tk, tv) = _inputs(7, B, S, T, H, KH, hd, "float32")
     got = flash_attention_plain(tq, tk, tv, window=window, q_offset=q_offset)
-    _close(got, jref.attention_ref(jq, jk, jv, window=window,
-                                   q_offset=q_offset), "float32")
+    want = jattention_ref(jq, jk, jv, window=window, q_offset=q_offset)
+    _close(got, want, "float32")
     _close(tref.attention_ref(tq, tk, tv, window=window, q_offset=q_offset),
-           jref.attention_ref(jq, jk, jv, window=window, q_offset=q_offset),
-           "float32")
+           want, "float32")
 
 
 def test_fully_masked_rows_are_zero_not_nan():

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
@@ -32,6 +33,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models import ssm as tssm
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+# one compile per case instead of one per op
+jssd_chunked = jax.jit(jssm.ssd_chunked,
+                       static_argnames=("chunk", "return_final_state"))
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -104,8 +108,9 @@ def test_ssd_chunked_matches_jax(b, s, h, p, n, g, chunk, with_state):
     jin, tin = _inputs(9, b, s, h, p, n, g, "float32")
     init = np.random.default_rng(9).standard_normal(
         (b, h, p, n)).astype(np.float32) if with_state else None
-    y_want, f_want = jssm.ssd_chunked(
-        *jin, chunk, initial_state=None if init is None else jnp.asarray(init),
+    y_want, f_want = jssd_chunked(
+        *jin, chunk=chunk,
+        initial_state=None if init is None else jnp.asarray(init),
         return_final_state=True)
     tinit = None if init is None else torch.from_numpy(init)
     y, final = tssm.ssd_chunked(*tin, chunk, initial_state=tinit,
