@@ -40,7 +40,13 @@
 //    outright, so -inf - -inf never happens and no -1e30 arithmetic can
 //    leak into l.  Shared-memory rows are padded so the float4 reads of one
 //    quarter-warp fall on distinct banks.
-// wgmma, TMA and bf16 tensor-core products are later work.
+//  - bf16 prefill at hd 64 or 128 (the serve path's prefill) runs instead on
+//    the tensor cores (fa_mma_kernel): mma.sync m16n8k16 with f32
+//    accumulators, 16 rows per warp, K and V^T staged as bf16, the online
+//    softmax on the S fragments in registers (masked scores held at -1e30
+//    and their weights zeroed explicitly, as the Pallas kernel does), and P
+//    fed to P.V as a bf16 pair hi + lo so it keeps ~16 bits.
+// wgmma, TMA and a split over keys for decode are later work.
 //
 // fa_forward enqueues on the given stream and returns cudaGetLastError().
 
@@ -48,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -282,8 +290,223 @@ int launch(void* out, const void* q, const void* k, const void* v, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// prefill tiles: 64 rows (32 at hd 128), 256 threads; decode: one row per
-// block, one key per worker per tile
+// ---------------------------------------------------------------------------
+// bf16 prefill on the tensor cores: mma.sync m16n8k16, f32 accumulators
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two f32 as a bf16 pair (lo in the low half), and the pair of what
+// rounding left over, so that hi + lo carries ~16 bits of the value
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+template <int HD>
+struct MmaCfg {
+  static constexpr int WARPS = 4;
+  static constexpr int ROWS = 16 * WARPS;   // rows per block, 16 per warp
+  static constexpr int NT = 32 * WARPS;     // threads per block
+  static constexpr int BK = 64;             // keys per tile
+  static constexpr int KS = HD / 16;        // k-steps of Q.K^T
+  static constexpr int SN = BK / 8;         // 8-key column tiles of S
+  static constexpr int ON = HD / 8;         // 8-dim column tiles of O
+  static constexpr int LDK = HD + 8;        // bf16 stride of a K row in smem
+  static constexpr int LDV = BK + 8;        // bf16 stride of a V^T row in smem
+  static constexpr int VPR = HD / 8;        // 16-byte vectors per key row
+  static constexpr int PER = BK * VPR / NT; // vectors of K (and of V) per thread
+};
+
+// Rows, masks and key range as in fa_kernel; each warp owns 16 rows.  S =
+// Q.K^T comes from bf16 products (exact in f32) accumulated in f32 and is
+// scaled afterwards; P.V takes P as a bf16 pair hi + lo, so P keeps ~16
+// bits and the output tracks the f32 plain version to within its own bf16
+// rounding.  The fragments follow PTX's m16n8k16 layout: a thread (g =
+// lane / 4, t = lane % 4) holds rows g and g + 8, columns 2t, 2t + 1 (+ 8).
+template <int HD>
+__global__ void __launch_bounds__(MmaCfg<HD>::NT)
+fa_mma_kernel(__nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+              int S, int Tk, int H, int KH, int G, int q_offset, int window, int kv_len,
+              float scale) {
+  using C = MmaCfg<HD>;
+  __shared__ __align__(16) __nv_bfloat16 ks[C::BK * C::LDK];
+  __shared__ __align__(16) __nv_bfloat16 vt[HD * C::LDV];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int n_rows = S * G;
+  const int r0 = blockIdx.x * C::ROWS;
+
+  bool act[2];
+  int qpos[2];
+  long long orow[2];
+  uint32_t qa[C::KS][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int rg = r0 + warp * 16 + g + 8 * i;
+    act[i] = rg < n_rows;
+    const int s_idx = act[i] ? rg / G : 0;
+    const int hh = kvh * G + (act[i] ? rg % G : 0);
+    qpos[i] = q_offset + s_idx;
+    orow[i] = ((static_cast<long long>(b) * S + s_idx) * H + hh) * HD;
+  }
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    const int d0 = kk * 16 + 2 * t;
+    qa[kk][0] = act[0] ? ld32(q + orow[0] + d0) : 0u;
+    qa[kk][1] = act[1] ? ld32(q + orow[1] + d0) : 0u;
+    qa[kk][2] = act[0] ? ld32(q + orow[0] + d0 + 8) : 0u;
+    qa[kk][3] = act[1] ? ld32(q + orow[1] + d0 + 8) : 0u;
+  }
+
+  const int s_first = r0 / G;
+  const int s_last = (min(r0 + C::ROWS, n_rows) - 1) / G;
+  const int lo = max(0, q_offset + s_first - window + 1);
+  const int hi = min(min(q_offset + s_last, kv_len - 1), Tk - 1);
+
+  float o[C::ON][4];
+#pragma unroll
+  for (int n = 0; n < C::ON; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const long long kv_stride = static_cast<long long>(KH) * HD;
+  const __nv_bfloat16* kbase = k + (static_cast<long long>(b) * Tk * KH + kvh) * HD;
+  const __nv_bfloat16* vbase = v + (static_cast<long long>(b) * Tk * KH + kvh) * HD;
+
+  for (int t0 = lo; t0 <= hi; t0 += C::BK) {
+    __syncthreads();   // the previous tile is no longer read
+    uint4 kr[C::PER], vr[C::PER];
+#pragma unroll
+    for (int u = 0; u < C::PER; ++u) {
+      const int idx = tid + u * C::NT, j = idx / C::VPR, c = idx % C::VPR;
+      const int key = t0 + j;
+      const bool in = key <= hi;
+      kr[u] = in ? __ldg(reinterpret_cast<const uint4*>(kbase + key * kv_stride + c * 8))
+                 : make_uint4(0u, 0u, 0u, 0u);
+      vr[u] = in ? __ldg(reinterpret_cast<const uint4*>(vbase + key * kv_stride + c * 8))
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < C::PER; ++u) {
+      const int idx = tid + u * C::NT, j = idx / C::VPR, c = idx % C::VPR;
+      *reinterpret_cast<uint4*>(ks + j * C::LDK + c * 8) = kr[u];
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&vr[u]);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) vt[(c * 8 + x) * C::LDV + j] = e[x];
+    }
+    __syncthreads();
+
+    // S = Q.K^T for the warp's 16 rows and the tile's BK keys
+    float sc[C::SN][4];
+#pragma unroll
+    for (int n = 0; n < C::SN; ++n) {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < C::KS; ++kk) {
+        const __nv_bfloat16* kp = ks + (n * 8 + g) * C::LDK + kk * 16 + 2 * t;
+        mma_bf16(sc[n], qa[kk], ld32(kp), ld32(kp + 8));
+      }
+    }
+    // mask and scale; the new running max of each row (4 threads per row)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < C::SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2, key = t0 + n * 8 + 2 * t + (e & 1);
+        const bool valid = act[i] && key <= hi && key <= qpos[i] &&
+                           key > qpos[i] - window && key < kv_len;
+        sc[n][e] = valid ? sc[n][e] * scale : kNegInf;
+        mx[i] = fmaxf(mx[i], sc[n][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      const float alpha = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+      l[i] *= alpha;
+#pragma unroll
+      for (int n = 0; n < C::ON; ++n) {
+        o[n][2 * i] *= alpha;
+        o[n][2 * i + 1] *= alpha;
+      }
+    }
+    // p = exp(s - m), zero where masked
+#pragma unroll
+    for (int n = 0; n < C::SN; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e / 2;
+        const float pr = sc[n][e] > kNegInf ? expf(sc[n][e] - m[i]) : 0.0f;
+        l[i] += pr;
+        sc[n][e] = pr;
+      }
+    // O += P.V, P as bf16 hi + lo
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < C::ON; ++n) {
+        const __nv_bfloat16* vp = vt + (n * 8 + g) * C::LDV + kk * 16 + 2 * t;
+        const uint32_t b0 = ld32(vp), b1 = ld32(vp + 8);
+        mma_bf16(o[n], ph, b0, b1);
+        mma_bf16(o[n], pl, b0, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    if (!act[i]) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < C::ON; ++n) {
+      const __nv_bfloat162 pair =
+          __floats2bfloat162_rn(o[n][2 * i] / denom, o[n][2 * i + 1] / denom);
+      *reinterpret_cast<__nv_bfloat162*>(out + orow[i] + n * 8 + 2 * t) = pair;
+    }
+  }
+}
+
+template <int HD>
+int launch_mma(void* out, const void* q, const void* k, const void* v, int B, int S, int Tk,
+               int H, int KH, int q_offset, int window, int kv_len, cudaStream_t stream) {
+  using C = MmaCfg<HD>;
+  const int G = H / KH;
+  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)));
+  const dim3 grid((S * G + C::ROWS - 1) / C::ROWS, KH, B);
+  fa_mma_kernel<HD><<<grid, C::NT, 0, stream>>>(
+      static_cast<__nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), S, Tk, H,
+      KH, G, q_offset, window, kv_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// decode (S * G <= 16): one row per block, one key per worker per tile;
+// bf16 prefill at hd 64 or 128: the tensor-core kernel; other prefill:
+// FMA tiles of 64 rows (32 at hd 128), 256 threads
 template <typename T, int HD>
 int dispatch(void* out, const void* q, const void* k, const void* v, int B, int S,
              int Tk, int H, int KH, int q_offset, int window, int kv_len,
@@ -295,6 +518,8 @@ int dispatch(void* out, const void* q, const void* k, const void* v, int B, int 
   if (S * (H / KH) <= 16)
     return launch<T, HD, 1, BK>(out, q, k, v, B, S, Tk, H, KH, q_offset, window, kv_len,
                                 stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128))
+    return launch_mma<HD>(out, q, k, v, B, S, Tk, H, KH, q_offset, window, kv_len, stream);
   return launch<T, HD, RP, WP>(out, q, k, v, B, S, Tk, H, KH, q_offset, window, kv_len,
                                stream);
 }
