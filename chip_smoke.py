@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # every phase, result line last
-    python3 chip_smoke.py --kernels-only   # build, check and time K7/K8
+    python3 chip_smoke.py
 
 Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
 ``build/`` (one nvcc per source, all at once; sm_90a), then prints one
@@ -33,8 +32,9 @@ JSON line per phase:
                      ``Engine.generate`` with attn_impl = ssd_impl =
                      "pallas": batch 8, prompt 2048, 64 greedy tokens;
                      K7 launched 32 + 32 × 64 = 2080 times and K8 32
-                     times, asserted; prefill ms, decode ms per step,
-                     tok/s, peak memory;
+                     times, asserted; the launches of one prefill and of
+                     one decode step, each counted alone; prefill ms,
+                     decode ms per step, tok/s, peak memory;
   6. serve_e2e     — the same weights and prompt through the plain
                      versions ("pallas_interpret") and through the plain
                      versions in f32: prefill logits and teacher-forced
@@ -648,6 +648,7 @@ def serve(torch):
     want = {"flash_attention": cfg.n_layers * (1 + SERVE_NEW),
             "ssd_scan": cfg.n_layers}
     again, warm = eng.generate(prompt, SERVE_NEW)
+    per_phase = phase_launches(torch, eng, prompt)
     emit(dict(phase="serve", model=cfg.name, params=n_params,
               dtype=str(cfg.dtype)[6:], batch=SERVE_B, prompt=SERVE_S,
               new_tokens=SERVE_NEW, window=cfg.window,
@@ -660,7 +661,7 @@ def serve(torch):
               warm_tok_per_s=warm.tok_per_s,
               prefill_tok_per_s=SERVE_B * SERVE_S / warm.prefill_s,
               peak_memory_gb=peak_gb, launches=launches,
-              expected_launches=want,
+              expected_launches=want, launches_by_phase=per_phase,
               repeat_tokens_identical=bool(torch.equal(tokens, again)),
               first_tokens=tokens[0, :16].tolist()))
     if n_params != HYMBA_PARAMS:
@@ -668,10 +669,45 @@ def serve(torch):
                          f"expected {HYMBA_PARAMS}")
     if launches != want:
         raise SystemExit(f"chip_smoke: serve launches {launches} != {want}")
+    for kname, total in launches.items():
+        split = per_phase[kname]
+        if split["prefill"] + SERVE_NEW * split["decode_step"] != total:
+            raise SystemExit(f"chip_smoke: {kname} launches per prefill and "
+                             f"per decode step {split} do not make up the "
+                             f"total {total}")
     if tokens.shape != (SERVE_B, SERVE_NEW) or \
             not 0 <= int(tokens.min()) <= int(tokens.max()) < cfg.vocab_size:
         raise SystemExit("chip_smoke: generated tokens out of range")
-    return eng, prompt, tokens, launches
+    return eng, prompt, tokens, launches, per_phase
+
+
+def phase_launches(torch, eng, prompt):
+    """The K7 and K8 launches of one prefill and of one decode step, each
+    read from counts set to 0 just before it."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models.transformer import decode_step, prefill
+
+    kernels = {"flash_attention": fa.flash_attention,
+               "ssd_scan": ssd.ssd_scan}
+    cfg, counts = eng.cfg, {}
+
+    def run(phase, fn):
+        for k in kernels.values():
+            k.launches = 0
+        out = fn()
+        for name, k in kernels.items():
+            counts.setdefault(name, {})[phase] = k.launches
+        return out
+
+    with torch.inference_mode():
+        logits, cache, _ = run("prefill", lambda: prefill(
+            eng.params, cfg, prompt, SERVE_T))
+        tok = logits[:, -1].argmax(-1)[:, None]
+        run("decode_step", lambda: decode_step(eng.params, cfg, tok, cache,
+                                               SERVE_S))
+        del cache
+    return counts
 
 
 def forced_logits(torch, params, cfg, prompt, tokens):
@@ -772,10 +808,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="build the kernels, check and time the K7/K8 "
-                    "variants, and stop (no main path, no result line)")
-    args = ap.parse_args(argv)
+    ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -791,15 +824,11 @@ def main(argv=None) -> int:
               kernel_sources=[src.name for src in library.sources()],
               kernel_build_s=build_s))
     bench = KernelBench(torch, fu, card_peaks(name))
-    if args.kernels_only:
-        check_attention_kernels(torch, bench)
-        print(smi, flush=True)
-        return 0
     main_shapes = check_kernels(torch, fu, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches = main_path(torch, fu)
     fused_vs_plain(torch)
-    eng, prompt, tokens, serve_launches = serve(torch)
+    eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
     serve_profile(torch, eng, prompt)
     del eng
@@ -834,7 +863,8 @@ def main(argv=None) -> int:
         shape="q (8,2048,25,64) bf16 vs k/v (8,2112,5,64), window 1024",
         shapes={lbl: {k: r[k] for k in keys} for lbl, r in attn_shapes.items()
                 if lbl != "ssd_scan"},
-        launches_per_prefill=32, launches_per_decode_step=32))
+        launches_per_prefill=per_phase["flash_attention"]["prefill"],
+        launches_per_decode_step=per_phase["flash_attention"]["decode_step"]))
     sm = attn_shapes["ssd_scan"]
     kernels.append(dict(
         name="ssd_scan", route="cuda",
@@ -843,7 +873,8 @@ def main(argv=None) -> int:
         launches=serve_launches["ssd_scan"], **{k: sm[k] for k in keys},
         tol=sm["tol"],
         shape="x (8,2048,50,64) bf16, B/C (8,2048,1,16), chunk 128",
-        launches_per_prefill=32, launches_per_decode_step=0))
+        launches_per_prefill=per_phase["ssd_scan"]["prefill"],
+        launches_per_decode_step=per_phase["ssd_scan"]["decode_step"]))
     for k in kernels:
         if k["launches"] <= 0:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "

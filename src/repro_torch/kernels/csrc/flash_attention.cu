@@ -16,9 +16,13 @@
 //
 // What the design does about it (the simple first version, FMA in f32):
 //  - One block per (q-row tile, kv head, batch).  A "row" is one (query
-//    position, q head of the group) pair, so the G q heads that share a kv
-//    head share every K/V tile the block stages in shared memory: K and V
-//    are read once per tile for all G heads, not G times.
+//    position, q head of the group) pair, so in prefill the G q heads that
+//    share a kv head share every K/V tile the block stages in shared
+//    memory: K and V are read once per tile for all G heads, not G times.
+//    Decode does not share them (see below): each of its blocks holds one
+//    row, so the G blocks of a kv head each read the same K/V rows, G = 5
+//    reads per layer for hymba-1.5b (the 50 MB L2 may serve the repeats
+//    of a layer's 21.6 MB of K/V at batch 8; not measured).
 //  - Only the key range some row of the tile can see is visited: tiles
 //    outside [qpos_min - window + 1, min(qpos_max, kv_len - 1)] are never
 //    loaded.  That is exact (a masked key adds nothing: m stays, p = 0) and
@@ -35,7 +39,10 @@
 //  - Prefill tiles hold 64 rows (32 at hd = 128), 2 to 4 workers per row;
 //    decode (S * G <= 16) gives each row a block of its own whose workers
 //    take one key each per tile, so a single query still spreads over 64
-//    to 256 threads.
+//    to 256 threads.  That buys threads per query at the price of the G-
+//    fold K/V re-read above; putting a kv head's G rows in one block would
+//    end the re-read but leave B * KH blocks (40 for hymba-1.5b) on 132
+//    SMs, so it waits for the split over keys below.
 //  - Masked entries never enter the exponent: a worker skips a masked key
 //    outright, so -inf - -inf never happens and no -1e30 arithmetic can
 //    leak into l.  Shared-memory rows are padded so the float4 reads of one
@@ -46,7 +53,8 @@
 //    softmax on the S fragments in registers (masked scores held at -1e30
 //    and their weights zeroed explicitly, as the Pallas kernel does), and P
 //    fed to P.V as a bf16 pair hi + lo so it keeps ~16 bits.
-// wgmma, TMA and a split over keys for decode are later work.
+// wgmma, TMA and, for decode, a split over keys across blocks with the G
+// rows of a kv head in one block are later work.
 //
 // fa_forward enqueues on the given stream and returns cudaGetLastError().
 
