@@ -17,8 +17,12 @@ JSON line per phase:
                      (the larger of bytes ÷ bandwidth and unmasked
                      operations ÷ the data-sheet peak for their type).
                      K1–K3 at N = 137,216 (LeNet-5, padded) and
-                     16,777,216, bitwise; K7 (flash_attention) and K8
-                     (ssd_scan) at hymba-1.5b's shapes and beside them;
+                     16,777,216, bitwise; the upload kernels K4
+                     (compress_delta, bits 8/16/32 × top-k × residual),
+                     the top-k threshold (a radix select) and K5
+                     (dp_clip_noise) at the same N, bitwise; K7
+                     (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
+                     shapes and beside them;
   3. main_path     — the paper pipeline at full width: LeNet-5 on
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
@@ -27,6 +31,22 @@ JSON line per phase:
   4. e2e           — 1 P1 + 1 P2 round with update_impl "fused" and
                      "fused_interpret" from the same init and index
                      stream, final params compared;
+     p2_compressed — the main path with int8 + top-k 25% + error
+                     feedback uploads in P2: launches of K4 (40) and the
+                     threshold (40 calls of 4 launches) asserted, ledger
+                     == closed form (173,250 upload bytes per client),
+                     accuracy above chance, a profiled P2 round, then
+                     "fused" against "fused_interpret" (params and EF
+                     residual rows);
+     p2_private    — the same with DP-FedAvg (C = 1, σ = 0.1) and secure
+                     aggregation: K2 carries the clip and the noise/mask
+                     total, mask bytes == 4 × secure_agg_mask_bytes(10);
+     dp_upload     — one round's 10 client uploads built with K5 from
+                     the private round's draws and summed by K2 against
+                     the folded aggregate (10 K5 launches asserted);
+     p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
+                     private configurations (and private under device
+                     sampling), in turns from the same P1 params;
   5. serve         — hymba-1.5b at full width (1,640,872,320 params,
                      bf16, random weights from a seed) through
                      ``Engine.generate`` with attn_impl = ssd_impl =
@@ -47,6 +67,7 @@ the last line; without a CUDA device it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -266,6 +287,82 @@ class KernelBench:
                     bound_by=by)
 
 
+    # --- client-upload kernels (K4, the top-k threshold, K5) ---------------
+
+    def delta(self, n):
+        """A client delta at the scale of a local run's: N(0, 1e-2²), one
+        all-zero 128-lane row (the guarded division)."""
+        d = self.rand(n) * 1e-2
+        d[128:256] = 0.0
+        return d
+
+    def compress_delta(self, n, bits, topk, res):
+        torch, fu = self.torch, self.fu
+        d = self.delta(n)
+        k = -(-n // 4)                      # density 0.25
+        tau = fu.topk_threshold(d, k)
+        kw = dict(bits=bits, topk=topk, with_residual=res)
+        got = fu.compress_delta(d, tau, **kw)
+        want = fu.compress_delta_plain(d, tau, **kw)
+        pairs = list(zip(got, want)) if res else [(got, want)]
+        err = self.max_err(pairs)
+        bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
+        ms = time_ms(torch, lambda: fu.compress_delta(d, tau, **kw))
+        plain = time_ms(torch, lambda: fu.compress_delta_plain(d, tau, **kw))
+        n_bytes = 4 * n + 4 * n * (1 + res) + 4 * topk
+        n_ops = n * (3 * topk + (7 if bits != 32 else 0) + res)
+        bound, by = self.bound_ms(n_bytes, n_ops)
+        return dict(kernel="compress_delta", n=n, bits=bits, topk=topk,
+                    residual=res, max_abs_err=err, bitwise=bitwise, ms=ms,
+                    plain_ms=plain, library_ms=None,
+                    library_note="no PyTorch call quantizes blockwise with "
+                    "bf16 scales", bound_ms=bound, bound_by=by)
+
+    def topk_threshold(self, n):
+        torch, fu = self.torch, self.fu
+        d = self.delta(n)
+        k = -(-n // 4)                      # density 0.25
+        got = fu.topk_threshold(d, k)
+        want = fu.topk_threshold_plain(d, k)
+        a = d.abs()
+        lib = torch.kthvalue(a, n - k + 1).values
+        bitwise = bool(got.view(torch.int32) == want.view(torch.int32))
+        ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
+        plain = time_ms(torch, lambda: fu.topk_threshold_plain(d, k),
+                        trials=3, reps=5, warmup=1)
+        library = time_ms(torch, lambda: torch.kthvalue(a, n - k + 1),
+                          trials=3, reps=5, warmup=1)
+        # the selection reads |d| once; the ops: abs + compare per element
+        bound, by = self.bound_ms(4 * n + 4, 2 * n)
+        return dict(kernel="topk_threshold", n=n, k=k,
+                    launches_per_call=fu.TOPK_LAUNCHES,
+                    max_abs_err=float((got - want).abs()), bitwise=bitwise,
+                    tau=float(got), kthvalue_agrees=bool(lib == want),
+                    ms=ms, plain_ms=plain, library_ms=library,
+                    library_note="torch.kthvalue(|d|, n-k+1) on a "
+                    "precomputed |d|", bound_ms=bound, bound_by=by)
+
+    def dp_clip_noise(self, n, has_z):
+        torch, fu = self.torch, self.fu
+        d, z = self.delta(n), (self.rand(n) if has_z else None)
+        sc = torch.tensor([0.37, 0.11], dtype=torch.float32, device="cuda")
+        got = fu.dp_clip_noise(d, z, sc)
+        want = fu.dp_clip_noise_plain(d, z, sc)
+        err = self.max_err([(got, want)])
+        ms = time_ms(torch, lambda: fu.dp_clip_noise(d, z, sc))
+        plain = time_ms(torch, lambda: fu.dp_clip_noise_plain(d, z, sc))
+        library, why = None, "no single PyTorch call takes both scales " \
+            "from device memory"
+        if not has_z:
+            library = time_ms(torch, lambda: torch.mul(d, sc[0]))
+            why = "torch.mul(d, clip_scale)"
+        bound, by = self.bound_ms(4 * n * (2 + has_z) + 8, n * (1 + 2 * has_z))
+        return dict(kernel="dp_clip_noise", n=n, noise=has_z,
+                    max_abs_err=err, bitwise=bool(torch.equal(got, want)),
+                    ms=ms, plain_ms=plain, library_ms=library,
+                    library_note=why, bound_ms=bound, bound_by=by)
+
+
     # --- K7 flash_attention ------------------------------------------------
 
     def flash_attention(self, B, S, T, H, KH, hd, dtype, window, q_offset,
@@ -446,6 +543,37 @@ def check_kernels(torch, fu, bench) -> dict:
     }
 
 
+def check_upload_kernels(torch, bench) -> dict:
+    """Phase 2, the upload kernels: every variant at both N, bitwise,
+    then the main path's shapes (returned): K4 at bits 8 with top-k and
+    the residual, the threshold at density 0.25, K5 with noise."""
+    rows = []
+    for n in (N_SMALL, N_LARGE):
+        for bits in (8, 16, 32):
+            for topk in (False, True):
+                for res in (False, True):
+                    rows.append(bench.compress_delta(n, bits, topk, res))
+        rows.append(bench.topk_threshold(n))
+        for has_z in (False, True):
+            rows.append(bench.dp_clip_noise(n, has_z))
+    for r in rows:
+        emit(dict(phase="kernel", **r))
+    bad = [r for r in rows if not (r["bitwise"] and
+                                   r["max_abs_err"] <= KERNEL_TOL)]
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} upload kernel variants "
+                         f"disagree with their plain versions")
+    if not all(r["kthvalue_agrees"] for r in rows
+               if r["kernel"] == "topk_threshold"):
+        raise SystemExit("chip_smoke: the threshold disagrees with "
+                         "torch.kthvalue")
+    return {
+        "compress_delta": bench.compress_delta(N_SMALL, 8, True, True),
+        "topk_threshold": bench.topk_threshold(N_SMALL),
+        "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True),
+    }
+
+
 def main_path(torch, fu):
     """Phase 3: the paper pipeline at full width through the user entry
     point, launch counts asserted."""
@@ -479,7 +607,8 @@ def main_path(torch, fu):
     k1, k2 = cyc.n_selected(100), fed.n_selected(100)
     want = {"local_step": cyc.rounds * k1 * cyc.local_steps +
             fed.rounds * k2 * fed.local_steps,
-            "weighted_delta": fed.rounds, "server_update": fed.rounds}
+            "weighted_delta": fed.rounds, "server_update": fed.rounds,
+            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": 0}
     hist = res.history
     x_bytes = size_bytes(res.federated.params)
     closed = comm_accounting.overhead_with_cyclic(
@@ -584,8 +713,7 @@ def fused_vs_plain(torch):
     from repro_torch.fl.task import vision_task
     from repro_torch.utils.tree_math import tree_leaves
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    flags = deterministic_cudnn(torch)
     data = DATASETS.get("cifar10-like")(n_clients=100, beta=0.5, seed=SEED,
                                         n_train=20000)
     task = vision_task("lenet5", n_classes=10, in_ch=3)
@@ -606,6 +734,7 @@ def fused_vs_plain(torch):
         p1 = cyclic_pretrain(task, data, cyc, init_params=init)
         p2 = run_federated(task, data, fed, init_params=p1.params)
         finals[impl] = [t.detach().clone() for t in tree_leaves(p2.params)]
+    restore_cudnn(torch, flags)
     diffs = [float((a - b).abs().max())
              for a, b in zip(finals["fused"], finals["fused_interpret"])]
     close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
@@ -614,6 +743,309 @@ def fused_vs_plain(torch):
               max_abs_diff=max(diffs), allclose=close))
     if not close:
         raise SystemExit("chip_smoke: fused and plain paths disagree")
+
+
+@functools.lru_cache(maxsize=1)
+def lenet_setup():
+    """The main path's task and data (LeNet-5 on cifar10-like, 100
+    clients, β = 0.5, 20,000 samples), made once for the upload phases."""
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.task import vision_task
+    data = DATASETS.get("cifar10-like")(n_clients=100, beta=0.5, seed=SEED,
+                                        n_train=20000)
+    return vision_task("lenet5", n_classes=10, in_ch=3), data
+
+
+def upload_configs():
+    """The two P2 upload configurations: the repo's compressed setting
+    (benchmarks/table4_comm.py:47) and its private one
+    (benchmarks/perf_fused_update.py:138)."""
+    from repro_torch.fl.compression import CompressionSpec
+    from repro_torch.fl.privacy import DPSpec
+    return {"p2_compressed": dict(compression=CompressionSpec(
+                bits=8, density=0.25, error_feedback=True)),
+            "p2_private": dict(dp=DPSpec(clip=1.0, sigma=0.1),
+                               secure_agg=True)}
+
+
+def upload_phase(torch, fu, phase: str, fed_kw: dict):
+    """Phases p2_compressed / p2_private: the main path's pipeline
+    (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients) with the P2 upload
+    of ``fed_kw``, through ``run_cyclic_then_federated``; launches,
+    ledger and accuracy asserted, then a warm P2 run, a profiled P2
+    round and the kernels against the plain path.  Returns the
+    launches and the P2 result."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import comm_accounting as acc
+    from repro_torch.core.cyclic import CyclicConfig
+    from repro_torch.core.pipeline import run_cyclic_then_federated
+    from repro_torch.fl.compression import compression_on
+    from repro_torch.fl.engine import _upload_payload_bytes
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.utils.tree_math import size_bytes
+
+    task, data = lenet_setup()
+    cyc = CyclicConfig(rounds=4, participation=0.25, local_steps=20,
+                       batch_size=32, update_impl="fused", sampling="host")
+    fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+                   local_steps=25, server_opt="momentum", update_impl="fused",
+                   sampling="host", **fed_kw)
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_cyclic_then_federated(task, data, cyc, fed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fu.KERNELS}
+
+    k1, k2 = cyc.n_selected(100), fed.n_selected(100)
+    compressed = compression_on(fed.compression)
+    want = {"local_step": cyc.rounds * k1 * cyc.local_steps +
+            fed.rounds * k2 * fed.local_steps,
+            "weighted_delta": fed.rounds, "server_update": fed.rounds,
+            "compress_delta": fed.rounds * k2 if compressed else 0,
+            "topk_threshold": (fed.rounds * k2 * fu.TOPK_LAUNCHES
+                               if compressed else 0),
+            "dp_clip_noise": 0}
+    x = size_bytes(res.federated.params)
+    payload = _upload_payload_bytes(task, fed.compression)
+    p2 = (fed.rounds * acc.compressed_round_bytes("fedavg", k2, x, payload)
+          if compressed else 2 * k2 * fed.rounds * x)
+    mask = fed.rounds * acc.secure_agg_mask_bytes(k2) if fed.secure_agg else 0
+    closed = 2 * k1 * cyc.rounds * x + p2 + mask
+    ledger = res.ledger.summary()
+    final_acc = res.history[-1]["acc"]
+
+    # one profiled P2 round (warm rounds/s: the p2_rounds phase)
+    one = dataclasses.replace(fed, rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_federated(task, data, one, init_params=res.cyclic.params)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, top = device_activity(prof)
+    e2e = upload_e2e(torch, task, data, fed_kw)
+    emit(dict(phase=phase, model="lenet5", dataset="cifar10-like",
+              upload={k: str(v) for k, v in fed_kw.items()},
+              history=res.history, wall_s=wall,
+              profiled_p2_round=dict(
+                  wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                  device_busy_share=busy / wall_us if n_ops else None,
+                  device_ops=n_ops, top_device_ops=top),
+              ledger=ledger, ledger_closed_form=closed,
+              upload_payload_bytes=payload, full_upload_bytes=x,
+              payload_ratio=x / payload,
+              launches=launches, expected_launches=want,
+              final_acc=final_acc, e2e=e2e))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: {phase} launches {launches} != {want}")
+    if not all(math.isfinite(h["local_loss"]) for h in res.history):
+        raise SystemExit(f"chip_smoke: non-finite loss in {phase}")
+    if not final_acc > 0.1:
+        raise SystemExit(f"chip_smoke: {phase} final accuracy {final_acc} "
+                         "is not above chance")
+    if res.ledger.total_bytes != closed or res.ledger.mask_bytes != mask:
+        raise SystemExit(f"chip_smoke: {phase} ledger bytes differ from "
+                         "the closed form")
+    if compressed and payload != 173_250:
+        raise SystemExit(f"chip_smoke: compressed upload {payload} bytes, "
+                         "expected 173,250")
+    if not n_ops:
+        raise SystemExit("chip_smoke: the profiler saw no device op")
+    if not e2e["allclose"]:
+        raise SystemExit(f"chip_smoke: {phase}: the kernels and the plain "
+                         "path disagree")
+    return launches, res
+
+
+def upload_e2e(torch, task, data, fed_kw):
+    """1 P1 + 2 P2 rounds with update_impl "fused" and "fused_interpret"
+    from the same init and index stream (cuDNN deterministic): the final
+    params and, under error feedback, every client's residual row, at
+    the e2e phase's tolerance."""
+    from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
+    from repro_torch.fl.engine import run_rounds
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.utils.tree_math import tree_leaves
+
+    flags = deterministic_cudnn(torch)
+    init = task.init(torch.Generator().manual_seed(SEED))
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1_000_003 * rnd + 1009 * slot + step)
+        return torch.randint(0, data.n_per_client, (32,), generator=g)
+
+    finals = {}
+    for impl in ("fused", "fused_interpret"):
+        cyc = CyclicConfig(rounds=1, participation=0.25, local_steps=20,
+                           batch_size=32, update_impl=impl, sampling="host",
+                           batch_indices=indices)
+        fed = FLConfig(rounds=2, participation=0.1, local_steps=25,
+                       server_opt="momentum", update_impl=impl,
+                       sampling="host", batch_indices=indices, **fed_kw)
+        p1 = cyclic_pretrain(task, data, cyc, init_params=init)
+        r = run_rounds(task, data, fed.strategy(), fed.schedule(),
+                       init_params=p1.params)
+        finals[impl] = [t.detach().clone() for t in tree_leaves(r.params)]
+        finals[impl] += list(r.algo_state.get("ef_residuals", {}).values())
+    restore_cudnn(torch, flags)
+    pairs = list(zip(finals["fused"], finals["fused_interpret"]))
+    return dict(rounds={"P1": 1, "P2": 2}, rtol=1e-5, atol=1e-6,
+                compared=len(pairs),
+                max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
+                bitwise=all(bool(torch.equal(a, b)) for a, b in pairs),
+                allclose=all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                             for a, b in pairs))
+
+
+def dp_upload(torch, fu, params, fed_kw):
+    """Phase dp_upload: one private round's 10 client uploads.  The
+    clients' end states come from the P2 local run (the port's local fn
+    from ``params``, 25 SGD steps each); each upload is built by K5 from
+    the round's keyed draws and the uploads are summed by K2 with the
+    mask total as ``extra`` (``privacy.materialized_dp_aggregate``),
+    then held against the folded aggregate (``fused_dp_aggregate``).
+    Tolerance: |materialized − folded| ≤ 1e-5·(|p| + Σₖ|w̄ₖ·uₖ| +
+    Σᵢ|mᵢ|) + 1e-7 elementwise: the two forms associate the same terms
+    differently (f32 reassociation)."""
+    import numpy as np
+    from repro_torch.fl import privacy
+    from repro_torch.fl.local import host_flat_ops, make_local_fn
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.utils.device import fold_in
+
+    task, data = lenet_setup()
+    dev = torch.device("cuda")
+    fed = FLConfig(participation=0.1, local_steps=25, update_impl="fused",
+                   **fed_kw)
+    dp, secure_agg = fed.dp, fed.secure_agg
+    fops = host_flat_ops(task, False, dev)
+    p = fops.place(fops.flatten(params))
+    ids = [int(i) for i in np.random.default_rng(SEED).choice(
+        100, size=10, replace=False)]
+    K = len(ids)
+    x_all, y_all, n_real = data.device_arrays(dev)
+    n_per = data.n_per_client
+    x_rows = x_all.reshape((-1,) + tuple(x_all.shape[2:]))
+    y_rows = y_all.reshape((-1,) + tuple(y_all.shape[2:]))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    local = make_local_fn(task, fed.local_spec(), fops)
+    stacked = fops.stacked_empty(K)
+    lr_scale = torch.ones((), device=dev)
+    for slot, cid in enumerate(ids):
+        row = {k: b[slot] for k, b in stacked.items()}
+        for k, r in row.items():
+            r.copy_(p[k])
+
+        def sample(step, cid=cid):
+            rows = cid * n_per + torch.randint(0, n_per, (32,), generator=gen,
+                                               device=dev)
+            return x_rows.index_select(0, rows), y_rows.index_select(0, rows)
+        local(row, sample, lr_scale)
+    weights = n_real[torch.tensor(ids, device=dev)].to(torch.float32)
+    normal_fn = privacy.keyed_normal_fn(fold_in(SEED, 0), fops.normal)
+
+    folded = privacy.fused_dp_aggregate(dp, secure_agg, fops, ids, p, stacked,
+                                        weights, normal_fn)
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mat = privacy.materialized_dp_aggregate(dp, secure_agg, fops, ids, p,
+                                            stacked, weights, normal_fn)
+    torch.cuda.synchronize()
+    mat_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in fu.KERNELS}
+    want = {"local_step": 0, "weighted_delta": 1, "server_update": 0,
+            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": K}
+
+    # the summands' magnitude, from the same draws
+    wbar = weights / weights.sum()
+    names = list(p)
+    scales = privacy.stacked_clip_scales(dp, [p[n] for n in names],
+                                         [stacked[n] for n in names])
+    norms = torch.sqrt(sum(((stacked[n].float() - p[n].float()[None]) ** 2)
+                           .sum(dim=1) for n in names))
+    ok, max_diff, worst = True, 0.0, 0.0
+    for n in names:
+        mag = p[n].float().abs()
+        for k, cid in enumerate(ids):
+            mag = mag + (wbar[k] * (scales[k] * (stacked[n][k].float() -
+                                                  p[n].float()))).abs()
+            mag = mag + (wbar[k] * dp.sigma * dp.clip *
+                         normal_fn("dp", cid)[n]).abs()
+            for other in ids:
+                if other != cid:
+                    mag = mag + normal_fn("mask", min(cid, other),
+                                          max(cid, other))[n].abs()
+        diff = (mat[n].float() - folded[n].float()).abs()
+        ok = ok and bool(torch.isfinite(mat[n]).all()) and \
+            not bool((diff > 1e-5 * mag + 1e-7).any())
+        max_diff = max(max_diff, float(diff.max()))
+        worst = max(worst, float((diff / (mag + 1e-30)).max()))
+    emit(dict(phase="dp_upload", clients=K, ids=ids,
+              delta_norms=[float(v) for v in norms],
+              clip_scales=[float(v) for v in scales], dp=str(dp),
+              secure_agg=secure_agg,
+              tolerance="|materialized - folded| <= 1e-5*magnitude + 1e-7",
+              max_abs_diff=max_diff, max_diff_over_magnitude=worst,
+              materialized_wall_s=mat_s, launches=launches,
+              expected_launches=want, ok=ok))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: dp_upload launches {launches} != "
+                         f"{want}")
+    if not ok:
+        raise SystemExit("chip_smoke: the materialized DP uploads disagree "
+                         "with the folded aggregate")
+    return launches
+
+
+def p2_rounds(torch, init) -> dict:
+    """Phase p2_rounds: warm P2 rounds/s of the uncompressed, compressed
+    and private configurations from the same P1 params, in turns (each
+    configuration twice, in the order a b c d d c b a), so a slow
+    stretch of the host falls on all of them; the private configuration
+    also under sampling="device", whose ids the privacy draws read back
+    once per round."""
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    task, data = lenet_setup()
+    configs = upload_configs()
+    runs = {"p2": {}, "p2_compressed": configs["p2_compressed"],
+            "p2_private": configs["p2_private"],
+            "p2_private_device_sampling": dict(configs["p2_private"],
+                                               sampling="device")}
+    times = {name: [] for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        kw = dict(dict(sampling="host"), **runs[name])
+        fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+                       local_steps=25, server_opt="momentum",
+                       update_impl="fused", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_federated(task, data, fed, init_params=init)
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    rps = {name: [4 / t for t in ts] for name, ts in times.items()}
+    emit(dict(phase="p2_rounds", rounds=4, order="a b c d d c b a",
+              wall_s=times, rounds_per_s=rps,
+              mean_rounds_per_s={k: statistics.mean(v) for k, v in rps.items()}))
+    return rps
+
+
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms for a kernel-vs-plain comparison;
+    returns the flags to restore, so later timings run as the main path
+    does."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return flags
+
+
+def restore_cudnn(torch, flags) -> None:
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
 def serve(torch):
@@ -825,9 +1257,17 @@ def main(argv=None) -> int:
               kernel_build_s=build_s))
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
+    upload_shapes = check_upload_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches = main_path(torch, fu)
     fused_vs_plain(torch)
+    configs = upload_configs()
+    comp_launches, _ = upload_phase(torch, fu, "p2_compressed",
+                                    configs["p2_compressed"])
+    _, private = upload_phase(torch, fu, "p2_private", configs["p2_private"])
+    dp_launches = dp_upload(torch, fu, private.federated.params,
+                            configs["p2_private"])
+    p2_rounds(torch, private.cyclic.params)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
     serve_profile(torch, eng, prompt)
@@ -848,6 +1288,24 @@ def main(argv=None) -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"]))
+    # the upload kernels, each with the launches of the path it is on
+    upload_src = "src/repro_torch/kernels/csrc/upload.cu"
+    for kname, replaces, n_launch, path in (
+            ("compress_delta", "src/repro/kernels/fused_update.py:283",
+             comp_launches["compress_delta"], "p2_compressed"),
+            ("topk_threshold", "jnp src/repro/fl/compression.py:156",
+             comp_launches["topk_threshold"], "p2_compressed"),
+            ("dp_clip_noise", "src/repro/kernels/fused_update.py:351",
+             dp_launches["dp_clip_noise"], "dp_upload")):
+        r = upload_shapes[kname]
+        if not r["bitwise"]:
+            raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
+        kernels.append(dict(name=kname, route="cuda", source=upload_src,
+                            replaces=replaces, launches=n_launch,
+                            max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"], path=path))
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"

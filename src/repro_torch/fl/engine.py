@@ -35,9 +35,19 @@ seeded from ``schedule.seed``, or from ``schedule.batch_indices`` —
 ``(round, client_slot, step) -> LongTensor (B,)`` — when it is set (the
 parity tests inject the JAX package's threefry draws through it).
 
-Not ported yet: the fedprox/scaffold/moon algorithms and the per-client
-state stores (ROADMAP.md item M4b), the sparse store and the
-overlapped pipeline (M10).
+P2 also runs compressed uploads (``spec.compression``,
+``repro_torch.fl.compression``: per-client error-feedback residual rows
+in a :class:`DenseClientStateStore`) and DP-FedAvg / secure aggregation
+(``spec.dp``, ``spec.secure_agg``, ``repro_torch.fl.privacy``), on the
+tree and the fused paths.  The privacy draws are keyed by round and
+client id (``RoundInputs.round_key`` and the ids on the host: under
+``sampling="device"`` that is one device→host read of the ids per
+round), or come from ``schedule.noise_draws`` when it is set (the parity
+tests inject the JAX package's threefry draws through it).
+
+Not ported yet: the fedprox/scaffold/moon algorithms and their client
+state (ROADMAP.md item M4b), the sparse store and the overlapped
+pipeline (M10).
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.federated import FederatedDataset
+from repro_torch.fl import compression, privacy
 from repro_torch.fl.local import (
     FlatParamOps,
     LocalSpec,
@@ -61,7 +72,9 @@ from repro_torch.fl.local import (
 from repro_torch.fl.task import Task
 from repro_torch.kernels import ops
 from repro_torch.utils import tree_math as tm
-from repro_torch.utils.device import Device, resolve_device, seeded_generator
+from repro_torch.utils.device import (Device, fold_in, resolve_device,
+                                      seeded_generator)
+from repro_torch.utils.flatten import FlatView, torch_dtype
 
 Pytree = Any
 
@@ -90,6 +103,19 @@ def _logical_model_bytes(task: Task) -> int:
     return tm.size_bytes(param_shapes(task))
 
 
+@functools.lru_cache(maxsize=64)
+def _upload_payload_bytes(task: Task, comp) -> int:
+    """Closed-form wire bytes of ONE client's upload over the task's
+    logical flat bucket sizes (compressed when ``comp`` is lossy, else
+    the dtype bytes of every bucket)."""
+    view = FlatView.of(param_shapes(task))
+    if compression.compression_on(comp):
+        return compression.payload_bytes(comp,
+                                         tuple(view.buffer_sizes.values()))
+    return int(sum(torch_dtype(name).itemsize * size
+                   for name, size in view.buffer_sizes.items()))
+
+
 def unpack_server_state(fops: FlatParamOps, state: Any) -> Any:
     """Materialize a flat server OptState's moment buffers back into
     param-shaped trees (the EngineResult boundary)."""
@@ -111,6 +137,51 @@ class RoundInputs:
     ids: torch.Tensor                       # (K,) client ids, on device
     weights: torch.Tensor                   # (K,) f32 n_real of those
     sampler: Callable[[int], Sample]        # client slot -> sample(step)
+    round_key: int = 0                      # seed of the privacy draws
+    # (kind, a, b) -> f32 param-shaped tree: replaces the keyed draws
+    draws: Optional[Callable[[str, int, Optional[int]], Pytree]] = None
+    host_ids: Optional[List[int]] = None    # the ids on the host, if known
+
+    def id_list(self) -> List[int]:
+        """The client ids as host integers (the privacy draws are keyed
+        by them); read from the device once when not known."""
+        if self.host_ids is None:
+            self.host_ids = [int(i) for i in self.ids.tolist()]
+        return self.host_ids
+
+    def normal_fn(self, draw: Callable[[int], Pytree],
+                  from_tree: Callable[[Pytree], Pytree]) -> privacy.NormalFn:
+        """The round's ``normal_fn`` in one representation: ``draw(seed)``
+        at the keyed seeds, or the injected ``draws`` through
+        ``from_tree``."""
+        if self.draws is None:
+            return privacy.keyed_normal_fn(self.round_key, draw)
+        return lambda kind, a, b=None: from_tree(self.draws(kind, a, b))
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseClientStateStore:
+    """Per-client state rows as dense device stacks, ``(n_clients, ...)``
+    per leaf.  It carries the error-feedback residual rows of compressed
+    uploads; scaffold/moon state is ROADMAP.md item M4b, the sparse
+    store M10."""
+
+    def init(self, template: Pytree, n_clients: int) -> Pytree:
+        return tm.tree_map(lambda t: t.unsqueeze(0).expand(
+            (n_clients,) + tuple(t.shape)).clone(), template)
+
+    def gather(self, state: Pytree, ids: torch.Tensor) -> Pytree:
+        return tm.tree_map(lambda s: s.index_select(0, ids), state)
+
+    def scatter(self, state: Pytree, ids: torch.Tensor,
+                rows: Pytree) -> Pytree:
+        """Write ``rows`` into the clients' rows, in place."""
+        for s, r in zip(tm.tree_leaves(state), tm.tree_leaves(rows)):
+            s.index_copy_(0, ids, r)
+        return state
+
+
+DENSE_STORE = DenseClientStateStore()
 
 
 class HostBackend:
@@ -140,6 +211,18 @@ class RelayStrategy(HostBackend):
     participation: float = 0.25
 
     name = "relay"
+
+    def __post_init__(self):
+        # P1 has no aggregation: nothing to clip, noise or mask
+        if self.spec.dp is not None or self.spec.secure_agg:
+            raise ValueError("RelayStrategy (P1) has no aggregation; "
+                             "dp/secure_agg apply to P2 only")
+        # ... and the relayed model is the next client's start state, so
+        # a lossy upload would corrupt training, not just the aggregate
+        if compression.compression_on(self.spec.compression):
+            raise ValueError("RelayStrategy (P1) relays the model itself; "
+                             "lossy compression applies to P2 round "
+                             "deltas only")
 
     def init_state(self, task: Task, params: Pytree, n_clients: int) -> Dict:
         return {}
@@ -174,7 +257,7 @@ class AggregateStrategy(HostBackend):
     server_opt: str = "none"        # none | momentum | adam
     server_lr: float = 1.0
     server_momentum: float = 0.9
-    state_store: Any = None         # per-client state stores: M4b, M10
+    state_store: Any = DENSE_STORE  # the sparse store: M10
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -183,15 +266,39 @@ class AggregateStrategy(HostBackend):
             not_ported(f"algorithm={self.algorithm!r}", "M4b")
         if self.server_opt not in SERVER_OPTS:
             raise ValueError(f"unknown server_opt {self.server_opt!r}")
-        if self.state_store is not None:
-            not_ported("state_store (dense M4b, sparse M10)", "M10")
+        if not isinstance(self.state_store, DenseClientStateStore):
+            not_ported("state_store other than dense", "M10")
 
     @property
     def name(self) -> str:
         return self.algorithm
 
+    @property
+    def _ef_store(self) -> DenseClientStateStore:
+        """The store of the error-feedback residual rows (the dense
+        store keeps no state of its own, so it is shared)."""
+        return self.state_store
+
+    @property
+    def _ef(self) -> bool:
+        comp = self.spec.compression
+        return compression.compression_on(comp) and comp.error_feedback
+
     def init_state(self, task: Task, params: Pytree, n_clients: int) -> Dict:
-        return {}
+        """Error-feedback residuals (compressed uploads) are per-client
+        f32 rows in the flat bucket layout on both paths: the padded
+        carry buffers on the fused path, the logical buckets on tree."""
+        if not self._ef:
+            return {}
+        fops = self.flat_ops(task, self._device(params))
+        tmpl = (fops.zeros(torch.float32) if fops is not None else
+                FlatView.of(param_shapes(task)).zeros(
+                    torch.float32, self._device(params)))
+        return {"ef_residuals": self._ef_store.init(tmpl, n_clients)}
+
+    @staticmethod
+    def _device(params: Pytree) -> torch.device:
+        return tm.tree_leaves(params)[0].device
 
     def make_server_update(self, task: Task, device: torch.device
                            ) -> Optional[Tuple[Callable, Callable]]:
@@ -260,9 +367,65 @@ class AggregateStrategy(HostBackend):
 
         return init, update
 
+    def _aggregate(self, task: Task, device: torch.device,
+                   fops: Optional[FlatParamOps]) -> Callable:
+        """``aggregate(inputs, params, stacked, algo_state) ->
+        (new_params, algo_state)`` for the spec: compressed uploads
+        (with the EF rows gathered and scattered), DP / secure agg, or
+        plain FedAvg — on trees (``fops`` None) or flat buffers."""
+        spec = self.spec
+        comp = spec.compression
+        ef, store = self._ef, self._ef_store
+
+        def to_device(tree):
+            return tm.tree_map(lambda x: torch.as_tensor(x).to(
+                device=device, dtype=torch.float32), tree)
+
+        if compression.compression_on(comp):
+            view = FlatView.of(param_shapes(task))
+
+            def aggregate(inputs, params, stacked, state):
+                res = (store.gather(state["ef_residuals"], inputs.ids)
+                       if ef else None)
+                if fops is None:
+                    new_p, new_r = compression.tree_compressed_aggregate(
+                        comp, view, params, stacked, inputs.weights, res)
+                else:
+                    new_p, new_r = compression.fused_compressed_aggregate(
+                        comp, fops, params, stacked, inputs.weights, res)
+                if ef:
+                    state = dict(state, ef_residuals=store.scatter(
+                        state["ef_residuals"], inputs.ids, new_r))
+                return new_p, state
+            return aggregate
+
+        if privacy.privacy_on(spec.dp, spec.secure_agg):
+            def aggregate(inputs, params, stacked, state):
+                if fops is None:
+                    normal_fn = inputs.normal_fn(
+                        lambda key: privacy.tree_normal(key, params, device),
+                        to_device)
+                    return privacy.tree_dp_aggregate(
+                        spec.dp, spec.secure_agg, inputs.id_list(), params,
+                        stacked, inputs.weights, normal_fn), state
+                normal_fn = inputs.normal_fn(
+                    fops.normal,
+                    lambda tree: fops.pad(fops.flatten(to_device(tree))))
+                return privacy.fused_dp_aggregate(
+                    spec.dp, spec.secure_agg, fops, inputs.id_list(), params,
+                    stacked, inputs.weights, normal_fn), state
+            return aggregate
+
+        if fops is None:
+            return lambda inputs, params, stacked, state: (
+                tm.stacked_weighted_mean(stacked, inputs.weights), state)
+        return lambda inputs, params, stacked, state: (
+            fused_aggregate(fops, params, stacked, inputs.weights), state)
+
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
         local = make_local_fn(task, self.spec, fops)
+        aggregate = self._aggregate(task, device, fops)
 
         if fops is None:
             def body(params, inputs: RoundInputs, lr_scale, algo_state):
@@ -273,8 +436,8 @@ class AggregateStrategy(HostBackend):
                     ends.append(w_end)
                     losses.append(loss)
                 stacked = tm.tree_map(lambda *xs: torch.stack(xs), *ends)
-                new_params = tm.stacked_weighted_mean(stacked,
-                                                      inputs.weights)
+                new_params, algo_state = aggregate(inputs, params, stacked,
+                                                   algo_state)
                 return new_params, algo_state, torch.stack(losses).mean()
             return body
 
@@ -288,15 +451,20 @@ class AggregateStrategy(HostBackend):
                     r.copy_(params[k])
                 _, loss = local(row, inputs.sampler(slot), lr_scale)
                 losses.append(loss)
-            new_params = fused_aggregate(fops, params, stacked,
-                                         inputs.weights)
+            new_params, algo_state = aggregate(inputs, params, stacked,
+                                               algo_state)
             return new_params, algo_state, torch.stack(losses).mean()
 
         return body
 
     def record(self, ledger, k: int, params: Pytree, task: Task) -> None:
+        comp = self.spec.compression
+        payload = (_upload_payload_bytes(task, comp)
+                   if compression.compression_on(comp) else None)
         ledger.record_round(self.algorithm, k, params,
-                            x_bytes=_logical_model_bytes(task))
+                            secure_agg=self.spec.secure_agg,
+                            x_bytes=_logical_model_bytes(task),
+                            payload_bytes=payload)
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +523,10 @@ class RoundSchedule:
     host_rng_offset: int = 0
     overlap: bool = False           # M10
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
+    # (round, kind, a, b) -> f32 param-shaped tree: replaces the keyed
+    # privacy draws (kind "dp", a = client id; kind "mask", a < b)
+    noise_draws: Optional[Callable[[int, str, int, Optional[int]],
+                                   Pytree]] = None
 
     def __post_init__(self):
         if self.sampling not in ("device", "host"):
@@ -458,18 +630,27 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
             tot = tot + torch.sum(metric(tree, ev_x[b], ev_y[b]) * ev_w[b])
         return tot / torch.sum(ev_w)
 
+    def round_draws(r: int):
+        if schedule.noise_draws is None:
+            return None
+        return lambda kind, a, b=None: schedule.noise_draws(r, kind, a, b)
+
     def run_chunk(params, algo_state, server_state, rnd: int, R: int,
-                  ids: Optional[torch.Tensor], lr_scales: torch.Tensor,
-                  do_eval: List[bool]):
+                  ids: Optional[torch.Tensor], ids_np: Optional[np.ndarray],
+                  lr_scales: torch.Tensor, do_eval: List[bool]):
         """One dispatch: R rounds, every value left on the device."""
         losses, metrics = [], []
         for j in range(R):
             ids_r = (ids[j] if ids is not None else
                      torch.randperm(n_clients, generator=gen,
                                     device=dev)[:K])
-            inputs = RoundInputs(ids=ids_r,
-                                 weights=n_real[ids_r].to(torch.float32),
-                                 sampler=sampler(rnd + j, ids_r))
+            inputs = RoundInputs(
+                ids=ids_r, weights=n_real[ids_r].to(torch.float32),
+                sampler=sampler(rnd + j, ids_r),
+                round_key=fold_in(schedule.seed, rnd + j),
+                draws=round_draws(rnd + j),
+                host_ids=None if ids_np is None else
+                [int(i) for i in ids_np[j]])
             new_params, algo_state, loss = body(params, inputs, lr_scales[j],
                                                 algo_state)
             if server is not None:
@@ -485,11 +666,12 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     rnd = 0
     while rnd < schedule.rounds:
         R = min(chunk, schedule.rounds - rnd)
-        ids = None
+        ids = ids_np = None
         if host_rng is not None:
-            ids = torch.as_tensor(np.stack([
-                host_rng.choice(n_clients, size=K, replace=False)
-                for _ in range(R)])).to(device=dev, dtype=torch.int64)
+            ids_np = np.stack([host_rng.choice(n_clients, size=K,
+                                               replace=False)
+                               for _ in range(R)])
+            ids = torch.as_tensor(ids_np).to(device=dev, dtype=torch.int64)
         lr_scales = torch.tensor(
             [schedule.lr_decay ** (rnd + j) for j in range(R)],
             dtype=torch.float32).to(dev)
@@ -497,8 +679,8 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                                   or rnd + j + 1 == schedule.rounds)
                    for j in range(R)]
         params, algo_state, server_state, losses, metrics = run_chunk(
-            params, algo_state, server_state, rnd, R, ids, lr_scales,
-            do_eval)
+            params, algo_state, server_state, rnd, R, ids, ids_np,
+            lr_scales, do_eval)
         dispatches += 1
 
         losses = torch.stack(losses).cpu().numpy()    # one read per chunk

@@ -34,6 +34,9 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.fl.compression import (CompressionSpec, topk_k,
+                                        validate_compression)
+from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.task import Task
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_update import GRID_ALIGN
@@ -72,9 +75,17 @@ class LocalSpec:
     variant: str = "plain"          # fedprox | scaffold | moon: M4b
     grad_clip: Optional[float] = None
     update_impl: str = "tree"       # tree | fused | fused_interpret
+    # round-aggregate privacy (repro_torch.fl.privacy) and compressed
+    # uploads (repro_torch.fl.compression): both apply at AGGREGATION,
+    # the local run itself is unchanged
+    dp: Optional[DPSpec] = None
+    secure_agg: bool = False
+    compression: Optional[CompressionSpec] = None
 
     def __post_init__(self):
         validate_update_impl(self.update_impl)
+        validate_compression(self.compression, dp=self.dp,
+                             secure_agg=self.secure_agg)
         if self.variant != "plain":
             not_ported(f"variant={self.variant!r}", "M4b")
 
@@ -111,22 +122,31 @@ class FlatParamOps:
                 for name, size in self.view.buffer_sizes.items()}
 
     def pad(self, bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Copy each buffer onto ``device``, right-padded with zeros to
-        the next GRID_ALIGN multiple.  Always a copy: the engine updates
-        its buffers in place, so they must never alias the caller's."""
+        """Copy each buffer onto ``device``, its last axis right-padded
+        with zeros to the next GRID_ALIGN multiple.  Always a copy: the
+        engine updates its buffers in place, so they must never alias
+        the caller's."""
         out = {}
         for name, b in bufs.items():
-            buf = torch.zeros(self._pad_len(b.shape[-1]), dtype=b.dtype,
+            buf = torch.zeros(tuple(b.shape[:-1]) +
+                              (self._pad_len(b.shape[-1]),), dtype=b.dtype,
                               device=self.device)
-            buf[:b.shape[-1]].copy_(b)
+            buf[..., :b.shape[-1]].copy_(b)
             out[name] = buf
         return out
 
-    def zeros(self) -> Dict[str, torch.Tensor]:
-        """Zero buffers in carry layout (padded, on ``device``)."""
-        return {name: torch.zeros(size, dtype=torch_dtype(name),
+    def zeros(self, dtype: Optional[torch.dtype] = None
+              ) -> Dict[str, torch.Tensor]:
+        """Zero buffers in carry layout (padded, on ``device``);
+        ``dtype`` overrides the bucket dtype (an f32 accumulator)."""
+        return {name: torch.zeros(size, dtype=dtype or torch_dtype(name),
                                   device=self.device)
                 for name, size in self.padded_sizes.items()}
+
+    def normal(self, key: int) -> Dict[str, torch.Tensor]:
+        """Per-leaf standard-normal f32 buffers in carry layout (pad
+        lanes zero), drawn on ``device`` (``FlatView.normal``)."""
+        return self.pad(self.view.normal(key, self.device))
 
     def place(self, bufs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Commit freshly packed buffers as the engine's working copy:
@@ -159,12 +179,54 @@ class FlatParamOps:
                 interpret=self.interpret)
         return p_bufs, m_bufs
 
-    def weighted_delta(self, p_bufs, stacked_bufs, wbar):
+    def _logical_size(self, name: str) -> int:
+        """Logical element count of bucket ``name`` — the top-k
+        population (the zero pad lanes never change the k-th largest
+        |d|, so a logical k over a padded buffer is exact)."""
+        return self.view.buffer_sizes[name]
+
+    def weighted_delta(self, p_bufs, stacked_bufs, wbar, extra=None, *,
+                       deltas: bool = False):
         """FedAvg aggregation of the stacked ``(K, N)`` buffers into new
-        buffers."""
+        buffers.  ``extra`` (an f32 buffer dict: the round's DP noise and
+        secure-agg mask total) is added in the same pass; ``deltas``
+        reads the stack as client deltas (the compressed aggregate)."""
         return {name: ops.fused_weighted_delta(
-                    stacked_bufs[name], p, wbar, interpret=self.interpret)
+                    stacked_bufs[name], p, wbar,
+                    None if extra is None else extra[name], deltas=deltas,
+                    interpret=self.interpret)
                 for name, p in p_bufs.items()}
+
+    def compress_delta(self, d_bufs, spec: CompressionSpec):
+        """Compressed form of one client's f32 delta dict: per bucket one
+        top-k threshold (when sparsifying, over the bucket's logical k)
+        and one compress pass.  Returns ``(c_bufs, r_bufs)``; ``r_bufs``
+        is None unless error feedback."""
+        with_r = spec.error_feedback
+        c_out, r_out = {}, {}
+        for name, d in d_bufs.items():
+            tau = (ops.fused_topk_threshold(
+                       d, topk_k(spec, self._logical_size(name)),
+                       interpret=self.interpret)
+                   if spec.sparsifies else None)
+            out = ops.fused_compress_delta(
+                d, tau, bits=spec.bits, topk=spec.sparsifies,
+                with_residual=with_r, interpret=self.interpret)
+            if with_r:
+                c_out[name], r_out[name] = out
+            else:
+                c_out[name] = out
+        return c_out, (r_out if with_r else None)
+
+    def dp_clip_noise(self, d_bufs, z_bufs, clip_scale, noise_scale):
+        """One client's DP upload per bucket in one pass:
+        ``clip_scale·d (+ noise_scale·z)`` (``z_bufs=None`` drops the
+        noise term); the scales are f32 device scalars."""
+        scalars = torch.stack([clip_scale, noise_scale]).to(torch.float32)
+        return {name: ops.fused_dp_clip_noise(
+                    d, None if z_bufs is None else z_bufs[name], scalars,
+                    interpret=self.interpret)
+                for name, d in d_bufs.items()}
 
     def apply_delta(self, p_bufs, delta_bufs):
         """p ← cast(p₃₂ + delta) per bucket, in place."""

@@ -2,10 +2,12 @@
 the round engine (``repro_torch.fl.engine``, ``AggregateStrategy``).
 
 The counterpart of ``repro/fl/simulation.py``.  FedAvg runs here, with
-an optional server optimizer (FedAvgM / FedAdam).  The other algorithms
-and the privacy, compression and PEFT options keep their config fields,
-so a config written for the JAX package reads the same, but raise
-``NotImplementedError`` naming the ROADMAP.md item that will bring them.
+an optional server optimizer (FedAvgM / FedAdam), DP-FedAvg and secure
+aggregation (``dp``, ``secure_agg``) and compressed uploads
+(``compression``).  The other algorithms and the PEFT options keep their
+config fields, so a config written for the JAX package reads the same,
+but raise ``NotImplementedError`` naming the ROADMAP.md item that will
+bring them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from repro_torch.fl.engine import (
     RoundSchedule,
     run_rounds,
 )
+from repro_torch.fl.compression import CompressionSpec, validate_compression
 from repro_torch.fl.local import LocalSpec, not_ported, validate_update_impl
+from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.task import Task
 from repro_torch.utils.device import Device
 
@@ -61,14 +65,18 @@ class FLConfig:
     chunk_size: int = 8             # rounds per chunk-function call
     sampling: str = "device"        # device | host
     update_impl: str = "tree"       # tree | fused | fused_interpret
-    dp: Optional[Any] = None                # M8
-    secure_agg: bool = False                # M8
-    compression: Optional[Any] = None       # M9
+    dp: Optional[DPSpec] = None
+    secure_agg: bool = False
+    compression: Optional[CompressionSpec] = None
     peft: Optional[str] = None              # M11
     trainable_filter: Optional[str] = None  # M11
     # (round, client_slot, step) -> LongTensor (B,): replaces the
     # engine's generator draws for the batch indices
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
+    # (round, kind, a, b) -> f32 param-shaped tree: replaces the keyed
+    # privacy draws (RoundSchedule.noise_draws)
+    noise_draws: Optional[Callable[[int, str, int, Optional[int]],
+                                   Pytree]] = None
 
     def __post_init__(self):
         validate_update_impl(self.update_impl)
@@ -76,10 +84,8 @@ class FLConfig:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
         if self.algorithm != "fedavg":
             not_ported(f"algorithm={self.algorithm!r}", "M4b")
-        if self.dp is not None or self.secure_agg:
-            not_ported("dp/secure_agg", "M8")
-        if self.compression is not None:
-            not_ported("compression", "M9")
+        validate_compression(self.compression, dp=self.dp,
+                             secure_agg=self.secure_agg)
         if self.peft is not None or self.trainable_filter is not None:
             not_ported("peft/trainable_filter", "M11")
 
@@ -91,7 +97,8 @@ class FLConfig:
             n_steps=self.local_steps, batch_size=self.batch_size, lr=self.lr,
             momentum=self.momentum, weight_decay=self.weight_decay,
             variant=_VARIANTS[self.algorithm], grad_clip=self.grad_clip,
-            update_impl=self.update_impl)
+            update_impl=self.update_impl, dp=self.dp,
+            secure_agg=self.secure_agg, compression=self.compression)
 
     def strategy(self) -> AggregateStrategy:
         return AggregateStrategy(
@@ -105,7 +112,7 @@ class FLConfig:
             eval_every=self.eval_every, eval_batch=self.eval_batch,
             seed=self.seed, chunk_size=self.chunk_size,
             sampling=self.sampling, host_rng_offset=HOST_RNG_OFFSET_P2,
-            batch_indices=self.batch_indices)
+            batch_indices=self.batch_indices, noise_draws=self.noise_draws)
 
 
 @dataclasses.dataclass

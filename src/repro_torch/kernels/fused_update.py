@@ -1,12 +1,15 @@
 """Fused FL-update kernels over flat buffers: CUDA for Hopper + plain twins.
 
 The counterpart of ``repro/kernels/fused_update.py``'s ``local_step``,
-``weighted_delta`` and ``server_update``.  Each function here comes in
-two forms:
+``weighted_delta``, ``server_update``, ``compress_delta`` and
+``dp_clip_noise``, plus ``topk_threshold`` (a jnp function in
+``repro/fl/compression.py``, a kernel here).  Each function here comes
+in two forms:
 
   ``<name>``        the wrapper.  On a CUDA tensor it launches the
-                    hand-written kernel of ``csrc/fused_update.cu`` (or
-                    raises); on a CPU tensor it runs the plain version.
+                    hand-written kernel of ``csrc/fused_update.cu`` or
+                    ``csrc/upload.cu`` (or raises); on a CPU tensor it
+                    runs the plain version.
                     It counts its launches in ``<name>.launches``.
   ``<name>_plain``  the same math, step by step, in torch ops — each
                     arithmetic step a separate op, so it rounds where
@@ -18,7 +21,7 @@ Semantics follow the Pallas kernels exactly (f32 compute, cast on
 store, op order), with one difference of form: the carried state is
 updated IN PLACE — ``local_step`` writes ``p`` (and ``m``),
 ``server_update`` writes ``p`` and its moments — and returns the same
-tensors; ``weighted_delta`` returns a new tensor.  Traced scalars are
+tensors; the others return new tensors.  Traced scalars are
 f32 device tensors (``scalars``/``weights``), never host numbers, so a
 round never waits on the device.
 
@@ -33,6 +36,7 @@ import.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -259,7 +263,182 @@ def server_update(p: torch.Tensor, delta: torch.Tensor,
 
 server_update.launches = 0
 
-KERNELS = (local_step, weighted_delta, server_update)
+# ---------------------------------------------------------------------------
+# compressed client upload: top-k mask + blockwise quantization
+# ---------------------------------------------------------------------------
+
+# blockwise-symmetric quantization constants (the JAX package's): the f32
+# scale is nudged up by SCALE_PAD before its bf16 round-to-nearest, so the
+# wire scale is never below amax/qmax and no quantized value clips
+QMAX = {8: 127.0, 16: 32767.0}
+SCALE_PAD = 1.0 + 2.0 ** -6
+# launches of one topk_threshold call: one radix pass per byte of the key
+TOPK_LAUNCHES = 4
+
+
+def _check_bits(bits: int) -> None:
+    if bits not in (8, 16, 32):
+        raise ValueError(f"compress_delta bits must be 8|16|32, got {bits}")
+
+
+def compress_delta_plain(d, thresh, *, bits: int = 32, topk: bool = False,
+                         with_residual: bool = False):
+    """``x = d·[|d| ≥ τ]`` (``topk``), then per 128-lane row (rows start
+    at element 0) ``scale = bf16(amax/qmax·SCALE_PAD)`` and
+    ``c = clip(round_half_even(x/scale), ±qmax)·scale`` (``bits`` 8 or
+    16; an all-zero row gives zeros), residual ``r = d − c``.  The
+    divisions are tensor by tensor: a division by a host scalar may run
+    as a multiplication by its reciprocal."""
+    n = d.shape[0]
+    d0 = d.float()
+    x = d0.clone()
+    if topk:
+        x = torch.where(x.abs() >= thresh, x, torch.zeros_like(x))
+    if bits != 32 and n:
+        rows = -(-n // LANES)
+        xb = torch.nn.functional.pad(x, (0, rows * LANES - n)).reshape(
+            rows, LANES)
+        qmax = QMAX[bits]
+        amax = xb.abs().amax(dim=-1, keepdim=True)
+        scale = ((amax / torch.full_like(amax, qmax)) * SCALE_PAD).to(
+            torch.bfloat16).float()
+        pos = scale > 0.0
+        q = torch.where(pos, xb / torch.where(pos, scale, torch.ones_like(scale)),
+                        torch.zeros_like(xb))
+        q = torch.clamp(torch.round(q), -qmax, qmax)
+        x = (q * scale).reshape(-1)[:n]
+    return (x, d0 - x) if with_residual else x
+
+
+def compress_delta(d: torch.Tensor, thresh: Optional[torch.Tensor], *,
+                   bits: int = 32, topk: bool = False,
+                   with_residual: bool = False):
+    """The compressed form of one client's f32 flat delta in one pass:
+    top-k masking at the device threshold ``thresh`` (read only when
+    ``topk``), then blockwise int8/int16 fake quantization (``bits`` 32
+    skips it).  Returns ``c``, or ``(c, r)`` with the error-feedback
+    residual ``r = d − c`` when ``with_residual``; both f32, new
+    tensors.  Pad lanes stay zero."""
+    _check_bits(bits)
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
+    n, dev = d.shape[0], d.device
+    _check_1d("d", d, n, torch.float32, dev)
+    if topk:
+        if thresh is None:
+            raise ValueError("topk=True needs the threshold tensor")
+        _check_1d("thresh", thresh.reshape(1), 1, torch.float32, dev)
+    if not d.is_cuda:
+        return compress_delta_plain(d, thresh, bits=bits, topk=topk,
+                                    with_residual=with_residual)
+    c = torch.empty_like(d)
+    r = torch.empty_like(d) if with_residual else None
+    if n:
+        err = _lib().up_compress_delta(
+            _ptr(d), _ptr(thresh) if topk else None, _ptr(c), _ptr(r), n,
+            bits, bool(topk), _stream(d))
+        _check_launch("compress_delta", err)
+        compress_delta.launches += 1
+    return (c, r) if with_residual else c
+
+
+compress_delta.launches = 0
+
+
+def _check_k(k: int, n: int) -> int:
+    k = int(k)
+    if not 1 <= k <= n:
+        raise ValueError(f"topk_threshold needs 1 <= k <= {n}, got {k}")
+    return k
+
+
+def topk_threshold_plain(d, k: int) -> torch.Tensor:
+    """τ = the k-th largest |d| as a 0-dim f32 tensor, by the JAX
+    package's greedy search: 31 compare-and-count steps over the bits of
+    |d| (a non-negative float orders like its int32 bit pattern), most
+    significant first, keeping a bit while at least k elements are at or
+    above the candidate.  No value crosses to the host."""
+    k = _check_k(k, d.shape[0])
+    bits = d.float().abs().view(torch.int32)
+    prefix = torch.zeros((), dtype=torch.int32, device=d.device)
+    for shift in range(30, -1, -1):
+        cand = prefix | (1 << shift)
+        keep = (bits >= cand).sum() >= k
+        prefix = torch.where(keep, cand, prefix)
+    return prefix.view(torch.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def _topk_workspace_words() -> int:
+    return int(_lib().up_topk_workspace_words())
+
+
+def topk_threshold(d: torch.Tensor, k: int) -> torch.Tensor:
+    """τ = the k-th largest |d| of a 1-D f32 buffer, exactly, as a 0-dim
+    f32 tensor on ``d``'s device; the card never waits on the host and
+    the host never reads τ.  Zero padding appended to ``d`` leaves τ
+    unchanged when ``k`` counts logical elements.  On a CUDA tensor it
+    runs ``TOPK_LAUNCHES`` radix passes."""
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
+    n, dev = d.shape[0], d.device
+    _check_1d("d", d, n, torch.float32, dev)
+    k = _check_k(k, n)
+    if not d.is_cuda:
+        return topk_threshold_plain(d, k)
+    tau = torch.empty((), dtype=torch.float32, device=dev)
+    ws = torch.empty(_topk_workspace_words(), dtype=torch.int32, device=dev)
+    err = _lib().up_topk_threshold(_ptr(d), n, k, _ptr(tau), _ptr(ws),
+                                   _stream(d))
+    _check_launch("topk_threshold", err)
+    topk_threshold.launches += TOPK_LAUNCHES
+    return tau
+
+
+topk_threshold.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# DP clip + noise: the materialized private upload of one client
+# ---------------------------------------------------------------------------
+
+def dp_clip_noise_plain(d, z, scalars):
+    """``u = clip_scale·d (+ noise_scale·z)``, f32; ``scalars`` is the
+    f32 ``(clip_scale, noise_scale)`` tensor."""
+    u = scalars[0] * d.float()
+    if z is not None:
+        u = u + scalars[1] * z
+    return u
+
+
+def dp_clip_noise(d: torch.Tensor, z: Optional[torch.Tensor],
+                  scalars: torch.Tensor) -> torch.Tensor:
+    """One client's DP upload over a 1-D f32 delta in one pass, as a new
+    f32 tensor: the delta scaled by ``clip_scale`` plus ``noise_scale``
+    times the standard-normal buffer ``z`` (``z=None`` drops the noise
+    term).  Pad lanes stay zero."""
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
+    n, dev = d.shape[0], d.device
+    _check_1d("d", d, n, torch.float32, dev)
+    if z is not None:
+        _check_1d("z", z, n, torch.float32, dev)
+    _check_1d("scalars", scalars, 2, torch.float32, dev)
+    if not d.is_cuda:
+        return dp_clip_noise_plain(d, z, scalars)
+    out = torch.empty_like(d)
+    if n:
+        err = _lib().up_dp_clip_noise(_ptr(out), _ptr(d), _ptr(z),
+                                      _ptr(scalars), n, _stream(d))
+        _check_launch("dp_clip_noise", err)
+        dp_clip_noise.launches += 1
+    return out
+
+
+dp_clip_noise.launches = 0
+
+KERNELS = (local_step, weighted_delta, server_update, compress_delta,
+           topk_threshold, dp_clip_noise)
 
 
 def reset_launch_counts() -> None:

@@ -43,6 +43,13 @@ SIGNATURES = {
     "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
     # y, final, x, dt, A, Bm, Cm, b, s, h, p, g, n, chunk, dtype, stream
     "ssd_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # d, tau, c, r, n, bits, topk, stream
+    "up_compress_delta": [P, P, P, P, L, I, I, P],
+    # d, n, k, tau, workspace, stream
+    "up_topk_threshold": [P, L, L, P, P, P],
+    "up_topk_workspace_words": [],
+    # out, d, z, scalars, n, stream
+    "up_dp_clip_noise": [P, P, P, P, L, P],
 }
 
 

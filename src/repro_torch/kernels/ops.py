@@ -6,7 +6,9 @@ The counterpart of ``repro/kernels/ops.py``.  The models call
 CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
 (``interpret=True``: the plain version on any device).
 
-The FL layers call the ``fused_*`` half through
+The FL layers call the ``fused_*`` half (the update kernels, and the
+client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``
+and ``fused_dp_clip_noise``) through
 ``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
 ``interpret=fused_interpret(impl)``:
 
@@ -89,3 +91,28 @@ def fused_server_update(p, delta, moments, scalars, *, opt: str = "none",
     fn = _fu.server_update_plain if interpret else _fu.server_update
     return fn(p, delta, tuple(moments), scalars, opt=opt, beta=beta, b1=b1,
               b2=b2, eps=eps)
+
+
+def fused_compress_delta(d, thresh, *, bits: int = 32, topk: bool = False,
+                         with_residual: bool = False,
+                         interpret: bool = False):
+    """Compressed form of one client's f32 flat delta: top-k mask at the
+    device threshold, blockwise int8/int16 fake quantization; returns
+    ``c`` or ``(c, r)``."""
+    fn = _fu.compress_delta_plain if interpret else _fu.compress_delta
+    return fn(d, thresh, bits=bits, topk=topk, with_residual=with_residual)
+
+
+def fused_topk_threshold(d, k: int, *, interpret: bool = False
+                         ) -> torch.Tensor:
+    """The k-th largest |d| of a flat f32 buffer, a 0-dim device tensor."""
+    fn = _fu.topk_threshold_plain if interpret else _fu.topk_threshold
+    return fn(d, k)
+
+
+def fused_dp_clip_noise(d, z, scalars, *, interpret: bool = False
+                        ) -> torch.Tensor:
+    """One client's DP upload ``clip_scale·d (+ noise_scale·z)``;
+    ``scalars`` is the f32 ``(clip_scale, noise_scale)`` tensor."""
+    fn = _fu.dp_clip_noise_plain if interpret else _fu.dp_clip_noise
+    return fn(d, z, scalars)

@@ -30,3 +30,25 @@ def seeded_generator(seed: int, device: Device = "cpu") -> torch.Generator:
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
     return gen
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer over one 64-bit word."""
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_in(key: int, *data: int) -> int:
+    """A 63-bit generator seed from ``key`` with each integer of
+    ``data`` folded in, in order — the port's counterpart of
+    ``jax.random.fold_in`` for seeding ``torch.Generator``s.  Stable
+    across processes and machines (plain integer arithmetic)."""
+    x = int(key) & _MASK64
+    for v in data:
+        x = _mix64(x ^ _mix64(int(v) & _MASK64))
+    return x >> 1

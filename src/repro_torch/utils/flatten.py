@@ -28,6 +28,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.utils.device import fold_in
 from repro_torch.utils.tree_math import tree_flatten, tree_unflatten
 
 Pytree = Any
@@ -164,3 +165,23 @@ class FlatView:
         return {name: torch.zeros((size,), dtype=dtype or torch_dtype(name),
                                   device=device)
                 for name, size in self.buffer_sizes.items()}
+
+    def normal(self, key: int, device=None) -> Dict[str, torch.Tensor]:
+        """Standard-normal f32 buffers over this plan, drawn PER LEAF:
+        leaf ``i`` (tree_flatten order) draws at its own shape from a
+        generator on ``device`` seeded with ``fold_in(key, i)``, then
+        packs like :meth:`flatten`.  The draws do not depend on the
+        packing, so ``repro_torch.fl.privacy.tree_normal`` gives the
+        same values per parameter.  Integer leaves draw zeros."""
+        gen = torch.Generator(device=device or "cpu")
+        parts: Dict[str, list] = {}
+        for i, slot in enumerate(self.slots):
+            if torch_dtype(slot.buffer).is_floating_point:
+                gen.manual_seed(fold_in(key, i))
+                draw = torch.randn(slot.shape, generator=gen,
+                                   dtype=torch.float32, device=device)
+            else:
+                draw = torch.zeros(slot.shape, dtype=torch.float32,
+                                   device=device)
+            parts.setdefault(slot.buffer, []).append(draw.reshape(-1))
+        return {name: torch.cat(chunks) for name, chunks in parts.items()}

@@ -61,7 +61,8 @@ def test_launch_counts_and_checks(gen):
     fu.weighted_delta(torch.stack([p, p]), p,
                       torch.full((2,), 0.5, device="cuda"))
     fu.server_update(p, torch.zeros_like(p), (), sc[:1], opt="none")
-    assert [k.launches for k in fu.KERNELS] == [1, 1, 1]
+    # local_step, weighted_delta, server_update, then the upload kernels
+    assert [k.launches for k in fu.KERNELS] == [1, 1, 1, 0, 0, 0]
     with pytest.raises(ValueError):
         fu.local_step(p, p.cpu(), None, None, sc)
     torch.cuda.synchronize()
@@ -156,4 +157,87 @@ def test_attention_and_scan_count_launches_and_check(gen):
         Bb = torch.randn(1, 8, 1, 256, device="cuda")
         ssd.ssd_scan(xb, dt, A, Bb, Bb, chunk=128)
     assert (fa.flash_attention.launches, ssd.ssd_scan.launches) == (1, 1)
+    torch.cuda.synchronize()
+
+
+# The client-upload kernels (K4 compress_delta, the top-k threshold, K5
+# dp_clip_noise) against their plain versions, bitwise: both round every
+# step the same way (_rn intrinsics, rintf, bf16 round-to-nearest-even),
+# and the threshold is an exact selection.
+
+UPLOAD_SIZES = (1, 127, 1000, 4099, 137_216)
+
+
+def _delta(gen, n):
+    d = torch.randn(n, generator=gen, device="cuda")
+    if n >= 256:
+        d[128:256] = 0.0                # an all-zero row
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UPLOAD_SIZES)
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_compress_delta_matches_plain_bitwise(gen, n, bits):
+    d = _delta(gen, n)
+    k = max(1, -(-n // 4))
+    tau = fu.topk_threshold(d, k)
+    for topk in (False, True):
+        for res in (False, True):
+            got = fu.compress_delta(d, tau, bits=bits, topk=topk,
+                                    with_residual=res)
+            want = fu.compress_delta_plain(d, tau, bits=bits, topk=topk,
+                                           with_residual=res)
+            got, want = (got, want) if res else ((got,), (want,))
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), float((g - w).abs().max())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UPLOAD_SIZES + (4096 + 3,))
+def test_topk_threshold_matches_plain_bitwise(gen, n):
+    d = _delta(gen, n)
+    ties = torch.randint(-3, 4, (n,), generator=gen, device="cuda") / 4.0
+    sub = d * 1e-39                                     # subnormals
+    for x in (d, ties, sub, torch.zeros(n, device="cuda")):
+        for k in sorted({1, max(1, n // 4), max(1, n // 2), n}):
+            before = fu.topk_threshold.launches
+            got = fu.topk_threshold(x, k)
+            assert fu.topk_threshold.launches - before == fu.TOPK_LAUNCHES
+            want = fu.topk_threshold_plain(x, k)
+            assert got.view(torch.int32) == want.view(torch.int32), (k, n)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 1001, 137_216))
+def test_dp_clip_noise_matches_plain_bitwise(gen, n):
+    d = torch.randn(n, generator=gen, device="cuda")
+    z = torch.randn(n, generator=gen, device="cuda")
+    sc = torch.tensor([0.37, 0.11], device="cuda")
+    for zz in (None, z):
+        assert torch.equal(fu.dp_clip_noise(d, zz, sc),
+                           fu.dp_clip_noise_plain(d, zz, sc))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_upload_kernels_count_launches_and_check(gen):
+    fu.reset_launch_counts()
+    d = torch.randn(4096, generator=gen, device="cuda")
+    tau = fu.topk_threshold(d, 100)
+    fu.compress_delta(d, tau, bits=8, topk=True)
+    fu.dp_clip_noise(d, None, torch.ones(2, device="cuda"))
+    assert [k.launches for k in fu.KERNELS] == [0, 0, 0, 1,
+                                               fu.TOPK_LAUNCHES, 1]
+    with pytest.raises(ValueError):
+        fu.topk_threshold(d, 0)
+    with pytest.raises(ValueError):
+        fu.compress_delta(d, None, bits=8, topk=True)
+    with pytest.raises(ValueError):
+        fu.compress_delta(d, tau, bits=4)
+    with pytest.raises(TypeError):
+        fu.dp_clip_noise(d.bfloat16(), None, torch.ones(2, device="cuda"))
+    assert fu.compress_delta.launches == 1
     torch.cuda.synchronize()

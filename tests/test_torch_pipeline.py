@@ -269,9 +269,6 @@ def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
     ({"algorithm": "scaffold"}, "M4b"),
     ({"algorithm": "fedprox"}, "M4b"),
     ({"algorithm": "moon"}, "M4b"),
-    ({"dp": object()}, "M8"),
-    ({"secure_agg": True}, "M8"),
-    ({"compression": object()}, "M9"),
     ({"peft": "lora:8"}, "M11"),
     ({"trainable_filter": "head"}, "M11"),
 ])

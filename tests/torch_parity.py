@@ -34,6 +34,45 @@ def jax_engine_indices(seed: int, rounds: int, K: int, n_steps: int,
     return np.stack(out)
 
 
+def jax_round_keys(seed: int, rounds: int):
+    """The round keys ``repro.fl.engine`` threads into each round body
+    under ``sampling="host"``: per round ``key, rk = split(key)``."""
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(rounds):
+        key, rk = jax.random.split(key)
+        out.append(rk)
+    return out
+
+
+def jax_draw(rk, template, kind: str, a: int, b=None):
+    """The JAX package's per-leaf privacy draw (``tree_normal``) of one
+    round key as a numpy tree: client ``a``'s DP noise (kind "dp") or
+    the mask of the pair ``a < b`` (kind "mask")."""
+    from repro.fl import privacy as jpriv
+    if kind == "dp":
+        key = jpriv.client_noise_key(jpriv.noise_base_key(rk), a)
+    else:
+        key = jpriv.pair_mask_key(jpriv.mask_base_key(rk), a, b)
+    return jax.tree_util.tree_map(np.array,
+                                  jpriv.tree_normal(key, template))
+
+
+def jax_noise_draws(seed: int, rounds: int, template):
+    """``(round, kind, a, b) -> numpy tree``: the JAX engine's privacy
+    draws for the port's ``noise_draws`` hook (cached: each pair is
+    asked for from both of its endpoints)."""
+    keys = jax_round_keys(seed, rounds)
+    cache = {}
+
+    def draws(rnd: int, kind: str, a: int, b=None):
+        k = (rnd, kind, a, b)
+        if k not in cache:
+            cache[k] = jax_draw(keys[rnd], template, kind, a, b)
+        return cache[k]
+    return draws
+
+
 def index_source(idx: np.ndarray):
     """``(round, slot, step) -> LongTensor`` over a precomputed array."""
     def source(rnd: int, slot: int, step: int) -> torch.Tensor:
@@ -76,5 +115,6 @@ def to_torch_params(jparams, device="cpu"):
 
 
 __all__ = ["jax_local_indices", "jax_engine_indices", "index_source",
+           "jax_round_keys", "jax_draw", "jax_noise_draws",
            "jax_leaves", "torch_leaves", "jax_numpy_params", "torch_config",
            "to_torch_params"]
