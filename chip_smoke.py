@@ -602,7 +602,8 @@ def main_path(torch, fu):
     res = run_cyclic_then_federated(task, data, cyc, fed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in fu.KERNELS}
+    launches = {fn.__name__: fn.launches
+                for fn in fu.KERNELS + fu.UPLOAD_KERNELS}
 
     k1, k2 = cyc.n_selected(100), fed.n_selected(100)
     want = {"local_step": cyc.rounds * k1 * cyc.local_steps +
@@ -797,7 +798,8 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     res = run_cyclic_then_federated(task, data, cyc, fed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in fu.KERNELS}
+    launches = {fn.__name__: fn.launches
+                for fn in fu.KERNELS + fu.UPLOAD_KERNELS}
 
     k1, k2 = cyc.n_selected(100), fed.n_selected(100)
     compressed = compression_on(fed.compression)
@@ -956,7 +958,8 @@ def dp_upload(torch, fu, params, fed_kw):
                                             stacked, weights, normal_fn)
     torch.cuda.synchronize()
     mat_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in fu.KERNELS}
+    launches = {fn.__name__: fn.launches
+                for fn in fu.KERNELS + fu.UPLOAD_KERNELS}
     want = {"local_step": 0, "weighted_delta": 1, "server_update": 0,
             "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": K}
 

@@ -437,10 +437,11 @@ def dp_clip_noise(d: torch.Tensor, z: Optional[torch.Tensor],
 
 dp_clip_noise.launches = 0
 
-KERNELS = (local_step, weighted_delta, server_update, compress_delta,
-           topk_threshold, dp_clip_noise)
+# the update kernels and the client-upload kernels
+KERNELS = (local_step, weighted_delta, server_update)
+UPLOAD_KERNELS = (compress_delta, topk_threshold, dp_clip_noise)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS + UPLOAD_KERNELS:
         fn.launches = 0

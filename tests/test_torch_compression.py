@@ -161,6 +161,15 @@ def test_topk_threshold_plain_matches_jax_bitwise(d, k):
     assert torch.equal(comp.topk_threshold(torch.from_numpy(d), k), got)
 
 
+def test_cpu_tensors_never_count_upload_launches():
+    fu.reset_launch_counts()
+    g = torch.randn(300)
+    tau = fu.topk_threshold(g, 4)
+    fu.compress_delta(g, tau, bits=8, topk=True, with_residual=True)
+    fu.dp_clip_noise(g, g, torch.tensor([1.0, 0.1]))
+    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 6
+
+
 def test_topk_threshold_rejects_bad_k():
     t = torch.ones(10)
     for k in (0, 11):

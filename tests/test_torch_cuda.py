@@ -61,8 +61,7 @@ def test_launch_counts_and_checks(gen):
     fu.weighted_delta(torch.stack([p, p]), p,
                       torch.full((2,), 0.5, device="cuda"))
     fu.server_update(p, torch.zeros_like(p), (), sc[:1], opt="none")
-    # local_step, weighted_delta, server_update, then the upload kernels
-    assert [k.launches for k in fu.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert [k.launches for k in fu.KERNELS] == [1, 1, 1]
     with pytest.raises(ValueError):
         fu.local_step(p, p.cpu(), None, None, sc)
     torch.cuda.synchronize()
@@ -229,8 +228,8 @@ def test_upload_kernels_count_launches_and_check(gen):
     tau = fu.topk_threshold(d, 100)
     fu.compress_delta(d, tau, bits=8, topk=True)
     fu.dp_clip_noise(d, None, torch.ones(2, device="cuda"))
-    assert [k.launches for k in fu.KERNELS] == [0, 0, 0, 1,
-                                               fu.TOPK_LAUNCHES, 1]
+    assert [k.launches for k in fu.KERNELS] == [0, 0, 0]
+    assert [k.launches for k in fu.UPLOAD_KERNELS] == [1, fu.TOPK_LAUNCHES, 1]
     with pytest.raises(ValueError):
         fu.topk_threshold(d, 0)
     with pytest.raises(ValueError):

@@ -171,10 +171,7 @@ def test_cpu_tensors_never_count_launches():
     fu.weighted_delta(torch.ones(2, 8), p, torch.tensor([0.5, 0.5]))
     fu.server_update(p, torch.ones(8), (torch.zeros(8),), torch.tensor([1.0]),
                      opt="momentum")
-    tau = fu.topk_threshold(g, 4)
-    fu.compress_delta(g, tau, bits=8, topk=True, with_residual=True)
-    fu.dp_clip_noise(g, g, torch.tensor([1.0, 0.1]))
-    assert [k.launches for k in fu.KERNELS] == [0] * 6
+    assert [k.launches for k in fu.KERNELS] == [0, 0, 0]
 
 
 def test_interpret_selects_plain_versions():
