@@ -41,9 +41,11 @@ JSON line per phase:
      p2_private    — the same with DP-FedAvg (C = 1, σ = 0.1) and secure
                      aggregation: K2 carries the clip and the noise/mask
                      total, mask bytes == 4 × secure_agg_mask_bytes(10);
-     dp_upload     — one round's 10 client uploads built with K5 from
-                     the private round's draws and summed by K2 against
-                     the folded aggregate (10 K5 launches asserted);
+     dp_upload     — the 10 client uploads of one private engine round
+                     (seen through RoundSchedule.on_aggregate), built
+                     with K5 from the round's draws and summed by K2,
+                     against the engine's folded aggregate (10 K5
+                     launches asserted);
      p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
                      private configurations (and private under device
                      sampling), in turns from the same P1 params;
@@ -903,54 +905,45 @@ def upload_e2e(torch, task, data, fed_kw):
 
 
 def dp_upload(torch, fu, params, fed_kw):
-    """Phase dp_upload: one private round's 10 client uploads.  The
-    clients' end states come from the P2 local run (the port's local fn
-    from ``params``, 25 SGD steps each); each upload is built by K5 from
-    the round's keyed draws and the uploads are summed by K2 with the
-    mask total as ``extra`` (``privacy.materialized_dp_aggregate``),
-    then held against the folded aggregate (``fused_dp_aggregate``).
-    Tolerance: |materialized − folded| ≤ 1e-5·(|p| + Σₖ|w̄ₖ·uₖ| +
-    Σᵢ|mᵢ|) + 1e-7 elementwise: the two forms associate the same terms
-    differently (f32 reassociation)."""
-    import numpy as np
+    """Phase dp_upload: the 10 client uploads of one private P2 round.
+    The engine runs the round (``run_rounds`` from ``params``, 10
+    clients × 25 SGD steps, host sampling) and hands its inputs, start
+    buffers, stacked client end states and folded aggregate
+    (``fused_dp_aggregate``) to ``RoundSchedule.on_aggregate``.  From
+    those, each upload is built by K5 from the round's keyed draws and
+    the uploads are summed by K2 with the mask total as ``extra``
+    (``privacy.materialized_dp_aggregate``), then held against the
+    engine's folded aggregate.  Tolerance: |materialized − folded| ≤
+    1e-5·(|p| + Σₖ|w̄ₖ·uₖ| + Σᵢ|mᵢ|) + 1e-7 elementwise: the two forms
+    associate the same terms differently (f32 reassociation)."""
+    import dataclasses
     from repro_torch.fl import privacy
-    from repro_torch.fl.local import host_flat_ops, make_local_fn
+    from repro_torch.fl.engine import run_rounds
+    from repro_torch.fl.local import host_flat_ops
     from repro_torch.fl.simulation import FLConfig
-    from repro_torch.utils.device import fold_in
 
     task, data = lenet_setup()
     dev = torch.device("cuda")
-    fed = FLConfig(participation=0.1, local_steps=25, update_impl="fused",
-                   **fed_kw)
+    fed = FLConfig(rounds=1, participation=0.1, local_steps=25,
+                   update_impl="fused", sampling="host", eval_every=0,
+                   seed=SEED, **fed_kw)
     dp, secure_agg = fed.dp, fed.secure_agg
-    fops = host_flat_ops(task, False, dev)
-    p = fops.place(fops.flatten(params))
-    ids = [int(i) for i in np.random.default_rng(SEED).choice(
-        100, size=10, replace=False)]
+    seen = {}
+
+    def capture(rnd, inputs, p, stacked, new_p):
+        seen.update(inputs=inputs, p=p, stacked=stacked, folded=new_p)
+
+    run_rounds(task, data, fed.strategy(),
+               dataclasses.replace(fed.schedule(), on_aggregate=capture),
+               init_params=params)
+    inputs, p, stacked, folded = (seen[k] for k in
+                                  ("inputs", "p", "stacked", "folded"))
+    ids = inputs.id_list()
     K = len(ids)
-    x_all, y_all, n_real = data.device_arrays(dev)
-    n_per = data.n_per_client
-    x_rows = x_all.reshape((-1,) + tuple(x_all.shape[2:]))
-    y_rows = y_all.reshape((-1,) + tuple(y_all.shape[2:]))
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    local = make_local_fn(task, fed.local_spec(), fops)
-    stacked = fops.stacked_empty(K)
-    lr_scale = torch.ones((), device=dev)
-    for slot, cid in enumerate(ids):
-        row = {k: b[slot] for k, b in stacked.items()}
-        for k, r in row.items():
-            r.copy_(p[k])
+    weights = inputs.weights
+    fops = host_flat_ops(task, False, dev)
+    normal_fn = privacy.keyed_normal_fn(inputs.round_key, fops.normal)
 
-        def sample(step, cid=cid):
-            rows = cid * n_per + torch.randint(0, n_per, (32,), generator=gen,
-                                               device=dev)
-            return x_rows.index_select(0, rows), y_rows.index_select(0, rows)
-        local(row, sample, lr_scale)
-    weights = n_real[torch.tensor(ids, device=dev)].to(torch.float32)
-    normal_fn = privacy.keyed_normal_fn(fold_in(SEED, 0), fops.normal)
-
-    folded = privacy.fused_dp_aggregate(dp, secure_agg, fops, ids, p, stacked,
-                                        weights, normal_fn)
     fu.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()

@@ -44,6 +44,9 @@ client id (``RoundInputs.round_key`` and the ids on the host: under
 ``sampling="device"`` that is one device→host read of the ids per
 round), or come from ``schedule.noise_draws`` when it is set (the parity
 tests inject the JAX package's threefry draws through it).
+``schedule.on_aggregate`` sees each P2 aggregate's inputs, start
+buffers, stacked client end states and new params (``chip_smoke.py``
+rebuilds a private round's uploads from them).
 
 Not ported yet: the fedprox/scaffold/moon algorithms and their client
 state (ROADMAP.md item M4b), the sparse store and the overlapped
@@ -141,6 +144,8 @@ class RoundInputs:
     # (kind, a, b) -> f32 param-shaped tree: replaces the keyed draws
     draws: Optional[Callable[[str, int, Optional[int]], Pytree]] = None
     host_ids: Optional[List[int]] = None    # the ids on the host, if known
+    # (inputs, params, stacked, new_params) -> None, after the aggregate
+    on_aggregate: Optional[Callable[..., None]] = None
 
     def id_list(self) -> List[int]:
         """The client ids as host integers (the privacy draws are keyed
@@ -274,12 +279,6 @@ class AggregateStrategy(HostBackend):
         return self.algorithm
 
     @property
-    def _ef_store(self) -> DenseClientStateStore:
-        """The store of the error-feedback residual rows (the dense
-        store keeps no state of its own, so it is shared)."""
-        return self.state_store
-
-    @property
     def _ef(self) -> bool:
         comp = self.spec.compression
         return compression.compression_on(comp) and comp.error_feedback
@@ -294,7 +293,7 @@ class AggregateStrategy(HostBackend):
         tmpl = (fops.zeros(torch.float32) if fops is not None else
                 FlatView.of(param_shapes(task)).zeros(
                     torch.float32, self._device(params)))
-        return {"ef_residuals": self._ef_store.init(tmpl, n_clients)}
+        return {"ef_residuals": self.state_store.init(tmpl, n_clients)}
 
     @staticmethod
     def _device(params: Pytree) -> torch.device:
@@ -375,7 +374,7 @@ class AggregateStrategy(HostBackend):
         plain FedAvg — on trees (``fops`` None) or flat buffers."""
         spec = self.spec
         comp = spec.compression
-        ef, store = self._ef, self._ef_store
+        ef, store = self._ef, self.state_store
 
         def to_device(tree):
             return tm.tree_map(lambda x: torch.as_tensor(x).to(
@@ -438,6 +437,8 @@ class AggregateStrategy(HostBackend):
                 stacked = tm.tree_map(lambda *xs: torch.stack(xs), *ends)
                 new_params, algo_state = aggregate(inputs, params, stacked,
                                                    algo_state)
+                if inputs.on_aggregate is not None:
+                    inputs.on_aggregate(inputs, params, stacked, new_params)
                 return new_params, algo_state, torch.stack(losses).mean()
             return body
 
@@ -453,6 +454,8 @@ class AggregateStrategy(HostBackend):
                 losses.append(loss)
             new_params, algo_state = aggregate(inputs, params, stacked,
                                                algo_state)
+            if inputs.on_aggregate is not None:
+                inputs.on_aggregate(inputs, params, stacked, new_params)
             return new_params, algo_state, torch.stack(losses).mean()
 
         return body
@@ -527,6 +530,10 @@ class RoundSchedule:
     # privacy draws (kind "dp", a = client id; kind "mask", a < b)
     noise_draws: Optional[Callable[[int, str, int, Optional[int]],
                                    Pytree]] = None
+    # (round, inputs, params, stacked, new_params) -> None: sees each
+    # aggregate's inputs and buffers (chip_smoke.py rebuilds a private
+    # round's uploads from them)
+    on_aggregate: Optional[Callable[..., None]] = None
 
     def __post_init__(self):
         if self.sampling not in ("device", "host"):
@@ -650,7 +657,9 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                 round_key=fold_in(schedule.seed, rnd + j),
                 draws=round_draws(rnd + j),
                 host_ids=None if ids_np is None else
-                [int(i) for i in ids_np[j]])
+                [int(i) for i in ids_np[j]],
+                on_aggregate=None if schedule.on_aggregate is None else
+                functools.partial(schedule.on_aggregate, rnd + j))
             new_params, algo_state, loss = body(params, inputs, lr_scales[j],
                                                 algo_state)
             if server is not None:

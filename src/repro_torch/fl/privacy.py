@@ -289,8 +289,9 @@ def materialized_dp_aggregate(dp: DPSpec, secure_agg: bool, fops,
     ``uₖ = scaleₖ·δₖ + σC·zₖ`` is built by one ``dp_clip_noise`` kernel
     per bucket from the same draws, and ``cast(p₃₂ + masks + Σₖ w̄ₖ·uₖ)``
     by one ``weighted_delta(deltas=True)`` per bucket with the mask
-    total as ``extra``.  Equal to the folded aggregate up to f32
-    reassociation.  Needs f32 buffers."""
+    total as ``extra`` (the f32 uploads aggregate over buffers of any
+    param dtype).  Equal to the folded aggregate up to f32
+    reassociation."""
     wbar = (weights / torch.sum(weights)).to(torch.float32)
     names = list(stacked_bufs)
     scales = stacked_clip_scales(dp, [p_bufs[n] for n in names],

@@ -73,10 +73,6 @@ class FLConfig:
     # (round, client_slot, step) -> LongTensor (B,): replaces the
     # engine's generator draws for the batch indices
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
-    # (round, kind, a, b) -> f32 param-shaped tree: replaces the keyed
-    # privacy draws (RoundSchedule.noise_draws)
-    noise_draws: Optional[Callable[[int, str, int, Optional[int]],
-                                   Pytree]] = None
 
     def __post_init__(self):
         validate_update_impl(self.update_impl)
@@ -112,7 +108,7 @@ class FLConfig:
             eval_every=self.eval_every, eval_batch=self.eval_batch,
             seed=self.seed, chunk_size=self.chunk_size,
             sampling=self.sampling, host_rng_offset=HOST_RNG_OFFSET_P2,
-            batch_indices=self.batch_indices, noise_draws=self.noise_draws)
+            batch_indices=self.batch_indices)
 
 
 @dataclasses.dataclass

@@ -190,9 +190,11 @@ int launch_local_step(void* p, const void* g, void* m, const void* c,
 // weighted_delta (runtime K, ascending k, per-element register accumulator)
 // ---------------------------------------------------------------------------
 
-template <typename T, int V, bool HAS_EXTRA, bool DELTAS>
+// S is the stack's type: T, or f32 over bf16 params when the stack holds
+// client deltas (the compressed and the materialized DP uploads).
+template <typename T, typename S, int V, bool HAS_EXTRA, bool DELTAS>
 __global__ void __launch_bounds__(kThreads)
-weighted_delta_kernel(T* __restrict__ out, const T* __restrict__ stacked,
+weighted_delta_kernel(T* __restrict__ out, const S* __restrict__ stacked,
                       const T* __restrict__ p, const float* __restrict__ w,
                       const float* __restrict__ extra, long long n, int K,
                       long long n_vec) {
@@ -210,7 +212,9 @@ weighted_delta_kernel(T* __restrict__ out, const T* __restrict__ stacked,
     }
     for (int k = 0; k < K; ++k) {
       const float wk = w[k];
-      load<T, V>(stacked + static_cast<long long>(k) * n + off, sv);
+      const S* row = stacked + static_cast<long long>(k) * n + off;
+      if constexpr (std::is_same<S, T>::value) load<T, V>(row, sv);
+      else load_f32<V>(row, sv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float term = DELTAS ? sv[j] : __fsub_rn(sv[j], pv[j]);
@@ -223,7 +227,7 @@ weighted_delta_kernel(T* __restrict__ out, const T* __restrict__ stacked,
   }
 }
 
-template <typename T>
+template <typename T, typename S>
 int launch_weighted_delta(void* out, const void* stacked, const void* p,
                           const float* w, const float* extra, long long n, int K,
                           bool deltas, cudaStream_t stream) {
@@ -234,9 +238,9 @@ int launch_weighted_delta(void* out, const void* stacked, const void* p,
   auto go = [&](auto VEC, auto HE, auto DL) {
     constexpr int V = decltype(VEC)::value ? VW : 1;
     const long long n_vec = n / V;
-    weighted_delta_kernel<T, V, decltype(HE)::value, decltype(DL)::value>
+    weighted_delta_kernel<T, S, V, decltype(HE)::value, decltype(DL)::value>
         <<<grid_for(n_vec), kThreads, 0, stream>>>(
-            static_cast<T*>(out), static_cast<const T*>(stacked),
+            static_cast<T*>(out), static_cast<const S*>(stacked),
             static_cast<const T*>(p), w, extra, n, K, n_vec);
   };
   dispatch_bool(vec, [&](auto VEC) {
@@ -345,14 +349,18 @@ int fu_local_step(void* p, const void* g, void* m, const void* c,
 
 int fu_weighted_delta(void* out, const void* stacked, const void* p,
                       const void* w, const void* extra, long long n, int K,
-                      int dtype, int deltas, void* stream) {
+                      int dtype, int stacked_dtype, int deltas, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto wf = static_cast<const float*>(w);
   auto ef = static_cast<const float*>(extra);
-  if (dtype == 0)
-    return launch_weighted_delta<float>(out, stacked, p, wf, ef, n, K, deltas, s);
-  if (dtype == 1)
-    return launch_weighted_delta<__nv_bfloat16>(out, stacked, p, wf, ef, n, K, deltas, s);
+  if (dtype == 0 && stacked_dtype == 0)
+    return launch_weighted_delta<float, float>(out, stacked, p, wf, ef, n, K, deltas, s);
+  if (dtype == 1 && stacked_dtype == 1)
+    return launch_weighted_delta<__nv_bfloat16, __nv_bfloat16>(out, stacked, p, wf, ef,
+                                                               n, K, deltas, s);
+  if (dtype == 1 && stacked_dtype == 0 && deltas)
+    return launch_weighted_delta<__nv_bfloat16, float>(out, stacked, p, wf, ef, n, K,
+                                                       deltas, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

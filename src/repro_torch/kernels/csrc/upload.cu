@@ -190,13 +190,17 @@ int launch_compress_delta(const float* d, const float* tau, float* c, float* r,
 // topk_threshold: radix select, one 8-bit digit of |d|'s bits per launch
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void count_key(unsigned bits, unsigned hi_mask,
-                                          unsigned prefix, int shift,
-                                          unsigned* hist) {
-  const unsigned key = (bits & hi_mask) == prefix ? (bits >> shift) & 0xFFu
-                                                  : static_cast<unsigned>(kBins);
+// Called by every lane of the warp together (the loops below give all 32
+// lanes the same trip count), so the full mask names converged lanes;
+// a lane past the end of the data passes valid = false and counts nothing.
+__device__ __forceinline__ void count_key(bool valid, unsigned bits,
+                                          unsigned hi_mask, unsigned prefix,
+                                          int shift, unsigned* hist) {
+  const unsigned key = valid && (bits & hi_mask) == prefix
+                           ? (bits >> shift) & 0xFFu
+                           : static_cast<unsigned>(kBins);
   // lanes with the same digit add once, by their lowest lane
-  const unsigned peers = __match_any_sync(__activemask(), key);
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
   if (key < kBins && (__ffs(peers) - 1) == static_cast<int>(threadIdx.x & 31))
     atomicAdd(&hist[key], static_cast<unsigned>(__popc(peers)));
 }
@@ -219,21 +223,30 @@ topk_pass_kernel(const float* __restrict__ d, long long n, unsigned k,
   for (int i = threadIdx.x; i < kBins; i += blockDim.x) hist[i] = 0;
   __syncthreads();
 
+  // warp-uniform trip counts: i0 is the warp's first index
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x +
+                          (threadIdx.x & ~31);
   if constexpr (VEC) {
     const long long n_vec = n / 4;
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < n_vec; i += stride) {
-      const float4 v = *reinterpret_cast<const float4*>(d + 4 * i);
-      count_key(__float_as_uint(fabsf(v.x)), hi_mask, prefix, shift, hist);
-      count_key(__float_as_uint(fabsf(v.y)), hi_mask, prefix, shift, hist);
-      count_key(__float_as_uint(fabsf(v.z)), hi_mask, prefix, shift, hist);
-      count_key(__float_as_uint(fabsf(v.w)), hi_mask, prefix, shift, hist);
+    for (long long i0 = first; i0 < n_vec; i0 += stride) {
+      const long long i = i0 + lane;
+      const bool valid = i < n_vec;
+      const float4 v = valid ? *reinterpret_cast<const float4*>(d + 4 * i)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      count_key(valid, __float_as_uint(fabsf(v.x)), hi_mask, prefix, shift, hist);
+      count_key(valid, __float_as_uint(fabsf(v.y)), hi_mask, prefix, shift, hist);
+      count_key(valid, __float_as_uint(fabsf(v.z)), hi_mask, prefix, shift, hist);
+      count_key(valid, __float_as_uint(fabsf(v.w)), hi_mask, prefix, shift, hist);
     }
   } else {
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < n; i += stride)
-      count_key(__float_as_uint(fabsf(d[i])), hi_mask, prefix, shift, hist);
+    for (long long i0 = first; i0 < n; i0 += stride) {
+      const long long i = i0 + lane;
+      const bool valid = i < n;
+      count_key(valid, valid ? __float_as_uint(fabsf(d[i])) : 0u, hi_mask,
+                prefix, shift, hist);
+    }
   }
   __syncthreads();
   unsigned* g = ws + PASS * kBins;

@@ -161,14 +161,18 @@ def weighted_delta(stacked: torch.Tensor, p: torch.Tensor,
                    deltas: bool = False) -> torch.Tensor:
     """FedAvg aggregation over a stacked ``(K, N)`` buffer with the
     ``(K,)`` f32 normalized client weights; ``extra`` is an optional f32
-    ``(N,)`` term added in the same pass.  K is read at run time."""
+    ``(N,)`` term added in the same pass.  K is read at run time.  The
+    stack has ``p``'s dtype, or f32 when it holds client deltas
+    (``deltas``), as the compressed and materialized DP uploads are."""
     _check_param(p)
     n, dt, dev = p.shape[0], p.dtype, p.device
     if stacked.dim() != 2 or stacked.shape[1] != n:
         raise ValueError(f"stacked must have shape (K, {n}), got "
                          f"{tuple(stacked.shape)}")
-    if stacked.dtype != dt or stacked.device != dev:
-        raise TypeError("stacked must match p's dtype and device")
+    if stacked.device != dev or not (
+            stacked.dtype == dt or (deltas and stacked.dtype == torch.float32)):
+        raise TypeError("stacked must be on p's device, with p's dtype "
+                        "(or f32 when deltas=True)")
     if not stacked.is_contiguous():
         raise ValueError("stacked must be contiguous")
     K = stacked.shape[0]
@@ -182,7 +186,8 @@ def weighted_delta(stacked: torch.Tensor, p: torch.Tensor,
     if n:
         err = _lib().fu_weighted_delta(
             _ptr(out), _ptr(stacked), _ptr(p), _ptr(weights), _ptr(extra),
-            n, K, _DTYPE_CODE[dt], bool(deltas), _stream(p))
+            n, K, _DTYPE_CODE[dt], _DTYPE_CODE[stacked.dtype], bool(deltas),
+            _stream(p))
         _check_launch("weighted_delta", err)
         weighted_delta.launches += 1
     return out

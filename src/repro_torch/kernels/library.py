@@ -36,7 +36,7 @@ P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types (every launcher returns an int error code)
 SIGNATURES = {
     "fu_local_step": [P, P, P, P, P, L, I, I, I, F, F, P],
-    "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, P],
+    "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, I, P],
     "fu_server_update": [P, P, P, P, P, L, I, I, F, F, F, F, F, F, P],
     # out, q, k, v, B, S, T, H, KH, hd, q_offset, window, kv_len, dtype,
     # stream

@@ -23,7 +23,9 @@ Tolerances:
     difference of a rounding edge (the top-k threshold or a quantization
     midpoint) may land on the other side: at most 0.1% of the elements
     may then differ, each by no more than one quantization step plus τ;
-    ledger bytes exactly.
+    ledger bytes exactly;
+  - a bf16 bucket: its bound above plus one bf16 ulp of the result
+    (2⁻⁷·|x|), since f32 sums that agree to it can round apart.
 """
 import numpy as np
 import pytest
@@ -374,6 +376,92 @@ def test_tree_aggregate_equals_fused_bitwise(spec):
     if ef:
         assert torch.equal(tree_r["float32"], fused_r["float32"][:, :n])
         assert not fused_r["float32"][:, n:].any()
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """``x`` rounded to bf16 values, kept as f32 (exact in both packages)."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("spec", [
+    CompressionSpec(8, 0.25, True), CompressionSpec(16, 0.5, True)],
+    ids=["int8+topk+ef", "int16+topk+ef"])
+def test_bf16_params_compressed_aggregate_matches_jax(spec):
+    """Params with a bf16 bucket beside the f32 one: the f32 compressed
+    deltas aggregate over the bf16 buffer (K2 takes an f32 stack when
+    ``deltas=True``), as the JAX kernel does.  Tolerances: the EF
+    residuals bitwise; the f32 bucket at the summand-relative rtol 1e-6
+    of the test above; the bf16 bucket at that bound plus one bf16 ulp
+    (2⁻⁷·|x|: f32 sums that agree to 1e-6 can round to neighbouring
+    bf16 values).  The port's tree form equals its fused form bitwise."""
+    p, wl, weights = _agg_inputs(K=3, seed=4)
+    p["w"], wl["w"] = _bf16(p["w"]), _bf16(wl["w"])
+    K = weights.shape[0]
+    jtree = {"b": jnp.asarray(p["b"]), "w": jnp.asarray(p["w"], jnp.bfloat16)}
+    jstack = {"b": jnp.asarray(wl["b"]),
+              "w": jnp.asarray(wl["w"], jnp.bfloat16)}
+    jview = JFlatView.of(jtree)
+    jfops = JFlatParamOps(view=jview, interpret=True)
+    jp = jfops.pad(jview.flatten(jtree))
+    jwl = jfops.pad(jview.flatten_stacked(jstack))
+    assert sorted(jp) == ["bfloat16", "float32"]
+    rng = np.random.default_rng(6)
+    res = {}
+    for name, buf in jp.items():
+        n = jview.buffer_sizes[name]
+        res[name] = np.zeros((K, buf.shape[0]), np.float32)
+        res[name][:, :n] = 0.01 * rng.normal(size=(K, n))
+    jnew, jr = jcomp.fused_compressed_aggregate(
+        _jspec(spec), jfops, jp, jwl, jnp.asarray(weights),
+        {k: jnp.asarray(v) for k, v in res.items()})
+
+    def to_t(x, name):
+        t = torch.from_numpy(np.array(x, np.float32))
+        return t.bfloat16() if name == "bfloat16" else t
+    ttree = {"b": torch.from_numpy(p["b"]),
+             "w": torch.from_numpy(p["w"]).bfloat16()}
+    tstack = {"b": torch.from_numpy(wl["b"]),
+              "w": torch.from_numpy(wl["w"]).bfloat16()}
+    view = FlatView.of(ttree)
+    fops = FlatParamOps(view=view, interpret=False, device=torch.device("cpu"))
+    tp = fops.pad(view.flatten(ttree))
+    twl = fops.pad(view.flatten_stacked(tstack))
+    for name in jp:
+        assert torch.equal(tp[name], to_t(jp[name], name))
+        assert torch.equal(twl[name], to_t(jwl[name], name))
+    new, r = comp.fused_compressed_aggregate(
+        spec, fops, tp, twl, torch.from_numpy(weights),
+        {k: torch.from_numpy(v) for k, v in res.items()})
+
+    wbar = weights / weights.sum()
+    for name in jp:
+        n = jview.buffer_sizes[name]
+        p32 = np.asarray(jp[name], np.float32)
+        mag = np.abs(p32)
+        for k in range(K):
+            d = np.asarray(jwl[name][k], np.float32) - p32 + res[name][k]
+            c_k, _ = jcomp.numpy_compress(d[:n], _jspec(spec))
+            mag[:n] += np.abs(np.float32(wbar[k]) * c_k)
+        assert new[name].dtype == tp[name].dtype
+        got = new[name].float().numpy()
+        want = np.asarray(jnew[name], np.float32)
+        bound = 1e-6 * mag + 1e-7
+        if name == "bfloat16":
+            bound = bound + 2.0 ** -7 * np.abs(want)
+        bad = np.abs(got - want) > bound
+        assert not bad.any(), np.abs(got - want)[bad].max()
+        np.testing.assert_array_equal(r[name].numpy(), np.asarray(jr[name]))
+
+    tree_p, tree_r = comp.tree_compressed_aggregate(
+        spec, view, ttree, tstack, torch.from_numpy(weights),
+        {k: torch.from_numpy(v[:, :view.buffer_sizes[k]])
+         for k, v in res.items()})
+    fused_tree = fops.unflatten(new)
+    for k in ttree:
+        assert tree_p[k].dtype == ttree[k].dtype
+        assert torch.equal(tree_p[k], fused_tree[k])
+    for name, n in view.buffer_sizes.items():
+        assert torch.equal(tree_r[name], r[name][:, :n])
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,25 @@ def test_kernels_match_plain_versions_bitwise(gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, 137_216 + 3))
+def test_weighted_delta_f32_deltas_over_bf16_params_bitwise(gen, n):
+    """The compressed and materialized DP uploads: an f32 stack of client
+    deltas over bf16 params, with and without ``extra``."""
+    p = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    st = torch.randn(10, n, generator=gen, device="cuda") * 1e-2
+    w = torch.rand(10, generator=gen, device="cuda")
+    w = w / w.sum()
+    e = torch.randn(n, generator=gen, device="cuda") * 1e-3
+    for extra in (None, e):
+        got = fu.weighted_delta(st, p, w, extra=extra, deltas=True)
+        want = fu.weighted_delta_plain(st, p, w, extra=extra, deltas=True)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    with pytest.raises(TypeError):
+        fu.weighted_delta(st, p, w)             # f32 stack of end states
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_launch_counts_and_checks(gen):
     fu.reset_launch_counts()
     p = torch.randn(4096, generator=gen, device="cuda")
@@ -194,7 +213,7 @@ def test_compress_delta_matches_plain_bitwise(gen, n, bits):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", UPLOAD_SIZES + (4096 + 3,))
+@pytest.mark.parametrize("n", UPLOAD_SIZES + (4096 + 3, 4096 + 4))
 def test_topk_threshold_matches_plain_bitwise(gen, n):
     d = _delta(gen, n)
     ties = torch.randint(-3, 4, (n,), generator=gen, device="cuda") / 4.0

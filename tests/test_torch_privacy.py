@@ -26,8 +26,11 @@ Tolerances:
   - full P2 runs against the JAX package: params atol 1e-4, as in
     ``tests/test_torch_pipeline.py``; ledger bytes exactly;
   - masked against unmasked runs: atol 1e-5 (the masks cancel up to
-    f32 reassociation of O(K) unit-variance terms).
+    f32 reassociation of O(K) unit-variance terms);
+  - a bf16 bucket: its bound above plus one bf16 ulp of the result
+    (2⁻⁷·|x|), since f32 sums that agree to it can round apart.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -52,7 +55,7 @@ from repro_torch.core import comm_accounting as acc
 from repro_torch.core.comm_accounting import CommLedger
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl import engine, privacy
-from repro_torch.fl.local import FlatParamOps, LocalSpec
+from repro_torch.fl.local import FlatParamOps, LocalSpec, host_flat_ops
 from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.simulation import FLConfig, run_federated
 from repro_torch.fl.task import vision_task
@@ -344,6 +347,62 @@ def test_fused_dp_aggregate_matches_jax(dp, secure_agg):
         assert not bad.any(), diff[bad].max()
 
 
+def _torch_magnitude(dp, secure_agg, ids, p, stacked, wbar, scales,
+                     normal_fn, name):
+    """|p| + Σₖ|w̄ₖ·scaleₖ·δₖ| + Σₖ|w̄ₖσC·zₖ| + Σ masks, for one bucket."""
+    p32 = p[name].float()
+    mag = p32.abs()
+    for k, cid in enumerate(ids):
+        mag = mag + (wbar[k] * scales[k] * (stacked[name][k].float() -
+                                            p32)).abs()
+        if dp is not None and dp.noised:
+            mag = mag + (wbar[k] * dp.sigma * dp.clip *
+                         normal_fn("dp", cid)[name]).abs()
+        if secure_agg:
+            for other in ids:
+                if other != cid:
+                    mag = mag + normal_fn("mask", min(cid, other),
+                                          max(cid, other))[name].abs()
+    return mag
+
+
+def test_bf16_params_materialized_upload_matches_folded():
+    """Params with a bf16 bucket: the f32 uploads of the materialized
+    form aggregate over the bf16 buffer.  Tolerance: rtol 1e-5 of the
+    summands (as for f32 above) plus one bf16 ulp of the result
+    (2⁻⁷·|x|)."""
+    p, wl, weights, ids = _agg_case()
+    dp = DPSpec(0.5, 0.3)
+    tp = {"b": torch.from_numpy(p["b"]),
+          "w": torch.from_numpy(p["w"]).bfloat16()}
+    twl = {"b": torch.from_numpy(wl["b"]),
+           "w": torch.from_numpy(wl["w"]).bfloat16()}
+    view = FlatView.of(tp)
+    fops = FlatParamOps(view=view, interpret=False, device=CPU)
+    pb, sb = fops.pad(view.flatten(tp)), fops.pad(view.flatten_stacked(twl))
+    assert sorted(pb) == ["bfloat16", "float32"]
+    w = torch.from_numpy(weights)
+    normal_fn = privacy.keyed_normal_fn(11, fops.normal)
+    folded = privacy.fused_dp_aggregate(dp, True, fops, ids, pb, sb, w,
+                                        normal_fn)
+    mat = privacy.materialized_dp_aggregate(dp, True, fops, ids, pb, sb, w,
+                                            normal_fn)
+    wbar = w / w.sum()
+    names = list(pb)
+    scales = privacy.stacked_clip_scales(dp, [pb[n] for n in names],
+                                         [sb[n] for n in names])
+    for name in names:
+        assert mat[name].dtype == folded[name].dtype == pb[name].dtype
+        mag = _torch_magnitude(dp, True, ids, pb, sb, wbar, scales,
+                               normal_fn, name)
+        want = folded[name].float()
+        bound = 1e-5 * mag + 1e-7
+        if name == "bfloat16":
+            bound = bound + 2.0 ** -7 * want.abs()
+        diff = (mat[name].float() - want).abs()
+        assert not (diff > bound).any(), float(diff.max())
+
+
 def test_delta_sqnorms_match_jax():
     """One client's ‖w − p‖² over trees and over padded buffers, against
     the JAX package's (f32 sums in another order: rtol 1e-6)."""
@@ -466,6 +525,65 @@ def test_dp_runs_repeat_bitwise_and_noise_moves_params(run_setup, sampling):
     diffs = [float((x - y).abs().max())
              for x, y in zip(tree_leaves(a.params), tree_leaves(base.params))]
     assert max(diffs) > 1e-3, diffs
+
+
+@pytest.mark.parametrize("impl", ["tree", "fused"])
+def test_on_aggregate_sees_every_round(run_setup, impl):
+    """``RoundSchedule.on_aggregate`` gets each round's index, inputs,
+    start params, stacked client end states and new params; the last
+    new params are the run's result."""
+    _, _, task, data, _ = run_setup
+    cfg = _host_cfg(update_impl=impl, dp=DPSpec(0.5, 0.3), secure_agg=True)
+    seen = []
+
+    def hook(rnd, inputs, params, stacked, new_params):
+        seen.append((rnd, inputs.id_list(), stacked, new_params))
+    sched = dataclasses.replace(cfg.schedule(), on_aggregate=hook)
+    res = engine.run_rounds(task, data, cfg.strategy(), sched, device="cpu")
+    assert [s[0] for s in seen] == list(range(cfg.rounds))
+    K = cfg.n_selected(data.n_clients)
+    assert all(len(s[1]) == K for s in seen)
+    last = seen[-1][3]
+    if impl == "fused":
+        last = host_flat_ops(task, False, CPU).unflatten(last)
+        assert all(b.shape[0] == K for b in seen[-1][2].values())
+    for a, b in zip(tree_leaves(last), tree_leaves(res.params)):
+        assert torch.equal(a, b)
+
+
+def test_materialized_upload_of_an_engine_round_matches_folded(run_setup):
+    """What ``chip_smoke.py``'s dp_upload phase checks on the card, here
+    on the CPU: one private engine round seen through ``on_aggregate``,
+    its uploads rebuilt by ``dp_clip_noise`` from the round's keyed
+    draws, held against the engine's folded aggregate at rtol 1e-5 of
+    the summands."""
+    _, _, task, data, _ = run_setup
+    cfg = _host_cfg(dp=DPSpec(0.5, 0.3), secure_agg=True)
+    seen = {}
+
+    def hook(rnd, inputs, params, stacked, new_params):
+        if rnd == 0:
+            seen.update(inputs=inputs, p=params, stacked=stacked,
+                        folded=new_params)
+    engine.run_rounds(task, data, cfg.strategy(),
+                      dataclasses.replace(cfg.schedule(), on_aggregate=hook),
+                      device="cpu")
+    inputs, p, stacked = seen["inputs"], seen["p"], seen["stacked"]
+    fops = host_flat_ops(task, False, CPU)
+    normal_fn = privacy.keyed_normal_fn(inputs.round_key, fops.normal)
+    ids = inputs.id_list()
+    mat = privacy.materialized_dp_aggregate(cfg.dp, True, fops, ids, p,
+                                            stacked, inputs.weights,
+                                            normal_fn)
+    wbar = inputs.weights / inputs.weights.sum()
+    names = list(p)
+    scales = privacy.stacked_clip_scales(cfg.dp, [p[n] for n in names],
+                                         [stacked[n] for n in names])
+    for name in names:
+        mag = _torch_magnitude(cfg.dp, True, ids, p, stacked, wbar, scales,
+                               normal_fn, name)
+        diff = (mat[name] - seen["folded"][name]).abs()
+        assert not (diff > 1e-5 * mag + 1e-7).any(), float(diff.max())
 
 
 def test_ids_are_read_from_the_device_once_per_round():
