@@ -16,7 +16,8 @@ JSON line per phase:
                      where one computes the same function, and the bound
                      (the larger of bytes ÷ bandwidth and unmasked
                      operations ÷ the data-sheet peak for their type).
-                     K1–K3 at N = 137,216 (LeNet-5, padded) and
+                     K1–K3 and K6 (delta_accum, with p and accum-only,
+                     f32 and bf16) at N = 137,216 (LeNet-5, padded) and
                      16,777,216, bitwise; the upload kernels K4
                      (compress_delta, bits 8/16/32 × top-k × residual),
                      the top-k threshold (a radix select) and K5
@@ -49,6 +50,23 @@ JSON line per phase:
      p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
                      private configurations (and private under device
                      sampling), in turns from the same P1 params;
+     pod_path      — the main path on the pod backend (fl/pod.py) over a
+                     one-rank NCCL mesh (make_host_mesh): P1 and P2
+                     through run_phase_schedule with PodCyclicConfig /
+                     PodFLConfig; launches K1 3000, K6 40 (with p, one per
+                     client), K2 0, K3 8 (apply + FedAvgM per round), one
+                     gradient all-reduce per SGD step, ledger == closed
+                     form, accuracy above chance;
+     pod_hierarchical — the pod P2 with aggregation="hierarchical",
+                     n_pods=2 against the sequential one (rtol 1e-5), 40
+                     K6 launches;
+     pod_compressed — the pod P2 with int8 + top-k 25% + EF uploads:
+                     accum-only K6 40, K4 40, threshold 160, ledger ==
+                     closed form;
+     pod_vs_host   — 1 P1 + 1 P2 round on the pod and the host engine at
+                     the JAX package's tolerances, and the pod's kernels
+                     against its plain path, bitwise;
+     pod_rounds    — warm P2 rounds/s of the pod and the host, in turns;
   5. serve         — hymba-1.5b at full width (1,640,872,320 params,
                      bf16, random weights from a seed) through
                      ``Engine.generate`` with attn_impl = ssd_impl =
@@ -365,6 +383,37 @@ class KernelBench:
                     library_note=why, bound_ms=bound, bound_by=by)
 
 
+    # --- K6 delta_accum (the pod backend's aggregation) -------------------
+
+    def delta_accum(self, n, dtype, with_p):
+        torch, fu = self.torch, self.fu
+        d = self.rand(n) * 1e-2
+        w = self.rand(n, dtype=dtype)
+        p = self.rand(n, dtype=dtype) if with_p else None
+        c = torch.tensor([0.1], dtype=torch.float32, device="cuda")
+        a, b = d.clone(), d.clone()
+        fu.delta_accum(a, w, p, c)
+        fu.delta_accum_plain(b, w, p, c)
+        err = self.max_err([(a, b)])
+        bitwise = bool(torch.equal(a, b))
+        ms = time_ms(torch, lambda: fu.delta_accum(a, w, p, c))
+        plain = time_ms(torch, lambda: fu.delta_accum_plain(b, w, p, c))
+        library, why = None, "no single PyTorch call computes d + c*(w - p)"
+        if not with_p:
+            if dtype == torch.float32:
+                dl = d.clone()
+                library = time_ms(torch, lambda: dl.addcmul_(c, w))
+                why = "Tensor.addcmul_(c, w): d + c*w in place"
+            else:
+                why = "Tensor.addcmul_ takes one dtype; w is bf16, d f32"
+        e = w.element_size()
+        n_bytes = n * (4 + e + e * with_p + 4) + 4
+        bound, by = self.bound_ms(n_bytes, n * (2 + with_p))
+        return dict(kernel="delta_accum", n=n, dtype=str(dtype)[6:],
+                    with_p=with_p, max_abs_err=err, bitwise=bitwise, ms=ms,
+                    plain_ms=plain, library_ms=library, library_note=why,
+                    bound_ms=bound, bound_by=by)
+
     # --- K7 flash_attention ------------------------------------------------
 
     def flash_attention(self, B, S, T, H, KH, hd, dtype, window, q_offset,
@@ -574,6 +623,27 @@ def check_upload_kernels(torch, bench) -> dict:
         "topk_threshold": bench.topk_threshold(N_SMALL),
         "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True),
     }
+
+
+def check_pod_kernels(torch, bench) -> dict:
+    """Phase 2, K6: {with p, accum-only} × {f32, bf16 w/p} at both N,
+    bitwise, then the pod path's shapes (returned): f32 with p (the
+    sequential aggregate) and accum-only (compressed uploads, the
+    hierarchical lanes)."""
+    rows = [bench.delta_accum(n, dtype, with_p)
+            for n in (N_SMALL, N_LARGE)
+            for dtype in (torch.float32, torch.bfloat16)
+            for with_p in (True, False)]
+    for r in rows:
+        emit(dict(phase="kernel", **r))
+    bad = [r for r in rows if not (r["bitwise"] and
+                                   r["max_abs_err"] <= KERNEL_TOL)]
+    if bad:
+        raise SystemExit(f"chip_smoke: {len(bad)} delta_accum variants "
+                         f"disagree with their plain versions")
+    return {"delta_accum": bench.delta_accum(N_SMALL, torch.float32, True),
+            "delta_accum_accum_only": bench.delta_accum(
+                N_SMALL, torch.float32, False)}
 
 
 def main_path(torch, fu):
@@ -1029,6 +1099,284 @@ def p2_rounds(torch, init) -> dict:
     return rps
 
 
+# --- the pod backend on a one-rank NCCL mesh ---------------------------------
+
+def pod_configs(mesh, *, rounds: int = 4, impl: str = "fused",
+                batch_indices=None, cfg_kw=None, spec_kw=None):
+    """The main path's two phases as pod configs on ``mesh``: P1 4 rounds
+    × 25 clients × 20 steps, P2 FedAvgM 4 rounds × 10 clients × 25 steps,
+    batch 32, lr 0.01 decaying 0.998 per round, evaluated on the last
+    round (as CyclicConfig / FLConfig do at 4 rounds)."""
+    from repro_torch.fl.pod import PodCyclicConfig, PodFLConfig, PodFLSpec
+    common = dict(rounds=rounds, lr_decay=0.998, eval_every=rounds,
+                  eval_batch=256, sampling="host", chunk_size=8,
+                  batch_indices=batch_indices)
+    cyc = PodCyclicConfig(mesh, clients_per_round=25, spec=PodFLSpec(
+        local_steps=20, batch_size=32, lr=0.01, update_impl=impl), **common)
+    fed = PodFLConfig(mesh, clients_per_round=10, spec=PodFLSpec(
+        local_steps=25, batch_size=32, lr=0.01, server_opt="momentum",
+        update_impl=impl, **(spec_kw or {})), **common, **(cfg_kw or {}))
+    return cyc, fed
+
+
+def all_launches(fu) -> dict:
+    return {fn.__name__: fn.launches
+            for fn in fu.KERNELS + fu.UPLOAD_KERNELS + fu.POD_KERNELS}
+
+
+def pod_path(torch, fu, mesh):
+    """Phase pod_path: the main path on the pod backend through
+    ``run_phase_schedule`` with ``PodCyclicConfig`` then ``PodFLConfig``
+    (sequential aggregation: one K6 per client, then K3 "none" and the
+    FedAvgM K3 per round); launches, collectives, ledger and accuracy
+    asserted."""
+    from repro_torch.core import comm_accounting
+    from repro_torch.core.pipeline import Phase, run_phase_schedule
+    from repro_torch.fl import pod
+    from repro_torch.utils.tree_math import size_bytes
+
+    task, data = lenet_setup()
+    cyc, fed = pod_configs(mesh)
+    fu.reset_launch_counts()
+    pod.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_phase_schedule(task, data, [Phase("P1", cyc), Phase("P2", fed)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, collectives = all_launches(fu), dict(pod.COLLECTIVES)
+    k1, k2 = cyc.clients_per_round, fed.clients_per_round
+    steps = cyc.rounds * k1 * cyc.spec.local_steps + \
+        fed.rounds * k2 * fed.spec.local_steps
+    want = {"local_step": steps, "weighted_delta": 0,
+            "server_update": 2 * fed.rounds, "compress_delta": 0,
+            "topk_threshold": 0, "dp_clip_noise": 0,
+            "delta_accum": fed.rounds * k2}
+    x_bytes = size_bytes(res.params)
+    closed = comm_accounting.overhead_with_cyclic(
+        "fedavg", k1, cyc.rounds, k2, fed.rounds, x_bytes)
+    final_acc = res.history[-1]["acc"]
+    p1 = res.phases[0].result.params
+
+    # one profiled warm P2 round (CUDA activity only), as profile_rounds
+    import dataclasses
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    one = dataclasses.replace(fed, rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pod.run_pod_rounds(task, data, one, init_params=p1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, top = device_activity(prof)
+    emit(dict(phase="pod_path", mesh=str(mesh), backend=dist.get_backend(),
+              model="lenet5", dataset="cifar10-like", n_clients=100,
+              history=res.history, wall_s=wall,
+              rounds_per_s=len(res.history) / wall,
+              ledger=res.ledger.summary(), ledger_closed_form=closed,
+              launches=launches, expected_launches=want,
+              collectives=collectives, final_acc=final_acc,
+              profiled_p2_round=dict(
+                  wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                  device_busy_share=busy / wall_us if n_ops else None,
+                  device_ops=n_ops, top_device_ops=top)))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: pod_path launches {launches} != {want}")
+    if not n_ops:
+        raise SystemExit("chip_smoke: the profiler saw no device op")
+    if collectives["grad"] != steps or collectives["lane_combine"]:
+        raise SystemExit(f"chip_smoke: pod_path collectives {collectives}")
+    if not all(math.isfinite(h["local_loss"]) for h in res.history):
+        raise SystemExit("chip_smoke: non-finite loss on the pod path")
+    if not final_acc > 0.1:
+        raise SystemExit(f"chip_smoke: pod_path final accuracy {final_acc} "
+                         "is not above chance")
+    if res.ledger.total_bytes != closed:
+        raise SystemExit("chip_smoke: pod_path ledger bytes differ from the "
+                         "closed form")
+    return launches, p1
+
+
+def pod_hierarchical(torch, fu, mesh, init):
+    """Phase pod_hierarchical: the pod P2 from the pod P1's params with
+    ``aggregation="hierarchical", n_pods=2`` (two unsharded lanes on one
+    rank) against the sequential P2 from the same start, cuDNN
+    deterministic: only the order of addition differs, so the params
+    agree within rtol 1e-5 (atol 1e-7); 40 K6 launches asserted."""
+    from repro_torch.fl.pod import run_pod_rounds
+    from repro_torch.utils.tree_math import tree_leaves
+    task, data = lenet_setup()
+    flags = deterministic_cudnn(torch)
+    finals, launches = {}, {}
+    for agg, kw in (("sequential", {}),
+                    ("hierarchical", {"aggregation": "hierarchical",
+                                      "n_pods": 2})):
+        _, fed = pod_configs(mesh, cfg_kw=kw)
+        fu.reset_launch_counts()
+        r = run_pod_rounds(task, data, fed, init_params=init)
+        launches[agg] = all_launches(fu)
+        finals[agg] = [t.detach().clone() for t in tree_leaves(r.params)]
+    restore_cudnn(torch, flags)
+    pairs = list(zip(finals["hierarchical"], finals["sequential"]))
+    close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-7) for a, b in pairs)
+    emit(dict(phase="pod_hierarchical", n_pods=2, rtol=1e-5, atol=1e-7,
+              max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
+              bitwise=all(bool(torch.equal(a, b)) for a, b in pairs),
+              allclose=close, launches=launches))
+    if launches["hierarchical"]["delta_accum"] != 40:
+        raise SystemExit(f"chip_smoke: pod_hierarchical K6 launches "
+                         f"{launches['hierarchical']['delta_accum']} != 40")
+    if not close:
+        raise SystemExit("chip_smoke: hierarchical and sequential pod "
+                         "aggregation disagree")
+
+
+def pod_compressed(torch, fu, mesh, init):
+    """Phase pod_compressed: the pod P2 with CompressionSpec(8, 0.25,
+    True) from the pod P1's params: each client's upload through the
+    threshold and K4, accumulated by the accum-only K6; launches, ledger
+    (= closed form, 173,250 upload bytes per client) and accuracy
+    asserted."""
+    from repro_torch.core import comm_accounting as acc
+    from repro_torch.fl.compression import CompressionSpec
+    from repro_torch.fl.engine import _upload_payload_bytes
+    from repro_torch.fl.pod import run_pod_rounds
+    from repro_torch.utils.tree_math import size_bytes
+    task, data = lenet_setup()
+    comp = CompressionSpec(bits=8, density=0.25, error_feedback=True)
+    _, fed = pod_configs(mesh, spec_kw={"compression": comp})
+    ledger = acc.CommLedger()
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_pod_rounds(task, data, fed, init_params=init, ledger=ledger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches(fu)
+    k2 = fed.clients_per_round
+    want = {"local_step": fed.rounds * k2 * fed.spec.local_steps,
+            "weighted_delta": 0, "server_update": 2 * fed.rounds,
+            "compress_delta": fed.rounds * k2,
+            "topk_threshold": fed.rounds * k2 * fu.TOPK_LAUNCHES,
+            "dp_clip_noise": 0, "delta_accum": fed.rounds * k2}
+    payload = _upload_payload_bytes(task, comp)
+    closed = fed.rounds * acc.compressed_round_bytes(
+        "fedavg", k2, size_bytes(res.params), payload)
+    final_acc = res.history[-1]["acc"]
+    emit(dict(phase="pod_compressed", upload=str(comp), history=res.history,
+              wall_s=wall, ledger=ledger.summary(), ledger_closed_form=closed,
+              upload_payload_bytes=payload, launches=launches,
+              expected_launches=want, final_acc=final_acc))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: pod_compressed launches {launches} "
+                         f"!= {want}")
+    if payload != 173_250 or ledger.total_bytes != closed:
+        raise SystemExit("chip_smoke: pod_compressed ledger bytes differ "
+                         "from the closed form")
+    if not final_acc > 0.1:
+        raise SystemExit(f"chip_smoke: pod_compressed final accuracy "
+                         f"{final_acc} is not above chance")
+    return launches
+
+
+def pod_vs_host(torch, mesh):
+    """Phase pod_vs_host: 1 P1 + 1 P2 round on the pod and on the host
+    engine from the same init and index stream (cuDNN deterministic), at
+    the JAX package's host↔pod tolerances (tests/test_pod_engine.py):
+    relay atol = rtol = 1e-6, aggregate atol = rtol = 1e-4, losses rtol
+    1e-5; then the pod's "fused" against its "fused_interpret",
+    bitwise."""
+    from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
+    from repro_torch.fl.pod import run_pod_rounds
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.utils.tree_math import tree_leaves
+    task, data = lenet_setup()
+    flags = deterministic_cudnn(torch)
+    init = task.init(torch.Generator().manual_seed(SEED))
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1_000_003 * rnd + 1009 * slot + step)
+        return torch.randint(0, data.n_per_client, (32,), generator=g)
+
+    def leaves(tree):
+        return [t.detach().clone() for t in tree_leaves(tree)]
+    cyc = CyclicConfig(rounds=1, participation=0.25, local_steps=20,
+                       batch_size=32, update_impl="fused", sampling="host",
+                       batch_indices=indices)
+    fed = FLConfig(rounds=1, participation=0.1, local_steps=25,
+                   server_opt="momentum", update_impl="fused",
+                   sampling="host", batch_indices=indices)
+    h1 = cyclic_pretrain(task, data, cyc, init_params=init)
+    h2 = run_federated(task, data, fed, init_params=h1.params)
+    host = (leaves(h1.params), leaves(h2.params), h1.history + h2.history)
+    pods = {}
+    for impl in ("fused", "fused_interpret"):
+        pcyc, pfed = pod_configs(mesh, rounds=1, impl=impl,
+                                 batch_indices=indices)
+        p1 = run_pod_rounds(task, data, pcyc, init_params=init, phase="P1")
+        p2 = run_pod_rounds(task, data, pfed, init_params=p1.params)
+        pods[impl] = (leaves(p1.params), leaves(p2.params),
+                      p1.history + p2.history)
+    restore_cudnn(torch, flags)
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+    pod = pods["fused"]
+    relay_ok = all(torch.allclose(a, b, rtol=1e-6, atol=1e-6)
+                   for a, b in zip(pod[0], host[0]))
+    agg_ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                 for a, b in zip(pod[1], host[1]))
+    loss_ok = all(abs(a["local_loss"] - b["local_loss"]) <=
+                  1e-5 * abs(b["local_loss"]) for a, b in zip(pod[2], host[2]))
+    plain = pods["fused_interpret"]
+    bitwise = all(bool(torch.equal(a, b)) for a, b in
+                  zip(pod[0] + pod[1], plain[0] + plain[1]))
+    emit(dict(phase="pod_vs_host", rounds={"P1": 1, "P2": 1},
+              relay_tol="atol = rtol = 1e-6", aggregate_tol="atol = rtol = "
+              "1e-4", relay_max_abs_diff=gap(pod[0], host[0]),
+              relay_bitwise=all(bool(torch.equal(a, b))
+                                for a, b in zip(pod[0], host[0])),
+              aggregate_max_abs_diff=gap(pod[1], host[1]),
+              losses={"pod": [h["local_loss"] for h in pod[2]],
+                      "host": [h["local_loss"] for h in host[2]]},
+              fused_vs_plain_max_abs_diff=gap(pod[0] + pod[1],
+                                              plain[0] + plain[1]),
+              fused_vs_plain_bitwise=bitwise))
+    if not (relay_ok and agg_ok and loss_ok):
+        raise SystemExit("chip_smoke: the pod and the host engine disagree")
+    if not bitwise:
+        raise SystemExit("chip_smoke: the pod's kernels and plain path "
+                         "disagree")
+
+
+def pod_rounds(torch, mesh, init) -> dict:
+    """Phase pod_rounds: warm P2 rounds/s of the pod (sequential K6) and
+    of the host engine (K2) from the same P1 params, in turns (a b b a)."""
+    from repro_torch.fl.pod import run_pod_rounds
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    task, data = lenet_setup()
+    _, pfed = pod_configs(mesh)
+    hfed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+                    local_steps=25, server_opt="momentum",
+                    update_impl="fused", sampling="host")
+    runs = {"pod": lambda: run_pod_rounds(task, data, pfed, init_params=init),
+            "host": lambda: run_federated(task, data, hfed, init_params=init)}
+    times = {name: [] for name in runs}
+    for name in ("pod", "host", "host", "pod"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+    rps = {name: [4 / t for t in ts] for name, ts in times.items()}
+    emit(dict(phase="pod_rounds", rounds=4, order="pod host host pod",
+              wall_s=times, rounds_per_s=rps,
+              mean_rounds_per_s={k: statistics.mean(v)
+                                 for k, v in rps.items()}))
+    return rps
+
+
 def deterministic_cudnn(torch):
     """cuDNN's deterministic algorithms for a kernel-vs-plain comparison;
     returns the flags to restore, so later timings run as the main path
@@ -1254,6 +1602,7 @@ def main(argv=None) -> int:
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     upload_shapes = check_upload_kernels(torch, bench)
+    pod_shapes = check_pod_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches = main_path(torch, fu)
     fused_vs_plain(torch)
@@ -1264,6 +1613,13 @@ def main(argv=None) -> int:
     dp_launches = dp_upload(torch, fu, private.federated.params,
                             configs["p2_private"])
     p2_rounds(torch, private.cyclic.params)
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    mesh = make_host_mesh()
+    pod_launches, pod_p1 = pod_path(torch, fu, mesh)
+    pod_hierarchical(torch, fu, mesh, pod_p1)
+    pod_comp_launches = pod_compressed(torch, fu, mesh, pod_p1)
+    pod_vs_host(torch, mesh)
+    pod_rounds(torch, mesh, pod_p1)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
     serve_profile(torch, eng, prompt)
@@ -1302,6 +1658,24 @@ def main(argv=None) -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=path))
+    # K6 on the pod path: the f32 form with p (the sequential
+    # aggregate), its accum-only form (pod_compressed) beside it
+    r, ra = pod_shapes["delta_accum"], pod_shapes["delta_accum_accum_only"]
+    if not (r["bitwise"] and ra["bitwise"]):
+        raise SystemExit(f"chip_smoke: delta_accum disagrees: {r} {ra}")
+    kernels.append(dict(
+        name="delta_accum", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_update.cu",
+        replaces="src/repro/kernels/fused_update.py:405",
+        launches=pod_launches["delta_accum"],
+        accum_only_launches=pod_comp_launches["delta_accum"],
+        max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=r["library_ms"], library_note=r["library_note"],
+        accum_only={k: ra[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_note")},
+        shape="N 137,216 f32, with p", path="pod_path"))
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"
@@ -1334,6 +1708,7 @@ def main(argv=None) -> int:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "its main path")
     emit({"kernels": kernels})
+    destroy()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

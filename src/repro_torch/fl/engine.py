@@ -190,7 +190,9 @@ DENSE_STORE = DenseClientStateStore()
 
 
 class HostBackend:
-    """Backend hooks of the single-device engine."""
+    """Backend hooks of the single-device engine.  ``run_rounds`` calls
+    them where the JAX engine does; the pod backend
+    (``repro_torch.fl.pod.PodBackendMixin``) overrides them."""
 
     def flat_ops(self, task: Task, device: torch.device
                  ) -> Optional[FlatParamOps]:
@@ -202,6 +204,43 @@ class HostBackend:
 
     def n_selected(self, n_clients: int) -> int:
         return max(1, int(round(self.participation * n_clients)))
+
+    def place_params(self, params: Pytree, device: torch.device) -> Pytree:
+        """The tree path's working params: a copy on ``device`` (the
+        engine updates in place; the caller's tensors stay untouched)."""
+        return tm.tree_map(lambda x: x.detach().to(device, copy=True),
+                           params)
+
+    def place_server_state(self, state: Any, task: Task) -> Any:
+        return state
+
+    def prepare_data(self, data: FederatedDataset, device: torch.device):
+        """``(x_all, y_all, n_real)`` on ``device``."""
+        return data.device_arrays(device)
+
+    def prepare_eval_data(self, batched: Tuple, device: torch.device
+                          ) -> Tuple:
+        """The eval stream ``(ev_x, ev_y, ev_w)`` on ``device``."""
+        ev_x, ev_y, ev_w = batched
+        return (torch.as_tensor(ev_x).to(device),
+                torch.as_tensor(ev_y).to(device=device, dtype=torch.int64),
+                torch.as_tensor(ev_w).to(device))
+
+    def grad_reducer(self) -> Optional[Callable[[Pytree], Pytree]]:
+        """The gradient hook between a step's backward and its step tail,
+        on the tree and the fused path (None: the identity)."""
+        return None
+
+    def batch_shard(self, n: int) -> Optional[slice]:
+        """The part of a batch of ``n`` that this process computes (None:
+        all of it, and nothing to reduce)."""
+        return None
+
+    def reduce_over_batch(self, t: torch.Tensor, n: int, *,
+                          mean: bool) -> torch.Tensor:
+        """Combine per-process values of a batch of ``n`` (losses: mean;
+        eval sums: sum) — the identity on one device."""
+        return t
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +275,8 @@ class RelayStrategy(HostBackend):
         return None
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
-        local = make_local_fn(task, self.spec, self.flat_ops(task, device))
+        local = make_local_fn(task, self.spec, self.flat_ops(task, device),
+                              self.grad_reducer())
 
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
             losses = []
@@ -423,7 +463,7 @@ class AggregateStrategy(HostBackend):
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, self.spec, fops)
+        local = make_local_fn(task, self.spec, fops, self.grad_reducer())
         aggregate = self._aggregate(task, device, fops)
 
         if fops is None:
@@ -574,8 +614,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
         init_params = task.init(seeded_generator(schedule.seed))
     fops = strategy.flat_ops(task, dev)
     if fops is None:
-        params = tm.tree_map(lambda x: x.detach().to(dev, copy=True),
-                             init_params)
+        params = strategy.place_params(init_params, dev)
     else:
         params = fops.place(fops.flatten(init_params))
 
@@ -584,24 +623,25 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     algo_state = strategy.init_state(task, params, n_clients)
     server = strategy.make_server_update(task, dev)
     server_state = server[0](params) if server is not None else ()
+    server_state = strategy.place_server_state(server_state, task)
     body = strategy.build_round(task, dev)
 
-    x_all, y_all, n_real = data.device_arrays(dev)
+    x_all, y_all, n_real = strategy.prepare_data(data, dev)
     n_per = data.n_per_client
     x_rows = x_all.reshape((n_clients * n_per,) + tuple(x_all.shape[2:]))
     y_rows = y_all.reshape((n_clients * n_per,) + tuple(y_all.shape[2:]))
     B = strategy.spec.batch_size
+    # every process draws the whole batch and computes its part of it
+    part = strategy.batch_shard(B)
     gen = seeded_generator(schedule.seed, dev)
 
     with_eval = schedule.eval_every > 0 and len(np.asarray(data.test_y)) > 0
     metric = ev = None
     if with_eval:
         metric = eval_fn if eval_fn is not None else make_accuracy_metric(task)
-        ev_x, ev_y, ev_w = batch_test_set(data.test_x, data.test_y,
-                                          schedule.eval_batch)
-        ev = (torch.as_tensor(ev_x).to(dev),
-              torch.as_tensor(ev_y).to(device=dev, dtype=torch.int64),
-              torch.as_tensor(ev_w).to(dev))
+        batched = batch_test_set(data.test_x, data.test_y, schedule.eval_batch)
+        ev_batch = batched[0].shape[1]
+        ev = strategy.prepare_eval_data(batched, dev)
 
     host_rng = None
     if schedule.sampling == "host":
@@ -622,6 +662,8 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                 else:
                     idx = torch.randint(0, n_per, (B,), generator=gen,
                                         device=dev)
+                if part is not None:
+                    idx = idx[part]
                 rows = base + idx
                 return x_rows.index_select(0, rows), \
                     y_rows.index_select(0, rows)
@@ -635,7 +677,9 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
         tot = torch.zeros((), dtype=torch.float32, device=dev)
         for b in range(ev_x.shape[0]):
             tot = tot + torch.sum(metric(tree, ev_x[b], ev_y[b]) * ev_w[b])
-        return tot / torch.sum(ev_w)
+        tw = strategy.reduce_over_batch(torch.stack([tot, torch.sum(ev_w)]),
+                                        ev_batch, mean=False)
+        return tw[0] / tw[1]
 
     def round_draws(r: int):
         if schedule.noise_draws is None:
@@ -692,7 +736,9 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
             lr_scales, do_eval)
         dispatches += 1
 
-        losses = torch.stack(losses).cpu().numpy()    # one read per chunk
+        losses = strategy.reduce_over_batch(torch.stack(losses), B,
+                                            mean=True)
+        losses = losses.cpu().numpy()                 # one read per chunk
         for j in range(R):
             if ledger is not None:
                 strategy.record(ledger, K, params, task)

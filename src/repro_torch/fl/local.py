@@ -228,6 +228,19 @@ class FlatParamOps:
                     interpret=self.interpret)
                 for name, d in d_bufs.items()}
 
+    def delta_accum(self, delta_bufs, w_bufs, p_bufs, coeff):
+        """One client's term of the pod's running f32 delta, in place on
+        ``delta_bufs``: ``delta += coeff·(w − p)`` per bucket, or the
+        accum-only ``delta += coeff·w`` when ``p_bufs`` is None (the
+        hierarchical lanes' p-free partials, and compressed uploads,
+        which are deltas already); ``coeff`` is an f32 device scalar.
+        ``w_bufs`` and ``p_bufs`` are never written."""
+        for name, d in delta_bufs.items():
+            ops.fused_delta_accum(d, w_bufs[name],
+                                  None if p_bufs is None else p_bufs[name],
+                                  coeff, interpret=self.interpret)
+        return delta_bufs
+
     def apply_delta(self, p_bufs, delta_bufs):
         """p ← cast(p₃₂ + delta) per bucket, in place."""
         one = torch.ones(1, dtype=torch.float32, device=self.device)
@@ -313,7 +326,9 @@ def fused_step_tail(spec: LocalSpec, fops: FlatParamOps, p_bufs: Dict,
 
 
 def make_local_fn(task: Task, spec: LocalSpec,
-                  flat_ops: Optional[FlatParamOps] = None) -> Callable:
+                  flat_ops: Optional[FlatParamOps] = None,
+                  reduce_grads: Optional[Callable[[Pytree], Pytree]] = None
+                  ) -> Callable:
     """Build the per-client local-training function.
 
     tree impl : ``local(w_start, sample, lr_scale) -> (w_end, loss)``
@@ -323,7 +338,11 @@ def make_local_fn(task: Task, spec: LocalSpec,
 
     ``sample(step) -> (bx, by)`` yields the step's batch; ``lr_scale``
     is the round's f32 device scalar; ``loss`` is the mean local loss
-    (a device scalar).
+    (a device scalar).  Each step's gradient passes through
+    ``reduce_grads`` (a tree → tree function, given the gradient tree
+    or the dict of gradient buckets; None is the identity) before the
+    step tail: the pod backend averages it over the batch's data group
+    there.
     """
     fused = spec.update_impl != "tree"
     if fused and flat_ops is None:
@@ -340,6 +359,8 @@ def make_local_fn(task: Task, spec: LocalSpec,
             loss = task.loss_fn(tm.tree_unflatten(treedef, pv), bx, by, None)
             grads = tm.tree_unflatten(treedef,
                                       torch.autograd.grad(loss, pv))
+            if reduce_grads is not None:
+                grads = reduce_grads(grads)
             with torch.no_grad():
                 params, mom = tree_step_tail(spec, params, grads, mom, None,
                                              lr_scale)
@@ -360,7 +381,10 @@ def make_local_fn(task: Task, spec: LocalSpec,
             pv = {name: b.detach().requires_grad_(True)
                   for name, b in p_bufs.items()}
             loss = task.loss_fn(flat_ops.unflatten(pv), bx, by, None)
-            g_bufs = dict(zip(pv, torch.autograd.grad(loss, list(pv.values()))))
+            g_bufs = dict(zip(pv, torch.autograd.grad(loss,
+                                                      list(pv.values()))))
+            if reduce_grads is not None:
+                g_bufs = reduce_grads(g_bufs)
             with torch.no_grad():
                 scalars = fixed if fixed is not None else step_scalars(
                     spec, flat_ops, g_bufs, step_size)

@@ -9,13 +9,18 @@
 //   fu_server_update   <- fused_update.py:_server_update_kernel (server_update)
 //       none: p + d;  momentum: m <- beta*m - d, p <- p - lr*m;
 //       adam: mu, nu moments, p <- p - lr*(mu/bc1)/(sqrt(nu/bc2)+eps)
+//   fu_delta_accum     <- fused_update.py:_delta_accum_kernel and
+//                         _weighted_accum_kernel (delta_accum)
+//       d <- d + c*(w32 - p32), or the accum-only d <- d + c*w32 (p = NULL)
 //
 // What bounds them on an H100: all three are elementwise passes that do a
 // handful of flops per element, so they are bound by device-memory bytes:
 // local_step moves 12 B/element (f32, no momentum; 20 with momentum),
 // weighted_delta (4K + 8) B/element, server_update 20 B/element under
 // momentum (reads p, d, m; writes p, m) and 28 B/element under adam
-// (reads p, d, mu, nu; writes p, mu, nu), all in f32.  At LeNet-5 size (137,216 padded elements) every one of them
+// (reads p, d, mu, nu; writes p, mu, nu), all in f32; delta_accum 16
+// B/element with p over f32 (reads d, w, p; writes d) and 12 accum-only,
+// 12 and 10 over bf16 w/p.  At LeNet-5 size (137,216 padded elements) every one of them
 // is far below a microsecond of bytes, so on the main path the launch
 // itself dominates; batching launches is later work.
 //
@@ -37,8 +42,9 @@
 // two agree bit for bit on the card.
 //
 // Updates are in place for the carried state (p and momentum in
-// local_step, p and moments in server_update); weighted_delta writes a
-// separate output.  Pad lanes stay zero through all three: every term is
+// local_step, p and moments in server_update, the round's f32 delta
+// accumulator d in delta_accum); weighted_delta writes a separate output.
+// delta_accum never writes w or p.  Pad lanes stay zero through all three: every term is
 // zero or a multiple of a zero operand there.
 //
 // Each fu_* launcher enqueues on the given stream and returns
@@ -102,6 +108,19 @@ __device__ __forceinline__ void load_f32(const float* __restrict__ src, float (&
       dst[h + 2] = v.z;
       dst[h + 3] = v.w;
     }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = src[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32(float* __restrict__ dst, const float (&src)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < V; h += 4)
+      *reinterpret_cast<float4*>(dst + h) =
+          make_float4(src[h], src[h + 1], src[h + 2], src[h + 3]);
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) dst[j] = src[j];
@@ -327,6 +346,65 @@ int launch_server_update(void* p, const float* d, void* m1, void* m2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// delta_accum: one client's term of the pod's running f32 weighted delta,
+// in place on the accumulator d.  The vector body covers n - n % V
+// elements; the n % V tail (V = 4 over f32 w/p, 8 over bf16) is one
+// element per thread of the first block.
+// ---------------------------------------------------------------------------
+
+template <int V, bool WITH_P, typename T>
+__device__ __forceinline__ void delta_accum_at(float* __restrict__ d,
+                                               const T* __restrict__ w,
+                                               const T* __restrict__ p, float c,
+                                               long long off) {
+  float dv[V], wv[V], pv[V];
+  load_f32<V>(d + off, dv);
+  load<T, V>(w + off, wv);
+  if constexpr (WITH_P) load<T, V>(p + off, pv);
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float term = WITH_P ? __fsub_rn(wv[j], pv[j]) : wv[j];
+    dv[j] = __fadd_rn(dv[j], __fmul_rn(c, term));
+  }
+  store_f32<V>(d + off, dv);
+}
+
+template <typename T, int V, bool WITH_P>
+__global__ void __launch_bounds__(kThreads)
+delta_accum_kernel(float* __restrict__ d, const T* __restrict__ w,
+                   const T* __restrict__ p, const float* __restrict__ coeff,
+                   long long n, long long n_vec) {
+  const float c = coeff[0];
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n_vec; i += stride)
+    delta_accum_at<V, WITH_P>(d, w, p, c, i * V);
+  if constexpr (V > 1) {
+    const long long tail = n_vec * V + threadIdx.x;
+    if (blockIdx.x == 0 && tail < n) delta_accum_at<1, WITH_P>(d, w, p, c, tail);
+  }
+}
+
+template <typename T>
+int launch_delta_accum(float* d, const void* w, const void* p, const float* coeff,
+                       long long n, cudaStream_t stream) {
+  constexpr int VW = 16 / sizeof(T);
+  const bool with_p = p != nullptr;
+  const bool vec = aligned16(d) && aligned16(w) && (!with_p || aligned16(p));
+  auto go = [&](auto VEC, auto WP) {
+    constexpr int V = decltype(VEC)::value ? VW : 1;
+    const long long n_vec = n / V;
+    delta_accum_kernel<T, V, decltype(WP)::value>
+        <<<grid_for(n_vec > 0 ? n_vec : 1), kThreads, 0, stream>>>(
+            d, static_cast<const T*>(w), static_cast<const T*>(p), coeff, n, n_vec);
+  };
+  dispatch_bool(vec, [&](auto VEC) {
+    dispatch_bool(with_p, [&](auto WP) { go(VEC, WP); });
+  });
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -377,6 +455,16 @@ int fu_server_update(void* p, const void* d, void* m1, void* m2,
     return launch_server_update<float>(p, df, m1, m2, sc, n, opt, k, s);
   if (dtype == 1)
     return launch_server_update<__nv_bfloat16>(p, df, m1, m2, sc, n, opt, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int fu_delta_accum(void* d, const void* w, const void* p, const void* coeff,
+                   long long n, int dtype, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto df = static_cast<float*>(d);
+  auto cf = static_cast<const float*>(coeff);
+  if (dtype == 0) return launch_delta_accum<float>(df, w, p, cf, n, s);
+  if (dtype == 1) return launch_delta_accum<__nv_bfloat16>(df, w, p, cf, n, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

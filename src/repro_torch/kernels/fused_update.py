@@ -1,8 +1,8 @@
 """Fused FL-update kernels over flat buffers: CUDA for Hopper + plain twins.
 
 The counterpart of ``repro/kernels/fused_update.py``'s ``local_step``,
-``weighted_delta``, ``server_update``, ``compress_delta`` and
-``dp_clip_noise``, plus ``topk_threshold`` (a jnp function in
+``weighted_delta``, ``server_update``, ``compress_delta``,
+``dp_clip_noise`` and ``delta_accum``, plus ``topk_threshold`` (a jnp function in
 ``repro/fl/compression.py``, a kernel here).  Each function here comes
 in two forms:
 
@@ -20,8 +20,9 @@ in two forms:
 Semantics follow the Pallas kernels exactly (f32 compute, cast on
 store, op order), with one difference of form: the carried state is
 updated IN PLACE — ``local_step`` writes ``p`` (and ``m``),
-``server_update`` writes ``p`` and its moments — and returns the same
-tensors; the others return new tensors.  Traced scalars are
+``server_update`` writes ``p`` and its moments, ``delta_accum`` writes
+the round's f32 accumulator ``d`` (never ``w`` or ``p``) — and returns
+the same tensors; the others return new tensors.  Traced scalars are
 f32 device tensors (``scalars``/``weights``), never host numbers, so a
 round never waits on the device.
 
@@ -194,6 +195,55 @@ def weighted_delta(stacked: torch.Tensor, p: torch.Tensor,
 
 
 weighted_delta.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# delta accumulation (the pod backend's FedAvg sum, one client per call)
+# ---------------------------------------------------------------------------
+
+def delta_accum_plain(d, w, p, coeff):
+    """``d ← d + c·(w₃₂ − p₃₂)``, or ``d ← d + c·w₃₂`` when ``p`` is
+    None, in place on the f32 ``d``; ``coeff`` is the f32 ``(1,)``
+    tensor holding ``c``."""
+    term = w.float() if p is None else w.float() - p.float()
+    d.copy_(d + coeff * term)
+    return d
+
+
+def delta_accum(d: torch.Tensor, w: torch.Tensor, p: Optional[torch.Tensor],
+                coeff: torch.Tensor) -> torch.Tensor:
+    """One client's contribution to the pod backend's running f32
+    weighted-delta sum, in place on the accumulator ``d``:
+    ``d + coeff·(w₃₂ − p₃₂)``, or the accum-only ``d + coeff·w₃₂`` when
+    ``p`` is None (the hierarchical lanes' p-free partials and the
+    compressed uploads, which are deltas already).  ``w``/``p`` are f32
+    or bf16 of one dtype; ``coeff`` is an f32 device tensor of one
+    element.  Returns ``d``."""
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
+    n, dev = d.shape[0], d.device
+    _check_1d("d", d, n, torch.float32, dev)
+    if w.dtype not in _DTYPE_CODE:
+        raise TypeError(f"unsupported w dtype {w.dtype} (float32 or "
+                        f"bfloat16)")
+    _check_1d("w", w, n, w.dtype, dev)
+    if p is not None:
+        _check_1d("p", p, n, w.dtype, dev)
+    if coeff.numel() != 1:
+        raise ValueError(f"coeff must hold one element, got shape "
+                         f"{tuple(coeff.shape)}")
+    _check_1d("coeff", coeff.reshape(1), 1, torch.float32, dev)
+    if not d.is_cuda:
+        return delta_accum_plain(d, w, p, coeff.reshape(1))
+    if n:
+        err = _lib().fu_delta_accum(_ptr(d), _ptr(w), _ptr(p), _ptr(coeff),
+                                    n, _DTYPE_CODE[w.dtype], _stream(d))
+        _check_launch("delta_accum", err)
+        delta_accum.launches += 1
+    return d
+
+
+delta_accum.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -442,11 +492,13 @@ def dp_clip_noise(d: torch.Tensor, z: Optional[torch.Tensor],
 
 dp_clip_noise.launches = 0
 
-# the update kernels and the client-upload kernels
+# the update kernels, the client-upload kernels and the pod backend's
+# aggregation kernel
 KERNELS = (local_step, weighted_delta, server_update)
 UPLOAD_KERNELS = (compress_delta, topk_threshold, dp_clip_noise)
+POD_KERNELS = (delta_accum,)
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS + UPLOAD_KERNELS:
+    for fn in KERNELS + UPLOAD_KERNELS + POD_KERNELS:
         fn.launches = 0

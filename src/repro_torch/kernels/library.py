@@ -38,6 +38,8 @@ SIGNATURES = {
     "fu_local_step": [P, P, P, P, P, L, I, I, I, F, F, P],
     "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, I, P],
     "fu_server_update": [P, P, P, P, P, L, I, I, F, F, F, F, F, F, P],
+    # d, w, p, coeff, n, dtype, stream
+    "fu_delta_accum": [P, P, P, P, L, I, P],
     # out, q, k, v, B, S, T, H, KH, hd, q_offset, window, kv_len, dtype,
     # stream
     "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],

@@ -6,9 +6,10 @@ The counterpart of ``repro/kernels/ops.py``.  The models call
 CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
 (``interpret=True``: the plain version on any device).
 
-The FL layers call the ``fused_*`` half (the update kernels, and the
+The FL layers call the ``fused_*`` half (the update kernels, the
 client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``
-and ``fused_dp_clip_noise``) through
+and ``fused_dp_clip_noise``, and the pod backend's
+``fused_delta_accum``) through
 ``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
 ``interpret=fused_interpret(impl)``:
 
@@ -91,6 +92,16 @@ def fused_server_update(p, delta, moments, scalars, *, opt: str = "none",
     fn = _fu.server_update_plain if interpret else _fu.server_update
     return fn(p, delta, tuple(moments), scalars, opt=opt, beta=beta, b1=b1,
               b2=b2, eps=eps)
+
+
+def fused_delta_accum(delta, w_end, p, coeff, *, interpret: bool = False):
+    """One client's contribution to the pod backend's running f32
+    weighted-delta sum, in place on ``delta``: ``delta + coeff·(w_end₃₂
+    − p₃₂)``, or the p-free accum-only form ``delta + coeff·w_end₃₂``
+    when ``p=None`` (hierarchical per-lane partials, compressed
+    uploads).  Returns ``delta``."""
+    fn = _fu.delta_accum_plain if interpret else _fu.delta_accum
+    return fn(delta, w_end, p, coeff.reshape(1))
 
 
 def fused_compress_delta(d, thresh, *, bits: int = 32, topk: bool = False,

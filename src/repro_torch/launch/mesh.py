@@ -1,0 +1,142 @@
+"""Meshes for the pod backend on ``torch.distributed``.
+
+The counterpart of ``repro/launch/mesh.py``.  One process drives one
+device; a mesh is a :class:`torch.distributed.device_mesh.DeviceMesh`
+over the ranks of the default process group, with the JAX package's
+axis names — ``("data", "model")`` for one pod, ``("pod", "data",
+"model")`` across pods.  :class:`Mesh` wraps it with what the sharding
+rules read (``axis_names``, ``devices`` — the ranks laid out in the mesh
+shape — and the ``shape`` dict, as on a JAX mesh) and with what the pod
+backend needs: this rank's coordinates, the device it drives, and the
+process group of each axis.
+
+Nothing here tells a program of a cluster: a multi-rank caller starts
+its processes itself and calls ``torch.distributed.init_process_group``
+with an address, a world size and a rank before :func:`make_mesh`.
+:func:`make_host_mesh` builds the one-rank mesh; when no process group
+exists yet it first makes one (``nccl`` for CUDA, ``gloo`` for the CPU)
+over a ``file://`` store in a fresh temporary directory, so a single
+device runs the same code path as a multi-rank run.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import tempfile
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.utils.device import Device, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    name: str
+    shape: tuple
+    axes: tuple
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.shape)
+
+
+SINGLE_POD = MeshSpec("pod", (16, 16), ("data", "model"))
+MULTI_POD = MeshSpec("multipod", (2, 16, 16), ("pod", "data", "model"))
+
+
+class Mesh:
+    """A DeviceMesh with the JAX axis names, seen from one rank.
+
+    ``axis_names``, ``devices`` (an array of ranks in the mesh shape) and
+    ``shape`` (axis → size) are what ``repro_torch.sharding.rules``
+    reads; ``coords`` is this rank's coordinate on each axis.  Meshes
+    compare by identity, so they can key caches."""
+
+    def __init__(self, device_mesh, device: torch.device):
+        self.device_mesh = device_mesh
+        self.axis_names: Tuple[str, ...] = tuple(device_mesh.mesh_dim_names)
+        self.devices = np.asarray(device_mesh.mesh.cpu().numpy())
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              self.devices.shape))
+        self.device = device
+        self.rank = dist.get_rank()
+        self.coords: Dict[str, int] = dict(zip(
+            self.axis_names, device_mesh.get_coordinate()))
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
+                f"device={self.device})")
+
+    def axis_size(self, axis: str) -> int:
+        """Size of a named axis (1 when the mesh has no such axis)."""
+        return self.shape.get(axis, 1)
+
+    def group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        on ``axis``."""
+        return self.device_mesh.get_group(axis)
+
+    def index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over ``axes`` (absent axes count
+        as size 1) — its shard of an axis sharded over them."""
+        i = 0
+        for a in axes:
+            i = i * self.axis_size(a) + self.coords.get(a, 0)
+        return i
+
+
+def _ensure_process_group(dev: torch.device) -> None:
+    """A one-rank default process group when none exists: ``nccl`` for
+    CUDA, ``gloo`` for the CPU, over a ``file://`` store in a fresh
+    temporary directory (no network)."""
+    if dist.is_initialized():
+        return
+    store = os.path.join(tempfile.mkdtemp(prefix="repro_torch_pg_"), "store")
+    dist.init_process_group(
+        backend="nccl" if dev.type == "cuda" else "gloo",
+        init_method=f"file://{store}", world_size=1, rank=0)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device: Device = None) -> Mesh:
+    """A mesh of ``shape`` with axis names ``axes`` over the default
+    process group, whose world size must be ``prod(shape)``.  Each rank
+    drives ``device`` (default CUDA; a CUDA device without an index
+    becomes ``cuda:<rank mod device count>``).  With no process group
+    yet, a one-rank group is made first (see the module doc)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    dev = resolve_device(device)
+    if math.prod(shape) == 1:
+        _ensure_process_group(dev)
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh over more than one rank needs "
+                           "torch.distributed.init_process_group first")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks, the "
+                         f"process group has {world}")
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", dist.get_rank() %
+                               torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    return Mesh(dm, dev)
+
+
+def make_host_mesh(device: Device = None) -> Mesh:
+    """The one-rank ``(1, 1)`` mesh with the pod's axis names."""
+    return make_mesh((1, 1), ("data", "model"), device)
+
+
+def destroy() -> None:
+    """Destroy the default process group, if there is one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

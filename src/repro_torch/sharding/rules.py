@@ -1,0 +1,219 @@
+"""Parameter/batch partition rules: FSDP (data) × tensor/expert (model).
+
+The counterpart of ``repro/sharding/rules.py`` (the parts the pod
+backend reads), over the port's own PartitionSpec :class:`P` and any
+mesh that has ``axis_names``, ``devices`` (an array in the mesh shape)
+and a ``shape`` dict — a :class:`repro_torch.launch.mesh.Mesh`, or a
+stand-in that only names the axes.
+
+Layout policy (path-pattern → PartitionSpec, matched by path suffix):
+embeddings / lm_head put vocab on ``model`` and d_model on ``data``;
+in-projections shard d_in over ``data`` (FSDP) and d_out over ``model``
+(TP); out-projections the transpose; MoE expert banks put the expert
+axis on ``model``; SSM conv and per-head parameters follow ``model``;
+norms and small vectors replicate.  Every rule degrades gracefully: a
+dim the axis does not divide replicates on that axis, so the same rules
+drive a 16×16 pod, a 2×16×16 multi-pod and a one-rank mesh.
+
+The trainable-slice filters are ROADMAP.md item M11, the decode-cache
+layout waits for a sharded serve path.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Optional, Sequence, Tuple
+
+from repro_torch.utils import tree_math as tm
+
+Pytree = Any
+
+DATA, MODEL, POD = "data", "model", "pod"
+
+
+class P(tuple):
+    """A PartitionSpec: one entry per dim — an axis name, a tuple of
+    axis names (the dim is sharded over their product), or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return "P" + super().__repr__()
+
+
+def is_pspec(x) -> bool:
+    return isinstance(x, P)
+
+
+# (path regex, spec for the leaf's LOGICAL (unstacked) trailing dims)
+_PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"(^|/)embed$",                          (MODEL, DATA)),
+    (r"(^|/)lm_head$",                        (DATA, MODEL)),
+    (r"/lora_a$",                             (DATA, None)),
+    (r"/lora_b$",                             (None, MODEL)),
+    (r"(wq|wk|wv|wq_a|wq_b|wkv_a|wkv_b|w_gate|w_up|in_proj|proj)/w$", (DATA, MODEL)),
+    (r"(wo|w_down|out_proj)/w$",              (MODEL, DATA)),
+    (r"experts/w_gate$",                      (MODEL, DATA, None)),
+    (r"experts/w_up$",                        (MODEL, DATA, None)),
+    (r"experts/w_down$",                      (MODEL, None, DATA)),
+    (r"router/w$",                            (None, None)),
+    (r"conv_w$",                              (None, MODEL)),
+    (r"conv_b$",                              (MODEL,)),
+    (r"(A_log|D|dt_bias)$",                   (None,)),
+    (r"(wq|wk|wv|w_gate|w_up|in_proj)/b$",    (MODEL,)),
+    (r"/b$",                                  (None,)),
+    (r"(scale|bias)$",                        (None,)),
+)
+
+
+def _axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _axis_size(ax, axis_sizes: dict) -> int:
+    if isinstance(ax, (tuple, list)):
+        return math.prod(axis_sizes.get(a, 1) for a in ax)
+    return axis_sizes.get(ax, 1)
+
+
+def _fit_axes(spec: Sequence, shape: Tuple[int, ...], axis_sizes: dict) -> P:
+    """Left-pad to rank; drop axes that don't divide the dim evenly.
+    Entries may be axis names or tuples of axis names (combined axes)."""
+    spec = list(spec)
+    pad = len(shape) - len(spec)
+    if pad < 0:                       # leaf smaller than rule (degenerate)
+        spec = spec[-len(shape):] if shape else []
+        pad = 0
+    full = [None] * pad + spec
+    out = []
+    for dim, ax in zip(shape, full):
+        n = _axis_size(ax, axis_sizes)
+        if ax is not None and n > 1 and dim % n == 0:
+            out.append(tuple(ax) if isinstance(ax, (tuple, list)) else ax)
+        else:
+            out.append(None)
+    return P(*out)
+
+
+# fsdp_tp: FSDP over data, tensor/expert parallel over model;
+# fsdp_only: the first shardable dim over (pod, data, model), no TP;
+# replicated: params replicated (the batch still shards)
+LAYOUTS = ("fsdp_tp", "fsdp_only", "replicated")
+
+
+def _apply_layout(rule: Sequence, layout: str, mesh) -> Sequence:
+    if layout == "fsdp_tp" or layout not in LAYOUTS:
+        return rule
+    if layout == "replicated":
+        return [None] * len(rule)
+    combined = tuple(a for a in (POD, DATA, MODEL) if a in mesh.axis_names)
+    out = []
+    used = False
+    for ax in rule:
+        if ax in (DATA, MODEL) and not used:
+            out.append(combined)      # first shardable dim gets full FSDP
+            used = True
+        else:
+            out.append(None)
+    return out
+
+
+def param_pspecs(params_tree: Pytree, mesh, layout: str = "fsdp_tp") -> Pytree:
+    """PartitionSpec tree matching ``params_tree`` (anything with
+    ``.shape`` at the leaves)."""
+    axis_sizes = _axis_sizes(mesh)
+    leaves, treedef = tm.tree_flatten(params_tree)
+    specs = []
+    for path, leaf in zip(tm.tree_paths(params_tree), leaves):
+        shape = tuple(leaf.shape)
+        for pattern, rule in _PARAM_RULES:
+            if re.search(pattern, path):
+                specs.append(_fit_axes(_apply_layout(rule, layout, mesh),
+                                       shape, axis_sizes))
+                break
+        else:
+            specs.append(P())         # unmatched: replicate
+    return tm.tree_unflatten(treedef, specs)
+
+
+def trainable_mask(tree: Pytree, filter_spec: Optional[str]) -> None:
+    """The trainable-slice filters are ROADMAP.md item M11: ``None`` (every
+    leaf trains) is the only filter the port takes."""
+    if filter_spec is not None:
+        raise NotImplementedError(
+            "trainable filters are not ported to repro_torch yet "
+            "(ROADMAP.md item M11)")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# sharded flat buffers (the pod's fused flat-first carries)
+# ---------------------------------------------------------------------------
+
+def sharded_flat_view(params_tree: Pytree, mesh, layout: str = "fsdp_tp",
+                      filter_spec: Optional[str] = None):
+    """ShardedFlatView for ``params_tree`` under this mesh + layout:
+    leaves bucket per (dtype, mesh-axis group) straight from the
+    :func:`param_pspecs` rules (see
+    ``repro_torch.utils.flatten.ShardedFlatView``)."""
+    from repro_torch.utils.flatten import ShardedFlatView
+    trainable_mask(params_tree, filter_spec)
+    return ShardedFlatView.of(params_tree,
+                              param_pspecs(params_tree, mesh, layout),
+                              _axis_sizes(mesh))
+
+
+def flat_buffer_pspec(group) -> P:
+    """PartitionSpec for one ShardGroup's ``(n_shards, per_shard)``
+    buffer: the shard axis over the group's mesh axes, per-shard data
+    unsharded."""
+    if not group.axes:
+        return P(None, None)
+    entry = group.axes if len(group.axes) > 1 else group.axes[0]
+    return P(entry, None)
+
+
+def mesh_axis_size(mesh, axis: str = DATA) -> int:
+    """Size of a named mesh axis (1 when the axis is absent)."""
+    return _axis_sizes(mesh).get(axis, 1)
+
+
+def lane_axis_pspec(leaf_rank: int = 3) -> P:
+    """Hierarchical-aggregation lane buffers ``(G, n_shards, per_shard)``:
+    the pod-lane axis over the mesh ``data`` axis — one pod per data
+    shard — each lane's flat tile whole, so the per-lane accumulation is
+    shard-local and the cross-pod combine is one all-reduce over
+    ``data``."""
+    return P(DATA, *([None] * (leaf_rank - 1)))
+
+
+# ---------------------------------------------------------------------------
+# federated batch / client-stack sharding
+# ---------------------------------------------------------------------------
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes a federated batch shards over: (pod, data)."""
+    return tuple(a for a in (POD, DATA) if a in mesh.axis_names)
+
+
+def fl_batch_pspec(mesh, leaf_rank: int, batch_axis: int = 2) -> P:
+    """Client batch stacks: shard ONE batch-like axis over (pod, data)
+    — axis 2 (B) of a pre-sampled ``(K, t_i, B, ...)`` round, or axis 1
+    (the sample pool) of the ``(n_clients, n_per_client, ...)`` data."""
+    baxes = batch_axes(mesh)
+    ax = baxes if len(baxes) > 1 else baxes[0]
+    spec = [None] * leaf_rank
+    if leaf_rank > batch_axis:
+        spec[batch_axis] = ax
+    return P(*spec)
+
+
+def client_axis_pspec(mesh, leaf_rank: int, n_clients: int) -> P:
+    """Stacked per-client leaves ``(n_clients, ...)``: the leading client
+    axis over the mesh ``data`` axis (replicated when the client count
+    does not divide it)."""
+    n = _axis_sizes(mesh).get(DATA, 1)
+    if leaf_rank < 1 or n <= 1 or n_clients % n != 0 or n_clients < n:
+        return P(*([None] * leaf_rank))
+    return P(DATA, *([None] * (leaf_rank - 1)))

@@ -19,6 +19,11 @@ concatenates the leaf gradients into a single packed gradient (pad lanes
 zero) — the counterpart of the JAX package differentiating with respect
 to the flat buffers, so the fused step tail consumes the gradient with
 no per-step pack.
+
+:class:`ShardedFlatView` is the mesh-aware sibling (the pod backend's):
+leaves bucket per (dtype, mesh-axis group) into ``(n_shards,
+per_shard)`` buffers, the JAX package's layout element for element,
+tile permutation included.
 """
 from __future__ import annotations
 
@@ -185,3 +190,201 @@ class FlatView:
                                    device=device)
             parts.setdefault(slot.buffer, []).append(draw.reshape(-1))
         return {name: torch.cat(chunks) for name, chunks in parts.items()}
+
+
+# ---------------------------------------------------------------------------
+# sharded flat view — per-(dtype × mesh-axis-group) buffers
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLeafSlot:
+    """One leaf's static slice of its bucket, PER SHARD."""
+    buffer: str                   # bucket name, e.g. "float32@data+model"
+    offset: int                   # element offset within each shard row
+    size: int                     # elements per shard for this leaf
+    shape: Tuple[int, ...]        # global (unsharded) leaf shape
+    # mesh axes tiling each dim, in the dim's tiling order (() = unsharded)
+    dim_axes: Tuple[Tuple[str, ...], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardGroup:
+    """One bucket: all leaves of one dtype sharded over one axis set."""
+    name: str
+    dtype: str
+    axes: Tuple[str, ...]         # canonical (mesh) order; () = replicated
+    n_shards: int
+    size: int                     # elements per shard (bucket total)
+
+
+def _spec_entries(pspec, rank: int) -> Tuple[Tuple[str, ...], ...]:
+    """Normalize a PartitionSpec-like into per-dim axis-name tuples,
+    right-padded with () to the leaf rank."""
+    entries = tuple(pspec) if pspec is not None else ()
+    out = []
+    for e in entries:
+        if e is None:
+            out.append(())
+        elif isinstance(e, str):
+            out.append((e,))
+        else:
+            out.append(tuple(e))
+    out += [()] * (rank - len(out))
+    return tuple(out[:rank])
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFlatView:
+    """Static packing plan bucketing leaves per (dtype, mesh-axis group),
+    the counterpart of ``repro/utils/flatten.py:ShardedFlatView`` with
+    the same layout element for element.
+
+    Each bucket's buffer is ``(n_shards, per_shard)``: axis 0 enumerates
+    the shards of the group's mesh axes in canonical (mesh-order)
+    row-major order, and every leaf owns the static per-shard slice
+    ``[offset, offset + size)`` of axis 1 — so the rank at a given mesh
+    coordinate holds each leaf's local tile in one contiguous run of its
+    row (:meth:`local_rows`).  Size-1 axes never shard anything and are
+    dropped, so a one-rank mesh gives one replicated row per dtype: the
+    :class:`FlatView` layout (:meth:`local_view`)."""
+    treedef: Any
+    slots: Tuple[ShardedLeafSlot, ...]
+    groups: Tuple[ShardGroup, ...]
+    axis_sizes: Tuple[Tuple[str, int], ...]   # canonical order, all axes
+
+    @classmethod
+    def of(cls, tree: Pytree, pspecs: Pytree,
+           axis_sizes: Dict[str, int]) -> "ShardedFlatView":
+        """Build a view from leaf shapes/dtypes plus a matching
+        PartitionSpec tree (``repro_torch.sharding.rules.param_pspecs``);
+        ``axis_sizes`` maps mesh axis name → size in mesh order."""
+        from repro_torch.sharding.rules import is_pspec
+        leaves, treedef = tree_flatten(tree)
+        spec_leaves, _ = tree_flatten(
+            pspecs, is_leaf=lambda x: x is None or is_pspec(x))
+        if len(spec_leaves) != len(leaves):
+            raise ValueError(
+                f"pspec tree has {len(spec_leaves)} leaves for a "
+                f"{len(leaves)}-leaf param tree")
+        order = tuple(axis_sizes)
+        cursor: Dict[str, int] = {}
+        meta: Dict[str, Tuple[str, Tuple[str, ...], int]] = {}
+        slots = []
+        for leaf, pspec in zip(leaves, spec_leaves):
+            shape = tuple(leaf.shape)
+            dtype = dtype_name(leaf.dtype)
+            dim_axes = tuple(
+                tuple(a for a in entry if axis_sizes.get(a, 1) > 1)
+                for entry in _spec_entries(pspec, len(shape)))
+            used = [a for entry in dim_axes for a in entry]
+            if len(set(used)) != len(used):
+                raise ValueError(f"mesh axis repeated in spec {pspec}")
+            for dim, entry in zip(shape, dim_axes):
+                n = math.prod(axis_sizes[a] for a in entry)
+                if n > 1 and dim % n != 0:
+                    raise ValueError(
+                        f"dim {dim} not divisible by axes {entry} ({n})")
+            axes = tuple(a for a in order if a in used)
+            n_shards = math.prod(axis_sizes[a] for a in axes)
+            name = dtype + ("@" + "+".join(axes) if axes else "")
+            size = int(math.prod(shape)) // max(n_shards, 1)
+            off = cursor.get(name, 0)
+            slots.append(ShardedLeafSlot(buffer=name, offset=off, size=size,
+                                         shape=shape, dim_axes=dim_axes))
+            cursor[name] = off + size
+            meta[name] = (dtype, axes, n_shards)
+        groups = tuple(ShardGroup(name=name, dtype=m[0], axes=m[1],
+                                  n_shards=m[2], size=cursor[name])
+                       for name, m in meta.items())
+        return cls(treedef=treedef, slots=tuple(slots), groups=groups,
+                   axis_sizes=tuple((a, int(axis_sizes[a])) for a in order))
+
+    def _axis_size(self, name: str) -> int:
+        return dict(self.axis_sizes)[name]
+
+    def local_rows(self, coords: Dict[str, int]) -> Dict[str, int]:
+        """The row of each bucket that the rank at mesh coordinates
+        ``coords`` (axis → index) holds: its row-major index over the
+        group's axes (0 for a replicated group)."""
+        rows = {}
+        for g in self.groups:
+            i = 0
+            for a in g.axes:
+                i = i * self._axis_size(a) + int(coords.get(a, 0))
+            rows[g.name] = i
+        return rows
+
+    def local_view(self) -> FlatView:
+        """The rank-local layout as a :class:`FlatView` — the same
+        buckets, offsets and leaf shapes — when every group is
+        replicated (each rank holds whole leaves)."""
+        sharded = [g.name for g in self.groups if g.n_shards > 1]
+        if sharded:
+            raise NotImplementedError(
+                f"buckets {sharded} are sharded over mesh axes: FSDP/TP "
+                f"groups need all_gather/reduce_scatter around the model, "
+                f"which are not ported to repro_torch yet (ROADMAP.md item "
+                f"M13b)")
+        return FlatView(treedef=self.treedef, slots=tuple(
+            LeafSlot(buffer=s.buffer, offset=s.offset, size=s.size,
+                     shape=s.shape) for s in self.slots))
+
+    # -- per-leaf shard transform ------------------------------------------
+
+    def _perm_info(self, slot: ShardedLeafSlot):
+        """(expanded shape, factor->front permutation, n_shards) for one
+        leaf: every sharded dim splits into its axis factors, and the
+        factors move to the front in canonical (mesh) order."""
+        order = [a for a, _ in self.axis_sizes]
+        expanded, factor_pos = [], {}
+        for dim, entry in zip(slot.shape, slot.dim_axes):
+            for a in entry:
+                factor_pos[a] = len(expanded)
+                expanded.append(self._axis_size(a))
+                dim //= self._axis_size(a)
+            expanded.append(dim)
+        block_pos = [i for i in range(len(expanded))
+                     if i not in factor_pos.values()]
+        perm = [factor_pos[a] for a in order if a in factor_pos] + block_pos
+        n_shards = math.prod(self._axis_size(a) for a in factor_pos)
+        return expanded, perm, n_shards
+
+    def _leaf_to_shards(self, leaf: torch.Tensor,
+                        slot: ShardedLeafSlot) -> torch.Tensor:
+        """(global leaf) -> (n_shards, per_shard) rows, shard-major in
+        canonical axis order."""
+        expanded, perm, n_shards = self._perm_info(slot)
+        out = leaf.reshape(expanded).permute(perm)
+        return out.reshape(n_shards, slot.size)
+
+    def _shards_to_leaf(self, rows: torch.Tensor,
+                        slot: ShardedLeafSlot) -> torch.Tensor:
+        expanded, perm, _ = self._perm_info(slot)
+        inv = [perm.index(i) for i in range(len(perm))]
+        mid = rows.reshape([expanded[i] for i in perm])
+        return mid.permute(inv).reshape(slot.shape)
+
+    # -- pack / unpack ------------------------------------------------------
+
+    def _check(self, tree: Pytree) -> list:
+        leaves, treedef = tree_flatten(tree)
+        if treedef != self.treedef:
+            raise ValueError("tree structure mismatch with this "
+                             "ShardedFlatView")
+        return leaves
+
+    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack ``tree`` into ``{bucket: (n_shards, per_shard)}``."""
+        parts: Dict[str, list] = {}
+        for slot, leaf in zip(self.slots, self._check(tree)):
+            parts.setdefault(slot.buffer, []).append(
+                self._leaf_to_shards(leaf, slot))
+        return {name: torch.cat(rows, dim=1) for name, rows in parts.items()}
+
+    def unflatten(self, bufs: Dict[str, torch.Tensor]) -> Pytree:
+        """Inverse of :meth:`flatten` (buffers may carry padding past
+        each row's logical size)."""
+        leaves = [self._shards_to_leaf(
+            bufs[s.buffer][:, s.offset:s.offset + s.size], s)
+            for s in self.slots]
+        return tree_unflatten(self.treedef, leaves)

@@ -10,18 +10,23 @@ element with one packed by the JAX package.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 Pytree = Any
 
 
-def tree_flatten(tree: Pytree) -> Tuple[List[Any], Any]:
-    """``(leaves, treedef)`` in jax.tree_util order (sorted dict keys)."""
+def tree_flatten(tree: Pytree, is_leaf: Optional[Callable[[Any], bool]] = None
+                 ) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)`` in jax.tree_util order (sorted dict keys);
+    ``is_leaf(node)`` True stops the walk at that node (as in JAX)."""
     leaves: List[Any] = []
 
     def rec(t):
+        if is_leaf is not None and is_leaf(t):
+            leaves.append(t)
+            return ("leaf", None, ())
         if isinstance(t, dict):
             keys = tuple(sorted(t))
             return ("dict", keys, tuple(rec(t[k]) for k in keys))
@@ -55,6 +60,29 @@ def tree_unflatten(treedef: Any, leaves) -> Pytree:
         return built if kind == "list" else tuple(built)
 
     return build(treedef)
+
+
+def tree_paths(tree: Pytree) -> List[str]:
+    """Each leaf's path, "/"-joined, in :func:`tree_flatten` order: dict
+    keys, sequence indices, and ``.name`` for a NamedTuple field — the
+    strings the JAX package's sharding rules match against."""
+    out: List[str] = []
+
+    def rec(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                rec(t[k], path + (str(k),))
+        elif isinstance(t, tuple) and hasattr(t, "_fields"):
+            for name, x in zip(t._fields, t):
+                rec(x, path + ("." + name,))
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                rec(x, path + (str(i),))
+        elif t is not None:
+            out.append("/".join(path))
+
+    rec(tree, ())
+    return out
 
 
 def tree_leaves(tree: Pytree) -> List[Any]:

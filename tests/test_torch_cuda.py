@@ -259,3 +259,81 @@ def test_upload_kernels_count_launches_and_check(gen):
         fu.dp_clip_noise(d.bfloat16(), None, torch.ones(2, device="cuda"))
     assert fu.compress_delta.launches == 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("with_p", (True, False))
+@pytest.mark.parametrize("n", (137_216, 137_216 + 5, 7, 0))
+def test_delta_accum_matches_plain_bitwise(gen, dtype, with_p, n):
+    """K6 bit-equal to its plain version: the vector path, a tail of
+    n % V elements, a length under one vector, and N 0; in place on d,
+    w and p untouched."""
+    d = torch.randn(n, generator=gen, device="cuda") * 1e-2
+    w = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype) \
+        if with_p else None
+    c = torch.tensor([0.1234], device="cuda")
+    w0, p0 = w.clone(), (p.clone() if with_p else None)
+    a, b = d.clone(), d.clone()
+    assert fu.delta_accum(a, w, p, c) is a
+    fu.delta_accum_plain(b, w, p, c)
+    assert torch.equal(a, b)
+    assert torch.equal(w, w0) and (not with_p or torch.equal(p, p0))
+    # an unaligned view takes the one-element path
+    if n > 8:
+        a2, b2 = d.clone(), d.clone()
+        fu.delta_accum(a2[1:], w[1:], None if p is None else p[1:], c)
+        fu.delta_accum_plain(b2[1:], w[1:], None if p is None else p[1:], c)
+        assert torch.equal(a2, b2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_delta_accum_counts_launches_and_checks(gen):
+    fu.reset_launch_counts()
+    d = torch.zeros(4096, device="cuda")
+    w = torch.randn(4096, generator=gen, device="cuda")
+    c = torch.tensor([0.5], device="cuda")
+    fu.delta_accum(d, w, w, c)
+    fu.delta_accum(d, w, None, c)
+    assert fu.delta_accum.launches == 2
+    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 6
+    with pytest.raises(TypeError):
+        fu.delta_accum(d, w, w.bfloat16(), c)
+    with pytest.raises(TypeError):
+        fu.delta_accum(d.bfloat16(), w, None, c)
+    assert fu.delta_accum.launches == 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pod_round_on_a_one_rank_nccl_mesh(gen):
+    """One pod P2 round (sequential FedAvg, 4 clients) on the one-rank
+    NCCL mesh: one K6 launch per client, one gradient all-reduce per
+    SGD step, finite results."""
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl import pod
+    from repro_torch.fl.task import vision_task
+    from repro_torch.launch import mesh as tmesh
+    mesh = tmesh.make_host_mesh()
+    try:
+        task = vision_task("mlp", n_classes=10, in_ch=3,
+                           seed_kwargs={"img": 32})
+        data = DATASETS.get("cifar10-like")(n_clients=8, beta=0.5, seed=0,
+                                            n_train=256, n_test=64)
+        cfg = pod.PodFLConfig(mesh, rounds=1, clients_per_round=4,
+                              spec=pod.PodFLSpec(local_steps=2, batch_size=8,
+                                                 update_impl="fused"),
+                              sampling="host", eval_every=1)
+        fu.reset_launch_counts()
+        pod.reset_collective_counts()
+        res = pod.run_pod_rounds(task, data, cfg)
+        torch.cuda.synchronize()
+        assert fu.delta_accum.launches == 4
+        assert fu.local_step.launches == 8 and fu.weighted_delta.launches == 0
+        assert pod.COLLECTIVES["grad"] == 8
+        assert all(bool(torch.isfinite(t).all())
+                   for t in res.params.values() for t in t.values())
+    finally:
+        tmesh.destroy()

@@ -213,3 +213,87 @@ def test_bf16_inputs_round_the_same_on_both_sides():
     np.testing.assert_array_equal(np.asarray(j).astype(np.float32),
                                   t.float().numpy())
     assert np.asarray(j).dtype == ml_dtypes.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# K6 delta_accum: the pod backend's running weighted delta
+# ---------------------------------------------------------------------------
+
+def _f32_seq(d, w, p, c):
+    """The step-by-step f32 reference: each operation rounds once."""
+    c = np.float32(c)
+    term = w if p is None else (w - p).astype(np.float32)
+    return (d + (c * term).astype(np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", (0, 1, 1001, 4096))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("with_p", [True, False])
+def test_delta_accum_matches_pallas(n, dtype, with_p):
+    """The plain version against ``delta_accum(..., interpret=True)``
+    within one ulp of the summands (XLA may contract ``d + c·(w − p)``
+    into one FMA), and bitwise against the step-by-step f32 reference.
+    The caller's ``w`` and ``p`` stay untouched; ``d`` is updated in
+    place and returned."""
+    c = 0.3173
+    d0 = _np(30, n)
+    jw, tw = _both(_np(31, n), dtype)
+    jp, tp = _both(_np(32, n), dtype) if with_p else (None, None)
+    want = jfu.delta_accum(jnp.asarray(d0), jw, jp, jnp.float32(c),
+                           interpret=True)
+    td = torch.from_numpy(d0.copy())
+    w_before = tw.clone()
+    p_before = tp.clone() if with_p else None
+    out = fu.delta_accum(td, tw, tp, torch.tensor([c], dtype=torch.float32))
+    assert out is td and out.dtype == torch.float32 and out.shape == (n,)
+    assert torch.equal(tw, w_before)
+    if with_p:
+        assert torch.equal(tp, p_before)
+    w32 = tw.float().numpy()
+    p32 = tp.float().numpy() if with_p else None
+    np.testing.assert_array_equal(out.numpy(), _f32_seq(d0, w32, p32, c))
+    term = np.abs(w32) if p32 is None else np.abs(w32) + np.abs(p32)
+    scale = np.abs(d0) + abs(c) * term
+    a, b = out.numpy(), np.asarray(want, np.float32)
+    assert a.shape == b.shape
+    assert np.all(np.abs(a - b) <= 2.0 ** -23 * scale + 1e-30), \
+        np.max(np.abs(a - b))
+
+
+def test_delta_accum_interpret_and_ops_agree():
+    """``fused_delta_accum`` takes the coefficient as a 0-dim or (1,)
+    f32 tensor and gives the wrapper's result either way."""
+    d = torch.from_numpy(_np(33, 300))
+    w, p = torch.from_numpy(_np(34, 300)), torch.from_numpy(_np(35, 300))
+    a = ops.fused_delta_accum(d.clone(), w, p, torch.tensor(0.25),
+                              interpret=True)
+    b = ops.fused_delta_accum(d.clone(), w, p, torch.tensor([0.25]),
+                              interpret=False)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["d_dtype", "w_dtype", "p_dtype", "shape",
+                                 "coeff"])
+def test_delta_accum_rejects_what_the_kernel_does_not_take(bad):
+    d = torch.zeros(16, dtype=torch.bfloat16 if bad == "d_dtype" else
+                    torch.float32)
+    w = torch.zeros(16, dtype=torch.float64 if bad == "w_dtype" else
+                    torch.float32)
+    p = torch.zeros(8 if bad == "shape" else 16,
+                    dtype=torch.bfloat16 if bad == "p_dtype" else
+                    torch.float32)
+    c = torch.zeros(2 if bad == "coeff" else 1)
+    with pytest.raises((TypeError, ValueError)):
+        fu.delta_accum(d, w, p, c)
+
+
+def test_delta_accum_counts_no_launch_on_the_cpu():
+    fu.reset_launch_counts()
+    d = torch.zeros(8)
+    fu.delta_accum(d, torch.ones(8), torch.ones(8), torch.tensor([0.5]))
+    fu.delta_accum(d, torch.ones(8), None, torch.tensor([0.5]))
+    assert fu.POD_KERNELS == (fu.delta_accum,)
+    assert fu.delta_accum.launches == 0
+    fu.delta_accum.launches = 7
+    fu.reset_launch_counts()
+    assert fu.delta_accum.launches == 0

@@ -1,0 +1,469 @@
+"""The pod backend (``repro_torch.fl.pod``) against the port's host engine
+and against the JAX package's pod, on the CPU.
+
+One rank: a gloo process group of one (``make_host_mesh("cpu")``).  The
+pod relay equals the host relay bitwise; the pod aggregate (the
+sequential K6 accumulation) equals the host aggregate (one K2 pass)
+within rtol 1e-5.  Against the JAX pod on its one-device mesh
+(``repro.launch.mesh.make_host_mesh``): the small ``mlp`` and LeNet-5,
+tree and fused, sequential and hierarchical (``n_pods=2``: the lanes
+are not sharded on one rank), compressed uploads with error feedback,
+DP + secure aggregation on the JAX package's draws (injected through
+``RoundSchedule.noise_draws``), and the server optimizers (adam at
+``server_lr=1e-3``: Adam's normalization turns a last-bit difference
+in a near-zero pseudo-gradient into a step of up to the lr).  Both
+sides start from the same JAX-initialized params and train on the JAX
+engine's threefry batch indices (injected), with ``sampling="host"``.
+Tolerances: losses rtol 1e-5, params atol 2e-5 (2 rounds; conv and
+matmul reductions sum in another order); adam at atol 1e-4, as in
+``tests/test_torch_pipeline.py``.  Compressed uploads as in
+``tests/test_torch_compression.py``: params and error-feedback rows at
+atol 1e-4, except that an element whose delta sits within that
+difference of a rounding edge (the top-k threshold or a quantization
+midpoint) may land on the other side — at most 0.1% of the elements may
+then differ, each by no more than twice the largest residual.
+
+Four ranks: ``tests/torch_pod_worker.py`` runs in four processes over a
+``file://`` gloo store, on ``(2, 2)`` and ``(4, 1)`` meshes, against the
+JAX pod in a subprocess with 4 fake CPU devices on the same meshes
+(``repro.launch.mesh._make_mesh``).  The hierarchical cases take the
+``lane_psum`` branch (n_pods = |data|), with and without DP clipping;
+each round's lane combine is exactly one ``all_reduce`` per bucket.
+The data-parallel runs equal the one-rank port run within 1e-5 and the
+JAX pod within atol 2e-5.  The compressed cases (int8 + top-k 25% +
+error feedback, sequential and hierarchical on ``(2, 2)``) shard the
+error-feedback rows over ``data``: each round gathers them with one
+``all_reduce`` per bucket, and the rows gathered from every rank, like
+the params, match the JAX pod and the one-rank run at the compressed
+tolerance above.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch_parity import (index_source, jax_engine_indices, jax_leaves,
+                          jax_noise_draws, jax_numpy_params, torch_leaves)
+
+import jax
+from repro.data.synthetic import DATASETS as J_DATASETS
+from repro.fl import compression as jcomp
+from repro.fl import privacy as jpriv
+from repro.fl import pod as jpod
+from repro.fl.engine import run_rounds as j_run_rounds
+from repro.fl.task import vision_task as j_vision_task
+from repro.launch.mesh import make_host_mesh as j_make_host_mesh
+from repro_torch import bridge
+from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
+from repro_torch.core.pipeline import Phase, run_phase_schedule
+from repro_torch.data.synthetic import DATASETS
+from repro_torch.fl import compression, pod, privacy
+from repro_torch.fl.engine import run_rounds
+from repro_torch.fl.simulation import FLConfig, run_federated
+from repro_torch.fl.task import vision_task
+from repro_torch.kernels import fused_update as fu
+from repro_torch.launch import mesh as tmesh
+
+ROOT = Path(__file__).resolve().parent.parent
+SEED = 0
+N_CLIENTS, N_TRAIN, N_TEST = 8, 256, 64
+STEPS, BATCH, K, ROUNDS = 3, 8, 4, 2
+MODELS = {"mlp": {"img": 32}, "lenet5": None}
+ATOL = 2e-5
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    m = tmesh.make_host_mesh("cpu")
+    yield m
+    tmesh.destroy()
+
+
+@pytest.fixture(scope="module")
+def sides():
+    """Per model: the JAX task/data/init and the port's task/data."""
+    out = {}
+    for model, kw in MODELS.items():
+        jtask = j_vision_task(model, n_classes=10, in_ch=3, seed_kwargs=kw)
+        jdata = J_DATASETS.get("cifar10-like")(
+            n_clients=N_CLIENTS, beta=0.5, seed=SEED, n_train=N_TRAIN,
+            n_test=N_TEST)
+        ttask = vision_task(model, n_classes=10, in_ch=3, seed_kwargs=kw)
+        tdata = DATASETS.get("cifar10-like")(
+            n_clients=N_CLIENTS, beta=0.5, seed=SEED, n_train=N_TRAIN,
+            n_test=N_TEST)
+        # a numpy copy: the JAX pod donates its carries
+        jinit = jax.tree_util.tree_map(
+            np.array, jtask.init(jax.random.PRNGKey(SEED)))
+        out[model] = (jtask, jdata, jinit, ttask, tdata)
+    return out
+
+
+def _indices(rounds, k):
+    return jax_engine_indices(SEED, rounds, k, STEPS, BATCH,
+                              N_TRAIN // N_CLIENTS)
+
+
+def _spec_kw(impl, **kw):
+    return dict(local_steps=STEPS, batch_size=BATCH, lr=0.05,
+                update_impl=impl, **kw)
+
+
+def _assert_params(t_tree, j_tree, atol=ATOL):
+    for a, b in zip(torch_leaves(t_tree), jax_leaves(j_tree)):
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0)
+
+
+def _assert_compressed_close(pairs, bound):
+    """Compressed uploads: within 1e-4, except at most 0.1% of the
+    elements, each by no more than ``bound`` (twice the largest
+    residual), where a delta sat on a rounding edge."""
+    for a, b in pairs:
+        off = np.abs(a - b) > 1e-4
+        assert off.sum() <= max(1, a.size // 1000), int(off.sum())
+        assert np.all(np.abs(a - b)[off] <= bound)
+
+
+# ---------------------------------------------------------------------------
+# one rank: the pod against the port's host engine
+# ---------------------------------------------------------------------------
+
+def test_pod_relay_equals_host_relay_bitwise(mesh, sides):
+    _, _, jinit, task, data = sides["mlp"]
+    init = bridge.params_from_numpy(jax_numpy_params(jinit))
+    idx = index_source(_indices(2, 2))
+    host = cyclic_pretrain(task, data, CyclicConfig(
+        rounds=2, participation=0.25, local_steps=STEPS, batch_size=BATCH,
+        lr=0.05, lr_decay=1.0, update_impl="fused", sampling="host",
+        eval_every=1, batch_indices=idx), init_params=init, device="cpu")
+    p = pod.run_pod_rounds(task, data, pod.PodCyclicConfig(
+        mesh, rounds=2, clients_per_round=2, spec=pod.PodFLSpec(
+            **_spec_kw("fused")), sampling="host", eval_every=1,
+        batch_indices=idx), init_params=init)
+    assert [h["local_loss"] for h in p.history] == \
+        [h["local_loss"] for h in host.history]
+    assert [h["acc"] for h in p.history] == [h["acc"] for h in host.history]
+    for a, b in zip(torch_leaves(p.params), torch_leaves(host.params)):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["tree", "fused"])
+@pytest.mark.parametrize("server_opt", ["none", "momentum"])
+def test_pod_aggregate_matches_host(mesh, sides, impl, server_opt):
+    _, _, jinit, task, data = sides["mlp"]
+    init = bridge.params_from_numpy(jax_numpy_params(jinit))
+    idx = index_source(_indices(ROUNDS, K))
+    fu.reset_launch_counts()
+    host = run_federated(task, data, FLConfig(
+        rounds=ROUNDS, participation=K / N_CLIENTS, local_steps=STEPS,
+        batch_size=BATCH, lr=0.05, lr_decay=1.0, server_opt=server_opt,
+        update_impl=impl, sampling="host", eval_every=1, batch_indices=idx),
+        init_params=init, device="cpu")
+    p = pod.run_pod_rounds(task, data, pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K, spec=pod.PodFLSpec(
+            server_opt=server_opt, **_spec_kw(impl)), sampling="host",
+        eval_every=1, batch_indices=idx), init_params=init)
+    np.testing.assert_allclose([h["local_loss"] for h in p.history],
+                               [h["local_loss"] for h in host.history],
+                               rtol=1e-5)
+    for a, b in zip(torch_leaves(p.params), torch_leaves(host.params)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    # CPU tensors: the plain versions run and no launch is counted
+    assert fu.delta_accum.launches == 0
+
+
+def test_pod_runs_through_the_phase_schedule(mesh, sides):
+    """``Phase(cfg=Pod*Config)`` runs through ``run_phase_schedule`` on
+    the mesh's device, under one ledger."""
+    _, _, _, task, data = sides["mlp"]
+    spec = pod.PodFLSpec(**_spec_kw("fused"))
+    res = run_phase_schedule(task, data, [
+        Phase("P1", pod.PodCyclicConfig(mesh, rounds=1, clients_per_round=2,
+                                        spec=spec)),
+        Phase("P2", pod.PodFLConfig(mesh, rounds=2, clients_per_round=K,
+                                    spec=spec, eval_every=1))])
+    assert [h["phase"] for h in res.history] == ["P1", "P2", "P2"]
+    assert all(np.isfinite(h["local_loss"]) for h in res.history)
+    assert res.ledger.total_bytes > 0
+    with pytest.raises(ValueError, match="mesh's device"):
+        pod.run_pod_rounds(task, data, pod.PodFLConfig(mesh, rounds=1),
+                           device="meta")
+
+
+def test_unported_pod_options_raise_naming_their_items(mesh):
+    spec = pod.PodFLSpec(algorithm="scaffold")
+    with pytest.raises(NotImplementedError, match="M4b"):
+        pod.PodFLConfig(mesh, spec=spec).strategy()
+    with pytest.raises(NotImplementedError, match="M10"):
+        pod.PodFLConfig(mesh, store="sparse").strategy()
+    with pytest.raises(NotImplementedError, match="M11"):
+        pod.PodFLSpec(peft="lora:8")
+    with pytest.raises(NotImplementedError, match="M15"):
+        pod.lower_pod_round()
+    with pytest.raises(ValueError, match="fused flat path"):
+        pod.PodFLSpec(compression=compression.CompressionSpec(8, 0.25, True))
+    with pytest.raises(ValueError, match="requires a mesh"):
+        pod.PodAggregateStrategy(spec=pod.PodFLSpec().local_spec())
+
+
+# ---------------------------------------------------------------------------
+# one rank: the pod against the JAX pod
+# ---------------------------------------------------------------------------
+
+CASES = {
+    # name: (model, impl, PodFLConfig kwargs, PodFLSpec kwargs)
+    "mlp-tree": ("mlp", "tree", {}, {}),
+    "mlp-fused": ("mlp", "fused", {}, {}),
+    "lenet5-tree": ("lenet5", "tree", {}, {}),
+    "lenet5-fused": ("lenet5", "fused", {}, {"server_opt": "momentum"}),
+    "hierarchical-tree": ("mlp", "tree",
+                          {"aggregation": "hierarchical", "n_pods": 2}, {}),
+    "hierarchical-fused": ("mlp", "fused",
+                           {"aggregation": "hierarchical", "n_pods": 2}, {}),
+    "compressed-ef": ("mlp", "fused", {}, {"compression": "int8-topk-ef"}),
+    "compressed-ef-hierarchical": ("mlp", "fused",
+                                   {"aggregation": "hierarchical",
+                                    "n_pods": 2},
+                                   {"compression": "int8-topk-ef"}),
+    "dp-secure-agg": ("mlp", "fused", {}, {"dp": (1.0, 0.1),
+                                           "secure_agg": True}),
+    "dp-hierarchical-tree": ("mlp", "tree",
+                             {"aggregation": "hierarchical", "n_pods": 2},
+                             {"dp": (0.5, 0.0)}),
+    "momentum": ("mlp", "fused", {}, {"server_opt": "momentum"}),
+    "adam": ("mlp", "fused", {}, {"server_opt": "adam", "server_lr": 1e-3}),
+}
+
+
+def _spec_objects(skw, comp_mod, priv_mod):
+    skw = dict(skw)
+    if skw.pop("compression", None):
+        skw["compression"] = comp_mod.CompressionSpec(8, 0.25, True)
+    if "dp" in skw:
+        skw["dp"] = priv_mod.DPSpec(*skw["dp"])
+    return skw
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_pod_matches_jax_pod(mesh, sides, case):
+    model, impl, cfg_kw, spec_kw = CASES[case]
+    jtask, jdata, jinit, task, data = sides[model]
+    jcfg = jpod.PodFLConfig(
+        mesh=j_make_host_mesh(), rounds=ROUNDS, clients_per_round=K,
+        spec=jpod.PodFLSpec(**_spec_kw(
+            "fused_interpret" if impl == "fused" else "tree",
+            **_spec_objects(spec_kw, jcomp, jpriv))),
+        sampling="host", eval_every=1, chunk_size=1, **cfg_kw)
+    jres = j_run_rounds(jtask, jdata, jcfg.strategy(), jcfg.schedule(),
+                        init_params=jax.tree_util.tree_map(jax.numpy.array,
+                                                           jinit))
+
+    tcfg = pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K,
+        spec=pod.PodFLSpec(**_spec_kw(
+            impl, **_spec_objects(spec_kw, compression, privacy))),
+        sampling="host", eval_every=1,
+        batch_indices=index_source(_indices(ROUNDS, K)), **cfg_kw)
+    schedule = tcfg.schedule()
+    if "dp" in spec_kw or spec_kw.get("secure_agg"):
+        schedule = dataclasses.replace(schedule, noise_draws=jax_noise_draws(
+            SEED, ROUNDS, jinit))
+    res = run_rounds(task, data, tcfg.strategy(), schedule,
+                     init_params=bridge.params_from_numpy(
+                         jax_numpy_params(jinit)), device="cpu")
+    np.testing.assert_allclose([h["local_loss"] for h in res.history],
+                               [h["local_loss"] for h in jres.history],
+                               rtol=1e-5)
+    for jh, th in zip(jres.history, res.history):
+        assert abs(jh["acc"] - th["acc"]) * N_TEST <= 1 + 1e-6
+    if "compression" not in spec_kw:
+        _assert_params(res.params, jres.params,
+                       1e-4 if spec_kw.get("server_opt") == "adam" else ATOL)
+        return
+    jr = np.asarray(jres.algo_state["ef_residuals"]["float32"])
+    tr = res.algo_state["ef_residuals"].rows["float32"].numpy()
+    jr = jr.reshape(tr.shape)
+    assert np.any(jr != 0)
+    _assert_compressed_close(
+        list(zip(torch_leaves(res.params), jax_leaves(jres.params)))
+        + [(tr, jr)], 2 * np.abs(jr).max())
+
+
+# ---------------------------------------------------------------------------
+# four ranks: data-parallel steps and the one-all-reduce lane combine
+# ---------------------------------------------------------------------------
+
+MR_CASES = {
+    # name: (mesh shape, PodFLConfig kwargs, DP clip or None,
+    #        int8 + top-k 25% + EF uploads)
+    "2x2-sequential": ((2, 2), {}, None, False),
+    "2x2-lanes": ((2, 2), {"aggregation": "hierarchical"}, None, False),
+    "2x2-lanes-dp": ((2, 2), {"aggregation": "hierarchical"}, 0.5, False),
+    "4x1-lanes": ((4, 1), {"aggregation": "hierarchical"}, None, False),
+    "4x1-lanes-dp": ((4, 1), {"aggregation": "hierarchical"}, 0.5, False),
+    "2x2-compressed-ef": ((2, 2), {}, None, True),
+    "2x2-compressed-ef-lanes": ((2, 2), {"aggregation": "hierarchical"},
+                                None, True),
+}
+
+_JAX_REFERENCE = textwrap.dedent("""
+    import json, sys
+    import numpy as np
+    import jax
+    from repro.data.synthetic import DATASETS
+    from repro.fl import compression, pod, privacy
+    from repro.fl.engine import run_rounds
+    from repro.fl.task import vision_task
+    from repro.launch.mesh import _make_mesh
+    cfg = json.load(open(sys.argv[1]))
+    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={"img": 32})
+    data = DATASETS.get("cifar10-like")(n_clients=cfg["n_clients"],
+        beta=0.5, seed=cfg["seed"], n_train=cfg["n_train"],
+        n_test=cfg["n_test"])
+    init = task.init(jax.random.PRNGKey(cfg["seed"]))
+    out = {}
+    for name, case in cfg["cases"].items():
+        mesh = _make_mesh(tuple(case["shape"]), ("data", "model"))
+        dp = privacy.DPSpec(case["dp"]) if case["dp"] else None
+        comp = (compression.CompressionSpec(8, 0.25, True)
+                if case["compressed"] else None)
+        c = pod.PodFLConfig(mesh=mesh, rounds=cfg["rounds"],
+            clients_per_round=cfg["K"], spec=pod.PodFLSpec(
+                update_impl="fused_interpret", dp=dp, compression=comp,
+                **cfg["spec"]),
+            sampling="host", eval_every=1, chunk_size=1, **case["kw"])
+        res = run_rounds(task, data, c.strategy(), c.schedule(),
+                         init_params=init)
+        for i, leaf in enumerate(jax.tree_util.tree_leaves(res.params)):
+            out[f"{name}/p{i}"] = np.asarray(leaf, np.float32)
+        out[f"{name}/loss"] = np.array([h["local_loss"]
+                                        for h in res.history])
+        if comp is not None:
+            out[f"{name}/ef"] = np.asarray(
+                res.algo_state["ef_residuals"]["float32"], np.float32)
+    np.savez(cfg["out"], **out)
+""")
+
+
+def _run_jax_reference(cfg_path: Path) -> subprocess.Popen:
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", _JAX_REFERENCE,
+                             str(cfg_path)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _run_workers(cfg_path: Path, world: int):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    store = cfg_path.parent / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_pod_worker.py"),
+         str(cfg_path), str(rank), str(world), f"file://{store}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(world)]
+    return procs
+
+
+def _wait(procs, what, timeout=240):
+    for p in procs:
+        out, err = p.communicate(timeout=timeout)
+        assert p.returncode == 0, f"{what} failed:\n{out}\n{err[-4000:]}"
+
+
+@pytest.fixture(scope="module")
+def multi_rank(tmp_path_factory, sides):
+    """The four-rank port runs and the four-device JAX runs of every
+    ``MR_CASES`` entry, side by side (the two subprocess groups run at
+    the same time)."""
+    tmp = tmp_path_factory.mktemp("pod4")
+    _, _, jinit, _, _ = sides["mlp"]
+    np.savez(tmp / "init.npz", *[np.asarray(x, np.float32)
+                                 for x in jax.tree_util.tree_leaves(jinit)])
+    np.save(tmp / "indices.npy", _indices(ROUNDS, K))
+    cases = {name: {"shape": list(shape), "kw": kw, "dp": dp,
+                    "compressed": comp}
+             for name, (shape, kw, dp, comp) in MR_CASES.items()}
+    cfg = dict(seed=SEED, n_clients=N_CLIENTS, n_train=N_TRAIN,
+               n_test=N_TEST, rounds=ROUNDS, K=K,
+               spec=dict(local_steps=STEPS, batch_size=BATCH, lr=0.05),
+               cases=cases, out=str(tmp / "jax.npz"), dir=str(tmp))
+    (tmp / "cfg.json").write_text(json.dumps(cfg))
+    jproc = _run_jax_reference(tmp / "cfg.json")
+    workers = _run_workers(tmp / "cfg.json", 4)
+    _wait(workers, "torch_pod_worker.py")
+    _wait([jproc], "the JAX reference")
+    return cfg, tmp
+
+
+def _one_rank(mesh, sides, case_kw, dp, comp):
+    """The same case on the one-rank mesh (the hierarchical lanes and the
+    client store are then unsharded)."""
+    _, _, jinit, task, data = sides["mlp"]
+    cfg = pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K, spec=pod.PodFLSpec(
+            dp=privacy.DPSpec(dp) if dp else None,
+            compression=(compression.CompressionSpec(8, 0.25, True)
+                         if comp else None), **_spec_kw("fused")),
+        sampling="host", eval_every=1,
+        batch_indices=index_source(_indices(ROUNDS, K)),
+        **dict(case_kw, n_pods=2) if case_kw else {})
+    return pod.run_pod_rounds(task, data, cfg, init_params=bridge.
+                              params_from_numpy(jax_numpy_params(jinit)))
+
+
+@pytest.mark.parametrize("case", MR_CASES)
+def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
+    cfg, tmp = multi_rank
+    shape, kw, dp, comp = MR_CASES[case]
+    got = np.load(tmp / f"torch_{case}.npz")
+    want = np.load(tmp / "jax.npz")
+    n = len([k for k in want if k.startswith(f"{case}/p")])
+    one = _one_rank(mesh, sides, kw, dp, comp)
+    np.testing.assert_allclose(got["loss"], want[f"{case}/loss"], rtol=1e-5)
+    per_rank = [json.loads((tmp / f"counts_{case}_{r}.json").read_text())
+                for r in range(4)]
+    if comp:
+        # the EF rows: each client's row from the rank that owns it (its
+        # block of the data axis; the model axis replicates)
+        ef = np.zeros_like(one.algo_state["ef_residuals"].rows["float32"]
+                           .numpy())
+        for r in range(4):
+            part = np.load(tmp / f"ef_{case}_{r}.npz")
+            lo, rows = int(part["lo"]), part["rows"]
+            assert len(rows) == N_CLIENTS // shape[0]
+            ef[lo:lo + len(rows)] = rows
+        jr = want[f"{case}/ef"].reshape(ef.shape)
+        assert np.any(jr != 0)
+        bound = 2 * np.abs(jr).max()
+        _assert_compressed_close(
+            [(got[f"p{i}"], want[f"{case}/p{i}"]) for i in range(n)]
+            + [(ef, jr)], bound)
+        _assert_compressed_close(
+            [(got[f"p{i}"], leaf)
+             for i, leaf in enumerate(torch_leaves(one.params))]
+            + [(ef, one.algo_state["ef_residuals"].rows["float32"].numpy())],
+            bound)
+    else:
+        for i in range(n):
+            np.testing.assert_allclose(got[f"p{i}"], want[f"{case}/p{i}"],
+                                       atol=ATOL, rtol=0)
+        for i, leaf in enumerate(torch_leaves(one.params)):
+            np.testing.assert_allclose(got[f"p{i}"], leaf, atol=1e-5, rtol=0)
+    # every rank: one all-reduce per bucket per round in the lane combine
+    # and in the sharded EF store's gather (the mlp has one f32 bucket),
+    # and one per bucket per SGD step for the gradients
+    lanes = kw.get("aggregation") == "hierarchical"
+    for c in per_rank:
+        assert c["lane_combine"] == (ROUNDS if lanes else 0)
+        assert c["grad"] == ROUNDS * K * STEPS
+        assert c["store_gather"] == (ROUNDS if comp else 0)
+        assert c["delta_accum"] == ROUNDS * (K // shape[0] if lanes else K)

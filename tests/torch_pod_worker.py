@@ -1,0 +1,86 @@
+"""One rank of the multi-rank pod runs of ``tests/test_torch_pod.py`` (not
+a test module).
+
+    python tests/torch_pod_worker.py CFG.json RANK WORLD file:///path/store
+
+Joins a gloo process group over the ``file://`` store, then for every
+case of the config builds its mesh, runs the case's P2 rounds on the
+pod backend from the given init params and batch indices, and writes
+the final params and losses (rank 0), this rank's rows of the
+error-feedback store (compressed cases) and its collective and K6 call
+counts.  Imports torch and ``repro_torch`` only.
+"""
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl import compression, pod, privacy
+    from repro_torch.fl.task import vision_task
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils import tree_math as tm
+
+    cfg = json.loads(Path(cfg_path).read_text())
+    out = Path(cfg["dir"])
+    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={"img": 32})
+    data = DATASETS.get("cifar10-like")(
+        n_clients=cfg["n_clients"], beta=0.5, seed=cfg["seed"],
+        n_train=cfg["n_train"], n_test=cfg["n_test"])
+    saved = np.load(out / "init.npz")
+    _, treedef = tm.tree_flatten(task.init(torch.Generator().manual_seed(0)))
+    init = tm.tree_unflatten(treedef, [torch.from_numpy(saved[f"arr_{i}"])
+                                       for i in range(len(saved.files))])
+    idx = np.load(out / "indices.npy")
+
+    def indices(rnd, slot, step):
+        return torch.from_numpy(np.asarray(idx[rnd, slot, step], np.int64))
+
+    calls = {"delta_accum": 0}
+    accum = ops.fused_delta_accum
+
+    def counted(*args, **kwargs):
+        calls["delta_accum"] += 1
+        return accum(*args, **kwargs)
+    ops.fused_delta_accum = counted
+
+    for name, case in cfg["cases"].items():
+        mesh = make_mesh(case["shape"], ("data", "model"), "cpu")
+        dp = privacy.DPSpec(case["dp"]) if case["dp"] else None
+        comp = (compression.CompressionSpec(8, 0.25, True)
+                if case["compressed"] else None)
+        c = pod.PodFLConfig(
+            mesh, rounds=cfg["rounds"], clients_per_round=cfg["K"],
+            spec=pod.PodFLSpec(update_impl="fused", dp=dp, compression=comp,
+                               **cfg["spec"]),
+            sampling="host", eval_every=1, batch_indices=indices,
+            **case["kw"])
+        pod.reset_collective_counts()
+        calls["delta_accum"] = 0
+        res = pod.run_pod_rounds(task, data, c, init_params=init)
+        counts = dict(pod.COLLECTIVES, **calls)
+        (out / f"counts_{name}_{rank}.json").write_text(json.dumps(counts))
+        if comp is not None:
+            st = res.algo_state["ef_residuals"]
+            np.savez(out / f"ef_{name}_{rank}.npz", lo=st.lo,
+                     rows=st.rows["float32"][:st.per].numpy())
+        if rank == 0:
+            arrays = {f"p{i}": leaf.detach().float().numpy()
+                      for i, leaf in enumerate(tm.tree_leaves(res.params))}
+            arrays["loss"] = np.array([h["local_loss"] for h in res.history])
+            np.savez(out / f"torch_{name}.npz", **arrays)
+        dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
