@@ -8,7 +8,9 @@ Builds every CUDA kernel from ``src/repro_torch/kernels/csrc`` into
 JSON line per phase:
 
   1. env           — the card (nvidia-smi name, power limit), torch/CUDA
-                     versions, the kernel build time;
+                     versions, the kernel build time; env_sass: whether
+                     K7's kernels in the built library issue HGMMA (wgmma),
+                     UTMALDG (TMA) and LDGSTS (cp.async), from cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
                      the stated tolerance, kernel and plain ms (median of
@@ -23,7 +25,8 @@ JSON line per phase:
                      the top-k threshold (a radix select) and K5
                      (dp_clip_noise) at the same N, bitwise; K7
                      (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
-                     shapes and beside them;
+                     shapes and beside them; K1 and Tensor.add_ timed in
+                     turns, five times each (local_step_vs_add_);
   3. main_path     — the paper pipeline at full width: LeNet-5 on
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
@@ -80,8 +83,11 @@ JSON line per phase:
                      versions in f32: prefill logits and teacher-forced
                      decode logits compared, greedy-token agreement;
   7. serve_profile — one prefill and one decode step under torch.profiler:
-                     device-busy share, top device ops;
-then the ``kernels`` summary, the nvidia-smi line and, last,
+                     device-busy share, device ops (a decode step's beside
+                     PR 12's 3,913), K7's device time beside PR 12's, top
+                     device ops;
+then the ``kernels`` summary (K7 with its PR 12 time beside each shape),
+the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the last line; without a CUDA device it exits 1 and prints no result.
 """
@@ -108,6 +114,20 @@ SEED = 0
 SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
 SERVE_T = SERVE_S + SERVE_NEW
 HYMBA_PARAMS = 1_640_872_320
+
+# K7 before this design (PR 12: mma.sync prefill, one block per decode
+# row) at the serve shapes, bf16, ms on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: medians of the parent tree's kernel timed by tools/k7_trees.py
+# in turns with this one, in one call (PERF.md §6, PR 15 call 7)
+PR12_K7_MS = {"prefill_global": 1.2922293345133464,
+              "prefill_swa": 0.9814453125,
+              "decode_2048_swa": 0.03344959914684296,
+              "decode_2048_global": 0.06216959953308106,
+              "decode_2111_swa": 0.033355200290679926,
+              "decode_2111_global": 0.06294000148773193}
+# PR 12's serve_profile: K7 per prefill (ms) and device ops per decode step
+PR12_K7_PREFILL_MS = 32.6
+PR12_DECODE_OPS = 3913
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
 # (CUDA cores), bf16 FLOP/s (dense tensor cores).  Other cards raise in
@@ -563,6 +583,54 @@ def check_attention_kernels(torch, bench) -> dict:
     return main
 
 
+def local_step_vs_add(torch, fu, bench, turns: int = 5) -> None:
+    """K1 at the main path's setting (N 137,216 f32, clip 1, no decay, no
+    momentum: p -= lr*g) and Tensor.add_(g, alpha=-lr), the same function,
+    timed in turns so that both see the same card and host state."""
+    p, g = bench.rand(N_SMALL), bench.rand(N_SMALL)
+    sc = torch.tensor([1.0, 0.05], dtype=torch.float32, device="cuda")
+    pk, pl = p.clone(), p.clone()
+    k_ms, a_ms = [], []
+    for _ in range(turns):
+        k_ms.append(time_ms(torch, lambda: fu.local_step(pk, g, None, None,
+                                                         sc)))
+        a_ms.append(time_ms(torch, lambda: pl.add_(g, alpha=-0.05)))
+    emit(dict(phase="kernel", kernel="local_step_vs_add_", n=N_SMALL,
+              turns=turns, local_step_ms=k_ms, add_ms=a_ms,
+              local_step_median_ms=statistics.median(k_ms),
+              add_median_ms=statistics.median(a_ms)))
+
+
+def sass_features(lib_path) -> dict:
+    """Which instructions K7's kernels compile to, from cuobjdump -sass on
+    the built library: per kernel family, the counts of HGMMA (wgmma),
+    UTMALDG (TMA loads) and LDGSTS (cp.async).  None when cuobjdump is
+    missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return dict(phase="env_sass", cuobjdump=None)
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = next((k for k in ("fa_wgmma_kernel", "fa_split_kernel")
+                       if k in name), None)
+        elif fn is not None:
+            c = counts.setdefault(fn, dict.fromkeys(ops, 0))
+            for op in ops:
+                if op in line:
+                    c[op] += 1
+    return dict(phase="env_sass", cuobjdump=tool, counts=counts,
+                prefill_hgmma=counts.get("fa_wgmma_kernel", {}).get("HGMMA", 0) > 0,
+                prefill_tma=counts.get("fa_wgmma_kernel", {}).get("UTMALDG", 0) > 0,
+                prefill_ldgsts=counts.get("fa_wgmma_kernel", {}).get("LDGSTS", 0) > 0,
+                decode_ldgsts=counts.get("fa_split_kernel", {}).get("LDGSTS", 0) > 0)
+
+
 def check_kernels(torch, fu, bench) -> dict:
     """Phase 2: every variant, then the main path's shapes (returned)."""
     bf16, f32 = torch.bfloat16, torch.float32
@@ -776,6 +844,19 @@ def device_activity(prof, n_top: int = 12):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n_top]
     return busy, len(spans), [dict(name=k[:90], total_ms=v[0] / 1e3,
                                    count=v[1]) for k, v in top]
+
+
+def kernel_time(prof, names) -> tuple:
+    """Device microseconds and launches of the kernels whose name holds
+    one of ``names``, in a CUDA-activity trace."""
+    from torch.autograd import DeviceType
+    us, n = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                any(k in e.name for k in names):
+            us += e.time_range.end - e.time_range.start
+            n += 1
+    return us, n
 
 
 def fused_vs_plain(torch):
@@ -1572,10 +1653,15 @@ def serve_profile(torch, eng, prompt):
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
             busy, n_ops, top = device_activity(prof, n_top=15)
+            k7_us, k7_n = kernel_time(prof, ("fa_split_kernel",
+                                             "fa_wgmma_kernel", "fa_kernel"))
+            extra = (dict(k7_pr12_ms=PR12_K7_PREFILL_MS) if name == "prefill"
+                     else dict(device_ops_pr12=PR12_DECODE_OPS))
             emit(dict(phase="serve_profile", run=name, wall_ms=wall_us / 1e3,
                       device_busy_ms=busy / 1e3,
                       device_busy_share=busy / wall_us if n_ops else None,
-                      device_ops=n_ops, top_device_ops=top))
+                      device_ops=n_ops, k7_ms=k7_us / 1e3, k7_launches=k7_n,
+                      **extra, top_device_ops=top))
             if not n_ops:
                 raise SystemExit("chip_smoke: the profiler saw no device op")
 
@@ -1594,13 +1680,20 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     from repro_torch.kernels import library
-    _, build_s = library.build_library()
+    lib_path, build_s = library.build_library()
     emit(dict(phase="env", nvidia_smi=smi, device=name,
               torch=torch.__version__, cuda=torch.version.cuda,
               kernel_sources=[src.name for src in library.sources()],
               kernel_build_s=build_s))
+    sass = sass_features(lib_path)
+    emit(sass)
+    if sass["cuobjdump"] and not (sass["prefill_hgmma"] and
+                                  sass["prefill_tma"]):
+        raise SystemExit("chip_smoke: K7's prefill kernel issues no HGMMA "
+                         "or no UTMALDG")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
+    local_step_vs_add(torch, fu, bench)
     upload_shapes = check_upload_kernels(torch, bench)
     pod_shapes = check_pod_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
@@ -1689,8 +1782,9 @@ def main(argv=None) -> int:
         launches=serve_launches["flash_attention"],
         **{k: fa_main[k] for k in keys}, tol=fa_main["tol"],
         shape="q (8,2048,25,64) bf16 vs k/v (8,2112,5,64), window 1024",
-        shapes={lbl: {k: r[k] for k in keys} for lbl, r in attn_shapes.items()
-                if lbl != "ssd_scan"},
+        shapes={lbl: {**{k: r[k] for k in keys}, "pr12_ms": PR12_K7_MS[lbl]}
+                for lbl, r in attn_shapes.items() if lbl != "ssd_scan"},
+        pr12_ms=PR12_K7_MS["prefill_swa"],
         launches_per_prefill=per_phase["flash_attention"]["prefill"],
         launches_per_decode_step=per_phase["flash_attention"]["decode_step"]))
     sm = attn_shapes["ssd_scan"]

@@ -10,6 +10,10 @@ The counterpart of ``repro/kernels/flash_attention.py``.
   ``flash_attention_plain``  the same function in dense torch ops: the CPU
                              tests hold it against the Pallas kernel, and
                              ``chip_smoke.py`` holds the kernel against it.
+  ``split_merge_plain``      the decode kernel's arithmetic in dense torch
+                             ops: per-chunk partials (m, l, acc) merged as
+                             the kernel's last block merges them.  Only the
+                             CPU tests call it.
 
 Semantics follow the Pallas kernel: q (B, S, H, hd) and k/v (B, T, KH,
 hd), q head h reads kv head ``h // (H // KH)``; key ``t`` is visible to
@@ -34,6 +38,10 @@ from repro_torch.kernels import library
 NEG_INF = -1e30
 FULL_WINDOW = 2 ** 30
 HEAD_DIMS = (16, 32, 64, 128)      # the head sizes the kernel is built for
+LOG2E = 1.4426950408889634
+# device -> the decode's zero-filled workspace (split partials and the
+# tickets of the last-block merge), grown on demand
+_WORKSPACE: dict = {}
 
 
 def _scalars(T: int, window: Optional[int], q_offset: int,
@@ -67,6 +75,59 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / denom).reshape(B, S, H, hd).to(q.dtype)
 
 
+def split_merge_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk: int, window: Optional[int] = None,
+                      q_offset: int = 0,
+                      kv_len: Optional[int] = None) -> torch.Tensor:
+    """The split decode's arithmetic (``fa_split_kernel``) in dense ops.
+
+    Keys are cut into chunks of ``chunk`` positions.  Each chunk gives every
+    row a partial in the log2 domain: m, the max of its visible scores
+    ``q·k * hd**-0.5 * log2(e)`` (-1e30 when it sees none), l = Σ 2^(s-m)
+    over visible keys and acc = Σ 2^(s-m) v.  The merge takes M, the max of
+    m over the chunks with l > 0, weights w = 2^(m-M) (0 where l = 0), and
+    returns Σ w acc / max(Σ w l, 1e-30): a row no chunk saw gives 0."""
+    B, S, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    q_offset, window, kv_len = _scalars(T, window, q_offset, kv_len)
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    qg = (q.float() * (hd ** -0.5 * LOG2E)).reshape(B, S, KH, G, hd)
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf)
+    qpos = q_offset + torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(n * chunk, device=q.device)[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window) & (kpos < kv_len)
+    s = torch.where(mask, s, NEG_INF).reshape(B, KH, G, S, n, chunk)
+    mask = mask.reshape(S, n, chunk)
+    m = s.amax(dim=-1)                                  # (B, KH, G, S, n)
+    p = torch.where(mask, torch.exp2(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgsnc,bnckd->bkgsnd", p,
+                       vf.reshape(B, n, chunk, KH, hd))
+    seen = l > 0
+    M = torch.where(seen, m, NEG_INF).amax(dim=-1, keepdim=True)
+    w = torch.where(seen, torch.exp2(m - M), 0.0)
+    L = torch.clamp_min((w * l).sum(dim=-1), 1e-30)     # (B, KH, G, S)
+    out = (w[..., None] * acc).sum(dim=-2) / L[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The decode's workspace on ``device``: one zero-filled buffer, grown
+    (a new zero-filled one) when a call needs more.  The kernel's merging
+    block resets the tickets it used, so the buffer is ready for the next
+    call without a memset.  It assumes one stream at a time: two decode
+    calls in flight on two streams would share the tickets."""
+    buf = _WORKSPACE.get(device)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        _WORKSPACE[device] = buf
+    return buf
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"q must be (B, S, H, hd) and k, v (B, T, KH, hd); "
@@ -88,7 +149,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:
-    """Causal GQA attention; returns (B, S, H, hd) in q's dtype."""
+    """Causal GQA attention; returns (B, S, H, hd) in q's dtype.
+
+    A call with S·(H/KH) <= 16 rows per kv head (decode) uses a workspace
+    kept per device (``_workspace``): one stream at a time."""
     _check(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window=window,
@@ -105,10 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if B * S * H == 0 or T == 0:
         return out.zero_()
-    err = library.lib().fa_forward(
+    lib = library.lib()
+    n_ws = lib.fa_workspace_bytes(B, S, T, H, KH, hd)
+    if n_ws < 0:
+        raise ValueError(f"flash_attention cannot take q {tuple(q.shape)} "
+                         f"against k/v {tuple(k.shape)}")
+    ws = _workspace(q.device, n_ws) if n_ws else None
+    err = lib.fa_forward(
         library.ptr(out), library.ptr(q), library.ptr(k), library.ptr(v),
         B, S, T, H, KH, hd, q_offset, window, kv_len,
-        library.DTYPE_CODE[q.dtype], library.stream(q))
+        library.DTYPE_CODE[q.dtype], library.ptr(ws), library.stream(q))
     library.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -110,6 +110,23 @@ FA_CASES = [
     (1, 9, 40, 4, 4, 128, None, 31, None),        # hd 128, MHA, 9 queries
     (2, 33, 50, 2, 1, 16, 7, 10, 45),             # hd 16, kv_len < T
     (1, 20, 20, 4, 2, 64, 0, 0, None),            # window 0: all zero
+    # the split decode (S * G <= 16 rows per kv head)
+    (8, 1, 2112, 25, 5, 64, None, 2111, None),    # hymba, global, full cache
+    (8, 1, 2112, 25, 5, 64, 1024, 2048, None),    # hymba, SWA at 2048
+    (2, 1, 2112, 25, 5, 64, 40, 1500, None),      # window < a chunk: most
+                                                  # splits see no key
+    (2, 3, 300, 25, 5, 64, 20, 250, None),        # S * G = 15, rows' own qpos
+    (2, 4, 300, 8, 2, 64, None, 200, None),       # S * G = 16, the boundary
+    (2, 17, 300, 2, 2, 64, None, 250, None),      # S * G = 17: prefill path
+    (2, 1, 300, 25, 5, 64, None, 280, 200),       # kv_len < T, past q_offset
+    (2, 2, 300, 10, 5, 128, 100, 150, 131),       # kv_len inside a chunk
+    (1, 4, 70, 4, 4, 32, 0, 10, None),            # window 0, S > 1: all zero
+    # the wgmma prefill
+    (1, 100, 130, 6, 2, 128, None, 30, None),     # hd 128, 300 rows (not a
+                                                  # multiple of 128), offset
+    (2, 150, 300, 25, 5, 64, 100, 140, None),     # offset, window edge
+                                                  # inside a tile
+    (1, 200, 230, 10, 5, 128, 37, 10, 190),       # hd 128, window, kv_len
 ]
 
 
@@ -127,6 +144,27 @@ def test_flash_attention_matches_plain(gen, dtype, B, S, T, H, KH, hd, window,
     _close(got, fa.flash_attention_plain(q, k, v, **kw), 2e-5)
     if window == 0:
         assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_reuses_its_workspace(gen, dtype):
+    """Two decode calls in a row on one workspace: the merging blocks
+    reset their tickets, so the second call merges as the first did."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    q, k, v = r(4, 1, 25, 64), r(4, 700, 5, 64), r(4, 700, 5, 64)
+    q2 = r(4, 1, 25, 64)
+    before = fa.flash_attention.launches
+    first = fa.flash_attention(q, k, v, window=300, q_offset=650)
+    second = fa.flash_attention(q2, k, v, q_offset=699)
+    again = fa.flash_attention(q, k, v, window=300, q_offset=650)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches - before == 3
+    _close(first, fa.flash_attention_plain(q, k, v, window=300,
+                                           q_offset=650), 2e-5)
+    _close(second, fa.flash_attention_plain(q2, k, v, q_offset=699), 2e-5)
+    assert torch.equal(first, again)
 
 
 SSD_CASES = [

@@ -1,6 +1,8 @@
 """``repro_torch.kernels.flash_attention``: the plain version of K7 against
 the JAX package's Pallas kernel in interpret mode and against both
-packages' dense oracles, plus the wrapper's contract on the CPU.
+packages' dense oracles, the decode kernel's split-then-merge arithmetic
+(``split_merge_plain``) against both, plus the wrapper's contract on the
+CPU.
 
 Inputs are made with numpy from a seed and handed to both sides.  The
 CUDA kernel itself is held against the plain version on the card
@@ -25,7 +27,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
-    flash_attention, flash_attention_plain)
+    flash_attention, flash_attention_plain, split_merge_plain)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -126,3 +128,54 @@ def test_wrapper_checks():
         flash_attention(q[:, :, :3], k, v)        # H % KH != 0
     with pytest.raises(ValueError):
         flash_attention(q, k, v, kv_len=9)
+
+
+# The split decode: per-chunk partials (m, l, acc) merged as the kernel's
+# last block merges them, held to the plain version (and through the first
+# case list to the Pallas kernel) at the tolerances above: the merge only
+# regroups the same f32 sums.
+SPLIT_CASES = [
+    # B, S, T, H, KH, hd, window, q_offset, kv_len, chunk
+    (2, 1, 50, 6, 2, 32, None, 17, None, 8),    # chunks past the query: empty
+    (2, 1, 50, 6, 2, 32, 8, 49, None, 16),      # window in one chunk, rest empty
+    (1, 3, 50, 4, 2, 16, 5, 30, None, 4),       # rows with their own qpos
+    (2, 4, 64, 8, 2, 32, None, 60, None, 64),   # S·G = 16 in one chunk
+    (2, 2, 40, 10, 5, 16, None, 30, 25, 7),     # kv_len < T, a ragged last chunk
+    (1, 1, 37, 5, 1, 16, 3, 36, None, 1),       # one key per chunk
+    (1, 4, 20, 4, 1, 32, 0, 0, None, 8),        # window 0: every row empty
+    (1, 1, 10, 2, 1, 16, None, 5, 0, 4),        # kv_len 0: every row empty
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,KH,hd,window,q_offset,kv_len,chunk",
+                         SPLIT_CASES)
+def test_split_merge_matches_plain(dtype, B, S, T, H, KH, hd, window,
+                                   q_offset, kv_len, chunk):
+    _, (tq, tk, tv) = _inputs(B * S + T + chunk, B, S, T, H, KH, hd, dtype)
+    kw = dict(window=window, q_offset=q_offset, kv_len=kv_len)
+    got = split_merge_plain(tq, tk, tv, chunk=chunk, **kw)
+    want = flash_attention_plain(tq, tk, tv, **kw)
+    assert got.dtype == TDT[dtype] and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    _close(got, want.float().numpy(), dtype)
+    if window == 0 or kv_len == 0:          # 0, not NaN
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("chunk", [3, 16, 64])
+@pytest.mark.parametrize("B,S,T,H,KH,hd,window,q_offset",
+                         [c for c in CASES if c[1] * c[3] // c[4] <= 16])
+def test_split_merge_matches_pallas_interpret(chunk, B, S, T, H, KH, hd,
+                                              window, q_offset):
+    """The decode-shaped cases (S·G <= 16 rows per kv head) in bf16, where
+    the kernel runs the split path."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(B + S + T, B, S, T, H, KH, hd,
+                                         "bfloat16")
+    jw = None if window is None else jnp.int32(window)
+    want = pallas_fa(jq, jk, jv, causal=True, window=jw,
+                     q_offset=jnp.int32(q_offset), block_q=16, block_k=16,
+                     interpret=True)
+    got = split_merge_plain(tq, tk, tv, chunk=chunk, window=window,
+                            q_offset=q_offset)
+    _close(got, want, "bfloat16")
