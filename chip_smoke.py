@@ -83,11 +83,10 @@ JSON line per phase:
                      versions in f32: prefill logits and teacher-forced
                      decode logits compared, greedy-token agreement;
   7. serve_profile — one prefill and one decode step under torch.profiler:
-                     device-busy share, device ops (a decode step's beside
-                     PR 12's 3,913), K7's device time beside PR 12's, top
-                     device ops;
-then the ``kernels`` summary (K7 with its PR 12 time beside each shape),
-the nvidia-smi line and, last,
+                     device-busy share, device ops, K7's device time and
+                     launches, top device ops;
+then the ``kernels`` summary (K7 with each serve shape's times), the
+nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the last line; without a CUDA device it exits 1 and prints no result.
 """
@@ -115,19 +114,41 @@ SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
 SERVE_T = SERVE_S + SERVE_NEW
 HYMBA_PARAMS = 1_640_872_320
 
-# K7 before this design (PR 12: mma.sync prefill, one block per decode
-# row) at the serve shapes, bf16, ms on an NVIDIA H100 80GB HBM3 at
-# 700.00 W: medians of the parent tree's kernel timed by tools/k7_trees.py
-# in turns with this one, in one call (PERF.md §6, PR 15 call 7)
-PR12_K7_MS = {"prefill_global": 1.2922293345133464,
-              "prefill_swa": 0.9814453125,
-              "decode_2048_swa": 0.03344959914684296,
-              "decode_2048_global": 0.06216959953308106,
-              "decode_2111_swa": 0.033355200290679926,
-              "decode_2111_global": 0.06294000148773193}
-# PR 12's serve_profile: K7 per prefill (ms) and device ops per decode step
-PR12_K7_PREFILL_MS = 32.6
-PR12_DECODE_OPS = 3913
+
+def _kernel_cases() -> dict:
+    B, S, T, H, KH, hd, W = SERVE_B, SERVE_S, SERVE_T, 25, 5, 64, 1024
+    att = dict(H=H, KH=KH, hd=hd)
+    return {
+        "flash_attention": {
+            "prefill_global": dict(B=B, S=S, T=T, window=None, q_offset=0,
+                                   **att),
+            "prefill_swa": dict(B=B, S=S, T=T, window=W, q_offset=0, **att),
+            f"decode_{S}_swa": dict(B=B, S=1, T=T, window=W, q_offset=S,
+                                    **att),
+            f"decode_{S}_global": dict(B=B, S=1, T=T, window=None,
+                                       q_offset=S, **att),
+            f"decode_{T - 1}_swa": dict(B=B, S=1, T=T, window=W,
+                                        q_offset=T - 1, **att),
+            f"decode_{T - 1}_global": dict(B=B, S=1, T=T, window=None,
+                                           q_offset=T - 1, **att),
+            "ragged_777": dict(B=2, S=777, T=777, window=None, q_offset=0,
+                               **att),
+        },
+        "ssd_scan": {
+            "hymba": dict(b=B, s=S, h=50, p=64, n=16, g=1, chunk=128),
+            "grouped": dict(b=2, s=S, h=48, p=64, n=16, g=4, chunk=128),
+            "mamba2_n128": dict(b=2, s=S, h=64, p=64, n=128, g=1, chunk=128),
+            "ragged_2000": dict(b=2, s=2000, h=50, p=64, n=16, g=1,
+                                chunk=128),
+        },
+    }
+
+
+# kernel -> label -> keyword arguments (all but dtype and label) of the
+# KernelBench method of that name: the K7/K8 cases of the kernel phase,
+# hymba-1.5b's serve shapes first.  tools/kernel_trees.py times the same
+# cases on two source trees.
+KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
 # (CUDA cores), bf16 FLOP/s (dense tensor cores).  Other cards raise in
@@ -544,36 +565,20 @@ def check_attention_kernels(torch, bench) -> dict:
     (and mamba2's d_state for K8), then the main path's shapes
     (returned)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    B, S, T, H, KH, hd, W = SERVE_B, SERVE_S, SERVE_T, 25, 5, 64, 1024
     rows, main = [], {}
     for dtype in (bf16, f32):
         tag = str(dtype)[6:]
-        cases = {
-            "prefill_global": (B, S, T, None, 0),
-            "prefill_swa": (B, S, T, W, 0),
-            f"decode_{S}_swa": (B, 1, T, W, S),
-            f"decode_{S}_global": (B, 1, T, None, S),
-            f"decode_{T - 1}_swa": (B, 1, T, W, T - 1),
-            f"decode_{T - 1}_global": (B, 1, T, None, T - 1),
-            "ragged_777": (2, 777, 777, None, 0),
-        }
-        for label, (b, s_, t, w, off) in cases.items():
-            r = bench.flash_attention(b, s_, t, H, KH, hd, dtype, w, off,
-                                      label=f"{label}_{tag}")
-            rows.append(r)
-            if dtype == bf16 and label != "ragged_777":
-                main[label] = r
-        ssd_cases = {
-            "hymba": (B, S, 50, 64, 16, 1, 128),
-            "grouped": (2, S, 48, 64, 16, 4, 128),
-            "mamba2_n128": (2, S, 64, 64, 128, 1, 128),
-            "ragged_2000": (2, 2000, 50, 64, 16, 1, 128),
-        }
-        for label, args in ssd_cases.items():
-            r = bench.ssd_scan(*args, dtype, label=f"{label}_{tag}")
-            rows.append(r)
-            if dtype == bf16 and label == "hymba":
-                main["ssd_scan"] = r
+        for kname, cases in KERNEL_CASES.items():
+            for label, kw in cases.items():
+                r = getattr(bench, kname)(dtype=dtype, label=f"{label}_{tag}",
+                                          **kw)
+                rows.append(r)
+                if dtype != bf16:
+                    continue
+                if kname == "flash_attention" and label != "ragged_777":
+                    main[label] = r
+                elif kname == "ssd_scan" and label == "hymba":
+                    main["ssd_scan"] = r
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r["case"] for r in rows if not r["within_tol"]]
@@ -1655,13 +1660,11 @@ def serve_profile(torch, eng, prompt):
             busy, n_ops, top = device_activity(prof, n_top=15)
             k7_us, k7_n = kernel_time(prof, ("fa_split_kernel",
                                              "fa_wgmma_kernel", "fa_kernel"))
-            extra = (dict(k7_pr12_ms=PR12_K7_PREFILL_MS) if name == "prefill"
-                     else dict(device_ops_pr12=PR12_DECODE_OPS))
             emit(dict(phase="serve_profile", run=name, wall_ms=wall_us / 1e3,
                       device_busy_ms=busy / 1e3,
                       device_busy_share=busy / wall_us if n_ops else None,
                       device_ops=n_ops, k7_ms=k7_us / 1e3, k7_launches=k7_n,
-                      **extra, top_device_ops=top))
+                      top_device_ops=top))
             if not n_ops:
                 raise SystemExit("chip_smoke: the profiler saw no device op")
 
@@ -1782,9 +1785,8 @@ def main(argv=None) -> int:
         launches=serve_launches["flash_attention"],
         **{k: fa_main[k] for k in keys}, tol=fa_main["tol"],
         shape="q (8,2048,25,64) bf16 vs k/v (8,2112,5,64), window 1024",
-        shapes={lbl: {**{k: r[k] for k in keys}, "pr12_ms": PR12_K7_MS[lbl]}
+        shapes={lbl: {k: r[k] for k in keys}
                 for lbl, r in attn_shapes.items() if lbl != "ssd_scan"},
-        pr12_ms=PR12_K7_MS["prefill_swa"],
         launches_per_prefill=per_phase["flash_attention"]["prefill"],
         launches_per_decode_step=per_phase["flash_attention"]["decode_step"]))
     sm = attn_shapes["ssd_scan"]

@@ -46,8 +46,10 @@
 //    rows' partial (m, l, acc[hd]) in f32 to a workspace; the last block
 //    of each (kv head, batch) - a __threadfence and an atomic ticket, the
 //    top-k threshold's handoff - merges them in the same launch and resets
-//    its ticket, so a call is one launch and needs no memset.  A row no
-//    split saw has l = 0 everywhere and gives 0.
+//    its ticket, so a call is one launch and needs no memset.  The tickets
+//    lie in a buffer apart from the partials, whose layout follows B * KH:
+//    a call of another batch never writes over them.  A row no split saw
+//    has l = 0 everywhere and gives 0.
 //  - bf16 prefill at hd 64 or 128 (fa_wgmma_kernel).  Two consumer
 //    warpgroups of 64 rows each and one producer warp.  The producer
 //    streams K/V tiles of 64 keys by TMA (cp.async.bulk.tensor, a 4-D map
@@ -73,8 +75,8 @@
 //    max, merged at the end; masked keys never enter the exponent.
 //
 // fa_forward enqueues on the given stream and returns a cudaError_t code;
-// fa_workspace_bytes gives the size of the decode's workspace, which the
-// caller zero-fills once and keeps (it assumes one stream at a time).
+// fa_workspace_bytes gives the size of the decode's partials; the caller
+// keeps them and a zero-filled ticket buffer (one stream at a time).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -398,12 +400,16 @@ SplitPlan split_plan(int B, int KH, int Tk) {
   return {(n_tiles + tpc - 1) / tpc, tpc * kSplitBK};
 }
 
-// workspace: a ticket per group, then (m, l) and acc[hd] per (group, split,
-// row), all f32
-long long ticket_bytes(int groups) { return (static_cast<long long>(groups) * 4 + 255) / 256 * 256; }
+// the decode's workspace: partials, (m, l) and acc[hd] per (group, split,
+// row), all f32, and a ticket per group.  The tickets lie in a buffer of
+// their own, so ticket g sits at the same place whatever the call's shape
+// and is 0 between calls, while the partials' layout changes with B * KH.
+struct SplitWs {
+  void* partials;
+  unsigned* tickets;
+};
 long long split_ws_bytes(int groups, int n_split, int hd) {
-  return ticket_bytes(groups) +
-         static_cast<long long>(groups) * n_split * kSplitRows * (2 + hd) * 4;
+  return static_cast<long long>(groups) * n_split * kSplitRows * (2 + hd) * 4;
 }
 
 template <typename T, int HD>
@@ -884,25 +890,25 @@ fa_split_kernel(T* __restrict__ out, const T* __restrict__ q, const T* __restric
 }
 
 template <typename T, int HD>
-int launch_split(void* out, const void* q, const void* k, const void* v, void* ws, int B,
+int launch_split(void* out, const void* q, const void* k, const void* v, SplitWs ws, int B,
                  int S, int Tk, int H, int KH, int q_offset, int window, int kv_len,
                  cudaStream_t stream) {
   using C = SplitCfg<T, HD>;
-  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (ws.partials == nullptr || ws.tickets == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_split_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const SplitPlan plan = split_plan(B, KH, Tk);
   const int groups = B * KH;
-  unsigned char* base = static_cast<unsigned char*>(ws);
-  float* ml = reinterpret_cast<float*>(base + ticket_bytes(groups));
+  float* ml = static_cast<float*>(ws.partials);
   float* acc = ml + static_cast<long long>(groups) * plan.n_split * kSplitRows * 2;
   const float scale_log2 =
       static_cast<float>(kLog2e / sqrt(static_cast<double>(HD)));
   fa_split_kernel<T, HD><<<plan.n_split * groups, kSplitThreads,
                            C::smem_bytes(plan.chunk / kSplitBK), stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), reinterpret_cast<unsigned*>(base), ml, acc, S, Tk, H, KH,
+      static_cast<const T*>(v), ws.tickets, ml, acc, S, Tk, H, KH,
       H / KH, q_offset, window, kv_len, scale_log2, plan.chunk, plan.n_split);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1270,7 +1276,7 @@ int launch_wgmma(void* out, const void* q, const void* k, const void* v, int B, 
 // wgmma kernel; other prefill: FMA tiles of 64 rows (32 at hd 128), 256
 // threads
 template <typename T, int HD>
-int dispatch(void* out, const void* q, const void* k, const void* v, void* ws, int B, int S,
+int dispatch(void* out, const void* q, const void* k, const void* v, SplitWs ws, int B, int S,
              int Tk, int H, int KH, int q_offset, int window, int kv_len,
              cudaStream_t stream) {
   constexpr int D = Cfg<HD, 1, 1>::D;
@@ -1286,7 +1292,7 @@ int dispatch(void* out, const void* q, const void* k, const void* v, void* ws, i
 }
 
 template <typename T>
-int dispatch_hd(void* out, const void* q, const void* k, const void* v, void* ws, int B,
+int dispatch_hd(void* out, const void* q, const void* k, const void* v, SplitWs ws, int B,
                 int S, int Tk, int H, int KH, int hd, int q_offset, int window, int kv_len,
                 cudaStream_t stream) {
   switch (hd) {
@@ -1302,8 +1308,9 @@ int dispatch_hd(void* out, const void* q, const void* k, const void* v, void* ws
 
 extern "C" {
 
-// bytes of the zero-filled workspace a call of this shape needs (0 for
-// prefill), -1 for a shape fa_forward refuses
+// bytes of the partials a decode call of this shape needs (0 for
+// prefill), -1 for a shape fa_forward refuses; its tickets are B * KH
+// unsigned words of their own
 int fa_workspace_bytes(int B, int S, int Tk, int H, int KH, int hd) {
   if (B <= 0 || S <= 0 || Tk <= 0 || KH <= 0 || H % KH != 0 || hd <= 0) return -1;
   if (S * (H / KH) > kSplitRows) return 0;
@@ -1311,19 +1318,22 @@ int fa_workspace_bytes(int B, int S, int Tk, int H, int KH, int hd) {
   return bytes > INT_MAX ? -1 : static_cast<int>(bytes);
 }
 
-// dtype 0 = float32, 1 = bfloat16 (q, k, v and out share it); ws: the
-// workspace of fa_workspace_bytes, zero-filled before its first use
+// dtype 0 = float32, 1 = bfloat16 (q, k, v and out share it).  A decode
+// call takes ws, the fa_workspace_bytes of its partials, and tickets, at
+// least B * KH words that are 0 before its first use and that every call
+// leaves at 0; prefill ignores both.
 int fa_forward(void* out, const void* q, const void* k, const void* v, int B, int S,
                int Tk, int H, int KH, int hd, int q_offset, int window, int kv_len,
-               int dtype, void* ws, void* stream) {
+               int dtype, void* ws, void* tickets, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  const SplitWs sw{ws, static_cast<unsigned*>(tickets)};
   if (B <= 0 || S <= 0 || Tk <= 0 || KH <= 0 || H % KH != 0 || kv_len > Tk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return dispatch_hd<float>(out, q, k, v, ws, B, S, Tk, H, KH, hd, q_offset, window, kv_len,
+    return dispatch_hd<float>(out, q, k, v, sw, B, S, Tk, H, KH, hd, q_offset, window, kv_len,
                               st);
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(out, q, k, v, ws, B, S, Tk, H, KH, hd, q_offset, window,
+    return dispatch_hd<__nv_bfloat16>(out, q, k, v, sw, B, S, Tk, H, KH, hd, q_offset, window,
                                       kv_len, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,8 +39,8 @@ NEG_INF = -1e30
 FULL_WINDOW = 2 ** 30
 HEAD_DIMS = (16, 32, 64, 128)      # the head sizes the kernel is built for
 LOG2E = 1.4426950408889634
-# device -> the decode's zero-filled workspace (split partials and the
-# tickets of the last-block merge), grown on demand
+# device -> the decode's workspace: (split partials, tickets of the
+# last-block merge), each zero-filled and grown on demand
 _WORKSPACE: dict = {}
 
 
@@ -115,17 +115,21 @@ def split_merge_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
-    """The decode's workspace on ``device``: one zero-filled buffer, grown
-    (a new zero-filled one) when a call needs more.  The kernel's merging
-    block resets the tickets it used, so the buffer is ready for the next
-    call without a memset.  It assumes one stream at a time: two decode
-    calls in flight on two streams would share the tickets."""
-    buf = _WORKSPACE.get(device)
-    if buf is None or buf.numel() < nbytes:
-        buf = torch.zeros(nbytes, dtype=torch.uint8, device=device)
-        _WORKSPACE[device] = buf
-    return buf
+def _workspace(device: torch.device, nbytes: int, groups: int):
+    """The decode's workspace on ``device``: ``nbytes`` of split partials
+    and ``groups`` tickets, two zero-filled buffers, each grown (a new
+    zero-filled one) when a call needs more.  Ticket g has its own place
+    whatever the call's shape, so partials of another batch never land on
+    it; the kernel's merging block resets the tickets it used, so they are
+    ready for the next call without a memset.  It assumes one stream at a
+    time: two decode calls in flight on two streams would share them."""
+    parts, tickets = _WORKSPACE.get(device, (None, None))
+    if parts is None or parts.numel() < nbytes:
+        parts = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    if tickets is None or tickets.numel() < groups:
+        tickets = torch.zeros(groups, dtype=torch.int32, device=device)
+    _WORKSPACE[device] = parts, tickets
+    return parts, tickets
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -174,11 +178,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if n_ws < 0:
         raise ValueError(f"flash_attention cannot take q {tuple(q.shape)} "
                          f"against k/v {tuple(k.shape)}")
-    ws = _workspace(q.device, n_ws) if n_ws else None
+    ws, tickets = _workspace(q.device, n_ws, B * KH) if n_ws else (None, None)
     err = lib.fa_forward(
         library.ptr(out), library.ptr(q), library.ptr(k), library.ptr(v),
         B, S, T, H, KH, hd, q_offset, window, kv_len,
-        library.DTYPE_CODE[q.dtype], library.ptr(ws), library.stream(q))
+        library.DTYPE_CODE[q.dtype], library.ptr(ws), library.ptr(tickets),
+        library.stream(q))
     library.check_launch("flash_attention", err)
     flash_attention.launches += 1
     return out

@@ -41,9 +41,9 @@ SIGNATURES = {
     # d, w, p, coeff, n, dtype, stream
     "fu_delta_accum": [P, P, P, P, L, I, P],
     # out, q, k, v, B, S, T, H, KH, hd, q_offset, window, kv_len, dtype,
-    # workspace, stream
-    "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P],
-    # B, S, T, H, KH, hd -> bytes of the decode's workspace
+    # workspace, tickets, stream
+    "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
+    # B, S, T, H, KH, hd -> bytes of the decode's partials
     "fa_workspace_bytes": [I, I, I, I, I, I],
     # y, final, x, dt, A, Bm, Cm, b, s, h, p, g, n, chunk, dtype, stream
     "ssd_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],

@@ -167,6 +167,23 @@ def test_flash_attention_decode_reuses_its_workspace(gen, dtype):
     assert torch.equal(first, again)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_across_batch_sizes(gen, dtype):
+    """Decode at B·KH = 80, then 40, then 80 again on one workspace (a
+    server's batch shrinking and growing back): the smaller call's
+    partials must not land on the larger call's tickets."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    big = r(16, 1, 25, 64), r(16, 700, 5, 64), r(16, 700, 5, 64)
+    small = r(8, 1, 25, 64), r(8, 700, 5, 64), r(8, 700, 5, 64)
+    kw = dict(window=300, q_offset=650)
+    for q, k, v in (big, small, big):
+        got = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        _close(got, fa.flash_attention_plain(q, k, v, **kw), 2e-5)
+
+
 SSD_CASES = [
     # b, s, h, p, n, g, chunk
     (2, 300, 6, 64, 16, 1, 128),     # hymba-like n, s not a chunk multiple
