@@ -10,7 +10,8 @@ JSON line per phase:
   1. env           — the card (nvidia-smi name, power limit), torch/CUDA
                      versions, the kernel build time; env_sass: whether
                      K7's kernels in the built library issue HGMMA (wgmma),
-                     UTMALDG (TMA) and LDGSTS (cp.async), from cuobjdump;
+                     UTMALDG (TMA) and LDGSTS (cp.async), and K8's bf16
+                     kernels HMMA (mma.sync), from cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
                      the stated tolerance, kernel and plain ms (median of
@@ -83,9 +84,11 @@ JSON line per phase:
                      versions in f32: prefill logits and teacher-forced
                      decode logits compared, greedy-token agreement;
   7. serve_profile — one prefill and one decode step under torch.profiler:
-                     device-busy share, device ops, K7's device time and
-                     launches, top device ops;
-then the ``kernels`` summary (K7 with each serve shape's times), the
+                     device-busy share, device ops, K7's and K8's device
+                     time and device kernels (K8 is three per call), top
+                     device ops;
+then the ``kernels`` summary (K7 with each serve shape's times; K8 with
+its device kernels per call, since one ``ssd_scan`` call is three), the
 nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the last line; without a CUDA device it exits 1 and prints no result.
@@ -606,34 +609,47 @@ def local_step_vs_add(torch, fu, bench, turns: int = 5) -> None:
               add_median_ms=statistics.median(a_ms)))
 
 
+# kernel family -> what its name holds in the SASS (K8's bf16 kernels are
+# the template instances on __nv_bfloat16)
+SASS_FAMILIES = {
+    "fa_wgmma_kernel": ("fa_wgmma_kernel",),
+    "fa_split_kernel": ("fa_split_kernel",),
+    "ssd_state_kernel_bf16": ("ssd_state_kernel", "bfloat16"),
+    "ssd_scan_kernel_bf16": ("ssd_scan_kernel", "bfloat16"),
+}
+
+
 def sass_features(lib_path) -> dict:
-    """Which instructions K7's kernels compile to, from cuobjdump -sass on
-    the built library: per kernel family, the counts of HGMMA (wgmma),
-    UTMALDG (TMA loads) and LDGSTS (cp.async).  None when cuobjdump is
-    missing."""
+    """Which instructions K7's and K8's kernels compile to, from cuobjdump
+    -sass on the built library: per kernel family, the counts of HGMMA
+    (wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and LDGSTS (cp.async).
+    None when cuobjdump is missing."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return dict(phase="env_sass", cuobjdump=None)
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    ops = ("HGMMA", "UTMALDG", "LDGSTS")
+    ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            fn = next((k for k in ("fa_wgmma_kernel", "fa_split_kernel")
-                       if k in name), None)
+            fn = next((k for k, parts in SASS_FAMILIES.items()
+                       if all(part in name for part in parts)), None)
         elif fn is not None:
             c = counts.setdefault(fn, dict.fromkeys(ops, 0))
             for op in ops:
-                if op in line:
+                if op + "." in line or op + " " in line:
                     c[op] += 1
     return dict(phase="env_sass", cuobjdump=tool, counts=counts,
                 prefill_hgmma=counts.get("fa_wgmma_kernel", {}).get("HGMMA", 0) > 0,
                 prefill_tma=counts.get("fa_wgmma_kernel", {}).get("UTMALDG", 0) > 0,
                 prefill_ldgsts=counts.get("fa_wgmma_kernel", {}).get("LDGSTS", 0) > 0,
-                decode_ldgsts=counts.get("fa_split_kernel", {}).get("LDGSTS", 0) > 0)
+                decode_ldgsts=counts.get("fa_split_kernel", {}).get("LDGSTS", 0) > 0,
+                ssd_bf16_hmma=all(counts.get(k, {}).get("HMMA", 0) > 0 for k in
+                                  ("ssd_state_kernel_bf16",
+                                   "ssd_scan_kernel_bf16")))
 
 
 def check_kernels(torch, fu, bench) -> dict:
@@ -1637,9 +1653,13 @@ def serve_e2e(torch, eng, prompt, tokens):
                          "path's bf16 noise")
 
 
-def serve_profile(torch, eng, prompt):
+K8_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel")
+
+
+def serve_profile(torch, eng, prompt) -> dict:
     """Phase 7: one prefill and one decode step under torch.profiler
-    (CUDA activity only): device-busy share and top device ops."""
+    (CUDA activity only): device-busy share and top device ops; returns
+    K8's device kernels per run."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import decode_step, prefill
 
@@ -1650,6 +1670,7 @@ def serve_profile(torch, eng, prompt):
         runs = {"prefill": lambda: prefill(eng.params, cfg, prompt, SERVE_T),
                 "decode_step": lambda: decode_step(eng.params, cfg, tok, cache,
                                                    SERVE_S)}
+        k8_kernels = {}
         for name, fn in runs.items():
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1660,13 +1681,19 @@ def serve_profile(torch, eng, prompt):
             busy, n_ops, top = device_activity(prof, n_top=15)
             k7_us, k7_n = kernel_time(prof, ("fa_split_kernel",
                                              "fa_wgmma_kernel", "fa_kernel"))
+            k8_us, k8_n = kernel_time(prof, K8_KERNELS)
+            k8_kernels[name] = k8_n
             emit(dict(phase="serve_profile", run=name, wall_ms=wall_us / 1e3,
                       device_busy_ms=busy / 1e3,
                       device_busy_share=busy / wall_us if n_ops else None,
                       device_ops=n_ops, k7_ms=k7_us / 1e3, k7_launches=k7_n,
+                      k8_ms=k8_us / 1e3, k8_launches=k8_n,
+                      k8_ms_by_kernel={k: kernel_time(prof, (k,))[0] / 1e3
+                                       for k in K8_KERNELS},
                       top_device_ops=top))
             if not n_ops:
                 raise SystemExit("chip_smoke: the profiler saw no device op")
+    return k8_kernels
 
 
 def main(argv=None) -> int:
@@ -1694,6 +1721,8 @@ def main(argv=None) -> int:
                                   sass["prefill_tma"]):
         raise SystemExit("chip_smoke: K7's prefill kernel issues no HGMMA "
                          "or no UTMALDG")
+    if sass["cuobjdump"] and not sass["ssd_bf16_hmma"]:
+        raise SystemExit("chip_smoke: a bf16 kernel of K8 issues no HMMA")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     local_step_vs_add(torch, fu, bench)
@@ -1718,7 +1747,7 @@ def main(argv=None) -> int:
     pod_rounds(torch, mesh, pod_p1)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
-    serve_profile(torch, eng, prompt)
+    k8_kernels = serve_profile(torch, eng, prompt)
     del eng
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
@@ -1798,7 +1827,10 @@ def main(argv=None) -> int:
         tol=sm["tol"],
         shape="x (8,2048,50,64) bf16, B/C (8,2048,1,16), chunk 128",
         launches_per_prefill=per_phase["ssd_scan"]["prefill"],
-        launches_per_decode_step=per_phase["ssd_scan"]["decode_step"]))
+        launches_per_decode_step=per_phase["ssd_scan"]["decode_step"],
+        device_kernels_per_prefill=k8_kernels["prefill"],
+        device_kernels_per_call=k8_kernels["prefill"]
+        / max(1, per_phase["ssd_scan"]["prefill"])))
     for k in kernels:
         if k["launches"] <= 0:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "

@@ -76,7 +76,7 @@
 //
 // fa_forward enqueues on the given stream and returns a cudaError_t code;
 // fa_workspace_bytes gives the size of the decode's partials; the caller
-// keeps them and a zero-filled ticket buffer (one stream at a time).
+// keeps them and a zero-filled ticket buffer, one pair per stream.
 
 #include <cuda.h>
 #include <cuda_bf16.h>

@@ -39,9 +39,6 @@ NEG_INF = -1e30
 FULL_WINDOW = 2 ** 30
 HEAD_DIMS = (16, 32, 64, 128)      # the head sizes the kernel is built for
 LOG2E = 1.4426950408889634
-# device -> the decode's workspace: (split partials, tickets of the
-# last-block merge), each zero-filled and grown on demand
-_WORKSPACE: dict = {}
 
 
 def _scalars(T: int, window: Optional[int], q_offset: int,
@@ -115,21 +112,17 @@ def split_merge_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
 
 
-def _workspace(device: torch.device, nbytes: int, groups: int):
-    """The decode's workspace on ``device``: ``nbytes`` of split partials
-    and ``groups`` tickets, two zero-filled buffers, each grown (a new
-    zero-filled one) when a call needs more.  Ticket g has its own place
-    whatever the call's shape, so partials of another batch never land on
-    it; the kernel's merging block resets the tickets it used, so they are
-    ready for the next call without a memset.  It assumes one stream at a
-    time: two decode calls in flight on two streams would share them."""
-    parts, tickets = _WORKSPACE.get(device, (None, None))
-    if parts is None or parts.numel() < nbytes:
-        parts = torch.zeros(nbytes, dtype=torch.uint8, device=device)
-    if tickets is None or tickets.numel() < groups:
-        tickets = torch.zeros(groups, dtype=torch.int32, device=device)
-    _WORKSPACE[device] = parts, tickets
-    return parts, tickets
+def _workspace(q: torch.Tensor, nbytes: int, groups: int):
+    """The decode's workspace on q's device and current stream
+    (``library.workspace``): ``nbytes`` of split partials and ``groups``
+    tickets, two zero-filled buffers.  Ticket g has its own place whatever
+    the call's shape, so partials of another batch never land on it; the
+    kernel's merging block resets the tickets it used, so they are ready
+    for the next call on the stream without a memset.  Decode calls in
+    flight on two streams each have their own pair."""
+    return library.workspace("flash_attention", q.device, library.stream(q),
+                             parts=(nbytes, torch.uint8),
+                             tickets=(groups, torch.int32))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -156,7 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal GQA attention; returns (B, S, H, hd) in q's dtype.
 
     A call with S·(H/KH) <= 16 rows per kv head (decode) uses a workspace
-    kept per device (``_workspace``): one stream at a time."""
+    kept per (device, stream) (``_workspace``): calls on several streams
+    may be in flight at once."""
     _check(q, k, v)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, window=window,
@@ -178,7 +172,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if n_ws < 0:
         raise ValueError(f"flash_attention cannot take q {tuple(q.shape)} "
                          f"against k/v {tuple(k.shape)}")
-    ws, tickets = _workspace(q.device, n_ws, B * KH) if n_ws else (None, None)
+    ws, tickets = _workspace(q, n_ws, B * KH) if n_ws else (None, None)
     err = lib.fa_forward(
         library.ptr(out), library.ptr(q), library.ptr(k), library.ptr(v),
         B, S, T, H, KH, hd, q_offset, window, kv_len,

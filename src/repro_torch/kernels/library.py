@@ -33,7 +33,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 NVCC_FLAGS = ARCH_FLAGS + ("-shared", "-Xcompiler", "-fPIC")
 
 P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-# C entry point -> argument types (every launcher returns an int error code)
+# C entry point -> argument types (every launcher returns an int error
+# code; RESTYPES names the entry points that return something else)
 SIGNATURES = {
     "fu_local_step": [P, P, P, P, P, L, I, I, I, F, F, P],
     "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, I, P],
@@ -45,8 +46,11 @@ SIGNATURES = {
     "fa_forward": [P, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P, P],
     # B, S, T, H, KH, hd -> bytes of the decode's partials
     "fa_workspace_bytes": [I, I, I, I, I, I],
-    # y, final, x, dt, A, Bm, Cm, b, s, h, p, g, n, chunk, dtype, stream
-    "ssd_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # y, final, x, dt, A, Bm, Cm, b, s, h, p, g, n, chunk, dtype,
+    # workspace, stream
+    "ssd_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P, P],
+    # b, s, h, p, g, n, chunk -> bytes of the call's workspace
+    "ssd_workspace_bytes": [I, I, I, I, I, I, I],
     # d, tau, c, r, n, bits, topk, stream
     "up_compress_delta": [P, P, P, P, L, I, I, P],
     # d, n, k, tau, workspace, stream
@@ -55,6 +59,7 @@ SIGNATURES = {
     # out, d, z, scalars, n, stream
     "up_dp_clip_noise": [P, P, P, P, L, P],
 }
+RESTYPES = {"ssd_workspace_bytes": L}
 
 
 def sources() -> Tuple[Path, ...]:
@@ -118,7 +123,7 @@ def lib() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(cdll, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return cdll
 
 
@@ -134,6 +139,35 @@ def ptr(t: Optional[torch.Tensor]):
 
 def stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# (device, stream, owner, name) -> a zero-filled buffer a kernel keeps
+# between its calls on that stream
+_WORKSPACES: dict = {}
+
+
+def workspace(owner: str, device: torch.device, stream_key: int,
+              **need: Tuple[int, torch.dtype]) -> Tuple[torch.Tensor, ...]:
+    """Buffers that ``owner``'s kernel keeps from one call to the next,
+    one set per (device, stream): ``need`` maps a buffer's name to (at
+    least this many elements, dtype), and the buffers come back in that
+    order.  Each is zero-filled when it is made and grows by being made
+    anew (zero-filled, larger), never in place, so a kernel that leaves
+    its buffer as it found it (K7's tickets) needs no memset.  Two calls
+    in flight on two streams get different buffers; calls on one stream
+    run in order, so they may share.  ``stream_key`` is the stream's
+    handle (``stream(t)``); any int names a stream on the CPU.  A buffer
+    is made on the current stream, which is the keyed one when the
+    kernel's wrapper calls this."""
+    out = []
+    for name, (numel, dtype) in need.items():
+        key = (torch.device(device), stream_key, owner, name)
+        buf = _WORKSPACES.get(key)
+        if buf is None or buf.numel() < numel:
+            buf = torch.zeros(numel, dtype=dtype, device=device)
+            _WORKSPACES[key] = buf
+        out.append(buf)
+    return tuple(out)
 
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

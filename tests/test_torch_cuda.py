@@ -184,11 +184,43 @@ def test_flash_attention_decode_across_batch_sizes(gen, dtype):
         _close(got, fa.flash_attention_plain(q, k, v, **kw), 2e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_two_streams(gen, dtype):
+    """Two decodes in flight at once on two streams of one device, each
+    against the plain version: each stream has its own partials and
+    tickets, so neither merges the other's."""
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    kw = dict(window=300, q_offset=650)
+    calls = [(r(16, 1, 25, 64), r(16, 700, 5, 64), r(16, 700, 5, 64)),
+             (r(8, 1, 25, 64), r(8, 700, 5, 64), r(8, 700, 5, 64))]
+    want = [fa.flash_attention_plain(q, k, v, **kw) for q, k, v in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(8):
+        for i, (st, (q, k, v)) in enumerate(zip(streams, calls)):
+            with torch.cuda.stream(st):
+                outs[i].append(fa.flash_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        for o in got:
+            _close(o, ref, 2e-5)
+
+
 SSD_CASES = [
     # b, s, h, p, n, g, chunk
     (2, 300, 6, 64, 16, 1, 128),     # hymba-like n, s not a chunk multiple
     (1, 200, 4, 64, 128, 2, 128),    # mamba2's n = 128, grouped B/C
     (2, 70, 3, 32, 16, 3, 32),       # g = h, padded
+    (2, 128, 4, 64, 16, 1, 128),     # s exactly one chunk
+    (3, 50, 5, 64, 16, 1, 128),      # s < chunk
+    (1, 16 * 64 + 1, 4, 64, 16, 2, 64),   # 16 chunks + 1 step
+    (1, 96, 4, 128, 32, 4, 32),      # g = h, head_dim 128
+    (2, 200, 12, 64, 16, 2, 64),     # 6 heads per group at n = 16
+    (1, 2048, 50, 64, 16, 1, 128),   # hymba-1.5b's layer at b = 1
+    (1, 40, 3, 32, 8, 1, 40),        # d_state 8, a chunk not a multiple of 16
 ]
 
 
@@ -207,6 +239,29 @@ def test_ssd_scan_matches_plain(gen, dtype, b, s, h, p, n, g, chunk):
     y_p, f_p = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
     _close(y, y_p, 1e-4)
     _close(final, f_p, 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_across_shapes(gen, dtype):
+    """A large, a small, then the large call again, each against the plain
+    version: no workspace or flag state outlives a call."""
+    def case(b, s, h, p, n, g, chunk):
+        def r(*shape):
+            return torch.randn(*shape, generator=gen, device="cuda")
+        x, B, C = (r(b, s, h, p).to(dtype), r(b, s, g, n).to(dtype),
+                   r(b, s, g, n).to(dtype))
+        dt = torch.nn.functional.softplus(r(b, s, h) - 3.0)
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        return x, dt, A, B, C, chunk
+    big = case(2, 1000, 8, 64, 32, 2, 128)
+    small = case(1, 100, 2, 64, 16, 1, 64)
+    for x, dt, A, B, C, chunk in (big, small, big):
+        y, final = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        y_p, f_p = ssd.ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+        _close(y, y_p, 1e-4)
+        _close(final, f_p, 1e-4)
 
 
 @pytest.mark.cuda

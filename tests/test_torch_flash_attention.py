@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import library, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_plain, split_merge_plain)
@@ -179,3 +179,26 @@ def test_split_merge_matches_pallas_interpret(chunk, B, S, T, H, KH, hd,
     got = split_merge_plain(tq, tk, tv, chunk=chunk, window=window,
                             q_offset=q_offset)
     _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("owner", ["flash_attention", "another kernel"])
+def test_workspace_is_one_per_stream(owner):
+    """``library.workspace``, which keeps K7 decode's partials and tickets:
+    two streams of one device get different buffers, one stream gets the
+    same buffer back, and a buffer grows by being made anew, zero-filled.
+    On the CPU any int names a stream."""
+    dev = torch.device("cpu")
+    need = dict(parts=(64, torch.uint8), tickets=(8, torch.int32))
+    parts_a, tickets_a = library.workspace(owner, dev, 1001, **need)
+    parts_b, tickets_b = library.workspace(owner, dev, 1002, **need)
+    assert parts_a.data_ptr() != parts_b.data_ptr()
+    assert tickets_a.data_ptr() != tickets_b.data_ptr()
+    assert not tickets_a.any() and not parts_b.any()
+    tickets_a[3] = 7              # a kernel in flight on stream 1001
+    again = library.workspace(owner, dev, 1001, **need)
+    assert again[0] is parts_a and again[1] is tickets_a
+    assert int(library.workspace(owner, dev, 1002, **need)[1][3]) == 0
+    grown = library.workspace(owner, dev, 1001, parts=(64, torch.uint8),
+                              tickets=(16, torch.int32))[1]
+    assert grown.numel() == 16 and not grown.any()
+    assert grown.data_ptr() != tickets_a.data_ptr()

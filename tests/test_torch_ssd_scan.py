@@ -1,7 +1,8 @@
-"""``repro_torch.kernels.ssd_scan``: the plain version of K8 against the
-JAX package's Pallas kernel in interpret mode and against both packages'
-sequential oracles, for y and the final state, plus the wrapper's
-contract on the CPU.
+"""``repro_torch.kernels.ssd_scan``: the plain version of K8 and the card
+kernel's chunk-parallel decomposition (``ssd_chunk_parallel_plain``)
+against the JAX package's Pallas kernel in interpret mode and against both
+packages' sequential oracles, for y and the final state, plus the
+wrapper's contract on the CPU.
 
 Inputs are made with numpy from a seed (x, B, C normal; dt = softplus of
 a normal; A = -exp of a normal, as ``tests/test_kernels.py`` draws them)
@@ -29,7 +30,9 @@ from repro.kernels.ssd_scan import ssd_scan as pallas_ssd
 from repro.models import ssm as jssm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels.ssd_scan import (ssd_chunk_parallel_plain, ssd_scan,
+                                          ssd_scan_plain)
 from repro_torch.models import ssm as tssm
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -169,3 +172,53 @@ def test_wrapper_checks():
         ssd_scan(x, dt[:, :8], A, B, C)
     with pytest.raises(ValueError):
         ssd_scan(x[:, :, :3], dt[:, :, :3], A[:3], B, C)   # h % g != 0
+
+
+CP_SHAPES = [
+    # b, s, h, p, n, g, chunk
+    (1, 70, 4, 32, 16, 1, 32),     # hymba's d_state, one group, ragged s
+    (1, 48, 4, 32, 128, 2, 32),    # mamba2's d_state, grouped (hpg 2)
+    (2, 20, 2, 32, 16, 1, 32),     # a single chunk, s < chunk
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", CP_SHAPES)
+def test_chunk_parallel_plain_matches_pallas_interpret(dtype, b, s, h, p, n,
+                                                       g, chunk):
+    """The card kernel's decomposition, with the bf16 path's hi + lo
+    rounding of M, w·B and the entering state, against the Pallas kernel:
+    f32 at 1e-4, bf16 y within one bf16 ulp + 1e-3, the state at 1e-4."""
+    jin, tin = _inputs(7 * s + n, b, s, h, p, n, g, dtype)
+    y_want, f_want = pallas_ssd(*jin, chunk=chunk, interpret=True)
+    y, final = ssd_chunk_parallel_plain(*tin, chunk=chunk)
+    assert y.dtype == TDT[dtype] and final.dtype == torch.float32
+    _close(y, y_want, dtype, 1e-4)
+    _close(final, f_want, "float32", 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", CP_SHAPES)
+def test_chunk_parallel_plain_matches_plain(dtype, b, s, h, p, n, g, chunk):
+    """Against the sequential plain version the card kernel is held to on
+    the card, at the card tests' tolerances: f32 1e-4 abs + rel; bf16 y
+    within one bf16 ulp + 1e-4, the state 1e-4 abs + rel."""
+    _, tin = _inputs(3 * s + h, b, s, h, p, n, g, dtype)
+    y, final = ssd_chunk_parallel_plain(*tin, chunk=chunk)
+    y_p, f_p = ssd_scan_plain(*tin, chunk=chunk)
+    a, r = y.float(), y_p.float()
+    tol = (1e-4 + 1e-4 * r.abs() if dtype == "float32"
+           else 2.0 ** -7 * r.abs() + 1e-4)
+    assert not ((a - r).abs() > tol).any()
+    torch.testing.assert_close(final, f_p, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("chunk,p,n,dtype,fits", [
+    (128, 64, 16, torch.bfloat16, True),     # hymba-1.5b
+    (128, 64, 16, torch.float32, True),
+    (128, 64, 128, torch.bfloat16, True),    # mamba2
+    (128, 64, 128, torch.float32, True),
+    (128, 128, 128, torch.float32, False),   # the kernel refuses it
+])
+def test_smem_bytes(chunk, p, n, dtype, fits):
+    assert (tssd.smem_bytes(chunk, p, n, dtype) <= tssd.SMEM_LIMIT) == fits
