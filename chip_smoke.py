@@ -10,8 +10,11 @@ JSON line per phase:
   1. env           — the card (nvidia-smi name, power limit), torch/CUDA
                      versions, the kernel build time; env_sass: whether
                      K7's kernels in the built library issue HGMMA (wgmma),
-                     UTMALDG (TMA) and LDGSTS (cp.async), and K8's bf16
-                     kernels HMMA (mma.sync), from cuobjdump;
+                     UTMALDG (TMA) and LDGSTS (cp.async), K8's bf16
+                     kernels HMMA (mma.sync), the cluster threshold a
+                     cluster barrier and st.async stores into distributed
+                     shared memory on mbarriers, and K1
+                     griddepcontrol.wait, from cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
                      the stated tolerance, kernel and plain ms (median of
@@ -23,11 +26,15 @@ JSON line per phase:
                      f32 and bf16) at N = 137,216 (LeNet-5, padded) and
                      16,777,216, bitwise; the upload kernels K4
                      (compress_delta, bits 8/16/32 × top-k × residual),
-                     the top-k threshold (a radix select) and K5
+                     the top-k threshold (a radix select: one launch on a
+                     thread-block cluster up to its cut, four above it;
+                     at N 137,216 also at 8 and 16 CTAs with either
+                     histogram) and K5
                      (dp_clip_noise) at the same N, bitwise; K7
                      (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
-                     shapes and beside them; K1 and Tensor.add_ timed in
-                     turns, five times each (local_step_vs_add_);
+                     shapes and beside them; K1 (launched with
+                     programmatic dependent launch) and Tensor.add_ timed
+                     in turns, five times each (local_step_vs_add_);
   3. main_path     — the paper pipeline at full width: LeNet-5 on
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
@@ -38,7 +45,8 @@ JSON line per phase:
                      stream, final params compared;
      p2_compressed — the main path with int8 + top-k 25% + error
                      feedback uploads in P2: launches of K4 (40) and the
-                     threshold (40 calls of 4 launches) asserted, ledger
+                     threshold (40 calls of topk_launches(137,216) = 1)
+                     asserted, ledger
                      == closed form (173,250 upload bytes per client),
                      accuracy above chance, a profiled P2 round, then
                      "fused" against "fused_interpret" (params and EF
@@ -65,7 +73,7 @@ JSON line per phase:
                      n_pods=2 against the sequential one (rtol 1e-5), 40
                      K6 launches;
      pod_compressed — the pod P2 with int8 + top-k 25% + EF uploads:
-                     accum-only K6 40, K4 40, threshold 160, ledger ==
+                     accum-only K6 40, K4 40, threshold 40, ledger ==
                      closed form;
      pod_vs_host   — 1 P1 + 1 P2 round on the pod and the host engine at
                      the JAX package's tolerances, and the pod's kernels
@@ -144,13 +152,29 @@ def _kernel_cases() -> dict:
             "ragged_2000": dict(b=2, s=2000, h=50, p=64, n=16, g=1,
                                 chunk=128),
         },
+        # K1 at the main path's setting (p -= lr*g), then with momentum,
+        # decay and clip; back to back, so PDL overlaps launch and tail
+        "local_step": {
+            "main": dict(n=N_SMALL, has_m=False, has_c=False, wd=0.0,
+                         clip=1.0),
+            "momentum": dict(n=N_SMALL, has_m=True, has_c=False),
+            "large": dict(n=N_LARGE, has_m=False, has_c=False, wd=0.0,
+                          clip=1.0),
+        },
+        # the threshold at density 0.25: the main path's bucket (the
+        # cluster kernel) and N_LARGE (four radix passes)
+        "topk_threshold": {"main": dict(n=N_SMALL),
+                           "large": dict(n=N_LARGE)},
+        # one warm P1 round of the main path under the profiler: device
+        # ms per SGD step, and the idle gap before each K1
+        "sgd_step": {"p1_round": dict(clients=25, steps=20)},
     }
 
 
 # kernel -> label -> keyword arguments (all but dtype and label) of the
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
-# hymba-1.5b's serve shapes first.  tools/kernel_trees.py times the same
-# cases on two source trees.
+# hymba-1.5b's serve shapes first, and K1's, the threshold's and the SGD
+# step's.  tools/kernel_trees.py times the same cases on two source trees.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -223,7 +247,8 @@ class KernelBench:
     def max_err(pairs) -> float:
         return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
 
-    def local_step(self, n, dtype, has_m, has_c, wd=1e-3, clip=0.7):
+    def local_step(self, n, dtype, has_m, has_c, wd=1e-3, clip=0.7,
+                   label=""):
         torch, fu = self.torch, self.fu
         p, g = self.rand(n, dtype=dtype), self.rand(n, dtype=dtype)
         m = self.rand(n, dtype=dtype) if has_m else None
@@ -259,7 +284,7 @@ class KernelBench:
                     momentum=has_m, c=has_c, weight_decay=wd,
                     clip_scale=clip, max_abs_err=err, ms=ms, plain_ms=plain,
                     library_ms=library, library_note=why, bound_ms=bound,
-                    bound_by=by)
+                    bound_by=by, within_tol=err <= KERNEL_TOL)
 
     def weighted_delta(self, n, K, has_extra, deltas, dtype=None):
         torch, fu = self.torch, self.fu
@@ -382,29 +407,96 @@ class KernelBench:
                     library_note="no PyTorch call quantizes blockwise with "
                     "bf16 scales", bound_ms=bound, bound_by=by)
 
-    def topk_threshold(self, n):
+    def topk_threshold(self, n, dtype=None, label="", n_ctas=None,
+                       hist=None):
+        """The threshold at density 0.25 through the wrapper's own choice
+        of kernel, or the cluster kernel at ``n_ctas`` CTAs with the
+        histogram ``hist`` when named; the launches per call counted."""
         torch, fu = self.torch, self.fu
         d = self.delta(n)
         k = -(-n // 4)                      # density 0.25
-        got = fu.topk_threshold(d, k)
+        kw = {key: v for key, v in (("n_ctas", n_ctas), ("hist", hist))
+              if v is not None}
+        before = fu.topk_threshold.launches
+        got = fu.topk_threshold(d, k, **kw)
+        per_call = fu.topk_threshold.launches - before
         want = fu.topk_threshold_plain(d, k)
         a = d.abs()
         lib = torch.kthvalue(a, n - k + 1).values
         bitwise = bool(got.view(torch.int32) == want.view(torch.int32))
-        ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
+        ms = time_ms(torch, lambda: fu.topk_threshold(d, k, **kw))
         plain = time_ms(torch, lambda: fu.topk_threshold_plain(d, k),
                         trials=3, reps=5, warmup=1)
         library = time_ms(torch, lambda: torch.kthvalue(a, n - k + 1),
                           trials=3, reps=5, warmup=1)
         # the selection reads |d| once; the ops: abs + compare per element
         bound, by = self.bound_ms(4 * n + 4, 2 * n)
+        shape = {}
+        if per_call == 1:                   # the cluster kernel
+            c, h = n_ctas or fu.TOPK_CLUSTER, hist or fu.TOPK_HIST
+            # csrc/upload.cu's cluster_smem_bytes: the histogram, two
+            # parities of 16 staged histograms, the per-warp ones, the keys
+            shape = dict(n_ctas=c, hist=h, slice=fu.topk_slice(n, c),
+                         dynamic_smem_per_cta=4 * (
+                             256 + 2 * 16 * 256 + (32 * 256 if h == "warp"
+                                                   else 0)
+                             + fu.topk_slice(n, c)))
+        agrees = bool(lib == want)
         return dict(kernel="topk_threshold", n=n, k=k,
-                    launches_per_call=fu.TOPK_LAUNCHES,
+                    kernel_path="cluster" if per_call == 1 else "radix",
+                    launches_per_call=per_call, **shape,
                     max_abs_err=float((got - want).abs()), bitwise=bitwise,
-                    tau=float(got), kthvalue_agrees=bool(lib == want),
+                    tau=float(got), kthvalue_agrees=agrees,
+                    within_tol=bitwise and agrees,
                     ms=ms, plain_ms=plain, library_ms=library,
                     library_note="torch.kthvalue(|d|, n-k+1) on a "
                     "precomputed |d|", bound_ms=bound, bound_by=by)
+
+    def sgd_step(self, dtype=None, label="", clients=25, steps=20):
+        """One warm P1 round of the main path (LeNet-5, ``clients`` ×
+        ``steps`` SGD steps, one K1 each) under torch.profiler: the
+        device's busy ms per step, and the idle gap before each K1 (its
+        start less the latest end of the device ops before it; below 0
+        when K1's blocks start before that op has drained)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
+        torch = self.torch
+        task, data = lenet_setup()
+        cyc = CyclicConfig(rounds=1, participation=clients / 100,
+                           local_steps=steps, batch_size=32,
+                           update_impl="fused", sampling="host")
+        init = task.init(torch.Generator().manual_seed(SEED))
+        cyclic_pretrain(task, data, cyc, init_params=init)       # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = cyclic_pretrain(task, data, cyc, init_params=init)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_ops, _ = device_activity(prof)
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        gaps, k1_us, end = [], [], -math.inf
+        for a, b, name in spans:
+            if "local_step_kernel" in name:
+                gaps.append(a - end)
+                k1_us.append(b - a)
+            end = max(end, b)
+        n_steps = clients * steps
+        ok = len(gaps) == n_steps and all(
+            math.isfinite(h["local_loss"]) for h in res.history)
+        return dict(kernel="sgd_step", steps=n_steps,
+                    ms=busy / 1e3 / n_steps,
+                    wall_ms_per_step=wall_ms / n_steps,
+                    device_ops_per_step=n_ops / n_steps,
+                    k1_launches=len(gaps),
+                    k1_gap_us_median=statistics.median(gaps) if gaps else None,
+                    k1_gap_us_mean=statistics.fmean(gaps) if gaps else None,
+                    k1_us_median=statistics.median(k1_us) if k1_us else None,
+                    library_ms=None, bound_ms=None, max_abs_err=0.0,
+                    within_tol=ok)
 
     def dp_clip_noise(self, n, has_z):
         torch, fu = self.torch, self.fu
@@ -616,7 +708,17 @@ SASS_FAMILIES = {
     "fa_split_kernel": ("fa_split_kernel",),
     "ssd_state_kernel_bf16": ("ssd_state_kernel", "bfloat16"),
     "ssd_scan_kernel_bf16": ("ssd_scan_kernel", "bfloat16"),
+    "topk_cluster_kernel": ("topk_cluster_kernel",),
+    "local_step_kernel": ("local_step_kernel",),
 }
+# the SASS opcodes counted: wgmma (HGMMA), mma.sync (HMMA), a TMA load
+# (UTMALDG), cp.async (LDGSTS); the cluster barrier's arrive and wait
+# (UCGABAR_ARV, UCGABAR_WAIT: barrier.cluster); st.async into another CTA's
+# shared memory (STAS) and the mbarrier operations it completes (SYNCS);
+# griddepcontrol.wait (ACQBULK) and griddepcontrol.launch_dependents
+# (PREEXIT)
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "UCGABAR_ARV",
+            "UCGABAR_WAIT", "STAS", "SYNCS", "ACQBULK", "PREEXIT")
 
 
 def sass_features(lib_path) -> dict:
@@ -630,7 +732,7 @@ def sass_features(lib_path) -> dict:
         return dict(phase="env_sass", cuobjdump=None)
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    ops = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS")
+    ops = SASS_OPS
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -649,7 +751,15 @@ def sass_features(lib_path) -> dict:
                 decode_ldgsts=counts.get("fa_split_kernel", {}).get("LDGSTS", 0) > 0,
                 ssd_bf16_hmma=all(counts.get(k, {}).get("HMMA", 0) > 0 for k in
                                   ("ssd_state_kernel_bf16",
-                                   "ssd_scan_kernel_bf16")))
+                                   "ssd_scan_kernel_bf16")),
+                topk_cluster_barrier=all(
+                    counts.get("topk_cluster_kernel", {}).get(op, 0) > 0
+                    for op in ("UCGABAR_ARV", "UCGABAR_WAIT")),
+                topk_dsmem=all(
+                    counts.get("topk_cluster_kernel", {}).get(op, 0) > 0
+                    for op in ("STAS", "SYNCS")),
+                local_step_pdl_wait=counts.get("local_step_kernel", {}).get(
+                    "ACQBULK", 0) > 0)
 
 
 def check_kernels(torch, fu, bench) -> dict:
@@ -696,6 +806,10 @@ def check_upload_kernels(torch, bench) -> dict:
         rows.append(bench.topk_threshold(n))
         for has_z in (False, True):
             rows.append(bench.dp_clip_noise(n, has_z))
+    # the cluster threshold's other shapes at the main path's bucket: 16
+    # or 8 CTAs, each way of counting a pass
+    rows += [bench.topk_threshold(N_SMALL, n_ctas=c, hist=h)
+             for c in (16, 8) for h in bench.fu.TOPK_HISTS]
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and
@@ -981,7 +1095,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
             fed.rounds * k2 * fed.local_steps,
             "weighted_delta": fed.rounds, "server_update": fed.rounds,
             "compress_delta": fed.rounds * k2 if compressed else 0,
-            "topk_threshold": (fed.rounds * k2 * fu.TOPK_LAUNCHES
+            "topk_threshold": (fed.rounds * k2 * fu.topk_launches(N_SMALL)
                                if compressed else 0),
             "dp_clip_noise": 0}
     x = size_bytes(res.federated.params)
@@ -1360,7 +1474,7 @@ def pod_compressed(torch, fu, mesh, init):
     want = {"local_step": fed.rounds * k2 * fed.spec.local_steps,
             "weighted_delta": 0, "server_update": 2 * fed.rounds,
             "compress_delta": fed.rounds * k2,
-            "topk_threshold": fed.rounds * k2 * fu.TOPK_LAUNCHES,
+            "topk_threshold": fed.rounds * k2 * fu.topk_launches(N_SMALL),
             "dp_clip_noise": 0, "delta_accum": fed.rounds * k2}
     payload = _upload_payload_bytes(task, comp)
     closed = fed.rounds * acc.compressed_round_bytes(
@@ -1723,6 +1837,13 @@ def main(argv=None) -> int:
                          "or no UTMALDG")
     if sass["cuobjdump"] and not sass["ssd_bf16_hmma"]:
         raise SystemExit("chip_smoke: a bf16 kernel of K8 issues no HMMA")
+    if sass["cuobjdump"] and not (sass["topk_cluster_barrier"] and
+                                  sass["topk_dsmem"]):
+        raise SystemExit("chip_smoke: the cluster threshold has no cluster "
+                         "barrier or no st.async into distributed shared "
+                         "memory")
+    if sass["cuobjdump"] and not sass["local_step_pdl_wait"]:
+        raise SystemExit("chip_smoke: K1 does not wait on griddepcontrol")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     local_step_vs_add(torch, fu, bench)
@@ -1764,7 +1885,9 @@ def main(argv=None) -> int:
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+                            library_ms=r["library_ms"],
+                            **({"pdl": True} if kname == "local_step"
+                               else {})))
     # the upload kernels, each with the launches of the path it is on
     upload_src = "src/repro_torch/kernels/csrc/upload.cu"
     for kname, replaces, n_launch, path in (
@@ -1777,12 +1900,15 @@ def main(argv=None) -> int:
         r = upload_shapes[kname]
         if not r["bitwise"]:
             raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
+        shape = {key: r[key] for key in ("kernel_path", "n_ctas", "hist",
+                                         "dynamic_smem_per_cta",
+                                         "launches_per_call") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=upload_src,
                             replaces=replaces, launches=n_launch,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
-                            library_ms=r["library_ms"], path=path))
+                            library_ms=r["library_ms"], path=path, **shape))
     # K6 on the pod path: the f32 form with p (the sequential
     # aggregate), its accum-only form (pod_compressed) beside it
     r, ra = pod_shapes["delta_accum"], pod_shapes["delta_accum_accum_only"]

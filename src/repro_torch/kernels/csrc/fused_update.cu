@@ -47,6 +47,19 @@
 // delta_accum never writes w or p.  Pad lanes stay zero through all three: every term is
 // zero or a multiple of a zero operand there.
 //
+// local_step is launched with programmatic dependent launch (PDL,
+// cudaLaunchAttributeProgrammaticStreamSerialization): it runs 3000 times
+// per training run with ~0.5 us of bytes each, so the launch, the block
+// ramp and the drain between dependent kernels are most of its time.  PDL
+// lets its blocks be scheduled and do their index work while the kernel
+// before it drains; griddepcontrol.wait, before the first read of any
+// operand (scalars, p, g, m, c may all have been written by that kernel),
+// holds them until it has completed and flushed its memory.  Each block
+// then issues griddepcontrol.launch_dependents, so a PDL-launched successor
+// may stage itself in turn; that successor's own wait still waits for
+// this kernel's completion.  A refused launch returns its error: there is
+// no retry without the attribute.
+//
 // Each fu_* launcher enqueues on the given stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 
@@ -152,11 +165,14 @@ __global__ void __launch_bounds__(kThreads)
 local_step_kernel(T* __restrict__ p, const T* __restrict__ g, T* __restrict__ m,
                   const T* __restrict__ c, const float* __restrict__ scalars,
                   float wd, float beta, long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // PDL: no operand may be read before the kernel this one follows is done
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const float clip_scale = scalars[0];
   const float step_size = scalars[1];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
+  for (long long i = first; i < n_vec; i += stride) {
     const long long off = i * V;
     float pv[V], gv[V], mv[V], cv[V];
     load<T, V>(p + off, pv);
@@ -187,13 +203,25 @@ int launch_local_step(void* p, const void* g, void* m, const void* c,
   constexpr int VW = 16 / sizeof(T);
   const bool vec = (n % VW == 0) && aligned16(p) && aligned16(g) &&
                    (!has_m || aligned16(m)) && (!has_c || aligned16(c));
+  cudaError_t err = cudaSuccess;
   auto go = [&](auto VEC, auto HM, auto HC, auto HW) {
     constexpr int V = decltype(VEC)::value ? VW : 1;
     const long long n_vec = n / V;
-    local_step_kernel<T, V, decltype(HM)::value, decltype(HC)::value, decltype(HW)::value>
-        <<<grid_for(n_vec), kThreads, 0, stream>>>(
-            static_cast<T*>(p), static_cast<const T*>(g), static_cast<T*>(m),
-            static_cast<const T*>(c), scalars, wd, beta, n_vec);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid_for(n_vec));
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg,
+        local_step_kernel<T, V, decltype(HM)::value, decltype(HC)::value,
+                          decltype(HW)::value>,
+        static_cast<T*>(p), static_cast<const T*>(g), static_cast<T*>(m),
+        static_cast<const T*>(c), scalars, wd, beta, n_vec);
   };
   dispatch_bool(vec, [&](auto VEC) {
     dispatch_bool(has_m, [&](auto HM) {
@@ -202,6 +230,7 @@ int launch_local_step(void* p, const void* g, void* m, const void* c,
       });
     });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

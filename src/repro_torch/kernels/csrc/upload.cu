@@ -18,7 +18,11 @@
 // few operations per element, so device-memory bytes bound them:
 // compress_delta reads 4 B and writes 8 B per element (c and r; 4 B without
 // the residual), topk_threshold reads 4 B per element once (this design reads
-// it four times, one pass per byte of the key), dp_clip_noise reads 8 B
+// it into shared memory once up to the cut and four times above it, one
+// pass per byte of the key; at the main path's 137,216 elements the launch
+// and four rounds of exchange between the CTAs of its cluster, not the
+// 0.16 us of bytes, bound it),
+// dp_clip_noise reads 8 B
 // (d and z) and writes 4 B.  At LeNet-5 size (137,216 padded elements) each
 // is far below a microsecond of bytes and the launch dominates.
 //
@@ -31,16 +35,42 @@
 //    __shfl_xor_sync butterfly: a max is exact in any order.  tau arrives as
 //    a device pointer and is never read on the host.
 //  * topk_threshold: a radix select over the f32 bit pattern of |d| (a
-//    non-negative float orders like its bits), one 8-bit digit per launch,
+//    non-negative float orders like its bits), one 8-bit digit per pass,
 //    most significant first.  Pass p builds a 256-bin histogram of digit p
-//    among the elements whose higher digits equal the prefix found so far
-//    (per-block shared histogram, warp-aggregated with __match_any_sync,
-//    merged with global atomics); the last block to finish (a __threadfence
-//    plus an atomic ticket) turns the histogram into the next digit and the
-//    rank left to find, by a suffix scan.  Four launches per call; after the
-//    fourth the prefix is the k-th largest value's bit pattern, which is what
-//    the greedy bit search of the JAX package finds.  Counts are integers,
-//    so the result is exact whatever order the atomics land in.
+//    among the elements whose higher digits equal the prefix found so far;
+//    a suffix scan of it gives the next digit and the rank left to find.
+//    After four passes the prefix is the k-th largest value's bit pattern,
+//    which is what the greedy bit search of the JAX package finds.  Counts
+//    are integers, so the result is exact whatever order anything lands in.
+//    Two kernels, chosen by n (a size dispatch, never a fallback):
+//    - up to C * kClusterSliceMax keys, topk_cluster_kernel: ONE launch of
+//      one thread-block cluster of C CTAs (16 by default, at most 16) x 1024
+//      threads.  Each CTA loads its slice of the keys bits(|d|) into shared
+//      memory once (slices of a multiple of 128 keys; past n a key is
+//      0xFFFFFFFF, whose set sign bit matches no prefix).  Per pass each CTA
+//      counts its slice into a 256-bin shared histogram (plain shared
+//      atomics by default; __match_any_sync warp aggregation and per-warp
+//      histograms are the measured alternatives), then sends it to every
+//      CTA of the cluster with st.async: 16 bytes per thread into the
+//      receiver's staging row for the sender, completing the receiver's
+//      mbarrier by bytes.  Each CTA waits only on its own mbarrier, sums
+//      the C rows and runs the same suffix scan, so all agree on the digit
+//      with no broadcast and no cluster barrier inside the loop.  Staging
+//      and mbarriers alternate by pass parity: a CTA sends pass p + 2 only
+//      after it received every CTA's pass p + 1, which each CTA sends only
+//      after reading its own pass-p staging.  Cluster barriers: one after
+//      the mbarriers are initialized (its wait after the keys are loaded),
+//      one before exit so that no CTA leaves while its stores are in
+//      flight.  The launch also takes programmatic dependent launch: the
+//      set-up runs while the kernel before it drains, and
+//      griddepcontrol.wait comes before the first read of d.  No
+//      workspace, no global atomics, no memset.
+//    - above it, topk_pass_kernel: four launches, one per digit, each over
+//      the whole of |d| in a grid-stride pass (per-block shared histogram,
+//      warp-aggregated, merged with global atomics); the last block to
+//      finish (a __threadfence plus an atomic ticket) runs the scan and
+//      leaves the prefix and rank for the next launch in a workspace that
+//      is zeroed by one memset per call.
 //  * dp_clip_noise: a grid-stride elementwise pass, float4 loads and stores.
 //
 // Rounding: every step uses the _rn intrinsics (__fdiv_rn, __fmul_rn,
@@ -53,10 +83,13 @@
 // Each up_* launcher enqueues on the given stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -72,6 +105,20 @@ constexpr int kBins = 256;
 constexpr int kTicket = 4 * kBins;
 constexpr int kState = kTicket + 4;
 constexpr int kWorkspaceWords = kState + 8;
+
+// topk_cluster_kernel: threads per CTA, the most CTAs in a cluster, the
+// granule of a CTA's slice (one float4 per lane of a warp, so every warp's
+// trip count is uniform), the most keys a CTA holds (160 KB of shared
+// memory, beside 66 KB of histograms at most), the key past n, and how a
+// pass counts: shared atomics, warp-aggregated by __match_any_sync, or into
+// per-warp histograms summed afterwards
+constexpr int kClusterThreads = 1024;
+constexpr int kClusterWarps = kClusterThreads / 32;
+constexpr int kMaxCluster = 16;
+constexpr int kSliceGranule = 128;
+constexpr int kClusterSliceMax = 40 * 1024;
+constexpr unsigned kNoKey = 0xFFFFFFFFu;
+constexpr int kHistAtomic = 0, kHistMatch = 1, kHistWarp = 2;
 
 __host__ __device__ inline bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
@@ -302,6 +349,264 @@ int launch_topk_threshold(const float* d, long long n, long long k, float* tau,
 }
 
 // ---------------------------------------------------------------------------
+// topk_threshold up to the cut: one launch on a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// keys per CTA: ceil(n / C) rounded up to kSliceGranule (0 when too many)
+inline long long cluster_slice(long long n, int n_ctas) {
+  const long long per = (n + n_ctas - 1) / n_ctas;
+  const long long slice = (per + kSliceGranule - 1) / kSliceGranule * kSliceGranule;
+  return slice <= kClusterSliceMax ? (slice > 0 ? slice : kSliceGranule) : 0;
+}
+
+// dynamic shared memory of one CTA: the local histogram, the staging of
+// every CTA's histogram by pass parity, the per-warp histograms (HIST_WARP),
+// the keys
+inline size_t cluster_smem_bytes(long long slice, int hist) {
+  return sizeof(unsigned) * (kBins + 2 * kMaxCluster * kBins +
+                             (hist == kHistWarp ? kClusterWarps * kBins : 0) +
+                             static_cast<size_t>(slice));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// one key into the CTA's histogram of this pass when it matches the prefix
+template <int HIST>
+__device__ __forceinline__ void cluster_count(unsigned key, unsigned match_mask,
+                                              unsigned prefix, int shift,
+                                              unsigned* hist, unsigned* whist) {
+  const bool hit = (key & match_mask) == prefix;
+  const unsigned digit = (key >> shift) & 0xFFu;
+  if constexpr (HIST == kHistAtomic) {
+    if (hit) atomicAdd(&hist[digit], 1u);
+  } else if constexpr (HIST == kHistWarp) {
+    if (hit) atomicAdd(&whist[(threadIdx.x >> 5) * kBins + digit], 1u);
+  } else {
+    // lanes with the same digit add once, by their lowest lane; every lane
+    // of the warp is here (the loop's trip count is warp-uniform)
+    const unsigned tag = hit ? digit : static_cast<unsigned>(kBins);
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
+    if (hit && (__ffs(peers) - 1) == static_cast<int>(threadIdx.x & 31))
+      atomicAdd(&hist[digit], static_cast<unsigned>(__popc(peers)));
+  }
+}
+
+template <bool VEC, int HIST>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int slice,
+                    float* __restrict__ tau) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned me = cluster.block_rank();
+  const unsigned n_ctas = cluster.num_blocks();
+  extern __shared__ __align__(16) unsigned smem[];
+  unsigned* hist = smem;                                // [kBins]
+  unsigned* stage = hist + kBins;                       // [2][kMaxCluster][kBins]
+  unsigned* whist = stage + 2 * kMaxCluster * kBins;    // [warps][kBins]
+  unsigned* keys = whist + (HIST == kHistWarp ? kClusterWarps * kBins : 0);
+  __shared__ __align__(8) unsigned long long staged[2]; // mbarriers, by parity
+  __shared__ unsigned warp_sum[kBins / 32];
+  __shared__ unsigned pick[2];                          // next prefix, rank
+  const int t = threadIdx.x;
+
+  // the mbarriers must be initialized before any CTA stores into them: one
+  // cluster barrier, whose wait comes after the keys are loaded
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&staged[0])),
+                 "r"(1u));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&staged[1])),
+                 "r"(1u));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (t < kBins) hist[t] = 0u;
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  // PDL: d may have been written by the kernel before this one
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  // the slice, loaded once: keys[j] = bits(|d[me * slice + j]|)
+  const long long base = static_cast<long long>(me) * slice;
+  for (int j = 4 * t; j < slice; j += 4 * kClusterThreads) {
+    const long long i = base + j;
+    uint4 kv;
+    if (VEC && i + 3 < n) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(d + i));
+      kv = make_uint4(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y)),
+                      __float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)));
+    } else {
+      kv.x = i < n ? __float_as_uint(fabsf(d[i])) : kNoKey;
+      kv.y = i + 1 < n ? __float_as_uint(fabsf(d[i + 1])) : kNoKey;
+      kv.z = i + 2 < n ? __float_as_uint(fabsf(d[i + 2])) : kNoKey;
+      kv.w = i + 3 < n ? __float_as_uint(fabsf(d[i + 3])) : kNoKey;
+    }
+    *reinterpret_cast<uint4*>(keys + j) = kv;
+  }
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+
+  unsigned prefix = 0u, rank = k;       // rank: which largest, among matches
+#pragma unroll 1
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = 24 - 8 * pass;
+    // the digits already fixed, and the sign bit, which only kNoKey has
+    const unsigned match_mask =
+        (pass ? 0xFFFFFFFFu << (shift + 8) : 0u) | 0x80000000u;
+    const int buf = pass & 1;
+    unsigned* stg = stage + buf * kMaxCluster * kBins;
+    if constexpr (HIST == kHistWarp) {
+      for (int b = t; b < kClusterWarps * kBins; b += kClusterThreads) whist[b] = 0u;
+      __syncthreads();
+    }
+    const uint4* kv4 = reinterpret_cast<const uint4*>(keys);
+    for (int j = t; j < slice / 4; j += kClusterThreads) {
+      const uint4 kv = kv4[j];
+      cluster_count<HIST>(kv.x, match_mask, prefix, shift, hist, whist);
+      cluster_count<HIST>(kv.y, match_mask, prefix, shift, hist, whist);
+      cluster_count<HIST>(kv.z, match_mask, prefix, shift, hist, whist);
+      cluster_count<HIST>(kv.w, match_mask, prefix, shift, hist, whist);
+    }
+    if constexpr (HIST == kHistWarp) {
+      __syncthreads();
+      if (t < kBins) {
+        unsigned sum = 0u;
+#pragma unroll 8
+        for (int w = 0; w < kClusterWarps; ++w) sum += whist[w * kBins + t];
+        hist[t] = sum;
+      }
+    }
+    __syncthreads();
+    // send: 64 threads per destination CTA, 16 bytes each, into its
+    // staging row `me`; the bytes complete its mbarrier of this parity
+    if (t == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                       smem_addr(&staged[buf])), "r"(n_ctas * kBins * 4u) : "memory");
+    const unsigned dst = t >> 6, quad = t & 63;
+    if (dst < n_ctas) {
+      const uint4 v = *reinterpret_cast<const uint4*>(hist + 4 * quad);
+      unsigned raddr, rbar;
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(raddr) : "r"(smem_addr(stg + me * kBins + 4 * quad)), "r"(dst));
+      asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                   : "=r"(rbar) : "r"(smem_addr(&staged[buf])), "r"(dst));
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+          "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(raddr), "r"(v.x), "r"(v.y), "r"(v.z),
+          "r"(v.w), "r"(rbar) : "memory");
+    }
+    // receive: this parity's mbarrier completes its ((pass >> 1) & 1)-th
+    // phase when every CTA's histogram has landed here
+    asm volatile(
+        "{\n .reg .pred P;\n WAIT_%=:\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+        " @!P bra WAIT_%=;\n}" ::"r"(smem_addr(&staged[buf])), "r"((pass >> 1) & 1)
+        : "memory");
+    // after the last exchange: no CTA exits before every CTA has received
+    // all it was sent (this arrive, the wait before exit)
+    if (pass == 3) asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+    // bin t's count over the cluster, and the suffix sum S(t) = #matches
+    // with digit >= t: within each warp's 32 bins by shuffles, then across
+    // the 8 warps of bins
+    unsigned total = 0u, s = 0u;
+    if (t < kBins) {
+      for (unsigned r = 0; r < n_ctas; ++r) total += stg[r * kBins + t];
+      const int lane = t & 31;
+      s = total;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned v = __shfl_down_sync(0xFFFFFFFFu, s, o);
+        if (lane + o < 32) s += v;
+      }
+      if (lane == 0) warp_sum[t >> 5] = s;
+    }
+    __syncthreads();                    // every sender has read hist
+    if (t < kBins) {
+      hist[t] = 0u;
+      for (int w = (t >> 5) + 1; w < kBins / 32; ++w) s += warp_sum[w];
+      const unsigned above = s - total;   // S(t + 1)
+      // the digit of the rank-th largest: S(t) >= rank > S(t + 1)
+      if (s >= rank && above < rank) {
+        pick[0] = prefix | (static_cast<unsigned>(t) << shift);
+        pick[1] = rank - above;
+      }
+    }
+    __syncthreads();
+    prefix = pick[0];
+    rank = pick[1];
+  }
+  if (me == 0 && t == 0) *tau = __uint_as_float(prefix);
+  asm volatile("barrier.cluster.wait;" ::: "memory");
+}
+
+template <bool VEC, int HIST>
+int launch_topk_cluster_as(const float* d, long long n, unsigned k, int slice,
+                           int n_ctas, float* tau, cudaStream_t stream) {
+  auto kernel = topk_cluster_kernel<VEC, HIST>;
+  const size_t smem = cluster_smem_bytes(slice, HIST);
+  // once per instance: shared memory above 48 KB, clusters above 8 CTAs
+  static const cudaError_t attr_err = [&] {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(cluster_smem_bytes(kClusterSliceMax, HIST)));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    return e;
+  }();
+  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ctas);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  // the guard: a cluster of this size and shared memory must fit the card
+  static int checked_ctas = 0;
+  static size_t checked_smem = 0;
+  if (checked_ctas != n_ctas || checked_smem != smem) {
+    int clusters = 0;
+    cfg.numAttrs = 1;
+    cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    cfg.numAttrs = 2;
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    checked_ctas = n_ctas;
+    checked_smem = smem;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, d, n, k, slice, tau);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_topk_cluster(const float* d, long long n, long long k, float* tau,
+                        int n_ctas, int hist, cudaStream_t stream) {
+  if (k < 1 || k > n || n > 0xFFFFFFFFLL || n_ctas < 1 || n_ctas > kMaxCluster ||
+      hist < kHistAtomic || hist > kHistWarp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long slice = cluster_slice(n, n_ctas);
+  if (slice == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned kk = static_cast<unsigned>(k);
+  const int sl = static_cast<int>(slice);
+  auto go = [&](auto VC, auto H) {
+    return launch_topk_cluster_as<decltype(VC)::value, decltype(H)::value>(
+        d, n, kk, sl, n_ctas, tau, stream);
+  };
+  auto with_hist = [&](auto VC) {
+    if (hist == kHistMatch) return go(VC, std::integral_constant<int, kHistMatch>{});
+    if (hist == kHistWarp) return go(VC, std::integral_constant<int, kHistWarp>{});
+    return go(VC, std::integral_constant<int, kHistAtomic>{});
+  };
+  return aligned16(d) ? with_hist(std::true_type{}) : with_hist(std::false_type{});
+}
+
+// ---------------------------------------------------------------------------
 // dp_clip_noise
 // ---------------------------------------------------------------------------
 
@@ -377,6 +682,17 @@ int up_topk_threshold(const void* d, long long n, long long k, void* tau, void* 
 
 // the workspace up_topk_threshold needs, in 32-bit words
 int up_topk_workspace_words() { return kWorkspaceWords; }
+
+// the threshold up to the cut, in one cluster launch of n_ctas CTAs (1..16);
+// hist: 0 shared atomics, 1 warp-aggregated by __match_any_sync, 2 per-warp
+int up_topk_cluster(const void* d, long long n, long long k, void* tau, int n_ctas,
+                    int hist, void* stream) {
+  return launch_topk_cluster(static_cast<const float*>(d), n, k, static_cast<float*>(tau),
+                             n_ctas, hist, static_cast<cudaStream_t>(stream));
+}
+
+// the most keys one CTA of up_topk_cluster holds
+int up_topk_cluster_slice_max() { return kClusterSliceMax; }
 
 int up_dp_clip_noise(void* out, const void* d, const void* z, const void* scalars,
                      long long n, void* stream) {

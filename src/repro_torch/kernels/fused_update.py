@@ -327,8 +327,20 @@ server_update.launches = 0
 # wire scale is never below amax/qmax and no quantized value clips
 QMAX = {8: 127.0, 16: 32767.0}
 SCALE_PAD = 1.0 + 2.0 ** -6
-# launches of one topk_threshold call: one radix pass per byte of the key
-TOPK_LAUNCHES = 4
+# topk_threshold's two kernels, chosen by n: up to topk_cut(n_ctas)
+# elements one launch on a cluster of n_ctas CTAs (TOPK_CLUSTER by
+# default), each holding a slice of at most TOPK_SLICE_MAX keys (a
+# multiple of TOPK_SLICE_GRANULE) in shared memory (csrc/upload.cu's
+# kClusterSliceMax, kSliceGranule); above it one launch per radix pass
+TOPK_CLUSTER = 16
+TOPK_SLICE_MAX = 40 * 1024
+TOPK_SLICE_GRANULE = 128
+TOPK_RADIX_LAUNCHES = 4
+# how a cluster CTA counts a pass into its histogram: "atomic" by shared
+# atomics, "match" warp-aggregated by __match_any_sync first, "warp" into
+# one histogram per warp summed afterwards (csrc/upload.cu's kHist*)
+TOPK_HISTS = ("atomic", "match", "warp")
+TOPK_HIST = "atomic"
 
 
 def _check_bits(bits: int) -> None:
@@ -423,30 +435,102 @@ def topk_threshold_plain(d, k: int) -> torch.Tensor:
     return prefix.view(torch.float32)
 
 
+def topk_slice(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
+    """Keys per CTA of the cluster threshold: ⌈n / n_ctas⌉ rounded up
+    to ``TOPK_SLICE_GRANULE`` (at least one granule).  CTA r holds
+    elements ``[r·slice, (r+1)·slice)``; places past n hold no key."""
+    per = -(-n // n_ctas)
+    return max(TOPK_SLICE_GRANULE, -(-per // TOPK_SLICE_GRANULE)
+               * TOPK_SLICE_GRANULE)
+
+
+def topk_cut(n_ctas: int = TOPK_CLUSTER) -> int:
+    """The most elements the one-launch cluster threshold takes."""
+    return n_ctas * TOPK_SLICE_MAX
+
+
+def topk_launches(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
+    """Kernel launches of one ``topk_threshold`` call on n elements."""
+    return 1 if n <= topk_cut(n_ctas) else TOPK_RADIX_LAUNCHES
+
+
+def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
+                       ) -> torch.Tensor:
+    """The cluster kernel's arithmetic, step by step: the keys
+    ``bits(|d|)`` cut into ``n_ctas`` slices of ``topk_slice`` keys (a
+    key past n is 0xFFFFFFFF, whose sign bit matches no prefix), then
+    four 8-bit radix passes, most significant digit first.  A pass
+    counts, per slice, the digit of each key whose higher digits equal
+    the prefix so far, sums the slices' 256-bin histograms, and takes
+    the digit t with S(t) ≥ rank > S(t+1), S the suffix sums; the rank
+    left is rank − S(t+1).  Returns τ as a 0-dim f32 tensor; no value
+    crosses to the host."""
+    n = d.shape[0]
+    k = _check_k(k, n)
+    if not 1 <= n_ctas <= 16:
+        raise ValueError(f"n_ctas must be in 1..16, got {n_ctas}")
+    dev = d.device
+    slice_ = topk_slice(n, n_ctas)
+    bits = d.float().abs().view(torch.int32).long() & 0xFFFFFFFF
+    keys = torch.cat([bits, torch.full((n_ctas * slice_ - n,), 0xFFFFFFFF,
+                                       dtype=torch.long, device=dev)])
+    keys = keys.view(n_ctas, slice_)
+    prefix = torch.zeros((), dtype=torch.long, device=dev)
+    rank = torch.full((), k, dtype=torch.long, device=dev)
+    bins = torch.arange(256, device=dev)
+    for p in range(4):
+        shift = 24 - 8 * p
+        fixed = (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF if p else 0
+        hit = (keys & (fixed | 0x80000000)) == prefix
+        digit = (keys >> shift) & 0xFF
+        hist = torch.zeros(n_ctas, 256, dtype=torch.long, device=dev)
+        hist.scatter_add_(1, digit, hit.long())
+        total = hist.sum(dim=0)
+        suffix = total.flip(0).cumsum(0).flip(0)        # S(t)
+        above = suffix - total                          # S(t + 1)
+        t = torch.argmax(((suffix >= rank) & (above < rank)).long())
+        prefix = prefix | (bins[t] << shift)
+        rank = rank - above[t]
+    return prefix.to(torch.int32).view(torch.float32)
+
+
 @functools.lru_cache(maxsize=1)
 def _topk_workspace_words() -> int:
     return int(_lib().up_topk_workspace_words())
 
 
-def topk_threshold(d: torch.Tensor, k: int) -> torch.Tensor:
+def topk_threshold(d: torch.Tensor, k: int, *, n_ctas: int = TOPK_CLUSTER,
+                   hist: str = TOPK_HIST) -> torch.Tensor:
     """τ = the k-th largest |d| of a 1-D f32 buffer, exactly, as a 0-dim
     f32 tensor on ``d``'s device; the card never waits on the host and
     the host never reads τ.  Zero padding appended to ``d`` leaves τ
     unchanged when ``k`` counts logical elements.  On a CUDA tensor it
-    runs ``TOPK_LAUNCHES`` radix passes."""
+    runs ``topk_launches(n, n_ctas)`` launches: up to ``topk_cut``
+    elements one launch on a cluster of ``n_ctas`` CTAs, counting with
+    ``hist`` (one of ``TOPK_HISTS``); above it four radix passes.  A
+    refused launch raises."""
     if d.dim() != 1:
         raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
     n, dev = d.shape[0], d.device
     _check_1d("d", d, n, torch.float32, dev)
     k = _check_k(k, n)
+    if not 1 <= n_ctas <= 16 or hist not in TOPK_HISTS:
+        raise ValueError(f"topk_threshold takes n_ctas in 1..16 and hist "
+                         f"in {TOPK_HISTS}, got {n_ctas}, {hist!r}")
     if not d.is_cuda:
         return topk_threshold_plain(d, k)
     tau = torch.empty((), dtype=torch.float32, device=dev)
-    ws = torch.empty(_topk_workspace_words(), dtype=torch.int32, device=dev)
-    err = _lib().up_topk_threshold(_ptr(d), n, k, _ptr(tau), _ptr(ws),
-                                   _stream(d))
+    launches = topk_launches(n, n_ctas)
+    if launches == 1:
+        err = _lib().up_topk_cluster(_ptr(d), n, k, _ptr(tau), n_ctas,
+                                     TOPK_HISTS.index(hist), _stream(d))
+    else:
+        ws = torch.empty(_topk_workspace_words(), dtype=torch.int32,
+                         device=dev)
+        err = _lib().up_topk_threshold(_ptr(d), n, k, _ptr(tau), _ptr(ws),
+                                       _stream(d))
     _check_launch("topk_threshold", err)
-    topk_threshold.launches += TOPK_LAUNCHES
+    topk_threshold.launches += launches
     return tau
 
 

@@ -27,6 +27,8 @@ Tolerances:
   - a bf16 bucket: its bound above plus one bf16 ulp of the result
     (2⁻⁷·|x|), since f32 sums that agree to it can round apart.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -161,6 +163,62 @@ def test_topk_threshold_plain_matches_jax_bitwise(d, k):
     a = np.abs(d)
     assert got.numpy() == np.partition(a, a.size - k)[a.size - k]
     assert torch.equal(comp.topk_threshold(torch.from_numpy(d), k), got)
+
+
+def _cluster_input(kind: str, n: int) -> np.ndarray:
+    rng = np.random.default_rng(n)
+    if kind == "ties":
+        return (rng.integers(-3, 4, size=n) / 4).astype(np.float32)
+    if kind == "zeros":
+        return np.zeros(n, np.float32)
+    d = rng.normal(size=n).astype(np.float32)
+    if kind == "subnormal":
+        d = (d * 1e-39).astype(np.float32)
+        d[::7] = 0.0
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_threshold(kind: str, n: int, k: int) -> int:
+    tau = np.asarray(jcomp.topk_threshold(jnp.asarray(_cluster_input(kind, n)),
+                                          k))
+    return int(tau.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_ctas", [1, 8, 16])
+@pytest.mark.parametrize("n", [1, 127, 4099, 137_216])
+@pytest.mark.parametrize("kind", ["normal", "ties", "zeros", "subnormal"])
+def test_topk_cluster_plain_matches_jax_bitwise(kind, n, n_ctas):
+    """The cluster kernel's arithmetic (slices, four 8-bit passes,
+    per-slice histograms summed, the suffix scan) lands on the JAX
+    package's threshold bit for bit, n a multiple of n_ctas or not."""
+    d = torch.from_numpy(_cluster_input(kind, n))
+    for k in sorted({1, max(1, n // 4), max(1, n // 2), n}):
+        got = fu.topk_cluster_plain(d, k, n_ctas)
+        assert got.shape == () and got.dtype == torch.float32
+        assert int(got.view(torch.int32)) & 0xFFFFFFFF == \
+            _jax_threshold(kind, n, k), (k, n_ctas)
+
+
+def test_topk_slices_and_launches():
+    """The cluster kernel's slices cover n in granules of 128 keys, the
+    cut is n_ctas × the largest slice, and a call launches once up to the
+    cut and four times above it."""
+    for n in (1, 127, 4099, 137_216, fu.topk_cut()):
+        for c in (1, 8, 16):
+            sl = fu.topk_slice(n, c)
+            assert sl % fu.TOPK_SLICE_GRANULE == 0 and c * sl >= n
+            assert c * (sl - fu.TOPK_SLICE_GRANULE) < n
+    assert fu.topk_slice(fu.topk_cut(8), 8) == fu.TOPK_SLICE_MAX
+    assert fu.topk_launches(137_216) == 1
+    assert fu.topk_launches(fu.topk_cut()) == 1
+    assert fu.topk_launches(fu.topk_cut() + 1) == fu.TOPK_RADIX_LAUNCHES
+    assert fu.topk_launches(16_777_216) == 4
+    assert fu.topk_launches(fu.topk_cut(8) + 1, 8) == 4
+    with pytest.raises(ValueError):
+        fu.topk_cluster_plain(torch.ones(4), 2, 0)
+    with pytest.raises(ValueError):
+        fu.topk_threshold(torch.ones(4), 2, hist="sort")
 
 
 def test_cpu_tensors_never_count_upload_launches():

@@ -72,6 +72,65 @@ def test_weighted_delta_f32_deltas_over_bf16_params_bitwise(gen, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+def test_local_step_reads_what_the_op_before_it_wrote(gen, write):
+    """K1 is launched with programmatic dependent launch: its blocks may
+    start while the op before it drains, and must not read an operand
+    before that op is done.  A sleep holds the stream, fresh g, m and
+    scalars are written into K1's operands (a copy, or a kernel), and K1
+    follows at once at N 16.8 M; it must see the fresh values."""
+    n = 16_777_216
+    p = torch.randn(n, generator=gen, device="cuda")
+    g_new = torch.randn(n, generator=gen, device="cuda")
+    m_new = torch.randn(n, generator=gen, device="cuda")
+    sc_new = torch.tensor([0.7, 0.05], device="cuda")
+    g, m = torch.zeros_like(g_new), torch.zeros_like(m_new)
+    sc = torch.zeros(2, device="cuda")
+    want, want_m = p.clone(), m_new.clone()
+    fu.local_step_plain(want, g_new, want_m, None, sc_new, weight_decay=1e-3,
+                        momentum=0.9)
+    a = p.clone()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for dst, src in ((g, g_new), (m, m_new), (sc, sc_new)):
+        if write == "copy_":
+            dst.copy_(src)
+        else:
+            torch.mul(src, 1.0, out=dst)
+    fu.local_step(a, g, m, None, sc, weight_decay=1e-3, momentum=0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(a, want) and torch.equal(m, want_m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_local_step_chain_under_graph_capture(gen, dtype):
+    """A chain of PDL-launched K1 steps captured by torch.cuda.graph and
+    replayed twice is bit-equal to the same chain run eagerly."""
+    n, steps = 137_216, 6
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    m = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    gs = [torch.randn(n, generator=gen, device="cuda").to(dtype)
+          for _ in range(steps)]
+    sc = torch.tensor([0.7, 0.05], device="cuda")
+    kw = dict(weight_decay=1e-3, momentum=0.9)
+    eager_p, eager_m = p.clone(), m.clone()
+    cap_p, cap_m = p.clone(), m.clone()
+    for g in gs:                        # (loads the kernels before capture)
+        fu.local_step(eager_p, g, eager_m, None, sc, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for g in gs:
+            fu.local_step(cap_p, g, cap_m, None, sc, **kw)
+    graph.replay()
+    graph.replay()
+    for g in gs:
+        fu.local_step(eager_p, g, eager_m, None, sc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cap_p, eager_p) and torch.equal(cap_m, eager_m)
+
+
+@pytest.mark.cuda
 def test_launch_counts_and_checks(gen):
     fu.reset_launch_counts()
     p = torch.randn(4096, generator=gen, device="cuda")
@@ -322,20 +381,73 @@ def test_compress_delta_matches_plain_bitwise(gen, n, bits):
     torch.cuda.synchronize()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", UPLOAD_SIZES + (4096 + 3, 4096 + 4))
-def test_topk_threshold_matches_plain_bitwise(gen, n):
+def _threshold_inputs(gen, n):
     d = _delta(gen, n)
     ties = torch.randint(-3, 4, (n,), generator=gen, device="cuda") / 4.0
     sub = d * 1e-39                                     # subnormals
-    for x in (d, ties, sub, torch.zeros(n, device="cuda")):
+    return d, ties, sub, torch.zeros(n, device="cuda")
+
+
+# the threshold's cut between its one-launch cluster kernel and its four
+# radix passes, and the lengths around it
+CUT = fu.topk_cut()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", UPLOAD_SIZES + (4096 + 3, 4096 + 4, CUT - 1,
+                                              CUT, CUT + 1, CUT + 4))
+def test_topk_threshold_matches_plain_bitwise(gen, n):
+    """Bitwise against the plain bit search, with one launch per call
+    up to the cut and four above it."""
+    for x in _threshold_inputs(gen, n):
         for k in sorted({1, max(1, n // 4), max(1, n // 2), n}):
             before = fu.topk_threshold.launches
             got = fu.topk_threshold(x, k)
-            assert fu.topk_threshold.launches - before == fu.TOPK_LAUNCHES
+            assert fu.topk_threshold.launches - before == \
+                fu.topk_launches(n) == (1 if n <= CUT else 4)
             want = fu.topk_threshold_plain(x, k)
             assert got.view(torch.int32) == want.view(torch.int32), (k, n)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", fu.TOPK_HISTS)
+@pytest.mark.parametrize("n_ctas", [1, 8, 16])
+def test_topk_cluster_kernel_shapes_bitwise(gen, n_ctas, hist):
+    """The cluster kernel at every cluster size and histogram, up to its
+    cut (n_ctas × the largest slice), bitwise against the plain bit search
+    and its own plain twin."""
+    assert fu._lib().up_topk_cluster_slice_max() == fu.TOPK_SLICE_MAX
+    cut = fu.topk_cut(n_ctas)
+    for n in (1, 4099, 137_216, cut):
+        for x in _threshold_inputs(gen, n):
+            for k in sorted({1, max(1, n // 4), n}):
+                got = fu.topk_threshold(x, k, n_ctas=n_ctas, hist=hist)
+                want = fu.topk_threshold_plain(x, k)
+                assert got.view(torch.int32) == want.view(torch.int32), (k, n)
+                assert fu.topk_cluster_plain(x, k, n_ctas).view(torch.int32) \
+                    == want.view(torch.int32)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_topk_threshold_two_streams(gen):
+    """Thresholds in flight at once on two streams, one held back by a
+    sleep, on both paths: each equals the plain version."""
+    xs = [_delta(gen, n) for n in (137_216, 4099, CUT + 1, 137_216)]
+    ks = [-(-x.shape[0] // 4) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    taus = []
+    for i, (x, k) in enumerate(zip(xs, ks)):
+        with torch.cuda.stream(streams[i % 2]):
+            if i == 0:
+                torch.cuda._sleep(5_000_000)
+            taus.append(fu.topk_threshold(x, k))
+    torch.cuda.synchronize()
+    for x, k, tau in zip(xs, ks, taus):
+        want = fu.topk_threshold_plain(x, k)
+        assert tau.view(torch.int32) == want.view(torch.int32)
 
 
 @pytest.mark.cuda
@@ -358,9 +470,13 @@ def test_upload_kernels_count_launches_and_check(gen):
     fu.compress_delta(d, tau, bits=8, topk=True)
     fu.dp_clip_noise(d, None, torch.ones(2, device="cuda"))
     assert [k.launches for k in fu.KERNELS] == [0, 0, 0]
-    assert [k.launches for k in fu.UPLOAD_KERNELS] == [1, fu.TOPK_LAUNCHES, 1]
+    assert [k.launches for k in fu.UPLOAD_KERNELS] == [
+        1, fu.topk_launches(4096), 1]
+    assert fu.topk_launches(4096) == 1
     with pytest.raises(ValueError):
         fu.topk_threshold(d, 0)
+    with pytest.raises(ValueError):
+        fu.topk_threshold(d, 10, n_ctas=17)
     with pytest.raises(ValueError):
         fu.compress_delta(d, None, bits=8, topk=True)
     with pytest.raises(ValueError):

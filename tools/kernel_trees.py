@@ -4,15 +4,19 @@
     python3 tools/kernel_trees.py KERNEL OLD_TREE NEW_TREE [--dtypes D,..]
 
 KERNEL names a ``chip_smoke.KernelBench`` method with cases in
-``chip_smoke.KERNEL_CASES`` (``flash_attention``, ``ssd_scan``).  The cases
-are NEW_TREE's.  The turns run OLD, NEW, NEW, OLD: each is a subprocess
-that imports that tree's ``chip_smoke.KernelBench`` (so each tree builds
-and times its own kernel, under its own ``build/``) and calls the method
+``chip_smoke.KERNEL_CASES`` (``flash_attention``, ``ssd_scan``,
+``local_step``, ``topk_threshold``, ``sgd_step``).  The cases and the
+measuring code are NEW_TREE's ``chip_smoke``; the kernels are each
+tree's.  The turns run OLD, NEW, NEW, OLD: each is a subprocess that
+imports NEW_TREE's ``chip_smoke.KernelBench`` with that tree's
+``repro_torch`` package first on the path (so each tree builds and
+times its own kernels, under its own ``build/``) and calls the method
 at every case in each dtype of ``--dtypes`` (default bfloat16, the serve
-path's): the kernel's ms, the library call's, the bound and the error
-against the plain version.  Prints one JSON line per (turn, case, dtype),
-then one line with each tree's median kernel ms per case and dtype;
-exits 1 if any case leaves its tolerance.  To compare a
+path's; K1, the threshold and the SGD step take float32): the kernel's
+ms, the library call's, the bound, the error against the plain version
+and whatever else the method reports.  Prints one JSON line per (turn,
+case, dtype), then one line with each tree's median ms per case and
+dtype; exits 1 if any case leaves its tolerance.  To compare a
 commit with its parent, unpack the parent into a directory that
 ``.gitignore`` lists:
 
@@ -29,21 +33,23 @@ from pathlib import Path
 
 TURN = r"""
 import json, sys
-tree, kernel, cases, dtypes = sys.argv[1:5]
-sys.path[:0] = [tree, tree + "/src"]
+harness, tree, kernel, cases, dtypes = sys.argv[1:6]
+sys.path.insert(0, harness)
+import chip_smoke as cs          # puts the harness's src first: undo that
+sys.path.insert(0, tree + "/src")
 import torch
-import chip_smoke as cs
 from repro_torch.kernels import fused_update as fu
+assert fu.__file__.startswith(tree), fu.__file__
 bench = cs.KernelBench(torch, fu, cs.card_peaks(torch.cuda.get_device_name(0)))
 for dtype in dtypes.split(","):
     for label, kw in json.loads(cases).items():
         r = getattr(bench, kernel)(dtype=getattr(torch, dtype), label=label,
                                    **kw)
-        print(json.dumps(dict(tree=tree, case=label, dtype=dtype, ms=r["ms"],
-                              library_ms=r["library_ms"],
-                              bound_ms=r["bound_ms"],
-                              max_abs_err=r["max_abs_err"],
-                              within_tol=r["within_tol"])), flush=True)
+        keep = {k: v for k, v in r.items()
+                if isinstance(v, (bool, int, float, str, type(None)))
+                and k not in ("tree", "case", "dtype")}
+        print(json.dumps(dict(tree=tree, case=label, dtype=dtype, **keep)),
+              flush=True)
 """
 
 
@@ -63,10 +69,13 @@ def main(argv=None) -> int:
     cases = KERNEL_CASES[args.kernel]
     rows = []
     for tree in (old, new, new, old):
-        out = subprocess.run([sys.executable, "-c", TURN, tree, args.kernel,
-                              json.dumps(cases), args.dtypes], cwd=tree,
-                             check=True, capture_output=True, text=True,
+        out = subprocess.run([sys.executable, "-c", TURN, new, tree,
+                              args.kernel, json.dumps(cases), args.dtypes],
+                             cwd=tree, capture_output=True, text=True,
                              timeout=900)
+        if out.returncode:
+            print(out.stdout + out.stderr, file=sys.stderr, flush=True)
+            return out.returncode
         for line in out.stdout.splitlines():
             print(line, flush=True)
             rows.append(json.loads(line))
