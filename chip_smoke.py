@@ -28,9 +28,9 @@ JSON line per phase:
                      (compress_delta, bits 8/16/32 × top-k × residual),
                      the top-k threshold (a radix select: one launch on a
                      thread-block cluster up to its cut, four above it;
-                     at N 137,216 also at 8 and 16 CTAs with either
-                     histogram) and K5
-                     (dp_clip_noise) at the same N, bitwise; K7
+                     also at N 137,216 on 8 CTAs, and at the cut and one
+                     past it) and K5 (dp_clip_noise) at the same N,
+                     bitwise; K7
                      (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
                      shapes and beside them; K1 (launched with
                      programmatic dependent launch) and Tensor.add_ timed
@@ -168,13 +168,17 @@ def _kernel_cases() -> dict:
         # one warm P1 round of the main path under the profiler: device
         # ms per SGD step, and the idle gap before each K1
         "sgd_step": {"p1_round": dict(clients=25, steps=20)},
+        # one warm compressed P2 round under the profiler: device ops and
+        # the threshold's device kernels
+        "p2_round": {"compressed": dict(steps=25)},
     }
 
 
 # kernel -> label -> keyword arguments (all but dtype and label) of the
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
-# hymba-1.5b's serve shapes first, and K1's, the threshold's and the SGD
-# step's.  tools/kernel_trees.py times the same cases on two source trees.
+# hymba-1.5b's serve shapes first, then K1's, the threshold's and two
+# profiled rounds'.  tools/kernel_trees.py times the same cases on two
+# source trees.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -407,16 +411,14 @@ class KernelBench:
                     library_note="no PyTorch call quantizes blockwise with "
                     "bf16 scales", bound_ms=bound, bound_by=by)
 
-    def topk_threshold(self, n, dtype=None, label="", n_ctas=None,
-                       hist=None):
+    def topk_threshold(self, n, dtype=None, label="", n_ctas=None):
         """The threshold at density 0.25 through the wrapper's own choice
-        of kernel, or the cluster kernel at ``n_ctas`` CTAs with the
-        histogram ``hist`` when named; the launches per call counted."""
+        of kernel, with a cluster of ``n_ctas`` CTAs when named; the
+        launches per call counted."""
         torch, fu = self.torch, self.fu
         d = self.delta(n)
         k = -(-n // 4)                      # density 0.25
-        kw = {key: v for key, v in (("n_ctas", n_ctas), ("hist", hist))
-              if v is not None}
+        kw = {} if n_ctas is None else {"n_ctas": n_ctas}
         before = fu.topk_threshold.launches
         got = fu.topk_threshold(d, k, **kw)
         per_call = fu.topk_threshold.launches - before
@@ -433,14 +435,12 @@ class KernelBench:
         bound, by = self.bound_ms(4 * n + 4, 2 * n)
         shape = {}
         if per_call == 1:                   # the cluster kernel
-            c, h = n_ctas or fu.TOPK_CLUSTER, hist or fu.TOPK_HIST
+            c = n_ctas or fu.TOPK_CLUSTER
             # csrc/upload.cu's cluster_smem_bytes: the histogram, two
-            # parities of 16 staged histograms, the per-warp ones, the keys
-            shape = dict(n_ctas=c, hist=h, slice=fu.topk_slice(n, c),
-                         dynamic_smem_per_cta=4 * (
-                             256 + 2 * 16 * 256 + (32 * 256 if h == "warp"
-                                                   else 0)
-                             + fu.topk_slice(n, c)))
+            # parities of 16 staged histograms, the keys
+            shape = dict(n_ctas=c, slice=fu.topk_slice(n, c),
+                         dynamic_smem_per_cta=4 * (256 + 2 * 16 * 256
+                                                   + fu.topk_slice(n, c)))
         agrees = bool(lib == want)
         return dict(kernel="topk_threshold", n=n, k=k,
                     kernel_path="cluster" if per_call == 1 else "radix",
@@ -497,6 +497,35 @@ class KernelBench:
                     k1_us_median=statistics.median(k1_us) if k1_us else None,
                     library_ms=None, bound_ms=None, max_abs_err=0.0,
                     within_tol=ok)
+
+    def p2_round(self, dtype=None, label="", steps=25):
+        """One warm P2 round of the main path with p2_compressed's uploads
+        (FedAvgM, 10 clients × ``steps`` SGD steps, int8 + top-k 25% +
+        EF) under torch.profiler: the device's busy ms and operations,
+        and the threshold's device kernels and ms."""
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.fl.simulation import FLConfig, run_federated
+        torch = self.torch
+        task, data = lenet_setup()
+        fed = FLConfig(algorithm="fedavg", rounds=1, participation=0.1,
+                       local_steps=steps, server_opt="momentum",
+                       update_impl="fused", sampling="host",
+                       **upload_configs()["p2_compressed"])
+        init = task.init(torch.Generator().manual_seed(SEED))
+        run_federated(task, data, fed, init_params=init)         # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = run_federated(task, data, fed, init_params=init)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy, n_ops, _ = device_activity(prof)
+        topk_us, topk_kernels = kernel_time(prof, ("topk_",))
+        return dict(kernel="p2_round", ms=busy / 1e3, wall_ms=wall_ms,
+                    device_ops=n_ops, topk_kernels=topk_kernels,
+                    topk_device_ms=topk_us / 1e3, library_ms=None,
+                    bound_ms=None, max_abs_err=0.0,
+                    within_tol=math.isfinite(res.history[-1]["local_loss"]))
 
     def dp_clip_noise(self, n, has_z):
         torch, fu = self.torch, self.fu
@@ -806,10 +835,11 @@ def check_upload_kernels(torch, bench) -> dict:
         rows.append(bench.topk_threshold(n))
         for has_z in (False, True):
             rows.append(bench.dp_clip_noise(n, has_z))
-    # the cluster threshold's other shapes at the main path's bucket: 16
-    # or 8 CTAs, each way of counting a pass
-    rows += [bench.topk_threshold(N_SMALL, n_ctas=c, hist=h)
-             for c in (16, 8) for h in bench.fu.TOPK_HISTS]
+    # the cluster threshold at 8 CTAs on the main path's bucket, and both
+    # kernels on either side of the cut
+    cut = bench.fu.topk_cut()
+    rows += [bench.topk_threshold(N_SMALL, n_ctas=8),
+             bench.topk_threshold(cut), bench.topk_threshold(cut + 1)]
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and
@@ -1900,7 +1930,7 @@ def main(argv=None) -> int:
         r = upload_shapes[kname]
         if not r["bitwise"]:
             raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
-        shape = {key: r[key] for key in ("kernel_path", "n_ctas", "hist",
+        shape = {key: r[key] for key in ("kernel_path", "n_ctas",
                                          "dynamic_smem_per_cta",
                                          "launches_per_call") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=upload_src,

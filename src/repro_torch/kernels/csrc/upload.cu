@@ -48,9 +48,9 @@
 //      threads.  Each CTA loads its slice of the keys bits(|d|) into shared
 //      memory once (slices of a multiple of 128 keys; past n a key is
 //      0xFFFFFFFF, whose set sign bit matches no prefix).  Per pass each CTA
-//      counts its slice into a 256-bin shared histogram (plain shared
-//      atomics by default; __match_any_sync warp aggregation and per-warp
-//      histograms are the measured alternatives), then sends it to every
+//      counts its slice into a 256-bin shared histogram by shared atomics
+//      (faster on the card than aggregating a warp's equal digits with
+//      __match_any_sync first, or than per-warp histograms), then sends it to every
 //      CTA of the cluster with st.async: 16 bytes per thread into the
 //      receiver's staging row for the sender, completing the receiver's
 //      mbarrier by bytes.  Each CTA waits only on its own mbarrier, sums
@@ -107,18 +107,14 @@ constexpr int kState = kTicket + 4;
 constexpr int kWorkspaceWords = kState + 8;
 
 // topk_cluster_kernel: threads per CTA, the most CTAs in a cluster, the
-// granule of a CTA's slice (one float4 per lane of a warp, so every warp's
-// trip count is uniform), the most keys a CTA holds (160 KB of shared
-// memory, beside 66 KB of histograms at most), the key past n, and how a
-// pass counts: shared atomics, warp-aggregated by __match_any_sync, or into
-// per-warp histograms summed afterwards
+// granule of a CTA's slice (one float4 per lane of a warp), the most keys a
+// CTA holds (160 KB of shared memory, beside 33 KB of histograms), the key
+// past n
 constexpr int kClusterThreads = 1024;
-constexpr int kClusterWarps = kClusterThreads / 32;
 constexpr int kMaxCluster = 16;
 constexpr int kSliceGranule = 128;
 constexpr int kClusterSliceMax = 40 * 1024;
 constexpr unsigned kNoKey = 0xFFFFFFFFu;
-constexpr int kHistAtomic = 0, kHistMatch = 1, kHistWarp = 2;
 
 __host__ __device__ inline bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
@@ -360,40 +356,16 @@ inline long long cluster_slice(long long n, int n_ctas) {
 }
 
 // dynamic shared memory of one CTA: the local histogram, the staging of
-// every CTA's histogram by pass parity, the per-warp histograms (HIST_WARP),
-// the keys
-inline size_t cluster_smem_bytes(long long slice, int hist) {
-  return sizeof(unsigned) * (kBins + 2 * kMaxCluster * kBins +
-                             (hist == kHistWarp ? kClusterWarps * kBins : 0) +
-                             static_cast<size_t>(slice));
+// every CTA's histogram by pass parity, the keys
+inline size_t cluster_smem_bytes(long long slice) {
+  return sizeof(unsigned) * (kBins + 2 * kMaxCluster * kBins + static_cast<size_t>(slice));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// one key into the CTA's histogram of this pass when it matches the prefix
-template <int HIST>
-__device__ __forceinline__ void cluster_count(unsigned key, unsigned match_mask,
-                                              unsigned prefix, int shift,
-                                              unsigned* hist, unsigned* whist) {
-  const bool hit = (key & match_mask) == prefix;
-  const unsigned digit = (key >> shift) & 0xFFu;
-  if constexpr (HIST == kHistAtomic) {
-    if (hit) atomicAdd(&hist[digit], 1u);
-  } else if constexpr (HIST == kHistWarp) {
-    if (hit) atomicAdd(&whist[(threadIdx.x >> 5) * kBins + digit], 1u);
-  } else {
-    // lanes with the same digit add once, by their lowest lane; every lane
-    // of the warp is here (the loop's trip count is warp-uniform)
-    const unsigned tag = hit ? digit : static_cast<unsigned>(kBins);
-    const unsigned peers = __match_any_sync(0xFFFFFFFFu, tag);
-    if (hit && (__ffs(peers) - 1) == static_cast<int>(threadIdx.x & 31))
-      atomicAdd(&hist[digit], static_cast<unsigned>(__popc(peers)));
-  }
-}
-
-template <bool VEC, int HIST>
+template <bool VEC>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int slice,
                     float* __restrict__ tau) {
@@ -403,8 +375,7 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
   extern __shared__ __align__(16) unsigned smem[];
   unsigned* hist = smem;                                // [kBins]
   unsigned* stage = hist + kBins;                       // [2][kMaxCluster][kBins]
-  unsigned* whist = stage + 2 * kMaxCluster * kBins;    // [warps][kBins]
-  unsigned* keys = whist + (HIST == kHistWarp ? kClusterWarps * kBins : 0);
+  unsigned* keys = stage + 2 * kMaxCluster * kBins;
   __shared__ __align__(8) unsigned long long staged[2]; // mbarriers, by parity
   __shared__ unsigned warp_sum[kBins / 32];
   __shared__ unsigned pick[2];                          // next prefix, rank
@@ -454,26 +425,13 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
         (pass ? 0xFFFFFFFFu << (shift + 8) : 0u) | 0x80000000u;
     const int buf = pass & 1;
     unsigned* stg = stage + buf * kMaxCluster * kBins;
-    if constexpr (HIST == kHistWarp) {
-      for (int b = t; b < kClusterWarps * kBins; b += kClusterThreads) whist[b] = 0u;
-      __syncthreads();
-    }
     const uint4* kv4 = reinterpret_cast<const uint4*>(keys);
     for (int j = t; j < slice / 4; j += kClusterThreads) {
-      const uint4 kv = kv4[j];
-      cluster_count<HIST>(kv.x, match_mask, prefix, shift, hist, whist);
-      cluster_count<HIST>(kv.y, match_mask, prefix, shift, hist, whist);
-      cluster_count<HIST>(kv.z, match_mask, prefix, shift, hist, whist);
-      cluster_count<HIST>(kv.w, match_mask, prefix, shift, hist, whist);
-    }
-    if constexpr (HIST == kHistWarp) {
-      __syncthreads();
-      if (t < kBins) {
-        unsigned sum = 0u;
-#pragma unroll 8
-        for (int w = 0; w < kClusterWarps; ++w) sum += whist[w * kBins + t];
-        hist[t] = sum;
-      }
+      const uint4 q = kv4[j];
+      const unsigned kv[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if ((kv[e] & match_mask) == prefix) atomicAdd(&hist[(kv[e] >> shift) & 0xFFu], 1u);
     }
     __syncthreads();
     // send: 64 threads per destination CTA, 16 bytes each, into its
@@ -538,16 +496,16 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
   asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
-template <bool VEC, int HIST>
+template <bool VEC>
 int launch_topk_cluster_as(const float* d, long long n, unsigned k, int slice,
                            int n_ctas, float* tau, cudaStream_t stream) {
-  auto kernel = topk_cluster_kernel<VEC, HIST>;
-  const size_t smem = cluster_smem_bytes(slice, HIST);
+  auto kernel = topk_cluster_kernel<VEC>;
+  const size_t smem = cluster_smem_bytes(slice);
   // once per instance: shared memory above 48 KB, clusters above 8 CTAs
   static const cudaError_t attr_err = [&] {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cluster_smem_bytes(kClusterSliceMax, HIST)));
+        static_cast<int>(cluster_smem_bytes(kClusterSliceMax)));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
@@ -586,24 +544,15 @@ int launch_topk_cluster_as(const float* d, long long n, unsigned k, int slice,
 }
 
 int launch_topk_cluster(const float* d, long long n, long long k, float* tau,
-                        int n_ctas, int hist, cudaStream_t stream) {
-  if (k < 1 || k > n || n > 0xFFFFFFFFLL || n_ctas < 1 || n_ctas > kMaxCluster ||
-      hist < kHistAtomic || hist > kHistWarp)
+                        int n_ctas, cudaStream_t stream) {
+  if (k < 1 || k > n || n > 0xFFFFFFFFLL || n_ctas < 1 || n_ctas > kMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long slice = cluster_slice(n, n_ctas);
   if (slice == 0) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned kk = static_cast<unsigned>(k);
   const int sl = static_cast<int>(slice);
-  auto go = [&](auto VC, auto H) {
-    return launch_topk_cluster_as<decltype(VC)::value, decltype(H)::value>(
-        d, n, kk, sl, n_ctas, tau, stream);
-  };
-  auto with_hist = [&](auto VC) {
-    if (hist == kHistMatch) return go(VC, std::integral_constant<int, kHistMatch>{});
-    if (hist == kHistWarp) return go(VC, std::integral_constant<int, kHistWarp>{});
-    return go(VC, std::integral_constant<int, kHistAtomic>{});
-  };
-  return aligned16(d) ? with_hist(std::true_type{}) : with_hist(std::false_type{});
+  return aligned16(d) ? launch_topk_cluster_as<true>(d, n, kk, sl, n_ctas, tau, stream)
+                      : launch_topk_cluster_as<false>(d, n, kk, sl, n_ctas, tau, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -683,12 +632,11 @@ int up_topk_threshold(const void* d, long long n, long long k, void* tau, void* 
 // the workspace up_topk_threshold needs, in 32-bit words
 int up_topk_workspace_words() { return kWorkspaceWords; }
 
-// the threshold up to the cut, in one cluster launch of n_ctas CTAs (1..16);
-// hist: 0 shared atomics, 1 warp-aggregated by __match_any_sync, 2 per-warp
+// the threshold up to the cut, in one cluster launch of n_ctas CTAs (1..16)
 int up_topk_cluster(const void* d, long long n, long long k, void* tau, int n_ctas,
-                    int hist, void* stream) {
+                    void* stream) {
   return launch_topk_cluster(static_cast<const float*>(d), n, k, static_cast<float*>(tau),
-                             n_ctas, hist, static_cast<cudaStream_t>(stream));
+                             n_ctas, static_cast<cudaStream_t>(stream));
 }
 
 // the most keys one CTA of up_topk_cluster holds

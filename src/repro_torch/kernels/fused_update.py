@@ -336,11 +336,6 @@ TOPK_CLUSTER = 16
 TOPK_SLICE_MAX = 40 * 1024
 TOPK_SLICE_GRANULE = 128
 TOPK_RADIX_LAUNCHES = 4
-# how a cluster CTA counts a pass into its histogram: "atomic" by shared
-# atomics, "match" warp-aggregated by __match_any_sync first, "warp" into
-# one histogram per warp summed afterwards (csrc/upload.cu's kHist*)
-TOPK_HISTS = ("atomic", "match", "warp")
-TOPK_HIST = "atomic"
 
 
 def _check_bits(bits: int) -> None:
@@ -435,6 +430,11 @@ def topk_threshold_plain(d, k: int) -> torch.Tensor:
     return prefix.view(torch.float32)
 
 
+def _check_ctas(n_ctas: int) -> None:
+    if not 1 <= n_ctas <= 16:
+        raise ValueError(f"n_ctas must be in 1..16, got {n_ctas}")
+
+
 def topk_slice(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
     """Keys per CTA of the cluster threshold: ⌈n / n_ctas⌉ rounded up
     to ``TOPK_SLICE_GRANULE`` (at least one granule).  CTA r holds
@@ -467,8 +467,7 @@ def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
     crosses to the host."""
     n = d.shape[0]
     k = _check_k(k, n)
-    if not 1 <= n_ctas <= 16:
-        raise ValueError(f"n_ctas must be in 1..16, got {n_ctas}")
+    _check_ctas(n_ctas)
     dev = d.device
     slice_ = topk_slice(n, n_ctas)
     bits = d.float().abs().view(torch.int32).long() & 0xFFFFFFFF
@@ -499,31 +498,28 @@ def _topk_workspace_words() -> int:
     return int(_lib().up_topk_workspace_words())
 
 
-def topk_threshold(d: torch.Tensor, k: int, *, n_ctas: int = TOPK_CLUSTER,
-                   hist: str = TOPK_HIST) -> torch.Tensor:
+def topk_threshold(d: torch.Tensor, k: int, *,
+                   n_ctas: int = TOPK_CLUSTER) -> torch.Tensor:
     """τ = the k-th largest |d| of a 1-D f32 buffer, exactly, as a 0-dim
     f32 tensor on ``d``'s device; the card never waits on the host and
     the host never reads τ.  Zero padding appended to ``d`` leaves τ
     unchanged when ``k`` counts logical elements.  On a CUDA tensor it
     runs ``topk_launches(n, n_ctas)`` launches: up to ``topk_cut``
-    elements one launch on a cluster of ``n_ctas`` CTAs, counting with
-    ``hist`` (one of ``TOPK_HISTS``); above it four radix passes.  A
-    refused launch raises."""
+    elements one launch on a cluster of ``n_ctas`` CTAs, above it four
+    radix passes.  A refused launch raises."""
     if d.dim() != 1:
         raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
     n, dev = d.shape[0], d.device
     _check_1d("d", d, n, torch.float32, dev)
     k = _check_k(k, n)
-    if not 1 <= n_ctas <= 16 or hist not in TOPK_HISTS:
-        raise ValueError(f"topk_threshold takes n_ctas in 1..16 and hist "
-                         f"in {TOPK_HISTS}, got {n_ctas}, {hist!r}")
+    _check_ctas(n_ctas)
     if not d.is_cuda:
         return topk_threshold_plain(d, k)
     tau = torch.empty((), dtype=torch.float32, device=dev)
     launches = topk_launches(n, n_ctas)
     if launches == 1:
         err = _lib().up_topk_cluster(_ptr(d), n, k, _ptr(tau), n_ctas,
-                                     TOPK_HISTS.index(hist), _stream(d))
+                                     _stream(d))
     else:
         ws = torch.empty(_topk_workspace_words(), dtype=torch.int32,
                          device=dev)

@@ -56,8 +56,8 @@ SIGNATURES = {
     # d, n, k, tau, workspace, stream
     "up_topk_threshold": [P, L, L, P, P, P],
     "up_topk_workspace_words": [],
-    # d, n, k, tau, n_ctas, hist, stream
-    "up_topk_cluster": [P, L, L, P, I, I, P],
+    # d, n, k, tau, n_ctas, stream
+    "up_topk_cluster": [P, L, L, P, I, P],
     "up_topk_cluster_slice_max": [],
     # out, d, z, scalars, n, stream
     "up_dp_clip_noise": [P, P, P, P, L, P],

@@ -218,7 +218,7 @@ def test_topk_slices_and_launches():
     with pytest.raises(ValueError):
         fu.topk_cluster_plain(torch.ones(4), 2, 0)
     with pytest.raises(ValueError):
-        fu.topk_threshold(torch.ones(4), 2, hist="sort")
+        fu.topk_threshold(torch.ones(4), 2, n_ctas=17)
 
 
 def test_cpu_tensors_never_count_upload_launches():

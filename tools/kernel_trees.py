@@ -5,14 +5,15 @@
 
 KERNEL names a ``chip_smoke.KernelBench`` method with cases in
 ``chip_smoke.KERNEL_CASES`` (``flash_attention``, ``ssd_scan``,
-``local_step``, ``topk_threshold``, ``sgd_step``).  The cases and the
-measuring code are NEW_TREE's ``chip_smoke``; the kernels are each
-tree's.  The turns run OLD, NEW, NEW, OLD: each is a subprocess that
-imports NEW_TREE's ``chip_smoke.KernelBench`` with that tree's
-``repro_torch`` package first on the path (so each tree builds and
-times its own kernels, under its own ``build/``) and calls the method
-at every case in each dtype of ``--dtypes`` (default bfloat16, the serve
-path's; K1, the threshold and the SGD step take float32): the kernel's
+``local_step``, ``topk_threshold``, and the profiled ``sgd_step`` and
+``p2_round``).  The cases and the measuring code are NEW_TREE's
+``chip_smoke``; the kernels are each tree's.  The turns run OLD, NEW,
+NEW, OLD: each is a subprocess that imports NEW_TREE's
+``chip_smoke.KernelBench`` with that tree's ``repro_torch`` package
+first on the path (so each tree builds and times its own kernels, under
+its own ``build/``) and calls the method at every case in each dtype of
+``--dtypes`` (default bfloat16, the serve path's; pass float32 for the
+others, which ignore it where they have one type): the kernel's
 ms, the library call's, the bound, the error against the plain version
 and whatever else the method reports.  Prints one JSON line per (turn,
 case, dtype), then one line with each tree's median ms per case and
