@@ -28,8 +28,7 @@ JSON line per phase:
                      (compress_delta, bits 8/16/32 × top-k × residual),
                      the top-k threshold (a radix select: one launch on a
                      thread-block cluster up to its cut, four above it;
-                     also at N 137,216 on 8 CTAs, and at the cut and one
-                     past it) and K5 (dp_clip_noise) at the same N,
+                     also at the cut and one past it) and K5 (dp_clip_noise) at the same N,
                      bitwise; K7
                      (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
                      shapes and beside them; K1 (launched with
@@ -176,9 +175,9 @@ def _kernel_cases() -> dict:
 
 # kernel -> label -> keyword arguments (all but dtype and label) of the
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
-# hymba-1.5b's serve shapes first, then K1's, the threshold's and two
-# profiled rounds'.  tools/kernel_trees.py times the same cases on two
-# source trees.
+# hymba-1.5b's serve shapes first, then, for tools/kernel_trees.py only
+# (which times any of these cases on two source trees), K1's, the
+# threshold's and two profiled rounds'.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -411,22 +410,20 @@ class KernelBench:
                     library_note="no PyTorch call quantizes blockwise with "
                     "bf16 scales", bound_ms=bound, bound_by=by)
 
-    def topk_threshold(self, n, dtype=None, label="", n_ctas=None):
+    def topk_threshold(self, n, dtype=None, label=""):
         """The threshold at density 0.25 through the wrapper's own choice
-        of kernel, with a cluster of ``n_ctas`` CTAs when named; the
-        launches per call counted."""
+        of kernel; the launches per call counted."""
         torch, fu = self.torch, self.fu
         d = self.delta(n)
         k = -(-n // 4)                      # density 0.25
-        kw = {} if n_ctas is None else {"n_ctas": n_ctas}
         before = fu.topk_threshold.launches
-        got = fu.topk_threshold(d, k, **kw)
+        got = fu.topk_threshold(d, k)
         per_call = fu.topk_threshold.launches - before
         want = fu.topk_threshold_plain(d, k)
         a = d.abs()
         lib = torch.kthvalue(a, n - k + 1).values
         bitwise = bool(got.view(torch.int32) == want.view(torch.int32))
-        ms = time_ms(torch, lambda: fu.topk_threshold(d, k, **kw))
+        ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
         plain = time_ms(torch, lambda: fu.topk_threshold_plain(d, k),
                         trials=3, reps=5, warmup=1)
         library = time_ms(torch, lambda: torch.kthvalue(a, n - k + 1),
@@ -435,12 +432,10 @@ class KernelBench:
         bound, by = self.bound_ms(4 * n + 4, 2 * n)
         shape = {}
         if per_call == 1:                   # the cluster kernel
-            c = n_ctas or fu.TOPK_CLUSTER
-            # csrc/upload.cu's cluster_smem_bytes: the histogram, two
-            # parities of 16 staged histograms, the keys
-            shape = dict(n_ctas=c, slice=fu.topk_slice(n, c),
-                         dynamic_smem_per_cta=4 * (256 + 2 * 16 * 256
-                                                   + fu.topk_slice(n, c)))
+            # as the library sizes the launch (csrc/upload.cu)
+            shape = dict(n_ctas=fu.TOPK_CLUSTER, slice=fu.topk_slice(n),
+                         dynamic_smem_per_cta=int(
+                             fu._lib().up_topk_cluster_smem_bytes(n)))
         agrees = bool(lib == want)
         return dict(kernel="topk_threshold", n=n, k=k,
                     kernel_path="cluster" if per_call == 1 else "radix",
@@ -495,8 +490,7 @@ class KernelBench:
                     k1_gap_us_median=statistics.median(gaps) if gaps else None,
                     k1_gap_us_mean=statistics.fmean(gaps) if gaps else None,
                     k1_us_median=statistics.median(k1_us) if k1_us else None,
-                    library_ms=None, bound_ms=None, max_abs_err=0.0,
-                    within_tol=ok)
+                    library_ms=None, bound_ms=None, within_tol=ok)
 
     def p2_round(self, dtype=None, label="", steps=25):
         """One warm P2 round of the main path with p2_compressed's uploads
@@ -524,8 +518,7 @@ class KernelBench:
         return dict(kernel="p2_round", ms=busy / 1e3, wall_ms=wall_ms,
                     device_ops=n_ops, topk_kernels=topk_kernels,
                     topk_device_ms=topk_us / 1e3, library_ms=None,
-                    bound_ms=None, max_abs_err=0.0,
-                    within_tol=math.isfinite(res.history[-1]["local_loss"]))
+                    bound_ms=None, within_tol=math.isfinite(res.history[-1]["local_loss"]))
 
     def dp_clip_noise(self, n, has_z):
         torch, fu = self.torch, self.fu
@@ -692,8 +685,8 @@ def check_attention_kernels(torch, bench) -> dict:
     rows, main = [], {}
     for dtype in (bf16, f32):
         tag = str(dtype)[6:]
-        for kname, cases in KERNEL_CASES.items():
-            for label, kw in cases.items():
+        for kname in ("flash_attention", "ssd_scan"):
+            for label, kw in KERNEL_CASES[kname].items():
                 r = getattr(bench, kname)(dtype=dtype, label=f"{label}_{tag}",
                                           **kw)
                 rows.append(r)
@@ -835,11 +828,9 @@ def check_upload_kernels(torch, bench) -> dict:
         rows.append(bench.topk_threshold(n))
         for has_z in (False, True):
             rows.append(bench.dp_clip_noise(n, has_z))
-    # the cluster threshold at 8 CTAs on the main path's bucket, and both
-    # kernels on either side of the cut
+    # both kernels on either side of the cut
     cut = bench.fu.topk_cut()
-    rows += [bench.topk_threshold(N_SMALL, n_ctas=8),
-             bench.topk_threshold(cut), bench.topk_threshold(cut + 1)]
+    rows += [bench.topk_threshold(cut), bench.topk_threshold(cut + 1)]
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and

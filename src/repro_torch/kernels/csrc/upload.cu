@@ -43,8 +43,8 @@
 //    which is what the greedy bit search of the JAX package finds.  Counts
 //    are integers, so the result is exact whatever order anything lands in.
 //    Two kernels, chosen by n (a size dispatch, never a fallback):
-//    - up to C * kClusterSliceMax keys, topk_cluster_kernel: ONE launch of
-//      one thread-block cluster of C CTAs (16 by default, at most 16) x 1024
+//    - up to kCluster * kClusterSliceMax keys, topk_cluster_kernel: ONE
+//      launch of one thread-block cluster of kCluster = 16 CTAs x 1024
 //      threads.  Each CTA loads its slice of the keys bits(|d|) into shared
 //      memory once (slices of a multiple of 128 keys; past n a key is
 //      0xFFFFFFFF, whose set sign bit matches no prefix).  Per pass each CTA
@@ -54,7 +54,7 @@
 //      CTA of the cluster with st.async: 16 bytes per thread into the
 //      receiver's staging row for the sender, completing the receiver's
 //      mbarrier by bytes.  Each CTA waits only on its own mbarrier, sums
-//      the C rows and runs the same suffix scan, so all agree on the digit
+//      the 16 rows and runs the same suffix scan, so all agree on the digit
 //      with no broadcast and no cluster barrier inside the loop.  Staging
 //      and mbarriers alternate by pass parity: a CTA sends pass p + 2 only
 //      after it received every CTA's pass p + 1, which each CTA sends only
@@ -87,6 +87,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <mutex>
 #include <type_traits>
 
 namespace cg = cooperative_groups;
@@ -106,15 +107,16 @@ constexpr int kTicket = 4 * kBins;
 constexpr int kState = kTicket + 4;
 constexpr int kWorkspaceWords = kState + 8;
 
-// topk_cluster_kernel: threads per CTA, the most CTAs in a cluster, the
-// granule of a CTA's slice (one float4 per lane of a warp), the most keys a
+// topk_cluster_kernel: threads per CTA, CTAs per cluster (a non-portable
+// size: measured faster than 8 CTAs at the main path's bucket), the granule of a CTA's slice (one float4 per lane of a warp), the most keys a
 // CTA holds (160 KB of shared memory, beside 33 KB of histograms), the key
 // past n
 constexpr int kClusterThreads = 1024;
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 16;
 constexpr int kSliceGranule = 128;
 constexpr int kClusterSliceMax = 40 * 1024;
 constexpr unsigned kNoKey = 0xFFFFFFFFu;
+static_assert(kClusterThreads / 64 >= kCluster, "64 senders per destination CTA");
 
 __host__ __device__ inline bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
@@ -348,9 +350,10 @@ int launch_topk_threshold(const float* d, long long n, long long k, float* tau,
 // topk_threshold up to the cut: one launch on a thread-block cluster
 // ---------------------------------------------------------------------------
 
-// keys per CTA: ceil(n / C) rounded up to kSliceGranule (0 when too many)
-inline long long cluster_slice(long long n, int n_ctas) {
-  const long long per = (n + n_ctas - 1) / n_ctas;
+// keys per CTA: ceil(n / kCluster) rounded up to kSliceGranule (0 when too
+// many)
+inline long long cluster_slice(long long n) {
+  const long long per = (n + kCluster - 1) / kCluster;
   const long long slice = (per + kSliceGranule - 1) / kSliceGranule * kSliceGranule;
   return slice <= kClusterSliceMax ? (slice > 0 ? slice : kSliceGranule) : 0;
 }
@@ -358,7 +361,7 @@ inline long long cluster_slice(long long n, int n_ctas) {
 // dynamic shared memory of one CTA: the local histogram, the staging of
 // every CTA's histogram by pass parity, the keys
 inline size_t cluster_smem_bytes(long long slice) {
-  return sizeof(unsigned) * (kBins + 2 * kMaxCluster * kBins + static_cast<size_t>(slice));
+  return sizeof(unsigned) * (kBins + 2 * kCluster * kBins + static_cast<size_t>(slice));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -371,11 +374,10 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
                     float* __restrict__ tau) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned me = cluster.block_rank();
-  const unsigned n_ctas = cluster.num_blocks();
   extern __shared__ __align__(16) unsigned smem[];
   unsigned* hist = smem;                                // [kBins]
-  unsigned* stage = hist + kBins;                       // [2][kMaxCluster][kBins]
-  unsigned* keys = stage + 2 * kMaxCluster * kBins;
+  unsigned* stage = hist + kBins;                       // [2][kCluster][kBins]
+  unsigned* keys = stage + 2 * kCluster * kBins;
   __shared__ __align__(8) unsigned long long staged[2]; // mbarriers, by parity
   __shared__ unsigned warp_sum[kBins / 32];
   __shared__ unsigned pick[2];                          // next prefix, rank
@@ -424,7 +426,7 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
     const unsigned match_mask =
         (pass ? 0xFFFFFFFFu << (shift + 8) : 0u) | 0x80000000u;
     const int buf = pass & 1;
-    unsigned* stg = stage + buf * kMaxCluster * kBins;
+    unsigned* stg = stage + buf * kCluster * kBins;
     const uint4* kv4 = reinterpret_cast<const uint4*>(keys);
     for (int j = t; j < slice / 4; j += kClusterThreads) {
       const uint4 q = kv4[j];
@@ -438,9 +440,9 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
     // staging row `me`; the bytes complete its mbarrier of this parity
     if (t == 0)
       asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                       smem_addr(&staged[buf])), "r"(n_ctas * kBins * 4u) : "memory");
+                       smem_addr(&staged[buf])), "r"(kCluster * kBins * 4u) : "memory");
     const unsigned dst = t >> 6, quad = t & 63;
-    if (dst < n_ctas) {
+    if (dst < kCluster) {
       const uint4 v = *reinterpret_cast<const uint4*>(hist + 4 * quad);
       unsigned raddr, rbar;
       asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
@@ -467,7 +469,7 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
     // the 8 warps of bins
     unsigned total = 0u, s = 0u;
     if (t < kBins) {
-      for (unsigned r = 0; r < n_ctas; ++r) total += stg[r * kBins + t];
+      for (int r = 0; r < kCluster; ++r) total += stg[r * kBins + t];
       const int lane = t & 31;
       s = total;
 #pragma unroll
@@ -496,63 +498,78 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
   asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
+// the launch configuration of a kCluster-CTA cluster with `smem` bytes of
+// dynamic shared memory per CTA, and programmatic dependent launch when `pdl`
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[2];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(size_t smem, cudaStream_t stream, bool pdl) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[1].val.programmaticStreamSerializationAllowed = 1;
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 2 : 1;
+  }
+};
+
+// once per device and instance, under a lock: shared memory above 48 KB,
+// clusters above 8 CTAs, and the guard that one cluster at the largest
+// slice fits the card (cudaOccupancyMaxActiveClusters >= 1)
+template <bool VEC>
+cudaError_t prepare_topk_cluster(int device) {
+  constexpr int kMaxDevices = 64;
+  static std::mutex mu;
+  static cudaError_t state[kMaxDevices];
+  static bool done[kMaxDevices] = {};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[device]) return state[device];
+  auto kernel = topk_cluster_kernel<VEC>;
+  const size_t smem = cluster_smem_bytes(kClusterSliceMax);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) {
+    ClusterLaunch launch(smem, nullptr, false);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+    if (e == cudaSuccess && clusters < 1) e = cudaErrorLaunchOutOfResources;
+  }
+  state[device] = e;
+  done[device] = true;
+  return e;
+}
+
 template <bool VEC>
 int launch_topk_cluster_as(const float* d, long long n, unsigned k, int slice,
-                           int n_ctas, float* tau, cudaStream_t stream) {
-  auto kernel = topk_cluster_kernel<VEC>;
-  const size_t smem = cluster_smem_bytes(slice);
-  // once per instance: shared memory above 48 KB, clusters above 8 CTAs
-  static const cudaError_t attr_err = [&] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(cluster_smem_bytes(kClusterSliceMax)));
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    return e;
-  }();
-  if (attr_err != cudaSuccess) return static_cast<int>(attr_err);
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_ctas);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  // the guard: a cluster of this size and shared memory must fit the card
-  static int checked_ctas = 0;
-  static size_t checked_smem = 0;
-  if (checked_ctas != n_ctas || checked_smem != smem) {
-    int clusters = 0;
-    cfg.numAttrs = 1;
-    cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    cfg.numAttrs = 2;
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-    checked_ctas = n_ctas;
-    checked_smem = smem;
-  }
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, d, n, k, slice, tau);
+                           float* tau, cudaStream_t stream) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = prepare_topk_cluster<VEC>(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ClusterLaunch launch(cluster_smem_bytes(slice), stream, true);
+  e = cudaLaunchKernelEx(&launch.cfg, topk_cluster_kernel<VEC>, d, n, k, slice, tau);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_topk_cluster(const float* d, long long n, long long k, float* tau,
-                        int n_ctas, cudaStream_t stream) {
-  if (k < 1 || k > n || n > 0xFFFFFFFFLL || n_ctas < 1 || n_ctas > kMaxCluster)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long slice = cluster_slice(n, n_ctas);
+                        cudaStream_t stream) {
+  if (k < 1 || k > n || n > 0xFFFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long slice = cluster_slice(n);
   if (slice == 0) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned kk = static_cast<unsigned>(k);
   const int sl = static_cast<int>(slice);
-  return aligned16(d) ? launch_topk_cluster_as<true>(d, n, kk, sl, n_ctas, tau, stream)
-                      : launch_topk_cluster_as<false>(d, n, kk, sl, n_ctas, tau, stream);
+  return aligned16(d) ? launch_topk_cluster_as<true>(d, n, kk, sl, tau, stream)
+                      : launch_topk_cluster_as<false>(d, n, kk, sl, tau, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -632,15 +649,18 @@ int up_topk_threshold(const void* d, long long n, long long k, void* tau, void* 
 // the workspace up_topk_threshold needs, in 32-bit words
 int up_topk_workspace_words() { return kWorkspaceWords; }
 
-// the threshold up to the cut, in one cluster launch of n_ctas CTAs (1..16)
-int up_topk_cluster(const void* d, long long n, long long k, void* tau, int n_ctas,
-                    void* stream) {
+// the threshold up to the cut, in one launch of one 16-CTA cluster
+int up_topk_cluster(const void* d, long long n, long long k, void* tau, void* stream) {
   return launch_topk_cluster(static_cast<const float*>(d), n, k, static_cast<float*>(tau),
-                             n_ctas, static_cast<cudaStream_t>(stream));
+                             static_cast<cudaStream_t>(stream));
 }
 
-// the most keys one CTA of up_topk_cluster holds
-int up_topk_cluster_slice_max() { return kClusterSliceMax; }
+// the dynamic shared memory per CTA of up_topk_cluster on n elements, in
+// bytes; 0 above the cut
+int up_topk_cluster_smem_bytes(long long n) {
+  const long long slice = cluster_slice(n);
+  return slice ? static_cast<int>(cluster_smem_bytes(slice)) : 0;
+}
 
 int up_dp_clip_noise(void* out, const void* d, const void* z, const void* scalars,
                      long long n, void* stream) {

@@ -327,11 +327,11 @@ server_update.launches = 0
 # wire scale is never below amax/qmax and no quantized value clips
 QMAX = {8: 127.0, 16: 32767.0}
 SCALE_PAD = 1.0 + 2.0 ** -6
-# topk_threshold's two kernels, chosen by n: up to topk_cut(n_ctas)
-# elements one launch on a cluster of n_ctas CTAs (TOPK_CLUSTER by
-# default), each holding a slice of at most TOPK_SLICE_MAX keys (a
-# multiple of TOPK_SLICE_GRANULE) in shared memory (csrc/upload.cu's
-# kClusterSliceMax, kSliceGranule); above it one launch per radix pass
+# topk_threshold's two kernels, chosen by n: up to topk_cut() elements
+# one launch on a cluster of TOPK_CLUSTER CTAs, each holding a slice of
+# at most TOPK_SLICE_MAX keys (a multiple of TOPK_SLICE_GRANULE) in
+# shared memory (csrc/upload.cu's kCluster, kClusterSliceMax,
+# kSliceGranule); above it one launch per radix pass
 TOPK_CLUSTER = 16
 TOPK_SLICE_MAX = 40 * 1024
 TOPK_SLICE_GRANULE = 128
@@ -430,11 +430,6 @@ def topk_threshold_plain(d, k: int) -> torch.Tensor:
     return prefix.view(torch.float32)
 
 
-def _check_ctas(n_ctas: int) -> None:
-    if not 1 <= n_ctas <= 16:
-        raise ValueError(f"n_ctas must be in 1..16, got {n_ctas}")
-
-
 def topk_slice(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
     """Keys per CTA of the cluster threshold: ⌈n / n_ctas⌉ rounded up
     to ``TOPK_SLICE_GRANULE`` (at least one granule).  CTA r holds
@@ -444,14 +439,14 @@ def topk_slice(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
                * TOPK_SLICE_GRANULE)
 
 
-def topk_cut(n_ctas: int = TOPK_CLUSTER) -> int:
+def topk_cut() -> int:
     """The most elements the one-launch cluster threshold takes."""
-    return n_ctas * TOPK_SLICE_MAX
+    return TOPK_CLUSTER * TOPK_SLICE_MAX
 
 
-def topk_launches(n: int, n_ctas: int = TOPK_CLUSTER) -> int:
+def topk_launches(n: int) -> int:
     """Kernel launches of one ``topk_threshold`` call on n elements."""
-    return 1 if n <= topk_cut(n_ctas) else TOPK_RADIX_LAUNCHES
+    return 1 if n <= topk_cut() else TOPK_RADIX_LAUNCHES
 
 
 def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
@@ -467,7 +462,8 @@ def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
     crosses to the host."""
     n = d.shape[0]
     k = _check_k(k, n)
-    _check_ctas(n_ctas)
+    if not 1 <= n_ctas <= 16:
+        raise ValueError(f"n_ctas must be in 1..16, got {n_ctas}")
     dev = d.device
     slice_ = topk_slice(n, n_ctas)
     bits = d.float().abs().view(torch.int32).long() & 0xFFFFFFFF
@@ -498,28 +494,25 @@ def _topk_workspace_words() -> int:
     return int(_lib().up_topk_workspace_words())
 
 
-def topk_threshold(d: torch.Tensor, k: int, *,
-                   n_ctas: int = TOPK_CLUSTER) -> torch.Tensor:
+def topk_threshold(d: torch.Tensor, k: int) -> torch.Tensor:
     """τ = the k-th largest |d| of a 1-D f32 buffer, exactly, as a 0-dim
     f32 tensor on ``d``'s device; the card never waits on the host and
     the host never reads τ.  Zero padding appended to ``d`` leaves τ
     unchanged when ``k`` counts logical elements.  On a CUDA tensor it
-    runs ``topk_launches(n, n_ctas)`` launches: up to ``topk_cut``
-    elements one launch on a cluster of ``n_ctas`` CTAs, above it four
+    runs ``topk_launches(n)`` launches: up to ``topk_cut()`` elements
+    one launch on a cluster of ``TOPK_CLUSTER`` CTAs, above it four
     radix passes.  A refused launch raises."""
     if d.dim() != 1:
         raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
     n, dev = d.shape[0], d.device
     _check_1d("d", d, n, torch.float32, dev)
     k = _check_k(k, n)
-    _check_ctas(n_ctas)
     if not d.is_cuda:
         return topk_threshold_plain(d, k)
     tau = torch.empty((), dtype=torch.float32, device=dev)
-    launches = topk_launches(n, n_ctas)
+    launches = topk_launches(n)
     if launches == 1:
-        err = _lib().up_topk_cluster(_ptr(d), n, k, _ptr(tau), n_ctas,
-                                     _stream(d))
+        err = _lib().up_topk_cluster(_ptr(d), n, k, _ptr(tau), _stream(d))
     else:
         ws = torch.empty(_topk_workspace_words(), dtype=torch.int32,
                          device=dev)

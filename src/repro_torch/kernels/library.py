@@ -56,9 +56,10 @@ SIGNATURES = {
     # d, n, k, tau, workspace, stream
     "up_topk_threshold": [P, L, L, P, P, P],
     "up_topk_workspace_words": [],
-    # d, n, k, tau, n_ctas, stream
-    "up_topk_cluster": [P, L, L, P, I, P],
-    "up_topk_cluster_slice_max": [],
+    # d, n, k, tau, stream
+    "up_topk_cluster": [P, L, L, P, P],
+    # n -> dynamic shared memory per CTA of up_topk_cluster, in bytes
+    "up_topk_cluster_smem_bytes": [L],
     # out, d, z, scalars, n, stream
     "up_dp_clip_noise": [P, P, P, P, L, P],
 }

@@ -202,23 +202,23 @@ def test_topk_cluster_plain_matches_jax_bitwise(kind, n, n_ctas):
 
 def test_topk_slices_and_launches():
     """The cluster kernel's slices cover n in granules of 128 keys, the
-    cut is n_ctas × the largest slice, and a call launches once up to the
-    cut and four times above it."""
+    cut is the cluster's 16 CTAs × the largest slice, and a call launches
+    once up to the cut and four times above it."""
     for n in (1, 127, 4099, 137_216, fu.topk_cut()):
         for c in (1, 8, 16):
             sl = fu.topk_slice(n, c)
             assert sl % fu.TOPK_SLICE_GRANULE == 0 and c * sl >= n
             assert c * (sl - fu.TOPK_SLICE_GRANULE) < n
-    assert fu.topk_slice(fu.topk_cut(8), 8) == fu.TOPK_SLICE_MAX
+    assert fu.topk_cut() == fu.TOPK_CLUSTER * fu.TOPK_SLICE_MAX == 655_360
+    assert fu.topk_slice(fu.topk_cut()) == fu.TOPK_SLICE_MAX
     assert fu.topk_launches(137_216) == 1
     assert fu.topk_launches(fu.topk_cut()) == 1
     assert fu.topk_launches(fu.topk_cut() + 1) == fu.TOPK_RADIX_LAUNCHES
     assert fu.topk_launches(16_777_216) == 4
-    assert fu.topk_launches(fu.topk_cut(8) + 1, 8) == 4
     with pytest.raises(ValueError):
         fu.topk_cluster_plain(torch.ones(4), 2, 0)
     with pytest.raises(ValueError):
-        fu.topk_threshold(torch.ones(4), 2, n_ctas=17)
+        fu.topk_cluster_plain(torch.ones(4), 2, 17)
 
 
 def test_cpu_tensors_never_count_upload_launches():

@@ -103,31 +103,40 @@ def test_local_step_reads_what_the_op_before_it_wrote(gen, write):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, 16_777_216))
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
-def test_local_step_chain_under_graph_capture(gen, dtype):
-    """A chain of PDL-launched K1 steps captured by torch.cuda.graph and
-    replayed twice is bit-equal to the same chain run eagerly."""
-    n, steps = 137_216, 6
+def test_local_step_chain_under_graph_capture(gen, dtype, n):
+    """A chain of PDL-launched K1 steps, each reading the p and m the
+    step before it wrote (K1 triggers its dependents early, so a read
+    above griddepcontrol.wait would race here): run eagerly, and captured
+    by torch.cuda.graph and replayed twice, both bit-equal to the same
+    chain of plain steps."""
+    steps = 6
     p = torch.randn(n, generator=gen, device="cuda").to(dtype)
     m = torch.randn(n, generator=gen, device="cuda").to(dtype)
     gs = [torch.randn(n, generator=gen, device="cuda").to(dtype)
           for _ in range(steps)]
     sc = torch.tensor([0.7, 0.05], device="cuda")
     kw = dict(weight_decay=1e-3, momentum=0.9)
+    plain_p, plain_m = p.clone(), m.clone()
+    for _ in range(2):
+        for g in gs:
+            fu.local_step_plain(plain_p, g, plain_m, None, sc, **kw)
     eager_p, eager_m = p.clone(), m.clone()
+    for _ in range(2):
+        for g in gs:
+            fu.local_step(eager_p, g, eager_m, None, sc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(eager_p, plain_p) and torch.equal(eager_m, plain_m)
     cap_p, cap_m = p.clone(), m.clone()
-    for g in gs:                        # (loads the kernels before capture)
-        fu.local_step(eager_p, g, eager_m, None, sc, **kw)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for g in gs:
             fu.local_step(cap_p, g, cap_m, None, sc, **kw)
     graph.replay()
     graph.replay()
-    for g in gs:
-        fu.local_step(eager_p, g, eager_m, None, sc, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(cap_p, eager_p) and torch.equal(cap_m, eager_m)
+    assert torch.equal(cap_p, plain_p) and torch.equal(cap_m, plain_m)
 
 
 @pytest.mark.cuda
@@ -411,20 +420,21 @@ def test_topk_threshold_matches_plain_bitwise(gen, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_ctas", [1, 8, 16])
-def test_topk_cluster_kernel_shapes_bitwise(gen, n_ctas):
-    """The cluster kernel at three cluster sizes, up to its cut (n_ctas ×
-    the largest slice), bitwise against the plain bit search and its own
-    plain twin."""
-    assert fu._lib().up_topk_cluster_slice_max() == fu.TOPK_SLICE_MAX
-    cut = fu.topk_cut(n_ctas)
-    for n in (n for n in (1, 4099, 137_216, cut) if n <= cut):
+def test_topk_cluster_kernel_shapes_bitwise(gen):
+    """The cluster kernel at lengths up to its cut (16 CTAs × the largest
+    slice, which the library's shared-memory size agrees with), bitwise
+    against the plain bit search and its own plain twin."""
+    smem = fu._lib().up_topk_cluster_smem_bytes
+    assert smem(CUT) == 4 * (256 + 2 * 16 * 256 + fu.TOPK_SLICE_MAX)
+    assert smem(CUT + 1) == 0
+    for n in (1, 4099, 137_216, CUT):
+        assert smem(n) == 4 * (256 + 2 * 16 * 256 + fu.topk_slice(n))
         for x in _threshold_inputs(gen, n):
             for k in sorted({1, max(1, n // 4), n}):
-                got = fu.topk_threshold(x, k, n_ctas=n_ctas)
+                got = fu.topk_threshold(x, k)
                 want = fu.topk_threshold_plain(x, k)
                 assert got.view(torch.int32) == want.view(torch.int32), (k, n)
-                assert fu.topk_cluster_plain(x, k, n_ctas).view(torch.int32) \
+                assert fu.topk_cluster_plain(x, k).view(torch.int32) \
                     == want.view(torch.int32)
     torch.cuda.synchronize()
 
@@ -474,8 +484,6 @@ def test_upload_kernels_count_launches_and_check(gen):
     assert fu.topk_launches(4096) == 1
     with pytest.raises(ValueError):
         fu.topk_threshold(d, 0)
-    with pytest.raises(ValueError):
-        fu.topk_threshold(d, 10, n_ctas=17)
     with pytest.raises(ValueError):
         fu.compress_delta(d, None, bits=8, topk=True)
     with pytest.raises(ValueError):
