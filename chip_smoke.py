@@ -11,10 +11,12 @@ JSON line per phase:
                      versions, the kernel build time; env_sass: whether
                      K7's kernels in the built library issue HGMMA (wgmma),
                      UTMALDG (TMA) and LDGSTS (cp.async), K8's bf16
-                     kernels HMMA (mma.sync), the cluster threshold a
-                     cluster barrier and st.async stores into distributed
-                     shared memory on mbarriers, and K1
-                     griddepcontrol.wait, from cuobjdump;
+                     kernels HMMA (mma.sync), every instance of the
+                     cluster kernel (the threshold alone and the fused
+                     top-k compressed upload) a cluster barrier and
+                     st.async stores into distributed shared memory on
+                     mbarriers, and K1 and K6 griddepcontrol.wait, from
+                     cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
                      the stated tolerance, kernel and plain ms (median of
@@ -29,7 +31,13 @@ JSON line per phase:
                      the top-k threshold (a radix select: one launch on a
                      thread-block cluster up to its cut, four above it;
                      also at the cut and one past it) and K5 (dp_clip_noise) at the same N,
-                     bitwise; K7
+                     bitwise; the fused top-k compressed upload
+                     (topk_compress: one launch of as many threshold
+                     clusters as the card runs at once, K4 as their
+                     epilogue) at bits 8/16/32 × residual at N 137,216,
+                     at the cut and at 1,000, bitwise against its plain
+                     version and the two-launch chain (timed in turns
+                     with it), and one past the cut (4 + 1 launches); K7
                      (flash_attention) and K8 (ssd_scan) at hymba-1.5b's
                      shapes and beside them; K1 (launched with
                      programmatic dependent launch) and Tensor.add_ timed
@@ -43,9 +51,9 @@ JSON line per phase:
                      "fused_interpret" from the same init and index
                      stream, final params compared;
      p2_compressed — the main path with int8 + top-k 25% + error
-                     feedback uploads in P2: launches of K4 (40) and the
-                     threshold (40 calls of topk_launches(137,216) = 1)
-                     asserted, ledger
+                     feedback uploads in P2: 40 launches of the fused
+                     topk_compress and none of the standalone K4 or
+                     threshold asserted, ledger
                      == closed form (173,250 upload bytes per client),
                      accuracy above chance, a profiled P2 round, then
                      "fused" against "fused_interpret" (params and EF
@@ -53,6 +61,12 @@ JSON line per phase:
      p2_private    — the same with DP-FedAvg (C = 1, σ = 0.1) and secure
                      aggregation: K2 carries the clip and the noise/mask
                      total, mask bytes == 4 × secure_agg_mask_bytes(10);
+     p2_int8       — the same with int8 dense uploads (quantized, not
+                     sparsified): 40 standalone K4 launches;
+     p2_above_cut  — the p2_compressed uploads on the repo's mlp at width
+                     256 (789,258 params, one bucket above the cut): per
+                     upload the threshold's four radix passes and one
+                     standalone K4 (160 and 40 launches);
      dp_upload     — the 10 client uploads of one private engine round
                      (seen through RoundSchedule.on_aggregate), built
                      with K5 from the round's draws and summed by K2,
@@ -65,15 +79,16 @@ JSON line per phase:
                      one-rank NCCL mesh (make_host_mesh): P1 and P2
                      through run_phase_schedule with PodCyclicConfig /
                      PodFLConfig; launches K1 3000, K6 40 (with p, one per
-                     client), K2 0, K3 8 (apply + FedAvgM per round), one
+                     client; K6 is launched with programmatic dependent
+                     launch), K2 0, K3 8 (apply + FedAvgM per round), one
                      gradient all-reduce per SGD step, ledger == closed
                      form, accuracy above chance;
      pod_hierarchical — the pod P2 with aggregation="hierarchical",
                      n_pods=2 against the sequential one (rtol 1e-5), 40
                      K6 launches;
      pod_compressed — the pod P2 with int8 + top-k 25% + EF uploads:
-                     accum-only K6 40, K4 40, threshold 40, ledger ==
-                     closed form;
+                     accum-only K6 40, topk_compress 40 (K4 and the
+                     threshold 0), ledger == closed form;
      pod_vs_host   — 1 P1 + 1 P2 round on the pod and the host engine at
                      the JAX package's tolerances, and the pod's kernels
                      against its plain path, bitwise;
@@ -116,6 +131,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 N_SMALL = 137_216          # LeNet-5's 136,886 params padded to 1024
 N_LARGE = 16_777_216
+TOPK_CUT = 16 * 40 * 1024  # fused_update.topk_cut(): the cluster's reach
+# the mlp at width 256 on 32x32x3 inputs: 789,258 f32 params padded to 1024,
+# one bucket above TOPK_CUT (p2_above_cut)
+MLP_WIDE_HIDDEN = 256
+MLP_WIDE_N = 789_504
 KERNEL_TOL = 0.0    # bitwise: K1-K3 round where the plain versions do
 SEED = 0
 
@@ -164,12 +184,26 @@ def _kernel_cases() -> dict:
         # cluster kernel) and N_LARGE (four radix passes)
         "topk_threshold": {"main": dict(n=N_SMALL),
                            "large": dict(n=N_LARGE)},
+        # the top-k compressed upload (int8 + residual, density 0.25) at the
+        # main path's bucket and at the cut: one fused launch, the
+        # two-launch chain timed in turns beside it
+        "topk_compress": {"main": dict(n=N_SMALL, bits=8, res=True),
+                          "cut": dict(n=TOPK_CUT, bits=8, res=True)},
+        # K6 (f32 w/p) back to back: the sequential pod aggregate, the
+        # compressed uploads' accum-only form, and N_LARGE
+        "delta_accum": {"with_p": dict(n=N_SMALL, with_p=True),
+                        "accum_only": dict(n=N_SMALL, with_p=False),
+                        "large": dict(n=N_LARGE, with_p=True)},
         # one warm P1 round of the main path under the profiler: device
         # ms per SGD step, and the idle gap before each K1
         "sgd_step": {"p1_round": dict(clients=25, steps=20)},
         # one warm compressed P2 round under the profiler: device ops and
         # the threshold's device kernels
         "p2_round": {"compressed": dict(steps=25)},
+        # one warm pod P2 round on a one-rank NCCL mesh under the
+        # profiler: device ops and the idle gap before each K6
+        "pod_round": {"compressed": dict(compressed=True),
+                      "sequential": dict(compressed=False)},
     }
 
 
@@ -177,7 +211,8 @@ def _kernel_cases() -> dict:
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
 # hymba-1.5b's serve shapes first, then, for tools/kernel_trees.py only
 # (which times any of these cases on two source trees), K1's, the
-# threshold's and two profiled rounds'.
+# threshold's, the top-k compressed upload's, K6's and three profiled
+# rounds'.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -447,13 +482,87 @@ class KernelBench:
                     library_note="torch.kthvalue(|d|, n-k+1) on a "
                     "precomputed |d|", bound_ms=bound, bound_by=by)
 
+    def topk_compress(self, n, bits=8, res=True, dtype=None, label="",
+                      turns=3):
+        """The top-k compressed upload at density 0.25 through the
+        wrapper's own size dispatch (one fused launch up to the cut),
+        bitwise (c, r and τ) against ``topk_compress_plain`` and against
+        the two-launch chain ``compress_delta(topk_threshold(d))``, which
+        is timed in turns with it (no one PyTorch call computes the same
+        function); the threshold alone is timed beside them.  On a tree
+        without ``topk_compress`` the chain is the kernel timed."""
+        torch, fu = self.torch, self.fu
+        d = self.delta(n)
+        k = -(-n // 4)                      # density 0.25
+        kw = dict(bits=bits, with_residual=res)
+
+        def chain():
+            tau = fu.topk_threshold(d, k)
+            out = fu.compress_delta(d, tau, bits=bits, topk=True,
+                                    with_residual=res)
+            return (*(out if res else (out, None)), tau)
+
+        def plain_chain():
+            tau = fu.topk_threshold_plain(d, k)
+            out = fu.compress_delta_plain(d, tau, bits=bits, topk=True,
+                                          with_residual=res)
+            return (*(out if res else (out, None)), tau)
+        fused = getattr(fu, "topk_compress", None)
+        run = (lambda: fused(d, k, **kw)) if fused else chain
+        plain = (lambda: fu.topk_compress_plain(d, k, **kw)) if fused \
+            else plain_chain
+        before = sum(f.launches for f in fu.UPLOAD_KERNELS)
+        got = run()
+        per_call = sum(f.launches for f in fu.UPLOAD_KERNELS) - before
+        want, ch = plain(), chain()
+
+        def same(a, b):
+            return all(bool(torch.equal(x.view(torch.int32),
+                                        y.view(torch.int32)))
+                       for x, y in zip(a, b) if x is not None)
+        bitwise, chain_bitwise = same(got, want), same(got, ch)
+        err = self.max_err([(x, y) for x, y in zip(got, want)
+                            if x is not None])
+        ms, chain_ms = [], []
+        for _ in range(turns):
+            ms.append(time_ms(torch, run))
+            chain_ms.append(time_ms(torch, chain))
+        threshold_ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
+        plain_ms = time_ms(torch, plain, trials=3, reps=5, warmup=1)
+        # d read once, c (and r) written once, τ written; the threshold's
+        # abs + compare and the compression's operations per element
+        n_bytes = 4 * n + 4 * n * (1 + res) + 4
+        n_ops = 2 * n + n * (3 + (7 if bits != 32 else 0) + res)
+        bound, by = self.bound_ms(n_bytes, n_ops)
+        lib, shape = fu._lib(), {}
+        if n <= fu.topk_cut() and fused:    # as the library sizes the launch
+            shape = dict(n_ctas=fu.TOPK_CLUSTER * int(
+                             lib.up_topk_compress_clusters(n)),
+                         dynamic_smem_per_cta=int(
+                             lib.up_topk_compress_smem_bytes(n)))
+        return dict(kernel="topk_compress", case=label, n=n, k=k, bits=bits,
+                    residual=res, fused=fused is not None,
+                    launches_per_call=per_call,
+                    kernel_path="cluster" if n <= fu.topk_cut() else "radix",
+                    **shape,
+                    max_abs_err=err, bitwise=bitwise,
+                    chain_bitwise=chain_bitwise,
+                    within_tol=bitwise and chain_bitwise,
+                    ms=statistics.median(ms), ms_turns=ms,
+                    chain_ms=statistics.median(chain_ms),
+                    chain_ms_turns=chain_ms, threshold_ms=threshold_ms,
+                    plain_ms=plain_ms, library_ms=None,
+                    library_note="no one PyTorch call selects the k-th "
+                    "largest |d| and quantizes blockwise with bf16 scales; "
+                    "the chain topk_threshold + compress_delta is the "
+                    "comparator (chain_ms)", bound_ms=bound, bound_by=by)
+
     def sgd_step(self, dtype=None, label="", clients=25, steps=20):
         """One warm P1 round of the main path (LeNet-5, ``clients`` ×
         ``steps`` SGD steps, one K1 each) under torch.profiler: the
         device's busy ms per step, and the idle gap before each K1 (its
         start less the latest end of the device ops before it; below 0
         when K1's blocks start before that op has drained)."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
         torch = self.torch
@@ -470,15 +579,7 @@ class KernelBench:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         busy, n_ops, _ = device_activity(prof)
-        spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        gaps, k1_us, end = [], [], -math.inf
-        for a, b, name in spans:
-            if "local_step_kernel" in name:
-                gaps.append(a - end)
-                k1_us.append(b - a)
-            end = max(end, b)
+        gaps, k1_us = gaps_before(prof, "local_step_kernel")
         n_steps = clients * steps
         ok = len(gaps) == n_steps and all(
             math.isfinite(h["local_loss"]) for h in res.history)
@@ -520,6 +621,49 @@ class KernelBench:
                     topk_device_ms=topk_us / 1e3, library_ms=None,
                     bound_ms=None, within_tol=math.isfinite(res.history[-1]["local_loss"]))
 
+    def pod_round(self, dtype=None, label="", compressed=True):
+        """One warm pod P2 round of the main path on a one-rank NCCL mesh
+        (FedAvgM, 10 clients × 25 SGD steps, sequential K6; with
+        pod_compressed's uploads when ``compressed``) under
+        torch.profiler: the device's busy ms and operations, the top-k
+        kernels, and the idle gap before each K6 (its start less the
+        latest end of the device ops before it; below 0 when K6's blocks
+        start before that op has drained)."""
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.fl.compression import CompressionSpec
+        from repro_torch.fl.pod import run_pod_rounds
+        from repro_torch.launch.mesh import destroy, make_host_mesh
+        torch = self.torch
+        task, data = lenet_setup()
+        spec_kw = {"compression": CompressionSpec(
+            bits=8, density=0.25, error_feedback=True)} if compressed else {}
+        init = task.init(torch.Generator().manual_seed(SEED))
+        mesh = make_host_mesh()
+        try:
+            _, fed = pod_configs(mesh, rounds=1, spec_kw=spec_kw)
+            run_pod_rounds(task, data, fed, init_params=init)    # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = run_pod_rounds(task, data, fed, init_params=init)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            destroy()
+        busy, n_ops, _ = device_activity(prof)
+        gaps, k6_us = gaps_before(prof, "delta_accum_kernel")
+        topk_us, topk_kernels = kernel_time(prof, ("topk_",))
+        ok = len(gaps) == fed.clients_per_round and \
+            math.isfinite(res.history[-1]["local_loss"])
+        return dict(kernel="pod_round", compressed=compressed,
+                    ms=busy / 1e3, wall_ms=wall_ms, device_ops=n_ops,
+                    k6_launches=len(gaps), k6_gaps_us=gaps,
+                    k6_gap_us_median=statistics.median(gaps) if gaps else None,
+                    k6_gap_us_max=max(gaps) if gaps else None,
+                    k6_us_median=statistics.median(k6_us) if k6_us else None,
+                    topk_kernels=topk_kernels, topk_device_ms=topk_us / 1e3,
+                    library_ms=None, bound_ms=None, within_tol=ok)
+
     def dp_clip_noise(self, n, has_z):
         torch, fu = self.torch, self.fu
         d, z = self.delta(n), (self.rand(n) if has_z else None)
@@ -543,7 +687,7 @@ class KernelBench:
 
     # --- K6 delta_accum (the pod backend's aggregation) -------------------
 
-    def delta_accum(self, n, dtype, with_p):
+    def delta_accum(self, n, dtype, with_p, label=""):
         torch, fu = self.torch, self.fu
         d = self.rand(n) * 1e-2
         w = self.rand(n, dtype=dtype)
@@ -568,9 +712,10 @@ class KernelBench:
         n_bytes = n * (4 + e + e * with_p + 4) + 4
         bound, by = self.bound_ms(n_bytes, n * (2 + with_p))
         return dict(kernel="delta_accum", n=n, dtype=str(dtype)[6:],
-                    with_p=with_p, max_abs_err=err, bitwise=bitwise, ms=ms,
-                    plain_ms=plain, library_ms=library, library_note=why,
-                    bound_ms=bound, bound_by=by)
+                    with_p=with_p, max_abs_err=err, bitwise=bitwise,
+                    within_tol=bitwise, ms=ms, plain_ms=plain,
+                    library_ms=library, library_note=why, bound_ms=bound,
+                    bound_by=by)
 
     # --- K7 flash_attention ------------------------------------------------
 
@@ -732,7 +877,13 @@ SASS_FAMILIES = {
     "ssd_scan_kernel_bf16": ("ssd_scan_kernel", "bfloat16"),
     "topk_cluster_kernel": ("topk_cluster_kernel",),
     "local_step_kernel": ("local_step_kernel",),
+    "delta_accum_kernel": ("delta_accum_kernel",),
 }
+# the families whose every template instance is checked on its own: the
+# cluster kernel's threshold-only and fused (compressing) instances, and
+# the PDL-launched K1 and K6
+SASS_PER_INSTANCE = ("topk_cluster_kernel", "local_step_kernel",
+                     "delta_accum_kernel")
 # the SASS opcodes counted: wgmma (HGMMA), mma.sync (HMMA), a TMA load
 # (UTMALDG), cp.async (LDGSTS); the cluster barrier's arrive and wait
 # (UCGABAR_ARV, UCGABAR_WAIT: barrier.cluster); st.async into another CTA's
@@ -744,10 +895,13 @@ SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "UCGABAR_ARV",
 
 
 def sass_features(lib_path) -> dict:
-    """Which instructions K7's and K8's kernels compile to, from cuobjdump
-    -sass on the built library: per kernel family, the counts of HGMMA
-    (wgmma), HMMA (mma.sync), UTMALDG (TMA loads) and LDGSTS (cp.async).
-    None when cuobjdump is missing."""
+    """Which instructions the kernels compile to, from cuobjdump -sass on
+    the built library: per kernel family, the counts of SASS_OPS; for the
+    SASS_PER_INSTANCE families also per template instance (the cluster
+    kernel's instances with BITS 0, the threshold alone, and with BITS
+    8/16/32, the fused top-k compressed upload, told apart by the
+    mangled template argument).  None when cuobjdump is missing."""
+    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
@@ -755,7 +909,7 @@ def sass_features(lib_path) -> dict:
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     ops = SASS_OPS
-    counts, fn = {}, None
+    counts, inst, fn, name = {}, {}, None, None
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
@@ -763,10 +917,30 @@ def sass_features(lib_path) -> dict:
                        if all(part in name for part in parts)), None)
         elif fn is not None:
             c = counts.setdefault(fn, dict.fromkeys(ops, 0))
+            ci = inst.setdefault(fn, {}).setdefault(name, dict.fromkeys(ops, 0)) \
+                if fn in SASS_PER_INSTANCE else {}
             for op in ops:
                 if op + "." in line or op + " " in line:
                     c[op] += 1
+                    if ci:
+                        ci[op] += 1
+
+    def every(family, need, names=None):
+        got = inst.get(family, {})
+        names = list(got) if names is None else names
+        return bool(names) and all(got[n].get(op, 0) > 0 for n in names
+                                   for op in need)
+    topk = inst.get("topk_cluster_kernel", {})
+    # topk_cluster_kernel<VEC, BITS, RES>: BITS 0 mangles as "ELi0E"
+    fused = [n for n in topk if not re.search(r"ELi0E|<(true|false), 0,", n)]
+    cluster_ops = ("UCGABAR_ARV", "UCGABAR_WAIT", "STAS", "SYNCS")
     return dict(phase="env_sass", cuobjdump=tool, counts=counts,
+                instances={fam: {n[:120]: c for n, c in got.items()}
+                           for fam, got in inst.items()},
+                topk_instances=len(topk), topk_fused_instances=len(fused),
+                topk_fused_cluster=every("topk_cluster_kernel", cluster_ops,
+                                         fused),
+                delta_accum_pdl_wait=every("delta_accum_kernel", ("ACQBULK",)),
                 prefill_hgmma=counts.get("fa_wgmma_kernel", {}).get("HGMMA", 0) > 0,
                 prefill_tma=counts.get("fa_wgmma_kernel", {}).get("UTMALDG", 0) > 0,
                 prefill_ldgsts=counts.get("fa_wgmma_kernel", {}).get("LDGSTS", 0) > 0,
@@ -774,14 +948,10 @@ def sass_features(lib_path) -> dict:
                 ssd_bf16_hmma=all(counts.get(k, {}).get("HMMA", 0) > 0 for k in
                                   ("ssd_state_kernel_bf16",
                                    "ssd_scan_kernel_bf16")),
-                topk_cluster_barrier=all(
-                    counts.get("topk_cluster_kernel", {}).get(op, 0) > 0
-                    for op in ("UCGABAR_ARV", "UCGABAR_WAIT")),
-                topk_dsmem=all(
-                    counts.get("topk_cluster_kernel", {}).get(op, 0) > 0
-                    for op in ("STAS", "SYNCS")),
-                local_step_pdl_wait=counts.get("local_step_kernel", {}).get(
-                    "ACQBULK", 0) > 0)
+                topk_cluster_barrier=every("topk_cluster_kernel",
+                                           ("UCGABAR_ARV", "UCGABAR_WAIT")),
+                topk_dsmem=every("topk_cluster_kernel", ("STAS", "SYNCS")),
+                local_step_pdl_wait=every("local_step_kernel", ("ACQBULK",)))
 
 
 def check_kernels(torch, fu, bench) -> dict:
@@ -816,10 +986,16 @@ def check_kernels(torch, fu, bench) -> dict:
 
 
 def check_upload_kernels(torch, bench) -> dict:
-    """Phase 2, the upload kernels: every variant at both N, bitwise,
-    then the main path's shapes (returned): K4 at bits 8 with top-k and
-    the residual, the threshold at density 0.25, K5 with noise."""
+    """Phase 2, the upload kernels: every variant at both N, bitwise; the
+    fused top-k compressed upload at bits 8/16/32 × residual at N_SMALL,
+    at the cut and at 1,000 (a partial last row), bitwise against its
+    plain version and the two-launch chain, and one past the cut (its
+    4 + 1 launches); then the shapes their paths give them (returned):
+    K4 at bits 8 without top-k or residual (p2_int8), the threshold at
+    density 0.25 of the wide mlp's bucket (p2_above_cut), K5 with noise,
+    the fused upload at int8 + residual (p2_compressed)."""
     rows = []
+    fu = bench.fu
     for n in (N_SMALL, N_LARGE):
         for bits in (8, 16, 32):
             for topk in (False, True):
@@ -829,8 +1005,13 @@ def check_upload_kernels(torch, bench) -> dict:
         for has_z in (False, True):
             rows.append(bench.dp_clip_noise(n, has_z))
     # both kernels on either side of the cut
-    cut = bench.fu.topk_cut()
+    cut = fu.topk_cut()
     rows += [bench.topk_threshold(cut), bench.topk_threshold(cut + 1)]
+    for n in (N_SMALL, cut, 1000):
+        for bits in (8, 16, 32):
+            for res in (False, True):
+                rows.append(bench.topk_compress(n, bits, res))
+    rows.append(bench.topk_compress(cut + 1, 8, True))
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and
@@ -842,10 +1023,18 @@ def check_upload_kernels(torch, bench) -> dict:
                if r["kernel"] == "topk_threshold"):
         raise SystemExit("chip_smoke: the threshold disagrees with "
                          "torch.kthvalue")
+    fused = [r for r in rows if r["kernel"] == "topk_compress"]
+    if not all(r["chain_bitwise"] and r["launches_per_call"] ==
+               (1 if r["n"] <= cut else fu.topk_launches(r["n"]) + 1)
+               for r in fused):
+        raise SystemExit("chip_smoke: the fused top-k compressed upload "
+                         "disagrees with the two-launch chain or launches "
+                         "other than 1 up to the cut and 4 + 1 above it")
     return {
-        "compress_delta": bench.compress_delta(N_SMALL, 8, True, True),
-        "topk_threshold": bench.topk_threshold(N_SMALL),
+        "compress_delta": bench.compress_delta(N_SMALL, 8, False, False),
+        "topk_threshold": bench.topk_threshold(MLP_WIDE_N),
         "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True),
+        "topk_compress": bench.topk_compress(N_SMALL, 8, True),
     }
 
 
@@ -905,7 +1094,8 @@ def main_path(torch, fu):
     want = {"local_step": cyc.rounds * k1 * cyc.local_steps +
             fed.rounds * k2 * fed.local_steps,
             "weighted_delta": fed.rounds, "server_update": fed.rounds,
-            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": 0}
+            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": 0,
+            "topk_compress": 0}
     hist = res.history
     x_bytes = size_bytes(res.federated.params)
     closed = comm_accounting.overhead_with_cyclic(
@@ -1002,6 +1192,23 @@ def device_activity(prof, n_top: int = 12):
                                    count=v[1]) for k, v in top]
 
 
+def gaps_before(prof, name) -> tuple:
+    """For each device kernel whose name holds ``name``, in a
+    CUDA-activity trace: the idle microseconds before it (its start less
+    the latest end of the device ops before it; below 0 when it starts
+    before that op has drained) and its own microseconds."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    gaps, own, end = [], [], -math.inf
+    for a, b, kname in spans:
+        if name in kname:
+            gaps.append(a - end)
+            own.append(b - a)
+        end = max(end, b)
+    return gaps, own
+
+
 def kernel_time(prof, names) -> tuple:
     """Device microseconds and launches of the kernels whose name holds
     one of ``names``, in a CUDA-activity trace."""
@@ -1066,25 +1273,59 @@ def lenet_setup():
     return vision_task("lenet5", n_classes=10, in_ch=3), data
 
 
+@functools.lru_cache(maxsize=1)
+def mlp_wide_setup():
+    """The repo's mlp (``models/paper_models.py``) at width 256 on the
+    main path's data (32×32×3 cifar10-like): 789,258 f32 params in one
+    bucket, above ``topk_cut()``, so its top-k upload takes the
+    threshold's four radix passes and a standalone K4 (p2_above_cut)."""
+    from repro_torch.fl.task import vision_task
+    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={
+        "img": 32, "d_hidden": MLP_WIDE_HIDDEN})
+    return task, lenet_setup()[1]
+
+
 def upload_configs():
-    """The two P2 upload configurations: the repo's compressed setting
-    (benchmarks/table4_comm.py:47) and its private one
-    (benchmarks/perf_fused_update.py:138)."""
+    """The P2 upload configurations: the repo's compressed setting
+    (benchmarks/table4_comm.py:47), its private one
+    (benchmarks/perf_fused_update.py:138), and its int8 dense mode
+    (benchmarks/perf_compression.py:58: quantized, not sparsified)."""
     from repro_torch.fl.compression import CompressionSpec
     from repro_torch.fl.privacy import DPSpec
     return {"p2_compressed": dict(compression=CompressionSpec(
                 bits=8, density=0.25, error_feedback=True)),
             "p2_private": dict(dp=DPSpec(clip=1.0, sigma=0.1),
-                               secure_agg=True)}
+                               secure_agg=True),
+            "p2_int8": dict(compression=CompressionSpec(bits=8))}
 
 
-def upload_phase(torch, fu, phase: str, fed_kw: dict):
-    """Phases p2_compressed / p2_private: the main path's pipeline
-    (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients) with the P2 upload
-    of ``fed_kw``, through ``run_cyclic_then_federated``; launches,
-    ledger and accuracy asserted, then a warm P2 run, a profiled P2
-    round and the kernels against the plain path.  Returns the
-    launches and the P2 result."""
+def upload_launches(fu, comp, n: int, uploads: int) -> dict:
+    """The launches of ``uploads`` client uploads of one ``n``-element
+    bucket under CompressionSpec ``comp`` (None: uncompressed): top-k
+    uploads are one fused launch each up to ``topk_cut()``, the
+    threshold's passes and a standalone K4 above it; quantized-only
+    uploads a standalone K4."""
+    from repro_torch.fl.compression import compression_on
+    out = {"compress_delta": 0, "topk_threshold": 0, "topk_compress": 0}
+    if not compression_on(comp):
+        return out
+    if not comp.sparsifies:
+        return dict(out, compress_delta=uploads)
+    if n <= fu.topk_cut():
+        return dict(out, topk_compress=uploads)
+    return dict(out, compress_delta=uploads,
+                topk_threshold=uploads * fu.topk_launches(n))
+
+
+def upload_phase(torch, fu, phase: str, fed_kw: dict, setup=None,
+                 n_bucket: int = N_SMALL):
+    """Phases p2_compressed / p2_private / p2_int8 / p2_above_cut: the
+    main path's pipeline (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients)
+    with the P2 upload of ``fed_kw``, through
+    ``run_cyclic_then_federated``, on LeNet-5 or ``setup()``'s task
+    (whose one f32 bucket holds ``n_bucket`` elements); launches, ledger
+    and accuracy asserted, then a profiled P2 round and the kernels
+    against the plain path.  Returns the launches and the P2 result."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import comm_accounting as acc
@@ -1095,7 +1336,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     from repro_torch.fl.simulation import FLConfig, run_federated
     from repro_torch.utils.tree_math import size_bytes
 
-    task, data = lenet_setup()
+    task, data = (setup or lenet_setup)()
     cyc = CyclicConfig(rounds=4, participation=0.25, local_steps=20,
                        batch_size=32, update_impl="fused", sampling="host")
     fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
@@ -1115,10 +1356,9 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     want = {"local_step": cyc.rounds * k1 * cyc.local_steps +
             fed.rounds * k2 * fed.local_steps,
             "weighted_delta": fed.rounds, "server_update": fed.rounds,
-            "compress_delta": fed.rounds * k2 if compressed else 0,
-            "topk_threshold": (fed.rounds * k2 * fu.topk_launches(N_SMALL)
-                               if compressed else 0),
-            "dp_clip_noise": 0}
+            "dp_clip_noise": 0,
+            **upload_launches(fu, fed.compression, n_bucket,
+                              fed.rounds * k2)}
     x = size_bytes(res.federated.params)
     payload = _upload_payload_bytes(task, fed.compression)
     p2 = (fed.rounds * acc.compressed_round_bytes("fedavg", k2, x, payload)
@@ -1138,7 +1378,8 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, n_ops, top = device_activity(prof)
     e2e = upload_e2e(torch, task, data, fed_kw)
-    emit(dict(phase=phase, model="lenet5", dataset="cifar10-like",
+    emit(dict(phase=phase, model=task.name, bucket=n_bucket,
+              dataset="cifar10-like",
               upload={k: str(v) for k, v in fed_kw.items()},
               history=res.history, wall_s=wall,
               profiled_p2_round=dict(
@@ -1160,7 +1401,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     if res.ledger.total_bytes != closed or res.ledger.mask_bytes != mask:
         raise SystemExit(f"chip_smoke: {phase} ledger bytes differ from "
                          "the closed form")
-    if compressed and payload != 173_250:
+    if phase == "p2_compressed" and payload != 173_250:
         raise SystemExit(f"chip_smoke: compressed upload {payload} bytes, "
                          "expected 173,250")
     if not n_ops:
@@ -1261,7 +1502,8 @@ def dp_upload(torch, fu, params, fed_kw):
     launches = {fn.__name__: fn.launches
                 for fn in fu.KERNELS + fu.UPLOAD_KERNELS}
     want = {"local_step": 0, "weighted_delta": 1, "server_update": 0,
-            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": K}
+            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": K,
+            "topk_compress": 0}
 
     # the summands' magnitude, from the same draws
     wbar = weights / weights.sum()
@@ -1387,7 +1629,7 @@ def pod_path(torch, fu, mesh):
         fed.rounds * k2 * fed.spec.local_steps
     want = {"local_step": steps, "weighted_delta": 0,
             "server_update": 2 * fed.rounds, "compress_delta": 0,
-            "topk_threshold": 0, "dp_clip_noise": 0,
+            "topk_threshold": 0, "dp_clip_noise": 0, "topk_compress": 0,
             "delta_accum": fed.rounds * k2}
     x_bytes = size_bytes(res.params)
     closed = comm_accounting.overhead_with_cyclic(
@@ -1494,9 +1736,8 @@ def pod_compressed(torch, fu, mesh, init):
     k2 = fed.clients_per_round
     want = {"local_step": fed.rounds * k2 * fed.spec.local_steps,
             "weighted_delta": 0, "server_update": 2 * fed.rounds,
-            "compress_delta": fed.rounds * k2,
-            "topk_threshold": fed.rounds * k2 * fu.topk_launches(N_SMALL),
-            "dp_clip_noise": 0, "delta_accum": fed.rounds * k2}
+            "dp_clip_noise": 0, "delta_accum": fed.rounds * k2,
+            **upload_launches(fu, comp, N_SMALL, fed.rounds * k2)}
     payload = _upload_payload_bytes(task, comp)
     closed = fed.rounds * acc.compressed_round_bytes(
         "fedavg", k2, size_bytes(res.params), payload)
@@ -1865,6 +2106,14 @@ def main(argv=None) -> int:
                          "memory")
     if sass["cuobjdump"] and not sass["local_step_pdl_wait"]:
         raise SystemExit("chip_smoke: K1 does not wait on griddepcontrol")
+    # 2 alignments x (the threshold alone + bits 8/16/32 x residual)
+    if sass["cuobjdump"] and not (sass["topk_fused_cluster"] and
+                                  sass["topk_fused_instances"] == 12 and
+                                  sass["topk_instances"] == 14):
+        raise SystemExit("chip_smoke: the fused top-k compressed upload's "
+                         "instances lack the cluster barrier or st.async")
+    if sass["cuobjdump"] and not sass["delta_accum_pdl_wait"]:
+        raise SystemExit("chip_smoke: K6 does not wait on griddepcontrol")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     local_step_vs_add(torch, fu, bench)
@@ -1879,6 +2128,10 @@ def main(argv=None) -> int:
     _, private = upload_phase(torch, fu, "p2_private", configs["p2_private"])
     dp_launches = dp_upload(torch, fu, private.federated.params,
                             configs["p2_private"])
+    int8_launches, _ = upload_phase(torch, fu, "p2_int8", configs["p2_int8"])
+    wide_launches, _ = upload_phase(torch, fu, "p2_above_cut",
+                                    configs["p2_compressed"],
+                                    setup=mlp_wide_setup, n_bucket=MLP_WIDE_N)
     p2_rounds(torch, private.cyclic.params)
     from repro_torch.launch.mesh import destroy, make_host_mesh
     mesh = make_host_mesh()
@@ -1909,27 +2162,35 @@ def main(argv=None) -> int:
                             library_ms=r["library_ms"],
                             **({"pdl": True} if kname == "local_step"
                                else {})))
-    # the upload kernels, each with the launches of the path it is on
+    # the upload kernels, each with the launches of the path it is on:
+    # the top-k upload is one fused launch on the main compressed path
+    # (K4 and the threshold in one), K4 alone on the int8 dense path, the
+    # threshold's passes and K4 above the cut
     upload_src = "src/repro_torch/kernels/csrc/upload.cu"
     for kname, replaces, n_launch, path in (
             ("compress_delta", "src/repro/kernels/fused_update.py:283",
-             comp_launches["compress_delta"], "p2_compressed"),
+             int8_launches["compress_delta"], "p2_int8"),
             ("topk_threshold", "jnp src/repro/fl/compression.py:156",
-             comp_launches["topk_threshold"], "p2_compressed"),
+             wide_launches["topk_threshold"], "p2_above_cut"),
             ("dp_clip_noise", "src/repro/kernels/fused_update.py:351",
-             dp_launches["dp_clip_noise"], "dp_upload")):
+             dp_launches["dp_clip_noise"], "dp_upload"),
+            ("topk_compress", "src/repro/kernels/fused_update.py:283 + "
+             "jnp src/repro/fl/compression.py:156",
+             comp_launches["topk_compress"], "p2_compressed")):
         r = upload_shapes[kname]
         if not r["bitwise"]:
             raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
-        shape = {key: r[key] for key in ("kernel_path", "n_ctas",
-                                         "dynamic_smem_per_cta",
-                                         "launches_per_call") if key in r}
+        shape = {key: r[key] for key in (
+            "n", "bits", "topk", "residual", "kernel_path", "n_ctas",
+            "dynamic_smem_per_cta", "launches_per_call", "chain_ms",
+            "threshold_ms") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=upload_src,
                             replaces=replaces, launches=n_launch,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=path, **shape))
+    kernels[-1]["pod_compressed_launches"] = pod_comp_launches["topk_compress"]
     # K6 on the pod path: the f32 form with p (the sequential
     # aggregate), its accum-only form (pod_compressed) beside it
     r, ra = pod_shapes["delta_accum"], pod_shapes["delta_accum_accum_only"]
@@ -1947,7 +2208,7 @@ def main(argv=None) -> int:
         accum_only={k: ra[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
                                        "library_note")},
-        shape="N 137,216 f32, with p", path="pod_path"))
+        shape="N 137,216 f32, with p", path="pod_path", pdl=True))
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"

@@ -29,10 +29,13 @@ compression composes with neither ``secure_agg`` nor DP; both are
 rejected at spec construction (:func:`validate_compression`, the JAX
 package's messages).
 
-On the flat path each bucket of each client is one ``topk_threshold``
-call (a radix select on the card) and one ``compress_delta`` kernel
-pass; one ``weighted_delta(deltas=True)`` pass then aggregates the
-stacked compressed deltas.  :func:`reference_compress` is the plain
+On the flat path each bucket of each client is one ``topk_compress``
+call when sparsifying (on the card one launch up to ``topk_cut()``
+elements: the radix select of the threshold with ``compress_delta`` as
+its epilogue; above it the threshold's passes, then ``compress_delta``)
+or one ``compress_delta`` kernel pass when only quantizing; one
+``weighted_delta(deltas=True)`` pass then aggregates the stacked
+compressed deltas.  :func:`reference_compress` is the plain
 twin (``kernels.fused_update.topk_threshold_plain`` and
 ``compress_delta_plain``), bit-equal to the JAX package's
 ``numpy_compress``; :func:`tree_compressed_aggregate` is the tree-path
@@ -235,7 +238,7 @@ def fused_compressed_aggregate(spec: CompressionSpec, fops,
                                = None):
     """The compressed aggregate on the flat path: per client,
     ``δₖ = stacked[k] − p (+ rₖ)`` → ``(cₖ, rₖ′) = compress(δₖ)`` (one
-    threshold + one compress kernel per bucket), then ONE
+    ``FlatParamOps.compress_delta`` per client), then ONE
     ``weighted_delta(deltas=True)`` pass per bucket over the stacked
     ``cₖ``: ``cast(p₃₂ + Σₖ w̄ₖ·cₖ)``.  Returns ``(new_p_bufs, new
     residual rows or None)``."""

@@ -198,24 +198,27 @@ class FlatParamOps:
                 for name, p in p_bufs.items()}
 
     def compress_delta(self, d_bufs, spec: CompressionSpec):
-        """Compressed form of one client's f32 delta dict: per bucket one
-        top-k threshold (when sparsifying, over the bucket's logical k)
-        and one compress pass.  Returns ``(c_bufs, r_bufs)``; ``r_bufs``
-        is None unless error feedback."""
+        """Compressed form of one client's f32 delta dict, per bucket: when
+        sparsifying, one top-k compressed upload over the bucket's
+        logical k (one launch up to ``topk_cut()``); otherwise one
+        compress pass.  Returns ``(c_bufs, r_bufs)``; ``r_bufs`` is None
+        unless error feedback."""
         with_r = spec.error_feedback
         c_out, r_out = {}, {}
         for name, d in d_bufs.items():
-            tau = (ops.fused_topk_threshold(
-                       d, topk_k(spec, self._logical_size(name)),
-                       interpret=self.interpret)
-                   if spec.sparsifies else None)
-            out = ops.fused_compress_delta(
-                d, tau, bits=spec.bits, topk=spec.sparsifies,
-                with_residual=with_r, interpret=self.interpret)
-            if with_r:
-                c_out[name], r_out[name] = out
+            if spec.sparsifies:
+                c, r, _ = ops.fused_topk_compress(
+                    d, topk_k(spec, self._logical_size(name)),
+                    bits=spec.bits, with_residual=with_r,
+                    interpret=self.interpret)
             else:
-                c_out[name] = out
+                out = ops.fused_compress_delta(
+                    d, None, bits=spec.bits, with_residual=with_r,
+                    interpret=self.interpret)
+                c, r = out if with_r else (out, None)
+            c_out[name] = c
+            if with_r:
+                r_out[name] = r
         return c_out, (r_out if with_r else None)
 
     def dp_clip_noise(self, d_bufs, z_bufs, clip_scale, noise_scale):

@@ -456,6 +456,10 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                     f"divisible by n_pods (K={K}, n_pods={G})")
             w32 = inputs.weights.to(torch.float32)
             wsum = torch.sum(w32)
+            # every client's coefficient w_j/Σw in one division per round:
+            # coef[j] is a view, so nothing is issued between a client's
+            # last kernel and its K6, which may then stage early (PDL)
+            coef = w32 / wsum
             ef_rows = (store.gather(algo_state["ef_residuals"], inputs.ids)
                        if ef else None)
 
@@ -470,8 +474,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                         b.copy_(params[name])
                     return local(work, inputs.sampler(j), lr_scale)
 
-                def add_delta(delta, w_end, w_i):
-                    return fops.delta_accum(delta, w_end, params, w_i / wsum)
+                def add_delta(delta, w_end, c):
+                    return fops.delta_accum(delta, w_end, params, c)
 
                 sqnorm = privacy.flat_delta_sqnorm
             else:
@@ -482,22 +486,22 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                 def run_client(j):
                     return local(params, inputs.sampler(j), lr_scale)
 
-                def add_delta(delta, w_end, w_i):
-                    c = w_i / wsum
+                def add_delta(delta, w_end, c):
                     return tm.tree_map(
                         lambda d, we, p: d + c * (we.float() - p.float()),
                         delta, w_end, params)
 
                 sqnorm = privacy.tree_delta_sqnorm
 
-            if dp_clips:
-                # the clip folds into the accumulation coefficient:
-                # (w_i·min(1, C/‖w_end − p‖))/wsum
-                base_add = add_delta
+            def coeff_of(j, w_end):
+                return coef[j]
 
-                def add_delta(delta, w_end, w_i):
+            if dp_clips:
+                # the clip folds into the accumulation coefficient, in this
+                # order: (w_j·min(1, C/‖w_end − p‖))/wsum
+                def coeff_of(j, w_end):
                     scale = privacy.clip_scale(dp, sqnorm(w_end, params))
-                    return base_add(delta, w_end, w_i * scale)
+                    return (w32[j] * scale) / wsum
 
             def upload(j, w_end):
                 # a compressed upload IS a delta: w_end − p (+ residual)
@@ -528,14 +532,12 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                     for g in range(G):
                         j = s * G + g
                         w_end, c = client(j)
-                        if compressed:
-                            coeff = w32[j] / wsum
-                        elif dp_clips:
-                            coeff = (w32[j] / wsum) * privacy.clip_scale(
+                        if dp_clips and not compressed:
+                            coeff = coef[j] * privacy.clip_scale(
                                 dp, sqnorm(w_end, params))
                             coeffs.append(coeff)
                         else:
-                            coeff = w32[j] / wsum
+                            coeff = coef[j]
                         if g == me:
                             fops.lane_accum(acc, c if compressed else w_end,
                                             coeff)
@@ -557,9 +559,10 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                     w_end, c = client(j)
                     g = j % G
                     if compressed:
-                        fops.delta_accum(accs[g], c, None, w32[j] / wsum)
+                        fops.delta_accum(accs[g], c, None, coef[j])
                     else:
-                        accs[g] = add_delta(accs[g], w_end, w32[j])
+                        accs[g] = add_delta(accs[g], w_end,
+                                            coeff_of(j, w_end))
                 delta = accs[0]
                 for a in accs[1:]:          # the one cross-lane sum
                     delta = tm.tree_map(torch.add, delta, a)
@@ -576,7 +579,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
             drawn = (dp is not None and dp.noised) or spec.secure_agg
             extra = privacy.round_extra(
                 dp, spec.secure_agg, inputs.id_list() if drawn else [],
-                w32 / wsum, zeros_fn=zeros_delta, normal_fn=normal_fn)
+                coef, zeros_fn=zeros_delta, normal_fn=normal_fn)
             if extra is not None:
                 delta = tm.tree_map(torch.add, delta, extra)
 

@@ -47,18 +47,23 @@
 // delta_accum never writes w or p.  Pad lanes stay zero through all three: every term is
 // zero or a multiple of a zero operand there.
 //
-// local_step is launched with programmatic dependent launch (PDL,
-// cudaLaunchAttributeProgrammaticStreamSerialization): it runs 3000 times
-// per training run with ~0.5 us of bytes each, so the launch, the block
-// ramp and the drain between dependent kernels are most of its time.  PDL
-// lets its blocks be scheduled and do their index work while the kernel
-// before it drains; griddepcontrol.wait, before the first read of any
-// operand (scalars, p, g, m, c may all have been written by that kernel),
-// holds them until it has completed and flushed its memory.  Each block
-// then issues griddepcontrol.launch_dependents, so a PDL-launched successor
-// may stage itself in turn; that successor's own wait still waits for
-// this kernel's completion.  A refused launch returns its error: there is
-// no retry without the attribute.
+// local_step and delta_accum are launched with programmatic dependent launch
+// (PDL, cudaLaunchAttributeProgrammaticStreamSerialization, launch_pdl):
+// local_step runs 3000 times per training run and delta_accum 40 times per
+// pod P2 run, each with ~0.5 us of bytes, so the launch, the block ramp and
+// the drain between dependent kernels are most of their time.  PDL lets
+// their blocks be scheduled and do their index work while the kernel
+// before them drains; griddepcontrol.wait, before the first read of any
+// operand (scalars, p, g, m, c in local_step; coeff, d, w, p in
+// delta_accum: the kernel before may have written any of them), holds them
+// until it has completed and flushed its memory.  Each block then issues
+// griddepcontrol.launch_dependents, so a PDL-launched successor may stage
+// itself in turn; that successor's own wait still waits for this kernel's
+// completion.  delta_accum on the compressed pod path follows the cluster
+// launch of the top-k compressed upload (csrc/upload.cu), which triggers its
+// dependents at its start, so its blocks can be staged on the SMs the
+// cluster leaves idle.  A refused launch returns its error: there is no
+// retry without the attribute.
 //
 // Each fu_* launcher enqueues on the given stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -156,6 +161,22 @@ void dispatch_bool(bool b, F&& f) {
   else f(std::false_type{});
 }
 
+// `kernel` on `grid` blocks of kThreads, with programmatic dependent launch
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), int grid, cudaStream_t stream,
+                       Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // ---------------------------------------------------------------------------
 // local_step
 // ---------------------------------------------------------------------------
@@ -207,21 +228,11 @@ int launch_local_step(void* p, const void* g, void* m, const void* c,
   auto go = [&](auto VEC, auto HM, auto HC, auto HW) {
     constexpr int V = decltype(VEC)::value ? VW : 1;
     const long long n_vec = n / V;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-    attr[0].val.programmaticStreamSerializationAllowed = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid_for(n_vec));
-    cfg.blockDim = dim3(kThreads);
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(
-        &cfg,
+    err = launch_pdl(
         local_step_kernel<T, V, decltype(HM)::value, decltype(HC)::value,
                           decltype(HW)::value>,
-        static_cast<T*>(p), static_cast<const T*>(g), static_cast<T*>(m),
-        static_cast<const T*>(c), scalars, wd, beta, n_vec);
+        grid_for(n_vec), stream, static_cast<T*>(p), static_cast<const T*>(g),
+        static_cast<T*>(m), static_cast<const T*>(c), scalars, wd, beta, n_vec);
   };
   dispatch_bool(vec, [&](auto VEC) {
     dispatch_bool(has_m, [&](auto HM) {
@@ -404,10 +415,13 @@ __global__ void __launch_bounds__(kThreads)
 delta_accum_kernel(float* __restrict__ d, const T* __restrict__ w,
                    const T* __restrict__ p, const float* __restrict__ coeff,
                    long long n, long long n_vec) {
-  const float c = coeff[0];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride)
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // PDL: no operand may be read before the kernel this one follows is done
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const float c = coeff[0];
+  for (long long i = first; i < n_vec; i += stride)
     delta_accum_at<V, WITH_P>(d, w, p, c, i * V);
   if constexpr (V > 1) {
     const long long tail = n_vec * V + threadIdx.x;
@@ -421,16 +435,18 @@ int launch_delta_accum(float* d, const void* w, const void* p, const float* coef
   constexpr int VW = 16 / sizeof(T);
   const bool with_p = p != nullptr;
   const bool vec = aligned16(d) && aligned16(w) && (!with_p || aligned16(p));
+  cudaError_t err = cudaSuccess;
   auto go = [&](auto VEC, auto WP) {
     constexpr int V = decltype(VEC)::value ? VW : 1;
     const long long n_vec = n / V;
-    delta_accum_kernel<T, V, decltype(WP)::value>
-        <<<grid_for(n_vec > 0 ? n_vec : 1), kThreads, 0, stream>>>(
-            d, static_cast<const T*>(w), static_cast<const T*>(p), coeff, n, n_vec);
+    err = launch_pdl(delta_accum_kernel<T, V, decltype(WP)::value>,
+                     grid_for(n_vec > 0 ? n_vec : 1), stream, d,
+                     static_cast<const T*>(w), static_cast<const T*>(p), coeff, n, n_vec);
   };
   dispatch_bool(vec, [&](auto VEC) {
     dispatch_bool(with_p, [&](auto WP) { go(VEC, WP); });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

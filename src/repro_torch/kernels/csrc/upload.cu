@@ -10,19 +10,22 @@
 //   up_topk_threshold   <- src/repro/fl/compression.py:topk_threshold (jnp, not
 //                          Pallas: a 31-step greedy search over the bits of |d|)
 //       tau = the k-th largest |d|, exactly
+//   up_topk_compress    <- the two above in sequence (FlatParamOps.compress_delta
+//                          with top-k): tau, then compress_delta at tau, in one
+//                          launch up to the cut
 //   up_dp_clip_noise    <- src/repro/kernels/fused_update.py:_dp_clip_noise_kernel
 //                          (wrapper dp_clip_noise)
 //       u = clip_scale*d (+ noise_scale*z)
 //
-// What bounds them on an H100: all three stream their operands once and do a
-// few operations per element, so device-memory bytes bound them:
+// What bounds them on an H100: all of them stream their operands once and do
+// a few operations per element, so device-memory bytes bound them:
 // compress_delta reads 4 B and writes 8 B per element (c and r; 4 B without
 // the residual), topk_threshold reads 4 B per element once (this design reads
 // it into shared memory once up to the cut and four times above it, one
 // pass per byte of the key; at the main path's 137,216 elements the launch
 // and four rounds of exchange between the CTAs of its cluster, not the
-// 0.16 us of bytes, bound it),
-// dp_clip_noise reads 8 B
+// 0.16 us of bytes, bound it), topk_compress the same 12 B as compress_delta
+// (its second read of d comes from L2), dp_clip_noise reads 8 B
 // (d and z) and writes 4 B.  At LeNet-5 size (137,216 padded elements) each
 // is far below a microsecond of bytes and the launch dominates.
 //
@@ -65,12 +68,30 @@
 //      set-up runs while the kernel before it drains, and
 //      griddepcontrol.wait comes before the first read of d.  No
 //      workspace, no global atomics, no memset.
+//      With BITS != 0 the same launch is the top-k compressed upload
+//      (up_topk_compress), replacing the threshold launch plus a
+//      compress_delta launch that read d again.  After the last pass every
+//      CTA holds tau with no further exchange, and it compresses 128-lane
+//      rows of its own slice (a slice starts at a multiple of 128 keys, so
+//      no row crosses CTAs), one warp per row, with compress_delta's
+//      arithmetic (compress_row).  d is rebuilt from the keys and one sign
+//      bit per key, gathered by warp ballots during the load and kept in
+//      shared memory (slice / 8 bytes more), so it is not read again.  On
+//      16 SMs of an H100 the epilogue was slower than compress_delta on all
+//      of them (the stores of c and r bound it), so the launch holds G
+//      independent clusters, as many as the card runs at once (7 there) but
+//      no more than a slice has rows: each finds the same tau (an exact
+//      count, the work of a cluster is no slower beside the others) and
+//      cluster g compresses rows g, g + G, ... of every slice.  Only block
+//      0 writes tau; places past n are written by nothing.
 //    - above it, topk_pass_kernel: four launches, one per digit, each over
 //      the whole of |d| in a grid-stride pass (per-block shared histogram,
 //      warp-aggregated, merged with global atomics); the last block to
 //      finish (a __threadfence plus an atomic ticket) runs the scan and
 //      leaves the prefix and rank for the next launch in a workspace that
 //      is zeroed by one memset per call.
+//    up_topk_compress above the cut is the four passes and then compress_delta,
+//    chosen by the Python wrapper (five launches).
 //  * dp_clip_noise: a grid-stride elementwise pass, float4 loads and stores.
 //
 // Rounding: every step uses the _rn intrinsics (__fdiv_rn, __fmul_rn,
@@ -117,6 +138,7 @@ constexpr int kSliceGranule = 128;
 constexpr int kClusterSliceMax = 40 * 1024;
 constexpr unsigned kNoKey = 0xFFFFFFFFu;
 static_assert(kClusterThreads / 64 >= kCluster, "64 senders per destination CTA");
+static_assert(kSliceGranule % kLanes == 0, "a CTA's slice holds whole 128-lane rows");
 
 __host__ __device__ inline bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
@@ -138,72 +160,114 @@ void dispatch_bool(bool b, F&& f) {
 // compress_delta
 // ---------------------------------------------------------------------------
 
+// compress_delta's arithmetic on one 128-lane row, 4 lanes per thread of a
+// warp: x = d*[|d| >= tau] (TOPK; compared in float, so a NaN is dropped),
+// the row's |max| by a __shfl_xor_sync butterfly, scale = bf16(amax/qmax *
+// (1 + 2^-6)), c = clip(rint(x/scale), +-qmax)*scale (BITS 8 or 16; 32 keeps
+// x; a zero scale gives zeros).  Every lane of the warp calls it together.
+template <int BITS, bool TOPK>
+__device__ __forceinline__ void compress_row(const float (&d0)[4], float tau,
+                                             float (&x)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    x[j] = d0[j];
+    if constexpr (TOPK) x[j] = fabsf(d0[j]) >= tau ? d0[j] : 0.0f;
+  }
+  if constexpr (BITS != 32) {
+    constexpr float qmax = BITS == 8 ? 127.0f : 32767.0f;
+    float amax = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])),
+                       fmaxf(fabsf(x[2]), fabsf(x[3])));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float scale = __bfloat162float(
+        __float2bfloat16_rn(__fmul_rn(__fdiv_rn(amax, qmax), kScalePad)));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (scale > 0.0f) {
+        // a zero x (every element top-k drops) quantizes to itself, +0 or
+        // -0: skip its division, whose range check sends a zero dividend
+        // down the slow path
+        if (x[j] != 0.0f) {
+          float q = rintf(__fdiv_rn(x[j], scale));
+          q = fminf(fmaxf(q, -qmax), qmax);
+          x[j] = __fmul_rn(q, scale);
+        }
+      } else {
+        x[j] = 0.0f;
+      }
+    }
+  }
+}
+
+// this lane's 4 elements of a compressed row at `base`: c = x and r = d - c,
+// as float4 stores when VEC (the row lies inside n, the pointers are 16-byte
+// aligned; streaming stores, st.global.cs, when STREAM), otherwise one by
+// one where they lie inside n
+template <bool RES, bool VEC, bool STREAM = false>
+__device__ __forceinline__ void store_row(float* __restrict__ c, float* __restrict__ r,
+                                          long long n, long long base,
+                                          const float (&d0)[4], const float (&x)[4]) {
+  float res[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) res[j] = __fsub_rn(d0[j], x[j]);
+  if constexpr (VEC) {
+    const float4 cv = make_float4(x[0], x[1], x[2], x[3]);
+    const float4 rv = make_float4(res[0], res[1], res[2], res[3]);
+    float4* cp = reinterpret_cast<float4*>(c + base);
+    float4* rp = reinterpret_cast<float4*>(r + base);
+    if constexpr (STREAM) {
+      __stcs(cp, cv);
+      if constexpr (RES) __stcs(rp, rv);
+    } else {
+      *cp = cv;
+      if constexpr (RES) *rp = rv;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (base + j < n) {
+        c[base + j] = x[j];
+        if constexpr (RES) r[base + j] = res[j];
+      }
+    }
+  }
+}
+
+// one 128-lane row of d at `row0`, 4 elements per lane: as one float4 when
+// VEC, otherwise bounds-checked with zeros past n (the JAX wrapper's
+// padding); then compress_row and store_row
+template <int BITS, bool TOPK, bool RES, bool VEC>
+__device__ __forceinline__ void compress_row_at(const float* __restrict__ d, float tau,
+                                                float* __restrict__ c,
+                                                float* __restrict__ r, long long n,
+                                                long long row0) {
+  const long long base = row0 + (threadIdx.x & 31) * 4;
+  float d0[4], x[4];
+  if constexpr (VEC) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(d + base));
+    d0[0] = v.x; d0[1] = v.y; d0[2] = v.z; d0[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) d0[j] = base + j < n ? __ldg(d + base + j) : 0.0f;
+  }
+  compress_row<BITS, TOPK>(d0, tau, x);
+  store_row<RES, VEC>(c, r, n, base, d0, x);
+}
+
 template <int BITS, bool TOPK, bool RES, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 compress_delta_kernel(const float* __restrict__ d, const float* __restrict__ tau_p,
                       float* __restrict__ c, float* __restrict__ r, long long n,
                       long long rows) {
-  const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * kRowsPerBlock;
   float tau = 0.0f;
   if constexpr (TOPK) tau = *tau_p;
   // the row loop is uniform across a warp, so every lane reaches the shuffles
   for (long long row = static_cast<long long>(blockIdx.x) * kRowsPerBlock +
                        (threadIdx.x >> 5);
-       row < rows; row += stride) {
-    const long long base = row * kLanes + lane * 4;
-    float d0[4];
-    if constexpr (VEC) {
-      const float4 v = *reinterpret_cast<const float4*>(d + base);
-      d0[0] = v.x; d0[1] = v.y; d0[2] = v.z; d0[3] = v.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) d0[j] = base + j < n ? d[base + j] : 0.0f;
-    }
-    float x[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x[j] = d0[j];
-      if constexpr (TOPK) x[j] = fabsf(d0[j]) >= tau ? d0[j] : 0.0f;
-    }
-    if constexpr (BITS != 32) {
-      constexpr float qmax = BITS == 8 ? 127.0f : 32767.0f;
-      float amax = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])),
-                         fmaxf(fabsf(x[2]), fabsf(x[3])));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-      const float scale = __bfloat162float(
-          __float2bfloat16_rn(__fmul_rn(__fdiv_rn(amax, qmax), kScalePad)));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (scale > 0.0f) {
-          float q = rintf(__fdiv_rn(x[j], scale));
-          q = fminf(fmaxf(q, -qmax), qmax);
-          x[j] = __fmul_rn(q, scale);
-        } else {
-          x[j] = 0.0f;
-        }
-      }
-    }
-    float res[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) res[j] = __fsub_rn(d0[j], x[j]);
-    if constexpr (VEC) {
-      *reinterpret_cast<float4*>(c + base) = make_float4(x[0], x[1], x[2], x[3]);
-      if constexpr (RES)
-        *reinterpret_cast<float4*>(r + base) =
-            make_float4(res[0], res[1], res[2], res[3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (base + j < n) {
-          c[base + j] = x[j];
-          if constexpr (RES) r[base + j] = res[j];
-        }
-      }
-    }
-  }
+       row < rows; row += stride)
+    compress_row_at<BITS, TOPK, RES, VEC>(d, tau, c, r, n, row * kLanes);
 }
 
 int launch_compress_delta(const float* d, const float* tau, float* c, float* r,
@@ -359,25 +423,68 @@ inline long long cluster_slice(long long n) {
 }
 
 // dynamic shared memory of one CTA: the local histogram, the staging of
-// every CTA's histogram by pass parity, the keys
-inline size_t cluster_smem_bytes(long long slice) {
-  return sizeof(unsigned) * (kBins + 2 * kCluster * kBins + static_cast<size_t>(slice));
+// every CTA's histogram by pass parity, the keys, and when compressing
+// (`signs`) one word of d's sign bits per 32 keys
+inline size_t cluster_smem_bytes(long long slice, bool signs = false) {
+  return sizeof(unsigned) * (kBins + 2 * kCluster * kBins + static_cast<size_t>(slice) +
+                             (signs ? static_cast<size_t>(slice) / 32 : 0));
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-template <bool VEC>
+// the epilogue of a compressing launch: this CTA's share of the rows of its
+// slice, dealt round-robin over the G clusters (cluster g takes rows g,
+// g + G, ...), one row per warp at a time (the loop is warp-uniform, so
+// all lanes reach the shuffles), d rebuilt from its key and sign bit, zero
+// past n.  On an H100 the stores of c and r set its time, not the
+// arithmetic, so every SM takes as few rows as it can, and full rows go
+// out as streaming stores (st.global.cs), which were faster there where
+// the slice fills shared memory.
+template <int BITS, bool RES, bool VEC>
+__device__ __forceinline__ void compress_slice(const unsigned* keys, const unsigned* signs,
+                                               int slice, long long base, long long n,
+                                               float tau, float* c, float* r) {
+  const int lane = threadIdx.x & 31;
+  const int n_clusters = gridDim.x / kCluster;
+  const uint4* kv4 = reinterpret_cast<const uint4*>(keys);
+  for (int row = blockIdx.x / kCluster + n_clusters * (threadIdx.x >> 5);
+       row < slice / kLanes; row += n_clusters * (kClusterThreads / 32)) {
+    const long long row0 = base + static_cast<long long>(row) * kLanes;
+    if (row0 >= n) break;
+    const uint4 q = kv4[row * 32 + lane];
+    const uint4 sg = *reinterpret_cast<const uint4*>(signs + 4 * row);
+    const unsigned kq[4] = {q.x, q.y, q.z, q.w}, sq[4] = {sg.x, sg.y, sg.z, sg.w};
+    const long long at = row0 + 4 * lane;
+    float d0[4], x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d0[e] = at + e < n ? __uint_as_float(kq[e] | (((sq[e] >> lane) & 1u) << 31)) : 0.0f;
+    compress_row<BITS, true>(d0, tau, x);
+    if (VEC && row0 + kLanes <= n) store_row<RES, true, true>(c, r, n, at, d0, x);
+    else store_row<RES, false>(c, r, n, at, d0, x);
+  }
+}
+
+// BITS 0: the threshold alone, on one cluster.  BITS 8/16/32: the grid is
+// gridDim.x / kCluster independent clusters that each find the same tau
+// (an exact count), then compress_slice.  VEC: d (and c, r) are 16-byte
+// aligned.
+template <bool VEC, int BITS, bool RES>
 __global__ void __launch_bounds__(kClusterThreads, 1)
 topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int slice,
-                    float* __restrict__ tau) {
+                    float* __restrict__ tau, float* __restrict__ c,
+                    float* __restrict__ r) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned me = cluster.block_rank();
   extern __shared__ __align__(16) unsigned smem[];
   unsigned* hist = smem;                                // [kBins]
   unsigned* stage = hist + kBins;                       // [2][kCluster][kBins]
   unsigned* keys = stage + 2 * kCluster * kBins;
+  // BITS != 0: signs[4 * row + e] bit l = the sign of d at key 128 * row +
+  // 4 * l + e of the slice (the lanes of one warp's float4 loads)
+  unsigned* signs = keys + slice;
   __shared__ __align__(8) unsigned long long staged[2]; // mbarriers, by parity
   __shared__ unsigned warp_sum[kBins / 32];
   __shared__ unsigned pick[2];                          // next prefix, rank
@@ -398,22 +505,33 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
   asm volatile("griddepcontrol.wait;" ::: "memory");
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
-  // the slice, loaded once: keys[j] = bits(|d[me * slice + j]|)
+  // the slice, loaded once: keys[j] = bits(|d[me * slice + j]|), the sign
+  // bit cleared (IEEE abs); a warp's 128 keys per step are one row, so its
+  // trip count is uniform and its ballots gather the row's sign bits
   const long long base = static_cast<long long>(me) * slice;
   for (int j = 4 * t; j < slice; j += 4 * kClusterThreads) {
     const long long i = base + j;
-    uint4 kv;
+    unsigned raw[4];
     if (VEC && i + 3 < n) {
       const float4 v = __ldg(reinterpret_cast<const float4*>(d + i));
-      kv = make_uint4(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y)),
-                      __float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w)));
+      raw[0] = __float_as_uint(v.x); raw[1] = __float_as_uint(v.y);
+      raw[2] = __float_as_uint(v.z); raw[3] = __float_as_uint(v.w);
     } else {
-      kv.x = i < n ? __float_as_uint(fabsf(d[i])) : kNoKey;
-      kv.y = i + 1 < n ? __float_as_uint(fabsf(d[i + 1])) : kNoKey;
-      kv.z = i + 2 < n ? __float_as_uint(fabsf(d[i + 2])) : kNoKey;
-      kv.w = i + 3 < n ? __float_as_uint(fabsf(d[i + 3])) : kNoKey;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) raw[e] = i + e < n ? __float_as_uint(d[i + e]) : kNoKey;
     }
-    *reinterpret_cast<uint4*>(keys + j) = kv;
+    *reinterpret_cast<uint4*>(keys + j) =
+        make_uint4(i < n ? raw[0] & 0x7FFFFFFFu : kNoKey,
+                   i + 1 < n ? raw[1] & 0x7FFFFFFFu : kNoKey,
+                   i + 2 < n ? raw[2] & 0x7FFFFFFFu : kNoKey,
+                   i + 3 < n ? raw[3] & 0x7FFFFFFFu : kNoKey);
+    if constexpr (BITS != 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const unsigned b = __ballot_sync(0xFFFFFFFFu, i + e < n && (raw[e] >> 31));
+        if ((t & 31) == e) signs[4 * (j / kLanes) + e] = b;
+      }
+    }
   }
   __syncthreads();
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
@@ -494,23 +612,26 @@ topk_cluster_kernel(const float* __restrict__ d, long long n, unsigned k, int sl
     prefix = pick[0];
     rank = pick[1];
   }
-  if (me == 0 && t == 0) *tau = __uint_as_float(prefix);
+  if (blockIdx.x == 0 && t == 0) *tau = __uint_as_float(prefix);
+  if constexpr (BITS != 0)
+    compress_slice<BITS, RES, VEC>(keys, signs, slice, base, n, __uint_as_float(prefix), c, r);
   asm volatile("barrier.cluster.wait;" ::: "memory");
 }
 
-// the launch configuration of a kCluster-CTA cluster with `smem` bytes of
-// dynamic shared memory per CTA, and programmatic dependent launch when `pdl`
+// the launch configuration of `clusters` kCluster-CTA clusters with `smem`
+// bytes of dynamic shared memory per CTA, and programmatic dependent launch
+// when `pdl`
 struct ClusterLaunch {
   cudaLaunchAttribute attr[2];
   cudaLaunchConfig_t cfg = {};
-  ClusterLaunch(size_t smem, cudaStream_t stream, bool pdl) {
+  ClusterLaunch(size_t smem, cudaStream_t stream, bool pdl, int clusters = 1) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = kCluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
     attr[1].val.programmaticStreamSerializationAllowed = 1;
-    cfg.gridDim = dim3(kCluster);
+    cfg.gridDim = dim3(kCluster * clusters);
     cfg.blockDim = dim3(kClusterThreads);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
@@ -520,56 +641,87 @@ struct ClusterLaunch {
 };
 
 // once per device and instance, under a lock: shared memory above 48 KB,
-// clusters above 8 CTAs, and the guard that one cluster at the largest
-// slice fits the card (cudaOccupancyMaxActiveClusters >= 1)
-template <bool VEC>
-cudaError_t prepare_topk_cluster(int device) {
+// clusters above 8 CTAs, and how many clusters at the largest slice the
+// card runs at once (cudaOccupancyMaxActiveClusters; fewer than 1 refuses)
+template <bool VEC, int BITS, bool RES>
+cudaError_t prepare_topk_cluster(int device, int* max_clusters) {
   constexpr int kMaxDevices = 64;
   static std::mutex mu;
   static cudaError_t state[kMaxDevices];
+  static int active[kMaxDevices];
   static bool done[kMaxDevices] = {};
   if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
-  if (done[device]) return state[device];
-  auto kernel = topk_cluster_kernel<VEC>;
-  const size_t smem = cluster_smem_bytes(kClusterSliceMax);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e == cudaSuccess) {
-    ClusterLaunch launch(smem, nullptr, false);
+  if (!done[device]) {
+    auto kernel = topk_cluster_kernel<VEC, BITS, RES>;
+    const size_t smem = cluster_smem_bytes(kClusterSliceMax, BITS != 0);
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     int clusters = 0;
-    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
-    if (e == cudaSuccess && clusters < 1) e = cudaErrorLaunchOutOfResources;
+    if (e == cudaSuccess) {
+      ClusterLaunch launch(smem, nullptr, false);
+      e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
+      if (e == cudaSuccess && clusters < 1) e = cudaErrorLaunchOutOfResources;
+    }
+    state[device] = e;
+    active[device] = clusters;
+    done[device] = true;
   }
-  state[device] = e;
-  done[device] = true;
-  return e;
+  *max_clusters = active[device];
+  return state[device];
 }
 
-template <bool VEC>
+// the clusters of a compressing launch: as many as the card runs at once,
+// but no more than a CTA's slice has rows
+inline int compress_clusters(long long slice, int max_clusters) {
+  const long long rows = slice / kLanes;
+  return static_cast<int>(rows < max_clusters ? rows : max_clusters);
+}
+
+template <bool VEC, int BITS, bool RES>
 int launch_topk_cluster_as(const float* d, long long n, unsigned k, int slice,
-                           float* tau, cudaStream_t stream) {
-  int device = 0;
+                           float* tau, float* c, float* r, cudaStream_t stream) {
+  int device = 0, max_clusters = 0;
   cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = prepare_topk_cluster<VEC>(device);
+  if (e == cudaSuccess) e = prepare_topk_cluster<VEC, BITS, RES>(device, &max_clusters);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ClusterLaunch launch(cluster_smem_bytes(slice), stream, true);
-  e = cudaLaunchKernelEx(&launch.cfg, topk_cluster_kernel<VEC>, d, n, k, slice, tau);
+  ClusterLaunch launch(cluster_smem_bytes(slice, BITS != 0), stream, true,
+                       BITS != 0 ? compress_clusters(slice, max_clusters) : 1);
+  e = cudaLaunchKernelEx(&launch.cfg, topk_cluster_kernel<VEC, BITS, RES>, d, n, k, slice,
+                         tau, c, r);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_topk_cluster(const float* d, long long n, long long k, float* tau,
-                        cudaStream_t stream) {
+// bits 0: the threshold alone; 8/16/32: the top-k compressed upload into c
+// (and r when it is not NULL)
+int launch_topk_cluster(const float* d, long long n, long long k, int bits, float* tau,
+                        float* c, float* r, cudaStream_t stream) {
   if (k < 1 || k > n || n > 0xFFFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   const long long slice = cluster_slice(n);
   if (slice == 0) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned kk = static_cast<unsigned>(k);
   const int sl = static_cast<int>(slice);
-  return aligned16(d) ? launch_topk_cluster_as<true>(d, n, kk, sl, tau, stream)
-                      : launch_topk_cluster_as<false>(d, n, kk, sl, tau, stream);
+  const bool vec = aligned16(d) && (bits == 0 || (aligned16(c) && aligned16(r)));
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  auto go = [&](auto VC, auto BC, auto RC) {
+    err = launch_topk_cluster_as<decltype(VC)::value, decltype(BC)::value,
+                                 decltype(RC)::value>(d, n, kk, sl, tau, c, r, stream);
+  };
+  dispatch_bool(vec, [&](auto VC) {
+    if (bits == 0) {
+      go(VC, std::integral_constant<int, 0>{}, std::false_type{});
+      return;
+    }
+    dispatch_bool(r != nullptr, [&](auto RC) {
+      if (bits == 8) go(VC, std::integral_constant<int, 8>{}, RC);
+      else if (bits == 16) go(VC, std::integral_constant<int, 16>{}, RC);
+      else if (bits == 32) go(VC, std::integral_constant<int, 32>{}, RC);
+    });
+  });
+  return err;
 }
 
 // ---------------------------------------------------------------------------
@@ -651,7 +803,18 @@ int up_topk_workspace_words() { return kWorkspaceWords; }
 
 // the threshold up to the cut, in one launch of one 16-CTA cluster
 int up_topk_cluster(const void* d, long long n, long long k, void* tau, void* stream) {
-  return launch_topk_cluster(static_cast<const float*>(d), n, k, static_cast<float*>(tau),
+  return launch_topk_cluster(static_cast<const float*>(d), n, k, 0, static_cast<float*>(tau),
+                             nullptr, nullptr, static_cast<cudaStream_t>(stream));
+}
+
+// the top-k compressed upload up to the cut, in the same one launch: tau,
+// then c (and r = d - c when r is not NULL) at bits 8, 16 or 32
+int up_topk_compress(const void* d, long long n, long long k, int bits, void* tau, void* c,
+                     void* r, void* stream) {
+  if ((bits != 8 && bits != 16 && bits != 32) || c == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_topk_cluster(static_cast<const float*>(d), n, k, bits, static_cast<float*>(tau),
+                             static_cast<float*>(c), static_cast<float*>(r),
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -660,6 +823,24 @@ int up_topk_cluster(const void* d, long long n, long long k, void* tau, void* st
 int up_topk_cluster_smem_bytes(long long n) {
   const long long slice = cluster_slice(n);
   return slice ? static_cast<int>(cluster_smem_bytes(slice)) : 0;
+}
+
+// the same for up_topk_compress (the keys and d's sign bits)
+int up_topk_compress_smem_bytes(long long n) {
+  const long long slice = cluster_slice(n);
+  return slice ? static_cast<int>(cluster_smem_bytes(slice, true)) : 0;
+}
+
+// the clusters of one up_topk_compress launch on n elements on the current
+// device (each of kCluster CTAs); 0 above the cut, below 0 a CUDA error
+int up_topk_compress_clusters(long long n) {
+  const long long slice = cluster_slice(n);
+  if (slice == 0) return 0;
+  int device = 0, max_clusters = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = prepare_topk_cluster<true, 8, true>(device, &max_clusters);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return compress_clusters(slice, max_clusters);
 }
 
 int up_dp_clip_noise(void* out, const void* d, const void* z, const void* scalars,

@@ -3,7 +3,8 @@
 The counterpart of ``repro/kernels/fused_update.py``'s ``local_step``,
 ``weighted_delta``, ``server_update``, ``compress_delta``,
 ``dp_clip_noise`` and ``delta_accum``, plus ``topk_threshold`` (a jnp function in
-``repro/fl/compression.py``, a kernel here).  Each function here comes
+``repro/fl/compression.py``, a kernel here) and ``topk_compress`` (the
+threshold and ``compress_delta`` in one launch).  Each function here comes
 in two forms:
 
   ``<name>``        the wrapper.  On a CUDA tensor it launches the
@@ -526,6 +527,58 @@ def topk_threshold(d: torch.Tensor, k: int) -> torch.Tensor:
 topk_threshold.launches = 0
 
 
+def topk_compress_plain(d, k: int, *, bits: int = 32,
+                        with_residual: bool = False):
+    """The fused kernel's arithmetic: τ by ``topk_cluster_plain``, then
+    ``compress_delta_plain`` with top-k at τ.  Returns ``(c, r, τ)``;
+    ``r`` is None unless ``with_residual``."""
+    tau = topk_cluster_plain(d, k)
+    out = compress_delta_plain(d, tau, bits=bits, topk=True,
+                               with_residual=with_residual)
+    c, r = out if with_residual else (out, None)
+    return c, r, tau
+
+
+def topk_compress(d: torch.Tensor, k: int, *, bits: int = 32,
+                  with_residual: bool = False):
+    """The top-k compressed upload of one client's 1-D f32 delta: τ = the
+    k-th largest |d|, then ``compress_delta`` with top-k at τ (``bits``
+    8 or 16 quantize, 32 keeps the values).  Returns ``(c, r, τ)``, new
+    f32 tensors, ``r = d − c`` or None unless ``with_residual``; τ is a
+    0-dim tensor the host never reads.  On a CUDA tensor a size
+    dispatch: up to ``topk_cut()`` elements ONE launch (counted here) of
+    as many 16-CTA clusters as the card runs at once, each finding τ as
+    the cluster threshold does and compressing its share of the rows as
+    the epilogue; above it ``topk_threshold`` then ``compress_delta``
+    (4 + 1 launches, counted by those two).  A refused launch raises."""
+    _check_bits(bits)
+    if d.dim() != 1:
+        raise ValueError(f"d must be 1-D, got shape {tuple(d.shape)}")
+    n, dev = d.shape[0], d.device
+    _check_1d("d", d, n, torch.float32, dev)
+    k = _check_k(k, n)
+    if not d.is_cuda:
+        return topk_compress_plain(d, k, bits=bits,
+                                   with_residual=with_residual)
+    if n > topk_cut():
+        tau = topk_threshold(d, k)
+        out = compress_delta(d, tau, bits=bits, topk=True,
+                             with_residual=with_residual)
+        c, r = out if with_residual else (out, None)
+        return c, r, tau
+    tau = torch.empty((), dtype=torch.float32, device=dev)
+    c = torch.empty_like(d)
+    r = torch.empty_like(d) if with_residual else None
+    err = _lib().up_topk_compress(_ptr(d), n, k, bits, _ptr(tau), _ptr(c),
+                                  _ptr(r), _stream(d))
+    _check_launch("topk_compress", err)
+    topk_compress.launches += 1
+    return c, r, tau
+
+
+topk_compress.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # DP clip + noise: the materialized private upload of one client
 # ---------------------------------------------------------------------------
@@ -568,7 +621,8 @@ dp_clip_noise.launches = 0
 # the update kernels, the client-upload kernels and the pod backend's
 # aggregation kernel
 KERNELS = (local_step, weighted_delta, server_update)
-UPLOAD_KERNELS = (compress_delta, topk_threshold, dp_clip_noise)
+UPLOAD_KERNELS = (compress_delta, topk_threshold, dp_clip_noise,
+                  topk_compress)
 POD_KERNELS = (delta_accum,)
 
 

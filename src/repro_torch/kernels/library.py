@@ -58,8 +58,13 @@ SIGNATURES = {
     "up_topk_workspace_words": [],
     # d, n, k, tau, stream
     "up_topk_cluster": [P, L, L, P, P],
-    # n -> dynamic shared memory per CTA of up_topk_cluster, in bytes
+    # d, n, k, bits, tau, c, r, stream
+    "up_topk_compress": [P, L, L, I, P, P, P, P],
+    # n -> dynamic shared memory per CTA of up_topk_cluster /
+    # up_topk_compress, in bytes; clusters of one up_topk_compress launch
     "up_topk_cluster_smem_bytes": [L],
+    "up_topk_compress_smem_bytes": [L],
+    "up_topk_compress_clusters": [L],
     # out, d, z, scalars, n, stream
     "up_dp_clip_noise": [P, P, P, P, L, P],
 }

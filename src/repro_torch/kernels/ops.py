@@ -7,8 +7,8 @@ CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
 (``interpret=True``: the plain version on any device).
 
 The FL layers call the ``fused_*`` half (the update kernels, the
-client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``
-and ``fused_dp_clip_noise``, and the pod backend's
+client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``,
+``fused_topk_compress`` and ``fused_dp_clip_noise``, and the pod backend's
 ``fused_delta_accum``) through
 ``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
 ``interpret=fused_interpret(impl)``:
@@ -119,6 +119,16 @@ def fused_topk_threshold(d, k: int, *, interpret: bool = False
     """The k-th largest |d| of a flat f32 buffer, a 0-dim device tensor."""
     fn = _fu.topk_threshold_plain if interpret else _fu.topk_threshold
     return fn(d, k)
+
+
+def fused_topk_compress(d, k: int, *, bits: int = 32,
+                        with_residual: bool = False,
+                        interpret: bool = False):
+    """The top-k compressed upload of one client's f32 flat delta: the
+    k-th largest |d| and the compressed form at it; returns ``(c, r,
+    τ)``, ``r`` None unless ``with_residual``."""
+    fn = _fu.topk_compress_plain if interpret else _fu.topk_compress
+    return fn(d, k, bits=bits, with_residual=with_residual)
 
 
 def fused_dp_clip_noise(d, z, scalars, *, interpret: bool = False

@@ -226,8 +226,105 @@ def test_cpu_tensors_never_count_upload_launches():
     g = torch.randn(300)
     tau = fu.topk_threshold(g, 4)
     fu.compress_delta(g, tau, bits=8, topk=True, with_residual=True)
+    fu.topk_compress(g, 4, bits=8, with_residual=True)
     fu.dp_clip_noise(g, g, torch.tensor([1.0, 0.1]))
-    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 6
+    assert fu.topk_compress in fu.UPLOAD_KERNELS
+    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 7
+
+
+# ---------------------------------------------------------------------------
+# the top-k compressed upload in one call (on the card one fused launch)
+# ---------------------------------------------------------------------------
+
+def _upload_input(n):
+    d = _delta(n, seed=n + 11)          # a whole zero row from 128 on
+    d[5] = -0.0
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_topk_compress(n, bits):
+    """The JAX package's threshold and its Pallas compress_delta in
+    interpret mode, at density 0.25 with the residual."""
+    jd = jnp.asarray(_upload_input(n))
+    jtau = jcomp.topk_threshold(jd, comp.topk_k(CompressionSpec(density=0.25),
+                                                n))
+    jc, jr = jops.fused_compress_delta(jd, jtau, bits=bits, topk=True,
+                                       with_residual=True, interpret=True)
+    return np.asarray(jc), np.asarray(jr), np.asarray(jtau)
+
+
+def _bits_of(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("n", [1000, 2048, 137_216])
+@pytest.mark.parametrize("bits", BITS)
+@pytest.mark.parametrize("res", [False, True])
+def test_topk_compress_plain_matches_jax_bitwise(n, bits, res):
+    """``topk_compress_plain`` (the cluster threshold's arithmetic, then
+    compress_delta's) against the JAX package's threshold + Pallas
+    kernel: c, r and τ bit for bit (an all-zero row, a -0.0, a partial
+    last row at 1,000, CTAs with empty slices at 1,000 and 2,048), and
+    the wrapper on a CPU tensor takes it without counting a launch."""
+    jc, jr, jtau = _jax_topk_compress(n, bits)
+    d = torch.from_numpy(_upload_input(n))
+    k = comp.topk_k(CompressionSpec(density=0.25), n)
+    c, r, tau = fu.topk_compress_plain(d, k, bits=bits, with_residual=res)
+    np.testing.assert_array_equal(_bits_of(c), _bits_of(jc))
+    assert tau.shape == () and _bits_of(tau) == _bits_of(jtau)
+    if res:
+        np.testing.assert_array_equal(_bits_of(r), _bits_of(jr))
+    else:
+        assert r is None
+    before = fu.topk_compress.launches
+    c2, r2, tau2 = fu.topk_compress(d, k, bits=bits, with_residual=res)
+    assert fu.topk_compress.launches == before
+    assert torch.equal(c2, c) and torch.equal(tau2, tau)
+    assert (r2 is None) if not res else torch.equal(r2, r)
+
+
+@pytest.mark.parametrize("spec,fused", [
+    (CompressionSpec(bits=8, density=0.25, error_feedback=True), True),
+    (CompressionSpec(bits=32, density=0.5), True),
+    (CompressionSpec(bits=16), False),
+    (CompressionSpec(bits=8, error_feedback=True), False)])
+def test_flat_ops_send_topk_uploads_through_one_call(monkeypatch, spec,
+                                                      fused):
+    """FlatParamOps.compress_delta makes one ``fused_topk_compress``
+    call per bucket when it sparsifies and one ``fused_compress_delta``
+    call when it only quantizes; the result equals numpy_compress."""
+    from repro_torch.kernels import ops
+    calls = []
+    for name in ("fused_topk_compress", "fused_compress_delta",
+                 "fused_topk_threshold"):
+        fn = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _fn=fn, _n=name, **kw:
+                            calls.append(_n) or _fn(*a, **kw))
+    n = 700
+    d = _delta(n, seed=5)
+    view = FlatView.of({"w": torch.zeros(n)})
+    fops = FlatParamOps(view=view, interpret=False, device=torch.device("cpu"))
+    c, r = fops.compress_delta(fops.pad({"float32": torch.from_numpy(d)}),
+                               spec)
+    assert calls == ["fused_topk_compress" if fused else
+                     "fused_compress_delta"]
+    c_np, r_np = jcomp.numpy_compress(d, _jspec(spec))
+    np.testing.assert_array_equal(c["float32"][:n].numpy(), c_np)
+    if spec.error_feedback:
+        np.testing.assert_array_equal(r["float32"][:n].numpy(), r_np)
+    else:
+        assert r is None
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(k=0, bits=8), ValueError), (dict(k=301, bits=8), ValueError),
+    (dict(k=4, bits=4), ValueError)])
+def test_topk_compress_rejects_bad_arguments(kw, err):
+    with pytest.raises(err):
+        fu.topk_compress(torch.ones(300), kw["k"], bits=kw["bits"])
+    with pytest.raises(TypeError):
+        fu.topk_compress(torch.ones(300, dtype=torch.float64), 4, bits=8)
 
 
 def test_topk_threshold_rejects_bad_k():

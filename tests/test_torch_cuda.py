@@ -459,6 +459,155 @@ def test_topk_threshold_two_streams(gen):
         assert tau.view(torch.int32) == want.view(torch.int32)
 
 
+# the top-k compressed upload: one launch of the cluster threshold with
+# K4 as its epilogue up to the cut, the threshold's passes then K4 above it
+
+def _same_bits(got, want):
+    """(c, r, tau) triples bit for bit (r may be None on both sides)."""
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                float((a - b).abs().max())
+
+
+def _chain(d, k, bits, res):
+    tau = fu.topk_threshold(d, k)
+    out = fu.compress_delta(d, tau, bits=bits, topk=True, with_residual=res)
+    return (*(out if res else (out, None)), tau)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, CUT, 1000))
+@pytest.mark.parametrize("bits", (8, 16, 32))
+def test_topk_compress_matches_plain_and_chain_bitwise(gen, n, bits):
+    """One fused launch, bit-equal (c, r and τ) to topk_compress_plain
+    and to the two-launch chain: the main path's bucket, the cut (each
+    CTA's largest slice) and 1,000 (a partial last row, CTAs with empty
+    slices, one cluster), an all-zero row and a -0.0; the library sizes
+    the launch as stated (shared memory, 1 to rows-per-slice clusters)."""
+    lib, slice_ = fu._lib(), fu.topk_slice(n)
+    assert lib.up_topk_compress_smem_bytes(n) == \
+        4 * (256 + 2 * 16 * 256 + slice_ + slice_ // 32)
+    assert 1 <= lib.up_topk_compress_clusters(n) <= slice_ // 128
+    d = _delta(gen, n)
+    d[5] = -0.0
+    for k in sorted({1, max(1, n // 4), n}):
+        for res in (False, True):
+            before = fu.topk_compress.launches
+            got = fu.topk_compress(d, k, bits=bits, with_residual=res)
+            assert fu.topk_compress.launches - before == 1
+            _same_bits(got, fu.topk_compress_plain(d, k, bits=bits,
+                                                   with_residual=res))
+            _same_bits(got, _chain(d, k, bits, res))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_topk_compress_past_the_cut_takes_the_chain(gen):
+    """One element past the cut: the threshold's four passes, then K4
+    (4 + 1 launches, counted by those two), bit-equal to the plain
+    version."""
+    n = CUT + 1
+    d = _delta(gen, n)
+    counts = [fu.topk_compress.launches, fu.topk_threshold.launches,
+              fu.compress_delta.launches]
+    got = fu.topk_compress(d, n // 4, bits=8, with_residual=True)
+    assert [fu.topk_compress.launches - counts[0],
+            fu.topk_threshold.launches - counts[1],
+            fu.compress_delta.launches - counts[2]] == [0, 4, 1]
+    _same_bits(got, fu.topk_compress_plain(d, n // 4, bits=8,
+                                           with_residual=True))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_topk_compress_two_streams(gen):
+    """Fused uploads in flight at once on two streams, one held back by a
+    sleep: each equals the plain version."""
+    xs = [_delta(gen, n) for n in (137_216, 1000, CUT, 137_216)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for i, x in enumerate(xs):
+        with torch.cuda.stream(streams[i % 2]):
+            if i == 0:
+                torch.cuda._sleep(5_000_000)
+            outs.append(fu.topk_compress(x, -(-x.shape[0] // 4), bits=8,
+                                         with_residual=True))
+    torch.cuda.synchronize()
+    for x, got in zip(xs, outs):
+        _same_bits(got, fu.topk_compress_plain(x, -(-x.shape[0] // 4),
+                                               bits=8, with_residual=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+@pytest.mark.parametrize("with_p", (True, False))
+def test_delta_accum_reads_what_the_op_before_it_wrote(gen, write, with_p):
+    """K6 is launched with programmatic dependent launch: it must not read
+    coeff, d, w or p before the op before it is done.  A sleep holds the
+    stream, fresh values are written into all four (a copy, or a kernel),
+    and K6 follows at once at N 16.8 M; it must see them."""
+    n = 16_777_216
+    srcs = {"d": torch.randn(n, generator=gen, device="cuda"),
+            "w": torch.randn(n, generator=gen, device="cuda"),
+            "p": torch.randn(n, generator=gen, device="cuda"),
+            "coeff": torch.tensor([0.37], device="cuda")}
+    dst = {k: torch.zeros_like(v) for k, v in srcs.items()}
+    want = srcs["d"].clone()
+    fu.delta_accum_plain(want, srcs["w"], srcs["p"] if with_p else None,
+                         srcs["coeff"])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for name in ("coeff", "w", "p", "d"):
+        if write == "copy_":
+            dst[name].copy_(srcs[name])
+        else:
+            torch.mul(srcs[name], 1.0, out=dst[name])
+    fu.delta_accum(dst["d"], dst["w"], dst["p"] if with_p else None,
+                   dst["coeff"])
+    torch.cuda.synchronize()
+    assert torch.equal(dst["d"], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, 1000))
+def test_topk_compress_then_delta_accum_under_graph_capture(gen, n):
+    """The compressed pod aggregate's chain: per client the fused upload,
+    then the accum-only K6 (PDL) reading the c it wrote, with the
+    coefficient a view into one vector.  Run eagerly, and captured by
+    torch.cuda.graph and replayed twice, both bit-equal to the plain
+    chain."""
+    clients = 4
+    ds = [_delta(gen, n) for _ in range(clients)]
+    w = torch.rand(clients, generator=gen, device="cuda") + 0.5
+    coef = w / w.sum()
+    k = -(-n // 4)
+
+    def run(acc, compress, accum):
+        for j, d in enumerate(ds):
+            c, _, _ = compress(d, k, bits=8, with_residual=True)
+            accum(acc, c, None, coef[j])
+        return acc
+    plain = torch.zeros(n, device="cuda")
+    for _ in range(2):
+        run(plain, fu.topk_compress_plain, fu.delta_accum_plain)
+    eager = torch.zeros(n, device="cuda")
+    for _ in range(2):
+        run(eager, fu.topk_compress, fu.delta_accum)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, plain)
+    cap = torch.zeros(n, device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(cap, fu.topk_compress, fu.delta_accum)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap, plain)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", (1, 1001, 137_216))
 def test_dp_clip_noise_matches_plain_bitwise(gen, n):
@@ -479,8 +628,10 @@ def test_upload_kernels_count_launches_and_check(gen):
     fu.compress_delta(d, tau, bits=8, topk=True)
     fu.dp_clip_noise(d, None, torch.ones(2, device="cuda"))
     assert [k.launches for k in fu.KERNELS] == [0, 0, 0]
+    c, r, t2 = fu.topk_compress(d, 100, bits=8, with_residual=True)
     assert [k.launches for k in fu.UPLOAD_KERNELS] == [
-        1, fu.topk_launches(4096), 1]
+        1, fu.topk_launches(4096), 1, 1]
+    assert torch.equal(t2, tau) and r is not None
     assert fu.topk_launches(4096) == 1
     with pytest.raises(ValueError):
         fu.topk_threshold(d, 0)
@@ -490,7 +641,12 @@ def test_upload_kernels_count_launches_and_check(gen):
         fu.compress_delta(d, tau, bits=4)
     with pytest.raises(TypeError):
         fu.dp_clip_noise(d.bfloat16(), None, torch.ones(2, device="cuda"))
+    with pytest.raises(ValueError):
+        fu.topk_compress(d, 0, bits=8)
+    with pytest.raises(ValueError):
+        fu.topk_compress(d, 100, bits=4)
     assert fu.compress_delta.launches == 1
+    assert fu.topk_compress.launches == 1
     torch.cuda.synchronize()
 
 
@@ -531,7 +687,7 @@ def test_delta_accum_counts_launches_and_checks(gen):
     fu.delta_accum(d, w, w, c)
     fu.delta_accum(d, w, None, c)
     assert fu.delta_accum.launches == 2
-    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 6
+    assert [k.launches for k in fu.KERNELS + fu.UPLOAD_KERNELS] == [0] * 7
     with pytest.raises(TypeError):
         fu.delta_accum(d, w, w.bfloat16(), c)
     with pytest.raises(TypeError):

@@ -296,6 +296,77 @@ def test_pod_matches_jax_pod(mesh, sides, case):
 
 
 # ---------------------------------------------------------------------------
+# the round's K6 coefficients: one division per round, the same bits
+# ---------------------------------------------------------------------------
+
+COEFF_CASES = {
+    # name: (PodFLConfig kwargs, PodFLSpec kwargs)
+    "sequential": ({}, {}),
+    "hierarchical": ({"aggregation": "hierarchical", "n_pods": 2}, {}),
+    "compressed-ef": ({}, {"compression": "int8-topk-ef"}),
+    "dp-clip": ({}, {"dp": (0.5, 0.0)}),
+    "dp-clip-hierarchical": ({"aggregation": "hierarchical", "n_pods": 2},
+                             {"dp": (0.5, 0.0)}),
+}
+
+
+@pytest.mark.parametrize("case", COEFF_CASES)
+def test_pod_k6_coefficients_keep_their_bits(mesh, sides, monkeypatch,
+                                             case):
+    """The pod computes every client's coefficient as one vector
+    ``w / Σw`` per round and hands K6 a view of it; each coefficient K6
+    receives is bit-equal to the per-client division ``w_j / Σw`` it
+    received before, and under DP clipping to ``(w_j·scale_j)/Σw``, in
+    that order."""
+    from repro_torch.fl.local import FlatParamOps
+    cfg_kw, spec_kw = COEFF_CASES[case]
+    _, _, jinit, task, data = sides["mlp"]
+    seen = {"w": [], "coeff": [], "scale": []}
+    build = pod.PodAggregateStrategy.build_round
+
+    def build_round(self, task, device):
+        body = build(self, task, device)
+
+        def recording(params, inputs, lr_scale, algo_state):
+            seen["w"].append(inputs.weights.to(torch.float32).clone())
+            return body(params, inputs, lr_scale, algo_state)
+        return recording
+    accum = FlatParamOps.delta_accum
+
+    def delta_accum(self, delta_bufs, w_bufs, p_bufs, coeff):
+        seen["coeff"].append(coeff.clone())
+        return accum(self, delta_bufs, w_bufs, p_bufs, coeff)
+    clip_scale = privacy.clip_scale
+
+    def recording_clip_scale(dp, sqnorm):
+        out = clip_scale(dp, sqnorm)
+        seen["scale"].append(out.clone())
+        return out
+    monkeypatch.setattr(pod.PodAggregateStrategy, "build_round", build_round)
+    monkeypatch.setattr(FlatParamOps, "delta_accum", delta_accum)
+    monkeypatch.setattr(privacy, "clip_scale", recording_clip_scale)
+    cfg = pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K, spec=pod.PodFLSpec(
+            **_spec_kw("fused", **_spec_objects(spec_kw, compression,
+                                                privacy))),
+        sampling="host", eval_every=1,
+        batch_indices=index_source(_indices(ROUNDS, K)), **cfg_kw)
+    res = pod.run_pod_rounds(task, data, cfg, init_params=bridge.
+                             params_from_numpy(jax_numpy_params(jinit)))
+    assert all(np.isfinite(t).all() for t in torch_leaves(res.params))
+    assert len(seen["w"]) == ROUNDS and len(seen["coeff"]) == ROUNDS * K
+    scales = iter(seen["scale"])
+    for rnd, w in enumerate(seen["w"]):
+        wsum = torch.sum(w)
+        for j in range(K):
+            got = seen["coeff"][rnd * K + j].reshape(())
+            want = (w[j] * next(scales)) / wsum if "dp" in spec_kw \
+                else w[j] / wsum
+            assert got.view(torch.int32) == want.view(torch.int32), (rnd, j)
+    assert next(scales, None) is None
+
+
+# ---------------------------------------------------------------------------
 # four ranks: data-parallel steps and the one-all-reduce lane combine
 # ---------------------------------------------------------------------------
 
