@@ -15,7 +15,7 @@ JSON line per phase:
                      cluster kernel (the threshold alone and the fused
                      top-k compressed upload) a cluster barrier and
                      st.async stores into distributed shared memory on
-                     mbarriers, and K1 and K6 griddepcontrol.wait, from
+                     mbarriers, and K1, K4 and K6 griddepcontrol.wait, from
                      cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
@@ -27,7 +27,8 @@ JSON line per phase:
                      K1–K3 and K6 (delta_accum, with p and accum-only,
                      f32 and bf16) at N = 137,216 (LeNet-5, padded) and
                      16,777,216, bitwise; the upload kernels K4
-                     (compress_delta, bits 8/16/32 × top-k × residual),
+                     (compress_delta, launched with programmatic
+                     dependent launch; bits 8/16/32 × top-k × residual),
                      the top-k threshold (a radix select: one launch on a
                      thread-block cluster up to its cut, four above it;
                      also at the cut and one past it) and K5 (dp_clip_noise) at the same N,
@@ -63,10 +64,6 @@ JSON line per phase:
                      total, mask bytes == 4 × secure_agg_mask_bytes(10);
      p2_int8       — the same with int8 dense uploads (quantized, not
                      sparsified): 40 standalone K4 launches;
-     p2_above_cut  — the p2_compressed uploads on the repo's mlp at width
-                     256 (789,258 params, one bucket above the cut): per
-                     upload the threshold's four radix passes and one
-                     standalone K4 (160 and 40 launches);
      dp_upload     — the 10 client uploads of one private engine round
                      (seen through RoundSchedule.on_aggregate), built
                      with K5 from the round's draws and summed by K2,
@@ -132,10 +129,6 @@ sys.path.insert(0, str(ROOT / "src"))
 N_SMALL = 137_216          # LeNet-5's 136,886 params padded to 1024
 N_LARGE = 16_777_216
 TOPK_CUT = 16 * 40 * 1024  # fused_update.topk_cut(): the cluster's reach
-# the mlp at width 256 on 32x32x3 inputs: 789,258 f32 params padded to 1024,
-# one bucket above TOPK_CUT (p2_above_cut)
-MLP_WIDE_HIDDEN = 256
-MLP_WIDE_N = 789_504
 KERNEL_TOL = 0.0    # bitwise: K1-K3 round where the plain versions do
 SEED = 0
 
@@ -184,6 +177,12 @@ def _kernel_cases() -> dict:
         # cluster kernel) and N_LARGE (four radix passes)
         "topk_threshold": {"main": dict(n=N_SMALL),
                            "large": dict(n=N_LARGE)},
+        # K4 alone back to back at the main path's bucket: the int8 dense
+        # upload (p2_int8), and top-k + residual (the chain's second launch)
+        "compress_delta": {"int8": dict(n=N_SMALL, bits=8, topk=False,
+                                        res=False),
+                           "topk_res": dict(n=N_SMALL, bits=8, topk=True,
+                                            res=True)},
         # the top-k compressed upload (int8 + residual, density 0.25) at the
         # main path's bucket and at the cut: one fused launch, the
         # two-launch chain timed in turns beside it
@@ -211,8 +210,8 @@ def _kernel_cases() -> dict:
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
 # hymba-1.5b's serve shapes first, then, for tools/kernel_trees.py only
 # (which times any of these cases on two source trees), K1's, the
-# threshold's, the top-k compressed upload's, K6's and three profiled
-# rounds'.
+# threshold's, K4's, the top-k compressed upload's, K6's and three
+# profiled rounds'.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -423,7 +422,7 @@ class KernelBench:
         d[128:256] = 0.0
         return d
 
-    def compress_delta(self, n, bits, topk, res):
+    def compress_delta(self, n, bits, topk, res, dtype=None, label=""):
         torch, fu = self.torch, self.fu
         d = self.delta(n)
         k = -(-n // 4)                      # density 0.25
@@ -440,7 +439,8 @@ class KernelBench:
         n_ops = n * (3 * topk + (7 if bits != 32 else 0) + res)
         bound, by = self.bound_ms(n_bytes, n_ops)
         return dict(kernel="compress_delta", n=n, bits=bits, topk=topk,
-                    residual=res, max_abs_err=err, bitwise=bitwise, ms=ms,
+                    residual=res, max_abs_err=err, bitwise=bitwise,
+                    within_tol=bitwise, ms=ms,
                     plain_ms=plain, library_ms=None,
                     library_note="no PyTorch call quantizes blockwise with "
                     "bf16 scales", bound_ms=bound, bound_by=by)
@@ -628,7 +628,8 @@ class KernelBench:
         torch.profiler: the device's busy ms and operations, the top-k
         kernels, and the idle gap before each K6 (its start less the
         latest end of the device ops before it; below 0 when K6's blocks
-        start before that op has drained)."""
+        start before that op has drained), and the top device ops by
+        time."""
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.fl.compression import CompressionSpec
         from repro_torch.fl.pod import run_pod_rounds
@@ -650,7 +651,7 @@ class KernelBench:
                 wall_ms = (time.perf_counter() - t0) * 1e3
         finally:
             destroy()
-        busy, n_ops, _ = device_activity(prof)
+        busy, n_ops, top = device_activity(prof)
         gaps, k6_us = gaps_before(prof, "delta_accum_kernel")
         topk_us, topk_kernels = kernel_time(prof, ("topk_",))
         ok = len(gaps) == fed.clients_per_round and \
@@ -662,7 +663,8 @@ class KernelBench:
                     k6_gap_us_max=max(gaps) if gaps else None,
                     k6_us_median=statistics.median(k6_us) if k6_us else None,
                     topk_kernels=topk_kernels, topk_device_ms=topk_us / 1e3,
-                    library_ms=None, bound_ms=None, within_tol=ok)
+                    top_device_ops=top, library_ms=None, bound_ms=None,
+                    within_tol=ok)
 
     def dp_clip_noise(self, n, has_z):
         torch, fu = self.torch, self.fu
@@ -878,12 +880,13 @@ SASS_FAMILIES = {
     "topk_cluster_kernel": ("topk_cluster_kernel",),
     "local_step_kernel": ("local_step_kernel",),
     "delta_accum_kernel": ("delta_accum_kernel",),
+    "compress_delta_kernel": ("compress_delta_kernel",),
 }
 # the families whose every template instance is checked on its own: the
 # cluster kernel's threshold-only and fused (compressing) instances, and
-# the PDL-launched K1 and K6
+# the PDL-launched K1, K4 and K6
 SASS_PER_INSTANCE = ("topk_cluster_kernel", "local_step_kernel",
-                     "delta_accum_kernel")
+                     "delta_accum_kernel", "compress_delta_kernel")
 # the SASS opcodes counted: wgmma (HGMMA), mma.sync (HMMA), a TMA load
 # (UTMALDG), cp.async (LDGSTS); the cluster barrier's arrive and wait
 # (UCGABAR_ARV, UCGABAR_WAIT: barrier.cluster); st.async into another CTA's
@@ -941,6 +944,8 @@ def sass_features(lib_path) -> dict:
                 topk_fused_cluster=every("topk_cluster_kernel", cluster_ops,
                                          fused),
                 delta_accum_pdl_wait=every("delta_accum_kernel", ("ACQBULK",)),
+                compress_delta_pdl_wait=every("compress_delta_kernel",
+                                              ("ACQBULK",)),
                 prefill_hgmma=counts.get("fa_wgmma_kernel", {}).get("HGMMA", 0) > 0,
                 prefill_tma=counts.get("fa_wgmma_kernel", {}).get("UTMALDG", 0) > 0,
                 prefill_ldgsts=counts.get("fa_wgmma_kernel", {}).get("LDGSTS", 0) > 0,
@@ -991,9 +996,10 @@ def check_upload_kernels(torch, bench) -> dict:
     at the cut and at 1,000 (a partial last row), bitwise against its
     plain version and the two-launch chain, and one past the cut (its
     4 + 1 launches); then the shapes their paths give them (returned):
-    K4 at bits 8 without top-k or residual (p2_int8), the threshold at
-    density 0.25 of the wide mlp's bucket (p2_above_cut), K5 with noise,
-    the fused upload at int8 + residual (p2_compressed)."""
+    K4 at bits 8 without top-k or residual (p2_int8), the threshold
+    alone at density 0.25 of the main path's bucket (fused into the
+    top-k upload there), K5 with noise, the fused upload at int8 +
+    residual (p2_compressed)."""
     rows = []
     fu = bench.fu
     for n in (N_SMALL, N_LARGE):
@@ -1032,7 +1038,7 @@ def check_upload_kernels(torch, bench) -> dict:
                          "other than 1 up to the cut and 4 + 1 above it")
     return {
         "compress_delta": bench.compress_delta(N_SMALL, 8, False, False),
-        "topk_threshold": bench.topk_threshold(MLP_WIDE_N),
+        "topk_threshold": bench.topk_threshold(N_SMALL),
         "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True),
         "topk_compress": bench.topk_compress(N_SMALL, 8, True),
     }
@@ -1273,18 +1279,6 @@ def lenet_setup():
     return vision_task("lenet5", n_classes=10, in_ch=3), data
 
 
-@functools.lru_cache(maxsize=1)
-def mlp_wide_setup():
-    """The repo's mlp (``models/paper_models.py``) at width 256 on the
-    main path's data (32×32×3 cifar10-like): 789,258 f32 params in one
-    bucket, above ``topk_cut()``, so its top-k upload takes the
-    threshold's four radix passes and a standalone K4 (p2_above_cut)."""
-    from repro_torch.fl.task import vision_task
-    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={
-        "img": 32, "d_hidden": MLP_WIDE_HIDDEN})
-    return task, lenet_setup()[1]
-
-
 def upload_configs():
     """The P2 upload configurations: the repo's compressed setting
     (benchmarks/table4_comm.py:47), its private one
@@ -1299,33 +1293,27 @@ def upload_configs():
             "p2_int8": dict(compression=CompressionSpec(bits=8))}
 
 
-def upload_launches(fu, comp, n: int, uploads: int) -> dict:
-    """The launches of ``uploads`` client uploads of one ``n``-element
-    bucket under CompressionSpec ``comp`` (None: uncompressed): top-k
-    uploads are one fused launch each up to ``topk_cut()``, the
-    threshold's passes and a standalone K4 above it; quantized-only
-    uploads a standalone K4."""
+def upload_launches(comp, uploads: int) -> dict:
+    """The upload kernels' launches of ``uploads`` client uploads of the
+    main path's bucket (below ``topk_cut()``) under CompressionSpec
+    ``comp`` (None: uncompressed): a top-k upload is one fused launch,
+    a quantized-only upload a standalone K4."""
     from repro_torch.fl.compression import compression_on
     out = {"compress_delta": 0, "topk_threshold": 0, "topk_compress": 0}
     if not compression_on(comp):
         return out
     if not comp.sparsifies:
         return dict(out, compress_delta=uploads)
-    if n <= fu.topk_cut():
-        return dict(out, topk_compress=uploads)
-    return dict(out, compress_delta=uploads,
-                topk_threshold=uploads * fu.topk_launches(n))
+    return dict(out, topk_compress=uploads)
 
 
-def upload_phase(torch, fu, phase: str, fed_kw: dict, setup=None,
-                 n_bucket: int = N_SMALL):
-    """Phases p2_compressed / p2_private / p2_int8 / p2_above_cut: the
-    main path's pipeline (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients)
-    with the P2 upload of ``fed_kw``, through
-    ``run_cyclic_then_federated``, on LeNet-5 or ``setup()``'s task
-    (whose one f32 bucket holds ``n_bucket`` elements); launches, ledger
-    and accuracy asserted, then a profiled P2 round and the kernels
-    against the plain path.  Returns the launches and the P2 result."""
+def upload_phase(torch, fu, phase: str, fed_kw: dict):
+    """Phases p2_compressed / p2_private / p2_int8: the main path's
+    pipeline (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients) with the P2
+    upload of ``fed_kw``, through ``run_cyclic_then_federated``;
+    launches, ledger and accuracy asserted, then a profiled P2 round and
+    the kernels against the plain path.  Returns the launches and the P2
+    result."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import comm_accounting as acc
@@ -1336,7 +1324,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict, setup=None,
     from repro_torch.fl.simulation import FLConfig, run_federated
     from repro_torch.utils.tree_math import size_bytes
 
-    task, data = (setup or lenet_setup)()
+    task, data = lenet_setup()
     cyc = CyclicConfig(rounds=4, participation=0.25, local_steps=20,
                        batch_size=32, update_impl="fused", sampling="host")
     fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
@@ -1357,8 +1345,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict, setup=None,
             fed.rounds * k2 * fed.local_steps,
             "weighted_delta": fed.rounds, "server_update": fed.rounds,
             "dp_clip_noise": 0,
-            **upload_launches(fu, fed.compression, n_bucket,
-                              fed.rounds * k2)}
+            **upload_launches(fed.compression, fed.rounds * k2)}
     x = size_bytes(res.federated.params)
     payload = _upload_payload_bytes(task, fed.compression)
     p2 = (fed.rounds * acc.compressed_round_bytes("fedavg", k2, x, payload)
@@ -1378,8 +1365,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict, setup=None,
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, n_ops, top = device_activity(prof)
     e2e = upload_e2e(torch, task, data, fed_kw)
-    emit(dict(phase=phase, model=task.name, bucket=n_bucket,
-              dataset="cifar10-like",
+    emit(dict(phase=phase, model=task.name, dataset="cifar10-like",
               upload={k: str(v) for k, v in fed_kw.items()},
               history=res.history, wall_s=wall,
               profiled_p2_round=dict(
@@ -1737,7 +1723,7 @@ def pod_compressed(torch, fu, mesh, init):
     want = {"local_step": fed.rounds * k2 * fed.spec.local_steps,
             "weighted_delta": 0, "server_update": 2 * fed.rounds,
             "dp_clip_noise": 0, "delta_accum": fed.rounds * k2,
-            **upload_launches(fu, comp, N_SMALL, fed.rounds * k2)}
+            **upload_launches(comp, fed.rounds * k2)}
     payload = _upload_payload_bytes(task, comp)
     closed = fed.rounds * acc.compressed_round_bytes(
         "fedavg", k2, size_bytes(res.params), payload)
@@ -2114,6 +2100,8 @@ def main(argv=None) -> int:
                          "instances lack the cluster barrier or st.async")
     if sass["cuobjdump"] and not sass["delta_accum_pdl_wait"]:
         raise SystemExit("chip_smoke: K6 does not wait on griddepcontrol")
+    if sass["cuobjdump"] and not sass["compress_delta_pdl_wait"]:
+        raise SystemExit("chip_smoke: K4 does not wait on griddepcontrol")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     local_step_vs_add(torch, fu, bench)
@@ -2129,9 +2117,6 @@ def main(argv=None) -> int:
     dp_launches = dp_upload(torch, fu, private.federated.params,
                             configs["p2_private"])
     int8_launches, _ = upload_phase(torch, fu, "p2_int8", configs["p2_int8"])
-    wide_launches, _ = upload_phase(torch, fu, "p2_above_cut",
-                                    configs["p2_compressed"],
-                                    setup=mlp_wide_setup, n_bucket=MLP_WIDE_N)
     p2_rounds(torch, private.cyclic.params)
     from repro_torch.launch.mesh import destroy, make_host_mesh
     mesh = make_host_mesh()
@@ -2164,14 +2149,15 @@ def main(argv=None) -> int:
                                else {})))
     # the upload kernels, each with the launches of the path it is on:
     # the top-k upload is one fused launch on the main compressed path
-    # (K4 and the threshold in one), K4 alone on the int8 dense path, the
-    # threshold's passes and K4 above the cut
+    # (K4 and the threshold in one, so the threshold alone launches on no
+    # path driven here: it runs above the cut only), K4 alone on the int8
+    # dense path
     upload_src = "src/repro_torch/kernels/csrc/upload.cu"
     for kname, replaces, n_launch, path in (
             ("compress_delta", "src/repro/kernels/fused_update.py:283",
              int8_launches["compress_delta"], "p2_int8"),
             ("topk_threshold", "jnp src/repro/fl/compression.py:156",
-             wide_launches["topk_threshold"], "p2_above_cut"),
+             comp_launches["topk_threshold"], "p2_compressed"),
             ("dp_clip_noise", "src/repro/kernels/fused_update.py:351",
              dp_launches["dp_clip_noise"], "dp_upload"),
             ("topk_compress", "src/repro/kernels/fused_update.py:283 + "
@@ -2191,6 +2177,8 @@ def main(argv=None) -> int:
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=path, **shape))
     kernels[-1]["pod_compressed_launches"] = pod_comp_launches["topk_compress"]
+    next(k for k in kernels if k["name"] == "topk_threshold")[
+        "fused_into"] = "topk_compress"
     # K6 on the pod path: the f32 form with p (the sequential
     # aggregate), its accum-only form (pod_compressed) beside it
     r, ra = pod_shapes["delta_accum"], pod_shapes["delta_accum_accum_only"]
@@ -2240,7 +2228,7 @@ def main(argv=None) -> int:
         device_kernels_per_call=k8_kernels["prefill"]
         / max(1, per_phase["ssd_scan"]["prefill"])))
     for k in kernels:
-        if k["launches"] <= 0:
+        if k["launches"] <= 0 and "fused_into" not in k:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "its main path")
     emit({"kernels": kernels})

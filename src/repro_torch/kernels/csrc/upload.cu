@@ -36,7 +36,11 @@
 //    16-byte aligned, otherwise bounds-checked scalar loads with zeros past
 //    the end (the JAX wrapper's zero padding).  The row's |max| is a
 //    __shfl_xor_sync butterfly: a max is exact in any order.  tau arrives as
-//    a device pointer and is never read on the host.
+//    a device pointer and is never read on the host.  It is launched with
+//    programmatic dependent launch (launch_pdl): griddepcontrol.wait before
+//    any access to global memory, then griddepcontrol.launch_dependents, so
+//    its blocks may be staged while the kernel before it drains (behind the
+//    cluster threshold, which triggers at its start, while that runs).
 //  * topk_threshold: a radix select over the f32 bit pattern of |d| (a
 //    non-negative float orders like its bits), one 8-bit digit per pass,
 //    most significant first.  Pass p builds a 256-bin histogram of digit p
@@ -156,6 +160,22 @@ void dispatch_bool(bool b, F&& f) {
   else f(std::false_type{});
 }
 
+// `kernel` on `grid` blocks of kThreads, with programmatic dependent launch
+template <typename... Params, typename... Args>
+cudaError_t launch_pdl(void (*kernel)(Params...), int grid, cudaStream_t stream,
+                       Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // ---------------------------------------------------------------------------
 // compress_delta
 // ---------------------------------------------------------------------------
@@ -261,6 +281,10 @@ compress_delta_kernel(const float* __restrict__ d, const float* __restrict__ tau
                       float* __restrict__ c, float* __restrict__ r, long long n,
                       long long rows) {
   const long long stride = static_cast<long long>(gridDim.x) * kRowsPerBlock;
+  // PDL: the kernel before this one may have written d or tau, or still
+  // read the memory that c and r now hold
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   float tau = 0.0f;
   if constexpr (TOPK) tau = *tau_p;
   // the row loop is uniform across a warp, so every lane reaches the shuffles
@@ -277,10 +301,11 @@ int launch_compress_delta(const float* d, const float* tau, float* c, float* r,
                    (!res || aligned16(r));
   const long long rows = (n + kLanes - 1) / kLanes;
   const int grid = grid_for(rows, kRowsPerBlock);
+  cudaError_t err = cudaSuccess;
   auto go = [&](auto BITS_C, auto TK, auto RS, auto VC) {
-    compress_delta_kernel<decltype(BITS_C)::value, decltype(TK)::value,
-                          decltype(RS)::value, decltype(VC)::value>
-        <<<grid, kThreads, 0, stream>>>(d, tau, c, r, n, rows);
+    err = launch_pdl(compress_delta_kernel<decltype(BITS_C)::value, decltype(TK)::value,
+                                           decltype(RS)::value, decltype(VC)::value>,
+                     grid, stream, d, tau, c, r, n, rows);
   };
   auto with_bits = [&](auto TK, auto RS, auto VC) {
     if (bits == 8) go(std::integral_constant<int, 8>{}, TK, RS, VC);
@@ -292,6 +317,7 @@ int launch_compress_delta(const float* d, const float* tau, float* c, float* r,
       dispatch_bool(vec, [&](auto VC) { with_bits(TK, RS, VC); });
     });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -572,6 +572,32 @@ def test_delta_accum_reads_what_the_op_before_it_wrote(gen, write, with_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+@pytest.mark.parametrize("topk", (True, False))
+def test_compress_delta_reads_what_the_op_before_it_wrote(gen, write, topk):
+    """K4 is launched with programmatic dependent launch: it must not read
+    d or τ before the op before it is done.  A sleep holds the stream,
+    fresh values are written into both (a copy, or a kernel), and K4
+    follows at once at N 16.8 M; it must see them."""
+    n = 16_777_216
+    src_d = _delta(gen, n)
+    src_tau = fu.topk_threshold(src_d, n // 4).reshape(1)
+    d, tau = torch.zeros_like(src_d), torch.zeros_like(src_tau)
+    kw = dict(bits=8, topk=topk, with_residual=True)
+    want = fu.compress_delta_plain(src_d, src_tau, **kw)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for dst, src in ((tau, src_tau), (d, src_d)):
+        if write == "copy_":
+            dst.copy_(src)
+        else:
+            torch.mul(src, 1.0, out=dst)
+    got = fu.compress_delta(d, tau, **kw)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", (137_216, 1000))
 def test_topk_compress_then_delta_accum_under_graph_capture(gen, n):
     """The compressed pod aggregate's chain: per client the fused upload,

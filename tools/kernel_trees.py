@@ -5,8 +5,8 @@
 
 KERNEL names a ``chip_smoke.KernelBench`` method with cases in
 ``chip_smoke.KERNEL_CASES`` (``flash_attention``, ``ssd_scan``,
-``local_step``, ``topk_threshold``, and the profiled ``sgd_step`` and
-``p2_round``).  The cases and the measuring code are NEW_TREE's
+``local_step``, ``topk_threshold``, ``topk_compress``, ``delta_accum``,
+and the profiled ``sgd_step``, ``p2_round`` and ``pod_round``).  The cases and the measuring code are NEW_TREE's
 ``chip_smoke``; the kernels are each tree's.  The turns run OLD, NEW,
 NEW, OLD: each is a subprocess that imports NEW_TREE's
 ``chip_smoke.KernelBench`` with that tree's ``repro_torch`` package
@@ -47,7 +47,7 @@ for dtype in dtypes.split(","):
         r = getattr(bench, kernel)(dtype=getattr(torch, dtype), label=label,
                                    **kw)
         keep = {k: v for k, v in r.items()
-                if isinstance(v, (bool, int, float, str, type(None)))
+                if isinstance(v, (bool, int, float, str, list, type(None)))
                 and k not in ("tree", "case", "dtype")}
         print(json.dumps(dict(tree=tree, case=label, dtype=dtype, **keep)),
               flush=True)
