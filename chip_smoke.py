@@ -15,8 +15,9 @@ JSON line per phase:
                      cluster kernel (the threshold alone and the fused
                      top-k compressed upload) a cluster barrier and
                      st.async stores into distributed shared memory on
-                     mbarriers, and K1, K4 and K6 griddepcontrol.wait, from
-                     cuobjdump;
+                     mbarriers, and every instance of K1, K3, K4, K5 (per
+                     client and rows form) and K6 griddepcontrol.wait
+                     (ACQBULK), from cuobjdump;
   2. kernel        — each CUDA kernel against its plain PyTorch version
                      on the card, over its variants: max abs error under
                      the stated tolerance, kernel and plain ms (median of
@@ -26,13 +27,19 @@ JSON line per phase:
                      operations ÷ the data-sheet peak for their type).
                      K1–K3 and K6 (delta_accum, with p and accum-only,
                      f32 and bf16) at N = 137,216 (LeNet-5, padded) and
-                     16,777,216, bitwise; the upload kernels K4
+                     16,777,216, bitwise, K3 also in its aggregate form
+                     (avg − p formed in the kernel; against its plain
+                     version and the subtraction + delta form, timed in
+                     turns); the upload kernels K4
                      (compress_delta, launched with programmatic
                      dependent launch; bits 8/16/32 × top-k × residual),
                      the top-k threshold (a radix select: one launch on a
                      thread-block cluster up to its cut, four above it;
-                     also at the cut and one past it) and K5 (dp_clip_noise) at the same N,
-                     bitwise; the fused top-k compressed upload
+                     also at the cut and one past it) and K5 (dp_clip_noise,
+                     PDL) at the same N, bitwise, and K5's rows form (the
+                     K uploads of a round in one launch) at K 1/10/25,
+                     bitwise against its plain version and the per-client
+                     chain, timed in turns; the fused top-k compressed upload
                      (topk_compress: one launch of as many threshold
                      clusters as the card runs at once, K4 as their
                      epilogue) at bits 8/16/32 × residual at N 137,216,
@@ -65,10 +72,11 @@ JSON line per phase:
      p2_int8       — the same with int8 dense uploads (quantized, not
                      sparsified): 40 standalone K4 launches;
      dp_upload     — the 10 client uploads of one private engine round
-                     (seen through RoundSchedule.on_aggregate), built
-                     with K5 from the round's draws and summed by K2,
-                     against the engine's folded aggregate (10 K5
-                     launches asserted);
+                     (seen through RoundSchedule.on_aggregate), built by
+                     one rows-form K5 launch from the round's draws and
+                     summed by K2, against the engine's folded aggregate
+                     (one K5 launch per bucket asserted) and bitwise
+                     against the per-client form it replaced;
      p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
                      private configurations (and private under device
                      sampling), in turns from the same P1 params;
@@ -196,9 +204,29 @@ def _kernel_cases() -> dict:
         # one warm P1 round of the main path under the profiler: device
         # ms per SGD step, and the idle gap before each K1
         "sgd_step": {"p1_round": dict(clients=25, steps=20)},
-        # one warm compressed P2 round under the profiler: device ops and
-        # the threshold's device kernels
-        "p2_round": {"compressed": dict(steps=25)},
+        # one warm P2 round under the profiler, the main path's uploads
+        # and the compressed ones: device ops, K3's and the threshold's
+        # device kernels
+        "p2_round": {"main": dict(steps=25, upload=None),
+                     "compressed": dict(steps=25)},
+        # K3 back to back at the main path's bucket: FedAvgM and FedAdam in
+        # the aggregate form (the chain it replaces timed in turns), the
+        # delta form under momentum and the pod's apply ("none")
+        "server_update": {"momentum": dict(n=N_SMALL, opt="momentum",
+                                           form="avg"),
+                          "momentum_delta": dict(n=N_SMALL, opt="momentum"),
+                          "none": dict(n=N_SMALL, opt="none"),
+                          "adam": dict(n=N_SMALL, opt="adam", form="avg")},
+        # K5 back to back: one client's upload with and without noise, and
+        # the rows form for the 10 clients of a round (the per-client chain
+        # timed in turns)
+        "dp_clip_noise": {"per_client": dict(n=N_SMALL, has_z=True),
+                          "per_client_no_noise": dict(n=N_SMALL,
+                                                      has_z=False),
+                          "rows": dict(n=N_SMALL, has_z=True, K=10)},
+        # the materialized DP uploads of one private engine round under the
+        # profiler (draws made beforehand, no masks)
+        "dp_upload": {"private": dict()},
         # one warm pod P2 round on a one-rank NCCL mesh under the
         # profiler: device ops and the idle gap before each K6
         "pod_round": {"compressed": dict(compressed=True),
@@ -210,8 +238,8 @@ def _kernel_cases() -> dict:
 # KernelBench method of that name: the K7/K8 cases of the kernel phase,
 # hymba-1.5b's serve shapes first, then, for tools/kernel_trees.py only
 # (which times any of these cases on two source trees), K1's, the
-# threshold's, K4's, the top-k compressed upload's, K6's and three
-# profiled rounds'.
+# threshold's, K4's, the top-k compressed upload's, K6's, K3's, K5's,
+# three profiled rounds' and the profiled materialized DP uploads'.
 KERNEL_CASES = _kernel_cases()
 
 # data-sheet peaks (NVIDIA H100 SXM data sheet): bytes/s, f32 FLOP/s
@@ -361,44 +389,83 @@ class KernelBench:
                     plain_ms=plain, library_ms=library, library_note=why,
                     bound_ms=bound, bound_by=by)
 
-    def server_update(self, n, opt, dtype=None):
+    def server_update(self, n, opt, dtype=None, label="", form="delta",
+                      turns=3):
+        """K3 back to back, in place on p and its moments.  ``form``
+        "delta" takes the f32 delta; "avg" the round's aggregate (p's
+        dtype), bitwise against its plain version and against the chain
+        it replaces (the torch subtraction, then the delta form), which is
+        timed in turns with it.  On a tree without the aggregate form the
+        chain is the kernel timed."""
+        import inspect
         torch, fu = self.torch, self.fu
         dtype = dtype or torch.float32
         p, d = self.rand(n, dtype=dtype), self.rand(n) * 1e-2
+        avg = (p.float() + d).to(dtype)
         n_m = {"none": 0, "momentum": 1, "adam": 2}[opt]
         moments = [self.rand(n, dtype=dtype).abs() for _ in range(n_m)]
         sc = torch.tensor([0.5, 0.19, 0.0199][:3 if opt == "adam" else 1],
                           dtype=torch.float32, device="cuda")
         kw = dict(opt=opt, beta=0.9, b1=0.9, b2=0.99)
+        has_avg = "avg" in inspect.signature(fu.server_update).parameters
+
+        def chain(pp, mm):
+            fu.server_update(pp, avg.float() - pp.float(), mm, sc, **kw)
+
+        if form == "delta":
+            def run(pp, mm):
+                fu.server_update(pp, d, mm, sc, **kw)
+
+            def plain(pp, mm):
+                fu.server_update_plain(pp, d, mm, sc, **kw)
+        else:
+            run = (lambda pp, mm: fu.server_update(pp, None, mm, sc, avg=avg,
+                                                   **kw)) if has_avg else chain
+
+            def plain(pp, mm):
+                fu.server_update_plain(pp, avg.float() - pp.float(), mm, sc,
+                                       **kw)
 
         def clones():
             return p.clone(), tuple(m.clone() for m in moments)
+        outs = []
+        for fn in (run, plain) + ((chain,) if form == "avg" else ()):
+            pk, mk = clones()
+            fn(pk, mk)
+            outs.append((pk,) + mk)
+        err = self.max_err(list(zip(outs[0], outs[1])))
+        bitwise = all(bool(torch.equal(a, b)) for o in outs[1:]
+                      for a, b in zip(outs[0], o))
         pk, mk = clones()
-        fu.server_update(pk, d, mk, sc, **kw)
+        ms, chain_ms = [], []
+        for _ in range(turns if form == "avg" else 1):
+            ms.append(time_ms(torch, lambda: run(pk, mk)))
+            if form == "avg":
+                chain_ms.append(time_ms(torch, lambda: chain(pk, mk)))
         pp, mp = clones()
-        fu.server_update_plain(pp, d, mp, sc, **kw)
-        err = self.max_err([(pk, pp)] + list(zip(mk, mp)))
-        pk, mk = clones()
-        ms = time_ms(torch, lambda: fu.server_update(pk, d, mk, sc, **kw))
-        pp, mp = clones()
-        plain = time_ms(torch, lambda: fu.server_update_plain(pp, d, mp, sc,
-                                                              **kw))
+        plain_ms = time_ms(torch, lambda: plain(pp, mp))
         e = p.element_size()
-        n_bytes = n * (2 * e + 4 + 2 * e * n_m) + 4 * sc.numel()
-        n_ops = n * {"none": 1, "momentum": 4, "adam": 13}[opt]
+        # p, the delta (f32) or avg (p's dtype) and the moments read once;
+        # p and the moments written once
+        src = 4 if form == "delta" else e
+        n_bytes = n * (2 * e + src + 2 * e * n_m) + 4 * sc.numel()
+        n_ops = n * ({"none": 1, "momentum": 4, "adam": 13}[opt]
+                     + (form == "avg"))
         pl, ml = clones()
         neg_d = (-d).to(dtype)
-        if opt == "none":
+        library, why = None, "no single PyTorch call forms avg - p and " \
+            "applies the server optimizer"
+        if form == "delta" and opt == "none":
             library = time_ms(torch, lambda: pl.add_(d))
             why = "Tensor.add_(d)"
-        elif opt == "momentum":
+        elif form == "delta" and opt == "momentum":
             lib = torch._fused_sgd_
             library = time_ms(torch, lambda: lib(
                 [pl], [neg_d], [ml[0]], weight_decay=0.0, momentum=0.9,
                 lr=0.5, dampening=0.0, nesterov=False, maximize=False,
                 is_first_step=False))
             why = "torch._fused_sgd_ on the pseudo-gradient -d"
-        else:
+        elif form == "delta":
             lib = torch._fused_adam_
             steps = [torch.ones((), device="cuda")]
             library = time_ms(torch, lambda: lib(
@@ -407,11 +474,16 @@ class KernelBench:
                 amsgrad=False, maximize=False))
             why = "torch._fused_adam_ on the pseudo-gradient -d"
         bound, by = self.bound_ms(n_bytes, n_ops)
-        return dict(kernel="server_update", n=n, dtype=str(dtype)[6:],
-                    opt=opt, max_abs_err=err, ms=ms, plain_ms=plain,
+        extra = dict(chain_ms=statistics.median(chain_ms),
+                     chain_ms_turns=chain_ms, ms_turns=ms,
+                     aggregate_form=has_avg) if form == "avg" else {}
+        return dict(kernel="server_update", case=label, n=n,
+                    dtype=str(dtype)[6:], opt=opt, form=form,
+                    max_abs_err=err, bitwise=bitwise,
+                    within_tol=bitwise and err <= KERNEL_TOL,
+                    ms=statistics.median(ms), plain_ms=plain_ms,
                     library_ms=library, library_note=why, bound_ms=bound,
-                    bound_by=by)
-
+                    bound_by=by, **extra)
 
     # --- client-upload kernels (K4, the top-k threshold, K5) ---------------
 
@@ -593,11 +665,13 @@ class KernelBench:
                     k1_us_median=statistics.median(k1_us) if k1_us else None,
                     library_ms=None, bound_ms=None, within_tol=ok)
 
-    def p2_round(self, dtype=None, label="", steps=25):
-        """One warm P2 round of the main path with p2_compressed's uploads
-        (FedAvgM, 10 clients × ``steps`` SGD steps, int8 + top-k 25% +
-        EF) under torch.profiler: the device's busy ms and operations,
-        and the threshold's device kernels and ms."""
+    def p2_round(self, dtype=None, label="", steps=25,
+                 upload="p2_compressed"):
+        """One warm P2 round of the main path (FedAvgM, 10 clients ×
+        ``steps`` SGD steps) with the uploads of ``upload_configs()[upload]``
+        (None: the main path's uncompressed uploads) under
+        torch.profiler: the device's busy ms and operations, the
+        threshold's device kernels and ms, and K3's device kernels."""
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.fl.simulation import FLConfig, run_federated
         torch = self.torch
@@ -605,7 +679,7 @@ class KernelBench:
         fed = FLConfig(algorithm="fedavg", rounds=1, participation=0.1,
                        local_steps=steps, server_opt="momentum",
                        update_impl="fused", sampling="host",
-                       **upload_configs()["p2_compressed"])
+                       **(upload_configs()[upload] if upload else {}))
         init = task.init(torch.Generator().manual_seed(SEED))
         run_federated(task, data, fed, init_params=init)         # warm
         torch.cuda.synchronize()
@@ -616,9 +690,12 @@ class KernelBench:
             wall_ms = (time.perf_counter() - t0) * 1e3
         busy, n_ops, _ = device_activity(prof)
         topk_us, topk_kernels = kernel_time(prof, ("topk_",))
-        return dict(kernel="p2_round", ms=busy / 1e3, wall_ms=wall_ms,
-                    device_ops=n_ops, topk_kernels=topk_kernels,
-                    topk_device_ms=topk_us / 1e3, library_ms=None,
+        k3_us, k3_kernels = kernel_time(prof, ("server_update",))
+        return dict(kernel="p2_round", upload=upload, ms=busy / 1e3,
+                    wall_ms=wall_ms, device_ops=n_ops,
+                    topk_kernels=topk_kernels, topk_device_ms=topk_us / 1e3,
+                    k3_kernels=k3_kernels, k3_device_ms=k3_us / 1e3,
+                    library_ms=None,
                     bound_ms=None, within_tol=math.isfinite(res.history[-1]["local_loss"]))
 
     def pod_round(self, dtype=None, label="", compressed=True):
@@ -666,26 +743,128 @@ class KernelBench:
                     top_device_ops=top, library_ms=None, bound_ms=None,
                     within_tol=ok)
 
-    def dp_clip_noise(self, n, has_z):
+    def dp_clip_noise(self, n, has_z, dtype=None, label="", K=None,
+                      turns=3):
+        """K5 back to back.  ``K`` None: one client's upload from an f32
+        delta.  ``K`` given: the rows form, the K uploads of a round from
+        the stacked end states (``dtype``) over p in one launch, bitwise
+        against its plain version and against the chain it replaces (per
+        client a subtraction and a K5 launch, then the stack), which is
+        timed in turns with it.  On a tree without the rows form the
+        chain is the kernel timed."""
         torch, fu = self.torch, self.fu
-        d, z = self.delta(n), (self.rand(n) if has_z else None)
-        sc = torch.tensor([0.37, 0.11], dtype=torch.float32, device="cuda")
-        got = fu.dp_clip_noise(d, z, sc)
-        want = fu.dp_clip_noise_plain(d, z, sc)
-        err = self.max_err([(got, want)])
-        ms = time_ms(torch, lambda: fu.dp_clip_noise(d, z, sc))
-        plain = time_ms(torch, lambda: fu.dp_clip_noise_plain(d, z, sc))
-        library, why = None, "no single PyTorch call takes both scales " \
-            "from device memory"
-        if not has_z:
-            library = time_ms(torch, lambda: torch.mul(d, sc[0]))
-            why = "torch.mul(d, clip_scale)"
-        bound, by = self.bound_ms(4 * n * (2 + has_z) + 8, n * (1 + 2 * has_z))
-        return dict(kernel="dp_clip_noise", n=n, noise=has_z,
-                    max_abs_err=err, bitwise=bool(torch.equal(got, want)),
-                    ms=ms, plain_ms=plain, library_ms=library,
-                    library_note=why, bound_ms=bound, bound_by=by)
+        if K is None:
+            d, z = self.delta(n), (self.rand(n) if has_z else None)
+            sc = torch.tensor([0.37, 0.11], dtype=torch.float32,
+                              device="cuda")
+            got = fu.dp_clip_noise(d, z, sc)
+            want = fu.dp_clip_noise_plain(d, z, sc)
+            err = self.max_err([(got, want)])
+            bitwise = bool(torch.equal(got, want))
+            ms = time_ms(torch, lambda: fu.dp_clip_noise(d, z, sc))
+            plain = time_ms(torch, lambda: fu.dp_clip_noise_plain(d, z, sc))
+            library, why = None, "no single PyTorch call takes both " \
+                "scales from device memory"
+            if not has_z:
+                library = time_ms(torch, lambda: torch.mul(d, sc[0]))
+                why = "torch.mul(d, clip_scale)"
+            bound, by = self.bound_ms(4 * n * (2 + has_z) + 8,
+                                      n * (1 + 2 * has_z))
+            return dict(kernel="dp_clip_noise", case=label, form="per_client",
+                        n=n, noise=has_z, max_abs_err=err, bitwise=bitwise,
+                        within_tol=bitwise, ms=ms, plain_ms=plain,
+                        library_ms=library, library_note=why,
+                        bound_ms=bound, bound_by=by)
+        dtype = dtype or torch.float32
+        p = self.rand(n, dtype=dtype)
+        w = (p.float()[None] + self.rand(K, n) * 1e-2).to(dtype)
+        z = self.rand(K, n) if has_z else None
+        scales = torch.rand(K, generator=self.gen, device="cuda") * 0.8 + 0.2
+        ns = torch.tensor([0.11], device="cuda")
 
+        def chain(one=fu.dp_clip_noise):
+            return torch.stack([
+                one(w[k].float() - p.float(), None if z is None else z[k],
+                    torch.stack([scales[k], ns[0]])) for k in range(K)])
+        rows = getattr(fu, "dp_clip_noise_rows", None)
+        run = (lambda: rows(w, p, z, scales, ns)) if rows else chain
+        plain = (lambda: fu.dp_clip_noise_rows_plain(w, p, z, scales, ns)) \
+            if rows else (lambda: chain(fu.dp_clip_noise_plain))
+        before = fu.dp_clip_noise.launches
+        got = run()
+        per_call = fu.dp_clip_noise.launches - before
+        want, ch = plain(), chain()
+        err = self.max_err([(got, want)])
+        bitwise = bool(torch.equal(got, want))
+        chain_bitwise = bool(torch.equal(got, ch))
+        ms, chain_ms = [], []
+        for _ in range(turns):
+            ms.append(time_ms(torch, run))
+            chain_ms.append(time_ms(torch, chain))
+        plain_ms = time_ms(torch, plain, trials=3, reps=5, warmup=1)
+        e = p.element_size()
+        # w (and z) read once, the uploads written once, p read once, the
+        # scales; a subtraction and a multiply (and a multiply-add) each
+        n_bytes = K * n * (e + 4 * has_z + 4) + n * e + 4 * K + 4
+        bound, by = self.bound_ms(n_bytes, K * n * (2 + 2 * has_z))
+        return dict(kernel="dp_clip_noise", case=label, form="rows",
+                    rows_form=rows is not None, n=n, K=K,
+                    dtype=str(dtype)[6:], noise=has_z,
+                    launches_per_call=per_call, max_abs_err=err,
+                    bitwise=bitwise, chain_bitwise=chain_bitwise,
+                    within_tol=bitwise and chain_bitwise,
+                    ms=statistics.median(ms), ms_turns=ms,
+                    chain_ms=statistics.median(chain_ms),
+                    chain_ms_turns=chain_ms, plain_ms=plain_ms,
+                    library_ms=None, library_note="no single PyTorch call "
+                    "forms w - p and takes both scales from device memory; "
+                    "the per-client chain is the comparator (chain_ms)",
+                    bound_ms=bound, bound_by=by)
+
+    def dp_upload(self, dtype=None, label="", secure_agg=False):
+        """The materialized DP uploads of one private engine round
+        (LeNet-5, 10 clients × 25 SGD steps, DP C = 1, σ = 0.1; the masks
+        only when ``secure_agg``): the round seen through on_aggregate
+        (``private_round``), its draws made once beforehand, then
+        ``privacy.materialized_dp_aggregate`` (the uploads, then K2) under
+        torch.profiler: device ms and ops, K5's kernels and device ms; and
+        the call's device time by CUDA events, median of back-to-back
+        calls.  The same inputs in either tree."""
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.fl import privacy
+        from repro_torch.fl.privacy import DPSpec
+        torch = self.torch
+        fed_kw = dict(dp=DPSpec(clip=1.0, sigma=0.1), secure_agg=secure_agg)
+        task, _ = lenet_setup()
+        init = task.init(torch.Generator().manual_seed(SEED))
+        rnd = private_round(torch, init, fed_kw)
+        memo = {}
+
+        def normal_fn(kind, a, b=None):
+            if (kind, a, b) not in memo:
+                memo[(kind, a, b)] = rnd["normal_fn"](kind, a, b)
+            return memo[(kind, a, b)]
+
+        def call():
+            return privacy.materialized_dp_aggregate(
+                rnd["dp"], secure_agg, rnd["fops"], rnd["ids"], rnd["p"],
+                rnd["stacked"], rnd["weights"], normal_fn)
+        out = call()                                   # draws, then warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        busy, n_ops, top = device_activity(prof)
+        k5_us, k5_kernels = kernel_time(prof, ("dp_clip_noise",))
+        k2_us, k2_kernels = kernel_time(prof, ("weighted_delta",))
+        ms = time_ms(torch, call, trials=5, reps=10, warmup=2)
+        ok = all(bool(torch.isfinite(t).all()) for t in out.values())
+        return dict(kernel="dp_upload", clients=len(rnd["ids"]),
+                    secure_agg=secure_agg, ms=ms, device_busy_ms=busy / 1e3,
+                    device_ops=n_ops, k5_kernels=k5_kernels,
+                    k5_device_ms=k5_us / 1e3, k2_kernels=k2_kernels,
+                    k2_device_ms=k2_us / 1e3, top_device_ops=top,
+                    library_ms=None, bound_ms=None, within_tol=ok)
 
     # --- K6 delta_accum (the pod backend's aggregation) -------------------
 
@@ -881,12 +1060,22 @@ SASS_FAMILIES = {
     "local_step_kernel": ("local_step_kernel",),
     "delta_accum_kernel": ("delta_accum_kernel",),
     "compress_delta_kernel": ("compress_delta_kernel",),
+    "server_update_kernel": ("server_update_kernel",),
+    "dp_clip_noise_kernel": ("dp_clip_noise_kernel",),
+    "dp_clip_noise_rows_kernel": ("dp_clip_noise_rows_kernel",),
 }
 # the families whose every template instance is checked on its own: the
 # cluster kernel's threshold-only and fused (compressing) instances, and
-# the PDL-launched K1, K4 and K6
+# the PDL-launched K1, K3, K4, K5 (per client and rows) and K6
 SASS_PER_INSTANCE = ("topk_cluster_kernel", "local_step_kernel",
-                     "delta_accum_kernel", "compress_delta_kernel")
+                     "delta_accum_kernel", "compress_delta_kernel",
+                     "server_update_kernel", "dp_clip_noise_kernel",
+                     "dp_clip_noise_rows_kernel")
+# template instances of the PDL families checked by count: K3 over 2
+# dtypes x 2 alignments x 3 optimizers x 2 forms, K5 per client over 2
+# alignments x noise, its rows form over 2 dtypes x 2 alignments x noise
+SASS_INSTANCES = {"server_update_kernel": 24, "dp_clip_noise_kernel": 4,
+                  "dp_clip_noise_rows_kernel": 8}
 # the SASS opcodes counted: wgmma (HGMMA), mma.sync (HMMA), a TMA load
 # (UTMALDG), cp.async (LDGSTS); the cluster barrier's arrive and wait
 # (UCGABAR_ARV, UCGABAR_WAIT: barrier.cluster); st.async into another CTA's
@@ -946,6 +1135,13 @@ def sass_features(lib_path) -> dict:
                 delta_accum_pdl_wait=every("delta_accum_kernel", ("ACQBULK",)),
                 compress_delta_pdl_wait=every("compress_delta_kernel",
                                               ("ACQBULK",)),
+                server_update_pdl_wait=every("server_update_kernel",
+                                             ("ACQBULK",)),
+                dp_clip_noise_pdl_wait=every("dp_clip_noise_kernel",
+                                             ("ACQBULK",))
+                and every("dp_clip_noise_rows_kernel", ("ACQBULK",)),
+                pdl_instances={fam: len(inst.get(fam, {}))
+                               for fam in SASS_INSTANCES},
                 prefill_hgmma=counts.get("fa_wgmma_kernel", {}).get("HGMMA", 0) > 0,
                 prefill_tma=counts.get("fa_wgmma_kernel", {}).get("UTMALDG", 0) > 0,
                 prefill_ldgsts=counts.get("fa_wgmma_kernel", {}).get("LDGSTS", 0) > 0,
@@ -975,18 +1171,30 @@ def check_kernels(torch, fu, bench) -> dict:
         rows.append(bench.weighted_delta(n, 10, False, False, dtype=bf16))
         for opt in ("none", "momentum", "adam"):
             rows.append(bench.server_update(n, opt))
+            # the aggregate form, in both dtypes (bitwise against its
+            # plain version and the subtraction + delta form)
+            for dtype in (f32, bf16):
+                rows.append(bench.server_update(n, opt, dtype=dtype,
+                                                form="avg"))
     for r in rows:
         emit(dict(phase="kernel", **r))
-    bad = [r for r in rows if not r["max_abs_err"] <= KERNEL_TOL]
+    bad = [r for r in rows if not r["max_abs_err"] <= KERNEL_TOL
+           or not r.get("bitwise", True)]
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} kernel variants disagree "
                          f"with their plain versions")
-    # the shapes and settings the main path gives each kernel
+    # the shapes and settings the main path gives each kernel: K3 in its
+    # aggregate form under FedAvgM, the delta form beside it
     return {
         "local_step": bench.local_step(N_SMALL, f32, False, False, wd=0.0,
                                        clip=1.0),
         "weighted_delta": bench.weighted_delta(N_SMALL, 10, False, False),
-        "server_update": bench.server_update(N_SMALL, "momentum"),
+        "server_update": bench.server_update(N_SMALL, "momentum",
+                                             form="avg"),
+        "server_update_delta": bench.server_update(N_SMALL, "momentum"),
+        "server_update_none": bench.server_update(N_SMALL, "none"),
+        "server_update_adam": bench.server_update(N_SMALL, "adam",
+                                                  form="avg"),
     }
 
 
@@ -999,7 +1207,10 @@ def check_upload_kernels(torch, bench) -> dict:
     K4 at bits 8 without top-k or residual (p2_int8), the threshold
     alone at density 0.25 of the main path's bucket (fused into the
     top-k upload there), K5 with noise, the fused upload at int8 +
-    residual (p2_compressed)."""
+    residual (p2_compressed); K5 also in its rows form at K 1/10/25 ×
+    f32/bf16 end states × noise, bitwise against its plain version and
+    the per-client chain, and returned at K 10 with noise (dp_upload),
+    the per-client form beside it."""
     rows = []
     fu = bench.fu
     for n in (N_SMALL, N_LARGE):
@@ -1010,6 +1221,13 @@ def check_upload_kernels(torch, bench) -> dict:
         rows.append(bench.topk_threshold(n))
         for has_z in (False, True):
             rows.append(bench.dp_clip_noise(n, has_z))
+    # K5's rows form: the uploads of a round's K clients in one launch,
+    # bitwise against its plain version and the per-client chain
+    for K in (1, 10, 25):
+        for dtype in (torch.float32, torch.bfloat16):
+            for has_z in (False, True):
+                rows.append(bench.dp_clip_noise(N_SMALL, has_z, dtype=dtype,
+                                                K=K))
     # both kernels on either side of the cut
     cut = fu.topk_cut()
     rows += [bench.topk_threshold(cut), bench.topk_threshold(cut + 1)]
@@ -1025,6 +1243,10 @@ def check_upload_kernels(torch, bench) -> dict:
     if bad:
         raise SystemExit(f"chip_smoke: {len(bad)} upload kernel variants "
                          f"disagree with their plain versions")
+    if not all(r["chain_bitwise"] and r["launches_per_call"] == 1
+               for r in rows if r.get("form") == "rows"):
+        raise SystemExit("chip_smoke: K5's rows form disagrees with the "
+                         "per-client chain or launches other than once")
     if not all(r["kthvalue_agrees"] for r in rows
                if r["kernel"] == "topk_threshold"):
         raise SystemExit("chip_smoke: the threshold disagrees with "
@@ -1039,7 +1261,9 @@ def check_upload_kernels(torch, bench) -> dict:
     return {
         "compress_delta": bench.compress_delta(N_SMALL, 8, False, False),
         "topk_threshold": bench.topk_threshold(N_SMALL),
-        "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True),
+        "dp_clip_noise": bench.dp_clip_noise(N_SMALL, True, K=10),
+        "dp_clip_noise_per_client": bench.dp_clip_noise(N_SMALL, True),
+        "dp_clip_noise_no_noise": bench.dp_clip_noise(N_SMALL, False),
         "topk_compress": bench.topk_compress(N_SMALL, 8, True),
     }
 
@@ -1438,18 +1662,13 @@ def upload_e2e(torch, task, data, fed_kw):
                              for a, b in pairs))
 
 
-def dp_upload(torch, fu, params, fed_kw):
-    """Phase dp_upload: the 10 client uploads of one private P2 round.
-    The engine runs the round (``run_rounds`` from ``params``, 10
-    clients × 25 SGD steps, host sampling) and hands its inputs, start
-    buffers, stacked client end states and folded aggregate
-    (``fused_dp_aggregate``) to ``RoundSchedule.on_aggregate``.  From
-    those, each upload is built by K5 from the round's keyed draws and
-    the uploads are summed by K2 with the mask total as ``extra``
-    (``privacy.materialized_dp_aggregate``), then held against the
-    engine's folded aggregate.  Tolerance: |materialized − folded| ≤
-    1e-5·(|p| + Σₖ|w̄ₖ·uₖ| + Σᵢ|mᵢ|) + 1e-7 elementwise: the two forms
-    associate the same terms differently (f32 reassociation)."""
+def private_round(torch, params, fed_kw) -> dict:
+    """One private P2 round of the engine (``run_rounds`` from
+    ``params``: LeNet-5, 10 clients × 25 SGD steps, host sampling, the
+    privacy of ``fed_kw``), seen through ``RoundSchedule.on_aggregate``:
+    its inputs, start buffers, stacked client end states and folded
+    aggregate, with the flat ops and keyed draws that rebuild its
+    uploads."""
     import dataclasses
     from repro_torch.fl import privacy
     from repro_torch.fl.engine import run_rounds
@@ -1457,11 +1676,9 @@ def dp_upload(torch, fu, params, fed_kw):
     from repro_torch.fl.simulation import FLConfig
 
     task, data = lenet_setup()
-    dev = torch.device("cuda")
     fed = FLConfig(rounds=1, participation=0.1, local_steps=25,
                    update_impl="fused", sampling="host", eval_every=0,
                    seed=SEED, **fed_kw)
-    dp, secure_agg = fed.dp, fed.secure_agg
     seen = {}
 
     def capture(rnd, inputs, p, stacked, new_p):
@@ -1470,13 +1687,32 @@ def dp_upload(torch, fu, params, fed_kw):
     run_rounds(task, data, fed.strategy(),
                dataclasses.replace(fed.schedule(), on_aggregate=capture),
                init_params=params)
-    inputs, p, stacked, folded = (seen[k] for k in
-                                  ("inputs", "p", "stacked", "folded"))
-    ids = inputs.id_list()
+    inputs = seen["inputs"]
+    fops = host_flat_ops(task, False, torch.device("cuda"))
+    return dict(seen, ids=inputs.id_list(), weights=inputs.weights,
+                fops=fops, dp=fed.dp, secure_agg=fed.secure_agg,
+                normal_fn=privacy.keyed_normal_fn(inputs.round_key,
+                                                  fops.normal))
+
+
+def dp_upload(torch, fu, params, fed_kw):
+    """Phase dp_upload: the 10 client uploads of one private P2 round
+    (``private_round``: the engine's inputs, start buffers, stacked
+    client end states and folded aggregate, ``fused_dp_aggregate``).
+    From those, the uploads of every client are built by ONE rows-form
+    K5 launch per bucket from the round's keyed draws and summed by K2
+    with the mask total as ``extra``
+    (``privacy.materialized_dp_aggregate``), then held against the
+    engine's folded aggregate.  Tolerance: |materialized − folded| ≤
+    1e-5·(|p| + Σₖ|w̄ₖ·uₖ| + Σᵢ|mᵢ|) + 1e-7 elementwise: the two forms
+    associate the same terms differently (f32 reassociation)."""
+    from repro_torch.fl import privacy
+
+    rnd = private_round(torch, params, fed_kw)
+    dp, secure_agg, ids, weights, p, stacked, folded, fops, normal_fn = (
+        rnd[k] for k in ("dp", "secure_agg", "ids", "weights", "p",
+                         "stacked", "folded", "fops", "normal_fn"))
     K = len(ids)
-    weights = inputs.weights
-    fops = host_flat_ops(task, False, dev)
-    normal_fn = privacy.keyed_normal_fn(inputs.round_key, fops.normal)
 
     fu.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1487,15 +1723,33 @@ def dp_upload(torch, fu, params, fed_kw):
     mat_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches
                 for fn in fu.KERNELS + fu.UPLOAD_KERNELS}
-    want = {"local_step": 0, "weighted_delta": 1, "server_update": 0,
-            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": K,
-            "topk_compress": 0}
+    # one K2 and one rows-form K5 per bucket, whatever K is
+    want = {"local_step": 0, "weighted_delta": len(p), "server_update": 0,
+            "compress_delta": 0, "topk_threshold": 0,
+            "dp_clip_noise": len(p), "topk_compress": 0}
 
-    # the summands' magnitude, from the same draws
-    wbar = weights / weights.sum()
+    # the form the rows form replaced, on the same draws: per client a
+    # subtraction and one K5 launch, the uploads stacked, then K2; the
+    # aggregates bit for bit
+    wbar = (weights / torch.sum(weights)).to(torch.float32)
     names = list(p)
     scales = privacy.stacked_clip_scales(dp, [p[n] for n in names],
                                          [stacked[n] for n in names])
+    ns = torch.full_like(wbar[0], dp.sigma * dp.clip)
+    rows = [{n: fu.dp_clip_noise(stacked[n][k].float() - p[n].float(),
+                                 normal_fn("dp", cid)[n],
+                                 torch.stack([scales[k], ns]))
+             for n in names} for k, cid in enumerate(ids)]
+    masks = privacy.round_extra(None, secure_agg, ids, wbar,
+                                zeros_fn=lambda: fops.zeros(torch.float32),
+                                normal_fn=normal_fn)
+    per_client = fops.weighted_delta(
+        p, {n: torch.stack([u[n] for u in rows]) for n in names}, wbar,
+        extra=masks, deltas=True)
+    per_client_bitwise = all(bool(torch.equal(mat[n], per_client[n]))
+                             for n in names)
+
+    # the summands' magnitude, from the same draws
     norms = torch.sqrt(sum(((stacked[n].float() - p[n].float()[None]) ** 2)
                            .sum(dim=1) for n in names))
     ok, max_diff, worst = True, 0.0, 0.0
@@ -1522,10 +1776,14 @@ def dp_upload(torch, fu, params, fed_kw):
               tolerance="|materialized - folded| <= 1e-5*magnitude + 1e-7",
               max_abs_diff=max_diff, max_diff_over_magnitude=worst,
               materialized_wall_s=mat_s, launches=launches,
-              expected_launches=want, ok=ok))
+              expected_launches=want, per_client_bitwise=per_client_bitwise,
+              ok=ok))
     if launches != want:
         raise SystemExit(f"chip_smoke: dp_upload launches {launches} != "
                          f"{want}")
+    if not per_client_bitwise:
+        raise SystemExit("chip_smoke: the rows-form DP uploads differ from "
+                         "the per-client form")
     if not ok:
         raise SystemExit("chip_smoke: the materialized DP uploads disagree "
                          "with the folded aggregate")
@@ -2102,6 +2360,12 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke: K6 does not wait on griddepcontrol")
     if sass["cuobjdump"] and not sass["compress_delta_pdl_wait"]:
         raise SystemExit("chip_smoke: K4 does not wait on griddepcontrol")
+    if sass["cuobjdump"] and not (sass["server_update_pdl_wait"] and
+                                  sass["dp_clip_noise_pdl_wait"] and
+                                  sass["pdl_instances"] == SASS_INSTANCES):
+        raise SystemExit("chip_smoke: an instance of K3 or K5 does not wait "
+                         "on griddepcontrol, or one is missing: "
+                         f"{sass['pdl_instances']}")
     bench = KernelBench(torch, fu, card_peaks(name))
     main_shapes = check_kernels(torch, fu, bench)
     local_step_vs_add(torch, fu, bench)
@@ -2135,9 +2399,13 @@ def main(argv=None) -> int:
                 "weighted_delta": "src/repro/kernels/fused_update.py:199",
                 "server_update": "src/repro/kernels/fused_update.py:475"}
     kernels = []
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+              "library_note", "max_abs_err")
     for kname, r in main_shapes.items():
-        if r["max_abs_err"] > KERNEL_TOL:
+        if r["max_abs_err"] > KERNEL_TOL or not r.get("bitwise", True):
             raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
+        if kname not in replaces:
+            continue
         kernels.append(dict(name=kname, route="cuda", source=source,
                             replaces=replaces[kname],
                             launches=launches[kname],
@@ -2145,8 +2413,19 @@ def main(argv=None) -> int:
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"],
-                            **({"pdl": True} if kname == "local_step"
+                            **({"pdl": True} if kname != "weighted_delta"
                                else {})))
+    # K3 on the main path is the aggregate form under FedAvgM (no PyTorch
+    # call forms avg - p and applies momentum: library_ms null); the delta
+    # form, the pod's apply ("none") and FedAdam's aggregate form beside it
+    k3 = next(k for k in kernels if k["name"] == "server_update")
+    k3.update(form="avg", opt="momentum",
+              chain_ms=main_shapes["server_update"]["chain_ms"],
+              library_note=main_shapes["server_update"]["library_note"],
+              pod_path_launches=pod_launches["server_update"],
+              **{tag: {k: main_shapes[f"server_update_{tag}"][k]
+                       for k in timing}
+                 for tag in ("delta", "none", "adam")})
     # the upload kernels, each with the launches of the path it is on:
     # the top-k upload is one fused launch on the main compressed path
     # (K4 and the threshold in one, so the threshold alone launches on no
@@ -2167,9 +2446,9 @@ def main(argv=None) -> int:
         if not r["bitwise"]:
             raise SystemExit(f"chip_smoke: {kname} disagrees: {r}")
         shape = {key: r[key] for key in (
-            "n", "bits", "topk", "residual", "kernel_path", "n_ctas",
-            "dynamic_smem_per_cta", "launches_per_call", "chain_ms",
-            "threshold_ms") if key in r}
+            "n", "K", "form", "bits", "topk", "residual", "kernel_path",
+            "n_ctas", "dynamic_smem_per_cta", "launches_per_call",
+            "chain_ms", "threshold_ms") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=upload_src,
                             replaces=replaces, launches=n_launch,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2177,6 +2456,12 @@ def main(argv=None) -> int:
                             bound_by=r["bound_by"],
                             library_ms=r["library_ms"], path=path, **shape))
     kernels[-1]["pod_compressed_launches"] = pod_comp_launches["topk_compress"]
+    # K5 on dp_upload is the rows form (one launch for the round's 10
+    # clients); the per-client form, with and without noise, beside it
+    next(k for k in kernels if k["name"] == "dp_clip_noise").update(
+        pdl=True, **{tag: {k: upload_shapes[f"dp_clip_noise_{tag}"][k]
+                           for k in timing}
+                     for tag in ("per_client", "no_noise")})
     next(k for k in kernels if k["name"] == "topk_threshold")[
         "fused_into"] = "topk_compress"
     # K6 on the pod path: the f32 form with p (the sequential

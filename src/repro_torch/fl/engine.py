@@ -347,7 +347,9 @@ class AggregateStrategy(HostBackend):
         Tree path: the optax-style ``repro_torch.optim`` pair over trees.
         Fused path: the whole OptState is flat (moment buffers mirror the
         param buffers) and the update is one ``server_update`` kernel
-        per bucket, in place on the old params and the moments."""
+        per bucket, in place on the old params and the moments, in its
+        aggregate form: it reads the round's aggregate and forms
+        ``avg − p`` itself."""
         if self.server_opt == "none":
             return None
         from repro_torch.optim.optimizers import (AdamWState, OptState,
@@ -383,25 +385,26 @@ class AggregateStrategy(HostBackend):
                                              device=device), inner=inner)
 
         def update(p_bufs, avg_bufs, state):
-            delta = {k: avg_bufs[k].float() - p_bufs[k].float()
-                     for k in p_bufs}
             step = state.step + 1
             if not with_moments:
                 new_p = fops.apply_delta(
-                    p_bufs, {k: lr * d for k, d in delta.items()})
+                    p_bufs, {k: lr * (avg_bufs[k].float() - p.float())
+                             for k, p in p_bufs.items()})
                 return new_p, OptState(step=step, inner=())
+            # the kernel forms avg − p itself (the aggregate form)
             if server_opt == "momentum":
                 new_p, (m,) = fops.server_update(
-                    p_bufs, delta, (state.inner,), lr_t, opt="momentum",
-                    beta=beta)
+                    p_bufs, None, (state.inner,), lr_t, avg_bufs=avg_bufs,
+                    opt="momentum", beta=beta)
                 return new_p, OptState(step=step, inner=m)
             t = step.to(torch.float32)
             scalars = torch.cat([lr_t,
                                  (1.0 - torch.pow(SERVER_ADAM_B1, t)).reshape(1),
                                  (1.0 - torch.pow(SERVER_ADAM_B2, t)).reshape(1)])
             new_p, (mu, nu) = fops.server_update(
-                p_bufs, delta, (state.inner.mu, state.inner.nu), scalars,
-                opt="adam", b1=SERVER_ADAM_B1, b2=SERVER_ADAM_B2)
+                p_bufs, None, (state.inner.mu, state.inner.nu), scalars,
+                avg_bufs=avg_bufs, opt="adam", b1=SERVER_ADAM_B1,
+                b2=SERVER_ADAM_B2)
             return new_p, OptState(step=step, inner=AdamWState(mu=mu, nu=nu))
 
         return init, update

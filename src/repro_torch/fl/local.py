@@ -221,15 +221,17 @@ class FlatParamOps:
                 r_out[name] = r
         return c_out, (r_out if with_r else None)
 
-    def dp_clip_noise(self, d_bufs, z_bufs, clip_scale, noise_scale):
-        """One client's DP upload per bucket in one pass:
-        ``clip_scale·d (+ noise_scale·z)`` (``z_bufs=None`` drops the
-        noise term); the scales are f32 device scalars."""
-        scalars = torch.stack([clip_scale, noise_scale]).to(torch.float32)
-        return {name: ops.fused_dp_clip_noise(
-                    d, None if z_bufs is None else z_bufs[name], scalars,
-                    interpret=self.interpret)
-                for name, d in d_bufs.items()}
+    def dp_clip_noise_rows(self, p_bufs, w_bufs, z_bufs, clip_scales,
+                           noise_scale):
+        """The DP uploads of all K clients of a round, one pass per
+        bucket: row k of the ``(K, N)`` f32 result is
+        ``clip_scales[k]·(w[k] − p) (+ noise_scale·z[k])`` from the
+        stacked end states ``w_bufs`` and the stacked draws ``z_bufs``
+        (None drops the noise term); the scales are f32 device tensors."""
+        return {name: ops.fused_dp_clip_noise_rows(
+                    w_bufs[name], p, None if z_bufs is None else z_bufs[name],
+                    clip_scales, noise_scale, interpret=self.interpret)
+                for name, p in p_bufs.items()}
 
     def delta_accum(self, delta_bufs, w_bufs, p_bufs, coeff):
         """One client's term of the pod's running f32 delta, in place on
@@ -252,17 +254,19 @@ class FlatParamOps:
         return new_p
 
     def server_update(self, p_bufs, delta_bufs, moments, scalars, *,
-                      opt: str, beta: float = 0.9, b1: float = 0.9,
-                      b2: float = 0.99):
+                      avg_bufs=None, opt: str, beta: float = 0.9,
+                      b1: float = 0.9, b2: float = 0.99):
         """Server optimizer over every bucket, in place.  ``moments`` is
         a tuple of buffer dicts mirroring ``p_bufs``; ``scalars`` the f32
-        device tensor the kernel expects.  Returns ``(p_bufs,
-        moments)``."""
+        device tensor the kernel expects.  With ``avg_bufs`` (the
+        round's aggregate) and ``delta_bufs`` None, each kernel forms
+        ``avg − p`` itself.  Returns ``(p_bufs, moments)``."""
         for name, p in p_bufs.items():
             ops.fused_server_update(
-                p, delta_bufs[name], tuple(m[name] for m in moments),
-                scalars, opt=opt, beta=beta, b1=b1, b2=b2,
-                interpret=self.interpret)
+                p, None if delta_bufs is None else delta_bufs[name],
+                tuple(m[name] for m in moments), scalars,
+                avg=None if avg_bufs is None else avg_bufs[name], opt=opt,
+                beta=beta, b1=b1, b2=b2, interpret=self.interpret)
         return p_bufs, tuple(moments)
 
 

@@ -13,8 +13,8 @@ DP-FedAvg (:class:`DPSpec`)
     On the fused path the clip scale folds into the aggregation
     coefficient and the noise rides the ``extra`` operand of the
     ``weighted_delta`` kernel: one pass per bucket.
-    :func:`materialized_dp_aggregate` is the same upload built client by
-    client with the ``dp_clip_noise`` kernel, then summed.
+    :func:`materialized_dp_aggregate` is the same upload built for all
+    clients of a round by one ``dp_clip_noise_rows`` kernel, then summed.
 
 Secure-aggregation simulation (``secure_agg=True``)
     Clients ``i < j`` both draw ``z`` from their shared pair key and add
@@ -286,12 +286,14 @@ def materialized_dp_aggregate(dp: DPSpec, secure_agg: bool, fops,
                               weights: torch.Tensor,
                               normal_fn: NormalFn) -> Dict[str, torch.Tensor]:
     """The upload form of :func:`fused_dp_aggregate`: client k's upload
-    ``uₖ = scaleₖ·δₖ + σC·zₖ`` is built by one ``dp_clip_noise`` kernel
-    per bucket from the same draws, and ``cast(p₃₂ + masks + Σₖ w̄ₖ·uₖ)``
-    by one ``weighted_delta(deltas=True)`` per bucket with the mask
-    total as ``extra`` (the f32 uploads aggregate over buffers of any
-    param dtype).  Equal to the folded aggregate up to f32
-    reassociation."""
+    ``uₖ = scaleₖ·δₖ + σC·zₖ`` is built from the same draws (stacked once
+    per bucket) by ONE ``dp_clip_noise_rows`` launch per bucket for all
+    K clients, straight into the ``(K, N)`` f32 stack that one
+    ``weighted_delta(deltas=True)`` per bucket sums into
+    ``cast(p₃₂ + masks + Σₖ w̄ₖ·uₖ)`` with the mask total as ``extra``
+    (the f32 uploads aggregate over buffers of any param dtype).  Bitwise
+    the uploads of one ``dp_clip_noise`` per client; equal to the folded
+    aggregate up to f32 reassociation."""
     wbar = (weights / torch.sum(weights)).to(torch.float32)
     names = list(stacked_bufs)
     scales = stacked_clip_scales(dp, [p_bufs[n] for n in names],
@@ -301,12 +303,12 @@ def materialized_dp_aggregate(dp: DPSpec, secure_agg: bool, fops,
     noise_scale = torch.full_like(wbar[0], dp.sigma * dp.clip
                                   if dp.noised else 0.0)
     ids = [int(i) for i in ids]
-    rows = []
-    for k, cid in enumerate(ids):
-        d = {n: stacked_bufs[n][k].float() - p_bufs[n].float() for n in names}
-        z = normal_fn("dp", cid, None) if dp.noised else None
-        rows.append(fops.dp_clip_noise(d, z, scales[k], noise_scale))
-    uploads = {n: torch.stack([u[n] for u in rows]) for n in names}
+    z = None
+    if dp.noised:
+        draws = [normal_fn("dp", cid, None) for cid in ids]
+        z = {n: torch.stack([dr[n] for dr in draws]) for n in names}
+    uploads = fops.dp_clip_noise_rows(p_bufs, stacked_bufs, z, scales,
+                                      noise_scale)
     masks = round_extra(None, secure_agg, ids, wbar,
                         zeros_fn=lambda: fops.zeros(torch.float32),
                         normal_fn=normal_fn)

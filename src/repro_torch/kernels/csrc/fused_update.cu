@@ -8,7 +8,9 @@
 //       out <- cast(p32 + e + sum_k w[k]*(s[k] - p32))   (deltas: drop the -p)
 //   fu_server_update   <- fused_update.py:_server_update_kernel (server_update)
 //       none: p + d;  momentum: m <- beta*m - d, p <- p - lr*m;
-//       adam: mu, nu moments, p <- p - lr*(mu/bc1)/(sqrt(nu/bc2)+eps)
+//       adam: mu, nu moments, p <- p - lr*(mu/bc1)/(sqrt(nu/bc2)+eps);
+//       d is the f32 delta, or in the aggregate form d = f32(avg) - f32(p)
+//       from the round's aggregate avg (in p's dtype), formed in registers
 //   fu_delta_accum     <- fused_update.py:_delta_accum_kernel and
 //                         _weighted_accum_kernel (delta_accum)
 //       d <- d + c*(w32 - p32), or the accum-only d <- d + c*w32 (p = NULL)
@@ -18,7 +20,9 @@
 // local_step moves 12 B/element (f32, no momentum; 20 with momentum),
 // weighted_delta (4K + 8) B/element, server_update 20 B/element under
 // momentum (reads p, d, m; writes p, m) and 28 B/element under adam
-// (reads p, d, mu, nu; writes p, mu, nu), all in f32; delta_accum 16
+// (reads p, d, mu, nu; writes p, mu, nu), all in f32, the same in the
+// aggregate form (avg in place of d), which also saves the 12 B/element of
+// the subtraction that made d; delta_accum 16
 // B/element with p over f32 (reads d, w, p; writes d) and 12 accum-only,
 // 12 and 10 over bf16 w/p.  At LeNet-5 size (137,216 padded elements) every one of them
 // is far below a microsecond of bytes, so on the main path the launch
@@ -47,16 +51,19 @@
 // delta_accum never writes w or p.  Pad lanes stay zero through all three: every term is
 // zero or a multiple of a zero operand there.
 //
-// local_step and delta_accum are launched with programmatic dependent launch
-// (PDL, cudaLaunchAttributeProgrammaticStreamSerialization, launch_pdl):
-// local_step runs 3000 times per training run and delta_accum 40 times per
-// pod P2 run, each with ~0.5 us of bytes, so the launch, the block ramp and
-// the drain between dependent kernels are most of their time.  PDL lets
-// their blocks be scheduled and do their index work while the kernel
-// before them drains; griddepcontrol.wait, before the first read of any
-// operand (scalars, p, g, m, c in local_step; coeff, d, w, p in
-// delta_accum: the kernel before may have written any of them), holds them
-// until it has completed and flushed its memory.  Each block then issues
+// local_step, server_update and delta_accum are launched with programmatic
+// dependent launch (PDL, cudaLaunchAttributeProgrammaticStreamSerialization,
+// launch_pdl): local_step runs 3000 times per training run, server_update 4
+// times per P2 run (8 on the pod) and delta_accum 40 times per pod P2 run,
+// each with ~0.5-0.8 us of bytes, so the launch, the block ramp and the
+// drain between dependent kernels are most of their time.  PDL lets their
+// blocks be scheduled and do their index work while the kernel before them
+// drains; griddepcontrol.wait, before the first access to global memory
+// (scalars, p, g, m, c in local_step; scalars, p, d or avg and the moments
+// in server_update, whose in-place stores the kernel before may still be
+// reading against; coeff, d, w, p in delta_accum: the kernel before may
+// have written any of them), holds them until it has completed and flushed
+// its memory.  Each block then issues
 // griddepcontrol.launch_dependents, so a PDL-launched successor may stage
 // itself in turn; that successor's own wait still waits for this kernel's
 // completion.  delta_accum on the compressed pod path follows the cluster
@@ -318,25 +325,39 @@ struct ServerConsts {
   float beta, b1, b2, one_minus_b1, one_minus_b2, eps;
 };
 
-template <typename T, int V, int OPT>
+// FROM_AVG: the second operand is the round's aggregate avg in T, and the
+// delta d = f32(avg) - f32(p) is formed in registers (one __fsub_rn, the
+// torch subtraction it replaces); otherwise it is the f32 delta itself
+template <typename T, int V, int OPT, bool FROM_AVG>
 __global__ void __launch_bounds__(kThreads)
-server_update_kernel(T* __restrict__ p, const float* __restrict__ d,
+server_update_kernel(T* __restrict__ p,
+                     const std::conditional_t<FROM_AVG, T, float>* __restrict__ src,
                      T* __restrict__ m1, T* __restrict__ m2,
                      const float* __restrict__ scalars, ServerConsts k,
                      long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // PDL: no operand may be read, and p and the moments not written, before
+  // the kernel this one follows is done (it may still read p)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const float lr = scalars[0];
   float bc1 = 1.0f, bc2 = 1.0f;
   if constexpr (OPT == 2) {
     bc1 = scalars[1];
     bc2 = scalars[2];
   }
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
+  for (long long i = first; i < n_vec; i += stride) {
     const long long off = i * V;
     float pv[V], dv[V], av[V], bv[V];
     load<T, V>(p + off, pv);
-    load_f32<V>(d + off, dv);
+    if constexpr (FROM_AVG) {
+      load<T, V>(src + off, dv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) dv[j] = __fsub_rn(dv[j], pv[j]);
+    } else {
+      load_f32<V>(src + off, dv);
+    }
     if constexpr (OPT >= 1) load<T, V>(m1 + off, av);
     if constexpr (OPT == 2) load<T, V>(m2 + off, bv);
 #pragma unroll
@@ -363,26 +384,33 @@ server_update_kernel(T* __restrict__ p, const float* __restrict__ d,
   }
 }
 
+// src: the f32 delta, or the aggregate in T when from_avg
 template <typename T>
-int launch_server_update(void* p, const float* d, void* m1, void* m2,
-                         const float* scalars, long long n, int opt,
+int launch_server_update(void* p, const void* src, void* m1, void* m2,
+                         const float* scalars, long long n, int opt, bool from_avg,
                          ServerConsts k, cudaStream_t stream) {
   constexpr int VW = 16 / sizeof(T);
-  const bool vec = (n % VW == 0) && aligned16(p) && aligned16(d) &&
+  const bool vec = (n % VW == 0) && aligned16(p) && aligned16(src) &&
                    (opt < 1 || aligned16(m1)) && (opt < 2 || aligned16(m2));
-  auto go = [&](auto VEC, auto OPTC) {
+  cudaError_t err = cudaSuccess;
+  auto go = [&](auto VEC, auto OPTC, auto AVG) {
     constexpr int V = decltype(VEC)::value ? VW : 1;
+    constexpr bool A = decltype(AVG)::value;
+    using S = std::conditional_t<A, T, float>;
     const long long n_vec = n / V;
-    server_update_kernel<T, V, decltype(OPTC)::value>
-        <<<grid_for(n_vec), kThreads, 0, stream>>>(
-            static_cast<T*>(p), d, static_cast<T*>(m1), static_cast<T*>(m2),
-            scalars, k, n_vec);
+    err = launch_pdl(server_update_kernel<T, V, decltype(OPTC)::value, A>,
+                     grid_for(n_vec), stream, static_cast<T*>(p),
+                     static_cast<const S*>(src), static_cast<T*>(m1),
+                     static_cast<T*>(m2), scalars, k, n_vec);
   };
   dispatch_bool(vec, [&](auto VEC) {
-    if (opt == 0) go(VEC, std::integral_constant<int, 0>{});
-    else if (opt == 1) go(VEC, std::integral_constant<int, 1>{});
-    else go(VEC, std::integral_constant<int, 2>{});
+    dispatch_bool(from_avg, [&](auto AVG) {
+      if (opt == 0) go(VEC, std::integral_constant<int, 0>{}, AVG);
+      else if (opt == 1) go(VEC, std::integral_constant<int, 1>{}, AVG);
+      else go(VEC, std::integral_constant<int, 2>{}, AVG);
+    });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -487,19 +515,21 @@ int fu_weighted_delta(void* out, const void* stacked, const void* p,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// d: the f32 delta, or (from_avg) the round's aggregate in p's dtype
 int fu_server_update(void* p, const void* d, void* m1, void* m2,
                      const void* scalars, long long n, int dtype, int opt,
-                     float beta, float b1, float b2, float one_minus_b1,
-                     float one_minus_b2, float eps, void* stream) {
+                     int from_avg, float beta, float b1, float b2,
+                     float one_minus_b1, float one_minus_b2, float eps,
+                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  auto df = static_cast<const float*>(d);
   auto sc = static_cast<const float*>(scalars);
   ServerConsts k{beta, b1, b2, one_minus_b1, one_minus_b2, eps};
   if (opt < 0 || opt > 2) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_server_update<float>(p, df, m1, m2, sc, n, opt, k, s);
+    return launch_server_update<float>(p, d, m1, m2, sc, n, opt, from_avg != 0, k, s);
   if (dtype == 1)
-    return launch_server_update<__nv_bfloat16>(p, df, m1, m2, sc, n, opt, k, s);
+    return launch_server_update<__nv_bfloat16>(p, d, m1, m2, sc, n, opt, from_avg != 0,
+                                               k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

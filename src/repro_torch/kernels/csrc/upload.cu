@@ -16,6 +16,10 @@
 //   up_dp_clip_noise    <- src/repro/kernels/fused_update.py:_dp_clip_noise_kernel
 //                          (wrapper dp_clip_noise)
 //       u = clip_scale*d (+ noise_scale*z)
+//   up_dp_clip_noise_rows <- the same kernel once per client of a round, with
+//                          the subtraction that made each d (wrapper
+//                          dp_clip_noise_rows)
+//       u[k] = clip_scales[k]*(w[k] - p) (+ noise_scale*z[k]), k = 0..K-1
 //
 // What bounds them on an H100: all of them stream their operands once and do
 // a few operations per element, so device-memory bytes bound them:
@@ -27,7 +31,11 @@
 // 0.16 us of bytes, bound it), topk_compress the same 12 B as compress_delta
 // (its second read of d comes from L2), dp_clip_noise reads 8 B
 // (d and z) and writes 4 B.  At LeNet-5 size (137,216 padded elements) each
-// is far below a microsecond of bytes and the launch dominates.
+// is far below a microsecond of bytes and the launch dominates.  The rows
+// form reads 8 B per element of each of the K rows (w in f32, z) and writes
+// 4 B, plus p once: 17 MB at K 10, about 5 us of bytes, where the K
+// subtractions, K launches and the stack of the uploads it replaces moved
+// more than twice that.
 //
 // What the design does:
 //  * compress_delta: one warp per 128-lane row (the JAX kernel's block rows
@@ -96,7 +104,17 @@
 //      is zeroed by one memset per call.
 //    up_topk_compress above the cut is the four passes and then compress_delta,
 //    chosen by the Python wrapper (five launches).
-//  * dp_clip_noise: a grid-stride elementwise pass, float4 loads and stores.
+//  * dp_clip_noise: a grid-stride elementwise pass, float4 loads and stores,
+//    launched with programmatic dependent launch: griddepcontrol.wait before
+//    any access to global memory (out too: the allocator may hand it over
+//    from a kernel still running), then griddepcontrol.launch_dependents.
+//    The rows form is one such launch for all K clients of a round (per
+//    bucket): a 2-D grid, blockIdx.y the client row, x a grid-stride pass
+//    over the row with 16-byte loads of w (float4, or 8 x bf16) and p (read
+//    once per row, from L2 after the first), f32 z and out as float4.  Each
+//    element is rounded as the subtraction and dp_clip_noise it replaces
+//    round it (__fsub_rn, __fmul_rn, __fadd_rn), and the rows land straight
+//    in the (K, n) stack that weighted_delta reads.
 //
 // Rounding: every step uses the _rn intrinsics (__fdiv_rn, __fmul_rn,
 // __fsub_rn, __fadd_rn), which nvcc never contracts into an FMA, rintf rounds
@@ -162,13 +180,13 @@ void dispatch_bool(bool b, F&& f) {
 
 // `kernel` on `grid` blocks of kThreads, with programmatic dependent launch
 template <typename... Params, typename... Args>
-cudaError_t launch_pdl(void (*kernel)(Params...), int grid, cudaStream_t stream,
+cudaError_t launch_pdl(void (*kernel)(Params...), dim3 grid, cudaStream_t stream,
                        Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cfg.attrs = attr;
@@ -759,11 +777,15 @@ __global__ void __launch_bounds__(kThreads)
 dp_clip_noise_kernel(float* __restrict__ out, const float* __restrict__ d,
                      const float* __restrict__ z, const float* __restrict__ scalars,
                      long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // PDL: nothing is read, and out (which the allocator may have just
+  // recycled) not written, before the kernel this one follows is done
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const float cs = scalars[0];
   const float ns = scalars[1];
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n_vec; i += stride) {
+  for (long long i = first; i < n_vec; i += stride) {
     if constexpr (V == 4) {
       const float4 dv = reinterpret_cast<const float4*>(d)[i];
       float4 u = make_float4(__fmul_rn(cs, dv.x), __fmul_rn(cs, dv.y),
@@ -789,15 +811,131 @@ int launch_dp_clip_noise(float* out, const float* d, const float* z,
   const bool has_z = z != nullptr;
   const bool vec = (n % 4 == 0) && aligned16(out) && aligned16(d) &&
                    (!has_z || aligned16(z));
+  cudaError_t err = cudaSuccess;
   auto go = [&](auto VC, auto HZ) {
     constexpr int V = decltype(VC)::value ? 4 : 1;
     const long long n_vec = n / V;
-    dp_clip_noise_kernel<V, decltype(HZ)::value>
-        <<<grid_for(n_vec, kThreads), kThreads, 0, stream>>>(out, d, z, scalars, n_vec);
+    err = launch_pdl(dp_clip_noise_kernel<V, decltype(HZ)::value>,
+                     grid_for(n_vec, kThreads), stream, out, d, z, scalars, n_vec);
   };
   dispatch_bool(vec, [&](auto VC) {
     dispatch_bool(has_z, [&](auto HZ) { go(VC, HZ); });
   });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// V elements of T (f32 or bf16) as f32: one 16-byte load when V * sizeof(T)
+// is 16, else one element
+template <typename T, int V>
+__device__ __forceinline__ void load_as_f32(const T* __restrict__ src, float (&dst)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (std::is_same<T, float>::value) dst[0] = src[0];
+    else dst[0] = __bfloat162float(src[0]);
+  } else {
+    static_assert(V * sizeof(T) == 16, "vector path moves 16 bytes");
+    const uint4 raw = *reinterpret_cast<const uint4*>(src);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if constexpr (std::is_same<T, float>::value) dst[j] = e[j];
+      else dst[j] = __bfloat162float(e[j]);
+    }
+  }
+}
+
+// V f32 values, as V / 4 float4 loads or stores when V is a multiple of 4
+template <int V>
+__device__ __forceinline__ void load_f32v(const float* __restrict__ src, float (&dst)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < V; h += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + h);
+      dst[h] = v.x;
+      dst[h + 1] = v.y;
+      dst[h + 2] = v.z;
+      dst[h + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = src[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32v(float* __restrict__ dst, const float (&src)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < V; h += 4)
+      *reinterpret_cast<float4*>(dst + h) =
+          make_float4(src[h], src[h + 1], src[h + 2], src[h + 3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = src[j];
+  }
+}
+
+// the rows form: row k of out = cs[k]*(f32(w[k]) - f32(p)) (+ ns*z[k]) for
+// the K client end states w (K, n) in T over the start buffer p (n), with
+// the rounding of the subtraction and dp_clip_noise it replaces.  Block
+// row y takes the rows y, y + gridDim.y, ...; x strides over the row.
+template <typename T, int V, bool HAS_Z>
+__global__ void __launch_bounds__(kThreads)
+dp_clip_noise_rows_kernel(float* __restrict__ out, const T* __restrict__ w,
+                          const T* __restrict__ p, const float* __restrict__ z,
+                          const float* __restrict__ clip_scales,
+                          const float* __restrict__ noise_scale, long long n, int K,
+                          long long n_vec) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // PDL: as dp_clip_noise_kernel
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  float ns = 0.0f;
+  if constexpr (HAS_Z) ns = noise_scale[0];
+  for (int k = blockIdx.y; k < K; k += gridDim.y) {
+    const float cs = clip_scales[k];
+    const long long row = static_cast<long long>(k) * n;
+    for (long long i = first; i < n_vec; i += stride) {
+      const long long off = i * V;
+      float wv[V], pv[V], u[V];
+      load_as_f32<T, V>(w + row + off, wv);
+      load_as_f32<T, V>(p + off, pv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) u[j] = __fmul_rn(cs, __fsub_rn(wv[j], pv[j]));
+      if constexpr (HAS_Z) {
+        float zv[V];
+        load_f32v<V>(z + row + off, zv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) u[j] = __fadd_rn(u[j], __fmul_rn(ns, zv[j]));
+      }
+      store_f32v<V>(out + row + off, u);
+    }
+  }
+}
+
+template <typename T>
+int launch_dp_clip_noise_rows(float* out, const void* w, const void* p, const float* z,
+                              const float* clip_scales, const float* noise_scale,
+                              long long n, int K, cudaStream_t stream) {
+  constexpr int VW = 16 / sizeof(T);
+  const bool has_z = z != nullptr;
+  const bool vec = (n % VW == 0) && aligned16(out) && aligned16(w) && aligned16(p) &&
+                   (!has_z || aligned16(z));
+  const unsigned rows = static_cast<unsigned>(K < 65535 ? K : 65535);
+  cudaError_t err = cudaSuccess;
+  auto go = [&](auto VC, auto HZ) {
+    constexpr int V = decltype(VC)::value ? VW : 1;
+    const long long n_vec = n / V;
+    err = launch_pdl(dp_clip_noise_rows_kernel<T, V, decltype(HZ)::value>,
+                     dim3(grid_for(n_vec, kThreads), rows), stream, out,
+                     static_cast<const T*>(w), static_cast<const T*>(p), z, clip_scales,
+                     noise_scale, n, K, n_vec);
+  };
+  dispatch_bool(vec, [&](auto VC) {
+    dispatch_bool(has_z, [&](auto HZ) { go(VC, HZ); });
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,6 +1013,24 @@ int up_dp_clip_noise(void* out, const void* d, const void* z, const void* scalar
                               static_cast<const float*>(z),
                               static_cast<const float*>(scalars), n,
                               static_cast<cudaStream_t>(stream));
+}
+
+// the rows form: out (K, n) f32 from w (K, n) and p (n) in dtype 0 = f32 or
+// 1 = bf16, z (K, n) f32 or NULL, clip_scales (K,) and noise_scale (1,) f32
+int up_dp_clip_noise_rows(void* out, const void* w, const void* p, const void* z,
+                          const void* clip_scales, const void* noise_scale, long long n,
+                          int K, int dtype, void* stream) {
+  if (K < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  auto o = static_cast<float*>(out);
+  auto zf = static_cast<const float*>(z);
+  auto cs = static_cast<const float*>(clip_scales);
+  auto ns = static_cast<const float*>(noise_scale);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_dp_clip_noise_rows<float>(o, w, p, zf, cs, ns, n, K, s);
+  if (dtype == 1)
+    return launch_dp_clip_noise_rows<__nv_bfloat16>(o, w, p, zf, cs, ns, n, K, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

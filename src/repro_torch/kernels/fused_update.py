@@ -2,10 +2,11 @@
 
 The counterpart of ``repro/kernels/fused_update.py``'s ``local_step``,
 ``weighted_delta``, ``server_update``, ``compress_delta``,
-``dp_clip_noise`` and ``delta_accum``, plus ``topk_threshold`` (a jnp function in
-``repro/fl/compression.py``, a kernel here) and ``topk_compress`` (the
-threshold and ``compress_delta`` in one launch).  Each function here comes
-in two forms:
+``dp_clip_noise`` and ``delta_accum``, plus ``dp_clip_noise_rows`` (one
+``dp_clip_noise`` launch for a round's clients), ``topk_threshold`` (a
+jnp function in ``repro/fl/compression.py``, a kernel here) and
+``topk_compress`` (the threshold and ``compress_delta`` in one launch).
+Each function here comes in two forms:
 
   ``<name>``        the wrapper.  On a CUDA tensor it launches the
                     hand-written kernel of ``csrc/fused_update.cu`` or
@@ -251,13 +252,17 @@ delta_accum.launches = 0
 # server update (apply delta + FedAvgM / FedAdam moments)
 # ---------------------------------------------------------------------------
 
-def server_update_plain(p, delta, moments, scalars, *, opt: str = "none",
-                        beta: float = 0.9, b1: float = 0.9, b2: float = 0.99,
-                        eps: float = 1e-8):
+def server_update_plain(p, delta, moments, scalars, *, avg=None,
+                        opt: str = "none", beta: float = 0.9, b1: float = 0.9,
+                        b2: float = 0.99, eps: float = 1e-8):
     """none: ``p ← p + d``; momentum: ``m ← β·m + g``, ``p ← p − lr·m``;
     adam: ``μ ← b1·μ + (1−b1)·g``, ``ν ← b2·ν + (1−b2)·g·g``,
     ``p ← p − lr·(μ/bc1)/(√(ν/bc2)+ε)``; ``g = −d``, in place.
-    ``scalars`` is the f32 ``(lr,)`` or ``(lr, bc1, bc2)`` tensor."""
+    ``scalars`` is the f32 ``(lr,)`` or ``(lr, bc1, bc2)`` tensor.  The
+    aggregate form (``avg`` given, ``delta`` None) first forms
+    ``d = avg₃₂ − p₃₂``."""
+    if avg is not None:
+        delta = avg.float() - p.float()
     p32 = p.float()
     if opt == "none":
         p.copy_(p32 + delta)
@@ -281,18 +286,27 @@ def server_update_plain(p, delta, moments, scalars, *, opt: str = "none",
     return p, (mu, nu)
 
 
-def server_update(p: torch.Tensor, delta: torch.Tensor,
+def server_update(p: torch.Tensor, delta: Optional[torch.Tensor],
                   moments: Sequence[torch.Tensor], scalars: torch.Tensor, *,
-                  opt: str = "none", beta: float = 0.9, b1: float = 0.9,
-                  b2: float = 0.99, eps: float = 1e-8):
+                  avg: Optional[torch.Tensor] = None, opt: str = "none",
+                  beta: float = 0.9, b1: float = 0.9, b2: float = 0.99,
+                  eps: float = 1e-8):
     """Apply the aggregated f32 ``delta`` to ``p`` under a server
     optimizer, in place on ``p`` and ``moments`` (() for "none", (m,)
-    for "momentum", (mu, nu) for "adam").  Returns ``(p, moments)``."""
+    for "momentum", (mu, nu) for "adam").  The aggregate form takes the
+    round's aggregate ``avg`` (``p``'s dtype) instead, with ``delta``
+    None, and forms ``d = avg₃₂ − p₃₂`` in the same launch: exactly one
+    of the two is given.  Returns ``(p, moments)``."""
     if opt not in _OPT_CODE:
         raise ValueError(f"unknown server opt {opt!r}")
+    if (delta is None) == (avg is None):
+        raise ValueError("pass exactly one of delta and avg")
     _check_param(p)
     n, dt, dev = p.shape[0], p.dtype, p.device
-    _check_1d("delta", delta, n, torch.float32, dev)
+    if avg is None:
+        _check_1d("delta", delta, n, torch.float32, dev)
+    else:
+        _check_1d("avg", avg, n, dt, dev)
     moments = tuple(moments)
     if len(moments) != _OPT_CODE[opt]:
         raise ValueError(f"server opt {opt!r} takes {_OPT_CODE[opt]} "
@@ -302,16 +316,16 @@ def server_update(p: torch.Tensor, delta: torch.Tensor,
     _check_1d("scalars", scalars, 3 if opt == "adam" else 1,
               torch.float32, dev)
     if not p.is_cuda:
-        return server_update_plain(p, delta, moments, scalars, opt=opt,
-                                   beta=beta, b1=b1, b2=b2, eps=eps)
+        return server_update_plain(p, delta, moments, scalars, avg=avg,
+                                   opt=opt, beta=beta, b1=b1, b2=b2, eps=eps)
     if n:
         m1 = moments[0] if moments else None
         m2 = moments[1] if len(moments) > 1 else None
         err = _lib().fu_server_update(
-            _ptr(p), _ptr(delta), _ptr(m1), _ptr(m2), _ptr(scalars), n,
-            _DTYPE_CODE[dt], _OPT_CODE[opt], float(beta), float(b1),
-            float(b2), float(1.0 - b1), float(1.0 - b2), float(eps),
-            _stream(p))
+            _ptr(p), _ptr(delta if avg is None else avg), _ptr(m1),
+            _ptr(m2), _ptr(scalars), n, _DTYPE_CODE[dt], _OPT_CODE[opt],
+            avg is not None, float(beta), float(b1), float(b2),
+            float(1.0 - b1), float(1.0 - b2), float(eps), _stream(p))
         _check_launch("server_update", err)
         server_update.launches += 1
     return p, moments
@@ -617,6 +631,70 @@ def dp_clip_noise(d: torch.Tensor, z: Optional[torch.Tensor],
 
 
 dp_clip_noise.launches = 0
+
+
+def dp_clip_noise_rows_plain(w, p, z, clip_scales, noise_scale):
+    """Row k: the subtraction ``w[k]₃₂ − p₃₂``, then
+    ``dp_clip_noise_plain`` with ``(clip_scales[k], noise_scale)`` and
+    ``z[k]``.  Returns a new ``(K, N)`` f32 tensor."""
+    ns = noise_scale.reshape(())
+    rows = [dp_clip_noise_plain(w[k].float() - p.float(),
+                                None if z is None else z[k],
+                                torch.stack([clip_scales[k], ns]))
+            for k in range(w.shape[0])]
+    if not rows:
+        return torch.empty((0, p.shape[0]), dtype=torch.float32,
+                           device=p.device)
+    return torch.stack(rows)
+
+
+def dp_clip_noise_rows(w: torch.Tensor, p: torch.Tensor,
+                       z: Optional[torch.Tensor], clip_scales: torch.Tensor,
+                       noise_scale: torch.Tensor) -> torch.Tensor:
+    """The DP uploads of all K clients of a round in ONE launch, as a new
+    ``(K, N)`` f32 tensor: row k is ``clip_scales[k]·(w[k]₃₂ − p₃₂)``
+    plus ``noise_scale·z[k]`` (``z=None`` drops the noise term), rounded
+    as the subtraction and ``dp_clip_noise`` it replaces round it.  ``w``
+    is the stacked client end states ``(K, N)`` in ``p``'s dtype, ``z``
+    the stacked f32 standard-normal draws, ``clip_scales`` the f32
+    ``(K,)`` scales, ``noise_scale`` an f32 tensor of one element.
+    Counted on ``dp_clip_noise.launches``."""
+    _check_param(p)
+    n, dt, dev = p.shape[0], p.dtype, p.device
+    if w.dim() != 2 or w.shape[1] != n:
+        raise ValueError(f"w must have shape (K, {n}), got "
+                         f"{tuple(w.shape)}")
+    K = w.shape[0]
+    if w.dtype != dt or w.device != dev:
+        raise TypeError(f"w must be {dt} on {dev}, got {w.dtype} on "
+                        f"{w.device}")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    if z is not None:
+        if tuple(z.shape) != (K, n):
+            raise ValueError(f"z must have shape ({K}, {n}), got "
+                             f"{tuple(z.shape)}")
+        if z.dtype != torch.float32 or z.device != dev:
+            raise TypeError(f"z must be float32 on {dev}, got {z.dtype} on "
+                            f"{z.device}")
+        if not z.is_contiguous():
+            raise ValueError("z must be contiguous")
+    _check_1d("clip_scales", clip_scales, K, torch.float32, dev)
+    if noise_scale.numel() != 1:
+        raise ValueError(f"noise_scale must hold one element, got shape "
+                         f"{tuple(noise_scale.shape)}")
+    _check_1d("noise_scale", noise_scale.reshape(1), 1, torch.float32, dev)
+    if not p.is_cuda:
+        return dp_clip_noise_rows_plain(w, p, z, clip_scales, noise_scale)
+    out = torch.empty((K, n), dtype=torch.float32, device=dev)
+    if n and K:
+        err = _lib().up_dp_clip_noise_rows(
+            _ptr(out), _ptr(w), _ptr(p), _ptr(z), _ptr(clip_scales),
+            _ptr(noise_scale), n, K, _DTYPE_CODE[dt], _stream(p))
+        _check_launch("dp_clip_noise_rows", err)
+        dp_clip_noise.launches += 1
+    return out
+
 
 # the update kernels, the client-upload kernels and the pod backend's
 # aggregation kernel

@@ -38,7 +38,9 @@ P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fu_local_step": [P, P, P, P, P, L, I, I, I, F, F, P],
     "fu_weighted_delta": [P, P, P, P, P, L, I, I, I, I, P],
-    "fu_server_update": [P, P, P, P, P, L, I, I, F, F, F, F, F, F, P],
+    # p, d or avg, m1, m2, scalars, n, dtype, opt, from_avg, beta, b1, b2,
+    # 1 - b1, 1 - b2, eps, stream
+    "fu_server_update": [P, P, P, P, P, L, I, I, I, F, F, F, F, F, F, P],
     # d, w, p, coeff, n, dtype, stream
     "fu_delta_accum": [P, P, P, P, L, I, P],
     # out, q, k, v, B, S, T, H, KH, hd, q_offset, window, kv_len, dtype,
@@ -67,6 +69,8 @@ SIGNATURES = {
     "up_topk_compress_clusters": [L],
     # out, d, z, scalars, n, stream
     "up_dp_clip_noise": [P, P, P, P, L, P],
+    # out, w, p, z, clip_scales, noise_scale, n, K, dtype, stream
+    "up_dp_clip_noise_rows": [P, P, P, P, P, P, L, I, I, P],
 }
 RESTYPES = {"ssd_workspace_bytes": L}
 

@@ -8,8 +8,8 @@ CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
 
 The FL layers call the ``fused_*`` half (the update kernels, the
 client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``,
-``fused_topk_compress`` and ``fused_dp_clip_noise``, and the pod backend's
-``fused_delta_accum``) through
+``fused_topk_compress`` and ``fused_dp_clip_noise_rows``, and the pod
+backend's ``fused_delta_accum``) through
 ``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
 ``interpret=fused_interpret(impl)``:
 
@@ -84,14 +84,16 @@ def fused_weighted_delta(stacked, p, weights,
     return fn(stacked, p, weights, extra=extra, deltas=deltas)
 
 
-def fused_server_update(p, delta, moments, scalars, *, opt: str = "none",
-                        beta: float = 0.9, b1: float = 0.9, b2: float = 0.99,
-                        eps: float = 1e-8, interpret: bool = False):
-    """Apply an aggregated f32 delta under a server optimizer (none /
-    FedAvgM momentum / FedAdam), in place.  Returns (p, moments)."""
+def fused_server_update(p, delta, moments, scalars, *, avg=None,
+                        opt: str = "none", beta: float = 0.9, b1: float = 0.9,
+                        b2: float = 0.99, eps: float = 1e-8,
+                        interpret: bool = False):
+    """Apply an aggregated f32 delta, or (``avg`` given, ``delta`` None)
+    the round's aggregate, under a server optimizer (none / FedAvgM
+    momentum / FedAdam), in place.  Returns (p, moments)."""
     fn = _fu.server_update_plain if interpret else _fu.server_update
-    return fn(p, delta, tuple(moments), scalars, opt=opt, beta=beta, b1=b1,
-              b2=b2, eps=eps)
+    return fn(p, delta, tuple(moments), scalars, avg=avg, opt=opt,
+              beta=beta, b1=b1, b2=b2, eps=eps)
 
 
 def fused_delta_accum(delta, w_end, p, coeff, *, interpret: bool = False):
@@ -131,9 +133,10 @@ def fused_topk_compress(d, k: int, *, bits: int = 32,
     return fn(d, k, bits=bits, with_residual=with_residual)
 
 
-def fused_dp_clip_noise(d, z, scalars, *, interpret: bool = False
-                        ) -> torch.Tensor:
-    """One client's DP upload ``clip_scale·d (+ noise_scale·z)``;
-    ``scalars`` is the f32 ``(clip_scale, noise_scale)`` tensor."""
-    fn = _fu.dp_clip_noise_plain if interpret else _fu.dp_clip_noise
-    return fn(d, z, scalars)
+def fused_dp_clip_noise_rows(w, p, z, clip_scales, noise_scale, *,
+                             interpret: bool = False) -> torch.Tensor:
+    """A round's DP uploads in one pass: row k of the ``(K, N)`` f32
+    result is ``clip_scales[k]·(w[k] − p) (+ noise_scale·z[k])``."""
+    fn = _fu.dp_clip_noise_rows_plain if interpret else \
+        _fu.dp_clip_noise_rows
+    return fn(w, p, z, clip_scales, noise_scale)

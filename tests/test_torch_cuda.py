@@ -752,3 +752,283 @@ def test_pod_round_on_a_one_rank_nccl_mesh(gen):
                    for t in res.params.values() for t in t.values())
     finally:
         tmesh.destroy()
+
+
+# K3's aggregate form and K5's rows form (one launch for a round's
+# clients), both launched with programmatic dependent launch: bitwise
+# against their plain versions and the chains they replace, and the PDL
+# hazards (a read or a store before the op before is done)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, 137_216 + 3))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("opt", ("none", "momentum", "adam"))
+def test_server_update_aggregate_form_matches_plain_bitwise(gen, n, dtype,
+                                                            opt):
+    """``server_update(p, None, …, avg=avg)`` bit-equal to its plain
+    version and to the torch subtraction followed by the delta form's
+    kernel, on the vector path and the one-element path."""
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    avg = (p.float() + 1e-2 * torch.randn(n, generator=gen,
+                                          device="cuda")).to(dtype)
+    n_m = {"none": 0, "momentum": 1, "adam": 2}[opt]
+    moms = [torch.randn(n, generator=gen, device="cuda").abs().to(dtype)
+            for _ in range(n_m)]
+    sc = torch.tensor([0.5, 0.19, 0.0199][:3 if opt == "adam" else 1],
+                      device="cuda")
+    runs = []
+    for how in ("kernel", "plain", "chain"):
+        pp, mm = p.clone(), tuple(m.clone() for m in moms)
+        if how == "kernel":
+            fu.server_update(pp, None, mm, sc, avg=avg, opt=opt)
+        elif how == "plain":
+            fu.server_update_plain(pp, None, mm, sc, avg=avg, opt=opt)
+        else:
+            fu.server_update(pp, avg.float() - pp.float(), mm, sc, opt=opt)
+        runs.append((pp, mm))
+    torch.cuda.synchronize()
+    for pp, mm in runs[1:]:
+        assert torch.equal(runs[0][0], pp)
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][1], mm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+@pytest.mark.parametrize("form,opt", [("avg", "momentum"), ("avg", "adam"),
+                                      ("delta", "momentum")])
+def test_server_update_reads_what_the_op_before_it_wrote(gen, write, form,
+                                                         opt):
+    """K3 is launched with programmatic dependent launch: it must not read
+    scalars, avg (or d), p or the moments before the op before it is
+    done, nor write p before that op has read it.  A sleep holds the
+    stream; fresh values are written into every operand (a copy, or a
+    kernel), a kernel then reads p into a snapshot, and K3 follows at
+    once at N 16.8 M, in place on p: it must see the fresh values and
+    leave the snapshot whole."""
+    n = 16_777_216
+    n_m = 2 if opt == "adam" else 1
+    srcs = {"p": torch.randn(n, generator=gen, device="cuda"),
+            "x": torch.randn(n, generator=gen, device="cuda") * 1e-2,
+            "sc": torch.tensor([0.5, 0.19, 0.0199][:3 if opt == "adam"
+                                                    else 1], device="cuda")}
+    for i in range(n_m):
+        srcs[f"m{i}"] = torch.randn(n, generator=gen, device="cuda").abs()
+    if form == "avg":
+        srcs["x"] = srcs["x"] + srcs["p"]
+    dst = {k: torch.zeros_like(v) for k, v in srcs.items()}
+    want_p = srcs["p"].clone()
+    want_m = tuple(srcs[f"m{i}"].clone() for i in range(n_m))
+    x = srcs["x"]
+    fu.server_update_plain(want_p, None if form == "avg" else x, want_m,
+                           srcs["sc"], avg=x if form == "avg" else None,
+                           opt=opt)
+    snap = torch.empty_like(srcs["p"])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for name in srcs:
+        if write == "copy_":
+            dst[name].copy_(srcs[name])
+        else:
+            torch.mul(srcs[name], 1.0, out=dst[name])
+    torch.mul(dst["p"], 1.0, out=snap)
+    moms = tuple(dst[f"m{i}"] for i in range(n_m))
+    if form == "avg":
+        fu.server_update(dst["p"], None, moms, dst["sc"], avg=dst["x"],
+                         opt=opt)
+    else:
+        fu.server_update(dst["p"], dst["x"], moms, dst["sc"], opt=opt)
+    torch.cuda.synchronize()
+    assert torch.equal(snap, srcs["p"])
+    assert torch.equal(dst["p"], want_p)
+    assert all(torch.equal(a, b) for a, b in zip(moms, want_m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt", ("momentum", "adam"))
+def test_weighted_delta_then_server_update_under_graph_capture(gen, opt):
+    """The P2 round's tail: K2 builds the aggregate, K3 (PDL, aggregate
+    form) reads it and updates p and the moments in place, over four
+    rounds.  Run eagerly, and captured by torch.cuda.graph and replayed
+    twice, both bit-equal to the same chain of plain versions."""
+    n, K, rounds = 137_216, 10, 4
+    p = torch.randn(n, generator=gen, device="cuda")
+    moms = [torch.zeros(n, device="cuda") for _ in range(
+        2 if opt == "adam" else 1)]
+    stacks = [p[None] + 1e-2 * torch.randn(K, n, generator=gen,
+                                           device="cuda")
+              for _ in range(rounds)]
+    w = torch.rand(K, generator=gen, device="cuda") + 0.5
+    w = w / w.sum()
+    sc = torch.tensor([0.5, 0.19, 0.0199][:3 if opt == "adam" else 1],
+                      device="cuda")
+
+    def run(pp, mm, agg, update):
+        for st in stacks:
+            avg = agg(st, pp, w)
+            update(pp, None, mm, sc, avg=avg, opt=opt)
+
+    plain_p, plain_m = p.clone(), tuple(m.clone() for m in moms)
+    for _ in range(2):
+        run(plain_p, plain_m, fu.weighted_delta_plain, fu.server_update_plain)
+    eager_p, eager_m = p.clone(), tuple(m.clone() for m in moms)
+    for _ in range(2):
+        run(eager_p, eager_m, fu.weighted_delta, fu.server_update)
+    torch.cuda.synchronize()
+    assert torch.equal(eager_p, plain_p)
+    assert all(torch.equal(a, b) for a, b in zip(eager_m, plain_m))
+    cap_p, cap_m = p.clone(), tuple(m.clone() for m in moms)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(cap_p, cap_m, fu.weighted_delta, fu.server_update)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap_p, plain_p)
+    assert all(torch.equal(a, b) for a, b in zip(cap_m, plain_m))
+
+
+def _rows_inputs(gen, K, n, dtype):
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    w = (p.float()[None] + 1e-2 * torch.randn(K, n, generator=gen,
+                                              device="cuda")).to(dtype)
+    z = torch.randn(K, n, generator=gen, device="cuda")
+    scales = torch.rand(K, generator=gen, device="cuda") * 0.8 + 0.2
+    return w, p, z, scales, torch.tensor([0.11], device="cuda")
+
+
+def _per_client(w, p, z, scales, ns):
+    """The chain the rows form replaces: per client a subtraction and
+    one K5 launch, then the stack."""
+    return torch.stack([
+        fu.dp_clip_noise(w[k].float() - p.float(),
+                         None if z is None else z[k],
+                         torch.stack([scales[k], ns.reshape(())]))
+        for k in range(w.shape[0])])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (1, 1001, 137_216))
+@pytest.mark.parametrize("K", (1, 10, 25))
+def test_dp_clip_noise_rows_matches_plain_and_per_client_bitwise(gen, n, K):
+    """One rows-form launch bit-equal to its plain version and to K
+    per-client K5 launches, f32 and bf16 end states, with and without
+    noise; one launch counted per call."""
+    for dtype in (torch.float32, torch.bfloat16):
+        w, p, z, scales, ns = _rows_inputs(gen, K, n, dtype)
+        for zz in (None, z):
+            before = fu.dp_clip_noise.launches
+            got = fu.dp_clip_noise_rows(w, p, zz, scales, ns)
+            assert fu.dp_clip_noise.launches == before + 1
+            assert got.shape == (K, n) and got.dtype == torch.float32
+            assert torch.equal(got, fu.dp_clip_noise_rows_plain(
+                w, p, zz, scales, ns))
+            assert torch.equal(got, _per_client(w, p, zz, scales, ns))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+def test_dp_clip_noise_rows_reads_what_the_op_before_it_wrote(gen, write):
+    """The rows form must not read w, p, z or the scales before the op
+    before it is done: a sleep, fresh values written into all of them (a
+    copy, or a kernel), then the launch at once, K 10 × N 1,677,824."""
+    srcs = dict(zip(("w", "p", "z", "scales", "ns"),
+                    _rows_inputs(gen, 10, 1_677_824, torch.float32)))
+    want = fu.dp_clip_noise_rows_plain(*srcs.values())
+    dst = {k: torch.zeros_like(v) for k, v in srcs.items()}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for name in srcs:
+        if write == "copy_":
+            dst[name].copy_(srcs[name])
+        else:
+            torch.mul(srcs[name], 1.0, out=dst[name])
+    got = fu.dp_clip_noise_rows(*dst.values())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("write", ["copy_", "kernel"])
+def test_dp_clip_noise_reads_what_the_op_before_it_wrote(gen, write):
+    """The per-client K5 likewise: fresh d, z and scalars behind a
+    sleep, then K5 at once at N 16.8 M."""
+    n = 16_777_216
+    srcs = {"d": torch.randn(n, generator=gen, device="cuda"),
+            "z": torch.randn(n, generator=gen, device="cuda"),
+            "sc": torch.tensor([0.37, 0.11], device="cuda")}
+    want = fu.dp_clip_noise_plain(*srcs.values())
+    dst = {k: torch.zeros_like(v) for k, v in srcs.items()}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    for name in srcs:
+        if write == "copy_":
+            dst[name].copy_(srcs[name])
+        else:
+            torch.mul(srcs[name], 1.0, out=dst[name])
+    got = fu.dp_clip_noise(*dst.values())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["per_client", "rows"])
+def test_dp_clip_noise_stores_after_the_op_before_is_done(gen, form):
+    """K5's output may be a block the caching allocator has just taken
+    back from a tensor the op before still reads: a sleep, a kernel
+    reading ``src`` into ``dst``, ``src`` freed, then K5, whose output
+    takes ``src``'s block.  K5 must not store before that kernel is
+    done, so ``dst`` comes out whole.  The sizes are this test's own, so
+    the freed block is the one reused."""
+    K, n = (1, 16_777_216 + 2048) if form == "per_client" else \
+        (10, 1_677_824 + 1024)
+    torch.cuda.empty_cache()            # no cached block of these sizes
+    w, p, z, scales, ns = _rows_inputs(gen, K, n, torch.float32)
+    d = w[0].float() - p.float()
+    src = torch.randn(K * n, generator=gen, device="cuda")
+    want_dst = src.clone()
+    dst = torch.empty_like(src)
+    src_ptr = src.data_ptr()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    torch.mul(src, 1.0, out=dst)
+    del src
+    if form == "per_client":
+        out = fu.dp_clip_noise(d, z[0], torch.stack([scales[0], ns[0]]))
+    else:
+        out = fu.dp_clip_noise_rows(w, p, z, scales, ns)
+    assert out.data_ptr() == src_ptr
+    torch.cuda.synchronize()
+    assert torch.equal(dst, want_dst)
+
+
+@pytest.mark.cuda
+def test_new_forms_count_launches_and_check(gen):
+    """The aggregate form counts on ``server_update.launches``, the rows
+    form on ``dp_clip_noise.launches``; both reject what they do not
+    take before launching."""
+    fu.reset_launch_counts()
+    p = torch.randn(4096, generator=gen, device="cuda")
+    m = torch.zeros_like(p)
+    sc = torch.tensor([0.5], device="cuda")
+    fu.server_update(p, None, (m,), sc, avg=p.clone(), opt="momentum")
+    w, pp, z, scales, ns = _rows_inputs(gen, 3, 4096, torch.float32)
+    fu.dp_clip_noise_rows(w, pp, z, scales, ns)
+    assert [k.launches for k in fu.KERNELS] == [0, 0, 1]
+    assert [k.launches for k in fu.UPLOAD_KERNELS] == [0, 0, 1, 0]
+    with pytest.raises(ValueError):
+        fu.server_update(p, torch.zeros_like(p), (m,), sc, avg=p.clone(),
+                         opt="momentum")
+    with pytest.raises(ValueError):
+        fu.server_update(p, None, (m,), sc, opt="momentum")
+    with pytest.raises(TypeError):
+        fu.server_update(p, None, (m,), sc, avg=p.bfloat16(),
+                         opt="momentum")
+    with pytest.raises(ValueError):
+        fu.dp_clip_noise_rows(w, pp, z, scales[:2], ns)
+    with pytest.raises(ValueError):
+        fu.dp_clip_noise_rows(w, pp, z[:, :100], scales, ns)
+    with pytest.raises(TypeError):
+        fu.dp_clip_noise_rows(w.bfloat16(), pp, z, scales, ns)
+    assert fu.server_update.launches == 1 and fu.dp_clip_noise.launches == 1
+    torch.cuda.synchronize()

@@ -142,6 +142,101 @@ def test_server_update_matches_pallas(n, opt):
         _close(a, b, "float32")
 
 
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("opt", ["momentum", "adam"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_server_update_aggregate_form_matches_pallas(n, opt, dtype):
+    """K3's aggregate form (``avg`` in place of ``delta``): against the
+    Pallas kernel in interpret mode applied to ``avg₃₂ − p₃₂`` at the
+    file's tolerance, and bitwise against the torch subtraction followed
+    by the delta form's plain version, which it replaces."""
+    p0, avg0 = _np(40, n), _np(40, n) + 0.01 * _np(41, n)
+    jp, tp = _both(p0, dtype)
+    javg, tavg = _both(avg0, dtype)
+    n_m = {"momentum": 1, "adam": 2}[opt]
+    moms = [np.abs(_np(42 + i, n)) for i in range(n_m)]
+    sc = [0.5, 0.19, 0.0199][:3 if opt == "adam" else 1]
+    kw = dict(opt=opt, beta=0.9, b1=0.9, b2=0.99)
+    jd = javg.astype(jnp.float32) - jp.astype(jnp.float32)
+    jp2, jms = jfu.server_update(jp, jd, tuple(_both(m, dtype)[0]
+                                               for m in moms),
+                                 tuple(jnp.float32(s) for s in sc),
+                                 interpret=True, **kw)
+    scalars = torch.tensor(sc, dtype=torch.float32)
+    tms = tuple(_both(m, dtype)[1] for m in moms)
+    chain_p, chain_ms = tp.clone(), tuple(m.clone() for m in tms)
+    tp2, tms2 = fu.server_update(tp, None, tms, scalars, avg=tavg, **kw)
+    assert tp2 is tp and all(a is b for a, b in zip(tms2, tms))
+    _close(tp2, jp2, dtype)
+    for a, b in zip(tms2, jms):
+        _close(a, b, dtype)
+    fu.server_update_plain(chain_p, tavg.float() - chain_p.float(),
+                           chain_ms, scalars, **kw)
+    assert torch.equal(tp2, chain_p)
+    for a, b in zip(tms2, chain_ms):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bad", ["both", "neither", "avg_dtype",
+                                 "avg_shape"])
+def test_server_update_takes_exactly_one_of_delta_and_avg(bad):
+    p, m = torch.zeros(16), torch.zeros(16)
+    delta = torch.zeros(16) if bad in ("both",) else None
+    avg = {"both": torch.zeros(16), "neither": None,
+           "avg_dtype": torch.zeros(16, dtype=torch.bfloat16),
+           "avg_shape": torch.zeros(8)}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        fu.server_update(p, delta, (m,), torch.ones(1), avg=avg,
+                         opt="momentum")
+    assert not p.any() and not m.any()
+
+
+@pytest.mark.parametrize("opt", ["momentum", "adam"])
+def test_engine_server_update_takes_the_aggregate_form(opt, monkeypatch):
+    """The fused engine's FedAvgM / FedAdam update hands K3 the round's
+    aggregate (no subtraction before it), and its result is bit-equal to
+    the subtraction followed by the delta form over two rounds."""
+    from repro_torch.fl import engine
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.fl.task import vision_task
+    task = vision_task("mlp", n_classes=10, in_ch=3,
+                       seed_kwargs={"img": 8})
+    cpu = torch.device("cpu")
+    strategy = FLConfig(server_opt=opt, server_lr=0.5, update_impl="fused",
+                        sampling="host").strategy()
+    fops = strategy.flat_ops(task, cpu)
+    init, update = strategy.make_server_update(task, cpu)
+    p = fops.place(fops.flatten(task.init(torch.Generator().manual_seed(1))))
+    seen, real = [], fu.server_update
+
+    def spy(p_, delta, moments, scalars, **kw):
+        seen.append((delta is None, kw.get("avg") is not None))
+        return real(p_, delta, moments, scalars, **kw)
+    monkeypatch.setattr(fu, "server_update", spy)
+    state = init(p)
+    want = {k: v.clone() for k, v in p.items()}
+    moms = [{k: torch.zeros_like(v) for k, v in p.items()}
+            for _ in range(1 if opt == "momentum" else 2)]
+    for rnd in range(2):
+        g = torch.Generator().manual_seed(10 + rnd)
+        avg = {k: v + 0.01 * torch.randn(v.shape, generator=g).to(v.dtype)
+               for k, v in want.items()}
+        p, state = update(p, avg, state)
+        t = torch.tensor(float(rnd + 1))
+        lr = torch.full((1,), 0.5)
+        sc = lr if opt == "momentum" else torch.cat([
+            lr, (1.0 - torch.pow(engine.SERVER_ADAM_B1, t)).reshape(1),
+            (1.0 - torch.pow(engine.SERVER_ADAM_B2, t)).reshape(1)])
+        for k in want:
+            fu.server_update_plain(
+                want[k], avg[k].float() - want[k].float(),
+                tuple(m[k] for m in moms), sc, opt=opt, beta=0.9,
+                b1=engine.SERVER_ADAM_B1, b2=engine.SERVER_ADAM_B2)
+    assert seen and all(s == (True, True) for s in seen)
+    for k in want:
+        assert torch.equal(p[k], want[k])
+
+
 def _padded(seed, n, pad):
     a = np.zeros(n + pad, np.float32)
     a[:n] = _np(seed, n)

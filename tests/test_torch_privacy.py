@@ -129,6 +129,71 @@ def test_dp_clip_noise_plain_matches_pallas(n, has_z):
     assert torch.equal(fu.dp_clip_noise(torch.from_numpy(d), tz, sc), got)
 
 
+def _per_client_uploads(w, p, z, scales, noise_scale):
+    """The chain the rows form replaces: per client the torch
+    subtraction, then one ``dp_clip_noise`` (its plain version here),
+    then the stack."""
+    return torch.stack([
+        fu.dp_clip_noise(w[k].float() - p.float(),
+                         None if z is None else z[k],
+                         torch.stack([scales[k], noise_scale.reshape(())]))
+        for k in range(w.shape[0])])
+
+
+@pytest.mark.parametrize("K", [1, 3, 10])
+@pytest.mark.parametrize("has_z", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dp_clip_noise_rows_plain_matches_pallas(K, has_z, dtype):
+    """The rows form (all K uploads of a round in one pass) against the
+    Pallas ``dp_clip_noise`` in interpret mode row by row on
+    ``w[k]₃₂ − p₃₂`` (bitwise without noise; within an ulp with it, as
+    above: XLA contracts cs·d + ns·z), and bitwise against the
+    per-client chain it replaces."""
+    n = 1000
+    rng = np.random.default_rng(100 + K)
+    p = rng.normal(size=n).astype(np.float32)
+    w = (p[None] + 0.05 * rng.normal(size=(K, n))).astype(np.float32)
+    z = rng.normal(size=(K, n)).astype(np.float32) if has_z else None
+    scales = rng.uniform(0.2, 1.0, size=K).astype(np.float32)
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tw, tp = torch.from_numpy(w).to(tdt), torch.from_numpy(p).to(tdt)
+    tz = None if z is None else torch.from_numpy(z)
+    ts, tns = torch.from_numpy(scales), torch.tensor([0.11])
+    got = fu.dp_clip_noise_rows(tw, tp, tz, ts, tns)
+    assert got.shape == (K, n) and got.dtype == torch.float32
+    assert torch.equal(got, fu.dp_clip_noise_rows_plain(tw, tp, tz, ts, tns))
+    assert torch.equal(got, _per_client_uploads(tw, tp, tz, ts, tns))
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    jw, jp = jnp.asarray(w, jdt), jnp.asarray(p, jdt)
+    for k in range(K):
+        d = jw[k].astype(jnp.float32) - jp.astype(jnp.float32)
+        want = np.asarray(jfu.dp_clip_noise(
+            d, None if z is None else jnp.asarray(z[k]),
+            jnp.float32(scales[k]), jnp.float32(0.11), interpret=True))
+        if z is None:
+            np.testing.assert_array_equal(got[k].numpy(), want)
+        else:
+            np.testing.assert_allclose(got[k].numpy(), want,
+                                       rtol=2.0 ** -23, atol=1e-7)
+
+
+@pytest.mark.parametrize("bad", ["scales_len", "z_shape", "z_dtype",
+                                 "w_dtype", "w_shape", "noise_scale"])
+def test_dp_clip_noise_rows_rejects_bad_arguments(bad):
+    K, n = 3, 16
+    w = torch.zeros(K, n, dtype=torch.bfloat16 if bad == "w_dtype"
+                    else torch.float32)
+    if bad == "w_shape":
+        w = torch.zeros(K, n + 1)
+    z = {"z_shape": torch.zeros(K, n - 1),
+         "z_dtype": torch.zeros(K, n, dtype=torch.float64)}.get(
+        bad, torch.zeros(K, n))
+    scales = torch.ones(K + 1 if bad == "scales_len" else K)
+    ns = torch.ones(2 if bad == "noise_scale" else 1)
+    with pytest.raises((TypeError, ValueError)):
+        fu.dp_clip_noise_rows(w, torch.zeros(n), z, scales, ns)
+
+
 # ---------------------------------------------------------------------------
 # the port's draws
 # ---------------------------------------------------------------------------
@@ -401,6 +466,60 @@ def test_bf16_params_materialized_upload_matches_folded():
             bound = bound + 2.0 ** -7 * want.abs()
         diff = (mat[name].float() - want).abs()
         assert not (diff > bound).any(), float(diff.max())
+
+
+def _materialized_per_client(dp, secure_agg, fops, ids, p_bufs,
+                             stacked_bufs, weights, normal_fn):
+    """``materialized_dp_aggregate`` as it was before the rows form: one
+    subtraction and one ``dp_clip_noise`` per client, the uploads
+    stacked, then one ``weighted_delta(deltas=True)`` per bucket."""
+    wbar = (weights / torch.sum(weights)).to(torch.float32)
+    names = list(stacked_bufs)
+    scales = privacy.stacked_clip_scales(dp, [p_bufs[n] for n in names],
+                                         [stacked_bufs[n] for n in names])
+    if scales is None:
+        scales = torch.ones_like(wbar)
+    noise_scale = torch.full_like(wbar[0], dp.sigma * dp.clip
+                                  if dp.noised else 0.0)
+    rows = []
+    for k, cid in enumerate(ids):
+        z = normal_fn("dp", cid, None) if dp.noised else None
+        sc = torch.stack([scales[k], noise_scale])
+        rows.append({n: fu.dp_clip_noise(
+            stacked_bufs[n][k].float() - p_bufs[n].float(),
+            None if z is None else z[n], sc) for n in names})
+    uploads = {n: torch.stack([u[n] for u in rows]) for n in names}
+    masks = privacy.round_extra(None, secure_agg, ids, wbar,
+                                zeros_fn=lambda: fops.zeros(torch.float32),
+                                normal_fn=normal_fn)
+    return fops.weighted_delta(p_bufs, uploads, wbar, extra=masks,
+                               deltas=True)
+
+
+@pytest.mark.parametrize("dp,secure_agg", SPECS[:3], ids=SPEC_IDS[:3])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16+f32"])
+def test_materialized_dp_aggregate_matches_per_client_form_bitwise(
+        dp, secure_agg, bf16):
+    """One rows-form launch per bucket gives exactly the aggregate of
+    the per-client form it replaced, on the same draws."""
+    p, wl, weights, ids = _agg_case()
+    cast = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+    tp = {"b": torch.from_numpy(p["b"]), "w": cast(torch.from_numpy(p["w"]))}
+    twl = {"b": torch.from_numpy(wl["b"]),
+           "w": cast(torch.from_numpy(wl["w"]))}
+    view = FlatView.of(tp)
+    fops = FlatParamOps(view=view, interpret=False, device=CPU)
+    pb, sb = fops.pad(view.flatten(tp)), fops.pad(view.flatten_stacked(twl))
+    w = torch.from_numpy(weights)
+    normal_fn = privacy.keyed_normal_fn(11, fops.normal)
+    got = privacy.materialized_dp_aggregate(dp, secure_agg, fops, ids, pb,
+                                            sb, w, normal_fn)
+    want = _materialized_per_client(dp, secure_agg, fops, ids, pb, sb, w,
+                                    normal_fn)
+    assert sorted(got) == sorted(want) == sorted(pb)
+    for name in pb:
+        assert got[name].dtype == pb[name].dtype
+        assert torch.equal(got[name], want[name]), name
 
 
 def test_delta_sqnorms_match_jax():

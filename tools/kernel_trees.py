@@ -5,8 +5,10 @@
 
 KERNEL names a ``chip_smoke.KernelBench`` method with cases in
 ``chip_smoke.KERNEL_CASES`` (``flash_attention``, ``ssd_scan``,
-``local_step``, ``topk_threshold``, ``topk_compress``, ``delta_accum``,
-and the profiled ``sgd_step``, ``p2_round`` and ``pod_round``).  The cases and the measuring code are NEW_TREE's
+``local_step``, ``topk_threshold``, ``compress_delta``,
+``topk_compress``, ``delta_accum``, ``server_update``,
+``dp_clip_noise``, and the profiled ``sgd_step``, ``p2_round``,
+``pod_round`` and ``dp_upload``).  The cases and the measuring code are NEW_TREE's
 ``chip_smoke``; the kernels are each tree's.  The turns run OLD, NEW,
 NEW, OLD: each is a subprocess that imports NEW_TREE's
 ``chip_smoke.KernelBench`` with that tree's ``repro_torch`` package
