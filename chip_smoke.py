@@ -54,11 +54,25 @@ JSON line per phase:
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
                      through ``run_cyclic_then_federated``, launch counts
-                     asserted, then one profiled round of each phase;
+                     asserted, then one profiled round of each phase
+                     (P1's cut to 5 clients);
+     p2_algorithms — the paper's Table I baselines from the main path's
+                     P1 params: P2 4 rounds × 10 clients × 25 steps of
+                     fedavg, fedprox, scaffold and moon (mu 0.01,
+                     temperature 0.5, no server optimizer); K1 1,000
+                     launches each, K1 with SCAFFOLD's correction c
+                     1,000 under scaffold and 0 otherwise, K2 4, K3 0,
+                     accuracy above chance, ledger == closed form;
+                     rounds/s, ms per SGD step and a profiled round's
+                     device ops per step; scaffold's first round bitwise
+                     equal to fedavg's;
   4. e2e           — 1 P1 + 1 P2 round with update_impl "fused" and
                      "fused_interpret" from the same init and index
-                     stream, final params compared;
-     p2_compressed — the main path with int8 + top-k 25% + error
+                     stream, final params compared; and 1 P2 round of
+                     scaffold (params and control variates) and of moon
+                     the same way;
+     p2_compressed — the main path (P1 cut to 2 rounds in the three upload
+                     phases) with int8 + top-k 25% + error
                      feedback uploads in P2: 40 launches of the fused
                      topk_compress and none of the standalone K4 or
                      threshold asserted, ledger
@@ -79,7 +93,8 @@ JSON line per phase:
                      against the per-client form it replaced;
      p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
                      private configurations (and private under device
-                     sampling), in turns from the same P1 params;
+                     sampling), in turns from the same P1 params, 2
+                     rounds a turn;
      pod_path      — the main path on the pod backend (fl/pod.py) over a
                      one-rank NCCL mesh (make_host_mesh): P1 and P2
                      through run_phase_schedule with PodCyclicConfig /
@@ -97,7 +112,13 @@ JSON line per phase:
      pod_vs_host   — 1 P1 + 1 P2 round on the pod and the host engine at
                      the JAX package's tolerances, and the pod's kernels
                      against its plain path, bitwise;
-     pod_rounds    — warm P2 rounds/s of the pod and the host, in turns;
+     pod_algorithms — SCAFFOLD on the pod through run_phase_schedule, the
+                     p2_algorithms P2 shape: K1 1,000 (all with c), K6 40,
+                     K2 0, ledger == closed form, accuracy above chance,
+                     params and control variates against the host's
+                     SCAFFOLD (atol = rtol = 1e-4);
+     pod_rounds    — warm P2 rounds/s of the pod and the host, in turns, 2
+                     rounds a turn;
   5. serve         — hymba-1.5b at full width (1,640,872,320 params,
                      bf16, random weights from a seed) through
                      ``Engine.generate`` with attn_impl = ssd_impl =
@@ -114,7 +135,8 @@ JSON line per phase:
                      device-busy share, device ops, K7's and K8's device
                      time and device kernels (K8 is three per call), top
                      device ops;
-then the ``kernels`` summary (K7 with each serve shape's times; K8 with
+then the ``kernels`` summary (K1 with its c form's times and launches;
+K7 with each serve shape's times; K8 with
 its device kernels per call, since one ``ssd_scan`` call is three), the
 nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -248,7 +270,14 @@ KERNEL_CASES = _kernel_cases()
 _PEAKS = (("H100 HBM3", 3.35e12, 67e12, 989e12),)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -313,11 +342,16 @@ class KernelBench:
         return max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
 
     def local_step(self, n, dtype, has_m, has_c, wd=1e-3, clip=0.7,
-                   label=""):
+                   label="", c_rows=0):
+        """K1; with ``c_rows`` the correction is a row view of a
+        ``(c_rows, n)`` stack, as SCAFFOLD's round hands it to K1."""
         torch, fu = self.torch, self.fu
         p, g = self.rand(n, dtype=dtype), self.rand(n, dtype=dtype)
         m = self.rand(n, dtype=dtype) if has_m else None
-        c = self.rand(n, dtype=dtype) if has_c else None
+        c = None
+        if has_c:
+            c = (self.rand(c_rows, n, dtype=dtype)[c_rows // 2] if c_rows
+                 else self.rand(n, dtype=dtype))
         sc = torch.tensor([clip, 0.05], dtype=torch.float32, device="cuda")
         beta = 0.9 if has_m else 0.0
         kw = dict(weight_decay=wd, momentum=beta)
@@ -344,9 +378,13 @@ class KernelBench:
             library = time_ms(torch, lambda: pl.add_(g, alpha=-0.05))
             why = "Tensor.add_(g, alpha=-step): the same function at " \
                 "clip 1, no decay, no momentum"
+        elif not has_m and not wd and clip == 1.0:
+            why = "none: p -= step*(g + c) is two PyTorch calls " \
+                "(an add, then add_)"
         bound, by = self.bound_ms(n_bytes, n_ops)
         return dict(kernel="local_step", n=n, dtype=str(dtype)[6:],
-                    momentum=has_m, c=has_c, weight_decay=wd,
+                    momentum=has_m, c=has_c, c_row_of=c_rows or None,
+                    weight_decay=wd,
                     clip_scale=clip, max_abs_err=err, ms=ms, plain_ms=plain,
                     library_ms=library, library_note=why, bound_ms=bound,
                     bound_by=by, within_tol=err <= KERNEL_TOL)
@@ -1188,6 +1226,9 @@ def check_kernels(torch, fu, bench) -> dict:
     return {
         "local_step": bench.local_step(N_SMALL, f32, False, False, wd=0.0,
                                        clip=1.0),
+        # SCAFFOLD's step: c is row 5 of the round's (10, N) c - c_i stack
+        "local_step_c": bench.local_step(N_SMALL, f32, False, True, wd=0.0,
+                                         clip=1.0, c_rows=10),
         "weighted_delta": bench.weighted_delta(N_SMALL, 10, False, False),
         "server_update": bench.server_update(N_SMALL, "momentum",
                                              form="avg"),
@@ -1365,21 +1406,124 @@ def main_path(torch, fu):
         raise SystemExit("chip_smoke: ledger bytes differ from the closed "
                          "form")
     profile_rounds(torch, task, data, cyc, fed, p1.params)
-    return launches
+    return launches, p1.params
+
+
+ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
+
+
+def p2_algorithms(torch, fu, init) -> dict:
+    """Phase p2_algorithms: the paper's Table I baselines on the card.
+    From the main path's P1 params, P2 4 rounds × 10 clients × 25 steps
+    (batch 32, the FLConfig defaults: mu 0.01, temperature 0.5, no
+    server optimizer) for fedavg, fedprox, scaffold and moon.  Asserted
+    per algorithm: K1 1,000 launches, K1 with SCAFFOLD's correction c
+    1,000 under scaffold and 0 otherwise, K2 4, K3 and the upload
+    kernels 0, accuracy above chance, ledger == closed form (4 X per
+    client per round for scaffold, 2 X for the others).  Reported:
+    rounds/s, ms per SGD step, and a profiled warm round's device ops
+    per step (a round cut to 2 clients: the trace's size sets the
+    profiler's own cost).  Then scaffold's first round against fedavg's
+    from the same init and index stream (cuDNN deterministic): bitwise,
+    since c = c_i = 0 there.  Returns K1's c-form launches."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import comm_accounting as acc
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.utils.tree_math import size_bytes, tree_leaves
+    task, data = lenet_setup()
+    rows, c_launches = {}, {}
+    for algo in ALGORITHMS:
+        fed = FLConfig(algorithm=algo, rounds=4, participation=0.1,
+                       local_steps=25, batch_size=32, update_impl="fused",
+                       sampling="host")
+        steps = fed.rounds * fed.n_selected(100) * fed.local_steps
+        ledger = acc.CommLedger()
+        fu.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_federated(task, data, fed, init_params=init, ledger=ledger)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = all_launches(fu)
+        c_launches[algo] = fu.local_step.c_launches
+        want = {"local_step": steps, "weighted_delta": fed.rounds,
+                "server_update": 0, "compress_delta": 0, "topk_threshold": 0,
+                "dp_clip_noise": 0, "topk_compress": 0, "delta_accum": 0}
+        closed = acc.overhead_without_cyclic(
+            algo, fed.n_selected(100), fed.rounds, size_bytes(res.params))
+        one = dataclasses.replace(fed, rounds=1, participation=0.02)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            run_federated(task, data, one, init_params=init)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t1) * 1e6
+        busy, n_ops, top = device_activity(prof, n_top=6)
+        one_steps = one.n_selected(100) * one.local_steps
+        rows[algo] = dict(
+            history=res.history, wall_s=wall, rounds_per_s=fed.rounds / wall,
+            ms_per_sgd_step=wall * 1e3 / steps, launches=launches,
+            expected_launches=want, local_step_c_launches=c_launches[algo],
+            ledger=ledger.summary(), ledger_closed_form=closed,
+            final_acc=res.history[-1]["acc"],
+            profiled_round=dict(
+                clients=one.n_selected(100), sgd_steps=one_steps,
+                wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+                device_busy_share=busy / wall_us if n_ops else None,
+                device_ops=n_ops, device_ops_per_step=n_ops / one_steps,
+                top_device_ops=top))
+        if launches != want:
+            raise SystemExit(f"chip_smoke: p2_algorithms {algo} launches "
+                             f"{launches} != {want}")
+        if c_launches[algo] != (steps if algo == "scaffold" else 0):
+            raise SystemExit(f"chip_smoke: p2_algorithms {algo}: K1 with c "
+                             f"launched {c_launches[algo]} times")
+        if not n_ops:
+            raise SystemExit("chip_smoke: the profiler saw no device op")
+        if not all(math.isfinite(h["local_loss"]) for h in res.history):
+            raise SystemExit(f"chip_smoke: non-finite loss under {algo}")
+        if not rows[algo]["final_acc"] > 0.1:
+            raise SystemExit(f"chip_smoke: {algo} final accuracy "
+                             f"{rows[algo]['final_acc']} is not above chance")
+        if ledger.total_bytes != closed:
+            raise SystemExit(f"chip_smoke: {algo} ledger bytes differ from "
+                             "the closed form")
+
+    flags = deterministic_cudnn(torch)
+    first = {}
+    for algo in ("fedavg", "scaffold"):
+        fed = FLConfig(algorithm=algo, rounds=1, participation=0.1,
+                       local_steps=25, batch_size=32, update_impl="fused",
+                       sampling="host")
+        first[algo] = [t.detach().clone() for t in tree_leaves(
+            run_federated(task, data, fed, init_params=init).params)]
+    restore_cudnn(torch, flags)
+    bitwise = all(bool(torch.equal(a, b))
+                  for a, b in zip(first["scaffold"], first["fedavg"]))
+    emit(dict(phase="p2_algorithms", model="lenet5", rounds=4, clients=10,
+              local_steps=25, batch=32, mu=0.01, temperature=0.5,
+              server_opt="none", algorithms=rows,
+              scaffold_round1_equals_fedavg_bitwise=bitwise))
+    if not bitwise:
+        raise SystemExit("chip_smoke: scaffold's first round differs from "
+                         "fedavg's")
+    return c_launches
 
 
 def profile_rounds(torch, task, data, cyc, fed, init) -> None:
-    """Where the time goes: one warm P1 round and one warm P2 round
-    under torch.profiler, CUDA activity only (no host-op tracing, so the
-    host pays little for it).  Reports the device's busy share of the
-    round's wall time and the kernels by device time."""
+    """Where the time goes: one warm P1 round (cut to 5 clients of its
+    25: the trace's size sets the profiler's own cost) and one warm P2
+    round under torch.profiler, CUDA activity only (no host-op tracing,
+    so the host pays little for it).  Reports the device's busy share of
+    the round's wall time and the kernels by device time."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.cyclic import cyclic_pretrain
     from repro_torch.fl.simulation import run_federated
 
-    runs = {"P1": (cyclic_pretrain, dataclasses.replace(cyc, rounds=1),
-                   cyc.n_selected(100) * cyc.local_steps),
+    p1 = dataclasses.replace(cyc, rounds=1, participation=0.05)
+    runs = {"P1": (cyclic_pretrain, p1, p1.n_selected(100) * p1.local_steps),
             "P2": (run_federated, dataclasses.replace(fed, rounds=1),
                    fed.n_selected(100) * fed.local_steps)}
     for name, (run, cfg, steps) in runs.items():
@@ -1455,15 +1599,11 @@ def kernel_time(prof, names) -> tuple:
 def fused_vs_plain(torch):
     """Phase 4: the kernels against the plain path, end to end."""
     from repro_torch.core.cyclic import cyclic_pretrain, CyclicConfig
-    from repro_torch.data.synthetic import DATASETS
     from repro_torch.fl.simulation import FLConfig, run_federated
-    from repro_torch.fl.task import vision_task
     from repro_torch.utils.tree_math import tree_leaves
 
     flags = deterministic_cudnn(torch)
-    data = DATASETS.get("cifar10-like")(n_clients=100, beta=0.5, seed=SEED,
-                                        n_train=20000)
-    task = vision_task("lenet5", n_classes=10, in_ch=3)
+    task, data = lenet_setup()
     init = task.init(torch.Generator().manual_seed(SEED))
 
     def indices(rnd, slot, step):
@@ -1480,16 +1620,37 @@ def fused_vs_plain(torch):
                        sampling="host", batch_indices=indices)
         p1 = cyclic_pretrain(task, data, cyc, init_params=init)
         p2 = run_federated(task, data, fed, init_params=p1.params)
-        finals[impl] = [t.detach().clone() for t in tree_leaves(p2.params)]
+        finals[("fedavgm", impl)] = [t.detach().clone()
+                                     for t in tree_leaves(p2.params)]
+        # SCAFFOLD (K1 with its correction c) and MOON: 1 P2 round from
+        # the same init, the control variates compared with the params
+        for algo in ("scaffold", "moon"):
+            res = run_federated(task, data, FLConfig(
+                algorithm=algo, rounds=1, participation=0.1, local_steps=25,
+                update_impl=impl, sampling="host", batch_indices=indices),
+                init_params=init)
+            st = res.state
+            finals[(algo, impl)] = [t.detach().clone() for t in tree_leaves(
+                (res.params, st.c_global, st.c_clients) if algo == "scaffold"
+                else res.params)]
     restore_cudnn(torch, flags)
-    diffs = [float((a - b).abs().max())
-             for a, b in zip(finals["fused"], finals["fused_interpret"])]
-    close = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
-                for a, b in zip(finals["fused"], finals["fused_interpret"]))
+    cases = {}
+    for case in ("fedavgm", "scaffold", "moon"):
+        pairs = list(zip(finals[(case, "fused")],
+                         finals[(case, "fused_interpret")]))
+        cases[case] = dict(
+            max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
+            allclose=all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                         for a, b in pairs))
+    close = all(c["allclose"] for c in cases.values())
     emit(dict(phase="e2e", rounds={"P1": 1, "P2": 1}, rtol=1e-5, atol=1e-6,
-              max_abs_diff=max(diffs), allclose=close))
+              max_abs_diff=cases["fedavgm"]["max_abs_diff"],
+              allclose=cases["fedavgm"]["allclose"],
+              algorithms={k: cases[k] for k in ("scaffold", "moon")},
+              algorithm_rounds={"P2": 1}))
     if not close:
-        raise SystemExit("chip_smoke: fused and plain paths disagree")
+        raise SystemExit(f"chip_smoke: fused and plain paths disagree: "
+                         f"{cases}")
 
 
 @functools.lru_cache(maxsize=1)
@@ -1533,8 +1694,8 @@ def upload_launches(comp, uploads: int) -> dict:
 
 def upload_phase(torch, fu, phase: str, fed_kw: dict):
     """Phases p2_compressed / p2_private / p2_int8: the main path's
-    pipeline (P1 4 rounds, P2 FedAvgM 4 rounds × 10 clients) with the P2
-    upload of ``fed_kw``, through ``run_cyclic_then_federated``;
+    pipeline (P1 cut to 2 rounds, P2 FedAvgM 4 rounds × 10 clients) with
+    the P2 upload of ``fed_kw``, through ``run_cyclic_then_federated``;
     launches, ledger and accuracy asserted, then a profiled P2 round and
     the kernels against the plain path.  Returns the launches and the P2
     result."""
@@ -1549,7 +1710,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     from repro_torch.utils.tree_math import size_bytes
 
     task, data = lenet_setup()
-    cyc = CyclicConfig(rounds=4, participation=0.25, local_steps=20,
+    cyc = CyclicConfig(rounds=2, participation=0.25, local_steps=20,
                        batch_size=32, update_impl="fused", sampling="host")
     fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
                    local_steps=25, server_opt="momentum", update_impl="fused",
@@ -1623,11 +1784,10 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
 
 
 def upload_e2e(torch, task, data, fed_kw):
-    """1 P1 + 2 P2 rounds with update_impl "fused" and "fused_interpret"
-    from the same init and index stream (cuDNN deterministic): the final
+    """2 P2 rounds with update_impl "fused" and "fused_interpret" from
+    the same init and index stream (cuDNN deterministic): the final
     params and, under error feedback, every client's residual row, at
     the e2e phase's tolerance."""
-    from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
     from repro_torch.fl.engine import run_rounds
     from repro_torch.fl.simulation import FLConfig
     from repro_torch.utils.tree_math import tree_leaves
@@ -1641,20 +1801,16 @@ def upload_e2e(torch, task, data, fed_kw):
 
     finals = {}
     for impl in ("fused", "fused_interpret"):
-        cyc = CyclicConfig(rounds=1, participation=0.25, local_steps=20,
-                           batch_size=32, update_impl=impl, sampling="host",
-                           batch_indices=indices)
         fed = FLConfig(rounds=2, participation=0.1, local_steps=25,
                        server_opt="momentum", update_impl=impl,
                        sampling="host", batch_indices=indices, **fed_kw)
-        p1 = cyclic_pretrain(task, data, cyc, init_params=init)
         r = run_rounds(task, data, fed.strategy(), fed.schedule(),
-                       init_params=p1.params)
+                       init_params=init)
         finals[impl] = [t.detach().clone() for t in tree_leaves(r.params)]
         finals[impl] += list(r.algo_state.get("ef_residuals", {}).values())
     restore_cudnn(torch, flags)
     pairs = list(zip(finals["fused"], finals["fused_interpret"]))
-    return dict(rounds={"P1": 1, "P2": 2}, rtol=1e-5, atol=1e-6,
+    return dict(rounds={"P2": 2}, rtol=1e-5, atol=1e-6,
                 compared=len(pairs),
                 max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
                 bitwise=all(bool(torch.equal(a, b)) for a, b in pairs),
@@ -1792,7 +1948,8 @@ def dp_upload(torch, fu, params, fed_kw):
 
 def p2_rounds(torch, init) -> dict:
     """Phase p2_rounds: warm P2 rounds/s of the uncompressed, compressed
-    and private configurations from the same P1 params, in turns (each
+    and private configurations from the same P1 params, 2 rounds a turn,
+    in turns (each
     configuration twice, in the order a b c d d c b a), so a slow
     stretch of the host falls on all of them; the private configuration
     also under sampling="device", whose ids the privacy draws read back
@@ -1805,9 +1962,10 @@ def p2_rounds(torch, init) -> dict:
             "p2_private_device_sampling": dict(configs["p2_private"],
                                                sampling="device")}
     times = {name: [] for name in runs}
+    rounds = 2
     for name in list(runs) + list(reversed(runs)):
         kw = dict(dict(sampling="host"), **runs[name])
-        fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+        fed = FLConfig(algorithm="fedavg", rounds=rounds, participation=0.1,
                        local_steps=25, server_opt="momentum",
                        update_impl="fused", **kw)
         torch.cuda.synchronize()
@@ -1815,8 +1973,8 @@ def p2_rounds(torch, init) -> dict:
         run_federated(task, data, fed, init_params=init)
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
-    rps = {name: [4 / t for t in ts] for name, ts in times.items()}
-    emit(dict(phase="p2_rounds", rounds=4, order="a b c d d c b a",
+    rps = {name: [rounds / t for t in ts] for name, ts in times.items()}
+    emit(dict(phase="p2_rounds", rounds=rounds, order="a b c d d c b a",
               wall_s=times, rounds_per_s=rps,
               mean_rounds_per_s={k: statistics.mean(v) for k, v in rps.items()}))
     return rps
@@ -2072,14 +2230,91 @@ def pod_vs_host(torch, mesh):
                          "disagree")
 
 
+def pod_algorithms(torch, fu, mesh) -> int:
+    """Phase pod_algorithms: SCAFFOLD on the one-rank pod through
+    ``run_phase_schedule``, the P2 shape of ``p2_algorithms`` (4 rounds ×
+    10 clients × 25 steps, batch 32, no server optimizer), and the host
+    engine's SCAFFOLD from the same init and index stream, both cuDNN
+    deterministic.  Asserted: K1 1,000 launches, all of them with c; K6
+    40; K2 0; K3 4 (the pod's apply); ledger == closed form (4 X);
+    accuracy above chance; the pod's final params and control variates
+    against the host's at the pod phases' aggregate tolerance (atol =
+    rtol = 1e-4, as pod_vs_host).  Returns K1's c-form launches."""
+    from repro_torch.core import comm_accounting as acc
+    from repro_torch.core.pipeline import Phase, run_phase_schedule
+    from repro_torch.fl.pod import PodFLConfig, PodFLSpec
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.utils.tree_math import size_bytes, tree_leaves
+    task, data = lenet_setup()
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1_000_003 * rnd + 1009 * slot + step)
+        return torch.randint(0, data.n_per_client, (32,), generator=g)
+    pcfg = PodFLConfig(mesh, rounds=4, clients_per_round=10, spec=PodFLSpec(
+        algorithm="scaffold", local_steps=25, batch_size=32, lr=0.01,
+        update_impl="fused"), lr_decay=0.998, eval_every=4, eval_batch=256,
+        sampling="host", chunk_size=8, batch_indices=indices)
+    hcfg = FLConfig(algorithm="scaffold", rounds=4, participation=0.1,
+                    local_steps=25, batch_size=32, update_impl="fused",
+                    sampling="host", batch_indices=indices)
+    flags = deterministic_cudnn(torch)
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_phase_schedule(task, data, [Phase("P2", pcfg)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, c_launches = all_launches(fu), fu.local_step.c_launches
+    host = run_federated(task, data, hcfg)
+    restore_cudnn(torch, flags)
+    st = res.phases[0].result.algo_state
+    pod_t = tree_leaves((res.params, st["c_global"], st["c_clients"].rows))
+    host_t = tree_leaves((host.params, host.state.c_global,
+                          host.state.c_clients))
+    close = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                for a, b in zip(pod_t, host_t))
+    steps = 4 * 10 * 25
+    want = {"local_step": steps, "weighted_delta": 0, "server_update": 4,
+            "compress_delta": 0, "topk_threshold": 0, "dp_clip_noise": 0,
+            "topk_compress": 0, "delta_accum": 40}
+    closed = acc.overhead_without_cyclic("scaffold", 10, 4,
+                                         size_bytes(res.params))
+    final_acc = res.history[-1]["acc"]
+    emit(dict(phase="pod_algorithms", algorithm="scaffold", mesh=str(mesh),
+              history=res.history, wall_s=wall, rounds_per_s=4 / wall,
+              launches=launches, expected_launches=want,
+              local_step_c_launches=c_launches, final_acc=final_acc,
+              ledger=res.ledger.summary(), ledger_closed_form=closed,
+              vs_host_tol="atol = rtol = 1e-4",
+              vs_host_max_abs_diff=max(float((a - b).abs().max())
+                                       for a, b in zip(pod_t, host_t)),
+              vs_host_bitwise=all(bool(torch.equal(a, b))
+                                  for a, b in zip(pod_t, host_t))))
+    if launches != want or c_launches != steps:
+        raise SystemExit(f"chip_smoke: pod_algorithms launches {launches}, "
+                         f"K1 with c {c_launches}")
+    if not final_acc > 0.1:
+        raise SystemExit(f"chip_smoke: pod scaffold final accuracy "
+                         f"{final_acc} is not above chance")
+    if res.ledger.total_bytes != closed:
+        raise SystemExit("chip_smoke: pod_algorithms ledger bytes differ "
+                         "from the closed form")
+    if not close:
+        raise SystemExit("chip_smoke: the pod's and the host's SCAFFOLD "
+                         "disagree")
+    return c_launches
+
+
 def pod_rounds(torch, mesh, init) -> dict:
     """Phase pod_rounds: warm P2 rounds/s of the pod (sequential K6) and
-    of the host engine (K2) from the same P1 params, in turns (a b b a)."""
+    of the host engine (K2) from the same P1 params, 2 rounds a turn, in
+    turns (a b b a)."""
     from repro_torch.fl.pod import run_pod_rounds
     from repro_torch.fl.simulation import FLConfig, run_federated
     task, data = lenet_setup()
-    _, pfed = pod_configs(mesh)
-    hfed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+    rounds = 2
+    _, pfed = pod_configs(mesh, rounds=rounds)
+    hfed = FLConfig(algorithm="fedavg", rounds=rounds, participation=0.1,
                     local_steps=25, server_opt="momentum",
                     update_impl="fused", sampling="host")
     runs = {"pod": lambda: run_pod_rounds(task, data, pfed, init_params=init),
@@ -2091,8 +2326,8 @@ def pod_rounds(torch, mesh, init) -> dict:
         runs[name]()
         torch.cuda.synchronize()
         times[name].append(time.perf_counter() - t0)
-    rps = {name: [4 / t for t in ts] for name, ts in times.items()}
-    emit(dict(phase="pod_rounds", rounds=4, order="pod host host pod",
+    rps = {name: [rounds / t for t in ts] for name, ts in times.items()}
+    emit(dict(phase="pod_rounds", rounds=rounds, order="pod host host pod",
               wall_s=times, rounds_per_s=rps,
               mean_rounds_per_s={k: statistics.mean(v)
                                  for k, v in rps.items()}))
@@ -2372,7 +2607,8 @@ def main(argv=None) -> int:
     upload_shapes = check_upload_kernels(torch, bench)
     pod_shapes = check_pod_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
-    launches = main_path(torch, fu)
+    launches, p1_params = main_path(torch, fu)
+    algo_c_launches = p2_algorithms(torch, fu, p1_params)
     fused_vs_plain(torch)
     configs = upload_configs()
     comp_launches, _ = upload_phase(torch, fu, "p2_compressed",
@@ -2388,6 +2624,7 @@ def main(argv=None) -> int:
     pod_hierarchical(torch, fu, mesh, pod_p1)
     pod_comp_launches = pod_compressed(torch, fu, mesh, pod_p1)
     pod_vs_host(torch, mesh)
+    pod_c_launches = pod_algorithms(torch, fu, mesh)
     pod_rounds(torch, mesh, pod_p1)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
@@ -2415,6 +2652,13 @@ def main(argv=None) -> int:
                             library_ms=r["library_ms"],
                             **({"pdl": True} if kname != "weighted_delta"
                                else {})))
+    # K1 with SCAFFOLD's correction c (a row view of the round's (K, N)
+    # c - c_i stack) on p2_algorithms and pod_algorithms
+    rc = main_shapes["local_step_c"]
+    next(k for k in kernels if k["name"] == "local_step").update(
+        c_form=dict({k: rc[k] for k in timing},
+                    launches={"p2_algorithms": algo_c_launches["scaffold"],
+                              "pod_algorithms": pod_c_launches}))
     # K3 on the main path is the aggregate form under FedAvgM (no PyTorch
     # call forms avg - p and applies momentum: library_ms null); the delta
     # form, the pod's apply ("none") and FedAdam's aggregate form beside it

@@ -4,8 +4,10 @@ schedule.
 The counterpart of ``repro/core/pipeline.py``: a phase is (config,
 optional switch policy); ``run_phase_schedule`` threads the model and
 one CommLedger through every phase, and ``run_cyclic_then_federated``
-is the paper's two-phase pipeline (P1 cyclic relay → P2 FedAvg).  Both
-run on ``device`` (default CUDA; ``device="cpu"`` for the CPU).
+is the paper's two-phase pipeline (P1 cyclic relay → P2 with the
+``FLConfig``'s algorithm: "Cyclic+X" for X in FedAvg, FedProx, SCAFFOLD
+and MOON).  Both run on ``device`` (default CUDA; ``device="cpu"`` for
+the CPU).
 """
 from __future__ import annotations
 

@@ -9,7 +9,11 @@ synchronous round loop.  A ``RoundStrategy`` decides what a round is:
                       (one after another, client k's end state written
                       into row k of a ``(K, N)`` stack), then the
                       weighted FedAvg mean and an optional server
-                      optimizer (FedAvgM / FedAdam).
+                      optimizer (FedAvgM / FedAdam); the algorithm is
+                      fedavg, fedprox, scaffold or moon, the last two
+                      with per-client state rows (control variates,
+                      previous local models) in a
+                      :class:`DenseClientStateStore`.
 
 Both the per-step client update and the per-round aggregation/server
 step run as per-leaf tree algebra (``update_impl="tree"``) or
@@ -48,9 +52,8 @@ tests inject the JAX package's threefry draws through it).
 buffers, stacked client end states and new params (``chip_smoke.py``
 rebuilds a private round's uploads from them).
 
-Not ported yet: the fedprox/scaffold/moon algorithms and their client
-state (ROADMAP.md item M4b), the sparse store and the overlapped
-pipeline (M10).
+Not ported yet: the sparse store and the overlapped pipeline (ROADMAP.md
+item M10).
 """
 from __future__ import annotations
 
@@ -167,9 +170,9 @@ class RoundInputs:
 @dataclasses.dataclass(frozen=True)
 class DenseClientStateStore:
     """Per-client state rows as dense device stacks, ``(n_clients, ...)``
-    per leaf.  It carries the error-feedback residual rows of compressed
-    uploads; scaffold/moon state is ROADMAP.md item M4b, the sparse
-    store M10."""
+    per leaf: scaffold's control variates, moon's previous local models
+    and the error-feedback residual rows of compressed uploads (the
+    sparse store is ROADMAP.md item M10)."""
 
     def init(self, template: Pytree, n_clients: int) -> Pytree:
         return tm.tree_map(lambda t: t.unsqueeze(0).expand(
@@ -184,6 +187,10 @@ class DenseClientStateStore:
         for s, r in zip(tm.tree_leaves(state), tm.tree_leaves(rows)):
             s.index_copy_(0, ids, r)
         return state
+
+    def population(self, state: Pytree) -> int:
+        """The number of clients (scaffold's K/N counts all of them)."""
+        return tm.tree_leaves(state)[0].shape[0]
 
 
 DENSE_STORE = DenseClientStateStore()
@@ -307,8 +314,6 @@ class AggregateStrategy(HostBackend):
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
-        if self.algorithm != "fedavg":
-            not_ported(f"algorithm={self.algorithm!r}", "M4b")
         if self.server_opt not in SERVER_OPTS:
             raise ValueError(f"unknown server_opt {self.server_opt!r}")
         if not isinstance(self.state_store, DenseClientStateStore):
@@ -324,16 +329,29 @@ class AggregateStrategy(HostBackend):
         return compression.compression_on(comp) and comp.error_feedback
 
     def init_state(self, task: Task, params: Pytree, n_clients: int) -> Dict:
-        """Error-feedback residuals (compressed uploads) are per-client
-        f32 rows in the flat bucket layout on both paths: the padded
-        carry buffers on the fused path, the logical buckets on tree."""
-        if not self._ef:
-            return {}
+        """The per-client state rows, in the engine's working
+        representation (``params`` are its placed trees or flat
+        buffers): scaffold's zero control variates (``c_global`` and
+        ``c_clients``), moon's previous local models (``w_prev``, all
+        the start params).  Error-feedback residuals (compressed
+        uploads) are f32 rows in the flat bucket layout on both paths:
+        the padded carry buffers on the fused path, the logical buckets
+        on tree."""
         fops = self.flat_ops(task, self._device(params))
-        tmpl = (fops.zeros(torch.float32) if fops is not None else
-                FlatView.of(param_shapes(task)).zeros(
-                    torch.float32, self._device(params)))
-        return {"ef_residuals": self.state_store.init(tmpl, n_clients)}
+        store = self.state_store
+        state: Dict[str, Pytree] = {}
+        if self.algorithm == "scaffold":
+            zeros = fops.zeros() if fops is not None else tm.zeros_like(params)
+            state = {"c_global": zeros,
+                     "c_clients": store.init(zeros, n_clients)}
+        elif self.algorithm == "moon":
+            state = {"w_prev": store.init(params, n_clients)}
+        if self._ef:
+            tmpl = (fops.zeros(torch.float32) if fops is not None else
+                    FlatView.of(param_shapes(task)).zeros(
+                        torch.float32, self._device(params)))
+            state["ef_residuals"] = store.init(tmpl, n_clients)
+        return state
 
     @staticmethod
     def _device(params: Pytree) -> torch.device:
@@ -464,37 +482,92 @@ class AggregateStrategy(HostBackend):
         return lambda inputs, params, stacked, state: (
             fused_aggregate(fops, params, stacked, inputs.weights), state)
 
+    def client_state(self, fops: Optional[FlatParamOps], params: Pytree,
+                     ids: torch.Tensor, lr_scale, algo_state: Dict
+                     ) -> Tuple[Callable[[int], Dict], Callable]:
+        """One round of the algorithm's per-client state, in the engine's
+        representation (trees, or flat buffers when ``fops`` is given).
+        Returns ``(extras_of, update)``: ``extras_of(slot)`` is the local
+        fn's ``extras`` for client ``slot``; ``update(ends)`` takes the
+        stacked ``(K, ...)`` client end states and returns the new
+        ``algo_state``.
+
+          fedprox  : anchor on the round's start params.
+          scaffold : (option II) ``c − c_i`` once per round as a (K, ...)
+                     stack, client k's correction its row k;
+                     ``c_i⁺ = c_i − c + (w − w_i)/(S·lr·lr_scale)``, then
+                     ``c ← c + (K/N)·mean(c_i⁺ − c_i)`` and the rows
+                     scattered back.
+          moon     : the clients' previous local models gathered; their
+                     end states scattered back."""
+        algo, spec, store = self.algorithm, self.spec, self.state_store
+        unpack = fops.unflatten if fops is not None else (lambda t: t)
+
+        def row(tree, slot):
+            return tm.tree_map(lambda t: t[slot], tree)
+
+        if algo == "fedavg":
+            return (lambda slot: {}), (lambda ends: algo_state)
+        if algo == "fedprox":
+            anchor = {"w_global": unpack(params)}
+            return (lambda slot: anchor), (lambda ends: algo_state)
+        if algo == "scaffold":
+            c, c_all = algo_state["c_global"], algo_state["c_clients"]
+            c_i = store.gather(c_all, ids)
+            c_diff = tm.tree_map(lambda g, l: g[None] - l, c, c_i)
+            key = "c_diff" if fops is None else "c_diff_flat"
+
+            def update(ends):
+                denom = spec.n_steps * spec.lr * lr_scale
+                c_i_new = tm.tree_map(
+                    lambda ci, cg, p, wl:
+                    ci - cg[None] + (p[None] - wl) / denom,
+                    c_i, c, params, ends)
+                frac = ids.shape[0] / store.population(c_all)
+                c_new = tm.tree_map(
+                    lambda cg, new, old: cg + frac * torch.mean(new - old,
+                                                                dim=0),
+                    c, c_i_new, c_i)
+                return dict(algo_state, c_global=c_new,
+                            c_clients=store.scatter(c_all, ids, c_i_new))
+            return (lambda slot: {key: row(c_diff, slot)}), update
+        w_prev_all = algo_state["w_prev"]                # moon
+        w_prev = store.gather(w_prev_all, ids)
+        anchor = unpack(params)
+
+        def moon_extras(slot):
+            return {"w_global": anchor, "w_prev": unpack(row(w_prev, slot))}
+        return moon_extras, lambda ends: dict(
+            algo_state, w_prev=store.scatter(w_prev_all, ids, ends))
+
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
         local = make_local_fn(task, self.spec, fops, self.grad_reducer())
         aggregate = self._aggregate(task, device, fops)
 
-        if fops is None:
-            def body(params, inputs: RoundInputs, lr_scale, algo_state):
-                ends, losses = [], []
-                for slot in range(inputs.ids.shape[0]):
+        def body(params, inputs: RoundInputs, lr_scale, algo_state):
+            K = inputs.ids.shape[0]
+            extras_of, update = self.client_state(fops, params, inputs.ids,
+                                                  lr_scale, algo_state)
+            losses = []
+            if fops is None:
+                ends = []
+                for slot in range(K):
                     w_end, loss = local(params, inputs.sampler(slot),
-                                        lr_scale)
+                                        lr_scale, extras_of(slot))
                     ends.append(w_end)
                     losses.append(loss)
                 stacked = tm.tree_map(lambda *xs: torch.stack(xs), *ends)
-                new_params, algo_state = aggregate(inputs, params, stacked,
-                                                   algo_state)
-                if inputs.on_aggregate is not None:
-                    inputs.on_aggregate(inputs, params, stacked, new_params)
-                return new_params, algo_state, torch.stack(losses).mean()
-            return body
-
-        def body(params, inputs: RoundInputs, lr_scale, algo_state):
-            K = inputs.ids.shape[0]
-            stacked = fops.stacked_empty(K)
-            losses = []
-            for slot in range(K):
-                row = {k: b[slot] for k, b in stacked.items()}
-                for k, r in row.items():
-                    r.copy_(params[k])
-                _, loss = local(row, inputs.sampler(slot), lr_scale)
-                losses.append(loss)
+            else:
+                stacked = fops.stacked_empty(K)
+                for slot in range(K):
+                    row = {k: b[slot] for k, b in stacked.items()}
+                    for k, r in row.items():
+                        r.copy_(params[k])
+                    _, loss = local(row, inputs.sampler(slot), lr_scale,
+                                    extras_of(slot))
+                    losses.append(loss)
+            algo_state = update(stacked)
             new_params, algo_state = aggregate(inputs, params, stacked,
                                                algo_state)
             if inputs.on_aggregate is not None:

@@ -1,14 +1,21 @@
 """Client local training — the inner loop shared by P1 (cyclic) and P2 (FL).
 
-The counterpart of ``repro/fl/local.py`` for the plain variant (vanilla
-local SGD: FedAvg, and CyclicFL's P1).  One function runs ``n_steps`` of
-SGD on one client; the caller hands it ``sample(step) -> (bx, by)``, so
-the local run is independent of where its batch indices come from (a
+The counterpart of ``repro/fl/local.py``.  One function runs ``n_steps``
+of SGD on one client, with the algorithm's loss and gradient shaping
+chosen by ``LocalSpec.variant``:
+
+  plain    : vanilla local SGD (FedAvg, and CyclicFL's P1)
+  fedprox  : + (mu/2)·‖w − w_global‖²          [Li et al., MLSys'20]
+  scaffold : g ← g + (c − c_i) in the step tail [Karimireddy, ICML'20]
+  moon     : + mu·contrastive(z, z_glob, z_prev) [Li et al., CVPR'21]
+
+The caller hands the local fn ``sample(step) -> (bx, by)``, so the local
+run is independent of where its batch indices come from (a
 ``torch.Generator`` on the device, or an injected index source).
 
-The post-gradient step tail — global-norm clip, decoupled weight decay,
-heavy-ball momentum, SGD axpy — has two implementations behind
-``LocalSpec.update_impl``:
+The post-gradient step tail — global-norm clip, scaffold correction,
+decoupled weight decay, heavy-ball momentum, SGD axpy — has two
+implementations behind ``LocalSpec.update_impl``:
 
   tree             : per-leaf ``tree_math`` algebra; the local fn takes
                      and returns parameter TREES.
@@ -48,6 +55,7 @@ Pytree = Any
 Sample = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
 
 UPDATE_IMPLS = ("tree", "fused", "fused_interpret")
+VARIANTS = ("plain", "fedprox", "scaffold", "moon")
 
 
 def validate_update_impl(update_impl: str) -> str:
@@ -72,7 +80,9 @@ class LocalSpec:
     lr: float
     momentum: float = 0.0
     weight_decay: float = 0.0
-    variant: str = "plain"          # fedprox | scaffold | moon: M4b
+    variant: str = "plain"          # plain | fedprox | scaffold | moon
+    mu: float = 0.0                 # prox / moon coefficient
+    temperature: float = 0.5        # moon
     grad_clip: Optional[float] = None
     update_impl: str = "tree"       # tree | fused | fused_interpret
     # round-aggregate privacy (repro_torch.fl.privacy) and compressed
@@ -86,8 +96,26 @@ class LocalSpec:
         validate_update_impl(self.update_impl)
         validate_compression(self.compression, dp=self.dp,
                              secure_agg=self.secure_agg)
-        if self.variant != "plain":
-            not_ported(f"variant={self.variant!r}", "M4b")
+        if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r} "
+                             f"(choose from {VARIANTS})")
+
+
+def _moon_contrastive(z: torch.Tensor, z_glob: torch.Tensor,
+                      z_prev: torch.Tensor, temperature: float
+                      ) -> torch.Tensor:
+    """Model-contrastive loss: pull the local representation toward the
+    global model's, push it away from the previous local model's."""
+
+    def cos(a, b):
+        a = a / (torch.linalg.vector_norm(a, dim=-1, keepdim=True) + 1e-12)
+        b = b / (torch.linalg.vector_norm(b, dim=-1, keepdim=True) + 1e-12)
+        return torch.sum(a * b, dim=-1)
+
+    sim_g = cos(z, z_glob) / temperature
+    sim_p = cos(z, z_prev) / temperature
+    return torch.mean(-sim_g + torch.logsumexp(torch.stack([sim_g, sim_p]),
+                                               dim=0))
 
 
 # ---------------------------------------------------------------------------
@@ -338,10 +366,11 @@ def make_local_fn(task: Task, spec: LocalSpec,
                   ) -> Callable:
     """Build the per-client local-training function.
 
-    tree impl : ``local(w_start, sample, lr_scale) -> (w_end, loss)``
-                over parameter TREES.
-    fused impl: ``local(p_bufs, sample, lr_scale) -> (p_bufs, loss)``
-                over the buffer dict of ``flat_ops``, updated IN PLACE.
+    tree impl : ``local(w_start, sample, lr_scale, extras=None) ->
+                (w_end, loss)`` over parameter TREES.
+    fused impl: ``local(p_bufs, sample, lr_scale, extras=None) ->
+                (p_bufs, loss)`` over the buffer dict of ``flat_ops``,
+                updated IN PLACE.
 
     ``sample(step) -> (bx, by)`` yields the step's batch; ``lr_scale``
     is the round's f32 device scalar; ``loss`` is the mean local loss
@@ -350,12 +379,38 @@ def make_local_fn(task: Task, spec: LocalSpec,
     or the dict of gradient buckets; None is the identity) before the
     step tail: the pod backend averages it over the batch's data group
     there.
+
+    ``extras`` is the algorithm's context (None or {} when unused):
+      w_global    : anchor tree for fedprox / moon (never written)
+      c_diff      : the (c − c_i) correction tree for scaffold (tree)
+      c_diff_flat : the same as a buffer dict in ``flat_ops``' carry
+                    layout (fused; a row of the round's (K, N) stack is
+                    taken as it is)
+      w_prev      : the previous local model's tree for moon
     """
     fused = spec.update_impl != "tree"
     if fused and flat_ops is None:
         raise ValueError("the fused local fn runs over a FlatParamOps")
 
-    def local_tree(w_start: Pytree, sample: Sample, lr_scale):
+    def loss_for_variant(params, extras, bx, by):
+        base = task.loss_fn(params, bx, by, None)
+        if spec.variant == "fedprox":
+            prox = 0.5 * spec.mu * tm.squared_norm(
+                tm.sub(params, extras["w_global"]))
+            return base + prox
+        if spec.variant == "moon":
+            z = task.repr_fn(params, bx)
+            with torch.no_grad():       # the reference's stop_gradient
+                z_glob = task.repr_fn(extras["w_global"], bx)
+                z_prev = task.repr_fn(extras["w_prev"], bx)
+            return base + spec.mu * _moon_contrastive(z, z_glob, z_prev,
+                                                      spec.temperature)
+        return base
+
+    def local_tree(w_start: Pytree, sample: Sample, lr_scale,
+                   extras: Optional[Dict] = None):
+        extras = extras or {}
+        c_diff = extras["c_diff"] if spec.variant == "scaffold" else None
         params = w_start
         mom = tm.zeros_like(params) if spec.momentum else ()
         losses = []
@@ -363,18 +418,22 @@ def make_local_fn(task: Task, spec: LocalSpec,
             bx, by = sample(s)
             leaves, treedef = tm.tree_flatten(params)
             pv = [x.detach().requires_grad_(True) for x in leaves]
-            loss = task.loss_fn(tm.tree_unflatten(treedef, pv), bx, by, None)
+            loss = loss_for_variant(tm.tree_unflatten(treedef, pv), extras,
+                                    bx, by)
             grads = tm.tree_unflatten(treedef,
                                       torch.autograd.grad(loss, pv))
             if reduce_grads is not None:
                 grads = reduce_grads(grads)
             with torch.no_grad():
-                params, mom = tree_step_tail(spec, params, grads, mom, None,
-                                             lr_scale)
+                params, mom = tree_step_tail(spec, params, grads, mom,
+                                             c_diff, lr_scale)
             losses.append(loss.detach())
         return params, torch.stack(losses).mean()
 
-    def local_fused(p_bufs: Dict, sample: Sample, lr_scale):
+    def local_fused(p_bufs: Dict, sample: Sample, lr_scale,
+                    extras: Optional[Dict] = None):
+        extras = extras or {}
+        c_bufs = extras["c_diff_flat"] if spec.variant == "scaffold" else None
         m_bufs = ({name: torch.zeros_like(b) for name, b in p_bufs.items()}
                   if spec.momentum else {})
         step_size = spec.lr * lr_scale
@@ -387,7 +446,7 @@ def make_local_fn(task: Task, spec: LocalSpec,
             # them, and autograd packs the gradient per bucket
             pv = {name: b.detach().requires_grad_(True)
                   for name, b in p_bufs.items()}
-            loss = task.loss_fn(flat_ops.unflatten(pv), bx, by, None)
+            loss = loss_for_variant(flat_ops.unflatten(pv), extras, bx, by)
             g_bufs = dict(zip(pv, torch.autograd.grad(loss,
                                                       list(pv.values()))))
             if reduce_grads is not None:
@@ -395,7 +454,7 @@ def make_local_fn(task: Task, spec: LocalSpec,
             with torch.no_grad():
                 scalars = fixed if fixed is not None else step_scalars(
                     spec, flat_ops, g_bufs, step_size)
-                flat_ops.local_step(p_bufs, g_bufs, m_bufs, None, scalars,
+                flat_ops.local_step(p_bufs, g_bufs, m_bufs, c_bufs, scalars,
                                     weight_decay=spec.weight_decay,
                                     momentum=spec.momentum)
             losses.append(loss.detach())

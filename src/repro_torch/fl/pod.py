@@ -25,8 +25,9 @@ axis names, and this module reads it through the port's sharding rules
     one device.  A bucket sharded over mesh axes (the LLM trees on a
     world larger than one) needs all_gather/reduce_scatter around the
     model: ROADMAP.md item M13b.
-  * Per-client state (the error-feedback rows of compressed uploads)
-    lives in a ``ShardedClientStateStore`` whose client axis shards over
+  * Per-client state (scaffold's control variates, moon's previous
+    local models, the error-feedback rows of compressed uploads) lives
+    in a ``ShardedClientStateStore`` whose client axis shards over
     ``data``: each rank holds its block of rows, a gather is one
     ``all_reduce`` of a zero-filled ``(K, N)`` buffer into which each
     owner writes its rows (exact), a scatter writes the owned rows.
@@ -47,12 +48,17 @@ cross-pod combine is exactly ONE ``all_reduce`` per bucket over
 each rank keeps all G lane accumulators and sums them.  Either way the
 result equals the sequential sum up to the order of addition.
 
+The algorithms are the host engine's (fedavg, fedprox, scaffold, moon):
+each client's extras and the round's client-state update come from
+``AggregateStrategy.client_state``, over the stack of the clients' end
+states.
+
 Not ported yet, each raising ``NotImplementedError`` naming its item:
-fedprox / scaffold / moon (M4b), the sparse client store (M10),
-sharded groups on a world larger than one (M13b), and AOT lowering of
-the pod round (M15).  ``PodFLConfig.overlap`` keeps the JAX default of
-True; until M10 the port runs it as the synchronous loop (the JAX
-package pins the two as bitwise equal).
+the sparse client store (M10), sharded groups on a world larger than
+one (M13b), and AOT lowering of the pod round (M15).
+``PodFLConfig.overlap`` keeps the JAX default of True; until M10 the
+port runs it as the synchronous loop (the JAX package pins the two as
+bitwise equal).
 """
 from __future__ import annotations
 
@@ -134,7 +140,7 @@ class PodFLSpec:
     lr: float = 0.01
     momentum: float = 0.0
     weight_decay: float = 0.0
-    algorithm: str = "fedavg"       # fedprox | scaffold | moon: M4b
+    algorithm: str = "fedavg"       # fedavg | fedprox | scaffold | moon
     mu: float = 0.01
     temperature: float = 0.5
     grad_clip: Optional[float] = None
@@ -167,10 +173,10 @@ class PodFLSpec:
         return LocalSpec(
             n_steps=self.local_steps, batch_size=self.batch_size, lr=self.lr,
             momentum=self.momentum, weight_decay=self.weight_decay,
-            variant=variant or _VARIANTS[self.algorithm],
-            grad_clip=self.grad_clip, update_impl=self.update_impl,
-            dp=self.dp, secure_agg=self.secure_agg,
-            compression=self.compression)
+            variant=variant or _VARIANTS[self.algorithm], mu=self.mu,
+            temperature=self.temperature, grad_clip=self.grad_clip,
+            update_impl=self.update_impl, dp=self.dp,
+            secure_agg=self.secure_agg, compression=self.compression)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +241,11 @@ class ShardedClientStateStore(DenseClientStateStore):
         _, li = self._local(state, ids)
         super().scatter(state.rows, li, rows)
         return state
+
+    def population(self, state: ClientRows) -> int:
+        if not state.sharded:
+            return state.per
+        return state.per * self.mesh.axis_size(rules.DATA)
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +473,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
             coef = w32 / wsum
             ef_rows = (store.gather(algo_state["ef_residuals"], inputs.ids)
                        if ef else None)
+            extras_of, update = self.client_state(fops, params, inputs.ids,
+                                                  lr_scale, algo_state)
 
             if fused:
                 work = fops.zeros()         # one client's working params
@@ -472,7 +485,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                 def run_client(j):
                     for name, b in work.items():
                         b.copy_(params[name])
-                    return local(work, inputs.sampler(j), lr_scale)
+                    return local(work, inputs.sampler(j), lr_scale,
+                                 extras_of(j))
 
                 def add_delta(delta, w_end, c):
                     return fops.delta_accum(delta, w_end, params, c)
@@ -484,7 +498,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                         p.shape, dtype=torch.float32, device=p.device), params)
 
                 def run_client(j):
-                    return local(params, inputs.sampler(j), lr_scale)
+                    return local(params, inputs.sampler(j), lr_scale,
+                                 extras_of(j))
 
                 def add_delta(delta, w_end, c):
                     return tm.tree_map(
@@ -513,10 +528,16 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
 
             losses: List[torch.Tensor] = []
             r_outs: List[Dict[str, torch.Tensor]] = []
+            # scaffold's and moon's state update reads every client's end
+            # state (the fused path reuses one working buffer: copies)
+            ends: List[Pytree] = []
 
             def client(j):
                 w_end, loss = run_client(j)
                 losses.append(loss)
+                if self.algorithm in ("scaffold", "moon"):
+                    ends.append(tm.tree_map(torch.clone, w_end) if fused
+                                else w_end)
                 if not compressed:
                     return w_end, None
                 c, r_new = upload(j, w_end)
@@ -590,7 +611,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                 new_params = tm.tree_map(
                     lambda p, d: (p.float() + d).to(p.dtype), params, delta)
 
-            state = algo_state
+            state = update(tm.tree_map(lambda *xs: torch.stack(xs), *ends)
+                           if ends else None)
             if ef:
                 rows = {name: torch.stack([r[name] for r in r_outs])
                         for name in r_outs[0]}

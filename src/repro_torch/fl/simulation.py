@@ -1,18 +1,22 @@
 """Federated-training simulation driver (P2) — a configuration shim over
 the round engine (``repro_torch.fl.engine``, ``AggregateStrategy``).
 
-The counterpart of ``repro/fl/simulation.py``.  FedAvg runs here, with
-an optional server optimizer (FedAvgM / FedAdam), DP-FedAvg and secure
-aggregation (``dp``, ``secure_agg``) and compressed uploads
-(``compression``).  The other algorithms and the PEFT options keep their
-config fields, so a config written for the JAX package reads the same,
-but raise ``NotImplementedError`` naming the ROADMAP.md item that will
-bring them.
+The counterpart of ``repro/fl/simulation.py``.  FedAvg, FedProx,
+SCAFFOLD and MOON run here, each with an optional server optimizer
+(FedAvgM / FedAdam), DP-FedAvg and secure aggregation (``dp``,
+``secure_agg``) and compressed uploads (``compression``).  The PEFT
+options keep their config fields, so a config written for the JAX
+package reads the same, but raise ``NotImplementedError`` naming the
+ROADMAP.md item that will bring them.
+
+``make_round_fn``, ``make_server_update`` and ``init_server_state`` are
+the reference's single-round surfaces: plain functions over the
+strategy's round body and server optimizer, with trees at the boundary.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -20,6 +24,7 @@ from repro_torch.data.federated import FederatedDataset
 from repro_torch.fl.engine import (
     ALGORITHMS,
     AggregateStrategy,
+    RoundInputs,
     RoundSchedule,
     run_rounds,
 )
@@ -27,11 +32,13 @@ from repro_torch.fl.compression import CompressionSpec, validate_compression
 from repro_torch.fl.local import LocalSpec, not_ported, validate_update_impl
 from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.task import Task
-from repro_torch.utils.device import Device
+from repro_torch.utils.device import (Device, resolve_device,
+                                      seeded_generator)
 
 Pytree = Any
 
 __all__ = ["ALGORITHMS", "FLConfig", "ServerState", "FLResult",
+           "make_round_fn", "make_server_update", "init_server_state",
            "run_federated", "HOST_RNG_OFFSET_P2"]
 
 # P2 client ids come from np.random.default_rng(seed + 17) under
@@ -78,8 +85,6 @@ class FLConfig:
         validate_update_impl(self.update_impl)
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
-        if self.algorithm != "fedavg":
-            not_ported(f"algorithm={self.algorithm!r}", "M4b")
         validate_compression(self.compression, dp=self.dp,
                              secure_agg=self.secure_agg)
         if self.peft is not None or self.trainable_filter is not None:
@@ -92,7 +97,8 @@ class FLConfig:
         return LocalSpec(
             n_steps=self.local_steps, batch_size=self.batch_size, lr=self.lr,
             momentum=self.momentum, weight_decay=self.weight_decay,
-            variant=_VARIANTS[self.algorithm], grad_clip=self.grad_clip,
+            variant=_VARIANTS[self.algorithm], mu=self.mu,
+            temperature=self.temperature, grad_clip=self.grad_clip,
             update_impl=self.update_impl, dp=self.dp,
             secure_agg=self.secure_agg, compression=self.compression)
 
@@ -115,6 +121,9 @@ class FLConfig:
 class ServerState:
     params: Pytree
     round: int = 0
+    c_global: Optional[Pytree] = None      # scaffold
+    c_clients: Optional[Pytree] = None     # scaffold, stacked (n_clients, ...)
+    w_prev: Optional[Pytree] = None        # moon, stacked (n_clients, ...)
 
 
 @dataclasses.dataclass
@@ -127,6 +136,119 @@ class FLResult:
     def best(self, key: str = "acc") -> Dict[str, float]:
         rows = [h for h in self.history if key in h]
         return max(rows, key=lambda h: h[key]) if rows else {}
+
+
+# a round's source of batch indices: an int seed, or (slot, step) -> (B,)
+RoundKey = Union[int, Callable[[int, int], torch.Tensor]]
+
+
+def make_round_fn(task: Task, cfg: FLConfig, device: Device = None
+                  ) -> Callable:
+    """The one-round update on ``device`` (default CUDA), a single-round
+    surface over ``AggregateStrategy``'s round body (the loop lives in
+    ``repro_torch.fl.engine``)::
+
+        round_fn(key, params, x_all, y_all, ids, weights, lr_scale,
+                 algo_state) -> (params, algo_state, metrics)
+
+    ``key`` stands where the reference's PRNG key does: an int seeds the
+    torch.Generator on the device that draws the batch indices and keys
+    the round's privacy draws; a callable ``(client_slot, step) ->
+    LongTensor (B,)`` gives the batch indices instead (the parity tests
+    inject the reference's draws through it).  ``x_all``/``y_all`` are
+    ``(n_clients, n_per, ...)``; ``ids`` and ``weights`` the round's
+    ``(K,)`` client ids and their sample counts; ``algo_state`` comes
+    from :func:`init_server_state` and is updated in place.  The params
+    are TREES on both paths: the fused path packs and unpacks them at
+    the boundary.  The caller's params are never written."""
+    dev = resolve_device(device)
+    strategy = cfg.strategy()
+    body = strategy.build_round(task, dev)
+    fops = strategy.flat_ops(task, dev)
+    B = cfg.batch_size
+
+    def round_fn(key: RoundKey, params, x_all, y_all, ids, weights,
+                 lr_scale, algo_state):
+        x_all = torch.as_tensor(x_all).to(dev)
+        y_all = torch.as_tensor(y_all).to(dev)
+        ids = torch.as_tensor(ids).to(device=dev, dtype=torch.int64)
+        gen = None if callable(key) else seeded_generator(key, dev)
+
+        def sampler(slot: int):
+            cx, cy = x_all[ids[slot]], y_all[ids[slot]]
+
+            def sample(step: int):
+                idx = (key(slot, step).to(device=dev, dtype=torch.int64)
+                       if gen is None else
+                       torch.randint(0, cx.shape[0], (B,), generator=gen,
+                                     device=dev))
+                return cx.index_select(0, idx), cy.index_select(0, idx)
+            return sample
+        p = (fops.place(fops.flatten(params)) if fops is not None else
+             strategy.place_params(params, dev))
+        inputs = RoundInputs(
+            ids=ids, weights=torch.as_tensor(weights).to(
+                device=dev, dtype=torch.float32), sampler=sampler,
+            round_key=0 if gen is None else int(key))
+        p, algo_state, loss = body(p, inputs, torch.as_tensor(
+            lr_scale, dtype=torch.float32).to(dev), algo_state)
+        if fops is not None:
+            p = fops.unflatten(p)
+        return p, algo_state, {"local_loss": loss}
+
+    return round_fn
+
+
+def make_server_update(cfg: FLConfig, task: Task, device: Device = None):
+    """The server optimizer step of ``AggregateStrategy.
+    make_server_update`` on ``device`` (default CUDA): ``(init_fn,
+    update_fn)``, or None for ``server_opt="none"``.  Both speak param
+    TREES on both paths (the fused path packs and unpacks at the
+    boundary, its OptState moments stay flat):
+    ``update_fn(params, avg_params, state) -> (params, state)``."""
+    dev = resolve_device(device)
+    strategy = cfg.strategy()
+    server = strategy.make_server_update(task, dev)
+    if server is None:
+        return None
+    fops = strategy.flat_ops(task, dev)
+    if fops is None:
+        return server
+
+    def init(params):
+        return server[0](fops.place(fops.flatten(params)))
+
+    def update(params, avg_params, state):
+        new_p, state = server[1](fops.place(fops.flatten(params)),
+                                 fops.place(fops.flatten(avg_params)), state)
+        return fops.unflatten(new_p), state
+
+    return init, update
+
+
+def init_server_state(task: Task, cfg: FLConfig, n_clients: int,
+                      init_params: Optional[Pytree] = None,
+                      key: Optional[int] = None,
+                      device: Device = None) -> ServerState:
+    """The server's start state on ``device`` (default CUDA): the params
+    (``init_params``, or ``task.init`` seeded with ``key`` or
+    ``cfg.seed``) and the algorithm's client state, in the
+    representation :func:`make_round_fn` takes (flat buffers on the
+    fused path, where the reference builds moon's ``w_prev`` from the
+    param trees)."""
+    dev = resolve_device(device)
+    if init_params is None:
+        init_params = task.init(seeded_generator(
+            cfg.seed if key is None else key))
+    strategy = cfg.strategy()
+    fops = strategy.flat_ops(task, dev)
+    placed = (fops.place(fops.flatten(init_params)) if fops is not None
+              else strategy.place_params(init_params, dev))
+    algo_state = strategy.init_state(task, placed, n_clients)
+    return ServerState(params=init_params,
+                       c_global=algo_state.get("c_global"),
+                       c_clients=algo_state.get("c_clients"),
+                       w_prev=algo_state.get("w_prev"))
 
 
 def run_federated(task: Task, data: FederatedDataset, cfg: FLConfig,
@@ -142,6 +264,9 @@ def run_federated(task: Task, data: FederatedDataset, cfg: FLConfig,
                      init_params=init_params, ledger=ledger, verbose=verbose,
                      eval_fn=eval_fn, switch_policy=switch_policy,
                      phase=phase, label=cfg.algorithm, device=device)
-    state = ServerState(params=res.params, round=len(res.history))
+    state = ServerState(params=res.params, round=len(res.history),
+                        c_global=res.algo_state.get("c_global"),
+                        c_clients=res.algo_state.get("c_clients"),
+                        w_prev=res.algo_state.get("w_prev"))
     return FLResult(params=res.params, history=res.history, state=state,
                     dispatches=res.dispatches)

@@ -12,7 +12,9 @@ Each function here comes in two forms:
                     hand-written kernel of ``csrc/fused_update.cu`` or
                     ``csrc/upload.cu`` (or raises); on a CPU tensor it
                     runs the plain version.
-                    It counts its launches in ``<name>.launches``.
+                    It counts its launches in ``<name>.launches``
+                    (``local_step`` also those with the scaffold
+                    correction ``c`` in ``local_step.c_launches``).
   ``<name>_plain``  the same math, step by step, in torch ops — each
                     arithmetic step a separate op, so it rounds where
                     the kernel rounds.  The CPU tests hold it against
@@ -136,10 +138,12 @@ def local_step(p: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor],
             float(weight_decay), float(momentum), _stream(p))
         _check_launch("local_step", err)
         local_step.launches += 1
+        local_step.c_launches += c is not None
     return p, m
 
 
 local_step.launches = 0
+local_step.c_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -707,3 +711,4 @@ POD_KERNELS = (delta_accum,)
 def reset_launch_counts() -> None:
     for fn in KERNELS + UPLOAD_KERNELS + POD_KERNELS:
         fn.launches = 0
+    local_step.c_launches = 0

@@ -1032,3 +1032,77 @@ def test_new_forms_count_launches_and_check(gen):
         fu.dp_clip_noise_rows(w.bfloat16(), pp, z, scales, ns)
     assert fu.server_update.launches == 1 and fu.dp_clip_noise.launches == 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (137_216, 1001))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_local_step_c_as_a_row_view_bitwise(gen, dtype, n):
+    """SCAFFOLD's K1: ``c`` is row k of the round's (K, N) ``c − c_i``
+    stack.  At N 137,216 every row is 16-byte aligned (the vector path);
+    at N 1,001 only row 0 is, and K1 takes its one-element path for the
+    others.  Each row bit-equal to the plain version, with and without
+    momentum, and counted in ``local_step.c_launches``."""
+    K = 4
+    stack = torch.randn(K, n, generator=gen, device="cuda").to(dtype)
+    p = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    m = torch.randn(n, generator=gen, device="cuda").to(dtype)
+    sc = torch.tensor([0.7, 0.05], device="cuda")
+    fu.reset_launch_counts()
+    for k in range(K):
+        c = stack[k]
+        assert c.is_contiguous()
+        for beta in (0.0, 0.9):
+            mk = m.clone() if beta else None
+            mp = m.clone() if beta else None
+            a, b = p.clone(), p.clone()
+            fu.local_step(a, g, mk, c, sc, weight_decay=1e-3, momentum=beta)
+            fu.local_step_plain(b, g, mp, c, sc, weight_decay=1e-3,
+                                momentum=beta)
+            assert torch.equal(a, b)
+            if beta:
+                assert torch.equal(mk, mp)
+    fu.local_step(p.clone(), g, None, None, sc)
+    assert fu.local_step.launches == 2 * K + 1
+    assert fu.local_step.c_launches == 2 * K
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_scaffold_host_round_fused_matches_plain_bitwise():
+    """Two SCAFFOLD rounds of the host engine on the card (a small mlp,
+    no convolution): the fused path's kernels against the plain twins
+    (``fused_interpret``) from the same init and batch indices, bitwise
+    in the params and the control variates; K1 launched with ``c`` at
+    every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.fl.task import vision_task
+    from repro_torch.utils.tree_math import tree_leaves
+    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={"img": 32})
+    data = DATASETS.get("cifar10-like")(n_clients=8, beta=0.5, seed=0,
+                                        n_train=256, n_test=64)
+    init = task.init(torch.Generator().manual_seed(0))
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1009 * rnd + 31 * slot + step)
+        return torch.randint(0, data.n_per_client, (8,), generator=g)
+    out = {}
+    for impl in ("fused", "fused_interpret"):
+        fu.reset_launch_counts()
+        res = run_federated(task, data, FLConfig(
+            algorithm="scaffold", rounds=2, participation=0.5, local_steps=3,
+            batch_size=8, lr=0.05, update_impl=impl, sampling="host",
+            eval_every=1, batch_indices=indices), init_params=init)
+        out[impl] = (tree_leaves(res.params) +
+                     tree_leaves(res.state.c_global) +
+                     tree_leaves(res.state.c_clients), res.history,
+                     fu.local_step.c_launches)
+    torch.cuda.synchronize()
+    assert out["fused"][2] == 2 * 4 * 3 and out["fused_interpret"][2] == 0
+    assert out["fused"][1] == out["fused_interpret"][1]
+    for a, b in zip(out["fused"][0], out["fused_interpret"][0]):
+        assert a.is_cuda and torch.equal(a, b)

@@ -35,7 +35,8 @@ from repro_torch.core.pipeline import (Phase, run_cyclic_then_federated,
                                        run_phase_schedule)
 from repro_torch.data.synthetic import DATASETS
 from repro_torch.fl.engine import AggregateStrategy, RoundSchedule, run_rounds
-from repro_torch.fl.simulation import FLConfig, run_federated
+from repro_torch.fl.simulation import (FLConfig, init_server_state,
+                                       make_round_fn, run_federated)
 from repro_torch.fl.task import vision_task
 from repro_torch.utils.tree_math import tree_leaves
 
@@ -248,12 +249,16 @@ def _entry_points(task, data):
             task, data, [Phase("P1", cyc), Phase("P2", fed)], **kw),
         "run_cyclic_then_federated": lambda **kw: run_cyclic_then_federated(
             task, data, cyc, fed, **kw),
+        "make_round_fn": lambda **kw: make_round_fn(task, fed, **kw),
+        "init_server_state": lambda **kw: init_server_state(
+            task, fed, data.n_clients, **kw),
     }
 
 
 @pytest.mark.parametrize("entry", ["run_rounds", "cyclic_pretrain",
                                    "run_federated", "run_phase_schedule",
-                                   "run_cyclic_then_federated"])
+                                   "run_cyclic_then_federated",
+                                   "make_round_fn", "init_server_state"])
 def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
     task, data = torch_side
     fn = _entry_points(task, data)[entry]
@@ -266,9 +271,6 @@ def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"algorithm": "scaffold"}, "M4b"),
-    ({"algorithm": "fedprox"}, "M4b"),
-    ({"algorithm": "moon"}, "M4b"),
     ({"peft": "lora:8"}, "M11"),
     ({"trainable_filter": "head"}, "M11"),
 ])

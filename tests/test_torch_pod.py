@@ -11,7 +11,10 @@ are not sharded on one rank), compressed uploads with error feedback,
 DP + secure aggregation on the JAX package's draws (injected through
 ``RoundSchedule.noise_draws``), and the server optimizers (adam at
 ``server_lr=1e-3``: Adam's normalization turns a last-bit difference
-in a near-zero pseudo-gradient into a step of up to the lr).  Both
+in a near-zero pseudo-gradient into a step of up to the lr), and
+scaffold and moon, whose client state is compared too (scaffold's
+control variates at the params' tolerance over S·lr: c_i⁺ divides the
+param change by it).  Both
 sides start from the same JAX-initialized params and train on the JAX
 engine's threefry batch indices (injected), with ``sampling="host"``.
 Tolerances: losses rtol 1e-5, params atol 2e-5 (2 rounds; conv and
@@ -35,7 +38,10 @@ error feedback, sequential and hierarchical on ``(2, 2)``) shard the
 error-feedback rows over ``data``: each round gathers them with one
 ``all_reduce`` per bucket, and the rows gathered from every rank, like
 the params, match the JAX pod and the one-rank run at the compressed
-tolerance above.
+tolerance above.  The scaffold case (sequential on ``(2, 2)``) shards
+the control variates over ``data`` the same way: one ``all_reduce``
+gathers the round's rows, and ``c`` matches the one-rank run and the
+JAX pod.
 """
 import dataclasses
 import json
@@ -178,6 +184,46 @@ def test_pod_aggregate_matches_host(mesh, sides, impl, server_opt):
     assert fu.delta_accum.launches == 0
 
 
+@pytest.mark.parametrize("impl", ["tree", "fused"])
+@pytest.mark.parametrize("algorithm", ["scaffold", "moon"])
+def test_pod_algorithm_matches_host(mesh, sides, algorithm, impl):
+    """The pod's per-client scaffold and moon steps and its client-state
+    update after the aggregate equal the host engine's: params within
+    rtol 1e-5 (atol 1e-7), the control variates within atol
+    1e-7/(S·lr) (c_i⁺ divides the param change by S·lr), the moon rows
+    as the params."""
+    _, _, jinit, task, data = sides["mlp"]
+    init = bridge.params_from_numpy(jax_numpy_params(jinit))
+    idx = index_source(_indices(ROUNDS, K))
+    fu.reset_launch_counts()
+    host = run_federated(task, data, FLConfig(
+        algorithm=algorithm, mu=0.5, rounds=ROUNDS,
+        participation=K / N_CLIENTS, local_steps=STEPS, batch_size=BATCH,
+        lr=0.05, lr_decay=1.0, update_impl=impl, sampling="host",
+        eval_every=1, batch_indices=idx), init_params=init, device="cpu")
+    p = pod.run_pod_rounds(task, data, pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K, spec=pod.PodFLSpec(
+            algorithm=algorithm, mu=0.5, **_spec_kw(impl)), sampling="host",
+        eval_every=1, batch_indices=idx), init_params=init)
+    np.testing.assert_allclose([h["local_loss"] for h in p.history],
+                               [h["local_loss"] for h in host.history],
+                               rtol=1e-5)
+    for a, b in zip(torch_leaves(p.params), torch_leaves(host.params)):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
+    if algorithm == "scaffold":
+        pairs = [(p.algo_state["c_global"], host.state.c_global),
+                 (p.algo_state["c_clients"].rows, host.state.c_clients)]
+        atol = 1e-7 / (STEPS * 0.05)
+    else:
+        pairs = [(p.algo_state["w_prev"].rows, host.state.w_prev)]
+        atol = 1e-7
+    for got, want in pairs:
+        for a, b in zip(torch_leaves(got), torch_leaves(want)):
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=atol)
+    assert np.any(torch_leaves(pairs[-1][0])[0] != 0)
+    assert fu.local_step.c_launches == 0        # CPU: the plain versions
+
+
 def test_pod_runs_through_the_phase_schedule(mesh, sides):
     """``Phase(cfg=Pod*Config)`` runs through ``run_phase_schedule`` on
     the mesh's device, under one ledger."""
@@ -197,9 +243,6 @@ def test_pod_runs_through_the_phase_schedule(mesh, sides):
 
 
 def test_unported_pod_options_raise_naming_their_items(mesh):
-    spec = pod.PodFLSpec(algorithm="scaffold")
-    with pytest.raises(NotImplementedError, match="M4b"):
-        pod.PodFLConfig(mesh, spec=spec).strategy()
     with pytest.raises(NotImplementedError, match="M10"):
         pod.PodFLConfig(mesh, store="sparse").strategy()
     with pytest.raises(NotImplementedError, match="M11"):
@@ -238,6 +281,9 @@ CASES = {
                              {"dp": (0.5, 0.0)}),
     "momentum": ("mlp", "fused", {}, {"server_opt": "momentum"}),
     "adam": ("mlp", "fused", {}, {"server_opt": "adam", "server_lr": 1e-3}),
+    "scaffold-tree": ("mlp", "tree", {}, {"algorithm": "scaffold"}),
+    "scaffold-fused": ("mlp", "fused", {}, {"algorithm": "scaffold"}),
+    "moon-fused": ("mlp", "fused", {}, {"algorithm": "moon", "mu": 0.5}),
 }
 
 
@@ -282,6 +328,15 @@ def test_pod_matches_jax_pod(mesh, sides, case):
                                rtol=1e-5)
     for jh, th in zip(jres.history, res.history):
         assert abs(jh["acc"] - th["acc"]) * N_TEST <= 1 + 1e-6
+    if spec_kw.get("algorithm") == "scaffold":
+        # the control variates: the params' tolerance over S·lr
+        for key in ("c_global", "c_clients"):
+            got = res.algo_state[key]
+            got = torch_leaves(got.rows if key == "c_clients" else got)
+            want = jax_leaves(jres.algo_state[key])
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b.reshape(a.shape),
+                                           atol=ATOL / (STEPS * 0.05), rtol=0)
     if "compression" not in spec_kw:
         _assert_params(res.params, jres.params,
                        1e-4 if spec_kw.get("server_opt") == "adam" else ATOL)
@@ -372,15 +427,20 @@ def test_pod_k6_coefficients_keep_their_bits(mesh, sides, monkeypatch,
 
 MR_CASES = {
     # name: (mesh shape, PodFLConfig kwargs, DP clip or None,
-    #        int8 + top-k 25% + EF uploads)
-    "2x2-sequential": ((2, 2), {}, None, False),
-    "2x2-lanes": ((2, 2), {"aggregation": "hierarchical"}, None, False),
-    "2x2-lanes-dp": ((2, 2), {"aggregation": "hierarchical"}, 0.5, False),
-    "4x1-lanes": ((4, 1), {"aggregation": "hierarchical"}, None, False),
-    "4x1-lanes-dp": ((4, 1), {"aggregation": "hierarchical"}, 0.5, False),
-    "2x2-compressed-ef": ((2, 2), {}, None, True),
+    #        int8 + top-k 25% + EF uploads, algorithm)
+    "2x2-sequential": ((2, 2), {}, None, False, "fedavg"),
+    "2x2-lanes": ((2, 2), {"aggregation": "hierarchical"}, None, False,
+                  "fedavg"),
+    "2x2-lanes-dp": ((2, 2), {"aggregation": "hierarchical"}, 0.5, False,
+                     "fedavg"),
+    "4x1-lanes": ((4, 1), {"aggregation": "hierarchical"}, None, False,
+                  "fedavg"),
+    "4x1-lanes-dp": ((4, 1), {"aggregation": "hierarchical"}, 0.5, False,
+                     "fedavg"),
+    "2x2-compressed-ef": ((2, 2), {}, None, True, "fedavg"),
     "2x2-compressed-ef-lanes": ((2, 2), {"aggregation": "hierarchical"},
-                                None, True),
+                                None, True, "fedavg"),
+    "2x2-scaffold": ((2, 2), {}, None, False, "scaffold"),
 }
 
 _JAX_REFERENCE = textwrap.dedent("""
@@ -407,7 +467,7 @@ _JAX_REFERENCE = textwrap.dedent("""
         c = pod.PodFLConfig(mesh=mesh, rounds=cfg["rounds"],
             clients_per_round=cfg["K"], spec=pod.PodFLSpec(
                 update_impl="fused_interpret", dp=dp, compression=comp,
-                **cfg["spec"]),
+                algorithm=case["algorithm"], **cfg["spec"]),
             sampling="host", eval_every=1, chunk_size=1, **case["kw"])
         res = run_rounds(task, data, c.strategy(), c.schedule(),
                          init_params=init)
@@ -418,6 +478,9 @@ _JAX_REFERENCE = textwrap.dedent("""
         if comp is not None:
             out[f"{name}/ef"] = np.asarray(
                 res.algo_state["ef_residuals"]["float32"], np.float32)
+        if "c_global" in res.algo_state:
+            out[f"{name}/c"] = np.asarray(
+                res.algo_state["c_global"]["float32"], np.float32)
     np.savez(cfg["out"], **out)
 """)
 
@@ -461,8 +524,8 @@ def multi_rank(tmp_path_factory, sides):
                                  for x in jax.tree_util.tree_leaves(jinit)])
     np.save(tmp / "indices.npy", _indices(ROUNDS, K))
     cases = {name: {"shape": list(shape), "kw": kw, "dp": dp,
-                    "compressed": comp}
-             for name, (shape, kw, dp, comp) in MR_CASES.items()}
+                    "compressed": comp, "algorithm": algorithm}
+             for name, (shape, kw, dp, comp, algorithm) in MR_CASES.items()}
     cfg = dict(seed=SEED, n_clients=N_CLIENTS, n_train=N_TRAIN,
                n_test=N_TEST, rounds=ROUNDS, K=K,
                spec=dict(local_steps=STEPS, batch_size=BATCH, lr=0.05),
@@ -475,13 +538,13 @@ def multi_rank(tmp_path_factory, sides):
     return cfg, tmp
 
 
-def _one_rank(mesh, sides, case_kw, dp, comp):
+def _one_rank(mesh, sides, case_kw, dp, comp, algorithm):
     """The same case on the one-rank mesh (the hierarchical lanes and the
     client store are then unsharded)."""
     _, _, jinit, task, data = sides["mlp"]
     cfg = pod.PodFLConfig(
         mesh, rounds=ROUNDS, clients_per_round=K, spec=pod.PodFLSpec(
-            dp=privacy.DPSpec(dp) if dp else None,
+            algorithm=algorithm, dp=privacy.DPSpec(dp) if dp else None,
             compression=(compression.CompressionSpec(8, 0.25, True)
                          if comp else None), **_spec_kw("fused")),
         sampling="host", eval_every=1,
@@ -494,11 +557,11 @@ def _one_rank(mesh, sides, case_kw, dp, comp):
 @pytest.mark.parametrize("case", MR_CASES)
 def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
     cfg, tmp = multi_rank
-    shape, kw, dp, comp = MR_CASES[case]
+    shape, kw, dp, comp, algorithm = MR_CASES[case]
     got = np.load(tmp / f"torch_{case}.npz")
     want = np.load(tmp / "jax.npz")
     n = len([k for k in want if k.startswith(f"{case}/p")])
-    one = _one_rank(mesh, sides, kw, dp, comp)
+    one = _one_rank(mesh, sides, kw, dp, comp, algorithm)
     np.testing.assert_allclose(got["loss"], want[f"{case}/loss"], rtol=1e-5)
     per_rank = [json.loads((tmp / f"counts_{case}_{r}.json").read_text())
                 for r in range(4)]
@@ -529,6 +592,13 @@ def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
                                        atol=ATOL, rtol=0)
         for i, leaf in enumerate(torch_leaves(one.params)):
             np.testing.assert_allclose(got[f"p{i}"], leaf, atol=1e-5, rtol=0)
+    if algorithm == "scaffold":
+        # c: the gathered rows of the client store sharded over data
+        c_one = one.algo_state["c_global"]["float32"].numpy()
+        np.testing.assert_allclose(got["c"], c_one, atol=1e-5 / (STEPS * 0.05),
+                                   rtol=0)
+        np.testing.assert_allclose(got["c"], want[f"{case}/c"].reshape(
+            c_one.shape), atol=ATOL / (STEPS * 0.05), rtol=0)
     # every rank: one all-reduce per bucket per round in the lane combine
     # and in the sharded EF store's gather (the mlp has one f32 bucket),
     # and one per bucket per SGD step for the gradients
@@ -536,5 +606,7 @@ def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
     for c in per_rank:
         assert c["lane_combine"] == (ROUNDS if lanes else 0)
         assert c["grad"] == ROUNDS * K * STEPS
-        assert c["store_gather"] == (ROUNDS if comp else 0)
+        # one sharded store gathers per round: the EF rows or scaffold's
+        assert c["store_gather"] == (ROUNDS if comp or
+                                     algorithm == "scaffold" else 0)
         assert c["delta_accum"] == ROUNDS * (K // shape[0] if lanes else K)

@@ -6,9 +6,9 @@ a test module).
 Joins a gloo process group over the ``file://`` store, then for every
 case of the config builds its mesh, runs the case's P2 rounds on the
 pod backend from the given init params and batch indices, and writes
-the final params and losses (rank 0), this rank's rows of the
-error-feedback store (compressed cases) and its collective and K6 call
-counts.  Imports torch and ``repro_torch`` only.
+the final params and losses (rank 0, with scaffold's ``c_global``),
+this rank's rows of the error-feedback store (compressed cases) and its
+collective and K6 call counts.  Imports torch and ``repro_torch`` only.
 """
 import json
 import sys
@@ -61,7 +61,7 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
         c = pod.PodFLConfig(
             mesh, rounds=cfg["rounds"], clients_per_round=cfg["K"],
             spec=pod.PodFLSpec(update_impl="fused", dp=dp, compression=comp,
-                               **cfg["spec"]),
+                               algorithm=case["algorithm"], **cfg["spec"]),
             sampling="host", eval_every=1, batch_indices=indices,
             **case["kw"])
         pod.reset_collective_counts()
@@ -77,6 +77,8 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
             arrays = {f"p{i}": leaf.detach().float().numpy()
                       for i, leaf in enumerate(tm.tree_leaves(res.params))}
             arrays["loss"] = np.array([h["local_loss"] for h in res.history])
+            if "c_global" in res.algo_state:
+                arrays["c"] = res.algo_state["c_global"]["float32"].numpy()
             np.savez(out / f"torch_{name}.npz", **arrays)
         dist.barrier()
     dist.destroy_process_group()
