@@ -50,6 +50,10 @@ JSON line per phase:
                      shapes and beside them; K1 (launched with
                      programmatic dependent launch) and Tensor.add_ timed
                      in turns, five times each (local_step_vs_add_);
+                     K1–K3, the threshold (its four radix launches) and
+                     K4 with top-k and the residual at CharLSTM-256's
+                     bucket, N 814,080, bitwise (path "charlm"), each
+                     timed from a cold L2;
   3. main_path     — the paper pipeline at full width: LeNet-5 on
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
@@ -95,6 +99,25 @@ JSON line per phase:
                      private configurations (and private under device
                      sampling), in turns from the same P1 params, 2
                      rounds a turn;
+     charlm_path   — the paper's CharLSTM-256 (813,632 params, one bucket
+                     of 814,080, above the threshold's cluster cut) on
+                     shakespeare-like (66 clients) through
+                     run_cyclic_then_federated: P1 2 × 7 × 10, P2
+                     FedAvgM 2 × 7 × 10, lr 0.8; K1 280, K2 2, K3 2,
+                     ledger == closed form, held-out loss below the
+                     init's, accuracy above 1/64, fused == plain
+                     bitwise (1 + 1 rounds of 2 clients); ms per step
+                     and a profiled step's device ops and busy share;
+     charlm_compressed — its P2 from its P1 params with int8 + top-k 25%
+                     + EF uploads: the threshold's radix route 56 (4 ×
+                     14 uploads), K4 alone 14, topk_compress 0, ledger
+                     == closed form, fused == plain bitwise (params and
+                     EF rows);
+     fashion_path  — CNN-Fashion (dropout 0.5) on fashion-like: P1 2 × 25
+                     × 10, P2 2 × 10 × 10; K1 700, K2 2, K3 0, every
+                     step's keep-mask from a generator on the card,
+                     accuracy above chance, fused == plain bitwise under
+                     deterministic cuDNN; ms and device ops per step;
      pod_path      — the main path on the pod backend (fl/pod.py) over a
                      one-rank NCCL mesh (make_host_mesh): P1 and P2
                      through run_phase_schedule with PodCyclicConfig /
@@ -135,7 +158,11 @@ JSON line per phase:
                      device-busy share, device ops, K7's and K8's device
                      time and device kernels (K8 is three per call), top
                      device ops;
-then the ``kernels`` summary (K1 with its c form's times and launches;
+then the ``kernels`` summary (K1–K3 with their N 814,080 rows and
+launches on charlm_path and fashion_path; the threshold's row its
+radix route on charlm_compressed, its cluster form beside it; K4 with
+its top-k and residual form's launches there; K1 with its c form's
+times and launches;
 K7 with each serve shape's times; K8 with
 its device kernels per call, since one ``ssd_scan`` call is three), the
 nvidia-smi line and, last,
@@ -297,25 +324,35 @@ def nvidia_smi() -> str:
 
 
 def time_ms(torch, fn, trials: int = 5, reps: int = 20,
-            warmup: int = 3) -> float:
+            warmup: int = 3, flush=None) -> float:
     """Median over ``trials`` of the mean device time per call of
     ``reps`` back-to-back calls.  A sleep kernel queued first keeps the
     device busy while the host enqueues the calls, so the events time
-    the device work, not the host's launch rate."""
+    the device work, not the host's launch rate.  With ``flush`` (a
+    tensor larger than the L2) each call runs from a cold L2: a read of
+    ``flush`` comes before it, outside its own pair of events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 if flush is None else 2 * reps)]
         torch.cuda._sleep(50_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / reps)
+        if flush is None:
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+        else:
+            for i in range(reps):
+                flush.sum()
+                ev[2 * i].record()
+                fn()
+                ev[2 * i + 1].record()
+        ev[-1].synchronize()
+        out.append(sum(a.elapsed_time(b) for a, b in zip(ev[::2], ev[1::2]))
+                   / reps)
     return statistics.median(out)
 
 
@@ -327,6 +364,11 @@ class KernelBench:
         self.bw, self.flops, self.flops_bf16 = peaks
         self.gen = torch.Generator(device="cuda")
         self.gen.manual_seed(SEED)
+        # set: every call is timed from a cold L2 (see time_ms)
+        self.flush = None
+
+    def time(self, fn, **kw) -> float:
+        return time_ms(self.torch, fn, flush=self.flush, **kw)
 
     def rand(self, *shape, dtype=None):
         t = self.torch.randn(*shape, generator=self.gen, device=self.gen.device)
@@ -364,9 +406,9 @@ class KernelBench:
         fu.local_step_plain(pp, g, mp, c, sc, **kw)
         err = self.max_err([(pk, pp)] + ([(mk, mp)] if has_m else []))
         pk, mk = clones()
-        ms = time_ms(torch, lambda: fu.local_step(pk, g, mk, c, sc, **kw))
+        ms = self.time(lambda: fu.local_step(pk, g, mk, c, sc, **kw))
         pp, mp = clones()
-        plain = time_ms(torch, lambda: fu.local_step_plain(pp, g, mp, c, sc,
+        plain = self.time(lambda: fu.local_step_plain(pp, g, mp, c, sc,
                                                            **kw))
         e = p.element_size()
         n_bytes = n * e * (3 + 2 * has_m + has_c) + 8
@@ -375,7 +417,7 @@ class KernelBench:
             "weight decay and momentum in this order"
         if not has_m and not has_c and not wd and clip == 1.0:
             pl = p.clone()
-            library = time_ms(torch, lambda: pl.add_(g, alpha=-0.05))
+            library = self.time(lambda: pl.add_(g, alpha=-0.05))
             why = "Tensor.add_(g, alpha=-step): the same function at " \
                 "clip 1, no decay, no momentum"
         elif not has_m and not wd and clip == 1.0:
@@ -400,8 +442,8 @@ class KernelBench:
         out = fu.weighted_delta(stacked, p, w, **kw)
         ref = fu.weighted_delta_plain(stacked, p, w, **kw)
         err = self.max_err([(out, ref)])
-        ms = time_ms(torch, lambda: fu.weighted_delta(stacked, p, w, **kw))
-        plain = time_ms(torch, lambda: fu.weighted_delta_plain(stacked, p, w,
+        ms = self.time(lambda: fu.weighted_delta(stacked, p, w, **kw))
+        plain = self.time(lambda: fu.weighted_delta_plain(stacked, p, w,
                                                                **kw))
         e = p.element_size()
         n_bytes = n * e * (K + 2) + n * 4 * has_extra + 4 * K
@@ -413,11 +455,11 @@ class KernelBench:
         elif not has_extra:
             st = stacked.t()
             if deltas:
-                library = time_ms(torch, lambda: torch.addmv(p, st, w))
+                library = self.time(lambda: torch.addmv(p, st, w))
                 why = "torch.addmv(p, stacked.T, w)"
             else:
                 beta = 1.0 - float(w.sum())
-                library = time_ms(torch, lambda: torch.addmv(p, st, w,
+                library = self.time(lambda: torch.addmv(p, st, w,
                                                              beta=beta))
                 why = "torch.addmv(p, stacked.T, w, beta=1-sum(w)): the " \
                     "same function in exact arithmetic"
@@ -477,11 +519,11 @@ class KernelBench:
         pk, mk = clones()
         ms, chain_ms = [], []
         for _ in range(turns if form == "avg" else 1):
-            ms.append(time_ms(torch, lambda: run(pk, mk)))
+            ms.append(self.time(lambda: run(pk, mk)))
             if form == "avg":
-                chain_ms.append(time_ms(torch, lambda: chain(pk, mk)))
+                chain_ms.append(self.time(lambda: chain(pk, mk)))
         pp, mp = clones()
-        plain_ms = time_ms(torch, lambda: plain(pp, mp))
+        plain_ms = self.time(lambda: plain(pp, mp))
         e = p.element_size()
         # p, the delta (f32) or avg (p's dtype) and the moments read once;
         # p and the moments written once
@@ -494,11 +536,11 @@ class KernelBench:
         library, why = None, "no single PyTorch call forms avg - p and " \
             "applies the server optimizer"
         if form == "delta" and opt == "none":
-            library = time_ms(torch, lambda: pl.add_(d))
+            library = self.time(lambda: pl.add_(d))
             why = "Tensor.add_(d)"
         elif form == "delta" and opt == "momentum":
             lib = torch._fused_sgd_
-            library = time_ms(torch, lambda: lib(
+            library = self.time(lambda: lib(
                 [pl], [neg_d], [ml[0]], weight_decay=0.0, momentum=0.9,
                 lr=0.5, dampening=0.0, nesterov=False, maximize=False,
                 is_first_step=False))
@@ -506,7 +548,7 @@ class KernelBench:
         elif form == "delta":
             lib = torch._fused_adam_
             steps = [torch.ones((), device="cuda")]
-            library = time_ms(torch, lambda: lib(
+            library = self.time(lambda: lib(
                 [pl], [neg_d], [ml[0]], [ml[1]], [], steps, lr=0.5,
                 beta1=0.9, beta2=0.99, weight_decay=0.0, eps=1e-8,
                 amsgrad=False, maximize=False))
@@ -543,8 +585,8 @@ class KernelBench:
         pairs = list(zip(got, want)) if res else [(got, want)]
         err = self.max_err(pairs)
         bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
-        ms = time_ms(torch, lambda: fu.compress_delta(d, tau, **kw))
-        plain = time_ms(torch, lambda: fu.compress_delta_plain(d, tau, **kw))
+        ms = self.time(lambda: fu.compress_delta(d, tau, **kw))
+        plain = self.time(lambda: fu.compress_delta_plain(d, tau, **kw))
         n_bytes = 4 * n + 4 * n * (1 + res) + 4 * topk
         n_ops = n * (3 * topk + (7 if bits != 32 else 0) + res)
         bound, by = self.bound_ms(n_bytes, n_ops)
@@ -568,10 +610,10 @@ class KernelBench:
         a = d.abs()
         lib = torch.kthvalue(a, n - k + 1).values
         bitwise = bool(got.view(torch.int32) == want.view(torch.int32))
-        ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
-        plain = time_ms(torch, lambda: fu.topk_threshold_plain(d, k),
+        ms = self.time(lambda: fu.topk_threshold(d, k))
+        plain = self.time(lambda: fu.topk_threshold_plain(d, k),
                         trials=3, reps=5, warmup=1)
-        library = time_ms(torch, lambda: torch.kthvalue(a, n - k + 1),
+        library = self.time(lambda: torch.kthvalue(a, n - k + 1),
                           trials=3, reps=5, warmup=1)
         # the selection reads |d| once; the ops: abs + compare per element
         bound, by = self.bound_ms(4 * n + 4, 2 * n)
@@ -635,10 +677,10 @@ class KernelBench:
                             if x is not None])
         ms, chain_ms = [], []
         for _ in range(turns):
-            ms.append(time_ms(torch, run))
-            chain_ms.append(time_ms(torch, chain))
-        threshold_ms = time_ms(torch, lambda: fu.topk_threshold(d, k))
-        plain_ms = time_ms(torch, plain, trials=3, reps=5, warmup=1)
+            ms.append(self.time(run))
+            chain_ms.append(self.time(chain))
+        threshold_ms = self.time(lambda: fu.topk_threshold(d, k))
+        plain_ms = self.time(plain, trials=3, reps=5, warmup=1)
         # d read once, c (and r) written once, τ written; the threshold's
         # abs + compare and the compression's operations per element
         n_bytes = 4 * n + 4 * n * (1 + res) + 4
@@ -799,12 +841,12 @@ class KernelBench:
             want = fu.dp_clip_noise_plain(d, z, sc)
             err = self.max_err([(got, want)])
             bitwise = bool(torch.equal(got, want))
-            ms = time_ms(torch, lambda: fu.dp_clip_noise(d, z, sc))
-            plain = time_ms(torch, lambda: fu.dp_clip_noise_plain(d, z, sc))
+            ms = self.time(lambda: fu.dp_clip_noise(d, z, sc))
+            plain = self.time(lambda: fu.dp_clip_noise_plain(d, z, sc))
             library, why = None, "no single PyTorch call takes both " \
                 "scales from device memory"
             if not has_z:
-                library = time_ms(torch, lambda: torch.mul(d, sc[0]))
+                library = self.time(lambda: torch.mul(d, sc[0]))
                 why = "torch.mul(d, clip_scale)"
             bound, by = self.bound_ms(4 * n * (2 + has_z) + 8,
                                       n * (1 + 2 * has_z))
@@ -837,9 +879,9 @@ class KernelBench:
         chain_bitwise = bool(torch.equal(got, ch))
         ms, chain_ms = [], []
         for _ in range(turns):
-            ms.append(time_ms(torch, run))
-            chain_ms.append(time_ms(torch, chain))
-        plain_ms = time_ms(torch, plain, trials=3, reps=5, warmup=1)
+            ms.append(self.time(run))
+            chain_ms.append(self.time(chain))
+        plain_ms = self.time(plain, trials=3, reps=5, warmup=1)
         e = p.element_size()
         # w (and z) read once, the uploads written once, p read once, the
         # scales; a subtraction and a multiply (and a multiply-add) each
@@ -895,7 +937,7 @@ class KernelBench:
         busy, n_ops, top = device_activity(prof)
         k5_us, k5_kernels = kernel_time(prof, ("dp_clip_noise",))
         k2_us, k2_kernels = kernel_time(prof, ("weighted_delta",))
-        ms = time_ms(torch, call, trials=5, reps=10, warmup=2)
+        ms = self.time(call, trials=5, reps=10, warmup=2)
         ok = all(bool(torch.isfinite(t).all()) for t in out.values())
         return dict(kernel="dp_upload", clients=len(rnd["ids"]),
                     secure_agg=secure_agg, ms=ms, device_busy_ms=busy / 1e3,
@@ -917,13 +959,13 @@ class KernelBench:
         fu.delta_accum_plain(b, w, p, c)
         err = self.max_err([(a, b)])
         bitwise = bool(torch.equal(a, b))
-        ms = time_ms(torch, lambda: fu.delta_accum(a, w, p, c))
-        plain = time_ms(torch, lambda: fu.delta_accum_plain(b, w, p, c))
+        ms = self.time(lambda: fu.delta_accum(a, w, p, c))
+        plain = self.time(lambda: fu.delta_accum_plain(b, w, p, c))
         library, why = None, "no single PyTorch call computes d + c*(w - p)"
         if not with_p:
             if dtype == torch.float32:
                 dl = d.clone()
-                library = time_ms(torch, lambda: dl.addcmul_(c, w))
+                library = self.time(lambda: dl.addcmul_(c, w))
                 why = "Tensor.addcmul_(c, w): d + c*w in place"
             else:
                 why = "Tensor.addcmul_ takes one dtype; w is bf16, d f32"
@@ -952,8 +994,8 @@ class KernelBench:
         err, ok, tol = close(torch, out, ref, 2e-5)
         del out, ref
         t = dict(trials=3, reps=3, warmup=1) if S * T > 1 << 20 else {}
-        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), **t)
-        plain = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, **kw),
+        ms = self.time(lambda: fa.flash_attention(q, k, v, **kw), **t)
+        plain = self.time(lambda: fa.flash_attention_plain(q, k, v, **kw),
                         **t)
         win = fa.FULL_WINDOW if window is None else window
         kvl = T if kv_len is None else kv_len
@@ -962,7 +1004,7 @@ class KernelBench:
         mask = (kpos <= qpos) & (kpos > qpos - win) & (kpos < kvl)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library = time_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask,
+        library = self.time(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True), **t)
         # the unmasked work: (query, key) pairs and the key rows they read
         pairs = 0
@@ -1000,8 +1042,8 @@ class KernelBench:
         y_p, f_p = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
         ey, oky, tol = close(torch, y, y_p, 1e-4)
         ef, okf, _ = close(torch, final, f_p, 1e-4)
-        ms = time_ms(torch, lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
-        plain = time_ms(torch, lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm,
+        ms = self.time(lambda: ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk))
+        plain = self.time(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm,
                                                           chunk=chunk),
                         trials=3, reps=3, warmup=1)
         e = x.element_size()
@@ -1328,6 +1370,45 @@ def check_pod_kernels(torch, bench) -> dict:
     return {"delta_accum": bench.delta_accum(N_SMALL, torch.float32, True),
             "delta_accum_accum_only": bench.delta_accum(
                 N_SMALL, torch.float32, False)}
+
+
+def check_charlm_kernels(torch, bench) -> dict:
+    """Phase 2 at CharLSTM-256's bucket (N 814,080 f32, above
+    ``topk_cut()``): the shapes charlm_path and charlm_compressed give
+    each kernel, bitwise against its plain version (returned): K1 at
+    clip 1, no decay, no momentum; K2 over a round's 7 clients; K3's
+    FedAvgM aggregate form; the threshold alone at density 0.25 (four
+    radix launches, against ``torch.kthvalue``); K4 int8 with top-k and
+    the residual.  Every call (kernel, plain and library) is timed from
+    a cold L2, as a step of the path meets its buffers: back to back,
+    inputs of 3–26 MB stay in the 50 MB L2 and run below the HBM
+    bound.  ``cold_floor_ms`` is one 4-byte ``zero_`` timed the same
+    way."""
+    f32 = torch.float32
+    bench.flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    out = {"local_step": bench.local_step(N_CHARLM, f32, False, False,
+                                          wd=0.0, clip=1.0),
+           "weighted_delta": bench.weighted_delta(N_CHARLM, 7, False, False),
+           "server_update": bench.server_update(N_CHARLM, "momentum",
+                                                form="avg"),
+           "topk_threshold": bench.topk_threshold(N_CHARLM),
+           "compress_delta": bench.compress_delta(N_CHARLM, 8, True, True)}
+    # the method's floor: one launch that touches 4 bytes, timed the same way
+    one = torch.zeros(1, device="cuda")
+    floor_ms = bench.time(one.zero_)
+    bench.flush = None
+    for r in out.values():
+        r.update(l2="cold", cold_floor_ms=floor_ms)
+        emit(dict(phase="kernel", path="charlm", **r))
+    bad = [k for k, r in out.items()
+           if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
+    thr = out["topk_threshold"]
+    if bad or not (thr["kthvalue_agrees"] and thr["kernel_path"] == "radix"
+                   and thr["launches_per_call"] == 4):
+        raise SystemExit(f"chip_smoke: kernels at N {N_CHARLM} disagree with "
+                         f"their plain versions or the threshold does not "
+                         f"take its radix route: {bad}")
+    return out
 
 
 def main_path(torch, fu):
@@ -1980,6 +2061,327 @@ def p2_rounds(torch, init) -> dict:
     return rps
 
 
+# --- the paper's other models: CharLSTM-256 and CNN-Fashion -----------------
+
+N_CHARLM = 814_080         # CharLSTM-256's 813,632 params padded to 1024
+L2_FLUSH_BYTES = 256 << 20  # read before a cold-L2 call: 5x the H100's L2
+CHARLM_LR = 0.8            # see charlm_configs
+
+
+@functools.lru_cache(maxsize=1)
+def charlm_setup():
+    """CharLSTM-256 (``charlm_task(vocab=64, d_embed=8, d_hidden=256)``:
+    813,632 f32 params in one bucket, padded to 814,080, above
+    ``topk_cut()``) on ``shakespeare-like`` at its registered defaults
+    (66 clients × 64 sequences of 80 characters, vocab 64, 512 test
+    sequences)."""
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.task import charlm_task
+    return (charlm_task(vocab=64, d_embed=8, d_hidden=256),
+            DATASETS.get("shakespeare-like")(seed=SEED))
+
+
+def charlm_configs(impl: str = "fused", **fed_kw):
+    """P1 2 rounds × 7 clients (participation 0.1 of 66) × 10 steps, P2
+    FedAvgM 2 × 7 × 10, batch 32, host sampling.  The SGD step is
+    ``CHARLM_LR`` = 0.8, the Shakespeare LSTM's in LEAF and FedProx: at
+    the configs' default 0.01 the loss moves by ~5e-3 in 280 steps (a
+    CPU run of this phase)."""
+    from repro_torch.core.cyclic import CyclicConfig
+    from repro_torch.fl.simulation import FLConfig
+    common = dict(participation=0.1, local_steps=10, batch_size=32,
+                  lr=CHARLM_LR, update_impl=impl, sampling="host")
+    return (CyclicConfig(rounds=2, **common),
+            FLConfig(algorithm="fedavg", rounds=2, server_opt="momentum",
+                     **common, **fed_kw))
+
+
+def profiled_round(torch, run, task, data, cfg, init, steps) -> dict:
+    """One warm round of ``run`` (``cyclic_pretrain`` or ``run_federated``
+    with ``cfg``, evaluation off) under torch.profiler, CUDA activity
+    only: wall and device-busy ms, device ops per SGD step, busy share
+    and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(task, data, cfg, init_params=init)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, top = device_activity(prof, n_top=8)
+    if not n_ops:
+        raise SystemExit("chip_smoke: the profiler saw no device op")
+    return dict(sgd_steps=steps, wall_ms=wall_us / 1e3,
+                ms_per_step=wall_us / 1e3 / steps,
+                device_busy_ms=busy / 1e3, device_busy_share=busy / wall_us,
+                device_ops=n_ops, device_ops_per_step=n_ops / steps,
+                top_device_ops=top)
+
+
+def heldout_loss(torch, task, data, params) -> float:
+    """The task's loss over the whole test set, on the card."""
+    from repro_torch.utils.tree_math import tree_map
+    with torch.no_grad():
+        return float(task.loss_fn(
+            tree_map(lambda t: t.to("cuda"), params),
+            torch.as_tensor(data.test_x).to("cuda"),
+            torch.as_tensor(data.test_y).to("cuda", torch.int64)))
+
+
+def same_leaves(torch, a, b) -> bool:
+    from repro_torch.utils.tree_math import tree_leaves
+    return all(bool(torch.equal(x, y))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def charlm_path(torch, fu):
+    """Phase charlm_path: the paper's CharLSTM-256 at full width through
+    ``run_cyclic_then_federated`` (``charlm_configs``).  Asserted: K1
+    280, K2 2, K3 2 and no upload kernel; ledger == closed form; the
+    P2 model's loss over the 512 test sequences below the init's (the
+    P1 model's reported beside them); accuracy above chance (1/64); the
+    pipeline cut to 1 P1 + 1 P2 round of 2 clients (the SGD step is
+    host-bound at ~0.13 s) with update_impl "fused" and
+    "fused_interpret" (every kernel's plain version) from the same init
+    and draws, params bitwise.  Reported: ms per SGD step of the run,
+    and one profiled warm P2 round cut to one client (10 steps;
+    evaluation off): device ops per step and busy share.  Returns the
+    launches and the P1 params."""
+    import dataclasses
+    from repro_torch.core import comm_accounting
+    from repro_torch.core.pipeline import run_cyclic_then_federated
+    from repro_torch.fl.simulation import run_federated
+    from repro_torch.utils.device import seeded_generator
+    from repro_torch.utils.tree_math import size_bytes
+
+    task, data = charlm_setup()
+    cyc, fed = charlm_configs()
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_cyclic_then_federated(task, data, cyc, fed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches(fu)
+    k1, k2 = cyc.n_selected(data.n_clients), fed.n_selected(data.n_clients)
+    steps = cyc.rounds * k1 * cyc.local_steps + \
+        fed.rounds * k2 * fed.local_steps
+    want = {"local_step": steps, "weighted_delta": fed.rounds,
+            "server_update": fed.rounds, "compress_delta": 0,
+            "topk_threshold": 0, "dp_clip_noise": 0, "topk_compress": 0,
+            "delta_accum": 0}
+    hist = res.history
+    closed = comm_accounting.overhead_with_cyclic(
+        "fedavg", k1, cyc.rounds, k2, fed.rounds,
+        size_bytes(res.federated.params))
+    final_acc = hist[-1]["acc"]
+    # the pipeline's own init (task.init from the P1 seed)
+    losses = {name: heldout_loss(torch, task, data, params) for name, params
+              in (("init", task.init(seeded_generator(cyc.seed))),
+                  ("p1", res.cyclic.params), ("p2", res.federated.params))}
+
+    finals = {}
+    for impl in ("fused", "fused_interpret"):
+        c1, f1 = (dataclasses.replace(c, rounds=1, participation=0.03)
+                  for c in charlm_configs(impl))
+        finals[impl] = run_cyclic_then_federated(task, data, c1,
+                                                 f1).federated.params
+    bitwise = same_leaves(torch, finals["fused"], finals["fused_interpret"])
+
+    p1 = res.cyclic.params
+    prof = profiled_round(torch, run_federated, task, data,
+                          dataclasses.replace(fed, rounds=1, eval_every=0,
+                                              participation=0.01),
+                          p1, fed.local_steps)
+    emit(dict(phase="charlm_path", model="charlstm-256",
+              params=size_bytes(res.federated.params) // 4, bucket=N_CHARLM, dataset="shakespeare-like", n_clients=66,
+              seq_len=80, lr=CHARLM_LR, history=hist, wall_s=wall,
+              sgd_steps=steps, ms_per_sgd_step=wall * 1e3 / steps,
+              profiled_p2_round=prof, heldout_loss=losses,
+              ledger=res.ledger.summary(), ledger_closed_form=closed,
+              launches=launches, expected_launches=want,
+              final_acc=final_acc, chance=1 / 64,
+              fused_equals_plain_bitwise=bitwise))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: charlm_path launches {launches} != "
+                         f"{want}")
+    if not all(math.isfinite(h["local_loss"]) for h in hist):
+        raise SystemExit("chip_smoke: non-finite loss on charlm_path")
+    if not losses["p2"] < losses["init"]:
+        raise SystemExit(f"chip_smoke: charlm_path's held-out loss did not "
+                         f"fall: {losses}")
+    if not final_acc > 1 / 64:
+        raise SystemExit(f"chip_smoke: charlm_path final accuracy "
+                         f"{final_acc} is not above chance")
+    if res.ledger.total_bytes != closed:
+        raise SystemExit("chip_smoke: charlm_path ledger bytes differ from "
+                         "the closed form")
+    if not bitwise:
+        raise SystemExit("chip_smoke: charlm_path's kernels and plain path "
+                         "disagree")
+    return launches, p1
+
+
+def charlm_compressed(torch, fu, init):
+    """Phase charlm_compressed: charlm_path's P2 from its P1 params with
+    the repo's compressed upload (``CompressionSpec(bits=8, density=0.25,
+    error_feedback=True)``, ``benchmarks/table4_comm.py:47``).  The
+    bucket is above ``topk_cut()``, so each of the 14 uploads is the
+    threshold's four radix launches and K4 alone with top-k and the
+    residual.  Asserted: ``topk_threshold`` 56, ``compress_delta`` 14,
+    ``topk_compress`` 0, K1 140, K2 2, K3 2; ledger == closed form;
+    then 1 round of 2 clients with update_impl "fused" and
+    "fused_interpret" from the same init and draws: params and every
+    client's EF residual row bitwise."""
+    import dataclasses
+    from repro_torch.core import comm_accounting as acc
+    from repro_torch.fl.compression import CompressionSpec
+    from repro_torch.fl.engine import _upload_payload_bytes, run_rounds
+    from repro_torch.utils.tree_math import size_bytes, tree_leaves
+
+    task, data = charlm_setup()
+    comp = CompressionSpec(bits=8, density=0.25, error_feedback=True)
+    _, fed = charlm_configs(compression=comp)
+    ledger = acc.CommLedger()
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_rounds(task, data, fed.strategy(), fed.schedule(),
+                     init_params=init, ledger=ledger)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches(fu)
+    k2 = fed.n_selected(data.n_clients)
+    uploads = fed.rounds * k2
+    want = {"local_step": uploads * fed.local_steps,
+            "weighted_delta": fed.rounds, "server_update": fed.rounds,
+            "compress_delta": uploads,
+            "topk_threshold": fu.topk_launches(N_CHARLM) * uploads,
+            "dp_clip_noise": 0, "topk_compress": 0, "delta_accum": 0}
+    x = size_bytes(res.params)
+    payload = _upload_payload_bytes(task, comp)
+    closed = fed.rounds * acc.compressed_round_bytes("fedavg", k2, x, payload)
+    finals = {}
+    for impl in ("fused", "fused_interpret"):
+        f1 = dataclasses.replace(charlm_configs(impl, compression=comp)[1],
+                                 rounds=1, participation=0.03)
+        r = run_rounds(task, data, f1.strategy(), f1.schedule(),
+                       init_params=init)
+        finals[impl] = tree_leaves(r.params) + list(
+            r.algo_state["ef_residuals"].values())
+    pairs = list(zip(finals["fused"], finals["fused_interpret"]))
+    bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
+    emit(dict(phase="charlm_compressed", model="charlstm-256",
+              bucket=N_CHARLM, topk_cut=fu.topk_cut(), upload=str(comp),
+              history=res.history, wall_s=wall, uploads=uploads,
+              ledger=ledger.summary(), ledger_closed_form=closed,
+              upload_payload_bytes=payload, full_upload_bytes=x,
+              payload_ratio=x / payload, launches=launches,
+              expected_launches=want, final_acc=res.history[-1]["acc"],
+              fused_equals_plain_bitwise=bitwise, compared=len(pairs)))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: charlm_compressed launches "
+                         f"{launches} != {want}")
+    if not all(math.isfinite(h["local_loss"]) for h in res.history):
+        raise SystemExit("chip_smoke: non-finite loss on charlm_compressed")
+    if ledger.total_bytes != closed:
+        raise SystemExit("chip_smoke: charlm_compressed ledger bytes differ "
+                         "from the closed form")
+    if not bitwise:
+        raise SystemExit("chip_smoke: charlm_compressed's kernels and plain "
+                         "path disagree")
+    return launches
+
+
+def fashion_path(torch, fu):
+    """Phase fashion_path: CNN-Fashion (215,370 params, padded to
+    216,064; dropout 0.5 on its 1,568 flattened features) on
+    ``fashion-like`` (100 clients, β = 0.5, 20,000 samples, 28×28×1):
+    P1 2 rounds × 25 clients × 10 steps, P2 FedAvg 2 × 10 × 10, batch
+    32, fused, each step's keep-mask drawn on the card from a generator
+    seeded per (round, client slot, step).  Asserted: K1 700, K2 2, K3
+    0; accuracy above chance (0.1); 1 P1 + 1 P2 round fused against
+    "fused_interpret" from the same init under the same generators
+    (cuDNN deterministic): every step's dropout source a CUDA generator,
+    params bitwise.  Reported: ms per SGD step, and one profiled warm P2
+    round cut to 2 clients: device ops per step and busy share."""
+    import dataclasses
+    from repro_torch.core.cyclic import CyclicConfig
+    from repro_torch.core.pipeline import run_cyclic_then_federated
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    from repro_torch.fl.task import vision_task
+    from repro_torch.utils.tree_math import size_bytes
+
+    data = DATASETS.get("fashion-like")(n_clients=100, beta=0.5, seed=SEED,
+                                        n_train=20000)
+    task = vision_task("cnn_fashion", n_classes=10, in_ch=1)
+    common = dict(local_steps=10, batch_size=32, update_impl="fused",
+                  sampling="host")
+    cyc = CyclicConfig(rounds=2, participation=0.25, **common)
+    fed = FLConfig(algorithm="fedavg", rounds=2, participation=0.1, **common)
+    fu.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_cyclic_then_federated(task, data, cyc, fed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches(fu)
+    k1, k2 = cyc.n_selected(100), fed.n_selected(100)
+    steps = cyc.rounds * k1 * cyc.local_steps + \
+        fed.rounds * k2 * fed.local_steps
+    want = {"local_step": steps, "weighted_delta": fed.rounds,
+            "server_update": 0, "compress_delta": 0, "topk_threshold": 0,
+            "dp_clip_noise": 0, "topk_compress": 0, "delta_accum": 0}
+    final_acc = res.history[-1]["acc"]
+
+    # fused against plain: the loss records each step's dropout source
+    flags = deterministic_cudnn(torch)
+    finals, sources = {}, []
+
+    def loss_fn(params, bx, by, rng=None):
+        sources.append(isinstance(rng, torch.Generator) and
+                       rng.device.type == "cuda")
+        return task.loss_fn(params, bx, by, rng)
+    recording = dataclasses.replace(task, loss_fn=loss_fn)
+    for impl in ("fused", "fused_interpret"):
+        c1 = dataclasses.replace(cyc, rounds=1, update_impl=impl)
+        f1 = dataclasses.replace(fed, rounds=1, update_impl=impl)
+        finals[impl] = run_cyclic_then_federated(recording, data, c1,
+                                                 f1).federated.params
+    restore_cudnn(torch, flags)
+    bitwise = same_leaves(torch, finals["fused"], finals["fused_interpret"])
+    n_compared = 2 * (k1 + k2) * cyc.local_steps
+    prof = profiled_round(torch, run_federated, task, data,
+                          dataclasses.replace(fed, rounds=1, eval_every=0,
+                                              participation=0.02),
+                          res.cyclic.params, 2 * fed.local_steps)
+    emit(dict(phase="fashion_path", model="cnn_fashion",
+              params=size_bytes(res.federated.params) // 4,
+              dataset="fashion-like", n_clients=100, beta=0.5,
+              n_train=20000, dropout=0.5, history=res.history, wall_s=wall,
+              sgd_steps=steps, ms_per_sgd_step=wall * 1e3 / steps,
+              profiled_p2_round=prof, launches=launches,
+              expected_launches=want, final_acc=final_acc,
+              steps_on_a_cuda_generator=sum(sources),
+              fused_equals_plain_bitwise=bitwise))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: fashion_path launches {launches} != "
+                         f"{want}")
+    if not all(math.isfinite(h["local_loss"]) for h in res.history):
+        raise SystemExit("chip_smoke: non-finite loss on fashion_path")
+    if not final_acc > 0.1:
+        raise SystemExit(f"chip_smoke: fashion_path final accuracy "
+                         f"{final_acc} is not above chance")
+    if len(sources) != n_compared or not all(sources):
+        raise SystemExit("chip_smoke: fashion_path's steps did not all draw "
+                         "dropout from a CUDA generator")
+    if not bitwise:
+        raise SystemExit("chip_smoke: fashion_path's kernels and plain path "
+                         "disagree")
+    return launches
+
+
 # --- the pod backend on a one-rank NCCL mesh ---------------------------------
 
 def pod_configs(mesh, *, rounds: int = 4, impl: str = "fused",
@@ -2606,6 +3008,7 @@ def main(argv=None) -> int:
     local_step_vs_add(torch, fu, bench)
     upload_shapes = check_upload_kernels(torch, bench)
     pod_shapes = check_pod_kernels(torch, bench)
+    charlm_shapes = check_charlm_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches, p1_params = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
@@ -2618,6 +3021,9 @@ def main(argv=None) -> int:
                             configs["p2_private"])
     int8_launches, _ = upload_phase(torch, fu, "p2_int8", configs["p2_int8"])
     p2_rounds(torch, private.cyclic.params)
+    charlm_launches, charlm_p1 = charlm_path(torch, fu)
+    charlm_comp_launches = charlm_compressed(torch, fu, charlm_p1)
+    fashion_launches = fashion_path(torch, fu)
     from repro_torch.launch.mesh import destroy, make_host_mesh
     mesh = make_host_mesh()
     pod_launches, pod_p1 = pod_path(torch, fu, mesh)
@@ -2652,6 +3058,15 @@ def main(argv=None) -> int:
                             library_ms=r["library_ms"],
                             **({"pdl": True} if kname != "weighted_delta"
                                else {})))
+    # K1-K3 at CharLSTM-256's bucket (charlm_path), with their launches
+    # there and on fashion_path
+    for k in kernels:
+        r = charlm_shapes[k["name"]]
+        k["charlm"] = dict({key: r[key] for key in timing}, n=N_CHARLM,
+                           l2=r["l2"], cold_floor_ms=r["cold_floor_ms"],
+                           launches=charlm_launches[k["name"]],
+                           path="charlm_path")
+        k["fashion_path_launches"] = fashion_launches[k["name"]]
     # K1 with SCAFFOLD's correction c (a row view of the round's (K, N)
     # c - c_i stack) on p2_algorithms and pod_algorithms
     rc = main_shapes["local_step_c"]
@@ -2671,16 +3086,18 @@ def main(argv=None) -> int:
                        for k in timing}
                  for tag in ("delta", "none", "adam")})
     # the upload kernels, each with the launches of the path it is on:
-    # the top-k upload is one fused launch on the main compressed path
-    # (K4 and the threshold in one, so the threshold alone launches on no
-    # path driven here: it runs above the cut only), K4 alone on the int8
-    # dense path
+    # the top-k upload is one fused launch on the main compressed path (K4
+    # and the threshold in one); above the cut, on charlm_compressed, the
+    # threshold's four radix launches and K4 alone with top-k and the
+    # residual; K4 alone without top-k on the int8 dense path
     upload_src = "src/repro_torch/kernels/csrc/upload.cu"
+    threshold_cluster = upload_shapes["topk_threshold"]
+    upload_shapes["topk_threshold"] = charlm_shapes["topk_threshold"]
     for kname, replaces, n_launch, path in (
             ("compress_delta", "src/repro/kernels/fused_update.py:283",
              int8_launches["compress_delta"], "p2_int8"),
             ("topk_threshold", "jnp src/repro/fl/compression.py:156",
-             comp_launches["topk_threshold"], "p2_compressed"),
+             charlm_comp_launches["topk_threshold"], "charlm_compressed"),
             ("dp_clip_noise", "src/repro/kernels/fused_update.py:351",
              dp_launches["dp_clip_noise"], "dp_upload"),
             ("topk_compress", "src/repro/kernels/fused_update.py:283 + "
@@ -2692,7 +3109,7 @@ def main(argv=None) -> int:
         shape = {key: r[key] for key in (
             "n", "K", "form", "bits", "topk", "residual", "kernel_path",
             "n_ctas", "dynamic_smem_per_cta", "launches_per_call",
-            "chain_ms", "threshold_ms") if key in r}
+            "chain_ms", "threshold_ms", "l2", "cold_floor_ms") if key in r}
         kernels.append(dict(name=kname, route="cuda", source=upload_src,
                             replaces=replaces, launches=n_launch,
                             max_abs_err=r["max_abs_err"], ms=r["ms"],
@@ -2706,8 +3123,28 @@ def main(argv=None) -> int:
         pdl=True, **{tag: {k: upload_shapes[f"dp_clip_noise_{tag}"][k]
                            for k in timing}
                      for tag in ("per_client", "no_noise")})
-    next(k for k in kernels if k["name"] == "topk_threshold")[
-        "fused_into"] = "topk_compress"
+    # the threshold's row is its radix route at N 814,080 (charlm_compressed);
+    # at the main path's bucket it is the cluster kernel, fused into
+    # topk_compress on p2_compressed
+    if threshold_cluster["launches_per_call"] != 1:
+        raise SystemExit(f"chip_smoke: the threshold at N {N_SMALL} did not "
+                         f"take its one-launch cluster route: "
+                         f"{threshold_cluster}")
+    next(k for k in kernels if k["name"] == "topk_threshold").update(
+        fused_into="topk_compress", fused_into_on="p2_compressed",
+        cluster_form=dict({k: threshold_cluster[k] for k in timing + (
+            "n", "kernel_path", "launches_per_call")},
+                          launches=comp_launches["topk_threshold"],
+                          path="p2_compressed"))
+    # K4 with top-k and the residual, alone above the cut (charlm_compressed)
+    rk = charlm_shapes["compress_delta"]
+    next(k for k in kernels if k["name"] == "compress_delta").update(
+        topk_residual_form=dict({k: rk[k] for k in timing}, n=N_CHARLM,
+                                l2=rk["l2"],
+                                cold_floor_ms=rk["cold_floor_ms"],
+                                launches=charlm_comp_launches[
+                                    "compress_delta"],
+                                path="charlm_compressed"))
     # K6 on the pod path: the f32 form with p (the sequential
     # aggregate), its accum-only form (pod_compressed) beside it
     r, ra = pod_shapes["delta_accum"], pod_shapes["delta_accum_accum_only"]
@@ -2757,7 +3194,7 @@ def main(argv=None) -> int:
         device_kernels_per_call=k8_kernels["prefill"]
         / max(1, per_phase["ssd_scan"]["prefill"])))
     for k in kernels:
-        if k["launches"] <= 0 and "fused_into" not in k:
+        if k["launches"] <= 0:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "
                              "its main path")
     emit({"kernels": kernels})

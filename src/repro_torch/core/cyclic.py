@@ -4,7 +4,8 @@ The counterpart of ``repro/core/cyclic.py``: the server relays ONE model
 through a randomly-sampled group of clients *sequentially* each round,
 with no aggregation, and returns the well-initialized global model.
 This module is a configuration shim over the round engine
-(``repro_torch.fl.engine``, ``RelayStrategy``).
+(``repro_torch.fl.engine``, ``RelayStrategy``), plus
+``make_cyclic_round_fn``, the reference's single-round surface.
 """
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch.data.federated import FederatedDataset
-from repro_torch.fl.engine import RelayStrategy, RoundSchedule, run_rounds
+from repro_torch.fl.engine import (RelayStrategy, RoundInputs, RoundKey,
+                                   RoundSchedule, keyed_sampler, run_rounds)
 from repro_torch.fl.local import LocalSpec, validate_update_impl
 from repro_torch.fl.task import Task
-from repro_torch.utils.device import Device
+from repro_torch.utils.device import Device, resolve_device
 
 Pytree = Any
 
@@ -71,6 +73,48 @@ class CyclicConfig:
             seed=self.seed, chunk_size=self.chunk_size,
             sampling=self.sampling, host_rng_offset=HOST_RNG_OFFSET_P1,
             batch_indices=self.batch_indices)
+
+
+def make_cyclic_round_fn(task: Task, cfg: CyclicConfig,
+                         device: Device = None) -> Callable:
+    """One P1 round on ``device`` (default CUDA): the sequential relay
+    over the round's clients, a single-round surface over
+    ``RelayStrategy``'s round body (the loop lives in
+    ``repro_torch.fl.engine``)::
+
+        round_fn(key, params, x_all, y_all, ids, lr_scale, *,
+                 step_masks=None) -> (params, {"local_loss": loss})
+
+    ``key`` stands where the reference's PRNG key does: an int seed or
+    a batch-index source ``(client_slot, step) -> LongTensor (B,)``;
+    ``step_masks(client_slot, step)``, when given, is each step's
+    dropout keep-mask in place of the keyed draw
+    (``engine.keyed_sampler``).  ``x_all``/``y_all`` are ``(n_clients,
+    n_per, ...)`` and ``ids`` the round's client ids, in relay order.
+    The params are TREES on both paths: the fused path packs and
+    unpacks them at the boundary, as the reference does.  The caller's
+    params are never written."""
+    dev = resolve_device(device)
+    strategy = cfg.strategy()
+    body = strategy.build_round(task, dev)
+    fops = strategy.flat_ops(task, dev)
+
+    def round_fn(key: RoundKey, params, x_all, y_all, ids, lr_scale, *,
+                 step_masks=None):
+        ids = torch.as_tensor(ids).to(device=dev, dtype=torch.int64)
+        p = (fops.place(fops.flatten(params)) if fops is not None else
+             strategy.place_params(params, dev))
+        inputs = RoundInputs(
+            ids=ids, weights=torch.ones(ids.shape[0], device=dev),
+            sampler=keyed_sampler(key, x_all, y_all, ids, cfg.batch_size,
+                                  dev, step_masks))
+        p, _, loss = body(p, inputs, torch.as_tensor(
+            lr_scale, dtype=torch.float32).to(dev), {})
+        if fops is not None:
+            p = fops.unflatten(p)
+        return p, {"local_loss": loss}
+
+    return round_fn
 
 
 @dataclasses.dataclass

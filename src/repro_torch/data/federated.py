@@ -10,7 +10,7 @@ explicit ``device``; random batch indices come from a
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,3 +125,23 @@ class FederatedDataset:
                 torch.as_tensor(self.y).to(device=device, dtype=torch.int64),
                 torch.as_tensor(self.n_real).to(device))
         return self._device_cache[device]
+
+
+class ClientBatchIterator:
+    """Host-side epoch iterator over one client's shard (for examples
+    that mimic the paper's local-epoch protocol exactly): each epoch a
+    fresh permutation from ``np.random.default_rng(seed)``'s stream, cut
+    into full batches (the remainder is dropped)."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int,
+                 seed: int):
+        self.x, self.y = x, y
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        n = len(self.y)
+        perm = self.rng.permutation(n)
+        for start in range(0, n - self.batch_size + 1, self.batch_size):
+            take = perm[start:start + self.batch_size]
+            yield self.x[take], self.y[take]

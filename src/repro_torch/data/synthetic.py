@@ -1,11 +1,20 @@
-"""Procedural stand-ins for the paper's vision benchmarks.
+"""Procedural stand-ins for the paper's benchmarks.
 
-The counterpart of the vision half of ``repro/data/synthetic.py``:
-class-conditional images (a fixed random low-frequency template per
-class under a random shift + Gaussian noise + random contrast), made by
-the same numpy code from the same seeds, so every array is
-byte-identical to the JAX package's.  The charlm and tokenlm families
-are not ported yet (ROADMAP.md items M2d and M12).
+The counterpart of the vision and charlm families of
+``repro/data/synthetic.py``, made by the same numpy code from the same
+seeds, so every array is byte-identical to the JAX package's:
+
+- vision : class-conditional images (a fixed random low-frequency
+           template per class under a random shift + Gaussian noise +
+           random contrast); ``cifar100c-hard`` is ``cifar100-like``
+           with 20 coarse classes and heavy noise, the benchmarks'
+           default set.
+- charlm : character streams from per-client Markov chains (the
+           Shakespeare stand-in, ``shakespeare-like``): each client's
+           chain mixes a global transition matrix with its own, so the
+           split is naturally non-IID.
+
+The tokenlm family is not ported yet (ROADMAP.md item M12).
 """
 from __future__ import annotations
 
@@ -65,6 +74,56 @@ def make_synthetic_vision(
     return train_x, train_y, test_x, test_y
 
 
+def make_synthetic_charlm(
+    n_clients: int = 64,
+    seq_len: int = 80,
+    n_seq_per_client: int = 64,
+    vocab: int = 64,
+    style_mix: float = 0.35,
+    n_test: int = 512,
+    seed: int = 0,
+) -> FederatedDataset:
+    """Shakespeare stand-in: next-char prediction over stored sequences
+    (x = seq[:-1] predicts y = seq[1:]).  Client i's chain is
+    (1 − style_mix)·global + style_mix·client_specific."""
+    rng = np.random.default_rng(seed)
+
+    def row_norm(m):
+        return m / m.sum(axis=1, keepdims=True)
+
+    # sparse-ish global chain: every char strongly prefers a few successors
+    global_T = row_norm(rng.dirichlet(np.full(vocab, 0.1), size=vocab))
+
+    def sample_stream(T, n, L, r):
+        out = np.empty((n, L), dtype=np.int32)
+        state = r.integers(0, vocab, size=n)
+        cdf = np.cumsum(T, axis=1)
+        for t in range(L):
+            out[:, t] = state
+            u = r.random(n)
+            state = (u[:, None] < cdf[state]).argmax(axis=1)
+        return out
+
+    xs = []
+    for cid in range(n_clients):
+        r = np.random.default_rng(seed + 1000 + cid)
+        local_T = row_norm(r.dirichlet(np.full(vocab, 0.1), size=vocab))
+        T = row_norm((1 - style_mix) * global_T + style_mix * local_T)
+        xs.append(sample_stream(T, n_seq_per_client, seq_len + 1, r))
+    x = np.stack(xs)  # (clients, n_seq, L+1)
+    test = sample_stream(global_T, n_test, seq_len + 1,
+                         np.random.default_rng(seed + 7))
+    return FederatedDataset(
+        x=x[:, :, :-1],
+        y=x[:, :, 1:],
+        n_real=np.full(n_clients, n_seq_per_client, dtype=np.int64),
+        test_x=test[:, :-1],
+        test_y=test[:, 1:],
+        n_classes=vocab,
+        name="synthetic-charlm",
+    )
+
+
 @DATASETS.register("cifar10-like")
 def _cifar10_like(n_clients: int = 100, beta: Optional[float] = 0.5, seed: int = 0,
                   n_train: int = 20000, n_test: int = 2000,
@@ -88,6 +147,17 @@ def _cifar100_like(n_clients: int = 100, beta: Optional[float] = 0.5, seed: int 
                                         n_classes=n_classes, name="cifar100-like")
 
 
+# the benchmarks' default set: 20 coarse classes and heavy noise, so
+# short runs have headroom
+@DATASETS.register("cifar100c-hard")
+def _cifar100c_hard(n_clients: int = 100, beta: Optional[float] = 0.5,
+                    seed: int = 0, n_train: int = 20000,
+                    n_test: int = 2000) -> FederatedDataset:
+    return _cifar100_like(n_clients=n_clients, beta=beta, seed=seed,
+                          n_train=n_train, n_test=n_test, coarse=True,
+                          noise=0.9)
+
+
 @DATASETS.register("fashion-like")
 def _fashion_like(n_clients: int = 100, beta: Optional[float] = 0.5, seed: int = 0,
                   n_train: int = 20000, n_test: int = 2000,
@@ -108,3 +178,9 @@ def _femnist_like(n_clients: int = 190, beta: Optional[float] = 0.3, seed: int =
                                            channels=1, noise=noise, seed=seed)
     return FederatedDataset.from_arrays(tx, ty, ex, ey, n_clients, beta, seed,
                                         n_classes=62, name="femnist-like")
+
+
+@DATASETS.register("shakespeare-like")
+def _shakespeare_like(n_clients: int = 66, seed: int = 0,
+                      **kw) -> FederatedDataset:
+    return make_synthetic_charlm(n_clients=n_clients, seed=seed, **kw)

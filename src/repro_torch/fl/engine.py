@@ -37,7 +37,13 @@ package does; ``sampling="device"`` uses ``torch.randperm`` on a device
 generator.  Batch indices come from a ``torch.Generator`` on the device
 seeded from ``schedule.seed``, or from ``schedule.batch_indices`` —
 ``(round, client_slot, step) -> LongTensor (B,)`` — when it is set (the
-parity tests inject the JAX package's threefry draws through it).
+parity tests inject the JAX package's threefry draws through it).  Each
+step's dropout source, the loss's ``rng``, is a ``torch.Generator`` on
+the device seeded with ``fold_in`` of the seed, round, client slot and
+step (no step waits on the host), or the keep-mask that
+``schedule.step_masks`` — ``(round, client_slot, step) -> mask`` —
+gives when it is set (the parity tests inject the JAX package's
+``bernoulli`` draws through it).  A model without dropout ignores it.
 
 P2 also runs compressed uploads (``spec.compression``,
 ``repro_torch.fl.compression``: per-client error-feedback residual rows
@@ -59,7 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,6 +92,9 @@ Pytree = Any
 
 ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
 SERVER_OPTS = ("none", "momentum", "adam")
+
+# folded into the seed of each step's dropout generator ("drop")
+_DROPOUT_TAG = 0x64726F70
 
 # FedAdam (server_opt="adam") moment decays — shared by the tree
 # optimizer, the fused kernel call and its bias-correction scalars
@@ -248,6 +257,49 @@ class HostBackend:
         """Combine per-process values of a batch of ``n`` (losses: mean;
         eval sums: sum) — the identity on one device."""
         return t
+
+
+# a single round's source of batch indices: an int seed, or
+# (client_slot, step) -> LongTensor (B,)
+RoundKey = Union[int, Callable[[int, int], torch.Tensor]]
+
+
+def keyed_sampler(key: RoundKey, x_all, y_all, ids: torch.Tensor,
+                  batch: int, device: torch.device,
+                  step_masks: Optional[Callable[[int, int], torch.Tensor]]
+                  = None) -> Callable[[int], Sample]:
+    """The sampler of a single-round surface (``simulation.make_round_fn``,
+    ``cyclic.make_cyclic_round_fn``) over ``(n_clients, n_per, ...)``
+    client arrays: client slot → ``sample(step)``.  An int ``key`` seeds
+    the torch.Generator on ``device`` that draws the batch indices; a
+    callable ``key(slot, step)`` gives them instead (the parity tests
+    inject the reference's draws through it).  Each step's dropout
+    source is a generator on ``device`` seeded with ``fold_in`` of the
+    int key (0 for a callable one), the client slot and the step, or
+    the keep-mask ``step_masks(slot, step)`` gives when it is set."""
+    x_all = torch.as_tensor(x_all).to(device)
+    y_all = torch.as_tensor(y_all).to(device)
+    seed = 0 if callable(key) else key
+    gen = None if callable(key) else seeded_generator(key, device)
+    step_gen = seeded_generator(0, device)
+
+    def for_slot(slot: int) -> Sample:
+        cx, cy = x_all[ids[slot]], y_all[ids[slot]]
+
+        def sample(step: int):
+            if gen is None:
+                idx = key(slot, step).to(device=device, dtype=torch.int64)
+            else:
+                idx = torch.randint(0, cx.shape[0], (batch,), generator=gen,
+                                    device=device)
+            if step_masks is not None:
+                rng = step_masks(slot, step).to(device)
+            else:
+                step_gen.manual_seed(fold_in(seed, _DROPOUT_TAG, slot, step))
+                rng = step_gen
+            return cx.index_select(0, idx), cy.index_select(0, idx), rng
+        return sample
+    return for_slot
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +642,29 @@ class AggregateStrategy(HostBackend):
 # evaluation
 # ---------------------------------------------------------------------------
 
+def make_eval_fn(task: Task, batch: int, device: Device = None) -> Callable:
+    """Host-side evaluation on ``device`` (default CUDA), one call per
+    test batch: ``evaluate(params, test_x, test_y) -> float``, the
+    batches' accuracies averaged with their sizes as weights.  The
+    parity oracle of the engine's eval stream, and a way to evaluate a
+    model outside an engine run."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def evaluate(params, test_x, test_y) -> float:
+        test_x, test_y = np.asarray(test_x), np.asarray(test_y)
+        accs, ws = [], []
+        for s in range(0, len(test_y), batch):
+            bx = torch.as_tensor(test_x[s:s + batch]).to(dev)
+            by = torch.as_tensor(test_y[s:s + batch]).to(device=dev,
+                                                        dtype=torch.int64)
+            accs.append(float(task.accuracy(params, bx, by)))
+            ws.append(len(by))
+        return float(np.average(accs, weights=ws))
+
+    return evaluate
+
+
 @functools.lru_cache(maxsize=64)
 def make_accuracy_metric(task: Task) -> Callable:
     """Default eval metric: per-sample accuracy,
@@ -642,6 +717,9 @@ class RoundSchedule:
     host_rng_offset: int = 0
     overlap: bool = False           # M10
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
+    # (round, client_slot, step) -> keep-mask: replaces the step's
+    # generator as the loss's dropout source
+    step_masks: Optional[Callable[[int, int, int], torch.Tensor]] = None
     # (round, kind, a, b) -> f32 param-shaped tree: replaces the keyed
     # privacy draws (kind "dp", a = client id; kind "mask", a < b)
     noise_draws: Optional[Callable[[int, str, int, Optional[int]],
@@ -710,6 +788,8 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     # every process draws the whole batch and computes its part of it
     part = strategy.batch_shard(B)
     gen = seeded_generator(schedule.seed, dev)
+    # re-seeded every step: the step's dropout source
+    step_gen = seeded_generator(0, dev)
 
     with_eval = schedule.eval_every > 0 and len(np.asarray(data.test_y)) > 0
     metric = ev = None
@@ -738,11 +818,21 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                 else:
                     idx = torch.randint(0, n_per, (B,), generator=gen,
                                         device=dev)
+                if schedule.step_masks is not None:
+                    rng = schedule.step_masks(rnd, slot, step).to(dev)
+                else:
+                    # a rank of the pod draws for its own part of the batch
+                    step_gen.manual_seed(fold_in(
+                        schedule.seed, _DROPOUT_TAG, rnd, slot, step,
+                        0 if part is None else part.start))
+                    rng = step_gen
                 if part is not None:
                     idx = idx[part]
+                    if schedule.step_masks is not None:
+                        rng = rng[part]
                 rows = base + idx
                 return x_rows.index_select(0, rows), \
-                    y_rows.index_select(0, rows)
+                    y_rows.index_select(0, rows), rng
             return sample
         return for_slot
 

@@ -9,9 +9,11 @@ chosen by ``LocalSpec.variant``:
   scaffold : g ← g + (c − c_i) in the step tail [Karimireddy, ICML'20]
   moon     : + mu·contrastive(z, z_glob, z_prev) [Li et al., CVPR'21]
 
-The caller hands the local fn ``sample(step) -> (bx, by)``, so the local
-run is independent of where its batch indices come from (a
-``torch.Generator`` on the device, or an injected index source).
+The caller hands the local fn ``sample(step) -> (bx, by, rng)``, so the
+local run is independent of where its batch indices and its dropout
+come from (a ``torch.Generator`` on the device, or an injected index
+source and keep-mask).  ``rng`` reaches the task's loss as its step
+draw (None: no draw); a model without dropout ignores it.
 
 The post-gradient step tail — global-norm clip, scaffold correction,
 decoupled weight decay, heavy-ball momentum, SGD axpy — has two
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -52,7 +54,10 @@ from repro_torch.utils.device import seeded_generator
 from repro_torch.utils.flatten import FlatView, torch_dtype
 
 Pytree = Any
-Sample = Callable[[int], Tuple[torch.Tensor, torch.Tensor]]
+# a step's dropout source: a torch.Generator, a keep-mask, or None
+StepRng = Optional[Union[torch.Generator, torch.Tensor]]
+# sample(step) -> (bx, by, rng)
+Sample = Callable[[int], Tuple[torch.Tensor, torch.Tensor, StepRng]]
 
 UPDATE_IMPLS = ("tree", "fused", "fused_interpret")
 VARIANTS = ("plain", "fedprox", "scaffold", "moon")
@@ -372,7 +377,8 @@ def make_local_fn(task: Task, spec: LocalSpec,
                 (p_bufs, loss)`` over the buffer dict of ``flat_ops``,
                 updated IN PLACE.
 
-    ``sample(step) -> (bx, by)`` yields the step's batch; ``lr_scale``
+    ``sample(step) -> (bx, by, rng)`` yields the step's batch and
+    dropout source (the loss's ``rng``); ``lr_scale``
     is the round's f32 device scalar; ``loss`` is the mean local loss
     (a device scalar).  Each step's gradient passes through
     ``reduce_grads`` (a tree → tree function, given the gradient tree
@@ -392,8 +398,8 @@ def make_local_fn(task: Task, spec: LocalSpec,
     if fused and flat_ops is None:
         raise ValueError("the fused local fn runs over a FlatParamOps")
 
-    def loss_for_variant(params, extras, bx, by):
-        base = task.loss_fn(params, bx, by, None)
+    def loss_for_variant(params, extras, bx, by, rng):
+        base = task.loss_fn(params, bx, by, rng)
         if spec.variant == "fedprox":
             prox = 0.5 * spec.mu * tm.squared_norm(
                 tm.sub(params, extras["w_global"]))
@@ -415,11 +421,11 @@ def make_local_fn(task: Task, spec: LocalSpec,
         mom = tm.zeros_like(params) if spec.momentum else ()
         losses = []
         for s in range(spec.n_steps):
-            bx, by = sample(s)
+            bx, by, rng = sample(s)
             leaves, treedef = tm.tree_flatten(params)
             pv = [x.detach().requires_grad_(True) for x in leaves]
             loss = loss_for_variant(tm.tree_unflatten(treedef, pv), extras,
-                                    bx, by)
+                                    bx, by, rng)
             grads = tm.tree_unflatten(treedef,
                                       torch.autograd.grad(loss, pv))
             if reduce_grads is not None:
@@ -441,12 +447,13 @@ def make_local_fn(task: Task, spec: LocalSpec,
             spec, flat_ops, None, step_size)
         losses = []
         for s in range(spec.n_steps):
-            bx, by = sample(s)
+            bx, by, rng = sample(s)
             # differentiate w.r.t. the FLAT buffers: the tree is views of
             # them, and autograd packs the gradient per bucket
             pv = {name: b.detach().requires_grad_(True)
                   for name, b in p_bufs.items()}
-            loss = loss_for_variant(flat_ops.unflatten(pv), extras, bx, by)
+            loss = loss_for_variant(flat_ops.unflatten(pv), extras, bx, by,
+                                    rng)
             g_bufs = dict(zip(pv, torch.autograd.grad(loss,
                                                       list(pv.values()))))
             if reduce_grads is not None:

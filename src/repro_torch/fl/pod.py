@@ -54,8 +54,9 @@ each client's extras and the round's client-state update come from
 states.
 
 Not ported yet, each raising ``NotImplementedError`` naming its item:
-the sparse client store (M10), sharded groups on a world larger than
-one (M13b), and AOT lowering of the pod round (M15).
+tasks other than vision (a charlm task: M2d), the sparse client store
+(M10), sharded groups on a world larger than one (M13b), and AOT
+lowering of the pod round (M15).
 ``PodFLConfig.overlap`` keeps the JAX default of True; until M10 the
 port runs it as the synchronous loop (the JAX package pins the two as
 bitwise equal).
@@ -339,6 +340,8 @@ class PodBackendMixin:
 
     def flat_ops(self, task: Task, device: torch.device):
         self._check_device(device)
+        if task.kind != "vision":
+            not_ported(f"the pod backend for a {task.kind} task", "M2d")
         _sharded_view(task, self.mesh, self.layout)     # M13b check
         if self.spec.update_impl == "tree":
             return None

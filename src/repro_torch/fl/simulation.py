@@ -16,7 +16,7 @@ strategy's round body and server optimizer, with trees at the boundary.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -25,7 +25,9 @@ from repro_torch.fl.engine import (
     ALGORITHMS,
     AggregateStrategy,
     RoundInputs,
+    RoundKey,
     RoundSchedule,
+    keyed_sampler,
     run_rounds,
 )
 from repro_torch.fl.compression import CompressionSpec, validate_compression
@@ -138,10 +140,6 @@ class FLResult:
         return max(rows, key=lambda h: h[key]) if rows else {}
 
 
-# a round's source of batch indices: an int seed, or (slot, step) -> (B,)
-RoundKey = Union[int, Callable[[int, int], torch.Tensor]]
-
-
 def make_round_fn(task: Task, cfg: FLConfig, device: Device = None
                   ) -> Callable:
     """The one-round update on ``device`` (default CUDA), a single-round
@@ -149,15 +147,15 @@ def make_round_fn(task: Task, cfg: FLConfig, device: Device = None
     ``repro_torch.fl.engine``)::
 
         round_fn(key, params, x_all, y_all, ids, weights, lr_scale,
-                 algo_state) -> (params, algo_state, metrics)
+                 algo_state, *, step_masks=None)
+            -> (params, algo_state, metrics)
 
-    ``key`` stands where the reference's PRNG key does: an int seeds the
-    torch.Generator on the device that draws the batch indices and keys
-    the round's privacy draws; a callable ``(client_slot, step) ->
-    LongTensor (B,)`` gives the batch indices instead (the parity tests
-    inject the reference's draws through it).  ``x_all``/``y_all`` are
-    ``(n_clients, n_per, ...)``; ``ids`` and ``weights`` the round's
-    ``(K,)`` client ids and their sample counts; ``algo_state`` comes
+    ``key`` stands where the reference's PRNG key does (see
+    ``engine.keyed_sampler``): an int also keys the round's privacy
+    draws, and ``step_masks(client_slot, step)``, when given, is each
+    step's dropout keep-mask in place of the keyed draw.
+    ``x_all``/``y_all`` are ``(n_clients, n_per, ...)``; ``ids`` and
+    ``weights`` the round's ``(K,)`` client ids and their sample counts; ``algo_state`` comes
     from :func:`init_server_state` and is updated in place.  The params
     are TREES on both paths: the fused path packs and unpacks them at
     the boundary.  The caller's params are never written."""
@@ -168,28 +166,16 @@ def make_round_fn(task: Task, cfg: FLConfig, device: Device = None
     B = cfg.batch_size
 
     def round_fn(key: RoundKey, params, x_all, y_all, ids, weights,
-                 lr_scale, algo_state):
-        x_all = torch.as_tensor(x_all).to(dev)
-        y_all = torch.as_tensor(y_all).to(dev)
+                 lr_scale, algo_state, *, step_masks=None):
         ids = torch.as_tensor(ids).to(device=dev, dtype=torch.int64)
-        gen = None if callable(key) else seeded_generator(key, dev)
-
-        def sampler(slot: int):
-            cx, cy = x_all[ids[slot]], y_all[ids[slot]]
-
-            def sample(step: int):
-                idx = (key(slot, step).to(device=dev, dtype=torch.int64)
-                       if gen is None else
-                       torch.randint(0, cx.shape[0], (B,), generator=gen,
-                                     device=dev))
-                return cx.index_select(0, idx), cy.index_select(0, idx)
-            return sample
         p = (fops.place(fops.flatten(params)) if fops is not None else
              strategy.place_params(params, dev))
         inputs = RoundInputs(
             ids=ids, weights=torch.as_tensor(weights).to(
-                device=dev, dtype=torch.float32), sampler=sampler,
-            round_key=0 if gen is None else int(key))
+                device=dev, dtype=torch.float32),
+            sampler=keyed_sampler(key, x_all, y_all, ids, B, dev,
+                                  step_masks),
+            round_key=0 if callable(key) else int(key))
         p, algo_state, loss = body(p, inputs, torch.as_tensor(
             lr_scale, dtype=torch.float32).to(dev), algo_state)
         if fops is not None:

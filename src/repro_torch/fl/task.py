@@ -1,8 +1,8 @@
 """Task abstraction: binds a model to loss / representation / prediction
 functions so the FL machinery is model-agnostic.
 
-The counterpart of ``repro/fl/task.py`` (``Task`` and ``vision_task``;
-``charlm_task`` and ``lm_task`` wait for ROADMAP.md items M2d and M12).
+The counterpart of ``repro/fl/task.py`` (``Task``, ``vision_task`` and
+``charlm_task``; ``lm_task`` waits for ROADMAP.md item M12).
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ class Task:
     """
 
     name: str
-    kind: str                      # vision
+    kind: str                      # vision | charlm
     init: Callable[[torch.Generator], Pytree]
     loss_fn: Callable[..., torch.Tensor]
     repr_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
@@ -50,7 +50,9 @@ def _softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def vision_task(model: str = "lenet5", n_classes: int = 10, in_ch: int = 3,
                 seed_kwargs: Optional[dict] = None) -> Task:
-    """Paper vision models (LeNet-5, CNN-FEMNIST) and the MLP."""
+    """Paper vision models (LeNet-5, CNN-FEMNIST, CNN-Fashion) and the
+    MLP.  The loss hands ``rng`` (the step's dropout source) to the
+    model; representation and prediction run without dropout."""
     init_fn, apply_fn, kind = pm.PAPER_MODELS.get(model)
     kw = seed_kwargs or {}
 
@@ -68,4 +70,25 @@ def vision_task(model: str = "lenet5", n_classes: int = 10, in_ch: int = 3,
         return torch.argmax(apply_fn(params, bx, train=False), dim=-1)
 
     return Task(name=model, kind=kind, init=init, loss_fn=loss_fn,
+                repr_fn=repr_fn, predict_fn=predict_fn)
+
+
+def charlm_task(vocab: int = 64, d_embed: int = 8, d_hidden: int = 256) -> Task:
+    """CharLSTM-256 next-char prediction (Shakespeare stand-in):
+    ``bx`` (B, S) int tokens, ``by`` (B, S) next chars."""
+
+    def init(gen):
+        return pm.charlstm_init(gen, vocab=vocab, d_embed=d_embed,
+                                d_hidden=d_hidden)
+
+    def loss_fn(params, bx, by, rng=None):
+        return _softmax_xent(pm.charlstm_apply(params, bx), by)
+
+    def repr_fn(params, bx):
+        return pm.charlstm_apply(params, bx)[:, -1]  # last-position logits
+
+    def predict_fn(params, bx):
+        return torch.argmax(pm.charlstm_apply(params, bx), dim=-1)
+
+    return Task(name="charlstm", kind="charlm", init=init, loss_fn=loss_fn,
                 repr_fn=repr_fn, predict_fn=predict_fn)

@@ -1,21 +1,24 @@
 """The paper's evaluation models, in PyTorch.
 
 The counterpart of ``repro/models/paper_models.py`` for LeNet-5,
-CNN-FEMNIST and the two-layer MLP.  The parameter layout is the JAX
-package's, so weights carry across by copy (``repro_torch.bridge``):
-the same dict keys, HWIO conv weights, ``(d_in, d_out)`` fc weights and
-NHWC activations at every public function.  Inside ``conv2d`` the
+CNN-FEMNIST, CNN-Fashion, CharLSTM-256 and the two-layer MLP.  The
+parameter layout is the JAX package's, so weights carry across by copy
+(``repro_torch.bridge``): the same dict keys, HWIO conv weights,
+``(d_in, d_out)`` fc weights and NHWC activations at every public
+function.  Inside ``conv2d`` the
 activations are permuted to NCHW and the weights to OIHW for
 ``F.conv2d``; a 5×5 "SAME" convolution at stride 1 pads by 2.  The
 flatten before a classifier happens in NHWC order, as in the JAX
 package — ``f1["w"]``'s rows are in (H, W, C) order.
 
-ResNet-8 (BatchNorm/GroupNorm), CNN-Fashion (dropout) and CharLSTM are
-not ported yet (ROADMAP.md items M2b, M2c and M2d).
+ResNet-8 is not ported (ROADMAP.md item M2b).
 
 Each model is an (init, apply) pair over dict params:
-``init(gen, n_classes, in_ch) -> params`` on ``gen``'s device and
-``apply(params, x, train=False, rng=None) -> logits``.
+``init(gen, n_classes, in_ch) -> params`` on ``gen``'s device (CharLSTM:
+``init(gen, vocab, d_embed, d_hidden)``) and ``apply(params, x,
+train=False, rng=None) -> logits``.  Only CNN-Fashion reads ``rng``
+(its dropout): None draws nothing, a ``torch.Generator`` on ``x``'s
+device draws the keep-mask, a tensor IS the keep-mask.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import he_normal
+from repro_torch.models.layers import he_normal, normal_init
 from repro_torch.utils.registry import Registry
 
 Pytree = Any
@@ -127,10 +130,108 @@ def mlp_apply(p: Pytree, x: torch.Tensor, train: bool = False,
 
 
 # ---------------------------------------------------------------------------
+# CNN-Fashion (Fashion-MNIST): 2 conv + dropout + 2 FC
+# ---------------------------------------------------------------------------
+
+def cnn_fashion_init(gen, n_classes: int = 10, in_ch: int = 1) -> Pytree:
+    return {
+        "c1": init_conv(gen, 5, in_ch, 16),
+        "c2": init_conv(gen, 5, 16, 32),
+        "f1": init_fc(gen, 32 * 7 * 7, 128),
+        "f2": init_fc(gen, 128, n_classes),
+    }
+
+
+def _dropout_keep(rng, shape, keep_prob: float,
+                 device: torch.device) -> torch.Tensor:
+    """The keep-mask of one dropout: ``rng`` itself when it is a tensor
+    (an injected mask), else ``uniform < keep_prob`` drawn from the
+    generator ``rng`` on ``device`` (as ``jax.random.bernoulli`` draws)."""
+    if isinstance(rng, torch.Tensor):
+        if tuple(rng.shape) != tuple(shape):
+            raise ValueError(f"keep-mask of shape {tuple(rng.shape)}, "
+                             f"expected {tuple(shape)}")
+        return rng
+    return torch.rand(tuple(shape), generator=rng, device=device) < keep_prob
+
+
+def cnn_fashion_apply(p: Pytree, x: torch.Tensor, train: bool = False,
+                      rng=None, drop: float = 0.5) -> torch.Tensor:
+    x = maxpool(F.relu(conv2d(p["c1"], x)))
+    x = maxpool(F.relu(conv2d(p["c2"], x)))
+    x = _flatten_nhwc(x)
+    if train and rng is not None:
+        keep = _dropout_keep(rng, x.shape, 1 - drop, x.device).to(x.dtype)
+        x = x * keep / (1 - drop)
+    x = F.relu(fc(p["f1"], x))
+    return fc(p["f2"], x)
+
+
+# ---------------------------------------------------------------------------
+# CharLSTM-256 (Shakespeare): embed(8) + 2x LSTM(256) + FC
+# ---------------------------------------------------------------------------
+
+def _init_lstm_cell(gen, d_in: int, d_hidden: int) -> Pytree:
+    scale = (d_in + d_hidden) ** -0.5
+    return {
+        "wx": normal_init(gen, (d_in, 4 * d_hidden), std=scale),
+        "wh": normal_init(gen, (d_hidden, 4 * d_hidden), std=scale),
+        "b": torch.zeros((4 * d_hidden,), device=gen.device),
+    }
+
+
+def charlstm_init(gen, vocab: int = 64, d_embed: int = 8,
+                  d_hidden: int = 256) -> Pytree:
+    return {
+        "embed": normal_init(gen, (vocab, d_embed), std=0.1),
+        "lstm1": _init_lstm_cell(gen, d_embed, d_hidden),
+        "lstm2": _init_lstm_cell(gen, d_hidden, d_hidden),
+        "head": init_fc(gen, d_hidden, vocab),
+    }
+
+
+def _lstm_layer(cell: Pytree, seq: torch.Tensor) -> torch.Tensor:
+    """One LSTM layer over a time-major ``(S, B, d_in)`` sequence →
+    ``(S, B, h)``.  The time-independent ``x @ wx + b`` is one matmul for
+    the whole sequence; each step is one ``addmm`` of ``h @ wh`` onto it
+    and the gate arithmetic (gates i, f, g, o; the forget gate biased
+    by +1).  The steps read the product through one ``unbind``, whose
+    backward is one stack (indexing it per step would build a
+    full-size gradient per step and sum them)."""
+    S, B, _ = seq.shape
+    wh = cell["wh"]
+    hidden = wh.shape[0]
+    xw = torch.addmm(cell["b"], seq.reshape(S * B, -1),
+                     cell["wx"]).reshape(S, B, 4 * hidden).unbind(0)
+    h = seq.new_zeros((B, hidden))
+    c = seq.new_zeros((B, hidden))
+    hs = []
+    for t in range(S):
+        i, f, g, o = torch.addmm(xw[t], h, wh).chunk(4, dim=1)
+        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs)
+
+
+def charlstm_apply(p: Pytree, tokens: torch.Tensor, train: bool = False,
+                   rng=None) -> torch.Tensor:
+    """tokens: (B, S) int → logits (B, S, vocab) for next-char
+    prediction.  Runs time-major inside; the tokens index ``embed`` as
+    they are (int32 or int64)."""
+    x = F.embedding(tokens.t(), p["embed"])                 # (S, B, e)
+    h = _lstm_layer(p["lstm2"], _lstm_layer(p["lstm1"], x))
+    return fc(p["head"], h).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
 # registry: name -> (init_fn(gen, n_classes, in_ch), apply_fn, kind)
 # ---------------------------------------------------------------------------
 
 PAPER_MODELS.register("lenet5")((lenet5_init, lenet5_apply, "vision"))
 PAPER_MODELS.register("cnn_femnist")((cnn_femnist_init, cnn_femnist_apply,
                                       "vision"))
+PAPER_MODELS.register("cnn_fashion")((cnn_fashion_init, cnn_fashion_apply,
+                                      "vision"))
 PAPER_MODELS.register("mlp")((mlp_init, mlp_apply, "vision"))
+PAPER_MODELS.register("charlstm")((charlstm_init, charlstm_apply, "charlm"))

@@ -1106,3 +1106,68 @@ def test_scaffold_host_round_fused_matches_plain_bitwise():
     assert out["fused"][1] == out["fused_interpret"][1]
     for a, b in zip(out["fused"][0], out["fused_interpret"][0]):
         assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_charlm_compressed_round_takes_the_radix_route_bitwise():
+    """A compressed P2 round of CharLSTM-256 (one f32 bucket of 814,080,
+    above ``topk_cut()``) on the card: each upload is the threshold's
+    four radix launches and K4 alone with top-k and the residual, and
+    the fused path equals the plain twins (``fused_interpret``) from the
+    same init and batch indices, bitwise in the params and the EF rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.compression import CompressionSpec
+    from repro_torch.fl.engine import run_rounds
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.fl.task import charlm_task
+    from repro_torch.utils.tree_math import tree_leaves
+    task = charlm_task()
+    data = DATASETS.get("shakespeare-like")(n_clients=4, seq_len=16,
+                                            n_seq_per_client=8, n_test=8)
+    init = task.init(torch.Generator().manual_seed(0))
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1009 * rnd + 31 * slot + step)
+        return torch.randint(0, data.n_per_client, (4,), generator=g)
+    out = {}
+    for impl in ("fused", "fused_interpret"):
+        cfg = FLConfig(rounds=1, participation=0.5, local_steps=2,
+                       batch_size=4, lr=0.5, update_impl=impl,
+                       sampling="host", eval_every=1, batch_indices=indices,
+                       compression=CompressionSpec(bits=8, density=0.25,
+                                                   error_feedback=True))
+        fu.reset_launch_counts()
+        res = run_rounds(task, data, cfg.strategy(), cfg.schedule(),
+                         init_params=init)
+        out[impl] = (tree_leaves(res.params) +
+                     list(res.algo_state["ef_residuals"].values()),
+                     res.history, {f.__name__: f.launches
+                                   for f in fu.UPLOAD_KERNELS})
+    torch.cuda.synchronize()
+    assert out["fused"][2] == {"compress_delta": 2, "topk_threshold": 8,
+                               "dp_clip_noise": 0, "topk_compress": 0}
+    assert out["fused"][1] == out["fused_interpret"][1]
+    for a, b in zip(out["fused"][0], out["fused_interpret"][0]):
+        assert a.is_cuda and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cnn_fashion_draws_dropout_on_the_card(gen):
+    """A CUDA generator draws CNN-Fashion's keep-mask on the card: the
+    same seed repeats the logits, another changes them, and the drawn
+    mask equals ``torch.rand < 0.5`` from the same seed."""
+    from repro_torch.models import paper_models as pm
+    p = pm.cnn_fashion_init(gen)
+    x = torch.randn(8, 28, 28, 1, generator=gen, device="cuda")
+
+    def run(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return pm.cnn_fashion_apply(p, x, train=True, rng=g)
+    assert torch.equal(run(3), run(3)) and not torch.equal(run(3), run(4))
+    keep = torch.rand((8, 32 * 7 * 7), device="cuda",
+                      generator=torch.Generator(device="cuda")
+                      .manual_seed(3)) < 0.5
+    assert torch.equal(run(3), pm.cnn_fashion_apply(p, x, train=True,
+                                                    rng=keep))

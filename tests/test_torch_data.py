@@ -1,7 +1,7 @@
-"""``repro_torch.data``: the synthetic vision sets and their federated
-partitions are byte-identical to the JAX package's (same numpy code,
-same seeds), and device placement / batch sampling follow the torch
-idiom."""
+"""``repro_torch.data``: the synthetic vision and charlm sets and their
+federated partitions are byte-identical to the JAX package's (same
+numpy code, same seeds), and device placement / batch sampling follow
+the torch idiom."""
 import numpy as np
 import pytest
 import torch
@@ -15,11 +15,19 @@ from repro_torch.data.synthetic import DATASETS
 @pytest.mark.parametrize("name,kw", [
     ("cifar10-like", dict(n_clients=8, n_train=300, n_test=50)),
     ("femnist-like", dict(n_clients=10, n_train=400, n_test=50)),
+    ("cifar100c-hard", dict(n_clients=8, n_train=300, n_test=50)),
+    ("shakespeare-like", dict(n_clients=5, seq_len=12, n_seq_per_client=6,
+                              n_test=20)),
 ])
 @pytest.mark.parametrize("beta", [None, 0.5])
 def test_federated_sets_are_byte_identical(name, kw, beta):
-    a = DATASETS.get(name)(beta=beta, seed=3, **kw)
-    b = J_DATASETS.get(name)(beta=beta, seed=3, **kw)
+    if name == "shakespeare-like":
+        # clients are its own Markov chains: no partition, no beta
+        kw = dict(kw, vocab=32 if beta is None else 64)
+    else:
+        kw = dict(kw, beta=beta)
+    a = DATASETS.get(name)(seed=3, **kw)
+    b = J_DATASETS.get(name)(seed=3, **kw)
     for field in ("x", "y", "n_real", "test_x", "test_y"):
         x, y = getattr(a, field), getattr(b, field)
         assert x.dtype == y.dtype and x.shape == y.shape
@@ -38,9 +46,10 @@ def test_dirichlet_partition_is_identical():
 
 def test_registry_lists_the_ported_vision_sets():
     assert set(DATASETS.names()) == {"cifar10-like", "cifar100-like",
-                                     "fashion-like", "femnist-like"}
+                                     "cifar100c-hard", "fashion-like",
+                                     "femnist-like", "shakespeare-like"}
     with pytest.raises(KeyError):
-        DATASETS.get("shakespeare-like")
+        DATASETS.get("tokenlm-bigram")
 
 
 def test_device_arrays_and_client_batches():

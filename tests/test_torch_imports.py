@@ -1,6 +1,7 @@
-"""Import guard for the port: ``src/repro_torch`` and ``chip_smoke.py``
-import neither JAX nor the JAX package (``repro``), and the port loads
-in a process where JAX cannot be imported."""
+"""Import guard for the port: ``src/repro_torch``, ``chip_smoke.py`` and
+``examples/*_torch.py`` import neither JAX nor the JAX package
+(``repro``), and the port loads in a process where JAX cannot be
+imported."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -71,7 +71,7 @@ def test_local_run_matches_jax(setup, impl, tail):
 
     def sample(step):
         rows = torch.from_numpy(idx[step].astype(np.int64))
-        return tx[rows], ty[rows]
+        return tx[rows], ty[rows], None
 
     spec = LocalSpec(**common, update_impl=impl)
     params = bridge.params_from_numpy(jax_numpy_params(jparams))

@@ -30,11 +30,13 @@ from repro.fl.simulation import FLConfig as JFLConfig
 from repro.fl.task import vision_task as j_vision_task
 from repro_torch import bridge
 from repro_torch.core import comm_accounting
-from repro_torch.core.cyclic import CyclicConfig, cyclic_pretrain
+from repro_torch.core.cyclic import (CyclicConfig, cyclic_pretrain,
+                                     make_cyclic_round_fn)
 from repro_torch.core.pipeline import (Phase, run_cyclic_then_federated,
                                        run_phase_schedule)
 from repro_torch.data.synthetic import DATASETS
-from repro_torch.fl.engine import AggregateStrategy, RoundSchedule, run_rounds
+from repro_torch.fl.engine import (AggregateStrategy, RoundSchedule,
+                                   make_eval_fn, run_rounds)
 from repro_torch.fl.simulation import (FLConfig, init_server_state,
                                        make_round_fn, run_federated)
 from repro_torch.fl.task import vision_task
@@ -252,13 +254,17 @@ def _entry_points(task, data):
         "make_round_fn": lambda **kw: make_round_fn(task, fed, **kw),
         "init_server_state": lambda **kw: init_server_state(
             task, fed, data.n_clients, **kw),
+        "make_cyclic_round_fn": lambda **kw: make_cyclic_round_fn(
+            task, cyc, **kw),
+        "make_eval_fn": lambda **kw: make_eval_fn(task, 16, **kw),
     }
 
 
 @pytest.mark.parametrize("entry", ["run_rounds", "cyclic_pretrain",
                                    "run_federated", "run_phase_schedule",
                                    "run_cyclic_then_federated",
-                                   "make_round_fn", "init_server_state"])
+                                   "make_round_fn", "init_server_state",
+                                   "make_cyclic_round_fn", "make_eval_fn"])
 def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
     task, data = torch_side
     fn = _entry_points(task, data)[entry]

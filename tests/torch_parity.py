@@ -2,7 +2,8 @@
 
 Inputs are made with numpy from a seed and handed to both packages; the
 JAX package's threefry batch draws are recomputed here with ``jax`` and
-injected into the port through its ``batch_indices`` source.
+injected into the port through its ``batch_indices`` source, and their
+dropout keep-masks through ``step_masks``.
 """
 import dataclasses
 
@@ -32,6 +33,38 @@ def jax_engine_indices(seed: int, rounds: int, K: int, n_steps: int,
         out.append(np.stack([jax_local_indices(ck, n_steps, batch, n_data)
                              for ck in jax.random.split(rk, K)]))
     return np.stack(out)
+
+
+def jax_local_masks(key, n_steps: int, shape, keep_prob: float
+                    ) -> np.ndarray:
+    """The (n_steps, *shape) dropout keep-masks the JAX package's models
+    draw in one local run from ``key``: the step key of
+    ``jax_local_indices`` (the loss's ``rng``), then
+    ``bernoulli(step_key, keep_prob, shape)``."""
+    return np.asarray(jax.vmap(lambda k: jax.random.bernoulli(
+        k, keep_prob, tuple(shape)))(jax.random.split(key, n_steps)))
+
+
+def jax_engine_masks(seed: int, rounds: int, K: int, n_steps: int,
+                     shape, keep_prob: float) -> np.ndarray:
+    """The (rounds, K, n_steps, *shape) keep-masks of
+    :func:`jax_local_masks` in ``repro.fl.engine`` under
+    ``sampling="host"``, with the client keys of
+    :func:`jax_engine_indices`."""
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(rounds):
+        key, rk = jax.random.split(key)
+        out.append(np.stack([jax_local_masks(ck, n_steps, shape, keep_prob)
+                             for ck in jax.random.split(rk, K)]))
+    return np.stack(out)
+
+
+def mask_source(masks: np.ndarray):
+    """``(round, slot, step) -> BoolTensor`` over a precomputed array."""
+    def source(rnd: int, slot: int, step: int) -> torch.Tensor:
+        return torch.from_numpy(np.array(masks[rnd, slot, step]))
+    return source
 
 
 def jax_round_keys(seed: int, rounds: int):
@@ -115,6 +148,7 @@ def to_torch_params(jparams, device="cpu"):
 
 
 __all__ = ["jax_local_indices", "jax_engine_indices", "index_source",
+           "jax_engine_masks", "mask_source",
            "jax_round_keys", "jax_draw", "jax_noise_draws",
            "jax_leaves", "torch_leaves", "jax_numpy_params", "torch_config",
            "to_torch_params"]
