@@ -61,11 +61,11 @@ JSON line per phase:
                      asserted, then one profiled round of each phase
                      (P1's cut to 5 clients);
      p2_algorithms — the paper's Table I baselines from the main path's
-                     P1 params: P2 4 rounds × 10 clients × 25 steps of
+                     P1 params: P2 2 rounds × 10 clients × 25 steps of
                      fedavg, fedprox, scaffold and moon (mu 0.01,
-                     temperature 0.5, no server optimizer); K1 1,000
+                     temperature 0.5, no server optimizer); K1 500
                      launches each, K1 with SCAFFOLD's correction c
-                     1,000 under scaffold and 0 otherwise, K2 4, K3 0,
+                     500 under scaffold and 0 otherwise, K2 2, K3 0,
                      accuracy above chance, ledger == closed form;
                      rounds/s, ms per SGD step and a profiled round's
                      device ops per step; scaffold's first round bitwise
@@ -75,7 +75,7 @@ JSON line per phase:
                      stream, final params compared; and 1 P2 round of
                      scaffold (params and control variates) and of moon
                      the same way;
-     p2_compressed — the main path (P1 cut to 2 rounds in the three upload
+     p2_compressed — the main path (P1 cut to 1 round in the three upload
                      phases) with int8 + top-k 25% + error
                      feedback uploads in P2: 40 launches of the fused
                      topk_compress and none of the standalone K4 or
@@ -142,6 +142,28 @@ JSON line per phase:
                      SCAFFOLD (atol = rtol = 1e-4);
      pod_rounds    — warm P2 rounds/s of the pod and the host, in turns, 2
                      rounds a turn;
+     client_store  — the sparse client store and the overlapped pipeline
+                     (M10): from the main path's P1 params, P2 6 × 10 ×
+                     25, chunk 2, of SCAFFOLD with p2_compressed's
+                     uploads and of MOON, each dense-sync, sparse-sync
+                     and sparse-overlap (capacity 20), and SCAFFOLD under
+                     device sampling dense against sparse-overlap: all
+                     bitwise (cuDNN deterministic), rows spilled and
+                     refaulted, K1 1,500 (with c under SCAFFOLD),
+                     topk_compress 60, K2 6 per run, the engine's timing
+                     split; cnn_femnist on femnist-like at LEAF FEMNIST's
+                     3,550 writers (227,200 samples), SCAFFOLD 2 × 10 ×
+                     25 dense-sync against sparse-overlap at capacity 64,
+                     bitwise, store bytes and rounds/s in turns; and
+                     pod_algorithms' SCAFFOLD with store="sparse" bitwise
+                     against its dense run;
+     landscape     — the Fig. 7 diagnostics (M7) with
+                     benchmarks/fig7_landscape.py's settings on LeNet-5
+                     at random init, the main path's P1 and P2 params and
+                     a P2 from random init: sharpness, top Hessian
+                     eigenvalue, 9-point slices, on the card and on the
+                     CPU from the same draws, held within stated
+                     tolerances;
   5. serve         — hymba-1.5b at full width (1,640,872,320 params,
                      bf16, random weights from a seed) through
                      ``Engine.generate`` with attn_impl = ssd_impl =
@@ -1487,7 +1509,7 @@ def main_path(torch, fu):
         raise SystemExit("chip_smoke: ledger bytes differ from the closed "
                          "form")
     profile_rounds(torch, task, data, cyc, fed, p1.params)
-    return launches, p1.params
+    return launches, p1.params, res
 
 
 ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
@@ -1495,11 +1517,11 @@ ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
 
 def p2_algorithms(torch, fu, init) -> dict:
     """Phase p2_algorithms: the paper's Table I baselines on the card.
-    From the main path's P1 params, P2 4 rounds × 10 clients × 25 steps
+    From the main path's P1 params, P2 2 rounds × 10 clients × 25 steps
     (batch 32, the FLConfig defaults: mu 0.01, temperature 0.5, no
     server optimizer) for fedavg, fedprox, scaffold and moon.  Asserted
-    per algorithm: K1 1,000 launches, K1 with SCAFFOLD's correction c
-    1,000 under scaffold and 0 otherwise, K2 4, K3 and the upload
+    per algorithm: K1 500 launches, K1 with SCAFFOLD's correction c
+    500 under scaffold and 0 otherwise, K2 2, K3 and the upload
     kernels 0, accuracy above chance, ledger == closed form (4 X per
     client per round for scaffold, 2 X for the others).  Reported:
     rounds/s, ms per SGD step, and a profiled warm round's device ops
@@ -1515,7 +1537,7 @@ def p2_algorithms(torch, fu, init) -> dict:
     task, data = lenet_setup()
     rows, c_launches = {}, {}
     for algo in ALGORITHMS:
-        fed = FLConfig(algorithm=algo, rounds=4, participation=0.1,
+        fed = FLConfig(algorithm=algo, rounds=2, participation=0.1,
                        local_steps=25, batch_size=32, update_impl="fused",
                        sampling="host")
         steps = fed.rounds * fed.n_selected(100) * fed.local_steps
@@ -1582,7 +1604,7 @@ def p2_algorithms(torch, fu, init) -> dict:
     restore_cudnn(torch, flags)
     bitwise = all(bool(torch.equal(a, b))
                   for a, b in zip(first["scaffold"], first["fedavg"]))
-    emit(dict(phase="p2_algorithms", model="lenet5", rounds=4, clients=10,
+    emit(dict(phase="p2_algorithms", model="lenet5", rounds=2, clients=10,
               local_steps=25, batch=32, mu=0.01, temperature=0.5,
               server_opt="none", algorithms=rows,
               scaffold_round1_equals_fedavg_bitwise=bitwise))
@@ -1775,7 +1797,7 @@ def upload_launches(comp, uploads: int) -> dict:
 
 def upload_phase(torch, fu, phase: str, fed_kw: dict):
     """Phases p2_compressed / p2_private / p2_int8: the main path's
-    pipeline (P1 cut to 2 rounds, P2 FedAvgM 4 rounds × 10 clients) with
+    pipeline (P1 cut to 1 round, P2 FedAvgM 4 rounds × 10 clients) with
     the P2 upload of ``fed_kw``, through ``run_cyclic_then_federated``;
     launches, ledger and accuracy asserted, then a profiled P2 round and
     the kernels against the plain path.  Returns the launches and the P2
@@ -1791,7 +1813,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     from repro_torch.utils.tree_math import size_bytes
 
     task, data = lenet_setup()
-    cyc = CyclicConfig(rounds=2, participation=0.25, local_steps=20,
+    cyc = CyclicConfig(rounds=1, participation=0.25, local_steps=20,
                        batch_size=32, update_impl="fused", sampling="host")
     fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
                    local_steps=25, server_opt="momentum", update_impl="fused",
@@ -2033,8 +2055,8 @@ def p2_rounds(torch, init) -> dict:
     in turns (each
     configuration twice, in the order a b c d d c b a), so a slow
     stretch of the host falls on all of them; the private configuration
-    also under sampling="device", whose ids the privacy draws read back
-    once per round."""
+    also under sampling="device", whose ids are drawn and read back
+    when each chunk is planned."""
     from repro_torch.fl.simulation import FLConfig, run_federated
     task, data = lenet_setup()
     configs = upload_configs()
@@ -2736,6 +2758,366 @@ def pod_rounds(torch, mesh, init) -> dict:
     return rps
 
 
+# --- M10: the sparse client store and the overlapped pipeline ---------------
+
+def store_bytes(state) -> int:
+    """Bytes a client-state table holds on the card (a dense stack, the
+    pod's ClientRows or a sparse store's table and index)."""
+    from repro_torch.fl.pod import ClientRows
+    from repro_torch.utils.tree_math import tree_leaves
+    if isinstance(state, ClientRows):
+        state = state.rows
+    return sum(t.numel() * t.element_size() for t in tree_leaves(state))
+
+
+def store_run(torch, task, data, fed, init, *, store=None, overlap=False):
+    """One P2 run of ``fed`` through ``engine.run_rounds``, with its
+    algorithm's client rows in ``store`` (None: the dense store) and the
+    overlapped loop on or off.  Returns the result, the strategy and the
+    wall seconds (device synchronized at both ends)."""
+    import dataclasses
+    from repro_torch.fl.engine import run_rounds
+    strategy = fed.strategy()
+    if store is not None:
+        strategy = dataclasses.replace(strategy, state_store=store)
+    schedule = dataclasses.replace(fed.schedule(), overlap=overlap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_rounds(task, data, strategy, schedule, init_params=init,
+                     label=fed.algorithm)
+    torch.cuda.synchronize()
+    return res, strategy, time.perf_counter() - t0
+
+
+def store_rows(strategy, res) -> dict:
+    """Every table of per-client rows of a run as dense stacks (a sparse
+    store's through ``to_dense``), with ``c_global`` when there is one."""
+    from repro_torch.fl.engine import SparseClientStateStore
+    out = {}
+    for key, store in strategy._residency_entries():
+        st = res.algo_state[key]
+        out[key] = (store.to_dense(st)
+                    if isinstance(store, SparseClientStateStore) else st)
+    if "c_global" in res.algo_state:
+        out["c_global"] = res.algo_state["c_global"]
+    return out
+
+
+def bitwise_runs(torch, a, b) -> bool:
+    """Params, losses and client state of two (result, strategy) pairs
+    bitwise equal."""
+    from repro_torch.utils.tree_math import tree_leaves
+    (ra, sa), (rb, sb) = a, b
+    if [h["local_loss"] for h in ra.history] != \
+            [h["local_loss"] for h in rb.history]:
+        return False
+    pairs = list(zip(tree_leaves(ra.params), tree_leaves(rb.params)))
+    xa, xb = store_rows(sa, ra), store_rows(sb, rb)
+    if sorted(xa) != sorted(xb):
+        return False
+    for key in xa:
+        pairs += list(zip(tree_leaves(xa[key]), tree_leaves(xb[key])))
+    return all(bool(torch.equal(x, y)) for x, y in pairs)
+
+
+def client_store(torch, fu, init, mesh) -> dict:
+    """Phase client_store (M10).  Parity: the main path's LeNet-5 on
+    cifar10-like from its P1 params, P2 6 rounds × 10 clients × 25 steps,
+    chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
+    (int8 + top-k 25% + EF: the control variates AND the residual rows
+    in sparse stores) and of MOON, each with the dense store and the
+    synchronous loop, the sparse store (capacity 20 = chunk × K) and the
+    synchronous loop, and the sparse store and the overlapped loop; then
+    SCAFFOLD under device sampling, dense against sparse-overlap.  All
+    bitwise (params, losses, control variates, residual rows, moon's
+    previous models through ``to_dense``; cuDNN deterministic), rows
+    spilled and faulted back in under host sampling, launches per run K1
+    1,500 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2
+    6, 3 dispatches.  Scale: cnn_femnist
+    on femnist-like at LEAF FEMNIST's 3,550 writers (n_train cut to
+    227,200, 64 a writer), SCAFFOLD 2 rounds × 10 × 25, dense-sync
+    against sparse-overlap at capacity 64, bitwise, each store's bytes
+    on the card and rounds/s in turns.  Pod: pod_algorithms' SCAFFOLD
+    with store="sparse" (capacity 20, chunk 2) bitwise against its
+    dense run."""
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.engine import SparseClientStateStore
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.fl.task import vision_task
+    from repro_torch.utils.tree_math import count_params
+    task, data = lenet_setup()
+    comp = upload_configs()["p2_compressed"]["compression"]
+    flags = deterministic_cudnn(torch)
+    out, bad = {}, []
+    configs = {
+        "scaffold_compressed": FLConfig(
+            algorithm="scaffold", rounds=6, participation=0.1,
+            local_steps=25, batch_size=32, update_impl="fused",
+            sampling="host", chunk_size=2, compression=comp),
+        "moon": FLConfig(
+            algorithm="moon", rounds=6, participation=0.1, local_steps=25,
+            batch_size=32, update_impl="fused", sampling="host",
+            chunk_size=2),
+        "scaffold_device_sampling": FLConfig(
+            algorithm="scaffold", rounds=6, participation=0.1,
+            local_steps=25, batch_size=32, update_impl="fused",
+            sampling="device", chunk_size=2)}
+    modes = {"dense_sync": (False, False), "sparse_sync": (True, False),
+             "sparse_overlap": (True, True)}
+    for name, fed in configs.items():
+        runs, rows = {}, {}
+        for mode, (sparse, overlap) in modes.items():
+            if name == "scaffold_device_sampling" and mode == "sparse_sync":
+                continue
+            fu.reset_launch_counts()
+            res, strat, wall = store_run(
+                torch, task, data, fed, init, overlap=overlap,
+                store=SparseClientStateStore(capacity=20) if sparse else None)
+            launches = all_launches(fu)
+            c_launches = fu.local_step.c_launches
+            steps = 6 * 10 * 25
+            want = {"local_step": steps, "weighted_delta": 6,
+                    "server_update": 0, "compress_delta": 0,
+                    "topk_threshold": 0, "dp_clip_noise": 0,
+                    "topk_compress": 60 if fed.compression else 0,
+                    "delta_accum": 0}
+            stores = strat.residency_stores
+            rows[mode] = dict(
+                wall_s=wall, rounds_per_s=6 / wall, dispatches=res.dispatches,
+                timing=res.timing, launches=launches,
+                local_step_c_launches=c_launches,
+                final_loss=res.history[-1]["local_loss"],
+                store_bytes={k: store_bytes(res.algo_state[k])
+                             for k, _ in strat._residency_entries()},
+                spilled_rows=[getattr(s, "spilled_rows", 0) for s in stores],
+                refaulted_rows=[getattr(s, "refaulted_rows", 0)
+                                for s in stores])
+            runs[mode] = (res, strat)
+            if launches != want or c_launches != (
+                    steps if fed.algorithm == "scaffold" else 0):
+                bad.append(f"{name}/{mode} launches {launches}, K1 with c "
+                           f"{c_launches}")
+            if res.dispatches != 3:
+                bad.append(f"{name}/{mode} dispatches {res.dispatches}")
+            # host sampling's ids are known here: seed 0 spills 32 rows a
+            # table and faults 3 back in; the card's device draws are
+            # reported only
+            if sparse and fed.sampling == "host" and not all(
+                    s.spilled_rows > 0 and s.refaulted_rows > 0
+                    for s in stores):
+                bad.append(f"{name}/{mode}: no row spilled and refaulted")
+        same = {mode: bitwise_runs(torch, runs["dense_sync"], runs[mode])
+                for mode in runs if mode != "dense_sync"}
+        out[name] = dict(runs=rows, bitwise_vs_dense_sync=same)
+        if not all(same.values()):
+            bad.append(f"{name}: sparse or overlapped runs differ from "
+                       f"dense-sync: {same}")
+
+    # scale: LEAF FEMNIST's writer count
+    t0 = time.perf_counter()
+    fdata = DATASETS.get("femnist-like")(n_clients=3550, seed=SEED,
+                                         n_train=227_200)
+    data_s = time.perf_counter() - t0
+    ftask = vision_task("cnn_femnist", n_classes=62, in_ch=1)
+    finit = ftask.init(torch.Generator().manual_seed(SEED))
+    ffed = FLConfig(algorithm="scaffold", rounds=2, participation=10 / 3550,
+                    local_steps=25, batch_size=32, update_impl="fused",
+                    sampling="host", chunk_size=1)
+    turns, scale_runs, walls = [], {}, {"dense_sync": [], "sparse_overlap": []}
+    for mode in ("dense_sync", "sparse_overlap", "sparse_overlap",
+                 "dense_sync"):
+        sparse = mode == "sparse_overlap"
+        res, strat, wall = store_run(
+            torch, ftask, fdata, ffed, finit, overlap=sparse,
+            store=SparseClientStateStore(capacity=64) if sparse else None)
+        walls[mode].append(wall)
+        turns.append(mode)
+        if mode not in scale_runs:
+            scale_runs[mode] = (res, strat)
+    sres, sstrat = scale_runs["sparse_overlap"]
+    dres, _ = scale_runs["dense_sync"]
+    scale_same = bitwise_runs(torch, scale_runs["dense_sync"],
+                              scale_runs["sparse_overlap"])
+    out["scale"] = dict(
+        model="cnn_femnist", dataset="femnist-like", n_clients=3550,
+        n_train=227_200, reduced="n_train 227,200 (64 a writer) against "
+        "LEAF FEMNIST's ~805k samples; 2 rounds", data_gen_s=data_s,
+        params=count_params(finit),
+        capacity=64, order=" ".join(turns), wall_s=walls,
+        rounds_per_s={m: [2 / w for w in ws] for m, ws in walls.items()},
+        store_bytes={"dense": store_bytes(dres.algo_state["c_clients"]),
+                     "sparse": store_bytes(sres.algo_state["c_clients"])},
+        timing={"dense_sync": dres.timing, "sparse_overlap": sres.timing},
+        bitwise=scale_same)
+    if not scale_same:
+        bad.append("scale: sparse-overlap differs from dense-sync")
+
+    # the pod: pod_algorithms' SCAFFOLD with the sparse store
+    out["pod"] = pod_sparse(torch, task, data, mesh)
+    if not out["pod"]["bitwise"]:
+        bad.append("pod: the sparse store differs from the dense one")
+    restore_cudnn(torch, flags)
+    emit(dict(phase="client_store", model="lenet5", rounds=6, clients=10,
+              local_steps=25, chunk=2, capacity=20, **out))
+    if bad:
+        raise SystemExit(f"chip_smoke: client_store: {bad}")
+    return out
+
+
+def pod_sparse(torch, task, data, mesh) -> dict:
+    """pod_algorithms' SCAFFOLD (4 rounds × 10 × 25, batch 32, its index
+    stream) on the one-rank mesh with the dense store (chunk 8) and with
+    store="sparse" (capacity 20, chunk 2, overlap on): bitwise."""
+    import dataclasses
+    from repro_torch.fl.engine import run_rounds
+    from repro_torch.fl.pod import PodFLConfig, PodFLSpec
+
+    def indices(rnd, slot, step):
+        g = torch.Generator().manual_seed(1_000_003 * rnd + 1009 * slot + step)
+        return torch.randint(0, data.n_per_client, (32,), generator=g)
+    base = PodFLConfig(mesh, rounds=4, clients_per_round=10, spec=PodFLSpec(
+        algorithm="scaffold", local_steps=25, batch_size=32, lr=0.01,
+        update_impl="fused"), lr_decay=0.998, eval_every=4, eval_batch=256,
+        sampling="host", chunk_size=8, batch_indices=indices)
+    runs, walls = {}, {}
+    for name, cfg in (("dense", base),
+                      ("sparse", dataclasses.replace(
+                          base, store="sparse", store_capacity=20,
+                          chunk_size=2))):
+        strategy = cfg.strategy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_rounds(task, data, strategy, cfg.schedule(),
+                         label="pod-scaffold", device=mesh.device)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        runs[name] = (res, strategy)
+    sres, sstrat = runs["sparse"]
+    dense_rows = runs["dense"][0].algo_state["c_clients"].rows
+    sparse_rows = sstrat.state_store.to_dense(sres.algo_state["c_clients"])
+    from repro_torch.utils.tree_math import tree_leaves
+    pairs = list(zip(tree_leaves(runs["dense"][0].params),
+                     tree_leaves(sres.params)))
+    pairs += list(zip(tree_leaves(dense_rows), tree_leaves(sparse_rows)))
+    pairs += list(zip(tree_leaves(runs["dense"][0].algo_state["c_global"]),
+                      tree_leaves(sres.algo_state["c_global"])))
+    same = all(bool(torch.equal(a, b)) for a, b in pairs) and \
+        [h["local_loss"] for h in runs["dense"][0].history] == \
+        [h["local_loss"] for h in sres.history]
+    return dict(wall_s=walls, timing=sres.timing,
+                spilled_rows=sstrat.state_store.spilled_rows,
+                refaulted_rows=sstrat.state_store.refaulted_rows,
+                store_bytes={"dense": store_bytes(
+                    runs["dense"][0].algo_state["c_clients"]),
+                    "sparse": store_bytes(sres.algo_state["c_clients"])},
+                bitwise=same)
+
+
+# --- M7: the Fig. 7 diagnostics ----------------------------------------------
+
+def fig7_states(torch, main_res) -> dict:
+    """The four model states of ``benchmarks/fig7_landscape.py`` on the
+    main path: random init, the main path's P1 params, its P2 params
+    (from P1), and one more P2 run of the main path's 4 rounds from the
+    random init."""
+    from repro_torch.fl.simulation import FLConfig, run_federated
+    task, data = lenet_setup()
+    w_rand = task.init(torch.Generator().manual_seed(SEED))
+    fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+                   local_steps=25, server_opt="momentum", update_impl="fused",
+                   sampling="host")
+    fed_rand = run_federated(task, data, fed, init_params=w_rand)
+    return {"random-init": w_rand,
+            "cyclic-pretrained": main_res.cyclic.params,
+            "final-from-random": fed_rand.params,
+            "final-from-cyclic": main_res.federated.params}
+
+
+def landscape(torch, states: dict, card: str = "cuda") -> dict:
+    """Phase landscape (M7): ``benchmarks/fig7_landscape.py``'s probe on
+    LeNet-5 — base loss and sharpness at α 0.1 / 0.5 / 1.0 over 6
+    filter-normalized directions and the top Hessian eigenvalue after 10
+    power iterations, on 512 test samples — for each of ``states``, and
+    its 9-point slice at radius 1.0 for the two final models.  The same
+    calls run on the CPU from the same directions and start vector;
+    held: losses (base and slice) rtol 1e-4, each sharpness entry within
+    1e-4 of the two losses it subtracts, the eigenvalue rtol 1e-3; every
+    value finite.  The rows are reported, not gated."""
+    from repro_torch.core import diagnostics as diag
+    from repro_torch.utils import tree_math as tm
+    task, data = lenet_setup()
+    n = min(512, len(data.test_y))
+    x, y = data.test_x[:n], data.test_y[:n]
+    loss_card = diag.make_batch_loss(task, x, y, device=card)
+    loss_cpu = diag.make_batch_loss(task, x, y, device="cpu")
+    alphas = (0.1, 0.5, 1.0)
+    rows, slices, bad = [], {}, []
+    times = {"card_s": 0.0, "cpu_s": 0.0}
+
+    def on(tree, dev):
+        return tm.tree_map(lambda t: t.detach().to(dev), tree)
+
+    def draws(params, seed, k):
+        g = torch.Generator().manual_seed(seed)
+        return [tm.random_like(g, on(params, "cpu")) for _ in range(k)]
+
+    for tag, params in states.items():
+        # as the benchmark: one key's split for the directions, another
+        # draw for the power iteration's start and the slice
+        dirs = draws(params, SEED + 100, 6)
+        v0 = draws(params, SEED + 101, 1)[0]
+        got = {}
+        for where, loss, dev in (("card", loss_card, card),
+                                 ("cpu", loss_cpu, "cpu")):
+            p = on(params, dev)
+            t0 = time.perf_counter()
+            sharp = diag.sharpness_probe(loss, p, n_dirs=6, alphas=alphas,
+                                         directions=dirs)
+            eig = diag.hessian_top_eig(loss, p, n_iter=10, v0=v0)
+            if tag.startswith("final"):
+                slices.setdefault(tag, {})[where] = diag.landscape_slice(
+                    loss, p, n_points=9, radius=1.0, direction=v0)
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            times[f"{where}_s"] += time.perf_counter() - t0
+            got[where] = dict(sharp, hessian_top=eig)
+        c, h = got["card"], got["cpu"]
+        vals = list(c.values()) + list(h.values())
+        ok = all(math.isfinite(v) for v in vals)
+        ok &= math.isclose(c["base_loss"], h["base_loss"], rel_tol=1e-4)
+        for a in alphas:
+            k = f"sharpness@{a}"
+            tol = 1e-4 * (2 * abs(h["base_loss"]) + abs(h[k]))
+            ok &= abs(c[k] - h[k]) <= tol
+        ok &= math.isclose(c["hessian_top"], h["hessian_top"], rel_tol=1e-3)
+        rows.append(dict(state=tag, card=c, cpu=h, agree=ok))
+        if not ok:
+            bad.append(tag)
+    slice_rows = {}
+    for tag, s in slices.items():
+        card, cpu = s["card"]["loss"], s["cpu"]["loss"]
+        ok = bool(all(math.isfinite(v) for v in list(card) + list(cpu)) and
+                  all(math.isclose(a, b, rel_tol=1e-4)
+                      for a, b in zip(card, cpu)))
+        slice_rows[tag] = dict(alpha=[float(a) for a in s["card"]["alpha"]],
+                               card=[float(v) for v in card],
+                               cpu=[float(v) for v in cpu], agree=ok)
+        if not ok:
+            bad.append(f"slice {tag}")
+    by = {r["state"]: r["card"] for r in rows}
+    emit(dict(phase="landscape", model="lenet5", test_samples=n, n_dirs=6,
+              alphas=alphas, n_iter=10, slice_points=9, radius=1.0,
+              tol="losses rtol 1e-4; sharpness within 1e-4 of its two "
+              "losses; hessian_top rtol 1e-3", rows=rows, slices=slice_rows,
+              final_from_cyclic_flatter=by["final-from-cyclic"]["sharpness@1.0"]
+              <= by["final-from-random"]["sharpness@1.0"],
+              **times))
+    if bad:
+        raise SystemExit(f"chip_smoke: landscape: the card and the CPU "
+                         f"disagree or a value is not finite: {bad}")
+    return rows
+
+
 def deterministic_cudnn(torch):
     """cuDNN's deterministic algorithms for a kernel-vs-plain comparison;
     returns the flags to restore, so later timings run as the main path
@@ -3010,7 +3392,7 @@ def main(argv=None) -> int:
     pod_shapes = check_pod_kernels(torch, bench)
     charlm_shapes = check_charlm_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
-    launches, p1_params = main_path(torch, fu)
+    launches, p1_params, main_res = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
     fused_vs_plain(torch)
     configs = upload_configs()
@@ -3032,6 +3414,9 @@ def main(argv=None) -> int:
     pod_vs_host(torch, mesh)
     pod_c_launches = pod_algorithms(torch, fu, mesh)
     pod_rounds(torch, mesh, pod_p1)
+    client_store(torch, fu, p1_params, mesh)
+    landscape(torch, fig7_states(torch, main_res))
+    del main_res
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
     k8_kernels = serve_profile(torch, eng, prompt)

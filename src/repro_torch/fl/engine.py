@@ -34,7 +34,7 @@ JAX package (a switch policy pins the chunk to one round).
 Randomness: ``sampling="host"`` draws client ids from
 ``np.random.default_rng(seed + host_rng_offset)`` exactly as the JAX
 package does; ``sampling="device"`` uses ``torch.randperm`` on a device
-generator.  Batch indices come from a ``torch.Generator`` on the device
+generator (see below).  Batch indices come from a ``torch.Generator`` on the device
 seeded from ``schedule.seed``, or from ``schedule.batch_indices`` —
 ``(round, client_slot, step) -> LongTensor (B,)`` — when it is set (the
 parity tests inject the JAX package's threefry draws through it).  Each
@@ -50,21 +50,33 @@ P2 also runs compressed uploads (``spec.compression``,
 in a :class:`DenseClientStateStore`) and DP-FedAvg / secure aggregation
 (``spec.dp``, ``spec.secure_agg``, ``repro_torch.fl.privacy``), on the
 tree and the fused paths.  The privacy draws are keyed by round and
-client id (``RoundInputs.round_key`` and the ids on the host: under
-``sampling="device"`` that is one device→host read of the ids per
-round), or come from ``schedule.noise_draws`` when it is set (the parity
+client id (``RoundInputs.round_key`` and the ids on the host, which
+both sampling modes know when the chunk is planned), or come from ``schedule.noise_draws`` when it is set (the parity
 tests inject the JAX package's threefry draws through it).
 ``schedule.on_aggregate`` sees each P2 aggregate's inputs, start
 buffers, stacked client end states and new params (``chip_smoke.py``
 rebuilds a private round's uploads from them).
 
-Not ported yet: the sparse store and the overlapped pipeline (ROADMAP.md
-item M10).
+Per-client state rows live in a store: :class:`DenseClientStateStore`
+(an ``(n_clients, ...)`` stack on the device) or
+:class:`SparseClientStateStore` (a ``capacity``-row table of the
+clients a dispatch touches, the others spilled to host memory).  The
+sparse store manages residency between dispatches from the chunk's
+client ids on the host; ``RoundSchedule.overlap`` pipelines that work,
+planning and staging chunk N+1 while chunk N runs on the device
+(``EngineResult.timing`` has the split).  Under ``sampling="device"``
+each round's ids come from a generator of their own, seeded with
+``fold_in(seed, _IDS_TAG, round)``, drawn when the chunk is planned
+(on a side stream on CUDA, read back behind an event), so the host
+knows them without waiting on a chunk in flight.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import functools
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -78,7 +90,6 @@ from repro_torch.fl.local import (
     Sample,
     host_flat_ops,
     make_local_fn,
-    not_ported,
     param_shapes,
 )
 from repro_torch.fl.task import Task
@@ -95,6 +106,8 @@ SERVER_OPTS = ("none", "momentum", "adam")
 
 # folded into the seed of each step's dropout generator ("drop")
 _DROPOUT_TAG = 0x64726F70
+# folded into the seed of each round's client-id generator ("ids")
+_IDS_TAG = 0x696473
 
 # FedAdam (server_opt="adam") moment decays — shared by the tree
 # optimizer, the fused kernel call and its bias-correction scalars
@@ -180,8 +193,10 @@ class RoundInputs:
 class DenseClientStateStore:
     """Per-client state rows as dense device stacks, ``(n_clients, ...)``
     per leaf: scaffold's control variates, moon's previous local models
-    and the error-feedback residual rows of compressed uploads (the
-    sparse store is ROADMAP.md item M10)."""
+    and the error-feedback residual rows of compressed uploads.  Every
+    row is always resident: no residency work between dispatches."""
+
+    needs_host_ids = False
 
     def init(self, template: Pytree, n_clients: int) -> Pytree:
         return tm.tree_map(lambda t: t.unsqueeze(0).expand(
@@ -201,8 +216,419 @@ class DenseClientStateStore:
         """The number of clients (scaffold's K/N counts all of them)."""
         return tm.tree_leaves(state)[0].shape[0]
 
+    def prepare_chunk(self, state: Pytree, ids_block) -> Pytree:
+        return state                    # dense rows are always resident
+
 
 DENSE_STORE = DenseClientStateStore()
+
+
+_SPILL_POOL: Optional[concurrent.futures.ThreadPoolExecutor] = None
+
+
+def _spill_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """One background worker shared by every sparse store: spill blocks
+    land in host memory OFF the engine thread.  A single worker
+    serializes them, so at most one competes with the dispatching
+    thread for the interpreter."""
+    global _SPILL_POOL
+    if _SPILL_POOL is None:
+        _SPILL_POOL = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="spill-materialize")
+    return _SPILL_POOL
+
+
+class _SpillBlock:
+    """One commit's evicted rows on their way to host memory.  On CUDA
+    ``rows`` are pinned host tensors that a non-blocking device→host
+    copy on the store's side stream fills, and ``ready`` the event
+    recorded after it; the background worker (:meth:`materialize_async`)
+    waits on that event — never on the whole device — and moves the rows
+    into pageable memory, giving the pinned block back.  By the time a
+    refault needs the rows, :meth:`leaves` just joins the (usually
+    finished) worker."""
+
+    __slots__ = ("rows", "ready", "_host", "_future")
+
+    def __init__(self, rows: List[torch.Tensor], ready=None):
+        self.rows = rows                # (n_evicted, ...) host leaves
+        self.ready = ready              # torch.cuda.Event, or None
+        self._host: Optional[List[torch.Tensor]] = None
+        self._future = None
+
+    def materialize_async(self, meta: Optional[dict] = None) -> None:
+        """Land the rows on the shared worker; ``meta`` (the owning
+        store's ``_meta``) accumulates the worker's ms under
+        ``"spill_ms"`` — one writer, the pool's one thread."""
+        if self._future is None and self._host is None:
+            self._future = _spill_pool().submit(self._materialize, meta)
+
+    def _materialize(self, meta: Optional[dict]) -> List[torch.Tensor]:
+        t0 = time.perf_counter()
+        if self.ready is not None:
+            self.ready.synchronize()
+        out = [torch.empty(r.shape, dtype=r.dtype).copy_(r)
+               for r in self.rows]
+        if meta is not None:
+            meta["spill_ms"] = meta.get("spill_ms", 0.0) + \
+                (time.perf_counter() - t0) * 1e3
+        self._host, self.rows, self.ready = out, None, None
+        return out
+
+    def leaves(self) -> List[torch.Tensor]:
+        if self._future is not None:
+            self._future.result()       # join the background copy
+            self._future = None
+        if self._host is None:
+            self._materialize(None)
+        return self._host
+
+
+def _h2d(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host index vector on ``device`` as int64, non-blocking (callers
+    enqueue it on the store's side stream on CUDA)."""
+    return torch.from_numpy(np.ascontiguousarray(arr, np.int64)).to(
+        device, non_blocking=True)
+
+
+def _on_stream(side):
+    """``torch.cuda.stream(side)``, or nothing on the CPU (``side`` None),
+    where every op is synchronous."""
+    return (torch.cuda.stream(side) if side is not None
+            else contextlib.nullcontext())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SparseClientStateStore:
+    """Participation-indexed per-client state: a bounded table of the
+    active clients instead of a population stack.
+
+    The state is ``{"table", "slot_of", "owner", "stamp"}`` on the
+    device: ``table`` stacks ``capacity`` rows of the per-client
+    template, ``slot_of`` is the ``(n_clients,)`` id→slot index (−1:
+    cold), ``owner`` / ``stamp`` the ``(capacity,)`` slot→id map and LRU
+    clock.  gather / scatter index rows by slot on the device, in place
+    like the dense store — O(capacity) device memory however large the
+    population.  Residency is managed between dispatches in two halves:
+
+      stage_chunk(ids_block) -> staged   (host planning, refill copy)
+      commit_chunk(state, staged) -> state  (the splice, enqueued)
+
+    :meth:`stage_chunk` plans against HOST MIRRORS of the index (kept in
+    ``_meta``), so it never reads — and never waits on — the state of a
+    dispatch in flight: the overlapped loop stages dispatch N+1 while
+    dispatch N runs.  Cold participants fault in from the spill dict
+    (free slots first, then the least recently used ones are evicted);
+    the refill rows are stacked into a pinned staging buffer (two of
+    them, used in turns, each rewritten only after its last copy's
+    event) and copied to the device non-blocking on a side stream.
+    :meth:`commit_chunk` makes the main stream wait on that copy,
+    gathers the evicted live rows from the LATEST table on the main
+    stream (so rows the previous dispatch wrote spill with their
+    updates), copies them to pinned host memory on the side stream
+    behind an event, and splices the refill rows and the index updates
+    in place — nothing blocks.  :meth:`prepare_chunk` composes the two
+    for the synchronous path.  ``spill=False`` drops evicted rows
+    instead: the forgetful mode, where a refault comes back as the
+    template.
+
+    ``capacity`` must cover the distinct participants of one dispatch
+    (``chunk_size × K`` in the worst case); stage_chunk raises
+    otherwise.  The eager members (spill dict, mirrors, staging buffers)
+    make the store identity-hashed (``eq=False``)."""
+
+    capacity: int
+    spill: bool = True
+    _cold: dict = dataclasses.field(default_factory=dict, repr=False)
+    _meta: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    needs_host_ids = True
+
+    def __post_init__(self):
+        if self.capacity < 1:
+            raise ValueError("SparseClientStateStore capacity must be >= 1")
+
+    # -- the table on the device ---------------------------------------------
+
+    def _table_rows(self, cap: int) -> int:
+        """Rows of this process's table (the sharded flavor holds its
+        block of slots plus a scratch row)."""
+        return cap
+
+    def init(self, template: Pytree, n_clients: int) -> Pytree:
+        leaves, treedef = tm.tree_flatten(template)
+        dev = leaves[0].device
+        cap = max(1, min(self.capacity, n_clients))
+        self._cold.clear()
+        self._meta.clear()
+        self._meta.update(
+            treedef=treedef, device=dev,
+            template=[t.detach().to("cpu", copy=True) for t in leaves],
+            # host mirrors of the residency index: stage_chunk plans
+            # against these, never against the device state
+            slot_of=np.full((n_clients,), -1, np.int64),
+            owner=np.full((cap,), -1, np.int64),
+            stamp=np.zeros((cap,), np.int64),
+            stage_bufs=[None, None], stage_turn=0,
+            side=torch.cuda.Stream(dev) if dev.type == "cuda" else None,
+            transfer_ms=0.0, spill_ms=0.0, spilled=0, refaulted=0)
+        rows = self._table_rows(cap)
+        return {
+            "table": tm.tree_map(lambda t: t.detach().unsqueeze(0).expand(
+                (rows,) + tuple(t.shape)).clone(), template),
+            "slot_of": torch.full((n_clients,), -1, dtype=torch.int64,
+                                  device=dev),
+            "owner": torch.full((cap,), -1, dtype=torch.int64, device=dev),
+            "stamp": torch.zeros((cap,), dtype=torch.int64, device=dev),
+        }
+
+    def _rows_at(self, state: Pytree, slots: torch.Tensor,
+                 kind: Optional[str] = "store_gather") -> Pytree:
+        """The table's rows at ``slots`` (``kind`` names the collective of
+        the sharded flavor)."""
+        return tm.tree_map(lambda t: t.index_select(0, slots),
+                           state["table"])
+
+    def _write_local(self, state: Pytree, local: torch.Tensor,
+                     rows: List[torch.Tensor]) -> None:
+        """Write ``rows`` at rows ``local`` of this process's table."""
+        for t, r in zip(tm.tree_leaves(state["table"]), rows):
+            t.index_copy_(0, local, r)
+
+    def _write_rows(self, state: Pytree, slots: torch.Tensor,
+                    rows: List[torch.Tensor]) -> None:
+        """Write ``rows`` at ``slots`` (the sharded flavor writes the
+        slots it owns)."""
+        self._write_local(state, slots, rows)
+
+    def gather(self, state: Pytree, ids: torch.Tensor) -> Pytree:
+        # residency is a precondition: the chunk's ids were committed
+        return self._rows_at(state, state["slot_of"].index_select(0, ids))
+
+    def scatter(self, state: Pytree, ids: torch.Tensor,
+                rows: Pytree) -> Pytree:
+        """Write ``rows`` into the clients' slots, in place."""
+        self._write_rows(state, state["slot_of"].index_select(0, ids),
+                         tm.tree_leaves(rows))
+        return state
+
+    def population(self, state: Pytree) -> int:
+        """``n_clients``, not ``capacity`` (scaffold's K/N reads it)."""
+        return state["slot_of"].shape[0]
+
+    @property
+    def staged_transfer_ms(self) -> float:
+        """Host ms spent enqueueing refill copies, over the store's life."""
+        return float(self._meta.get("transfer_ms", 0.0))
+
+    @property
+    def spill_materialize_ms(self) -> float:
+        """Background ms landing spilled rows in host memory — work the
+        worker does OFF the stage / commit path."""
+        return float(self._meta.get("spill_ms", 0.0))
+
+    @property
+    def spilled_rows(self) -> int:
+        """Rows evicted to host memory, over the store's life."""
+        return int(self._meta.get("spilled", 0))
+
+    @property
+    def refaulted_rows(self) -> int:
+        """Rows faulted back in from host memory, over the store's life."""
+        return int(self._meta.get("refaulted", 0))
+
+    # -- host-side residency (between dispatches) ----------------------------
+
+    def _cold_row(self, cid: int, pop: bool = False):
+        row = self._cold.pop(cid, None) if pop else self._cold.get(cid)
+        if row is None:
+            return None
+        block, j = row
+        return [leaf[j] for leaf in block.leaves()]
+
+    def _refill_targets(self, victims: np.ndarray):
+        """Which staged victims this process writes, and the rows of its
+        table they land in: all of them here (the sharded flavor writes
+        the slots it owns)."""
+        return np.ones(victims.shape, bool), victims
+
+    def _stage_rows(self, fill: List[List[torch.Tensor]]):
+        """Stack the refill rows into a staging buffer: pinned on CUDA,
+        two used in turns and grown geometrically; a buffer is rewritten
+        only after the event of its last copy to the device.  Returns
+        the rows and the buffer's turn."""
+        meta, tmpl = self._meta, self._meta["template"]
+        n, turn = len(fill), meta["stage_turn"]
+        meta["stage_turn"] = 1 - turn
+        slot = meta["stage_bufs"][turn]
+        if slot is not None and slot[1] is not None:
+            slot[1].synchronize()
+        if slot is None or slot[0][0].shape[0] < n:
+            rows_cap = max(n, 2 * (slot[0][0].shape[0] if slot else 2))
+            pin = meta["device"].type == "cuda"
+            slot = ([torch.empty((rows_cap,) + tuple(t.shape), dtype=t.dtype,
+                                 pin_memory=pin) for t in tmpl], None)
+        for j, row in enumerate(fill):
+            for buf, r in zip(slot[0], row):
+                buf[j].copy_(r)
+        meta["stage_bufs"][turn] = slot
+        return [buf[:n] for buf in slot[0]], turn
+
+    def stage_chunk(self, ids_block) -> Dict[str, Any]:
+        """Plan residency for the NEXT dispatch and start its refill copy
+        — host work against the mirror index and copies on the side
+        stream, so it may run while the previous dispatch executes."""
+        ids = np.unique(np.asarray(ids_block, np.int64))
+        meta = self._meta
+        slot_of, owner, stamp = meta["slot_of"], meta["owner"], meta["stamp"]
+        cap = owner.shape[0]
+        slots_ids = slot_of[ids]
+        miss = ids[slots_ids < 0]
+        staged: Dict[str, Any] = {"victims": None, "ready": None,
+                                  "rows": None}
+        host: Dict[str, np.ndarray] = {}
+        fill: List[List[torch.Tensor]] = []
+        if miss.size:
+            resident = slots_ids[slots_ids >= 0]
+            cand = np.setdiff1d(np.arange(cap), resident)
+            # free slots first, then coldest-first among the owned ones
+            order = np.argsort(np.where(owner[cand] < 0, -1, stamp[cand]),
+                               kind="stable")
+            cand = cand[order]
+            if miss.size > cand.size:
+                raise ValueError(
+                    f"store capacity {cap} cannot hold the {ids.size} "
+                    f"distinct clients of the next dispatch "
+                    f"({miss.size} cold, {cand.size} evictable slots) — "
+                    f"raise the capacity above chunk_size × K")
+            # sorted victims keep the refill rows in slot order
+            victims = np.sort(cand[:miss.size])
+            evicted = owner[victims].copy()
+            live = evicted >= 0
+            mine, local = self._refill_targets(victims)
+            # refill: the spilled row of a client seen before, else the
+            # template (every process pops, so the spill dicts agree)
+            rows = [self._cold_row(int(cid), pop=True) for cid in miss]
+            meta["refaulted"] += sum(r is not None for r in rows)
+            rows = [r or meta["template"] for r in rows]
+            fill = [r for r, m in zip(rows, mine) if m]
+            gone = evicted[live]
+            slot_of[gone] = -1
+            slot_of[miss] = victims
+            owner[victims] = miss
+            host.update(victims=victims, miss=miss, gone=gone,
+                        spill_slots=victims[live], local=local[mine])
+            staged.update(victims=victims, evicted=evicted,
+                          n_gone=int(gone.size), spill=bool(live.any()))
+        # touch every participant's slot so the LRU order tracks rounds
+        touch = int(stamp.max()) + 1
+        slots = slot_of[ids]
+        stamp[slots] = touch
+        host["touch_slots"] = slots.copy()
+        staged["touch_value"] = touch
+
+        dev, side = meta["device"], meta["side"]
+        t0 = time.perf_counter()
+        with _on_stream(side):
+            staged["idx"] = {k: _h2d(v, dev) for k, v in host.items()}
+            turn = None
+            if fill and meta["template"]:
+                rows_host, turn = self._stage_rows(fill)
+                staged["rows"] = [r.to(dev, non_blocking=True, copy=True)
+                                  for r in rows_host]
+            if side is not None:
+                ready = torch.cuda.Event()
+                ready.record(side)
+                staged["ready"] = ready
+                if turn is not None:
+                    bufs = meta["stage_bufs"][turn][0]
+                    meta["stage_bufs"][turn] = (bufs, ready)
+        meta["transfer_ms"] += (time.perf_counter() - t0) * 1e3
+        return staged
+
+    def _spill(self, state: Pytree, spill_slots: torch.Tensor,
+               evicted: np.ndarray) -> None:
+        """Park the evicted live rows in host memory: their gather from
+        the latest table on the main stream, a copy to pinned memory on
+        the side stream behind an event, the move to pageable memory on
+        the worker."""
+        meta = self._meta
+        side = meta["side"]
+        rows = tm.tree_leaves(self._rows_at(state, spill_slots, "store_spill"))
+        ready = None
+        if side is not None:
+            gathered = torch.cuda.Event()
+            gathered.record(torch.cuda.current_stream(meta["device"]))
+            side.wait_event(gathered)
+            with torch.cuda.stream(side):
+                host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
+                        .copy_(r, non_blocking=True) for r in rows]
+                ready = torch.cuda.Event()
+                ready.record(side)
+            for r in rows:
+                r.record_stream(side)
+            rows = host
+        block = _SpillBlock(rows, ready)
+        block.materialize_async(meta)
+        for j, cid in enumerate(evicted[evicted >= 0]):
+            self._cold[int(cid)] = (block, j)
+        meta["spilled"] += int((evicted >= 0).sum())
+
+    def commit_chunk(self, state: Pytree, staged: Dict[str, Any]) -> Pytree:
+        """Apply a staged plan to the device state, in place.  Everything
+        is enqueued on the main stream behind the staged copy's event:
+        committing on top of a dispatch in flight extends the queue."""
+        meta = self._meta
+        idx, rows = staged["idx"], staged["rows"]
+        if staged["ready"] is not None:
+            main = torch.cuda.current_stream(meta["device"])
+            main.wait_event(staged["ready"])
+            for t in list(idx.values()) + (rows or []):
+                t.record_stream(main)
+        slot_of, owner = state["slot_of"], state["owner"]
+        if staged["victims"] is not None:
+            if self.spill and staged["spill"]:
+                self._spill(state, idx["spill_slots"], staged["evicted"])
+            if rows is not None:
+                self._write_local(state, idx["local"], rows)
+            if staged["n_gone"]:
+                slot_of.index_fill_(0, idx["gone"], -1)
+            slot_of.index_copy_(0, idx["miss"], idx["victims"])
+            owner.index_copy_(0, idx["victims"], idx["miss"])
+        state["stamp"].index_fill_(0, idx["touch_slots"],
+                                   staged["touch_value"])
+        return state
+
+    def prepare_chunk(self, state: Pytree, ids_block) -> Pytree:
+        return self.commit_chunk(state, self.stage_chunk(ids_block))
+
+    # -- parity helper -------------------------------------------------------
+
+    def _full_table(self, state: Pytree) -> List[torch.Tensor]:
+        """Every slot's row, leaf by leaf, on the host (on every rank of
+        the sharded flavor; uncounted: ``to_dense`` is for tests)."""
+        slots = torch.arange(self._meta["owner"].shape[0],
+                             device=self._meta["device"])
+        return [t.cpu() for t in
+                tm.tree_leaves(self._rows_at(state, slots, None))]
+
+    def to_dense(self, state: Pytree) -> Pytree:
+        """The full ``(n_clients, ...)`` stack on the table's device: hot
+        rows from the table, cold rows from the spill dict, the template
+        otherwise — for tests; it defeats the point at scale."""
+        slot_of = state["slot_of"].cpu().numpy()
+        table = self._full_table(state)
+        out = [t.unsqueeze(0).expand((slot_of.shape[0],) + tuple(t.shape))
+               .clone() for t in self._meta["template"]]
+        for cid, slot in enumerate(slot_of):
+            row = ([leaf[slot] for leaf in table] if slot >= 0 else
+                   self._cold_row(int(cid)))
+            if row is not None:
+                for o, r in zip(out, row):
+                    o[cid] = r
+        dev = self._meta["device"]
+        return tm.tree_unflatten(self._meta["treedef"],
+                                 [o.to(dev) for o in out])
 
 
 class HostBackend:
@@ -257,6 +683,23 @@ class HostBackend:
         """Combine per-process values of a batch of ``n`` (losses: mean;
         eval sums: sum) — the identity on one device."""
         return t
+
+    def prepare_chunk_state(self, algo_state: Dict, ids_block) -> Dict:
+        """Residency for a chunk whose client ids are ``ids_block``, run
+        before the chunk by a store that needs them (the composition of
+        the two hooks below); a no-op by default."""
+        return algo_state
+
+    def stage_chunk_state(self, ids_block) -> Any:
+        """First half: host planning and staged copies only, no read of
+        the device state — safe while the previous chunk runs.  Returns
+        a token for :meth:`commit_chunk_state` (None: nothing to do)."""
+        return None
+
+    def commit_chunk_state(self, algo_state: Dict, staged: Any) -> Dict:
+        """Second half: splice a staged plan into the state on the
+        device, enqueue-only."""
+        return algo_state
 
 
 # a single round's source of batch indices: an int seed, or
@@ -361,15 +804,21 @@ class AggregateStrategy(HostBackend):
     server_opt: str = "none"        # none | momentum | adam
     server_lr: float = 1.0
     server_momentum: float = 0.9
-    state_store: Any = DENSE_STORE  # the sparse store: M10
+    state_store: Any = DENSE_STORE  # dense, or SparseClientStateStore
+
+    # the key each algorithm keeps its per-client rows under
+    _STORE_KEYS = {"scaffold": "c_clients", "moon": "w_prev"}
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
         if self.server_opt not in SERVER_OPTS:
             raise ValueError(f"unknown server_opt {self.server_opt!r}")
-        if not isinstance(self.state_store, DenseClientStateStore):
-            not_ported("state_store other than dense", "M10")
+        if not all(hasattr(self.state_store, m) for m in
+                   ("init", "gather", "scatter", "population")):
+            raise ValueError(f"state_store {self.state_store!r} is not a "
+                             f"client-state store (init, gather, scatter, "
+                             f"population)")
 
     @property
     def name(self) -> str:
@@ -379,6 +828,54 @@ class AggregateStrategy(HostBackend):
     def _ef(self) -> bool:
         comp = self.spec.compression
         return compression.compression_on(comp) and comp.error_feedback
+
+    @functools.cached_property
+    def _ef_store(self):
+        """A FRESH store instance for the error-feedback rows: a sparse
+        store keeps residency state per table (host mirrors, the spill
+        dict), so the algorithm's rows and the residual rows cannot share
+        one.  A dense store is stateless and serves both."""
+        store = self.state_store
+        if isinstance(store, SparseClientStateStore):
+            return dataclasses.replace(store, _cold={}, _meta={})
+        return store
+
+    def _residency_entries(self) -> List[Tuple[str, Any]]:
+        """``(algo_state key, store)`` of every table of per-client rows:
+        the algorithm's own, then the error-feedback rows.  The staged
+        tokens below follow this order."""
+        out = []
+        key = self._STORE_KEYS.get(self.algorithm)
+        if key is not None:
+            out.append((key, self.state_store))
+        if self._ef:
+            out.append(("ef_residuals", self._ef_store))
+        return out
+
+    @property
+    def residency_stores(self) -> List[Any]:
+        """Every store instance holding per-client rows (the engine's
+        timing sums their transfer and spill counters)."""
+        return [s for _, s in self._residency_entries()]
+
+    def prepare_chunk_state(self, algo_state: Dict, ids_block) -> Dict:
+        return self.commit_chunk_state(algo_state,
+                                       self.stage_chunk_state(ids_block))
+
+    def stage_chunk_state(self, ids_block) -> Any:
+        toks = [(key, store.stage_chunk(ids_block))
+                for key, store in self._residency_entries()
+                if getattr(store, "needs_host_ids", False)]
+        return toks or None
+
+    def commit_chunk_state(self, algo_state: Dict, staged: Any) -> Dict:
+        if staged is None:
+            return algo_state
+        stores = dict(self._residency_entries())
+        out = dict(algo_state)
+        for key, tok in staged:
+            out[key] = stores[key].commit_chunk(out[key], tok)
+        return out
 
     def init_state(self, task: Task, params: Pytree, n_clients: int) -> Dict:
         """The per-client state rows, in the engine's working
@@ -402,7 +899,7 @@ class AggregateStrategy(HostBackend):
             tmpl = (fops.zeros(torch.float32) if fops is not None else
                     FlatView.of(param_shapes(task)).zeros(
                         torch.float32, self._device(params)))
-            state["ef_residuals"] = store.init(tmpl, n_clients)
+            state["ef_residuals"] = self._ef_store.init(tmpl, n_clients)
         return state
 
     @staticmethod
@@ -487,7 +984,7 @@ class AggregateStrategy(HostBackend):
         plain FedAvg — on trees (``fops`` None) or flat buffers."""
         spec = self.spec
         comp = spec.compression
-        ef, store = self._ef, self.state_store
+        ef, store = self._ef, self._ef_store
 
         def to_device(tree):
             return tm.tree_map(lambda x: torch.as_tensor(x).to(
@@ -706,7 +1203,14 @@ class RoundSchedule:
     """Host-side schedule knobs shared by every strategy (see the module
     docstring for ``sampling`` and ``batch_indices``).  ``eval_every``
     ≤ 0 disables evaluation; otherwise the engine evaluates every
-    ``eval_every`` rounds and on the final round."""
+    ``eval_every`` rounds and on the final round.
+
+    ``overlap=True`` pipelines the chunk loop: once chunk N's ops are
+    enqueued, the engine plans chunk N+1 (its ids, the sparse stores'
+    residency) and stages its refill rows with non-blocking copies, then
+    reads chunk N's losses.  Only host work moves; the device ops and the
+    random streams are those of the synchronous loop, so the two are
+    bitwise equal.  A switch policy forces the synchronous loop."""
     rounds: int
     lr_decay: float = 0.998
     eval_every: int = 10
@@ -715,7 +1219,7 @@ class RoundSchedule:
     chunk_size: int = 1
     sampling: str = "device"        # device | host
     host_rng_offset: int = 0
-    overlap: bool = False           # M10
+    overlap: bool = False
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
     # (round, client_slot, step) -> keep-mask: replaces the step's
     # generator as the loss's dropout source
@@ -732,8 +1236,11 @@ class RoundSchedule:
     def __post_init__(self):
         if self.sampling not in ("device", "host"):
             raise ValueError(f"unknown sampling mode {self.sampling!r}")
-        if self.overlap:
-            not_ported("overlap=True", "M10")
+
+
+TIMING_KEYS = ("host_residency_ms", "staged_transfer_ms",
+               "dispatch_enqueue_ms", "device_wait_ms",
+               "spill_materialize_ms")
 
 
 @dataclasses.dataclass
@@ -743,6 +1250,27 @@ class EngineResult:
     algo_state: Dict[str, Pytree]
     server_state: Any = None
     dispatches: int = 0             # chunk-function calls this run
+    # wall ms of the chunk loop, totals over the run (``TIMING_KEYS``):
+    # host_residency_ms = stage planning + enqueueing its copies,
+    # staged_transfer_ms = the copies' part of it (store-reported),
+    # dispatch_enqueue_ms = commit + enqueueing the chunk's ops,
+    # device_wait_ms = waiting on the chunk's one read,
+    # spill_materialize_ms = the spill worker's ms (off the loop's path)
+    timing: Optional[Dict[str, float]] = None
+
+
+@dataclasses.dataclass
+class _ChunkPlan:
+    """One dispatch's host-derived inputs, computable ahead of time so
+    the overlapped loop can plan chunk N+1 while chunk N executes."""
+    rnd: int
+    R: int
+    ids: torch.Tensor               # (R, K) on the device
+    ids_np: np.ndarray              # the same on the host
+    lr_scales: torch.Tensor
+    ready: Any                      # event after the side stream's work
+    do_eval: List[bool]
+    staged: Any = None
 
 
 def run_rounds(task: Task, data: FederatedDataset, strategy,
@@ -762,7 +1290,11 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     and on the final round, over :func:`batch_test_set`'s weighted
     stream; ``eval_fn(params, bx, by) -> (B,)`` overrides the default
     accuracy metric.  ``init_params`` (a tree of tensors) is copied, so
-    the caller's tensors are never modified."""
+    the caller's tensors are never modified.  The client ids of every
+    chunk are known on the host before it runs (both sampling modes);
+    a strategy whose stores need them (``SparseClientStateStore``)
+    stages and commits residency before each chunk, and
+    ``schedule.overlap`` stages chunk N+1 while chunk N runs."""
     dev = resolve_device(device)
     if init_params is None:
         init_params = task.init(seeded_generator(schedule.seed))
@@ -799,13 +1331,32 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
         ev_batch = batched[0].shape[1]
         ev = strategy.prepare_eval_data(batched, dev)
 
-    host_rng = None
+    host_rng = ids_gen = None
     if schedule.sampling == "host":
         host_rng = np.random.default_rng(schedule.seed +
                                          schedule.host_rng_offset)
+    else:
+        # re-seeded every round: the round's client ids
+        ids_gen = seeded_generator(0, dev)
+    # a chunk's ids and lr scales reach the device on a side stream, so
+    # planning never waits on a chunk in flight
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     label = label or getattr(strategy, "name", phase)
     chunk = 1 if switch_policy is not None else max(1, schedule.chunk_size)
+    # the pipeline plans chunk N+1 while chunk N runs; a switch policy
+    # decides per round, so it forces the synchronous loop
+    overlap = schedule.overlap and switch_policy is None
+    stores = getattr(strategy, "residency_stores", [])
+    residency = bool(algo_state) and any(
+        getattr(s, "needs_host_ids", False) for s in stores)
+    timing = dict.fromkeys(TIMING_KEYS, 0.0)
+
+    def stores_ms(attr: str) -> float:
+        return sum(float(getattr(s, attr, 0.0)) for s in stores)
+
+    transfer_ms0 = stores_ms("staged_transfer_ms")
+    spill_ms0 = stores_ms("spill_materialize_ms")
 
     def sampler(rnd: int, ids_r: torch.Tensor) -> Callable[[int], Sample]:
         def for_slot(slot: int) -> Sample:
@@ -852,65 +1403,125 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
             return None
         return lambda kind, a, b=None: schedule.noise_draws(r, kind, a, b)
 
-    def run_chunk(params, algo_state, server_state, rnd: int, R: int,
-                  ids: Optional[torch.Tensor], ids_np: Optional[np.ndarray],
-                  lr_scales: torch.Tensor, do_eval: List[bool]):
+    def upload(arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(arr)
+        return (t.pin_memory().to(dev, non_blocking=True) if side is not None
+                else t.to(dev))
+
+    def make_plan(rnd: int) -> _ChunkPlan:
+        """Everything host-derived a dispatch needs: the round window,
+        the client ids (on the device and the host), the lr scales and
+        the eval flags — functions of the host rng stream and the global
+        round index, so planning in execution order keeps every stream
+        the same whether or not the loop overlaps.  Under
+        ``sampling="device"`` round r's ids are a ``torch.randperm``
+        prefix from a generator re-seeded with ``fold_in(seed, _IDS_TAG,
+        r)``, drawn here on the side stream and read back into pinned
+        memory behind an event: the host waits on those draws only."""
+        R = min(chunk, schedule.rounds - rnd)
+        lr = np.array([schedule.lr_decay ** (rnd + j) for j in range(R)],
+                      np.float32)
+        ready = None
+        with _on_stream(side):
+            if host_rng is not None:
+                ids_np = np.stack([host_rng.choice(n_clients, size=K,
+                                                   replace=False)
+                                   for _ in range(R)]).astype(np.int64)
+                ids = upload(ids_np)
+            else:
+                rows = []
+                for j in range(R):
+                    ids_gen.manual_seed(fold_in(schedule.seed, _IDS_TAG,
+                                                rnd + j))
+                    rows.append(torch.randperm(n_clients, generator=ids_gen,
+                                               device=dev)[:K])
+                ids = torch.stack(rows)
+                ids_host = (torch.empty(ids.shape, dtype=ids.dtype,
+                                        pin_memory=True)
+                            .copy_(ids, non_blocking=True)
+                            if side is not None else ids)
+            lr_scales = upload(lr)
+            if side is not None:
+                ready = torch.cuda.Event()
+                ready.record(side)
+        if host_rng is None:
+            if ready is not None:
+                ready.synchronize()     # the side stream's draws only
+            ids_np = ids_host.numpy().copy()
+        do_eval = [with_eval and ((rnd + j + 1) % schedule.eval_every == 0
+                                  or rnd + j + 1 == schedule.rounds)
+                   for j in range(R)]
+        return _ChunkPlan(rnd=rnd, R=R, ids=ids, ids_np=ids_np,
+                          lr_scales=lr_scales, ready=ready, do_eval=do_eval)
+
+    def stage(plan: _ChunkPlan) -> None:
+        if not residency:
+            return
+        t0 = time.perf_counter()
+        plan.staged = strategy.stage_chunk_state(plan.ids_np.reshape(-1))
+        timing["host_residency_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def run_chunk(plan: _ChunkPlan, params, algo_state, server_state):
         """One dispatch: R rounds, every value left on the device."""
+        if plan.ready is not None:
+            main = torch.cuda.current_stream(dev)
+            main.wait_event(plan.ready)
+            plan.ids.record_stream(main)
+            plan.lr_scales.record_stream(main)
         losses, metrics = [], []
-        for j in range(R):
-            ids_r = (ids[j] if ids is not None else
-                     torch.randperm(n_clients, generator=gen,
-                                    device=dev)[:K])
+        for j in range(plan.R):
+            rnd = plan.rnd + j
+            ids_r = plan.ids[j]
             inputs = RoundInputs(
                 ids=ids_r, weights=n_real[ids_r].to(torch.float32),
-                sampler=sampler(rnd + j, ids_r),
-                round_key=fold_in(schedule.seed, rnd + j),
-                draws=round_draws(rnd + j),
-                host_ids=None if ids_np is None else
-                [int(i) for i in ids_np[j]],
+                sampler=sampler(rnd, ids_r),
+                round_key=fold_in(schedule.seed, rnd),
+                draws=round_draws(rnd),
+                host_ids=[int(i) for i in plan.ids_np[j]],
                 on_aggregate=None if schedule.on_aggregate is None else
-                functools.partial(schedule.on_aggregate, rnd + j))
-            new_params, algo_state, loss = body(params, inputs, lr_scales[j],
-                                                algo_state)
+                functools.partial(schedule.on_aggregate, rnd))
+            new_params, algo_state, loss = body(params, inputs,
+                                                plan.lr_scales[j], algo_state)
             if server is not None:
                 new_params, server_state = server[1](params, new_params,
                                                      server_state)
             params = new_params
             losses.append(loss)
-            metrics.append(evaluate(params) if do_eval[j] else None)
+            metrics.append(evaluate(params) if plan.do_eval[j] else None)
         return params, algo_state, server_state, losses, metrics
 
     history: List[Dict[str, float]] = []
     dispatches = 0
-    rnd = 0
-    while rnd < schedule.rounds:
-        R = min(chunk, schedule.rounds - rnd)
-        ids = ids_np = None
-        if host_rng is not None:
-            ids_np = np.stack([host_rng.choice(n_clients, size=K,
-                                               replace=False)
-                               for _ in range(R)])
-            ids = torch.as_tensor(ids_np).to(device=dev, dtype=torch.int64)
-        lr_scales = torch.tensor(
-            [schedule.lr_decay ** (rnd + j) for j in range(R)],
-            dtype=torch.float32).to(dev)
-        do_eval = [with_eval and ((rnd + j + 1) % schedule.eval_every == 0
-                                  or rnd + j + 1 == schedule.rounds)
-                   for j in range(R)]
+    plan = make_plan(0) if schedule.rounds > 0 else None
+    staged_plan = None
+    while plan is not None:
+        if staged_plan is not plan:     # the synchronous loop, or chunk 0
+            stage(plan)
+        t0 = time.perf_counter()
+        algo_state = strategy.commit_chunk_state(algo_state, plan.staged)
         params, algo_state, server_state, losses, metrics = run_chunk(
-            params, algo_state, server_state, rnd, R, ids, ids_np,
-            lr_scales, do_eval)
-        dispatches += 1
-
+            plan, params, algo_state, server_state)
         losses = strategy.reduce_over_batch(torch.stack(losses), B,
                                             mean=True)
+        dispatches += 1
+        timing["dispatch_enqueue_ms"] += (time.perf_counter() - t0) * 1e3
+
+        rnd, R = plan.rnd, plan.R
+        nxt = None
+        if overlap and rnd + R < schedule.rounds:
+            # the pipeline: plan and stage chunk N+1 while chunk N runs
+            nxt = staged_plan = make_plan(rnd + R)
+            stage(nxt)
+
+        t0 = time.perf_counter()
         losses = losses.cpu().numpy()                 # one read per chunk
+        timing["device_wait_ms"] += (time.perf_counter() - t0) * 1e3
         for j in range(R):
             if ledger is not None:
                 strategy.record(ledger, K, params, task)
             row = {"round": rnd + j, "local_loss": float(losses[j]),
                    "phase": phase}
-            if do_eval[j]:
+            if plan.do_eval[j]:
                 row["acc"] = float(metrics[j])
                 if verbose:
                     print(f"[{label}] round {rnd + j + 1}/{schedule.rounds} "
@@ -918,14 +1529,24 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                           flush=True)
             history.append(row)
 
-        rnd += R
         if switch_policy is not None and switch_policy.should_switch(
-                rnd - 1, history):
+                rnd + R - 1, history):
             break
+        if not overlap:
+            nxt = make_plan(rnd + R) if rnd + R < schedule.rounds else None
+        plan = nxt
 
+    if residency:
+        # the one spill worker runs in order: this joins every spill of
+        # the run, so the timing holds all of them
+        _spill_pool().submit(lambda: None).result()
+    timing["staged_transfer_ms"] = stores_ms("staged_transfer_ms") - \
+        transfer_ms0
+    timing["spill_materialize_ms"] = stores_ms("spill_materialize_ms") - \
+        spill_ms0
     if fops is not None:                # EngineResult speaks trees
         params = fops.unflatten(params)
         server_state = unpack_server_state(fops, server_state)
     return EngineResult(params=params, history=history,
                         algo_state=algo_state, server_state=server_state,
-                        dispatches=dispatches)
+                        dispatches=dispatches, timing=timing)

@@ -31,6 +31,12 @@ axis names, and this module reads it through the port's sharding rules
     ``data``: each rank holds its block of rows, a gather is one
     ``all_reduce`` of a zero-filled ``(K, N)`` buffer into which each
     owner writes its rows (exact), a scatter writes the owned rows.
+    ``PodFLConfig(store="sparse")`` swaps in a
+    ``ShardedSparseClientStateStore``: the host engine's bounded table
+    of active clients with its ``capacity`` axis sharded over ``data``
+    the same way, its index and LRU state replicated, and evicted rows
+    spilled to every rank's host memory (one ``all_reduce`` per leaf,
+    counted as ``store_spill``).
 
 P2 aggregation differs from the host backend in schedule only.  The
 sequential topology runs the K clients one after another, each adding
@@ -53,13 +59,12 @@ each client's extras and the round's client-state update come from
 ``AggregateStrategy.client_state``, over the stack of the clients' end
 states.
 
+``PodFLConfig.overlap`` (default True, as in the JAX package) runs the
+engine's overlapped round pipeline; it is bitwise the synchronous loop.
+
 Not ported yet, each raising ``NotImplementedError`` naming its item:
-tasks other than vision (a charlm task: M2d), the sparse client store
-(M10), sharded groups on a world larger than one (M13b), and AOT
-lowering of the pod round (M15).
-``PodFLConfig.overlap`` keeps the JAX default of True; until M10 the
-port runs it as the synchronous loop (the JAX package pins the two as
-bitwise equal).
+tasks other than vision (a charlm task: M2d), sharded groups on a world
+larger than one (M13b), and AOT lowering of the pod round (M15).
 """
 from __future__ import annotations
 
@@ -80,6 +85,7 @@ from repro_torch.fl.engine import (
     DenseClientStateStore,
     RelayStrategy,
     RoundSchedule,
+    SparseClientStateStore,
     run_rounds,
 )
 from repro_torch.fl.local import (FlatParamOps, LocalSpec, make_local_fn,
@@ -103,9 +109,10 @@ _VARIANTS = {"fedavg": "plain", "fedprox": "fedprox",
 # the collectives this module issues, by purpose: "grad" (one per bucket
 # per SGD step), "batch" (losses and eval sums, once per chunk),
 # "lane_combine" (one per bucket per hierarchical round), "store_gather"
-# (one per leaf per round of a sharded client store)
+# (one per leaf per round of a sharded client store), "store_spill" (one
+# per leaf per commit that evicts live rows of a sharded sparse store)
 COLLECTIVES: Dict[str, int] = {"grad": 0, "batch": 0, "lane_combine": 0,
-                               "store_gather": 0}
+                               "store_gather": 0, "store_spill": 0}
 
 
 def reset_collective_counts() -> None:
@@ -247,6 +254,67 @@ class ShardedClientStateStore(DenseClientStateStore):
         if not state.sharded:
             return state.per
         return state.per * self.mesh.axis_size(rules.DATA)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedSparseClientStateStore(SparseClientStateStore):
+    """The sparse store on the mesh: the table's ``capacity`` slot axis
+    shards over ``data`` as ``ShardedClientStateStore`` shards clients
+    (replicated when the capacity does not divide it).  Each rank holds
+    its block of slots plus a scratch row; a gather (and a spill) is one
+    ``all_reduce`` per leaf of the owned rows, a scatter and a refill
+    write the owned slots.  The id→slot index, the LRU state, the host
+    mirrors and the spill dict replicate: every rank plans the same
+    residency from the same ids and keeps every spilled row, so a client
+    may refault into a slot another rank owns."""
+    mesh: Any = None
+
+    def _table_rows(self, cap: int) -> int:
+        spec = rules.client_axis_pspec(self.mesh, 1, cap)
+        if spec[0] is None:
+            self._meta.update(sharded=False, lo=0, per=cap)
+            return cap
+        per = cap // self.mesh.axis_size(rules.DATA)
+        self._meta.update(sharded=True, per=per,
+                          lo=self.mesh.coords[rules.DATA] * per)
+        return per + 1
+
+    def _local(self, slots: torch.Tensor):
+        lo, per = self._meta["lo"], self._meta["per"]
+        owned = (slots >= lo) & (slots < lo + per)
+        return owned, torch.where(owned, slots - lo,
+                                  torch.full_like(slots, per))
+
+    def _rows_at(self, state, slots: torch.Tensor,
+                 kind: Optional[str] = "store_gather"):
+        """One all_reduce per leaf of the owned rows at ``slots``,
+        counted under ``kind`` (None: uncounted)."""
+        if not self._meta["sharded"]:
+            return super()._rows_at(state, slots, kind)
+        owned, li = self._local(slots)
+        group = self.mesh.group(rules.DATA)
+
+        def one(t):
+            rows = t.index_select(0, li)
+            mask = owned.reshape((-1,) + (1,) * (rows.dim() - 1))
+            rows = torch.where(mask, rows, torch.zeros_like(rows))
+            if kind is None:
+                dist.all_reduce(rows, op=dist.ReduceOp.SUM, group=group)
+                return rows
+            return _all_reduce(rows, group, kind)
+        return tm.tree_map(one, state["table"])
+
+    def _write_rows(self, state, slots: torch.Tensor, rows) -> None:
+        """The owned slots' rows (the others land in the scratch row)."""
+        if not self._meta["sharded"]:
+            return super()._write_rows(state, slots, rows)
+        self._write_local(state, self._local(slots)[1], rows)
+
+    def _refill_targets(self, victims):
+        if not self._meta["sharded"]:
+            return super()._refill_targets(victims)
+        lo, per = self._meta["lo"], self._meta["per"]
+        return (victims >= lo) & (victims < lo + per), victims - lo
 
 
 # ---------------------------------------------------------------------------
@@ -449,7 +517,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
         fops = self.flat_ops(task, device)
         local = make_local_fn(task, spec, fops, self.grad_reducer())
         fused = fops is not None
-        store = self.state_store
+        ef_store = self._ef_store
         G = self._n_pods() if self.aggregation == "hierarchical" else 1
         dp = spec.dp
         dp_clips = dp is not None and dp.clips
@@ -474,8 +542,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
             # coef[j] is a view, so nothing is issued between a client's
             # last kernel and its K6, which may then stage early (PDL)
             coef = w32 / wsum
-            ef_rows = (store.gather(algo_state["ef_residuals"], inputs.ids)
-                       if ef else None)
+            ef_rows = (ef_store.gather(algo_state["ef_residuals"],
+                                       inputs.ids) if ef else None)
             extras_of, update = self.client_state(fops, params, inputs.ids,
                                                   lr_scale, algo_state)
 
@@ -619,7 +687,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
             if ef:
                 rows = {name: torch.stack([r[name] for r in r_outs])
                         for name in r_outs[0]}
-                state = dict(state, ef_residuals=store.scatter(
+                state = dict(state, ef_residuals=ef_store.scatter(
                     algo_state["ef_residuals"], inputs.ids, rows))
             return new_params, state, torch.stack(losses).mean()
 
@@ -678,14 +746,16 @@ class PodFLConfig:
     sampling: str = "device"
     aggregation: str = "sequential"     # sequential | hierarchical
     n_pods: Optional[int] = None
-    store: str = "dense"                # the sparse store: M10
-    # the JAX default; the port runs the synchronous loop until M10
-    overlap: bool = True
+    store: str = "dense"                # dense | sparse
+    store_capacity: int = 1024          # the sparse table's rows
+    overlap: bool = True                # pipeline residency behind compute
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
 
     def strategy(self) -> PodAggregateStrategy:
+        kwargs = {}
         if self.store == "sparse":
-            not_ported("store='sparse'", "M10")
+            kwargs["state_store"] = ShardedSparseClientStateStore(
+                capacity=self.store_capacity, mesh=self.mesh)
         elif self.store != "dense":
             raise ValueError(f"unknown store {self.store!r} "
                              f"(choose from ('dense', 'sparse'))")
@@ -695,7 +765,7 @@ class PodFLConfig:
             server_momentum=self.spec.server_momentum,
             mesh=self.mesh, layout=self.layout,
             clients_per_round=self.clients_per_round,
-            aggregation=self.aggregation, n_pods=self.n_pods)
+            aggregation=self.aggregation, n_pods=self.n_pods, **kwargs)
 
     def schedule(self) -> RoundSchedule:
         return RoundSchedule(
@@ -703,7 +773,7 @@ class PodFLConfig:
             eval_every=self.eval_every, eval_batch=self.eval_batch,
             seed=self.seed, chunk_size=self.chunk_size,
             sampling=self.sampling, host_rng_offset=HOST_RNG_OFFSET_P2,
-            batch_indices=self.batch_indices)
+            overlap=self.overlap, batch_indices=self.batch_indices)
 
 
 def run_pod_rounds(task: Task, data: FederatedDataset, cfg,

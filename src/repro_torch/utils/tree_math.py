@@ -152,3 +152,41 @@ def count_params(a: Pytree) -> int:
 def size_bytes(a: Pytree) -> int:
     return sum(int(math.prod(x.shape)) * x.element_size()
                for x in tree_leaves(a))
+
+
+def dot(a: Pytree, b: Pytree) -> torch.Tensor:
+    """Σ over leaves of ⟨a_leaf, b_leaf⟩."""
+    return sum(torch.dot(x.reshape(-1), y.reshape(-1))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def distance(a: Pytree, b: Pytree) -> torch.Tensor:
+    return norm(sub(a, b))
+
+
+def cosine_similarity(a: Pytree, b: Pytree, eps: float = 1e-12
+                      ) -> torch.Tensor:
+    return dot(a, b) / (norm(a) * norm(b) + eps)
+
+
+def random_like(gen: torch.Generator, a: Pytree, scale_: float = 1.0
+                ) -> Pytree:
+    """A standard normal tree shaped like ``a``, times ``scale_``, drawn
+    leaf after leaf from ``gen`` (on ``gen``'s device; f32 where a leaf
+    is not floating point) — the sharpness probes' directions."""
+    def draw(leaf):
+        dtype = leaf.dtype if leaf.is_floating_point() else torch.float32
+        return torch.randn(leaf.shape, generator=gen, dtype=dtype,
+                           device=gen.device).to(leaf.device) * scale_
+    return tree_map(draw, a)
+
+
+def filter_normalize(direction: Pytree, reference: Pytree,
+                     eps: float = 1e-10) -> Pytree:
+    """Li et al. (NeurIPS'18)'s loss-landscape normalization as the JAX
+    package writes it: each direction leaf scaled to the norm of its
+    reference leaf."""
+    def norm_leaf(d, r):
+        return d * (torch.linalg.vector_norm(r) /
+                    (torch.linalg.vector_norm(d) + eps))
+    return tree_map(norm_leaf, direction, reference)

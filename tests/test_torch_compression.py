@@ -713,6 +713,6 @@ def test_ef_residuals_ride_the_dense_store(run_setup):
     assert 1 <= int(touched.sum()) <= min(N_CLIENTS, 4 * ROUNDS)
     assert isinstance(engine.AggregateStrategy(
         spec=LocalSpec(2, 4, 0.1)).state_store, engine.DenseClientStateStore)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="state_store"):
         engine.AggregateStrategy(spec=LocalSpec(2, 4, 0.1),
                                  state_store=object())

@@ -1171,3 +1171,110 @@ def test_cnn_fashion_draws_dropout_on_the_card(gen):
                       .manual_seed(3)) < 0.5
     assert torch.equal(run(3), pm.cnn_fashion_apply(p, x, train=True,
                                                     rng=keep))
+
+
+# --- the sparse client store and the overlapped pipeline (M10) --------------
+
+def _store_rows(ids, n, value):
+    """Rows of ``n`` floats per client, each filled with ``value(cid)``."""
+    return {"w": torch.stack([torch.full((n,), float(value(int(c))),
+                                         device="cuda") for c in ids])}
+
+
+@pytest.mark.cuda
+def test_sparse_store_rewrites_a_staging_buffer_only_after_its_copy(gen):
+    """Three plans staged back to back while a sleep holds the store's
+    side stream: the third reuses the first's pinned staging buffer, and
+    must wait for the first's copy to the card before writing it.  Each
+    refilled client must then hold its own spilled row."""
+    from repro_torch.fl.engine import SparseClientStateStore
+    n = 1 << 20
+    store = SparseClientStateStore(capacity=2)
+    state = store.init({"w": torch.zeros(n, device="cuda")}, 8)
+    for pair in ([0, 1], [2, 3], [4, 5]):
+        state = store.prepare_chunk(state, pair)
+        store.scatter(state, torch.tensor(pair, device="cuda"),
+                      _store_rows(pair, n, lambda c: c + 1))
+    torch.cuda.synchronize()                    # 0-3 spilled, 4-5 resident
+    with torch.cuda.stream(store._meta["side"]):
+        torch.cuda._sleep(50_000_000)
+    staged = [store.stage_chunk(ids) for ids in ([0, 1], [6, 7], [2, 3])]
+    for s in staged:
+        state = store.commit_chunk(state, s)
+    dense = store.to_dense(state)["w"]
+    want = [1, 2, 3, 4, 5, 6, 0, 0]
+    assert [float(dense[c, 0]) for c in range(8)] == want
+    for c in range(8):
+        assert bool((dense[c] == want[c]).all())
+    assert store.refaulted_rows == 4
+
+
+@pytest.mark.cuda
+def test_sparse_store_spills_the_rows_the_previous_dispatch_wrote(gen):
+    """The last writes of the dispatch before a commit sit behind a sleep
+    on the main stream; the commit's spill gathers the evicted rows after
+    them on the main stream and copies them to the host on the side
+    stream behind an event, so the spilled rows are the new ones."""
+    from repro_torch.fl.engine import SparseClientStateStore
+    n = 1 << 20
+    store = SparseClientStateStore(capacity=2)
+    state = store.prepare_chunk(store.init(
+        {"w": torch.zeros(n, device="cuda")}, 6), [0, 1])
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    store.scatter(state, torch.tensor([0, 1], device="cuda"),
+                  _store_rows([0, 1], n, lambda c: 100 + c))
+    state = store.prepare_chunk(state, [2, 3])  # evicts and spills 0, 1
+    state = store.prepare_chunk(state, [0, 1])  # faults them back in
+    got = store.gather(state, torch.tensor([0, 1], device="cuda"))["w"]
+    assert bool((got[0] == 100).all()) and bool((got[1] == 101).all())
+    assert store.spilled_rows == 4 and store.refaulted_rows == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["host", "device"])
+def test_sparse_overlap_matches_dense_sync_on_the_card(sampling):
+    """SCAFFOLD with int8 + top-k + error-feedback uploads on the card
+    (a small mlp: no convolution, so every op repeats bitwise): the
+    sparse stores with the overlapped loop against the dense store with
+    the synchronous one, bitwise, with rows spilled and faulted back."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    import dataclasses
+    from repro_torch.data.synthetic import DATASETS
+    from repro_torch.fl.compression import CompressionSpec
+    from repro_torch.fl.engine import SparseClientStateStore, run_rounds
+    from repro_torch.fl.simulation import FLConfig
+    from repro_torch.fl.task import vision_task
+    from repro_torch.utils.tree_math import tree_leaves
+    task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={"img": 32})
+    data = DATASETS.get("cifar10-like")(n_clients=16, beta=0.5, seed=0,
+                                        n_train=512, n_test=64)
+    init = task.init(torch.Generator().manual_seed(0))
+    fed = FLConfig(algorithm="scaffold", rounds=8, participation=0.25,
+                   local_steps=3, batch_size=8, lr=0.05, update_impl="fused",
+                   sampling=sampling, chunk_size=2,
+                   compression=CompressionSpec(8, 0.25, True))
+    out = {}
+    for name, store, overlap in (("dense", None, False),
+                                 ("sparse", SparseClientStateStore(8), True)):
+        strategy = fed.strategy()
+        if store is not None:
+            strategy = dataclasses.replace(strategy, state_store=store)
+        res = run_rounds(task, data, strategy, dataclasses.replace(
+            fed.schedule(), overlap=overlap), init_params=init)
+        rows = []
+        for key, st in strategy._residency_entries():
+            state = res.algo_state[key]
+            rows += tree_leaves(st.to_dense(state) if store is not None
+                                else state)
+        out[name] = (tree_leaves(res.params) + rows +
+                     tree_leaves(res.algo_state["c_global"]),
+                     [h["local_loss"] for h in res.history], strategy)
+    torch.cuda.synchronize()
+    assert out["dense"][1] == out["sparse"][1]
+    for a, b in zip(out["dense"][0], out["sparse"][0]):
+        assert a.is_cuda and torch.equal(a, b)
+    stores = out["sparse"][2].residency_stores
+    assert len(stores) == 2
+    assert all(s.spilled_rows > 0 and s.refaulted_rows > 0 for s in stores)

@@ -36,7 +36,8 @@ from repro_torch.core.pipeline import (Phase, run_cyclic_then_federated,
                                        run_phase_schedule)
 from repro_torch.data.synthetic import DATASETS
 from repro_torch.fl.engine import (AggregateStrategy, RoundSchedule,
-                                   make_eval_fn, run_rounds)
+                                   SparseClientStateStore, make_eval_fn,
+                                   run_rounds)
 from repro_torch.fl.simulation import (FLConfig, init_server_state,
                                        make_round_fn, run_federated)
 from repro_torch.fl.task import vision_task
@@ -286,7 +287,10 @@ def test_unported_options_raise(kwargs, item):
 
 
 def test_unported_engine_options_raise():
-    with pytest.raises(NotImplementedError, match="M10"):
-        RoundSchedule(rounds=1, overlap=True)
-    with pytest.raises(NotImplementedError, match="M10"):
+    """M10 is ported: the overlapped loop and the sparse store build, and
+    a state_store without the store contract still raises."""
+    assert RoundSchedule(rounds=1, overlap=True).overlap
+    AggregateStrategy(spec=FLConfig().local_spec(),
+                      state_store=SparseClientStateStore(capacity=4))
+    with pytest.raises(ValueError, match="state_store"):
         AggregateStrategy(spec=FLConfig().local_spec(), state_store=object())

@@ -243,8 +243,9 @@ def test_pod_runs_through_the_phase_schedule(mesh, sides):
 
 
 def test_unported_pod_options_raise_naming_their_items(mesh):
-    with pytest.raises(NotImplementedError, match="M10"):
-        pod.PodFLConfig(mesh, store="sparse").strategy()
+    # M10 is ported: the sparse store builds on the mesh
+    assert isinstance(pod.PodFLConfig(mesh, store="sparse").strategy()
+                      .state_store, pod.ShardedSparseClientStateStore)
     with pytest.raises(NotImplementedError, match="M11"):
         pod.PodFLSpec(peft="lora:8")
     with pytest.raises(NotImplementedError, match="M15"):
@@ -552,6 +553,72 @@ def _one_rank(mesh, sides, case_kw, dp, comp, algorithm):
         **dict(case_kw, n_pods=2) if case_kw else {})
     return pod.run_pod_rounds(task, data, cfg, init_params=bridge.
                               params_from_numpy(jax_numpy_params(jinit)))
+
+
+# four ranks, the sparse store against the dense one: 4 rounds of one
+# round a dispatch, capacity K = 4 over 8 clients (2 slots a rank on the
+# data axis), so rows spill to every rank and refault into slots that
+# another rank may own
+SPARSE_ROUNDS = 4
+SPARSE_CASES = {"scaffold": ("scaffold", False),
+                "compressed-ef": ("fedavg", True)}
+
+
+@pytest.fixture(scope="module")
+def sparse_ranks(tmp_path_factory, sides):
+    tmp = tmp_path_factory.mktemp("pod4sparse")
+    _, _, jinit, _, _ = sides["mlp"]
+    np.savez(tmp / "init.npz", *[np.asarray(x, np.float32)
+                                 for x in jax.tree_util.tree_leaves(jinit)])
+    np.save(tmp / "indices.npy", _indices(SPARSE_ROUNDS, K))
+    cases = {}
+    for name, (algorithm, comp) in SPARSE_CASES.items():
+        for store in ("dense", "sparse"):
+            kw = {"chunk_size": 1}
+            if store == "sparse":
+                kw.update(store="sparse", store_capacity=K)
+            cases[f"{name}-{store}"] = {
+                "shape": [2, 2], "kw": kw, "dp": None, "compressed": comp,
+                "algorithm": algorithm, "rounds": SPARSE_ROUNDS}
+    cfg = dict(seed=SEED, n_clients=N_CLIENTS, n_train=N_TRAIN,
+               n_test=N_TEST, rounds=SPARSE_ROUNDS, K=K,
+               spec=dict(local_steps=STEPS, batch_size=BATCH, lr=0.05),
+               cases=cases, dir=str(tmp))
+    (tmp / "cfg.json").write_text(json.dumps(cfg))
+    _wait(_run_workers(tmp / "cfg.json", 4), "torch_pod_worker.py")
+    return tmp
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_four_ranks_sparse_store_matches_dense_bitwise(sparse_ranks, case):
+    """The pod's sparse store on four gloo ranks: params, losses,
+    ``c_global`` and every client's rows bitwise the dense store's; the
+    sparse table spilled and refaulted rows, and gathers once a round
+    like the dense one."""
+    tmp = sparse_ranks
+    algorithm, comp = SPARSE_CASES[case]
+    dense = np.load(tmp / f"torch_{case}-dense.npz")
+    sparse = np.load(tmp / f"torch_{case}-sparse.npz")
+    assert sorted(dense.files) == sorted(sparse.files)
+    for k in dense.files:
+        np.testing.assert_array_equal(sparse[k], dense[k], k)
+    tag, key = ("ef", "ef_residuals") if comp else ("c_clients", "c_clients")
+    parts = [np.load(tmp / f"{tag}_{case}-dense_{r}.npz") for r in range(4)]
+    rows = np.zeros((N_CLIENTS,) + parts[0]["rows"].shape[1:], np.float32)
+    for part in parts:
+        lo = int(part["lo"])
+        rows[lo:lo + len(part["rows"])] = part["rows"]
+    assert np.any(rows != 0)
+    for r in range(4):
+        np.testing.assert_array_equal(
+            np.load(tmp / f"{tag}_{case}-sparse_{r}.npz")["rows"], rows)
+    for r in range(4):
+        cd, cs = (json.loads((tmp / f"counts_{case}-{s}_{r}.json")
+                             .read_text()) for s in ("dense", "sparse"))
+        assert cs["store_gather"] == cd["store_gather"] == SPARSE_ROUNDS
+        assert cd["store_spill"] == 0 and cs["store_spill"] > 0
+        assert cs[f"{key}_spilled"] > 0 and cs[f"{key}_refaulted"] > 0
+        assert cs["grad"] == cd["grad"] == SPARSE_ROUNDS * K * STEPS
 
 
 @pytest.mark.parametrize("case", MR_CASES)

@@ -7,8 +7,11 @@ Joins a gloo process group over the ``file://`` store, then for every
 case of the config builds its mesh, runs the case's P2 rounds on the
 pod backend from the given init params and batch indices, and writes
 the final params and losses (rank 0, with scaffold's ``c_global``),
-this rank's rows of the error-feedback store (compressed cases) and its
-collective and K6 call counts.  Imports torch and ``repro_torch`` only.
+this rank's rows of the error-feedback store (compressed cases) and of
+scaffold's control variates — all of them, through ``to_dense``, when
+the case's store is sparse — and its collective and K6 call counts
+(with the sparse stores' spilled and refaulted rows).  A case may set
+its own ``rounds``.  Imports torch and ``repro_torch`` only.
 """
 import json
 import sys
@@ -25,6 +28,7 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
                             world_size=world, rank=rank)
     from repro_torch.data.synthetic import DATASETS
     from repro_torch.fl import compression, pod, privacy
+    from repro_torch.fl.engine import run_rounds
     from repro_torch.fl.task import vision_task
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
@@ -59,20 +63,30 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
         comp = (compression.CompressionSpec(8, 0.25, True)
                 if case["compressed"] else None)
         c = pod.PodFLConfig(
-            mesh, rounds=cfg["rounds"], clients_per_round=cfg["K"],
+            mesh, rounds=case.get("rounds", cfg["rounds"]),
+            clients_per_round=cfg["K"],
             spec=pod.PodFLSpec(update_impl="fused", dp=dp, compression=comp,
                                algorithm=case["algorithm"], **cfg["spec"]),
             sampling="host", eval_every=1, batch_indices=indices,
             **case["kw"])
         pod.reset_collective_counts()
         calls["delta_accum"] = 0
-        res = pod.run_pod_rounds(task, data, c, init_params=init)
+        strategy = c.strategy()
+        res = run_rounds(task, data, strategy, c.schedule(), init_params=init,
+                         label=f"pod-{strategy.name}", device=mesh.device)
         counts = dict(pod.COLLECTIVES, **calls)
+        stores = dict(strategy._residency_entries())
+        for key, store in stores.items():
+            st = res.algo_state[key]
+            if isinstance(st, pod.ClientRows):
+                lo, rows = st.lo, st.rows["float32"][:st.per].numpy()
+            else:                       # sparse: every rank, all rows
+                lo, rows = 0, store.to_dense(st)["float32"].numpy()
+                counts[f"{key}_spilled"] = store.spilled_rows
+                counts[f"{key}_refaulted"] = store.refaulted_rows
+            tag = "ef" if key == "ef_residuals" else key
+            np.savez(out / f"{tag}_{name}_{rank}.npz", lo=lo, rows=rows)
         (out / f"counts_{name}_{rank}.json").write_text(json.dumps(counts))
-        if comp is not None:
-            st = res.algo_state["ef_residuals"]
-            np.savez(out / f"ef_{name}_{rank}.npz", lo=st.lo,
-                     rows=st.rows["float32"][:st.per].numpy())
         if rank == 0:
             arrays = {f"p{i}": leaf.detach().float().numpy()
                       for i, leaf in enumerate(tm.tree_leaves(res.params))}
