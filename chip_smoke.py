@@ -53,7 +53,12 @@ JSON line per phase:
                      K1–K3, the threshold (its four radix launches) and
                      K4 with top-k and the residual at CharLSTM-256's
                      bucket, N 814,080, bitwise (path "charlm"), each
-                     timed from a cold L2;
+                     timed from a cold L2; the bf16 instances of K1, K2,
+                     K3 (aggregate form and "none") and K6 at llm_lora's
+                     adapter bucket (N 6,307,840), and K1 over its whole
+                     model (N 1,106,356,224), bitwise (path "llm_lora");
+                     the variant sweeps timed with one trial each (the
+                     mean of 20 calls), the paths' shapes with five;
   3. main_path     — the paper pipeline at full width: LeNet-5 on
                      cifar10-like (100 clients, β = 0.5, 20,000 samples),
                      P1 cyclic relay (4 rounds) → P2 FedAvgM (4 rounds)
@@ -75,9 +80,9 @@ JSON line per phase:
                      stream, final params compared; and 1 P2 round of
                      scaffold (params and control variates) and of moon
                      the same way;
-     p2_compressed — the main path (P1 cut to 1 round in the three upload
-                     phases) with int8 + top-k 25% + error
-                     feedback uploads in P2: 40 launches of the fused
+     p2_compressed — the main path (P1 cut to 1 round, P2 to 2 rounds in
+                     the three upload phases) with int8 + top-k 25% + error
+                     feedback uploads in P2: 20 launches of the fused
                      topk_compress and none of the standalone K4 or
                      threshold asserted, ledger
                      == closed form (173,250 upload bytes per client),
@@ -86,9 +91,9 @@ JSON line per phase:
                      residual rows);
      p2_private    — the same with DP-FedAvg (C = 1, σ = 0.1) and secure
                      aggregation: K2 carries the clip and the noise/mask
-                     total, mask bytes == 4 × secure_agg_mask_bytes(10);
+                     total, mask bytes == 2 × secure_agg_mask_bytes(10);
      p2_int8       — the same with int8 dense uploads (quantized, not
-                     sparsified): 40 standalone K4 launches;
+                     sparsified): 20 standalone K4 launches;
      dp_upload     — the 10 client uploads of one private engine round
                      (seen through RoundSchedule.on_aggregate), built by
                      one rows-form K5 launch from the round's draws and
@@ -97,20 +102,20 @@ JSON line per phase:
                      against the per-client form it replaced;
      p2_rounds     — warm P2 rounds/s of the uncompressed, compressed and
                      private configurations (and private under device
-                     sampling), in turns from the same P1 params, 2
-                     rounds a turn;
+                     sampling), in turns from the same P1 params, 1
+                     round a turn;
      charlm_path   — the paper's CharLSTM-256 (813,632 params, one bucket
                      of 814,080, above the threshold's cluster cut) on
                      shakespeare-like (66 clients) through
-                     run_cyclic_then_federated: P1 2 × 7 × 10, P2
-                     FedAvgM 2 × 7 × 10, lr 0.8; K1 280, K2 2, K3 2,
+                     run_cyclic_then_federated: P1 1 × 7 × 10, P2
+                     FedAvgM 1 × 7 × 10, lr 0.8; K1 140, K2 1, K3 1,
                      ledger == closed form, held-out loss below the
                      init's, accuracy above 1/64, fused == plain
                      bitwise (1 + 1 rounds of 2 clients); ms per step
                      and a profiled step's device ops and busy share;
      charlm_compressed — its P2 from its P1 params with int8 + top-k 25%
-                     + EF uploads: the threshold's radix route 56 (4 ×
-                     14 uploads), K4 alone 14, topk_compress 0, ledger
+                     + EF uploads: the threshold's radix route 28 (4 ×
+                     7 uploads), K4 alone 7, topk_compress 0, ledger
                      == closed form, fused == plain bitwise (params and
                      EF rows);
      fashion_path  — CNN-Fashion (dropout 0.5) on fashion-like: P1 2 × 25
@@ -134,7 +139,9 @@ JSON line per phase:
                      threshold 0), ledger == closed form;
      pod_vs_host   — 1 P1 + 1 P2 round on the pod and the host engine at
                      the JAX package's tolerances, and the pod's kernels
-                     against its plain path, bitwise;
+                     against its plain path, bitwise; one CharLSTM-256
+                     P2 FedAvgM round (charlm_path's shapes, 2 clients)
+                     on the pod against the host engine;
      pod_algorithms — SCAFFOLD on the pod through run_phase_schedule, the
                      p2_algorithms P2 shape: K1 1,000 (all with c), K6 40,
                      K2 0, ledger == closed form, accuracy above chance,
@@ -144,12 +151,12 @@ JSON line per phase:
                      rounds a turn;
      client_store  — the sparse client store and the overlapped pipeline
                      (M10): from the main path's P1 params, P2 6 × 10 ×
-                     25, chunk 2, of SCAFFOLD with p2_compressed's
+                     10, chunk 2, of SCAFFOLD with p2_compressed's
                      uploads and of MOON, each dense-sync, sparse-sync
                      and sparse-overlap (capacity 20), and SCAFFOLD under
                      device sampling dense against sparse-overlap: all
                      bitwise (cuDNN deterministic), rows spilled and
-                     refaulted, K1 1,500 (with c under SCAFFOLD),
+                     refaulted, K1 600 (with c under SCAFFOLD),
                      topk_compress 60, K2 6 per run, the engine's timing
                      split; cnn_femnist on femnist-like at LEAF FEMNIST's
                      3,550 writers (227,200 samples), SCAFFOLD 2 × 10 ×
@@ -164,6 +171,17 @@ JSON line per phase:
                      eigenvalue, 9-point slices, on the card and on the
                      CPU from the same draws, held within stated
                      tolerances;
+     llm_lora      — tinyllama-1.1b + lora:8 at full width and depth
+                     (1,106,356,224 bf16 params, random from the seed) on
+                     make_synthetic_tokenlm (16 clients × 32 sequences of
+                     128, vocab 32,000) through run_pod_training: P1 1 ×
+                     4 × 4 over the whole model, P2 2 × 4 × 4 over the
+                     adapters; P1 K1 16, P2 K1 32, K6 8, K3 2, K2 0
+                     asserted, the frozen leaves bitwise, the adapters
+                     moved, upload bytes = the slice's, the eval loss
+                     below the init's, fused == plain bitwise, the host
+                     engine's FedAvgM round against the pod's; ms per
+                     step, device ops and busy share, peak memory;
   5. serve         — hymba-1.5b at full width (1,640,872,320 params,
                      bf16, random weights from a seed) through
                      ``Engine.generate`` with attn_impl = ssd_impl =
@@ -180,7 +198,9 @@ JSON line per phase:
                      device-busy share, device ops, K7's and K8's device
                      time and device kernels (K8 is three per call), top
                      device ops;
-then the ``kernels`` summary (K1–K3 with their N 814,080 rows and
+then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
+at llm_lora's buckets and its launches there; K1–K3 with their N
+814,080 rows and
 launches on charlm_path and fashion_path; the threshold's row its
 radix route on charlm_compressed, its cluster form beside it; K4 with
 its top-k and residual form's launches there; K1 with its c form's
@@ -210,6 +230,9 @@ N_LARGE = 16_777_216
 TOPK_CUT = 16 * 40 * 1024  # fused_update.topk_cut(): the cluster's reach
 KERNEL_TOL = 0.0    # bitwise: K1-K3 round where the plain versions do
 SEED = 0
+# time_ms trials of each row of the kernel phase's variant sweeps (the
+# rows a path reports take five): each trial is the mean of 20 calls
+SWEEP_TRIALS = 1
 
 # hymba-1.5b serving shapes: batch 8, prompt 2048, 64 new tokens
 SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
@@ -388,8 +411,12 @@ class KernelBench:
         self.gen.manual_seed(SEED)
         # set: every call is timed from a cold L2 (see time_ms)
         self.flush = None
+        # time_ms's trials and reps per timing; the variant sweeps take
+        # fewer trials (SWEEP_TRIALS) than the path shapes
+        self.trials, self.reps = 5, 20
 
     def time(self, fn, **kw) -> float:
+        kw = dict(dict(trials=self.trials, reps=self.reps), **kw)
         return time_ms(self.torch, fn, flush=self.flush, **kw)
 
     def rand(self, *shape, dtype=None):
@@ -1258,9 +1285,11 @@ def sass_features(lib_path) -> dict:
 
 
 def check_kernels(torch, fu, bench) -> dict:
-    """Phase 2: every variant, then the main path's shapes (returned)."""
+    """Phase 2: every variant (timed with ``SWEEP_TRIALS`` trials), then
+    the main path's shapes (returned, five trials)."""
     bf16, f32 = torch.bfloat16, torch.float32
     rows = []
+    bench.trials = SWEEP_TRIALS
     for n in (N_SMALL, N_LARGE):
         for dtype in (f32, bf16):
             for has_m in (False, True):
@@ -1278,6 +1307,7 @@ def check_kernels(torch, fu, bench) -> dict:
             for dtype in (f32, bf16):
                 rows.append(bench.server_update(n, opt, dtype=dtype,
                                                 form="avg"))
+    bench.trials = 5
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not r["max_abs_err"] <= KERNEL_TOL
@@ -1318,6 +1348,7 @@ def check_upload_kernels(torch, bench) -> dict:
     the per-client form beside it."""
     rows = []
     fu = bench.fu
+    bench.trials = SWEEP_TRIALS
     for n in (N_SMALL, N_LARGE):
         for bits in (8, 16, 32):
             for topk in (False, True):
@@ -1341,6 +1372,7 @@ def check_upload_kernels(torch, bench) -> dict:
             for res in (False, True):
                 rows.append(bench.topk_compress(n, bits, res))
     rows.append(bench.topk_compress(cut + 1, 8, True))
+    bench.trials = 5
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and
@@ -1378,10 +1410,12 @@ def check_pod_kernels(torch, bench) -> dict:
     bitwise, then the pod path's shapes (returned): f32 with p (the
     sequential aggregate) and accum-only (compressed uploads, the
     hierarchical lanes)."""
+    bench.trials = SWEEP_TRIALS
     rows = [bench.delta_accum(n, dtype, with_p)
             for n in (N_SMALL, N_LARGE)
             for dtype in (torch.float32, torch.bfloat16)
             for with_p in (True, False)]
+    bench.trials = 5
     for r in rows:
         emit(dict(phase="kernel", **r))
     bad = [r for r in rows if not (r["bitwise"] and
@@ -1430,6 +1464,40 @@ def check_charlm_kernels(torch, bench) -> dict:
         raise SystemExit(f"chip_smoke: kernels at N {N_CHARLM} disagree with "
                          f"their plain versions or the threshold does not "
                          f"take its radix route: {bad}")
+    return out
+
+
+def check_llm_kernels(torch, bench) -> dict:
+    """Phase 2 at llm_lora's bf16 buckets (the shapes that phase gives
+    each kernel, returned, bitwise against their plain versions): K1 at
+    clip 1, no decay, no momentum on the LoRA bucket (N 6,307,840, P2)
+    and on the whole model's (N 1,106,356,224, P1; three trials of three
+    calls: the plain version moves ~26 GB a call); K2 over the host
+    engine's 4 clients; K3's FedAvgM aggregate form (the host engine)
+    and the pod's apply ("none", an f32 delta); K6 (bf16 w and p, the
+    f32 round delta)."""
+    bf16 = torch.bfloat16
+    out = {"local_step": bench.local_step(N_LORA, bf16, False, False,
+                                          wd=0.0, clip=1.0),
+           "weighted_delta": bench.weighted_delta(N_LORA, LLM_K, False,
+                                                  False, dtype=bf16),
+           "server_update": bench.server_update(N_LORA, "momentum",
+                                                dtype=bf16, form="avg"),
+           "server_update_none": bench.server_update(N_LORA, "none",
+                                                     dtype=bf16),
+           "delta_accum": bench.delta_accum(N_LORA, bf16, True)}
+    bench.trials, bench.reps = 3, 3
+    out["local_step_full"] = bench.local_step(N_TINYLLAMA, bf16, False,
+                                              False, wd=0.0, clip=1.0)
+    bench.trials, bench.reps = 5, 20
+    torch.cuda.empty_cache()
+    for r in out.values():
+        emit(dict(phase="kernel", path="llm_lora", **r))
+    bad = [k for k, r in out.items()
+           if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
+    if bad:
+        raise SystemExit(f"chip_smoke: bf16 kernels at llm_lora's buckets "
+                         f"disagree with their plain versions: {bad}")
     return out
 
 
@@ -1797,7 +1865,7 @@ def upload_launches(comp, uploads: int) -> dict:
 
 def upload_phase(torch, fu, phase: str, fed_kw: dict):
     """Phases p2_compressed / p2_private / p2_int8: the main path's
-    pipeline (P1 cut to 1 round, P2 FedAvgM 4 rounds × 10 clients) with
+    pipeline (P1 cut to 1 round, P2 FedAvgM 2 rounds × 10 clients) with
     the P2 upload of ``fed_kw``, through ``run_cyclic_then_federated``;
     launches, ledger and accuracy asserted, then a profiled P2 round and
     the kernels against the plain path.  Returns the launches and the P2
@@ -1815,7 +1883,7 @@ def upload_phase(torch, fu, phase: str, fed_kw: dict):
     task, data = lenet_setup()
     cyc = CyclicConfig(rounds=1, participation=0.25, local_steps=20,
                        batch_size=32, update_impl="fused", sampling="host")
-    fed = FLConfig(algorithm="fedavg", rounds=4, participation=0.1,
+    fed = FLConfig(algorithm="fedavg", rounds=2, participation=0.1,
                    local_steps=25, server_opt="momentum", update_impl="fused",
                    sampling="host", **fed_kw)
     fu.reset_launch_counts()
@@ -2051,7 +2119,7 @@ def dp_upload(torch, fu, params, fed_kw):
 
 def p2_rounds(torch, init) -> dict:
     """Phase p2_rounds: warm P2 rounds/s of the uncompressed, compressed
-    and private configurations from the same P1 params, 2 rounds a turn,
+    and private configurations from the same P1 params, 1 round a turn,
     in turns (each
     configuration twice, in the order a b c d d c b a), so a slow
     stretch of the host falls on all of them; the private configuration
@@ -2065,7 +2133,7 @@ def p2_rounds(torch, init) -> dict:
             "p2_private_device_sampling": dict(configs["p2_private"],
                                                sampling="device")}
     times = {name: [] for name in runs}
-    rounds = 2
+    rounds = 1
     for name in list(runs) + list(reversed(runs)):
         kw = dict(dict(sampling="host"), **runs[name])
         fed = FLConfig(algorithm="fedavg", rounds=rounds, participation=0.1,
@@ -2086,6 +2154,11 @@ def p2_rounds(torch, init) -> dict:
 # --- the paper's other models: CharLSTM-256 and CNN-Fashion -----------------
 
 N_CHARLM = 814_080         # CharLSTM-256's 813,632 params padded to 1024
+# tinyllama-1.1b + lora:8 (llm_lora): 1,100,048,384 base and 6,307,840
+# adapter params, all bf16: P1's one bucket holds both, P2's the adapters
+LLM_ARCH, LLM_PEFT, LLM_K = "tinyllama-1.1b", "lora:8", 4
+LLM_BASE, N_LORA = 1_100_048_384, 6_307_840
+N_TINYLLAMA = LLM_BASE + N_LORA       # a multiple of 1024: no pad lanes
 L2_FLUSH_BYTES = 256 << 20  # read before a cold-L2 call: 5x the H100's L2
 CHARLM_LR = 0.8            # see charlm_configs
 
@@ -2104,8 +2177,9 @@ def charlm_setup():
 
 
 def charlm_configs(impl: str = "fused", **fed_kw):
-    """P1 2 rounds × 7 clients (participation 0.1 of 66) × 10 steps, P2
-    FedAvgM 2 × 7 × 10, batch 32, host sampling.  The SGD step is
+    """P1 1 round × 7 clients (participation 0.1 of 66) × 10 steps, P2
+    FedAvgM 1 × 7 × 10, batch 32, host sampling (2 + 2 rounds before PR
+    23: cut to hold the script's time).  The SGD step is
     ``CHARLM_LR`` = 0.8, the Shakespeare LSTM's in LEAF and FedProx: at
     the configs' default 0.01 the loss moves by ~5e-3 in 280 steps (a
     CPU run of this phase)."""
@@ -2113,8 +2187,8 @@ def charlm_configs(impl: str = "fused", **fed_kw):
     from repro_torch.fl.simulation import FLConfig
     common = dict(participation=0.1, local_steps=10, batch_size=32,
                   lr=CHARLM_LR, update_impl=impl, sampling="host")
-    return (CyclicConfig(rounds=2, **common),
-            FLConfig(algorithm="fedavg", rounds=2, server_opt="momentum",
+    return (CyclicConfig(rounds=1, **common),
+            FLConfig(algorithm="fedavg", rounds=1, server_opt="momentum",
                      **common, **fed_kw))
 
 
@@ -2159,7 +2233,7 @@ def same_leaves(torch, a, b) -> bool:
 def charlm_path(torch, fu):
     """Phase charlm_path: the paper's CharLSTM-256 at full width through
     ``run_cyclic_then_federated`` (``charlm_configs``).  Asserted: K1
-    280, K2 2, K3 2 and no upload kernel; ledger == closed form; the
+    140, K2 1, K3 1 and no upload kernel; ledger == closed form; the
     P2 model's loss over the 512 test sequences below the init's (the
     P1 model's reported beside them); accuracy above chance (1/64); the
     pipeline cut to 1 P1 + 1 P2 round of 2 clients (the SGD step is
@@ -2248,10 +2322,10 @@ def charlm_compressed(torch, fu, init):
     """Phase charlm_compressed: charlm_path's P2 from its P1 params with
     the repo's compressed upload (``CompressionSpec(bits=8, density=0.25,
     error_feedback=True)``, ``benchmarks/table4_comm.py:47``).  The
-    bucket is above ``topk_cut()``, so each of the 14 uploads is the
+    bucket is above ``topk_cut()``, so each of the 7 uploads is the
     threshold's four radix launches and K4 alone with top-k and the
-    residual.  Asserted: ``topk_threshold`` 56, ``compress_delta`` 14,
-    ``topk_compress`` 0, K1 140, K2 2, K3 2; ledger == closed form;
+    residual.  Asserted: ``topk_threshold`` 28, ``compress_delta`` 7,
+    ``topk_compress`` 0, K1 70, K2 1, K3 1; ledger == closed form;
     then 1 round of 2 clients with update_impl "fused" and
     "fused_interpret" from the same init and draws: params and every
     client's EF residual row bitwise."""
@@ -2636,7 +2710,9 @@ def pod_vs_host(torch, mesh):
     plain = pods["fused_interpret"]
     bitwise = all(bool(torch.equal(a, b)) for a, b in
                   zip(pod[0] + pod[1], plain[0] + plain[1]))
+    charlm = charlm_pod_vs_host(torch, mesh)
     emit(dict(phase="pod_vs_host", rounds={"P1": 1, "P2": 1},
+              charlm=charlm,
               relay_tol="atol = rtol = 1e-6", aggregate_tol="atol = rtol = "
               "1e-4", relay_max_abs_diff=gap(pod[0], host[0]),
               relay_bitwise=all(bool(torch.equal(a, b))
@@ -2652,6 +2728,49 @@ def pod_vs_host(torch, mesh):
     if not bitwise:
         raise SystemExit("chip_smoke: the pod's kernels and plain path "
                          "disagree")
+    if not charlm["within_tol"]:
+        raise SystemExit(f"chip_smoke: CharLSTM on the pod and the host "
+                         f"engine disagree: {charlm}")
+
+
+def charlm_pod_vs_host(torch, mesh) -> dict:
+    """One CharLSTM-256 P2 FedAvgM round (charlm_path's shapes: batch 32,
+    10 steps, lr 0.8, cut to 2 clients) on the pod and on the host engine
+    from the same init and host-sampled draws, at the JAX package's
+    host↔pod tolerances: losses rtol 1e-5, params atol = rtol = 1e-4;
+    the eval stream's accuracy reported beside."""
+    import dataclasses
+    from repro_torch.fl.pod import PodFLConfig, PodFLSpec, run_pod_rounds
+    from repro_torch.fl.simulation import run_federated
+    from repro_torch.utils.tree_math import tree_leaves
+    task, data = charlm_setup()
+    init = task.init(torch.Generator().manual_seed(SEED))
+    _, fed = charlm_configs()
+    fed = dataclasses.replace(fed, rounds=1, participation=0.03,
+                              eval_every=1)
+    host = run_federated(task, data, fed, init_params=init)
+    pcfg = PodFLConfig(mesh, rounds=1, clients_per_round=2,
+                       spec=PodFLSpec(local_steps=fed.local_steps,
+                                      batch_size=fed.batch_size, lr=fed.lr,
+                                      server_opt="momentum",
+                                      update_impl="fused"),
+                       lr_decay=fed.lr_decay, eval_every=1,
+                       eval_batch=fed.eval_batch, seed=fed.seed,
+                       sampling="host")
+    pod = run_pod_rounds(task, data, pcfg, init_params=init)
+    pairs = list(zip(tree_leaves(pod.params), tree_leaves(host.params)))
+    losses = ([h["local_loss"] for h in pod.history],
+              [h["local_loss"] for h in host.history])
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-4) for a, b in pairs) \
+        and all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(*losses))
+    return dict(model="charlstm-256", clients=2, steps=fed.local_steps,
+                tol="params atol = rtol = 1e-4, losses rtol 1e-5",
+                within_tol=ok,
+                max_abs_diff=max(float((a - b).abs().max())
+                                 for a, b in pairs),
+                losses={"pod": losses[0], "host": losses[1]},
+                acc={"pod": pod.history[-1]["acc"],
+                     "host": host.history[-1]["acc"]})
 
 
 def pod_algorithms(torch, fu, mesh) -> int:
@@ -2731,12 +2850,12 @@ def pod_algorithms(torch, fu, mesh) -> int:
 
 def pod_rounds(torch, mesh, init) -> dict:
     """Phase pod_rounds: warm P2 rounds/s of the pod (sequential K6) and
-    of the host engine (K2) from the same P1 params, 2 rounds a turn, in
+    of the host engine (K2) from the same P1 params, 1 round a turn, in
     turns (a b b a)."""
     from repro_torch.fl.pod import run_pod_rounds
     from repro_torch.fl.simulation import FLConfig, run_federated
     task, data = lenet_setup()
-    rounds = 2
+    rounds = 1
     _, pfed = pod_configs(mesh, rounds=rounds)
     hfed = FLConfig(algorithm="fedavg", rounds=rounds, participation=0.1,
                     local_steps=25, server_opt="momentum",
@@ -2820,10 +2939,15 @@ def bitwise_runs(torch, a, b) -> bool:
     return all(bool(torch.equal(x, y)) for x, y in pairs)
 
 
+# client_store's parity runs: SGD steps per client (25 before PR 23; the
+# residency plan, the gates and the spills depend on the ids only)
+STORE_STEPS = 10
+
+
 def client_store(torch, fu, init, mesh) -> dict:
     """Phase client_store (M10).  Parity: the main path's LeNet-5 on
-    cifar10-like from its P1 params, P2 6 rounds × 10 clients × 25 steps,
-    chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
+    cifar10-like from its P1 params, P2 6 rounds × 10 clients ×
+    ``STORE_STEPS`` (10) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
     (int8 + top-k 25% + EF: the control variates AND the residual rows
     in sparse stores) and of MOON, each with the dense store and the
     synchronous loop, the sparse store (capacity 20 = chunk × K) and the
@@ -2832,8 +2956,8 @@ def client_store(torch, fu, init, mesh) -> dict:
     bitwise (params, losses, control variates, residual rows, moon's
     previous models through ``to_dense``; cuDNN deterministic), rows
     spilled and faulted back in under host sampling, launches per run K1
-    1,500 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2
-    6, 3 dispatches.  Scale: cnn_femnist
+    600 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
+    dispatches.  Scale: cnn_femnist
     on femnist-like at LEAF FEMNIST's 3,550 writers (n_train cut to
     227,200, 64 a writer), SCAFFOLD 2 rounds × 10 × 25, dense-sync
     against sparse-overlap at capacity 64, bitwise, each store's bytes
@@ -2852,15 +2976,15 @@ def client_store(torch, fu, init, mesh) -> dict:
     configs = {
         "scaffold_compressed": FLConfig(
             algorithm="scaffold", rounds=6, participation=0.1,
-            local_steps=25, batch_size=32, update_impl="fused",
+            local_steps=STORE_STEPS, batch_size=32, update_impl="fused",
             sampling="host", chunk_size=2, compression=comp),
         "moon": FLConfig(
-            algorithm="moon", rounds=6, participation=0.1, local_steps=25,
-            batch_size=32, update_impl="fused", sampling="host",
-            chunk_size=2),
+            algorithm="moon", rounds=6, participation=0.1,
+            local_steps=STORE_STEPS, batch_size=32, update_impl="fused",
+            sampling="host", chunk_size=2),
         "scaffold_device_sampling": FLConfig(
             algorithm="scaffold", rounds=6, participation=0.1,
-            local_steps=25, batch_size=32, update_impl="fused",
+            local_steps=STORE_STEPS, batch_size=32, update_impl="fused",
             sampling="device", chunk_size=2)}
     modes = {"dense_sync": (False, False), "sparse_sync": (True, False),
              "sparse_overlap": (True, True)}
@@ -2875,7 +2999,7 @@ def client_store(torch, fu, init, mesh) -> dict:
                 store=SparseClientStateStore(capacity=20) if sparse else None)
             launches = all_launches(fu)
             c_launches = fu.local_step.c_launches
-            steps = 6 * 10 * 25
+            steps = 6 * 10 * STORE_STEPS
             want = {"local_step": steps, "weighted_delta": 6,
                     "server_update": 0, "compress_delta": 0,
                     "topk_threshold": 0, "dp_clip_noise": 0,
@@ -2958,7 +3082,7 @@ def client_store(torch, fu, init, mesh) -> dict:
         bad.append("pod: the sparse store differs from the dense one")
     restore_cudnn(torch, flags)
     emit(dict(phase="client_store", model="lenet5", rounds=6, clients=10,
-              local_steps=25, chunk=2, capacity=20, **out))
+              local_steps=STORE_STEPS, chunk=2, capacity=20, **out))
     if bad:
         raise SystemExit(f"chip_smoke: client_store: {bad}")
     return out
@@ -3116,6 +3240,249 @@ def landscape(torch, states: dict, card: str = "cuda") -> dict:
         raise SystemExit(f"chip_smoke: landscape: the card and the CPU "
                          f"disagree or a value is not finite: {bad}")
     return rows
+
+
+# --- federated LM training with LoRA through run_pod_training ---------------
+
+def llm_setup():
+    """tinyllama-1.1b with rank-8 LoRA adapters at full width and depth
+    (22 layers, d_model 2048, 32 heads over 4 KV heads, d_ff 5632, vocab
+    32000, bf16, random weights from the seed) and the example's data:
+    ``make_synthetic_tokenlm(n_clients=16, seq_len=128,
+    n_seq_per_client=32, vocab=32000, beta=0.5)``, made on the host
+    (seconds returned)."""
+    from repro_torch.configs import get_config, with_peft
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+    cfg = with_peft(get_config(LLM_ARCH), LLM_PEFT)
+    t0 = time.perf_counter()
+    data = make_synthetic_tokenlm(n_clients=16, seq_len=128,
+                                  n_seq_per_client=32, vocab=cfg.vocab_size,
+                                  beta=0.5, seed=SEED)
+    return cfg, data, time.perf_counter() - t0
+
+
+def stream_mean(torch, metric, params, data, batch: int = 16) -> float:
+    """The engine's eval stream by hand: ``metric``'s per-sample values
+    over the whole test set, weighted (pad 0), on the card."""
+    from repro_torch.fl.engine import batch_test_set
+    ev_x, ev_y, ev_w = batch_test_set(data.test_x, data.test_y, batch)
+    tot = 0.0
+    with torch.no_grad():
+        for b in range(ev_x.shape[0]):
+            v = metric(params, torch.as_tensor(ev_x[b]).cuda(),
+                       torch.as_tensor(ev_y[b]).cuda().long())
+            tot += float(torch.sum(v * torch.as_tensor(ev_w[b]).cuda()))
+    return tot / float(ev_w.sum())
+
+
+def ulp_close(torch, a, b, n_ulp: int = 2) -> bool:
+    """bf16 trees within ``n_ulp`` units in the last place of each other
+    (|a − b| ≤ n_ulp · 2⁻⁷ · |b|, or both below 1e-30)."""
+    from repro_torch.utils.tree_math import tree_leaves
+    return all(bool(torch.all((x.float() - y.float()).abs() <=
+                              n_ulp * 2.0 ** -7 * y.float().abs() + 1e-30))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def llm_lora(torch, fu, mesh) -> dict:
+    """Phase llm_lora: federated next-token training of tinyllama-1.1b +
+    lora:8 (``llm_setup``) through ``launch.train.run_pod_training`` on
+    the one-rank NCCL mesh, the example's settings with 2 P2 rounds:
+    P1 1 round × 4 clients × 4 steps relaying the whole model (one bf16
+    bucket of 1,106,356,224), P2 2 rounds × 4 × 4 on the adapter bucket
+    (6,307,840), batch 8, lr 0.03, the example's per-sequence loss as
+    the eval metric every round (batch 16).  Asserted: K1 16 in P1
+    (its launches at P1's evaluation, the one before P2 starts), K1 32,
+    K6 8, K3 2 and K2 0 in P2, no upload kernel; every frozen leaf after
+    P2 bitwise P1's end value, every adapter leaf moved; the ledger's
+    upload per client the adapter slice's bytes (12,615,680); the eval
+    loss finite and P2's last below the init's; one P2 round under
+    "fused" bitwise the same round under "fused_interpret"; one P2
+    FedAvgM round of the host engine (AggregateStrategy: K2 and K3's
+    aggregate form) against the pod's from P1's params, losses
+    bitwise and params within 2 bf16 ulps (the two sum the f32 client
+    deltas in another order before rounding to bf16, and the momentum
+    step then differences values one ulp apart).  Reported: ms per SGD
+    step of a warm P1 round of one client and of a profiled warm P2
+    round (device ops per step, busy share), peak memory, seconds."""
+    import dataclasses
+    from repro_torch.configs import param_count
+    from repro_torch.fl.engine import (AggregateStrategy, RoundSchedule,
+                                       run_rounds)
+    from repro_torch.fl.local import LocalSpec
+    from repro_torch.fl.pod import (PodCyclicConfig, PodFLConfig,
+                                    run_pod_rounds)
+    from repro_torch.fl.task import lm_task
+    from repro_torch.launch.train import (PodFLSpec, run_pod_training,
+                                          sequence_loss_metric)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.utils.flatten import FlatView
+    from repro_torch.utils.tree_math import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cfg, data, data_s = llm_setup()
+    task = lm_task(cfg)
+    shapes = task.shapes()
+    mask = rules.trainable_mask(shapes, "lora")
+    p1_view = FlatView.of(shapes)
+    p2_view = FlatView.of(shapes, filter=mask)
+    n_params = param_count(cfg)
+    if (n_params, p1_view.buffer_sizes, p2_view.buffer_sizes) != (
+            N_TINYLLAMA, {"bfloat16": N_TINYLLAMA}, {"bfloat16": N_LORA}):
+        raise SystemExit(f"chip_smoke: tinyllama-1.1b + lora:8 has "
+                         f"{n_params} params, buckets "
+                         f"{p1_view.buffer_sizes} / {p2_view.buffer_sizes}")
+    spec = PodFLSpec(local_steps=4, batch_size=8, lr=0.03,
+                     update_impl="fused", peft=LLM_PEFT)
+    metric = sequence_loss_metric(cfg)
+    p1_launches = {}
+
+    def eval_fn(params, bx, by):
+        # P1's one round evaluates before P2 starts: its launches so far
+        if not p1_launches:
+            p1_launches.update(all_launches(fu))
+        return metric(params, bx, by)
+
+    init = init_lm(cfg, SEED, "cuda")
+    init_loss = stream_mean(torch, metric, init, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fu.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_pod_training(cfg, data, cyclic_rounds=1, fl_rounds=2,
+                           clients_per_round=LLM_K, spec=spec, mesh=mesh,
+                           seed=SEED, eval_fn=eval_fn, eval_batch=16,
+                           init_params=init)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches(fu)
+    p2_launches = {k: launches[k] - p1_launches[k] for k in launches}
+    zero = dict.fromkeys(launches, 0)
+    want_p1 = dict(zero, local_step=1 * LLM_K * 4)
+    want_p2 = dict(zero, local_step=2 * LLM_K * 4, delta_accum=2 * LLM_K,
+                   server_update=2)
+    p1 = res.schedule.phases[0].result.params
+    frozen_ok, moved = True, 0
+    for a, b, m in zip(tree_leaves(p1), tree_leaves(res.params), mask):
+        if m:
+            moved += int(not torch.equal(a, b))
+        else:
+            frozen_ok &= bool(torch.equal(a, b))
+    led = res.schedule.ledger
+    per_client = led.p2_upload_bytes // (2 * LLM_K)
+    closed = 2 * N_LORA
+    evals = [h["eval"] for h in res.history]
+
+    # the kernels against their plain versions: one P2 round each way
+    def p2_round(impl, **kw):
+        c = PodFLConfig(mesh, rounds=1, clients_per_round=LLM_K, seed=SEED +
+                        17, spec=dataclasses.replace(spec, update_impl=impl,
+                                                     **kw))
+        return run_pod_rounds(task, data, c, init_params=p1)
+    fu.reset_launch_counts()
+    fused = p2_round("fused")
+    bitwise = same_leaves(torch, fused.params,
+                          p2_round("fused_interpret").params)
+    del fused
+
+    # the host engine against the pod: one FedAvgM round from P1's params
+    fu.reset_launch_counts()
+    pod_m = p2_round("fused", server_opt="momentum")
+    pod_launches = all_launches(fu)
+    fu.reset_launch_counts()
+    host = run_rounds(task, data, AggregateStrategy(
+        spec=LocalSpec(n_steps=4, batch_size=8, lr=0.03, update_impl="fused",
+                       peft=LLM_PEFT),
+        participation=LLM_K / data.n_clients, server_opt="momentum"),
+        RoundSchedule(rounds=1, lr_decay=1.0, eval_every=0, seed=SEED + 17,
+                      chunk_size=4), init_params=p1)
+    host_launches = all_launches(fu)
+    host_loss_bitwise = [h["local_loss"] for h in host.history] == \
+        [h["local_loss"] for h in pod_m.history]
+    host_ok = ulp_close(torch, host.params, pod_m.params)
+    host_gap = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(tree_leaves(host.params), tree_leaves(pod_m.params)))
+    host_bitwise = same_leaves(torch, host.params, pod_m.params)
+    del host, pod_m
+
+    # warm timings: a P1 round of one client, a profiled P2 round
+    c1 = PodCyclicConfig(mesh, rounds=1, clients_per_round=1, seed=SEED,
+                         spec=dataclasses.replace(spec, peft=None))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_pod_rounds(task, data, c1, init_params=p1, phase="P1")
+    torch.cuda.synchronize()
+    p1_step_ms = (time.perf_counter() - t0) * 1e3 / 4
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p2_round("fused")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, top = device_activity(prof, n_top=8)
+    steps = LLM_K * 4
+    emit(dict(phase="llm_lora", model=f"{LLM_ARCH} + {LLM_PEFT}",
+              params=n_params, base_params=LLM_BASE, adapter_params=N_LORA,
+              p1_bucket=N_TINYLLAMA, p2_bucket=N_LORA, dtype="bfloat16",
+              dataset="make_synthetic_tokenlm(16 clients, 32 x 128, vocab "
+              "32000, beta 0.5)", data_s=data_s,
+              history=res.history, init_eval_loss=init_loss, run_s=run_s,
+              launches_p1=p1_launches, expected_p1=want_p1,
+              launches_p2=p2_launches, expected_p2=want_p2,
+              frozen_bitwise=frozen_ok, adapters_moved=moved,
+              adapter_leaves=sum(mask), ledger=led.summary(),
+              upload_bytes_per_client=per_client,
+              upload_closed_form=closed,
+              upload_ratio=led.summary()["payload_ratio"],
+              fused_equals_plain_bitwise=bitwise,
+              host_vs_pod=dict(server_opt="momentum", rounds=1,
+                               tol="2 bf16 ulps", within_tol=host_ok,
+                               bitwise=host_bitwise, max_abs_diff=host_gap,
+                               losses_bitwise=host_loss_bitwise,
+                               host_launches=host_launches,
+                               pod_launches=pod_launches),
+              p1_ms_per_sgd_step=p1_step_ms,
+              profiled_p2_round=dict(
+                  sgd_steps=steps, wall_ms=wall_us / 1e3,
+                  ms_per_step=wall_us / 1e3 / steps,
+                  device_busy_ms=busy / 1e3,
+                  device_busy_share=busy / wall_us if n_ops else None,
+                  device_ops=n_ops, device_ops_per_step=n_ops / steps,
+                  top_device_ops=top),
+              peak_memory_bytes=peak,
+              phase_s=time.perf_counter() - t_phase))
+    if p1_launches != want_p1 or p2_launches != want_p2:
+        raise SystemExit(f"chip_smoke: llm_lora launches P1 {p1_launches} "
+                         f"P2 {p2_launches}")
+    if not frozen_ok or moved != sum(mask):
+        raise SystemExit(f"chip_smoke: llm_lora frozen leaves changed "
+                         f"({frozen_ok}) or adapters did not move "
+                         f"({moved}/{sum(mask)})")
+    if per_client != closed or led.p2_upload_bytes != 2 * LLM_K * closed:
+        raise SystemExit(f"chip_smoke: llm_lora upload bytes {per_client} "
+                         f"!= the adapter slice's {closed}")
+    if not (all(math.isfinite(e) for e in evals) and evals[-1] < init_loss):
+        raise SystemExit(f"chip_smoke: llm_lora eval loss {evals} did not "
+                         f"fall below the init's {init_loss}")
+    if not bitwise:
+        raise SystemExit("chip_smoke: llm_lora's kernels and plain path "
+                         "disagree")
+    if not (host_ok and host_loss_bitwise):
+        raise SystemExit("chip_smoke: llm_lora's host engine and pod "
+                         "disagree")
+    if host_launches["weighted_delta"] != 1 or \
+            host_launches["server_update"] != 1:
+        raise SystemExit(f"chip_smoke: the host engine's P2 round launched "
+                         f"{host_launches}")
+    if not n_ops:
+        raise SystemExit("chip_smoke: the profiler saw no device op")
+    del res, p1, init
+    torch.cuda.empty_cache()
+    return dict(p1=p1_launches, p2=p2_launches, host=host_launches,
+                all={k: p1_launches[k] + p2_launches[k] for k in launches})
 
 
 def deterministic_cudnn(torch):
@@ -3391,6 +3758,7 @@ def main(argv=None) -> int:
     upload_shapes = check_upload_kernels(torch, bench)
     pod_shapes = check_pod_kernels(torch, bench)
     charlm_shapes = check_charlm_kernels(torch, bench)
+    llm_shapes = check_llm_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches, p1_params, main_res = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
@@ -3417,6 +3785,7 @@ def main(argv=None) -> int:
     client_store(torch, fu, p1_params, mesh)
     landscape(torch, fig7_states(torch, main_res))
     del main_res
+    llm_launches = llm_lora(torch, fu, mesh)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens)
     k8_kernels = serve_profile(torch, eng, prompt)
@@ -3548,6 +3917,40 @@ def main(argv=None) -> int:
                                        "bound_ms", "bound_by", "library_ms",
                                        "library_note")},
         shape="N 137,216 f32, with p", path="pod_path", pdl=True))
+    # the bf16 instances of K1, K2, K3 and K6 at llm_lora's buckets, with
+    # their launches there: K1 over the whole model in P1 and over the
+    # adapters in P2, K6 and K3's apply in the pod's P2, K2 and K3's
+    # aggregate form in the host engine's FedAvgM round
+    bf16_rows = {
+        "local_step": ("local_step", llm_launches["all"]["local_step"],
+                       "run_pod_training P1 + P2, N 6,307,840 (P2) and "
+                       "1,106,356,224 (P1)"),
+        "weighted_delta": ("weighted_delta",
+                           llm_launches["host"]["weighted_delta"],
+                           "the host engine's P2 round (K 4)"),
+        "server_update": ("server_update", llm_launches["host"][
+            "server_update"], "the host engine's FedAvgM aggregate form"),
+        "delta_accum": ("delta_accum", llm_launches["all"]["delta_accum"],
+                        "run_pod_training P2, with p, f32 d"),
+    }
+    for k in kernels:
+        if k["name"] in bf16_rows:
+            key, n_launch, where = bf16_rows[k["name"]]
+            r = llm_shapes[key]
+            k["bf16_form"] = dict({t: r[t] for t in timing}, n=r["n"],
+                                  launches=n_launch, path="llm_lora",
+                                  where=where)
+    k1 = next(k for k in kernels if k["name"] == "local_step")
+    r = llm_shapes["local_step_full"]
+    k1["bf16_form"]["full_model"] = dict({t: r[t] for t in timing},
+                                         n=r["n"],
+                                         launches=llm_launches["p1"][
+                                             "local_step"])
+    k3 = next(k for k in kernels if k["name"] == "server_update")
+    r = llm_shapes["server_update_none"]
+    k3["bf16_form"]["none"] = dict({t: r[t] for t in timing}, n=r["n"],
+                                   launches=llm_launches["all"][
+                                       "server_update"])
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"

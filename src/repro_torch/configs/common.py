@@ -4,13 +4,13 @@ arch registry and the assigned input shapes.
 The port keeps its own copy: it imports nothing of the JAX package.
 Each arch module registers a ``(config, reduced)`` pair of factories;
 ``param_count`` counts a config's parameters on the ``meta`` device, so
-nothing is allocated.
+nothing is allocated; ``with_peft`` adds LoRA adapters to a config.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.models.transformer import TransformerConfig, init_lm
 from repro_torch.utils.registry import Registry
@@ -57,6 +57,20 @@ def list_archs():
     return ARCHS.names()
 
 
+def with_peft(cfg: TransformerConfig, peft: Optional[str]
+              ) -> TransformerConfig:
+    """Apply a PEFT spec to an arch config: ``"lora:<r>"`` builds the
+    model with rank-``r`` adapters on every attention and MLP projection,
+    so the "lora" trainable filter has leaves to match.  ``None`` is the
+    identity."""
+    if peft is None:
+        return cfg
+    from repro_torch.fl.local import parse_peft
+    _, rank = parse_peft(peft)
+    return dataclasses.replace(cfg, lora_rank=rank)
+
+
 def param_count(cfg: TransformerConfig) -> int:
+    """Every leaf's elements, LoRA adapters included."""
     params = init_lm(cfg, device="meta")
     return sum(math.prod(t.shape) for t in tree_leaves(params))

@@ -98,11 +98,13 @@ def run_phase_schedule(task: Task, data: FederatedDataset,
                        phases: Sequence[Phase],
                        verbose: bool = False,
                        ledger: Optional[CommLedger] = None,
-                       device: Device = None) -> ScheduleResult:
+                       device: Device = None,
+                       init_params=None) -> ScheduleResult:
     """Run ``phases`` in order on ``device``, each starting from the
-    previous phase's final params, under one communication ledger."""
+    previous phase's final params (the first from ``init_params``, or
+    its runner's seeded init), under one communication ledger."""
     ledger = ledger if ledger is not None else CommLedger()
-    params = None
+    params = init_params
     results: List[PhaseResult] = []
     for ph in phases:
         _, runner = _lookup_runner(ph.cfg)

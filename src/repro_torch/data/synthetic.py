@@ -13,8 +13,9 @@ seeds, so every array is byte-identical to the JAX package's:
            Shakespeare stand-in, ``shakespeare-like``): each client's
            chain mixes a global transition matrix with its own, so the
            split is naturally non-IID.
-
-The tokenlm family is not ported yet (ROADMAP.md item M12).
+- tokenlm: token streams for the LLM-class archs (``tokenlm-bigram``):
+           bigram topic teachers over a bucketed vocab, each client
+           sampling from its own Dirichlet mixture of topics.
 """
 from __future__ import annotations
 
@@ -124,6 +125,68 @@ def make_synthetic_charlm(
     )
 
 
+def make_synthetic_tokenlm(
+    n_clients: int,
+    seq_len: int,
+    n_seq_per_client: int,
+    vocab: int,
+    n_topics: int = 8,
+    beta: float = 0.5,
+    n_test: int = 64,
+    seed: int = 0,
+) -> FederatedDataset:
+    """Token-LM federated data for the LLM-class architectures.
+
+    A set of ``n_topics`` bigram teachers; each client draws a topic
+    mixture from Dir(beta) (non-IID across clients) and samples token
+    streams from its mixture — CyclicFL's P1/P2 both consume this.
+    """
+    rng = np.random.default_rng(seed)
+    # topic chains over a *bucketed* vocab to keep memory bounded for huge vocabs
+    bucket = min(vocab, 4096)
+
+    def row_norm(m):
+        return m / m.sum(axis=1, keepdims=True)
+
+    chains = np.stack([
+        row_norm(rng.dirichlet(np.full(bucket, 0.05), size=bucket))
+        for _ in range(n_topics)
+    ])
+    cdfs = np.cumsum(chains, axis=2)
+
+    def sample(topic_probs, n, L, r):
+        out = np.empty((n, L), dtype=np.int32)
+        topics = r.choice(n_topics, size=n, p=topic_probs)
+        state = r.integers(0, bucket, size=n)
+        for t in range(L):
+            out[:, t] = state
+            u = r.random(n)
+            rowcdf = cdfs[topics, state]  # (n, bucket)
+            state = (u[:, None] < rowcdf).argmax(axis=1)
+        if vocab > bucket:
+            # spread bucketed ids over the true vocab deterministically
+            out = out * (vocab // bucket) + (out % (vocab // bucket))
+        return out
+
+    xs = []
+    for cid in range(n_clients):
+        r = np.random.default_rng(seed + 500 + cid)
+        mix = r.dirichlet(np.full(n_topics, beta))
+        xs.append(sample(mix, n_seq_per_client, seq_len + 1, r))
+    x = np.stack(xs)
+    test = sample(np.full(n_topics, 1.0 / n_topics), n_test, seq_len + 1,
+                  np.random.default_rng(seed + 9))
+    return FederatedDataset(
+        x=x[:, :, :-1],
+        y=x[:, :, 1:],
+        n_real=np.full(n_clients, n_seq_per_client, dtype=np.int64),
+        test_x=test[:, :-1],
+        test_y=test[:, 1:],
+        n_classes=vocab,
+        name="synthetic-tokenlm",
+    )
+
+
 @DATASETS.register("cifar10-like")
 def _cifar10_like(n_clients: int = 100, beta: Optional[float] = 0.5, seed: int = 0,
                   n_train: int = 20000, n_test: int = 2000,
@@ -184,3 +247,15 @@ def _femnist_like(n_clients: int = 190, beta: Optional[float] = 0.3, seed: int =
 def _shakespeare_like(n_clients: int = 66, seed: int = 0,
                       **kw) -> FederatedDataset:
     return make_synthetic_charlm(n_clients=n_clients, seed=seed, **kw)
+
+
+# token-LM stream for the pod backend / LLM-class archs: registered so
+# benchmarks and CLIs can stream per-round batches by dataset name
+@DATASETS.register("tokenlm-bigram")
+def _tokenlm_bigram(n_clients: int = 16, seed: int = 0, seq_len: int = 64,
+                    n_seq_per_client: int = 64, vocab: int = 256,
+                    beta: float = 0.5, n_test: int = 64) -> FederatedDataset:
+    return make_synthetic_tokenlm(
+        n_clients=n_clients, seq_len=seq_len,
+        n_seq_per_client=n_seq_per_client, vocab=vocab, beta=beta,
+        n_test=n_test, seed=seed)

@@ -57,6 +57,13 @@ tests inject the JAX package's threefry draws through it).
 buffers, stacked client end states and new params (``chip_smoke.py``
 rebuilds a private round's uploads from them).
 
+A trainable slice (``spec.peft`` / ``spec.trainable_filter``, fused
+paths, P2 only) makes every buffer above the trainable buckets only;
+the frozen buckets are packed and placed once per phase, never padded
+or handed to a kernel, and reach each round as ``RoundInputs.frozen``,
+merged into the model at the loss and the eval.  The ledger's upload is
+then the slice's bytes.
+
 Per-client state rows live in a store: :class:`DenseClientStateStore`
 (an ``(n_clients, ...)`` stack on the device) or
 :class:`SparseClientStateStore` (a ``capacity``-row table of the
@@ -88,6 +95,7 @@ from repro_torch.fl.local import (
     FlatParamOps,
     LocalSpec,
     Sample,
+    effective_trainable_filter,
     host_flat_ops,
     make_local_fn,
     param_shapes,
@@ -132,11 +140,16 @@ def _logical_model_bytes(task: Task) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _upload_payload_bytes(task: Task, comp) -> int:
+def _upload_payload_bytes(task: Task, comp,
+                          filter_spec: Optional[str] = None) -> int:
     """Closed-form wire bytes of ONE client's upload over the task's
-    logical flat bucket sizes (compressed when ``comp`` is lossy, else
-    the dtype bytes of every bucket)."""
-    view = FlatView.of(param_shapes(task))
+    logical TRAINABLE flat bucket sizes (compressed when ``comp`` is
+    lossy, else the dtype bytes of every bucket).  Under a trainable
+    filter the frozen leaves never reach the wire."""
+    from repro_torch.sharding import rules
+    shapes = param_shapes(task)
+    view = FlatView.of(shapes,
+                       filter=rules.trainable_mask(shapes, filter_spec))
     if compression.compression_on(comp):
         return compression.payload_bytes(comp,
                                          tuple(view.buffer_sizes.values()))
@@ -171,6 +184,9 @@ class RoundInputs:
     host_ids: Optional[List[int]] = None    # the ids on the host, if known
     # (inputs, params, stacked, new_params) -> None, after the aggregate
     on_aggregate: Optional[Callable[..., None]] = None
+    # the phase's read-only frozen buckets (a trainable filter's), merged
+    # into the model at the loss; None without a filter
+    frozen: Optional[Dict[str, torch.Tensor]] = None
 
     def id_list(self) -> List[int]:
         """The client ids as host integers (the privacy draws are keyed
@@ -642,7 +658,8 @@ class HostBackend:
         if self.spec.update_impl == "tree":
             return None
         return host_flat_ops(task, ops.fused_interpret(self.spec.update_impl),
-                             torch.device(device))
+                             torch.device(device),
+                             effective_trainable_filter(self.spec))
 
     def n_selected(self, n_clients: int) -> int:
         return max(1, int(round(self.participation * n_clients)))
@@ -769,6 +786,13 @@ class RelayStrategy(HostBackend):
             raise ValueError("RelayStrategy (P1) relays the model itself; "
                              "lossy compression applies to P2 round "
                              "deltas only")
+        # ... and the relay hops the FULL model: a trainable-slice filter
+        # would freeze most of what P1 exists to pre-train
+        if self.spec.peft is not None or \
+                self.spec.trainable_filter is not None:
+            raise ValueError("RelayStrategy (P1) relays the full model; "
+                             "peft/trainable_filter applies to P2 rounds "
+                             "only")
 
     def init_state(self, task: Task, params: Pytree, n_clients: int) -> Dict:
         return {}
@@ -783,7 +807,8 @@ class RelayStrategy(HostBackend):
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
             losses = []
             for slot in range(inputs.ids.shape[0]):
-                params, loss = local(params, inputs.sampler(slot), lr_scale)
+                params, loss = local(params, inputs.sampler(slot), lr_scale,
+                                     None, inputs.frozen)
                 losses.append(loss)
             return params, algo_state, torch.stack(losses).mean()
 
@@ -1032,7 +1057,8 @@ class AggregateStrategy(HostBackend):
             fused_aggregate(fops, params, stacked, inputs.weights), state)
 
     def client_state(self, fops: Optional[FlatParamOps], params: Pytree,
-                     ids: torch.Tensor, lr_scale, algo_state: Dict
+                     ids: torch.Tensor, lr_scale, algo_state: Dict,
+                     frozen: Optional[Dict] = None
                      ) -> Tuple[Callable[[int], Dict], Callable]:
         """One round of the algorithm's per-client state, in the engine's
         representation (trees, or flat buffers when ``fops`` is given).
@@ -1050,7 +1076,8 @@ class AggregateStrategy(HostBackend):
           moon     : the clients' previous local models gathered; their
                      end states scattered back."""
         algo, spec, store = self.algorithm, self.spec, self.state_store
-        unpack = fops.unflatten if fops is not None else (lambda t: t)
+        unpack = ((lambda b: fops.unflatten(b, frozen)) if fops is not None
+                  else (lambda t: t))
 
         def row(tree, slot):
             return tm.tree_map(lambda t: t[slot], tree)
@@ -1097,7 +1124,8 @@ class AggregateStrategy(HostBackend):
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
             K = inputs.ids.shape[0]
             extras_of, update = self.client_state(fops, params, inputs.ids,
-                                                  lr_scale, algo_state)
+                                                  lr_scale, algo_state,
+                                                  inputs.frozen)
             losses = []
             if fops is None:
                 ends = []
@@ -1114,7 +1142,7 @@ class AggregateStrategy(HostBackend):
                     for k, r in row.items():
                         r.copy_(params[k])
                     _, loss = local(row, inputs.sampler(slot), lr_scale,
-                                    extras_of(slot))
+                                    extras_of(slot), inputs.frozen)
                     losses.append(loss)
             algo_state = update(stacked)
             new_params, algo_state = aggregate(inputs, params, stacked,
@@ -1127,8 +1155,12 @@ class AggregateStrategy(HostBackend):
 
     def record(self, ledger, k: int, params: Pytree, task: Task) -> None:
         comp = self.spec.compression
-        payload = (_upload_payload_bytes(task, comp)
-                   if compression.compression_on(comp) else None)
+        filt = effective_trainable_filter(self.spec)
+        # the upload departs from the full model X whenever the wire
+        # carries less: compressed deltas, a trainable slice, or both
+        payload = (_upload_payload_bytes(task, comp, filt)
+                   if compression.compression_on(comp) or filt is not None
+                   else None)
         ledger.record_round(self.algorithm, k, params,
                             secure_agg=self.spec.secure_agg,
                             x_bytes=_logical_model_bytes(task),
@@ -1299,10 +1331,15 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     if init_params is None:
         init_params = task.init(seeded_generator(schedule.seed))
     fops = strategy.flat_ops(task, dev)
+    # a trainable filter's frozen buckets: placed once, read only, never
+    # padded or handed to a kernel, merged at the loss and the eval
+    frozen = None
     if fops is None:
         params = strategy.place_params(init_params, dev)
     else:
         params = fops.place(fops.flatten(init_params))
+        if fops.view.frozen_sizes:
+            frozen = fops.place_frozen(fops.flatten_frozen(init_params))
 
     n_clients = data.n_clients
     K = strategy.n_selected(n_clients)
@@ -1389,7 +1426,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
 
     @torch.no_grad()
     def evaluate(p) -> torch.Tensor:
-        tree = fops.unflatten(p) if fops is not None else p
+        tree = fops.unflatten(p, frozen) if fops is not None else p
         ev_x, ev_y, ev_w = ev
         tot = torch.zeros((), dtype=torch.float32, device=dev)
         for b in range(ev_x.shape[0]):
@@ -1479,7 +1516,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                 draws=round_draws(rnd),
                 host_ids=[int(i) for i in plan.ids_np[j]],
                 on_aggregate=None if schedule.on_aggregate is None else
-                functools.partial(schedule.on_aggregate, rnd))
+                functools.partial(schedule.on_aggregate, rnd), frozen=frozen)
             new_params, algo_state, loss = body(params, inputs,
                                                 plan.lr_scales[j], algo_state)
             if server is not None:
@@ -1545,7 +1582,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     timing["spill_materialize_ms"] = stores_ms("spill_materialize_ms") - \
         spill_ms0
     if fops is not None:                # EngineResult speaks trees
-        params = fops.unflatten(params)
+        params = fops.unflatten(params, frozen)
         server_state = unpack_server_state(fops, server_state)
     return EngineResult(params=params, history=history,
                         algo_state=algo_state, server_state=server_state,

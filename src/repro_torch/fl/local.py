@@ -70,6 +70,50 @@ def validate_update_impl(update_impl: str) -> str:
     return update_impl
 
 
+def parse_peft(peft: str) -> Tuple[str, int]:
+    """``"lora:<r>"`` → ``("lora", r)``; anything else raises."""
+    kind, sep, rank_s = peft.partition(":")
+    if not sep or kind != "lora":
+        raise ValueError(f"unknown peft spec {peft!r} "
+                         f"(expected 'lora:<rank>')")
+    try:
+        rank = int(rank_s)
+    except ValueError:
+        raise ValueError(f"lora rank must be a positive integer, "
+                         f"got {rank_s!r}") from None
+    if rank <= 0:
+        raise ValueError(f"lora rank must be a positive integer, got {rank}")
+    return kind, rank
+
+
+def validate_peft(peft: Optional[str], *,
+                  trainable_filter: Optional[str] = None,
+                  update_impl: str = "tree") -> Optional[str]:
+    """Construction-time checks for the trainable-slice knobs: the peft
+    spec must parse, and either knob needs the fused flat path — the
+    tree path has no trainable/frozen partition."""
+    if peft is not None:
+        parse_peft(peft)
+    if (peft is not None or trainable_filter is not None) \
+            and update_impl == "tree":
+        raise ValueError(
+            "peft/trainable_filter needs the fused flat path "
+            "(update_impl='fused'|'fused_interpret') — the tree backend "
+            "has no trainable-slice partition")
+    return peft
+
+
+def effective_trainable_filter(spec: "LocalSpec") -> Optional[str]:
+    """The filter a round runs under: an explicit ``trainable_filter``
+    wins; otherwise ``peft`` implies the named ``"lora"`` filter; None
+    means every leaf trains."""
+    if spec.trainable_filter is not None:
+        return spec.trainable_filter
+    if spec.peft is not None:
+        return "lora"
+    return None
+
+
 def not_ported(option: str, item: str):
     """Raise for an option the port does not run yet, naming the
     ROADMAP.md item that will bring it."""
@@ -96,11 +140,22 @@ class LocalSpec:
     dp: Optional[DPSpec] = None
     secure_agg: bool = False
     compression: Optional[CompressionSpec] = None
+    # the trainable slice (PEFT): peft="lora:<r>" declares the model's
+    # LoRA adapters of rank r and implies the "lora" filter;
+    # trainable_filter names a filter of
+    # repro_torch.sharding.rules.TRAINABLE_FILTERS (or is a path regex).
+    # Either makes the fused path — gradients, step tail, aggregation,
+    # server moments, uploads — run over the trainable buckets only; the
+    # frozen leaves ride outside as a read-only constant
+    peft: Optional[str] = None
+    trainable_filter: Optional[str] = None
 
     def __post_init__(self):
         validate_update_impl(self.update_impl)
         validate_compression(self.compression, dp=self.dp,
                              secure_agg=self.secure_agg)
+        validate_peft(self.peft, trainable_filter=self.trainable_filter,
+                      update_impl=self.update_impl)
         if self.variant not in VARIANTS:
             raise ValueError(f"unknown variant {self.variant!r} "
                              f"(choose from {VARIANTS})")
@@ -142,8 +197,26 @@ class FlatParamOps:
     def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
         return self.view.flatten(tree)
 
-    def unflatten(self, bufs: Dict[str, torch.Tensor]) -> Pytree:
-        return self.view.unflatten(bufs)
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  frozen: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Pytree:
+        """The tree from the trainable buffers, merging ``frozen`` (the
+        frozen buckets zero-fill when absent: right for moments)."""
+        return self.view.unflatten(bufs, frozen)
+
+    # -- the frozen bucket (filtered views; empty without a filter) --------
+
+    def flatten_frozen(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack the FROZEN leaves: once per phase."""
+        return self.view.flatten_frozen(tree)
+
+    def place_frozen(self, bufs: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Commit the frozen constant on ``device``: a copy (never the
+        caller's tensors), not padded — no kernel reads it — and read
+        only for the rest of the phase."""
+        return {name: b.detach().to(self.device, copy=True)
+                for name, b in bufs.items()}
 
     @staticmethod
     def _pad_len(n: int) -> int:
@@ -305,16 +378,25 @@ class FlatParamOps:
 
 @functools.lru_cache(maxsize=64)
 def param_shapes(task: Task) -> Pytree:
-    """A CPU instance of the task's params — its shapes and dtypes."""
+    """The task's params as shapes and dtypes: ``task.shapes()`` on the
+    ``meta`` device where the task has it, else a CPU instance."""
+    if task.shapes is not None:
+        return task.shapes()
     return task.init(seeded_generator(0))
 
 
 @functools.lru_cache(maxsize=64)
-def host_flat_ops(task: Task, interpret: bool,
-                  device: torch.device) -> FlatParamOps:
-    """The FlatParamOps for one task on one device (cached)."""
-    return FlatParamOps(view=FlatView.of(param_shapes(task)),
-                        interpret=interpret, device=torch.device(device))
+def host_flat_ops(task: Task, interpret: bool, device: torch.device,
+                  filter_spec: Optional[str] = None) -> FlatParamOps:
+    """The FlatParamOps for one task on one device (cached).
+    ``filter_spec`` (a TRAINABLE_FILTERS name or a path regex) splits the
+    view into trainable and frozen buckets."""
+    from repro_torch.sharding import rules
+    shapes = param_shapes(task)
+    return FlatParamOps(
+        view=FlatView.of(shapes,
+                         filter=rules.trainable_mask(shapes, filter_spec)),
+        interpret=interpret, device=torch.device(device))
 
 
 # ---------------------------------------------------------------------------
@@ -371,11 +453,14 @@ def make_local_fn(task: Task, spec: LocalSpec,
                   ) -> Callable:
     """Build the per-client local-training function.
 
-    tree impl : ``local(w_start, sample, lr_scale, extras=None) ->
-                (w_end, loss)`` over parameter TREES.
-    fused impl: ``local(p_bufs, sample, lr_scale, extras=None) ->
-                (p_bufs, loss)`` over the buffer dict of ``flat_ops``,
-                updated IN PLACE.
+    tree impl : ``local(w_start, sample, lr_scale, extras=None,
+                frozen=None) -> (w_end, loss)`` over parameter TREES
+                (``frozen`` is unused: the tree path has no partition).
+    fused impl: ``local(p_bufs, sample, lr_scale, extras=None,
+                frozen=None) -> (p_bufs, loss)`` over the trainable
+                buffer dict of ``flat_ops``, updated IN PLACE; ``frozen``
+                is the read-only frozen bucket dict, merged at the loss
+                (no gradient is taken with respect to it).
 
     ``sample(step) -> (bx, by, rng)`` yields the step's batch and
     dropout source (the loss's ``rng``); ``lr_scale``
@@ -414,7 +499,7 @@ def make_local_fn(task: Task, spec: LocalSpec,
         return base
 
     def local_tree(w_start: Pytree, sample: Sample, lr_scale,
-                   extras: Optional[Dict] = None):
+                   extras: Optional[Dict] = None, frozen=None):
         extras = extras or {}
         c_diff = extras["c_diff"] if spec.variant == "scaffold" else None
         params = w_start
@@ -437,7 +522,8 @@ def make_local_fn(task: Task, spec: LocalSpec,
         return params, torch.stack(losses).mean()
 
     def local_fused(p_bufs: Dict, sample: Sample, lr_scale,
-                    extras: Optional[Dict] = None):
+                    extras: Optional[Dict] = None,
+                    frozen: Optional[Dict] = None):
         extras = extras or {}
         c_bufs = extras["c_diff_flat"] if spec.variant == "scaffold" else None
         m_bufs = ({name: torch.zeros_like(b) for name, b in p_bufs.items()}
@@ -452,8 +538,8 @@ def make_local_fn(task: Task, spec: LocalSpec,
             # them, and autograd packs the gradient per bucket
             pv = {name: b.detach().requires_grad_(True)
                   for name, b in p_bufs.items()}
-            loss = loss_for_variant(flat_ops.unflatten(pv), extras, bx, by,
-                                    rng)
+            loss = loss_for_variant(flat_ops.unflatten(pv, frozen), extras,
+                                    bx, by, rng)
             g_bufs = dict(zip(pv, torch.autograd.grad(loss,
                                                       list(pv.values()))))
             if reduce_grads is not None:

@@ -62,9 +62,18 @@ states.
 ``PodFLConfig.overlap`` (default True, as in the JAX package) runs the
 engine's overlapped round pipeline; it is bitwise the synchronous loop.
 
+Every task kind runs here: vision, charlm and tokenlm.  A token batch
+``(B, S)`` and its labels split over (pod, data) like images, and the
+eval stream's per-sample metric (a sequence's mean over its positions)
+splits the same way, so its weighted mean stays exact.  A trainable
+filter (``PodFLSpec.peft`` / ``trainable_filter``) splits the buckets as
+on the host engine: the frozen buckets are this rank's rows of the
+``ShardedFlatView``'s ``frozen:`` groups, placed once per phase where
+``rules.frozen_flat_shardings`` puts them and merged at the loss.
+
 Not ported yet, each raising ``NotImplementedError`` naming its item:
-tasks other than vision (a charlm task: M2d), sharded groups on a world
-larger than one (M13b), and AOT lowering of the pod round (M15).
+sharded groups on a world larger than one (M13b; trainable and frozen
+alike), and AOT lowering of the pod round (M15).
 """
 from __future__ import annotations
 
@@ -88,8 +97,9 @@ from repro_torch.fl.engine import (
     SparseClientStateStore,
     run_rounds,
 )
-from repro_torch.fl.local import (FlatParamOps, LocalSpec, make_local_fn,
-                                  not_ported, param_shapes,
+from repro_torch.fl.local import (FlatParamOps, LocalSpec,
+                                  effective_trainable_filter, make_local_fn,
+                                  not_ported, param_shapes, validate_peft,
                                   validate_update_impl)
 from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
 from repro_torch.fl.task import Task
@@ -102,6 +112,7 @@ Pytree = Any
 
 POD_ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
 POD_AGGREGATIONS = ("sequential", "hierarchical")
+POD_TASK_KINDS = ("vision", "charlm", "tokenlm")
 
 _VARIANTS = {"fedavg": "plain", "fedprox": "fedprox",
              "scaffold": "scaffold", "moon": "moon"}
@@ -159,8 +170,10 @@ class PodFLSpec:
     dp: Optional[privacy.DPSpec] = None
     secure_agg: bool = False
     compression: Optional[compression.CompressionSpec] = None
-    peft: Optional[str] = None              # M11
-    trainable_filter: Optional[str] = None  # M11
+    # the trainable slice (see LocalSpec); P1 strips both knobs — the
+    # relay hops the full model
+    peft: Optional[str] = None
+    trainable_filter: Optional[str] = None
 
     def __post_init__(self):
         validate_update_impl(self.update_impl)
@@ -174,8 +187,8 @@ class PodFLSpec:
                 "pod lossy compression needs the fused flat path "
                 "(update_impl='fused'|'fused_interpret') — the tree "
                 "backend has no shard-local compress kernel")
-        if self.peft is not None or self.trainable_filter is not None:
-            not_ported("peft/trainable_filter", "M11")
+        validate_peft(self.peft, trainable_filter=self.trainable_filter,
+                      update_impl=self.update_impl)
 
     def local_spec(self, variant: Optional[str] = None) -> LocalSpec:
         return LocalSpec(
@@ -184,7 +197,8 @@ class PodFLSpec:
             variant=variant or _VARIANTS[self.algorithm], mu=self.mu,
             temperature=self.temperature, grad_clip=self.grad_clip,
             update_impl=self.update_impl, dp=self.dp,
-            secure_agg=self.secure_agg, compression=self.compression)
+            secure_agg=self.secure_agg, compression=self.compression,
+            peft=self.peft, trainable_filter=self.trainable_filter)
 
 
 # ---------------------------------------------------------------------------
@@ -330,10 +344,18 @@ class ShardedFlatOps(FlatParamOps):
     sharded: Any = None             # the ShardedFlatView
     mesh: Any = None
 
-    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
-        full = self.sharded.flatten(tree)
+    def _rows(self, full: Dict[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
         rows = self.sharded.local_rows(self.mesh.coords)
         return {name: b[rows[name]] for name, b in full.items()}
+
+    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        return self._rows(self.sharded.flatten(tree))
+
+    def flatten_frozen(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """This rank's rows of the ``frozen:`` groups, placed by
+        ``rules.frozen_flat_shardings``."""
+        return self._rows(self.sharded.flatten_frozen(tree))
 
     def stacked_empty(self, K: int):
         raise NotImplementedError("the pod backend aggregates "
@@ -376,17 +398,20 @@ class ShardedFlatOps(FlatParamOps):
 
 
 @functools.lru_cache(maxsize=32)
-def _sharded_view(task: Task, mesh, layout: str):
-    """The task's ShardedFlatView on ``mesh``; raises (M13b) when a
-    bucket is sharded over mesh axes."""
-    view = rules.sharded_flat_view(param_shapes(task), mesh, layout)
+def _sharded_view(task: Task, mesh, layout: str,
+                  filter_spec: Optional[str] = None):
+    """The task's ShardedFlatView on ``mesh`` (split by ``filter_spec``);
+    raises (M13b) when a bucket, trainable or frozen, is sharded over
+    mesh axes."""
+    view = rules.sharded_flat_view(param_shapes(task), mesh, layout,
+                                   filter_spec)
     return view, view.local_view()
 
 
 @functools.lru_cache(maxsize=32)
-def _sharded_flat_ops(task: Task, mesh, layout: str,
-                      interpret: bool) -> ShardedFlatOps:
-    sharded, local = _sharded_view(task, mesh, layout)
+def _sharded_flat_ops(task: Task, mesh, layout: str, interpret: bool,
+                      filter_spec: Optional[str] = None) -> ShardedFlatOps:
+    sharded, local = _sharded_view(task, mesh, layout, filter_spec)
     return ShardedFlatOps(view=local, interpret=interpret,
                           device=mesh.device, sharded=sharded, mesh=mesh)
 
@@ -408,13 +433,16 @@ class PodBackendMixin:
 
     def flat_ops(self, task: Task, device: torch.device):
         self._check_device(device)
-        if task.kind != "vision":
-            not_ported(f"the pod backend for a {task.kind} task", "M2d")
-        _sharded_view(task, self.mesh, self.layout)     # M13b check
+        if task.kind not in POD_TASK_KINDS:
+            raise ValueError(f"unknown task kind {task.kind!r} (the pod "
+                             f"runs {POD_TASK_KINDS})")
+        filt = effective_trainable_filter(self.spec)
+        _sharded_view(task, self.mesh, self.layout, filt)   # M13b check
         if self.spec.update_impl == "tree":
             return None
         return _sharded_flat_ops(task, self.mesh, self.layout,
-                                 ops.fused_interpret(self.spec.update_impl))
+                                 ops.fused_interpret(self.spec.update_impl),
+                                 filt)
 
     def n_selected(self, n_clients: int) -> int:
         if self.clients_per_round:
@@ -545,7 +573,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
             ef_rows = (ef_store.gather(algo_state["ef_residuals"],
                                        inputs.ids) if ef else None)
             extras_of, update = self.client_state(fops, params, inputs.ids,
-                                                  lr_scale, algo_state)
+                                                  lr_scale, algo_state,
+                                                  inputs.frozen)
 
             if fused:
                 work = fops.zeros()         # one client's working params
@@ -557,7 +586,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                     for name, b in work.items():
                         b.copy_(params[name])
                     return local(work, inputs.sampler(j), lr_scale,
-                                 extras_of(j))
+                                 extras_of(j), inputs.frozen)
 
                 def add_delta(delta, w_end, c):
                     return fops.delta_accum(delta, w_end, params, c)

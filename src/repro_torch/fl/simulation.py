@@ -4,10 +4,8 @@ the round engine (``repro_torch.fl.engine``, ``AggregateStrategy``).
 The counterpart of ``repro/fl/simulation.py``.  FedAvg, FedProx,
 SCAFFOLD and MOON run here, each with an optional server optimizer
 (FedAvgM / FedAdam), DP-FedAvg and secure aggregation (``dp``,
-``secure_agg``) and compressed uploads (``compression``).  The PEFT
-options keep their config fields, so a config written for the JAX
-package reads the same, but raise ``NotImplementedError`` naming the
-ROADMAP.md item that will bring them.
+``secure_agg``), compressed uploads (``compression``) and a trainable
+slice (``peft`` / ``trainable_filter``, fused paths only).
 
 ``make_round_fn``, ``make_server_update`` and ``init_server_state`` are
 the reference's single-round surfaces: plain functions over the
@@ -31,7 +29,8 @@ from repro_torch.fl.engine import (
     run_rounds,
 )
 from repro_torch.fl.compression import CompressionSpec, validate_compression
-from repro_torch.fl.local import LocalSpec, not_ported, validate_update_impl
+from repro_torch.fl.local import (LocalSpec, validate_peft,
+                                  validate_update_impl)
 from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.task import Task
 from repro_torch.utils.device import (Device, resolve_device,
@@ -77,8 +76,8 @@ class FLConfig:
     dp: Optional[DPSpec] = None
     secure_agg: bool = False
     compression: Optional[CompressionSpec] = None
-    peft: Optional[str] = None              # M11
-    trainable_filter: Optional[str] = None  # M11
+    peft: Optional[str] = None              # "lora:<r>"
+    trainable_filter: Optional[str] = None  # a TRAINABLE_FILTERS name / regex
     # (round, client_slot, step) -> LongTensor (B,): replaces the
     # engine's generator draws for the batch indices
     batch_indices: Optional[Callable[[int, int, int], torch.Tensor]] = None
@@ -89,8 +88,8 @@ class FLConfig:
             raise ValueError(f"unknown algorithm {self.algorithm!r}")
         validate_compression(self.compression, dp=self.dp,
                              secure_agg=self.secure_agg)
-        if self.peft is not None or self.trainable_filter is not None:
-            not_ported("peft/trainable_filter", "M11")
+        validate_peft(self.peft, trainable_filter=self.trainable_filter,
+                      update_impl=self.update_impl)
 
     def n_selected(self, n_clients: int) -> int:
         return max(1, int(round(self.participation * n_clients)))
@@ -102,7 +101,8 @@ class FLConfig:
             variant=_VARIANTS[self.algorithm], mu=self.mu,
             temperature=self.temperature, grad_clip=self.grad_clip,
             update_impl=self.update_impl, dp=self.dp,
-            secure_agg=self.secure_agg, compression=self.compression)
+            secure_agg=self.secure_agg, compression=self.compression,
+            peft=self.peft, trainable_filter=self.trainable_filter)
 
     def strategy(self) -> AggregateStrategy:
         return AggregateStrategy(
@@ -170,16 +170,18 @@ def make_round_fn(task: Task, cfg: FLConfig, device: Device = None
         ids = torch.as_tensor(ids).to(device=dev, dtype=torch.int64)
         p = (fops.place(fops.flatten(params)) if fops is not None else
              strategy.place_params(params, dev))
+        frozen = (fops.place_frozen(fops.flatten_frozen(params))
+                  if fops is not None and fops.view.frozen_sizes else None)
         inputs = RoundInputs(
             ids=ids, weights=torch.as_tensor(weights).to(
                 device=dev, dtype=torch.float32),
             sampler=keyed_sampler(key, x_all, y_all, ids, B, dev,
                                   step_masks),
-            round_key=0 if callable(key) else int(key))
+            round_key=0 if callable(key) else int(key), frozen=frozen)
         p, algo_state, loss = body(p, inputs, torch.as_tensor(
             lr_scale, dtype=torch.float32).to(dev), algo_state)
         if fops is not None:
-            p = fops.unflatten(p)
+            p = fops.unflatten(p, frozen)
         return p, algo_state, {"local_loss": loss}
 
     return round_fn
@@ -207,7 +209,7 @@ def make_server_update(cfg: FLConfig, task: Task, device: Device = None):
     def update(params, avg_params, state):
         new_p, state = server[1](fops.place(fops.flatten(params)),
                                  fops.place(fops.flatten(avg_params)), state)
-        return fops.unflatten(new_p), state
+        return fops.unflatten(new_p, fops.flatten_frozen(params)), state
 
     return init, update
 

@@ -1,8 +1,8 @@
 """Task abstraction: binds a model to loss / representation / prediction
 functions so the FL machinery is model-agnostic.
 
-The counterpart of ``repro/fl/task.py`` (``Task``, ``vision_task`` and
-``charlm_task``; ``lm_task`` waits for ROADMAP.md item M12).
+The counterpart of ``repro/fl/task.py``: ``Task``, ``vision_task``,
+``charlm_task`` and ``lm_task``.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.models import paper_models as pm
+from repro_torch.models import transformer as tf
 
 Pytree = Any
 
@@ -24,14 +25,17 @@ class Task:
     loss_fn(params, bx, by, rng) -> scalar loss            (local SGD)
     repr_fn(params, bx)          -> (B, d) representation
     predict_fn(params, bx)       -> predicted int labels   (test accuracy)
+    shapes()                     -> the params on the ``meta`` device
+                                    (None: ``init`` on the CPU gives them)
     """
 
     name: str
-    kind: str                      # vision | charlm
+    kind: str                      # vision | charlm | tokenlm
     init: Callable[[torch.Generator], Pytree]
     loss_fn: Callable[..., torch.Tensor]
     repr_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
     predict_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
+    shapes: Optional[Callable[[], Pytree]] = None
 
     def accuracy(self, params: Pytree, x: torch.Tensor,
                  y: torch.Tensor) -> torch.Tensor:
@@ -92,3 +96,31 @@ def charlm_task(vocab: int = 64, d_embed: int = 8, d_hidden: int = 256) -> Task:
 
     return Task(name="charlstm", kind="charlm", init=init, loss_fn=loss_fn,
                 repr_fn=repr_fn, predict_fn=predict_fn)
+
+
+def lm_task(cfg: "tf.TransformerConfig") -> Task:
+    """Federated next-token training over a decoder LM of the zoo:
+    ``bx`` tokens (B, S) int, ``by`` labels (B, S) int (−1 ignored).
+    ``shapes`` builds the tree on the ``meta`` device, so packing plans
+    and byte counts of a full-size model allocate nothing."""
+
+    def init(gen):
+        return tf.init_lm(cfg, gen=gen)
+
+    def loss_fn(params, bx, by, rng=None):
+        loss, _ = tf.lm_loss(params, cfg, {"tokens": bx, "labels": by})
+        return loss
+
+    def repr_fn(params, bx):
+        _, _, hidden = tf.lm_forward(params, cfg, {"tokens": bx})
+        return torch.mean(hidden.float(), dim=1)
+
+    def predict_fn(params, bx):
+        logits, _, _ = tf.lm_forward(params, cfg, {"tokens": bx})
+        return torch.argmax(logits, dim=-1)
+
+    def shapes():
+        return tf.init_lm(cfg, device="meta")
+
+    return Task(name=cfg.name, kind="tokenlm", init=init, loss_fn=loss_fn,
+                repr_fn=repr_fn, predict_fn=predict_fn, shapes=shapes)

@@ -1,0 +1,280 @@
+"""Pod-scale federated training driver (the counterpart of
+``repro/launch/train.py``): CyclicFL's two phases on the pod backend.
+
+``run_pod_training`` builds a P1 relay (``PodCyclicConfig``) and a P2
+round phase (``PodFLConfig``) over one mesh and hands them to
+``core.pipeline.run_phase_schedule``, so the pod shares the host
+engine's round loop, sampling, lr schedule and in-loop evaluation.  P1
+relays the full model client to client: it runs with ``dp``,
+``secure_agg``, ``compression``, ``peft`` and ``trainable_filter``
+stripped.  P2 draws from the seed offset by ``HOST_RNG_OFFSET_P2`` when
+a P1 phase precedes it, so it does not replay P1's client and batch
+draws.  The mesh defaults to the one-rank mesh on the card
+(``launch.mesh.make_host_mesh``); ``device="cpu"`` runs it on the CPU.
+
+CLI (reduced configs):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+        tinyllama-1.1b --rounds 4 --cyclic-rounds 2 --clients 8
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.pipeline import Phase, ScheduleResult, run_phase_schedule
+from repro_torch.fl.compression import CompressionSpec
+from repro_torch.fl.pod import (
+    POD_ALGORITHMS,
+    PodCyclicConfig,
+    PodFLConfig,
+    PodFLSpec,
+    lower_pod_round,
+    make_pod_fl_round,
+)
+from repro_torch.fl.privacy import DPSpec
+from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
+from repro_torch.fl.task import lm_task
+from repro_torch.models.transformer import TransformerConfig, init_lm
+from repro_torch.sharding import rules
+from repro_torch.utils.device import Device
+
+Pytree = Any
+
+__all__ = ["sample_round_batches", "sequence_loss_metric",
+           "PodTrainResult", "run_pod_training", "make_pod_fl_round",
+           "lower_pod_round", "main"]
+
+
+def sample_round_batches(data, ids: np.ndarray, steps: int, batch: int,
+                         rng: np.random.Generator) -> Dict[str, torch.Tensor]:
+    """Pre-sample ``(K, steps, batch, S)`` token and label batches for the
+    clients ``ids`` from the host ``rng`` (the per-round baseline; the
+    engine samples on the device)."""
+    toks, labs = [], []
+    for cid in ids:
+        bidx = rng.integers(0, data.n_per_client, size=(steps, batch))
+        toks.append(data.x[cid][bidx])
+        labs.append(data.y[cid][bidx])
+    return {"tokens": torch.from_numpy(np.stack(toks)),
+            "labels": torch.from_numpy(np.stack(labs))}
+
+
+def sequence_loss_metric(cfg: TransformerConfig) -> Callable:
+    """The per-sample eval metric of LM training: each sequence's mean
+    next-token loss over its kept positions (label −1 ignored),
+    ``metric(params, bx, by) -> (B,)``, the log-sum-exp in f32."""
+    from repro_torch.models.transformer import lm_forward
+
+    def metric(params, bx, by):
+        logits, _, _ = lm_forward(params, cfg, {"tokens": bx})
+        logits = logits.float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, torch.clamp(
+            by.long(), min=0)[..., None])[..., 0]
+        valid = (by >= 0).float()
+        per_tok = (logz - gold) * valid
+        return per_tok.sum(dim=-1) / torch.clamp(valid.sum(dim=-1), min=1.0)
+
+    return metric
+
+
+@dataclasses.dataclass
+class PodTrainResult:
+    params: Pytree
+    history: list
+    # the phase schedule's result: each phase's end params and the
+    # communication ledger of the run
+    schedule: Optional[ScheduleResult] = None
+
+
+def run_pod_training(cfg: TransformerConfig, data, *,
+                     cyclic_rounds: int = 2, fl_rounds: int = 4,
+                     clients_per_round: int = 4,
+                     spec: Optional[PodFLSpec] = None,
+                     mesh=None, seed: int = 0,
+                     eval_fn: Optional[Callable] = None,
+                     eval_every: Optional[int] = None,
+                     eval_batch: int = 64,
+                     verbose: bool = False,
+                     chunk_size: int = 4,
+                     sampling: str = "device",
+                     layout: str = "fsdp_tp",
+                     aggregation: str = "sequential",
+                     n_pods: Optional[int] = None,
+                     store: str = "dense",
+                     store_capacity: int = 1024,
+                     overlap: str = "on",
+                     init_params: Optional[Pytree] = None,
+                     batch_indices: Optional[Dict[str, Callable]] = None,
+                     device: Device = None) -> PodTrainResult:
+    """CyclicFL end to end on the pod backend: a P1 → P2 phase schedule
+    through the shared round engine, on ``mesh`` (default: the one-rank
+    mesh on ``device``, CUDA unless the caller asks for the CPU).
+
+    ``eval_fn(params, bx, by) -> (B,)`` is a per-sample metric (the
+    engine weights the padded eval stream with it); ``eval_every=None``
+    evaluates every round when a metric is given and never otherwise,
+    and evaluated rounds carry ``eval`` in their history row.
+    ``init_params`` (a tree) starts P1, else ``init_lm`` seeded with
+    ``seed`` on the mesh's device; ``batch_indices`` maps a phase name
+    ("P1", "P2") to a ``(round, slot, step) -> (B,)`` index source in
+    place of the engine's draws."""
+    from repro_torch.launch.mesh import make_host_mesh
+    spec = spec or PodFLSpec()
+    mesh = mesh if mesh is not None else make_host_mesh(device)
+    task = lm_task(cfg)
+    batch_indices = batch_indices or {}
+    if eval_every is None:
+        eval_every = 1 if eval_fn is not None else 0
+    if overlap not in ("on", "off"):
+        raise ValueError(f"--overlap must be on|off, got {overlap!r}")
+    if init_params is None:
+        init_params = init_lm(cfg, seed, mesh.device)
+
+    common = dict(mesh=mesh, clients_per_round=clients_per_round, spec=spec,
+                  layout=layout, chunk_size=chunk_size, sampling=sampling,
+                  eval_every=eval_every, eval_batch=eval_batch)
+    phases = []
+    if cyclic_rounds > 0:
+        # privacy, compression and the trainable slice apply at the P2
+        # aggregate only: the relay hops the full model client to client
+        p1_spec = dataclasses.replace(spec, dp=None, secure_agg=False,
+                                      compression=None, peft=None,
+                                      trainable_filter=None)
+        phases.append(Phase("P1", PodCyclicConfig(
+            rounds=cyclic_rounds, seed=seed, **dict(common, spec=p1_spec),
+            batch_indices=batch_indices.get("P1")), eval_fn=eval_fn))
+    if fl_rounds > 0:
+        # each phase restarts its streams from its own seed: offset P2's
+        # so that it does not replay P1's client and batch draws
+        p2_seed = seed + HOST_RNG_OFFSET_P2 if phases else seed
+        phases.append(Phase("P2", PodFLConfig(
+            rounds=fl_rounds, seed=p2_seed, aggregation=aggregation,
+            n_pods=n_pods, store=store, store_capacity=store_capacity,
+            overlap=(overlap == "on"), batch_indices=batch_indices.get("P2"),
+            **common), eval_fn=eval_fn))
+    if not phases:
+        return PodTrainResult(params=init_params, history=[])
+
+    sched = run_phase_schedule(task, data, phases, verbose=verbose,
+                               device=mesh.device, init_params=init_params)
+    history = []
+    for h in sched.history:
+        row = {"phase": h["phase"], "round": h["round"],
+               "loss": h["local_loss"]}
+        if "acc" in h:
+            row["eval"] = h["acc"]
+        history.append(row)
+    return PodTrainResult(params=sched.params, history=history,
+                          schedule=sched)
+
+
+def main(argv=None) -> int:
+    from repro_torch.configs import get_reduced, with_peft
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--cyclic-rounds", type=int, default=2)
+    ap.add_argument("--clients", "--n-clients", dest="clients", type=int,
+                    default=16, help="population size N (synthetic shards)")
+    ap.add_argument("--clients-per-round", type=int, default=4)
+    ap.add_argument("--local-steps", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="per-step local batch size B")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--algorithm", default="fedavg", choices=POD_ALGORITHMS)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--server-opt", default="none",
+                    choices=("none", "momentum", "adam"),
+                    help="server-side optimizer on the aggregated "
+                         "pseudo-gradient (FedAvgM / FedAdam)")
+    ap.add_argument("--server-lr", type=float, default=1.0)
+    ap.add_argument("--server-momentum", type=float, default=0.9)
+    ap.add_argument("--update-impl", default="fused",
+                    choices=("tree", "fused", "fused_interpret"),
+                    help="step tail and aggregation: the hand-written "
+                         "kernels over flat buffers (fused; their plain "
+                         "versions on the CPU), their plain versions "
+                         "anywhere (fused_interpret), or per-leaf tree "
+                         "algebra")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="test-accuracy cadence in rounds (0 = none)")
+    ap.add_argument("--chunk-size", type=int, default=4,
+                    help="rounds per engine dispatch")
+    ap.add_argument("--sampling", default="device",
+                    choices=("device", "host"))
+    ap.add_argument("--layout", default="fsdp_tp", choices=rules.LAYOUTS)
+    ap.add_argument("--aggregation", default="sequential",
+                    choices=("sequential", "hierarchical"))
+    ap.add_argument("--n-pods", type=int, default=None,
+                    help="pod count for --aggregation hierarchical "
+                         "(must divide clients-per-round)")
+    ap.add_argument("--store", default="dense", choices=("dense", "sparse"))
+    ap.add_argument("--store-capacity", type=int, default=1024)
+    ap.add_argument("--overlap", default="on", choices=("on", "off"))
+    ap.add_argument("--dp-clip", type=float, default=None,
+                    help="DP-FedAvg per-client delta clip bound C")
+    ap.add_argument("--dp-sigma", type=float, default=0.0,
+                    help="DP-FedAvg noise multiplier (needs --dp-clip)")
+    ap.add_argument("--secure-agg", action="store_true")
+    ap.add_argument("--compress-bits", type=int, default=32,
+                    choices=(8, 16, 32))
+    ap.add_argument("--compress-density", type=float, default=1.0)
+    ap.add_argument("--error-feedback", action="store_true")
+    ap.add_argument("--peft", default=None, metavar="lora:<r>",
+                    help="build the model with rank-r LoRA adapters and "
+                         "train only them in P2 (P1 relays the full "
+                         "model)")
+    ap.add_argument("--trainable-filter", default=None,
+                    choices=sorted(rules.TRAINABLE_FILTERS),
+                    help="named trainable-leaf filter (overrides the one "
+                         "--peft implies); needs a fused --update-impl")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="the mesh's device: CUDA by default, or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = with_peft(get_reduced(args.arch), args.peft)
+    data = make_synthetic_tokenlm(
+        n_clients=args.clients, seq_len=args.seq, n_seq_per_client=64,
+        vocab=cfg.vocab_size, beta=0.5, seed=args.seed)
+    dp = (DPSpec(args.dp_clip, args.dp_sigma)
+          if args.dp_clip is not None else None)
+    comp = CompressionSpec(bits=args.compress_bits,
+                           density=args.compress_density,
+                           error_feedback=args.error_feedback)
+    spec = PodFLSpec(local_steps=args.local_steps, batch_size=args.batch,
+                     lr=args.lr, algorithm=args.algorithm,
+                     server_opt=args.server_opt, server_lr=args.server_lr,
+                     server_momentum=args.server_momentum,
+                     update_impl=args.update_impl, dp=dp,
+                     secure_agg=args.secure_agg,
+                     compression=None if comp.identity else comp,
+                     peft=args.peft, trainable_filter=args.trainable_filter)
+    t0 = time.time()
+    res = run_pod_training(
+        cfg, data, cyclic_rounds=args.cyclic_rounds, fl_rounds=args.rounds,
+        clients_per_round=args.clients_per_round, spec=spec,
+        seed=args.seed, verbose=True, chunk_size=args.chunk_size,
+        eval_every=args.eval_every, sampling=args.sampling,
+        layout=args.layout, aggregation=args.aggregation,
+        n_pods=args.n_pods, store=args.store,
+        store_capacity=args.store_capacity, overlap=args.overlap,
+        device=args.device)
+    first, last = res.history[0]["loss"], res.history[-1]["loss"]
+    print(f"[train] {args.arch}: loss {first:.4f} -> {last:.4f} "
+          f"({time.time() - t0:.1f}s)")
+    return 0 if last < first else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

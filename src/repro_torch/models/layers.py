@@ -17,6 +17,7 @@ counts are taken without allocating.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Any, Optional, Sequence, Tuple
 
@@ -67,9 +68,11 @@ def normal_init(gen: Optional[torch.Generator], shape: Sequence[int],
 def init_linear(gen, d_in: int, d_out: int, bias: bool = False,
                 dtype=torch.float32, std: Optional[float] = None,
                 lora_rank: int = 0) -> Pytree:
+    """Plain linear, or — with ``lora_rank > 0`` — a LoRA-adapted linear
+    (see :func:`init_lora_linear`)."""
     if lora_rank:
-        raise NotImplementedError("LoRA adapters are not ported yet "
-                                  "(ROADMAP M11)")
+        return init_lora_linear(gen, d_in, d_out, lora_rank, bias=bias,
+                                dtype=dtype, std=std)
     p = {"w": normal_init(gen, (d_in, d_out),
                           std=std if std is not None else d_in ** -0.5,
                           dtype=dtype)}
@@ -78,15 +81,74 @@ def init_linear(gen, d_in: int, d_out: int, bias: bool = False,
     return p
 
 
+# LoRA (Hu et al. 2106.09685): y = x·W + (α/r)·x·A·B with A (d_in, r)
+# normal-init and B (r, d_out) zero-init, so the adapted model starts
+# exactly at the base model.  Only A and B train under the "lora"
+# trainable filter (repro_torch.sharding.rules.TRAINABLE_FILTERS).
+LORA_ALPHA = 16.0
+
+
+def lora_scale(rank: int) -> float:
+    return LORA_ALPHA / rank
+
+
+def _side_generator(gen: torch.Generator) -> torch.Generator:
+    """A generator on ``gen``'s device seeded from ``gen``'s current
+    state, which it leaves as it was: the adapter draws come from it, so
+    adding adapters changes no base draw of the model."""
+    state = gen.get_state().numpy().tobytes()
+    seed = int.from_bytes(hashlib.blake2b(state, digest_size=8).digest(),
+                          "little") >> 1
+    side = torch.Generator(device=gen.device)
+    side.manual_seed(seed)
+    return side
+
+
+def init_lora_linear(gen, d_in: int, d_out: int, rank: int,
+                     bias: bool = False, dtype=torch.float32,
+                     std: Optional[float] = None) -> Pytree:
+    """LoRA-adapted linear: the base ``w`` (and optional ``b``) drawn
+    exactly as :func:`init_linear` draws them, plus ``lora_a`` (normal,
+    std d_in^-0.5, from a side generator) and ``lora_b`` (zeros), so the
+    adapted forward at init equals the base forward bitwise."""
+    if rank <= 0:
+        raise ValueError(f"lora rank must be a positive integer, got {rank}")
+    side = None if gen is None else _side_generator(gen)
+    p = init_linear(gen, d_in, d_out, bias=bias, dtype=dtype, std=std)
+    p["lora_a"] = normal_init(side, (d_in, rank), std=d_in ** -0.5,
+                              dtype=dtype)
+    p["lora_b"] = torch.zeros((rank, d_out), dtype=dtype,
+                              device=gen_device(gen))
+    return p
+
+
 def linear(p: Pytree, x: torch.Tensor, dtype=None) -> torch.Tensor:
-    if "lora_a" in p:
-        raise NotImplementedError("LoRA adapters are not ported yet "
-                                  "(ROADMAP M11)")
+    """``x·w``, then the adapter term ``(α/r)·(x·A)·B``, then the bias —
+    the JAX package's order of operations."""
     dtype = dtype or x.dtype
     y = torch.matmul(x, p["w"].to(dtype))
+    if "lora_a" in p:
+        a, b = p["lora_a"].to(dtype), p["lora_b"].to(dtype)
+        z = torch.matmul(x, a)
+        y = y + lora_scale(a.shape[-1]) * torch.matmul(z, b)
     if "b" in p:
         y = y + p["b"].to(dtype)
     return y
+
+
+def merge_lora(p: Pytree) -> Pytree:
+    """Fold each LoRA adapter into its base weight — ``W + (α/r)·A·B`` in
+    f32, cast back to W's dtype — giving plain linears; recurses through
+    nested dicts, so it merges a whole model tree."""
+    if not isinstance(p, dict):
+        return p
+    if "lora_a" in p:
+        a, b = p["lora_a"].float(), p["lora_b"].float()
+        w = p["w"].float() + lora_scale(a.shape[-1]) * (a @ b)
+        out = {k: v for k, v in p.items() if k not in ("lora_a", "lora_b")}
+        out["w"] = w.to(p["w"].dtype)
+        return out
+    return {k: merge_lora(v) for k, v in p.items()}
 
 
 def init_rmsnorm(d: int, dtype=torch.float32, device=None) -> Pytree:
@@ -169,6 +231,13 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
     """q: (B, S, H, hd); k/v: (B, T, KH, hd); GQA broadcast inside.
     ``q_offset`` is the position of q[0] relative to k[0] (decode)."""
     if impl in ("pallas", "pallas_interpret"):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            # as in the JAX package: the attention kernel has no backward,
+            # and training runs the plain attention (attn_impl="xla")
+            raise NotImplementedError(
+                f"attn_impl={impl!r} has no backward; train with "
+                f"attn_impl='xla'")
         from repro_torch.kernels import ops as kops
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset,

@@ -11,15 +11,20 @@ across as a copy (``repro_torch.bridge``) and each layer is a view.
 Entry points:
     init_lm(cfg, seed, device)                 -> params
     lm_forward(params, cfg, batch)             -> (logits, aux, hidden)
+    lm_loss(params, cfg, batch)                -> (loss, metrics)
     init_decode_cache(cfg, batch, max_len)     -> cache
     prefill(params, cfg, batch, max_len)       -> (logits_last, cache, S)
     decode_step(params, cfg, token, cache, cache_len) -> (logits, cache)
 
 ``cache_len`` is a host int: the decode loop knows it, and the attention
 kernel takes it (and each layer's window) as a launch argument, so no
-step waits on the device.  The cache is updated in place.  MoE, MLA,
-multi-token prediction, non-token inputs, dense prefix layers and LoRA
-raise ``NotImplementedError`` naming their ROADMAP item.
+step waits on the device.  The cache is updated in place.  LoRA
+adapters (``lora_rank``) ride on every block linear.  Training runs the
+plain attention (``attn_impl="xla"``): the attention kernel has no
+backward, as in the JAX package.  ``remat`` is ignored: it trades
+memory for recompute and changes no number.  MoE, MLA, multi-token
+prediction, non-token inputs and dense prefix layers raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -167,10 +172,7 @@ def _check_ported(cfg: TransformerConfig) -> None:
         missing.append(f"input_mode {cfg.input_mode!r} ({cfg.arch_type})")
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  "ported yet (ROADMAP M12)")
-    if cfg.lora_rank:
-        raise NotImplementedError("LoRA adapters are not ported yet "
-                                  "(ROADMAP M11)")
+                                  "ported yet (ROADMAP M12b)")
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +191,8 @@ def _init_block(gen, cfg: TransformerConfig) -> Pytree:
         p["ssm"] = init_ssm(gen, cfg.ssm_cfg(), pd)
     if cfg.d_ff > 0:
         p["ffn_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, pd)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, pd,
+                            lora_rank=cfg.lora_rank)
     return p
 
 
@@ -263,15 +266,20 @@ def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
 # ---------------------------------------------------------------------------
 
 def init_lm(cfg: TransformerConfig, seed: int = 0,
-            device: Device = None) -> Pytree:
+            device: Device = None, *,
+            gen: Optional[torch.Generator] = None) -> Pytree:
     """Params drawn on ``device`` (CUDA unless the caller asks for the
     CPU; ``"meta"`` draws nothing, for counting) from a generator on that
-    device, with the JAX package's distributions: normal(0.02) embedding,
-    normal(d_in^-0.5) linears and lm_head, normal(d_conv^-0.5) conv,
-    ``A_log = log(linspace(1, 16))``, the inverse-softplus ``dt_bias``."""
+    device seeded with ``seed`` — or from ``gen``, on its device — with
+    the JAX package's distributions: normal(0.02) embedding,
+    normal(d_in^-0.5) linears, LoRA ``A`` and lm_head, zero LoRA ``B``,
+    normal(d_conv^-0.5) conv, ``A_log = log(linspace(1, 16))``, the
+    inverse-softplus ``dt_bias``."""
     cfg.validate()
-    dev = resolve_device(device)
-    gen = None if dev.type == "meta" else seeded_generator(seed, dev)
+    if gen is None:
+        dev = resolve_device(device)
+        gen = None if dev.type == "meta" else seeded_generator(seed, dev)
+    dev = gen_device(gen)
     pd = cfg.param_dtype
     params: Dict[str, Pytree] = {
         "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), std=0.02,
@@ -353,6 +361,30 @@ def lm_forward(params, cfg: TransformerConfig,
     x, _, aux = _run_blocks(params, cfg, x, positions)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x), aux, x
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
+    """Cross-entropy with ignore-label masking over logits ``(..., V)``,
+    the log-sum-exp in f32: ``(mean nll over the kept labels, mask)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels.long(), min=0)[..., None])[..., 0]
+    nll = logz - gold
+    mask = (labels != ignore).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0), mask
+
+
+def lm_loss(params, cfg: TransformerConfig,
+            batch: Dict[str, torch.Tensor]):
+    """Next-token loss over ``batch["tokens"]`` (B, S) and
+    ``batch["labels"]`` (B, S), label −1 ignored.  Returns ``(loss,
+    metrics)``.  Multi-token prediction and the VLM / audio inputs raise
+    with the rest of M12 (``_check_ported``)."""
+    logits, aux, _ = lm_forward(params, cfg, batch)
+    loss, _ = _xent(logits, batch["labels"])
+    total = loss + aux
+    return total, {"xent": loss, "aux": aux, "loss": total}
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ norms and small vectors replicate.  Every rule degrades gracefully: a
 dim the axis does not divide replicates on that axis, so the same rules
 drive a 16×16 pod, a 2×16×16 multi-pod and a one-rank mesh.
 
-The trainable-slice filters are ROADMAP.md item M11, the decode-cache
-layout waits for a sharded serve path.
+The trainable-slice filters (``TRAINABLE_FILTERS``, ``trainable_mask``)
+pick the leaves a PEFT run trains; the decode-cache layout waits for a
+sharded serve path.
 """
 from __future__ import annotations
 
@@ -137,14 +138,51 @@ def param_pspecs(params_tree: Pytree, mesh, layout: str = "fsdp_tp") -> Pytree:
     return tm.tree_unflatten(treedef, specs)
 
 
-def trainable_mask(tree: Pytree, filter_spec: Optional[str]) -> None:
-    """The trainable-slice filters are ROADMAP.md item M11: ``None`` (every
-    leaf trains) is the only filter the port takes."""
-    if filter_spec is not None:
-        raise NotImplementedError(
-            "trainable filters are not ported to repro_torch yet "
-            "(ROADMAP.md item M11)")
-    return None
+# ---------------------------------------------------------------------------
+# trainable-slice filters (federated PEFT)
+# ---------------------------------------------------------------------------
+#
+# A trainable filter is a path pattern selecting which leaves the fused
+# flat path optimizes and uploads; the other leaves pack into read-only
+# "frozen:" buckets that never enter a kernel, the round carry or the
+# upload (repro_torch.utils.flatten).  Filters match by path suffix like
+# the param rules above.
+
+TRAINABLE_FILTERS = {
+    # LoRA adapters: only the A/B factors train, every base weight stays
+    # frozen (models.layers.init_lora_linear)
+    "lora": r"/(lora_a|lora_b)$",
+    # head-only fine-tuning: output head (+ tied embedding) and final norm
+    "head": r"((^|/)(embed|lm_head)|norm_f/(scale|bias))$",
+}
+
+
+def resolve_trainable_filter(filter_spec: Optional[str]) -> Optional[str]:
+    """A named filter resolves to its registered path regex; anything
+    else is taken as a path regex verbatim."""
+    if filter_spec is None:
+        return None
+    return TRAINABLE_FILTERS.get(filter_spec, filter_spec)
+
+
+def trainable_mask(tree: Pytree, filter_spec: Optional[str]
+                   ) -> Optional[Tuple[bool, ...]]:
+    """Per-leaf trainable booleans in ``tree_flatten`` order for a
+    path-pattern filter (the ``filter=`` of ``FlatView.of`` /
+    ``ShardedFlatView.of``).  ``None``: no filter, every leaf trains.  A
+    filter that selects zero leaves raises here, at construction."""
+    pattern = resolve_trainable_filter(filter_spec)
+    if pattern is None:
+        return None
+    paths = tm.tree_paths(tree)
+    mask = tuple(bool(re.search(pattern, p)) for p in paths)
+    if paths and not any(mask):
+        raise ValueError(
+            f"trainable filter {filter_spec!r} (pattern {pattern!r}) "
+            f"matches zero leaves of the param tree — nothing would "
+            f"train; check the filter against the model's param paths "
+            f"(a LoRA filter needs a model built with lora_rank > 0)")
+    return mask
 
 
 # ---------------------------------------------------------------------------
@@ -156,12 +194,15 @@ def sharded_flat_view(params_tree: Pytree, mesh, layout: str = "fsdp_tp",
     """ShardedFlatView for ``params_tree`` under this mesh + layout:
     leaves bucket per (dtype, mesh-axis group) straight from the
     :func:`param_pspecs` rules (see
-    ``repro_torch.utils.flatten.ShardedFlatView``)."""
+    ``repro_torch.utils.flatten.ShardedFlatView``).  ``filter_spec`` (a
+    trainable filter, see :func:`trainable_mask`) splits the leaves into
+    trainable buckets and read-only ``frozen:`` buckets with the same
+    per-group decomposition."""
     from repro_torch.utils.flatten import ShardedFlatView
-    trainable_mask(params_tree, filter_spec)
     return ShardedFlatView.of(params_tree,
                               param_pspecs(params_tree, mesh, layout),
-                              _axis_sizes(mesh))
+                              _axis_sizes(mesh),
+                              filter=trainable_mask(params_tree, filter_spec))
 
 
 def flat_buffer_pspec(group) -> P:
@@ -172,6 +213,14 @@ def flat_buffer_pspec(group) -> P:
         return P(None, None)
     entry = group.axes if len(group.axes) > 1 else group.axes[0]
     return P(entry, None)
+
+
+def frozen_flat_shardings(view) -> dict:
+    """The placement (a PartitionSpec) of each FROZEN bucket of a
+    ShardedFlatView: the read-only constant keeps the per-group
+    decomposition of the trainable buffers, so the frozen base shards
+    where its group does and is never replicated beyond it."""
+    return {g.name: flat_buffer_pspec(g) for g in view.frozen_groups}
 
 
 def mesh_axis_size(mesh, axis: str = DATA) -> int:

@@ -1,7 +1,7 @@
 """FlatView — pack a tree of tensors into contiguous per-dtype 1-D buffers.
 
-The counterpart of ``repro/utils/flatten.py:FlatView`` (without the
-trainable-slice ``filter``).  The contract is the same:
+The counterpart of ``repro/utils/flatten.py:FlatView``, with the same
+contract:
 
   view = FlatView.of(tree)          # shapes/dtypes only
   bufs = view.flatten(tree)         # {dtype_name: (total,) 1-D buffer}
@@ -13,23 +13,34 @@ Leaves are taken in jax.tree_util order (dict keys sorted, see
 offset + size)`` slice of its buffer, so a port buffer equals the JAX
 package's buffer element for element.
 
+Trainable-slice partitioning (federated PEFT): ``of(tree, filter=...)``
+takes a per-leaf boolean mask (True = trainable, tree_flatten order;
+``repro_torch.sharding.rules.trainable_mask`` builds one) and routes
+frozen leaves into ``"frozen:"``-prefixed buckets with offsets of their
+own.  ``flatten``, ``zeros``, ``normal``, the stacked variants and
+``buffer_sizes`` then speak the TRAINABLE buckets only; the frozen
+leaves pack once through ``flatten_frozen`` and merge back at
+``unflatten(bufs, frozen)`` (absent frozen buckets zero-fill).  With
+``filter=None`` there are no frozen buckets.
+
 ``unflatten`` returns VIEWS into the buffers.  When a buffer requires
 grad, the views come from one autograd node per bucket whose backward
 concatenates the leaf gradients into a single packed gradient (pad lanes
 zero) — the counterpart of the JAX package differentiating with respect
 to the flat buffers, so the fused step tail consumes the gradient with
-no per-step pack.
+no per-step pack.  Frozen buffers never require grad: no node spans
+them, and autograd computes no gradient for a frozen weight.
 
 :class:`ShardedFlatView` is the mesh-aware sibling (the pod backend's):
 leaves bucket per (dtype, mesh-axis group) into ``(n_shards,
 per_shard)`` buffers, the JAX package's layout element for element,
-tile permutation included.
+tile permutation included; frozen leaves keep their group.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -47,7 +58,28 @@ def dtype_name(dtype) -> str:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return getattr(torch, name)
+    return getattr(torch, name[len(FROZEN_PREFIX):]
+                   if is_frozen_bucket(name) else name)
+
+
+# frozen leaves pack into buckets under this name prefix; the plain
+# bucket name (dtype / dtype@axes) follows it unchanged
+FROZEN_PREFIX = "frozen:"
+
+
+def is_frozen_bucket(name: str) -> bool:
+    return name.startswith(FROZEN_PREFIX)
+
+
+def _check_filter(filter, n_leaves: int):
+    """Normalize a per-leaf trainable mask (None = all trainable)."""
+    if filter is None:
+        return None
+    mask = tuple(bool(b) for b in filter)
+    if len(mask) != n_leaves:
+        raise ValueError(f"trainable filter has {len(mask)} entries for a "
+                         f"{n_leaves}-leaf tree")
+    return mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +118,18 @@ class FlatView:
     slots: Tuple[LeafSlot, ...]
 
     @classmethod
-    def of(cls, tree: Pytree) -> "FlatView":
-        """Build a view from shapes/dtypes only (torch tensors or numpy
-        arrays)."""
+    def of(cls, tree: Pytree, filter=None) -> "FlatView":
+        """Build a view from shapes/dtypes only (torch tensors, meta
+        tensors or numpy arrays).  ``filter`` is an optional per-leaf
+        trainable mask: False routes the leaf into a ``frozen:`` bucket."""
         leaves, treedef = tree_flatten(tree)
+        mask = _check_filter(filter, len(leaves))
         sizes: Dict[str, int] = {}
         slots = []
-        for leaf in leaves:
+        for i, leaf in enumerate(leaves):
             name = dtype_name(leaf.dtype)
+            if mask is not None and not mask[i]:
+                name = FROZEN_PREFIX + name
             size = int(math.prod(leaf.shape))
             off = sizes.get(name, 0)
             slots.append(LeafSlot(buffer=name, offset=off, size=size,
@@ -102,12 +138,26 @@ class FlatView:
         return cls(treedef=treedef, slots=tuple(slots))
 
     @property
-    def buffer_sizes(self) -> Dict[str, int]:
-        """Total elements per dtype buffer, first-seen order."""
+    def all_sizes(self) -> Dict[str, int]:
+        """Total elements per bucket, trainable and frozen, first-seen
+        order."""
         sizes: Dict[str, int] = {}
         for s in self.slots:
             sizes[s.buffer] = s.offset + s.size
         return sizes
+
+    @property
+    def buffer_sizes(self) -> Dict[str, int]:
+        """Total elements per TRAINABLE dtype buffer, first-seen order
+        (everything a round optimizes and uploads)."""
+        return {n: k for n, k in self.all_sizes.items()
+                if not is_frozen_bucket(n)}
+
+    @property
+    def frozen_sizes(self) -> Dict[str, int]:
+        """Total elements per frozen bucket ({} without a filter)."""
+        return {n: k for n, k in self.all_sizes.items()
+                if is_frozen_bucket(n)}
 
     @property
     def total_size(self) -> int:
@@ -119,18 +169,48 @@ class FlatView:
             raise ValueError("tree structure mismatch with this FlatView")
         return leaves
 
-    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
-        """Pack ``tree`` into ``{dtype_name: (total,) buffer}`` (a copy)."""
+    def _pack(self, tree: Pytree, frozen: bool) -> Dict[str, torch.Tensor]:
         parts: Dict[str, list] = {}
         for slot, leaf in zip(self.slots, self._check(tree)):
-            parts.setdefault(slot.buffer, []).append(leaf.reshape(-1))
+            if is_frozen_bucket(slot.buffer) == frozen:
+                parts.setdefault(slot.buffer, []).append(leaf.reshape(-1))
         return {name: torch.cat(chunks) for name, chunks in parts.items()}
 
-    def unflatten(self, bufs: Dict[str, torch.Tensor]) -> Pytree:
+    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack ``tree``'s trainable leaves into ``{dtype_name: (total,)
+        buffer}`` (a copy; every leaf without a filter)."""
+        return self._pack(tree, frozen=False)
+
+    def flatten_frozen(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack the FROZEN leaves into their ``frozen:`` buckets — the
+        once-per-phase read-only constant ({} without a filter)."""
+        return self._pack(tree, frozen=True)
+
+    def frozen_zeros(self, device=None) -> Dict[str, torch.Tensor]:
+        """Zero frozen buckets at their dtypes: the fill-in for
+        unflattening a trainable-only tree (server moments, deltas)."""
+        return {name: torch.zeros((size,), dtype=torch_dtype(name),
+                                  device=device)
+                for name, size in self.frozen_sizes.items()}
+
+    def _merged(self, bufs: Dict[str, torch.Tensor],
+                frozen: Optional[Dict[str, torch.Tensor]]):
+        if not self.frozen_sizes:
+            return bufs
+        device = next(iter(bufs.values())).device if bufs else None
+        return dict(bufs, **(frozen if frozen else
+                             self.frozen_zeros(device)))
+
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  frozen: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Pytree:
         """Inverse of :meth:`flatten`: leaves are views of ``bufs``
-        (which may carry grid padding past the logical size)."""
+        (which may carry grid padding past the logical size).  With a
+        filter, ``frozen`` supplies the ``frozen:`` buckets
+        (:meth:`flatten_frozen`); absent, they zero-fill."""
+        bufs = self._merged(bufs, frozen)
         leaves = [None] * len(self.slots)
-        for name in self.buffer_sizes:
+        for name in self.all_sizes:
             idx = [i for i, s in enumerate(self.slots) if s.buffer == name]
             buf = bufs[name]
             if buf.requires_grad and torch.is_grad_enabled():
@@ -145,28 +225,40 @@ class FlatView:
         return tree_unflatten(self.treedef, leaves)
 
     def flatten_stacked(self, tree: Pytree) -> Dict[str, torch.Tensor]:
-        """Pack a tree whose leaves carry one shared leading axis K into
-        ``{dtype_name: (K, total)}`` buffers."""
+        """Pack a tree whose (trainable) leaves carry one shared leading
+        axis K into ``{dtype_name: (K, total)}`` buffers."""
         parts: Dict[str, list] = {}
         for slot, leaf in zip(self.slots, self._check(tree)):
-            parts.setdefault(slot.buffer, []).append(
-                leaf.reshape(leaf.shape[0], -1))
+            if not is_frozen_bucket(slot.buffer):
+                parts.setdefault(slot.buffer, []).append(
+                    leaf.reshape(leaf.shape[0], -1))
         return {name: torch.cat(chunks, dim=1)
                 for name, chunks in parts.items()}
 
-    def unflatten_stacked(self, bufs: Dict[str, torch.Tensor]) -> Pytree:
-        """Inverse of :meth:`flatten_stacked` (views).  The empty tree
+    def unflatten_stacked(self, bufs: Dict[str, torch.Tensor],
+                          frozen: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Pytree:
+        """Inverse of :meth:`flatten_stacked` (views).  With a filter,
+        frozen slots broadcast the shared 1-D ``frozen`` bucket
+        (zero-filled when absent) over the K axis.  The empty tree
         round-trips to itself."""
+        K = next(iter(bufs.values())).shape[0] if bufs else 0
+        bufs = self._merged(bufs, frozen)
         leaves = []
         for s in self.slots:
             buf = bufs[s.buffer]
-            leaves.append(buf[:, s.offset:s.offset + s.size].reshape(
-                (buf.shape[0],) + s.shape))
+            if is_frozen_bucket(s.buffer):
+                row = buf[s.offset:s.offset + s.size].view(s.shape)
+                leaves.append(row.expand((K,) + s.shape))
+            else:
+                leaves.append(buf[:, s.offset:s.offset + s.size].reshape(
+                    (K,) + s.shape))
         return tree_unflatten(self.treedef, leaves)
 
     def zeros(self, dtype=None, device=None) -> Dict[str, torch.Tensor]:
-        """Zero buffers with this view's sizes; ``dtype`` overrides the
-        per-buffer dtype (e.g. an f32 accumulator over bf16 params)."""
+        """Zero trainable buffers with this view's sizes; ``dtype``
+        overrides the per-buffer dtype (e.g. an f32 accumulator over bf16
+        params)."""
         return {name: torch.zeros((size,), dtype=dtype or torch_dtype(name),
                                   device=device)
                 for name, size in self.buffer_sizes.items()}
@@ -177,10 +269,13 @@ class FlatView:
         generator on ``device`` seeded with ``fold_in(key, i)``, then
         packs like :meth:`flatten`.  The draws do not depend on the
         packing, so ``repro_torch.fl.privacy.tree_normal`` gives the
-        same values per parameter.  Integer leaves draw zeros."""
+        same values per parameter.  Integer leaves draw zeros; frozen
+        leaves emit nothing (``i`` stays the global slot index)."""
         gen = torch.Generator(device=device or "cpu")
         parts: Dict[str, list] = {}
         for i, slot in enumerate(self.slots):
+            if is_frozen_bucket(slot.buffer):
+                continue
             if torch_dtype(slot.buffer).is_floating_point:
                 gen.manual_seed(fold_in(key, i))
                 draw = torch.randn(slot.shape, generator=gen,
@@ -254,12 +349,16 @@ class ShardedFlatView:
 
     @classmethod
     def of(cls, tree: Pytree, pspecs: Pytree,
-           axis_sizes: Dict[str, int]) -> "ShardedFlatView":
+           axis_sizes: Dict[str, int], filter=None) -> "ShardedFlatView":
         """Build a view from leaf shapes/dtypes plus a matching
         PartitionSpec tree (``repro_torch.sharding.rules.param_pspecs``);
-        ``axis_sizes`` maps mesh axis name → size in mesh order."""
+        ``axis_sizes`` maps mesh axis name → size in mesh order.
+        ``filter`` is the per-leaf trainable mask (see :class:`FlatView`):
+        frozen leaves bucket into ``frozen:``-prefixed groups that keep
+        their (dtype × mesh-axis group) decomposition."""
         from repro_torch.sharding.rules import is_pspec
         leaves, treedef = tree_flatten(tree)
+        mask = _check_filter(filter, len(leaves))
         spec_leaves, _ = tree_flatten(
             pspecs, is_leaf=lambda x: x is None or is_pspec(x))
         if len(spec_leaves) != len(leaves):
@@ -270,7 +369,7 @@ class ShardedFlatView:
         cursor: Dict[str, int] = {}
         meta: Dict[str, Tuple[str, Tuple[str, ...], int]] = {}
         slots = []
-        for leaf, pspec in zip(leaves, spec_leaves):
+        for i, (leaf, pspec) in enumerate(zip(leaves, spec_leaves)):
             shape = tuple(leaf.shape)
             dtype = dtype_name(leaf.dtype)
             dim_axes = tuple(
@@ -287,6 +386,8 @@ class ShardedFlatView:
             axes = tuple(a for a in order if a in used)
             n_shards = math.prod(axis_sizes[a] for a in axes)
             name = dtype + ("@" + "+".join(axes) if axes else "")
+            if mask is not None and not mask[i]:
+                name = FROZEN_PREFIX + name
             size = int(math.prod(shape)) // max(n_shards, 1)
             off = cursor.get(name, 0)
             slots.append(ShardedLeafSlot(buffer=name, offset=off, size=size,
@@ -298,6 +399,14 @@ class ShardedFlatView:
                        for name, m in meta.items())
         return cls(treedef=treedef, slots=tuple(slots), groups=groups,
                    axis_sizes=tuple((a, int(axis_sizes[a])) for a in order))
+
+    @property
+    def trainable_groups(self) -> Tuple[ShardGroup, ...]:
+        return tuple(g for g in self.groups if not is_frozen_bucket(g.name))
+
+    @property
+    def frozen_groups(self) -> Tuple[ShardGroup, ...]:
+        return tuple(g for g in self.groups if is_frozen_bucket(g.name))
 
     def _axis_size(self, name: str) -> int:
         return dict(self.axis_sizes)[name]
@@ -316,8 +425,8 @@ class ShardedFlatView:
 
     def local_view(self) -> FlatView:
         """The rank-local layout as a :class:`FlatView` — the same
-        buckets, offsets and leaf shapes — when every group is
-        replicated (each rank holds whole leaves)."""
+        buckets (frozen ones included), offsets and leaf shapes — when
+        every group is replicated (each rank holds whole leaves)."""
         sharded = [g.name for g in self.groups if g.n_shards > 1]
         if sharded:
             raise NotImplementedError(
@@ -373,17 +482,36 @@ class ShardedFlatView:
                              "ShardedFlatView")
         return leaves
 
-    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
-        """Pack ``tree`` into ``{bucket: (n_shards, per_shard)}``."""
+    def _pack(self, tree: Pytree, frozen: bool) -> Dict[str, torch.Tensor]:
         parts: Dict[str, list] = {}
         for slot, leaf in zip(self.slots, self._check(tree)):
-            parts.setdefault(slot.buffer, []).append(
-                self._leaf_to_shards(leaf, slot))
+            if is_frozen_bucket(slot.buffer) == frozen:
+                parts.setdefault(slot.buffer, []).append(
+                    self._leaf_to_shards(leaf, slot))
         return {name: torch.cat(rows, dim=1) for name, rows in parts.items()}
 
-    def unflatten(self, bufs: Dict[str, torch.Tensor]) -> Pytree:
+    def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack ``tree``'s trainable leaves into ``{bucket: (n_shards,
+        per_shard)}`` (every leaf without a filter)."""
+        return self._pack(tree, frozen=False)
+
+    def flatten_frozen(self, tree: Pytree) -> Dict[str, torch.Tensor]:
+        """Pack the FROZEN leaves into their ``frozen:`` buckets, with the
+        same per-group shard decomposition ({} without a filter)."""
+        return self._pack(tree, frozen=True)
+
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  frozen: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Pytree:
         """Inverse of :meth:`flatten` (buffers may carry padding past
-        each row's logical size)."""
+        each row's logical size); ``frozen`` supplies the ``frozen:``
+        buckets (:meth:`flatten_frozen`; zero-filled when absent)."""
+        if self.frozen_groups and not frozen:
+            frozen = {g.name: torch.zeros((g.n_shards, g.size),
+                                          dtype=torch_dtype(g.dtype))
+                      for g in self.frozen_groups}
+        if self.frozen_groups:
+            bufs = dict(bufs, **frozen)
         leaves = [self._shards_to_leaf(
             bufs[s.buffer][:, s.offset:s.offset + s.size], s)
             for s in self.slots]

@@ -212,13 +212,88 @@ def test_charlm_bucket_takes_the_above_cut_upload():
 
 
 def test_pod_rejects_charlm():
-    """The pod backend is vision-only: a charlm task raises, naming the
-    ROADMAP.md item."""
-    from types import SimpleNamespace
+    """The pod takes a charlm task since the pod slice of M2d: its flat
+    ops hold the host engine's bucket; a task kind it does not know is
+    still rejected, naming the kinds it runs."""
+    import dataclasses
     from repro_torch.fl.pod import PodFLConfig, PodFLSpec
-    mesh = SimpleNamespace(device=torch.device("cpu"))
-    strategy = PodFLConfig(mesh, spec=PodFLSpec(update_impl="fused")) \
-        .strategy()
-    with pytest.raises(NotImplementedError, match="M2d"):
-        strategy.flat_ops(charlm_task(VOCAB, D_EMBED, D_HIDDEN),
-                          torch.device("cpu"))
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    mesh = make_host_mesh("cpu")
+    try:
+        strategy = PodFLConfig(mesh, spec=PodFLSpec(update_impl="fused")) \
+            .strategy()
+        task = charlm_task(VOCAB, D_EMBED, D_HIDDEN)
+        fops = strategy.flat_ops(task, torch.device("cpu"))
+        assert fops.view == host_flat_ops(task, False,
+                                          torch.device("cpu")).view
+        with pytest.raises(ValueError, match="unknown task kind"):
+            strategy.flat_ops(dataclasses.replace(task, kind="audio"),
+                              torch.device("cpu"))
+    finally:
+        destroy()
+
+
+@pytest.mark.parametrize("impl", ["tree", "fused"])
+def test_charlm_on_the_pod_matches_the_host_engine(sides, impl):
+    """CharLSTM on the one-rank pod (M2d on the pod): the relay bitwise
+    the host relay, the P2 FedAvgM rounds (sequential K6 accumulation)
+    within rtol 1e-5 of the host's (one K2 pass), and the eval stream's
+    per-sample mean over positions (a sequence's loss) equal."""
+    from repro_torch.core.pipeline import Phase, run_phase_schedule
+    from repro_torch.fl import pod
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    from repro_torch.models.transformer import _xent
+
+    (jtask, jdata), (ttask, tdata) = sides
+
+    def seq_loss(params, bx, by):
+        logits = pm.charlstm_apply(params, bx)
+        return torch.stack([_xent(logits[i], by[i])[0]
+                            for i in range(bx.shape[0])])
+
+    init = bridge.params_from_numpy(jax_numpy_params(
+        jtask.init(jax.random.PRNGKey(SEED))))
+    n_data = jdata.n_per_client
+    idx1 = jax_engine_indices(SEED, 1, 2, STEPS, BATCH, n_data)
+    idx2 = jax_engine_indices(SEED, 2, 3, STEPS, BATCH, n_data)
+    spec = pod.PodFLSpec(local_steps=STEPS, batch_size=BATCH, lr=0.5,
+                         server_opt="momentum", update_impl=impl)
+    mesh = make_host_mesh("cpu")
+    try:
+        res = run_phase_schedule(ttask, tdata, [
+            Phase("P1", pod.PodCyclicConfig(
+                mesh, rounds=1, clients_per_round=2, spec=spec,
+                sampling="host", batch_indices=index_source(idx1),
+                eval_every=1, eval_batch=7), eval_fn=seq_loss),
+            Phase("P2", pod.PodFLConfig(
+                mesh, rounds=2, clients_per_round=3, spec=spec,
+                sampling="host", batch_indices=index_source(idx2),
+                eval_every=1, eval_batch=7), eval_fn=seq_loss)],
+            device="cpu", init_params=init)
+    finally:
+        destroy()
+    tcyc = CyclicConfig(rounds=1, participation=2 / N_CLIENTS,
+                        local_steps=STEPS, batch_size=BATCH, lr=0.5,
+                        lr_decay=1.0, eval_every=1, eval_batch=7, seed=SEED,
+                        sampling="host", update_impl=impl,
+                        batch_indices=index_source(idx1))
+    tfed = FLConfig(rounds=2, participation=3 / N_CLIENTS, local_steps=STEPS,
+                    batch_size=BATCH, lr=0.5, lr_decay=1.0,
+                    server_opt="momentum", eval_every=1, eval_batch=7,
+                    seed=SEED, sampling="host", update_impl=impl,
+                    chunk_size=4, batch_indices=index_source(idx2))
+    p1 = cyclic_pretrain(ttask, tdata, tcyc, init_params=init, device="cpu",
+                         eval_fn=seq_loss)
+    p2 = run_federated(ttask, tdata, tfed, init_params=p1.params,
+                       device="cpu", eval_fn=seq_loss)
+    r1, r2 = res.phases[0].result, res.phases[1].result
+    for a, b in zip(tree_leaves(r1.params), tree_leaves(p1.params)):
+        assert torch.equal(a, b)
+    assert [h["acc"] for h in r1.history] == [h["acc"] for h in p1.history]
+    np.testing.assert_allclose([h["local_loss"] for h in r2.history],
+                               [h["local_loss"] for h in p2.history],
+                               rtol=1e-5)
+    np.testing.assert_allclose([h["acc"] for h in r2.history],
+                               [h["acc"] for h in p2.history], rtol=1e-5)
+    for a, b in zip(torch_leaves(r2.params), torch_leaves(p2.params)):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=0)

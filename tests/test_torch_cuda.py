@@ -1278,3 +1278,134 @@ def test_sparse_overlap_matches_dense_sync_on_the_card(sampling):
     stores = out["sparse"][2].residency_stores
     assert len(stores) == 2
     assert all(s.spilled_rows > 0 and s.refaulted_rows > 0 for s in stores)
+
+
+# ---------------------------------------------------------------------------
+# the LM slice: the bf16 instances at tinyllama-1.1b + lora:8's buckets
+# ---------------------------------------------------------------------------
+
+N_LORA = 6_307_840              # tinyllama-1.1b's rank-8 adapters, bf16
+N_TINYLLAMA = 1_106_356_224     # its base and adapters in one bf16 bucket
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (N_LORA, N_LORA + 3))
+def test_bf16_kernels_at_the_lora_bucket_bitwise(gen, n):
+    """K1 (clip 1, no decay, no momentum: the LM path's step), K2 (bf16
+    stack, and f32 deltas over bf16 p), K3 (aggregate form under
+    momentum, and the pod's ``none`` apply of an f32 delta) and K6 (bf16
+    w and p, f32 d) at the LoRA bucket, each bitwise its plain version."""
+    bf16 = torch.bfloat16
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    p, g = r(n, dtype=bf16), r(n, dtype=bf16)
+    sc = torch.tensor([1.0, 0.03], device="cuda")
+    a, b = p.clone(), p.clone()
+    fu.local_step(a, g, None, None, sc)
+    fu.local_step_plain(b, g, None, None, sc)
+    assert torch.equal(a, b)
+    w = torch.full((4,), 0.25, device="cuda")
+    st = r(4, n, dtype=bf16)
+    assert torch.equal(fu.weighted_delta(st, p, w),
+                       fu.weighted_delta_plain(st, p, w))
+    d32 = r(4, n) * 1e-2
+    assert torch.equal(fu.weighted_delta(d32, p, w, deltas=True),
+                       fu.weighted_delta_plain(d32, p, w, deltas=True))
+    avg = (p.float() + r(n) * 1e-2).to(bf16)
+    m = r(n, dtype=bf16)
+    one = torch.tensor([1.0], device="cuda")
+    a, am, b, bm = p.clone(), m.clone(), p.clone(), m.clone()
+    fu.server_update(a, None, (am,), one, avg=avg, opt="momentum", beta=0.9)
+    fu.server_update_plain(b, None, (bm,), one, avg=avg, opt="momentum",
+                           beta=0.9)
+    assert torch.equal(a, b) and torch.equal(am, bm)
+    delta = r(n) * 1e-2
+    a, b = p.clone(), p.clone()
+    fu.server_update(a, delta, (), one, opt="none")
+    fu.server_update_plain(b, delta, (), one, opt="none")
+    assert torch.equal(a, b)
+    acc = r(n) * 1e-2
+    c = torch.tensor([0.25], device="cuda")
+    x, y = acc.clone(), acc.clone()
+    fu.delta_accum(x, g, p, c)
+    fu.delta_accum_plain(y, g, p, c)
+    assert torch.equal(x, y)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_local_step_bf16_at_the_whole_model_bitwise():
+    """K1 over tinyllama-1.1b + lora:8's whole bucket (~1.1e9 bf16
+    elements, 2.2 GB a buffer; P1's step) when the card holds it and the
+    plain version's f32 temporaries (~6 buffers of 4.4 GB), else at the
+    largest N that fits; elements past 2^31 index right (64-bit
+    offsets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    free, _ = torch.cuda.mem_get_info()
+    per_elem = 2 * 3 + 4 * 6            # p, g, a clone; f32 temporaries
+    n = min(N_TINYLLAMA, (int(0.8 * free) // per_elem) // 1024 * 1024)
+    assert n >= 1 << 28, f"only {free} bytes free"
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    g = torch.randn(n, generator=gen, device="cuda").bfloat16()
+    sc = torch.tensor([1.0, 0.03], device="cuda")
+    tail = p[-1024:].clone()
+    a = p.clone()
+    fu.local_step(a, g, None, None, sc)
+    fu.local_step_plain(p, g, None, None, sc)
+    assert torch.equal(a, p)
+    # the last elements were written (no 32-bit wrap of the offsets)
+    assert not torch.equal(a[-1024:], tail)
+    del a, p, g
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_lora_round_fused_matches_plain_bitwise():
+    """Two P2 rounds of the reduced tinyllama-1.1b with lora:4 adapters
+    in bf16 on the one-rank NCCL pod: the kernels against their plain
+    versions from the same init and draws, bitwise; the frozen leaves
+    bitwise the init, every adapter leaf moved; K1 on the adapter bucket
+    only (4 per client), K6 per client, K3 per round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    import dataclasses
+    from repro_torch.configs import get_reduced, with_peft
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+    from repro_torch.fl.pod import PodFLConfig, PodFLSpec, run_pod_rounds
+    from repro_torch.fl.task import lm_task
+    from repro_torch.launch.mesh import destroy, make_host_mesh
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.utils.tree_math import tree_leaves
+    cfg = dataclasses.replace(
+        with_peft(get_reduced("tinyllama-1.1b"), "lora:4"),
+        dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    task = lm_task(cfg)
+    data = make_synthetic_tokenlm(n_clients=8, seq_len=32,
+                                  n_seq_per_client=8, vocab=cfg.vocab_size)
+    init = init_lm(cfg, 0, "cuda")
+    mask = rules.trainable_mask(init, "lora")
+    mesh = make_host_mesh()
+    out = {}
+    try:
+        for impl in ("fused", "fused_interpret"):
+            fu.reset_launch_counts()
+            res = run_pod_rounds(task, data, PodFLConfig(
+                mesh, rounds=2, clients_per_round=2, spec=PodFLSpec(
+                    local_steps=4, batch_size=4, lr=0.05, update_impl=impl,
+                    peft="lora:4")), init_params=init)
+            out[impl] = (tree_leaves(res.params), res.history,
+                         fu.local_step.launches, fu.delta_accum.launches,
+                         fu.server_update.launches)
+    finally:
+        destroy()
+    assert out["fused"][2:] == (2 * 2 * 4, 2 * 2, 2)
+    assert out["fused_interpret"][2:] == (0, 0, 0)
+    assert out["fused"][1] == out["fused_interpret"][1]
+    for a, b, i0, m in zip(out["fused"][0], out["fused_interpret"][0],
+                           tree_leaves(init), mask):
+        assert a.is_cuda and a.dtype == torch.bfloat16 and torch.equal(a, b)
+        assert torch.equal(a, i0) != m

@@ -45,11 +45,15 @@ def test_dirichlet_partition_is_identical():
 
 
 def test_registry_lists_the_ported_vision_sets():
+    """Every set of the JAX package's registry is ported (the token
+    stream since the LM slice); an unknown name raises."""
     assert set(DATASETS.names()) == {"cifar10-like", "cifar100-like",
                                      "cifar100c-hard", "fashion-like",
-                                     "femnist-like", "shakespeare-like"}
+                                     "femnist-like", "shakespeare-like",
+                                     "tokenlm-bigram"}
+    assert set(DATASETS.names()) == set(J_DATASETS.names())
     with pytest.raises(KeyError):
-        DATASETS.get("tokenlm-bigram")
+        DATASETS.get("imagenet-like")
 
 
 def test_device_arrays_and_client_batches():

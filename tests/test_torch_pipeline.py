@@ -258,14 +258,36 @@ def _entry_points(task, data):
         "make_cyclic_round_fn": lambda **kw: make_cyclic_round_fn(
             task, cyc, **kw),
         "make_eval_fn": lambda **kw: make_eval_fn(task, 16, **kw),
+        "run_pod_training": _pod_training,
     }
+
+
+def _pod_training(**kw):
+    """``launch.train.run_pod_training`` at a tiny size (the one-rank
+    mesh it makes is destroyed after)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+    from repro_torch.fl.pod import PodFLSpec
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch.train import run_pod_training
+    cfg = get_reduced("tinyllama-1.1b")
+    data = make_synthetic_tokenlm(n_clients=4, seq_len=8,
+                                  n_seq_per_client=4, vocab=cfg.vocab_size)
+    try:
+        return run_pod_training(cfg, data, cyclic_rounds=1, fl_rounds=1,
+                                clients_per_round=2,
+                                spec=PodFLSpec(local_steps=1, batch_size=2),
+                                **kw)
+    finally:
+        tmesh.destroy()
 
 
 @pytest.mark.parametrize("entry", ["run_rounds", "cyclic_pretrain",
                                    "run_federated", "run_phase_schedule",
                                    "run_cyclic_then_federated",
                                    "make_round_fn", "init_server_state",
-                                   "make_cyclic_round_fn", "make_eval_fn"])
+                                   "make_cyclic_round_fn", "make_eval_fn",
+                                   "run_pod_training"])
 def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
     task, data = torch_side
     fn = _entry_points(task, data)[entry]
@@ -282,8 +304,14 @@ def test_entry_points_need_cuda_unless_cpu(torch_side, monkeypatch, entry):
     ({"trainable_filter": "head"}, "M11"),
 ])
 def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """The PEFT knobs (ROADMAP ``item``, ported): the tree path has no
+    trainable slice and raises; a fused config carries them to its
+    local spec."""
+    with pytest.raises(ValueError, match="fused flat path"):
         FLConfig(**kwargs)
+    spec = FLConfig(update_impl="fused", **kwargs).local_spec()
+    assert (spec.peft, spec.trainable_filter) == (
+        kwargs.get("peft"), kwargs.get("trainable_filter"))
 
 
 def test_unported_engine_options_raise():

@@ -44,6 +44,7 @@ gathers the round's rows, and ``c`` matches the one-rank run and the
 JAX pod.
 """
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -242,12 +243,40 @@ def test_pod_runs_through_the_phase_schedule(mesh, sides):
                            device="meta")
 
 
+class _FourRankMesh:
+    """What the rules and the strategy read of a (2, 2) mesh, for the
+    rank at (0, 0): no process group is needed to build its views."""
+    axis_names = ("data", "model")
+    devices = np.zeros((2, 2))
+    shape = {"data": 2, "model": 2}
+    coords = {"data": 0, "model": 0}
+    device = torch.device("cpu")
+
+
 def test_unported_pod_options_raise_naming_their_items(mesh):
     # M10 is ported: the sparse store builds on the mesh
     assert isinstance(pod.PodFLConfig(mesh, store="sparse").strategy()
                       .state_store, pod.ShardedSparseClientStateStore)
-    with pytest.raises(NotImplementedError, match="M11"):
+    # M11 is ported: the knobs need the fused path and reach the local
+    # spec; a bucket sharded over four ranks still raises M13b
+    with pytest.raises(ValueError, match="fused flat path"):
         pod.PodFLSpec(peft="lora:8")
+    assert pod.PodFLSpec(peft="lora:8", update_impl="fused").local_spec() \
+        .peft == "lora:8"
+    from repro_torch.configs import get_reduced, with_peft
+    from repro_torch.fl.task import lm_task
+    task = lm_task(with_peft(get_reduced("qwen1.5-0.5b"), "lora:4"))
+    four = _FourRankMesh()
+    for layout in ("fsdp_tp", "fsdp_only"):
+        strat = pod.PodAggregateStrategy(
+            spec=pod.PodFLSpec(update_impl="fused", peft="lora:4")
+            .local_spec(), mesh=four, layout=layout)
+        with pytest.raises(NotImplementedError, match="M13b"):
+            strat.flat_ops(task, torch.device("cpu"))
+    strat = pod.PodAggregateStrategy(
+        spec=pod.PodFLSpec(update_impl="fused", peft="lora:4").local_spec(),
+        mesh=four, layout="replicated")
+    assert strat.flat_ops(task, torch.device("cpu")).view.frozen_sizes
     with pytest.raises(NotImplementedError, match="M15"):
         pod.lower_pod_round()
     with pytest.raises(ValueError, match="fused flat path"):
@@ -442,7 +471,14 @@ MR_CASES = {
     "2x2-compressed-ef-lanes": ((2, 2), {"aggregation": "hierarchical"},
                                 None, True, "fedavg"),
     "2x2-scaffold": ((2, 2), {}, None, False, "scaffold"),
+    # the LM slice: reduced qwen1.5-0.5b with lora:4 adapters on the token
+    # stream, params replicated (sharded groups are M13b), the batch
+    # split over data; only the adapter bucket trains and all-reduces
+    "2x2-lora": ((2, 2), {"layout": "replicated"}, None, False, "fedavg"),
 }
+# the MR_CASES entries that train the LoRA model (the others the mlp)
+LORA_CASES = ("2x2-lora",)
+LORA_ARCH, LORA_SEQ, LORA_N_SEQ = "qwen1.5-0.5b", 16, 8
 
 _JAX_REFERENCE = textwrap.dedent("""
     import json, sys
@@ -451,7 +487,9 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.data.synthetic import DATASETS
     from repro.fl import compression, pod, privacy
     from repro.fl.engine import run_rounds
-    from repro.fl.task import vision_task
+    from repro.fl.task import lm_task, vision_task
+    from repro.configs import get_reduced, with_peft
+    from repro.data.synthetic import make_synthetic_tokenlm
     from repro.launch.mesh import _make_mesh
     cfg = json.load(open(sys.argv[1]))
     task = vision_task("mlp", n_classes=10, in_ch=3, seed_kwargs={"img": 32})
@@ -459,19 +497,29 @@ _JAX_REFERENCE = textwrap.dedent("""
         beta=0.5, seed=cfg["seed"], n_train=cfg["n_train"],
         n_test=cfg["n_test"])
     init = task.init(jax.random.PRNGKey(cfg["seed"]))
+    lm = cfg["lora"]
+    lcfg = with_peft(get_reduced(lm["arch"]), "lora:4")
+    ltask = lm_task(lcfg)
+    ldata = make_synthetic_tokenlm(n_clients=cfg["n_clients"],
+        seq_len=lm["seq"], n_seq_per_client=lm["n_seq"],
+        vocab=lcfg.vocab_size, seed=cfg["seed"])
+    linit = ltask.init(jax.random.PRNGKey(cfg["seed"]))
     out = {}
     for name, case in cfg["cases"].items():
         mesh = _make_mesh(tuple(case["shape"]), ("data", "model"))
         dp = privacy.DPSpec(case["dp"]) if case["dp"] else None
         comp = (compression.CompressionSpec(8, 0.25, True)
                 if case["compressed"] else None)
+        lora = case["task"] == "lora"
         c = pod.PodFLConfig(mesh=mesh, rounds=cfg["rounds"],
             clients_per_round=cfg["K"], spec=pod.PodFLSpec(
                 update_impl="fused_interpret", dp=dp, compression=comp,
-                algorithm=case["algorithm"], **cfg["spec"]),
+                algorithm=case["algorithm"],
+                peft="lora:4" if lora else None, **cfg["spec"]),
             sampling="host", eval_every=1, chunk_size=1, **case["kw"])
-        res = run_rounds(task, data, c.strategy(), c.schedule(),
-                         init_params=init)
+        res = run_rounds(ltask if lora else task, ldata if lora else data,
+                         c.strategy(), c.schedule(),
+                         init_params=linit if lora else init)
         for i, leaf in enumerate(jax.tree_util.tree_leaves(res.params)):
             out[f"{name}/p{i}"] = np.asarray(leaf, np.float32)
         out[f"{name}/loss"] = np.array([h["local_loss"]
@@ -524,12 +572,18 @@ def multi_rank(tmp_path_factory, sides):
     np.savez(tmp / "init.npz", *[np.asarray(x, np.float32)
                                  for x in jax.tree_util.tree_leaves(jinit)])
     np.save(tmp / "indices.npy", _indices(ROUNDS, K))
+    np.savez(tmp / "init_lora.npz", *[
+        np.asarray(x, np.float32)
+        for x in jax.tree_util.tree_leaves(_lora_side()[0])])
+    np.save(tmp / "indices_lora.npy", _lora_indices())
     cases = {name: {"shape": list(shape), "kw": kw, "dp": dp,
-                    "compressed": comp, "algorithm": algorithm}
+                    "compressed": comp, "algorithm": algorithm,
+                    "task": "lora" if name in LORA_CASES else "mlp"}
              for name, (shape, kw, dp, comp, algorithm) in MR_CASES.items()}
     cfg = dict(seed=SEED, n_clients=N_CLIENTS, n_train=N_TRAIN,
                n_test=N_TEST, rounds=ROUNDS, K=K,
                spec=dict(local_steps=STEPS, batch_size=BATCH, lr=0.05),
+               lora=dict(arch=LORA_ARCH, seq=LORA_SEQ, n_seq=LORA_N_SEQ),
                cases=cases, out=str(tmp / "jax.npz"), dir=str(tmp))
     (tmp / "cfg.json").write_text(json.dumps(cfg))
     jproc = _run_jax_reference(tmp / "cfg.json")
@@ -537,6 +591,41 @@ def multi_rank(tmp_path_factory, sides):
     _wait(workers, "torch_pod_worker.py")
     _wait([jproc], "the JAX reference")
     return cfg, tmp
+
+
+@functools.lru_cache(maxsize=None)
+def _lora_side():
+    """The LoRA cases' JAX init params (numpy), the port's task and
+    data."""
+    from repro.configs import get_reduced as jget_reduced
+    from repro.configs import with_peft as jwith_peft
+    from repro.fl.task import lm_task as j_lm_task
+    from repro_torch.configs import get_reduced, with_peft
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+    from repro_torch.fl.task import lm_task
+    jtask = j_lm_task(jwith_peft(jget_reduced(LORA_ARCH), "lora:4"))
+    jinit = jax.tree_util.tree_map(np.array,
+                                   jtask.init(jax.random.PRNGKey(SEED)))
+    cfg = with_peft(get_reduced(LORA_ARCH), "lora:4")
+    data = make_synthetic_tokenlm(n_clients=N_CLIENTS, seq_len=LORA_SEQ,
+                                  n_seq_per_client=LORA_N_SEQ,
+                                  vocab=cfg.vocab_size, seed=SEED)
+    return jinit, lm_task(cfg), data
+
+
+def _lora_indices():
+    return jax_engine_indices(SEED, ROUNDS, K, STEPS, BATCH, LORA_N_SEQ)
+
+
+def _one_rank_lora(mesh, case_kw):
+    jinit, task, data = _lora_side()
+    cfg = pod.PodFLConfig(
+        mesh, rounds=ROUNDS, clients_per_round=K,
+        spec=pod.PodFLSpec(peft="lora:4", **_spec_kw("fused")),
+        sampling="host", eval_every=1,
+        batch_indices=index_source(_lora_indices()), **case_kw)
+    return pod.run_pod_rounds(task, data, cfg, init_params=bridge.
+                              params_from_numpy(jax_numpy_params(jinit)))
 
 
 def _one_rank(mesh, sides, case_kw, dp, comp, algorithm):
@@ -628,7 +717,8 @@ def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
     got = np.load(tmp / f"torch_{case}.npz")
     want = np.load(tmp / "jax.npz")
     n = len([k for k in want if k.startswith(f"{case}/p")])
-    one = _one_rank(mesh, sides, kw, dp, comp, algorithm)
+    one = (_one_rank_lora(mesh, kw) if case in LORA_CASES else
+           _one_rank(mesh, sides, kw, dp, comp, algorithm))
     np.testing.assert_allclose(got["loss"], want[f"{case}/loss"], rtol=1e-5)
     per_rank = [json.loads((tmp / f"counts_{case}_{r}.json").read_text())
                 for r in range(4)]
@@ -659,6 +749,15 @@ def test_four_ranks_match_jax_and_one_rank(mesh, sides, multi_rank, case):
                                        atol=ATOL, rtol=0)
         for i, leaf in enumerate(torch_leaves(one.params)):
             np.testing.assert_allclose(got[f"p{i}"], leaf, atol=1e-5, rtol=0)
+    if case in LORA_CASES:
+        # the frozen base comes back bitwise on every rank's result; the
+        # adapters (one f32 bucket: one all-reduce per step) moved
+        from repro_torch.sharding import rules as trules
+        jinit = jax.tree_util.tree_leaves(_lora_side()[0])
+        mask = trules.trainable_mask(_lora_side()[1].shapes(), "lora")
+        assert len(mask) == n
+        for i, (leaf0, m) in enumerate(zip(jinit, mask)):
+            assert np.array_equal(got[f"p{i}"], leaf0) != m, i
     if algorithm == "scaffold":
         # c: the gathered rows of the client store sharded over data
         c_one = one.algo_state["c_global"]["float32"].numpy()
