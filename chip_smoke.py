@@ -192,12 +192,35 @@ JSON line per phase:
                      decode ms per step, tok/s, peak memory;
   6. serve_e2e     — the same weights and prompt through the plain
                      versions ("pallas_interpret") and through the plain
-                     versions in f32: prefill logits and teacher-forced
-                     decode logits compared, greedy-token agreement;
+                     versions in f32: prefill logits and the first 8
+                     teacher-forced decode steps' logits compared,
+                     greedy-token agreement;
   7. serve_profile — one prefill and one decode step under torch.profiler:
                      device-busy share, device ops, K7's and K8's device
                      time and device kernels (K8 is three per call), top
                      device ops;
+  8. moe_serve     — deepseek-v2-lite-16b at full width and depth
+                     (15,706,484,224 bf16 params: MoE with capacity
+                     dispatch, MLA) through ``Engine.generate``: batch 8,
+                     prompt 2048, 8 greedy tokens; K7 launched 0 times
+                     (MLA is not K7's), a repeat run's tokens identical,
+                     the routed pairs each MoE layer drops at prefill and
+                     at a decode step; init seconds and peak, prefill ms,
+                     decode ms per step, tok/s, peak memory; then one
+                     profiled prefill and decode step
+                     (moe_serve_profile);
+     moe_cut       — the same config cut to 3 layers at full width:
+                     teacher-forced bf16 against f32 on the card (the gap
+                     and the routing pairs that differ, reported), and
+                     the card's f32 against the CPU's at batch 2 x
+                     prompt 128, 4 steps: logits within MOE_CPU_TOL and
+                     identical top-k routing;
+  9. zoo_serve     — internvl2-1b (256 patch embeddings + 1792 tokens)
+                     and musicgen-medium (2048 frames, 4 codebooks) at
+                     full width, bf16, batch 8, 8 new tokens: K7 24 x 9
+                     and 48 x 9 launches, split into prefill and decode;
+                     zoo_serve_e2e holds each against the plain path as
+                     serve_e2e does;
 then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
 at llm_lora's buckets and its launches there; K1–K3 with their N
 814,080 rows and
@@ -205,7 +228,8 @@ launches on charlm_path and fashion_path; the threshold's row its
 radix route on charlm_compressed, its cluster form beside it; K4 with
 its top-k and residual form's launches there; K1 with its c form's
 times and launches;
-K7 with each serve shape's times; K8 with
+K7 with each serve shape's times and its launches on zoo_serve and
+moe_serve (0); K8 with
 its device kernels per call, since one ``ssd_scan`` call is three), the
 nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -237,7 +261,22 @@ SWEEP_TRIALS = 1
 # hymba-1.5b serving shapes: batch 8, prompt 2048, 64 new tokens
 SERVE_B, SERVE_S, SERVE_NEW = 8, 2048, 64
 SERVE_T = SERVE_S + SERVE_NEW
+# serve_e2e compares the prefill and the first E2E_STEPS decode steps
+# (fewer than the 64 generated: it holds the script's time)
+E2E_STEPS = 8
 HYMBA_PARAMS = 1_640_872_320
+# deepseek-v2-lite-16b (moe_serve) and the VLM and audio backbones
+# (zoo_serve): batch 8, 2048 prompt positions, 8 new tokens (32 cost the
+# script ~25 s more, past its time budget on a slow host)
+ZOO_NEW = 8
+ZOO_T = SERVE_S + ZOO_NEW
+ZOO_PARAMS = {"deepseek-v2-lite-16b": 15_706_484_224,
+              "internvl2-1b": 493_780_992,
+              "musicgen-medium": 1_824_671_232}
+# moe_serve's depth cut: 8 teacher-forced decode steps; the card-vs-CPU
+# f32 check at batch 2 x prompt 128, 4 steps, within MOE_CPU_TOL
+MOE_CUT_NEW, MOE_CPU_B, MOE_CPU_S, MOE_CPU_NEW = 8, 2, 128, 4
+MOE_CPU_TOL = 2e-4      # |card - cpu| <= tol + tol*|cpu|, f32 logits
 
 
 def _kernel_cases() -> dict:
@@ -258,6 +297,15 @@ def _kernel_cases() -> dict:
                                            q_offset=T - 1, **att),
             "ragged_777": dict(B=2, S=777, T=777, window=None, q_offset=0,
                                **att),
+            # zoo_serve's shapes: internvl2-1b (14 heads on 2, G 7) and
+            # musicgen-medium (24 on 24, G 1), hd 64, 2048 prompt
+            # positions + ZOO_NEW tokens: prefill and the last decode step
+            **{f"{name}_{kind}": dict(
+                B=B, S=S if kind == "prefill" else 1, T=ZOO_T,
+                window=None, q_offset=0 if kind == "prefill" else ZOO_T - 1,
+                H=h, KH=kh, hd=64)
+               for name, h, kh in (("internvl2", 14, 2), ("musicgen", 24, 24))
+               for kind in ("prefill", f"decode_{ZOO_T - 1}")},
         },
         "ssd_scan": {
             "hymba": dict(b=B, s=S, h=50, p=64, n=16, g=1, chunk=128),
@@ -3500,14 +3548,26 @@ def restore_cudnn(torch, flags) -> None:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
+def reset_kernel_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ssd_scan as ssd
+    fu.reset_launch_counts()
+    fa.flash_attention.launches = ssd.ssd_scan.launches = 0
+
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    return {"flash_attention": fa.flash_attention.launches,
+            "ssd_scan": ssd.ssd_scan.launches}
+
+
 def serve(torch):
     """Phase 5: hymba-1.5b at full width through Engine.generate on the
     kernel path, launch counts asserted."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import fused_update as fu
-    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.serve import Engine
     from repro_torch.utils.tree_math import count_params
 
@@ -3523,11 +3583,9 @@ def serve(torch):
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
                                       generator=gen, device="cuda")}
 
-    fu.reset_launch_counts()
-    fa.flash_attention.launches = ssd.ssd_scan.launches = 0
+    reset_kernel_counts()
     tokens, cold = eng.generate(prompt, SERVE_NEW)
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "ssd_scan": ssd.ssd_scan.launches}
+    launches = kernel_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"flash_attention": cfg.n_layers * (1 + SERVE_NEW),
             "ssd_scan": cfg.n_layers}
@@ -3565,11 +3623,12 @@ def serve(torch):
     return eng, prompt, tokens, launches, per_phase
 
 
-def phase_launches(torch, eng, prompt):
+def phase_launches(torch, eng, prompt, max_len: int = SERVE_T):
     """The K7 and K8 launches of one prefill and of one decode step, each
     read from counts set to 0 just before it."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.serve import prompt_length
     from repro_torch.models.transformer import decode_step, prefill
 
     kernels = {"flash_attention": fa.flash_attention,
@@ -3586,34 +3645,56 @@ def phase_launches(torch, eng, prompt):
 
     with torch.inference_mode():
         logits, cache, _ = run("prefill", lambda: prefill(
-            eng.params, cfg, prompt, SERVE_T))
-        tok = logits[:, -1].argmax(-1)[:, None]
-        run("decode_step", lambda: decode_step(eng.params, cfg, tok, cache,
-                                               SERVE_S))
+            eng.params, cfg, prompt, max_len))
+        x = greedy_input(cfg, logits)
+        run("decode_step", lambda: decode_step(
+            eng.params, cfg, x, cache, prompt_length(cfg, prompt)))
         del cache
     return counts
 
 
-def forced_logits(torch, params, cfg, prompt, tokens):
+def greedy_input(cfg, logits):
+    """The next decode step's input from the last logits: the greedy ids
+    (B, 1[, n_codebooks]), or the audio stand-in frames."""
+    from repro_torch.launch.serve import decode_input
+    return decode_input(cfg, logits[:, -1].argmax(-1)[:, None])
+
+
+def forced_logits(torch, params, cfg, prompt, tokens, max_len=SERVE_T):
     """Prefill logits, then one decode step per generated token, fed the
-    given tokens (teacher forcing): (B, 1 + new, V) f32."""
+    given tokens (teacher forcing): (B, 1 + new, V[, n_codebooks]) f32."""
+    from repro_torch.launch.serve import decode_input, prompt_length
     from repro_torch.models.transformer import decode_step, prefill
+    S = prompt_length(cfg, prompt)
     with torch.inference_mode():
-        logits, cache, _ = prefill(params, cfg, prompt, SERVE_T)
+        logits, cache, _ = prefill(params, cfg, prompt, max_len)
         out = [logits[:, -1].float()]
         for i in range(tokens.shape[1]):
-            logits, cache = decode_step(params, cfg, tokens[:, i:i + 1],
-                                        cache, SERVE_S + i)
+            logits, cache = decode_step(
+                params, cfg, decode_input(cfg, tokens[:, i:i + 1]), cache,
+                S + i)
             out.append(logits[:, -1].float())
         del cache
     return torch.stack(out, dim=1)
 
 
-def serve_e2e(torch, eng, prompt, tokens):
+def logit_gap(a, b):
+    """Max and RMS of |a - b| over (B, 1 + steps, ...) logits, split into
+    the prefill and the decode steps, and the argmax agreement."""
+    d = (a - b).abs()
+    return dict(max=float(d.max()), rms=float(d.square().mean().sqrt()),
+                prefill_max=float(d[:, 0].max()),
+                decode_max=float(d[:, 1:].max()),
+                argmax_agree=float((a.argmax(-1) == b.argmax(-1))
+                                   .float().mean()))
+
+
+def serve_e2e(torch, eng, prompt, tokens, max_len=SERVE_T,
+              phase="serve_e2e"):
     """Phase 6: the kernel path against the plain path on the same
     weights and prompt.  Tolerance: the kernels may move the logits no
     further from the plain bf16 path than bf16 rounding itself does, i.e.
-    the kernel-vs-plain gap (max and RMS over the prefill and the 64
+    the kernel-vs-plain gap (max and RMS over the prefill and the
     teacher-forced decode steps) must not exceed the plain bf16 path's
     gap to the same computation in f32."""
     import dataclasses
@@ -3621,61 +3702,59 @@ def serve_e2e(torch, eng, prompt, tokens):
     from repro_torch.utils.tree_math import tree_map
 
     cfg = eng.cfg
+    steps = tokens.shape[1]
     plain_cfg = dataclasses.replace(cfg, attn_impl="pallas_interpret",
                                     ssd_impl="pallas_interpret")
     f32_cfg = dataclasses.replace(plain_cfg, dtype=torch.float32,
                                   param_dtype=torch.float32)
-    kern = forced_logits(torch, eng.params, cfg, prompt, tokens)
-    plain = forced_logits(torch, eng.params, plain_cfg, prompt, tokens)
+    kern = forced_logits(torch, eng.params, cfg, prompt, tokens, max_len)
+    plain = forced_logits(torch, eng.params, plain_cfg, prompt, tokens,
+                          max_len)
     p32 = tree_map(lambda t: t.float(), eng.params)
-    ref32 = forced_logits(torch, p32, f32_cfg, prompt, tokens)
+    ref32 = forced_logits(torch, p32, f32_cfg, prompt, tokens, max_len)
     del p32
-
-    def gap(a, b):
-        d = (a - b).abs()
-        return dict(max=float(d.max()), rms=float(d.square().mean().sqrt()),
-                    prefill_max=float(d[:, 0].max()),
-                    decode_max=float(d[:, 1:].max()),
-                    argmax_agree=float((a.argmax(-1) == b.argmax(-1))
-                                       .float().mean()))
-    kp, pf, kf = gap(kern, plain), gap(plain, ref32), gap(kern, ref32)
-    reproduces = bool(torch.equal(kern.argmax(-1)[:, :SERVE_NEW], tokens))
+    kp, pf = logit_gap(kern, plain), logit_gap(plain, ref32)
+    kf = logit_gap(kern, ref32)
+    reproduces = bool(torch.equal(kern.argmax(-1)[:, :steps], tokens))
     plain_eng = Engine(plain_cfg, params=eng.params)
-    plain_tokens, _ = plain_eng.generate(prompt, SERVE_NEW)
-    agree = (plain_tokens == tokens)
-    diverged = (~agree).float().argmax(dim=1)
+    plain_tokens, _ = plain_eng.generate(prompt, steps)
+    agree = (plain_tokens == tokens).reshape(tokens.shape[0], steps, -1)
+    diverged = (~agree.all(-1)).float().argmax(dim=1)
     first_div = [int(d) if not bool(a.all()) else None
                  for d, a in zip(diverged, agree)]
     ok = bool(torch.isfinite(kern).all()) and kp["max"] <= pf["max"] and \
         kp["rms"] <= pf["rms"]
-    emit(dict(phase="serve_e2e", steps=SERVE_NEW,
+    emit(dict(phase=phase, model=cfg.name, steps=steps,
               tolerance="kernel-vs-plain max and rms <= plain-bf16-vs-f32",
               kernel_vs_plain=kp, plain_vs_f32=pf, kernel_vs_f32=kf,
               teacher_forced_run_reproduces_generate=reproduces,
               greedy_token_agreement=float(agree.float().mean()),
               first_divergent_step=first_div, ok=ok))
     if not ok:
-        raise SystemExit("chip_smoke: the kernel path leaves the plain "
-                         "path's bf16 noise")
+        raise SystemExit(f"chip_smoke: {cfg.name}'s kernel path leaves the "
+                         "plain path's bf16 noise")
 
 
 K8_KERNELS = ("ssd_state_kernel", "ssd_pass_kernel", "ssd_scan_kernel")
 
 
-def serve_profile(torch, eng, prompt) -> dict:
+def serve_profile(torch, eng, prompt, max_len=SERVE_T,
+                  phase="serve_profile") -> dict:
     """Phase 7: one prefill and one decode step under torch.profiler
     (CUDA activity only): device-busy share and top device ops; returns
     K8's device kernels per run."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import prompt_length
     from repro_torch.models.transformer import decode_step, prefill
 
     cfg = eng.cfg
     with torch.inference_mode():
-        logits, cache, _ = prefill(eng.params, cfg, prompt, SERVE_T)
-        tok = logits[:, -1].argmax(-1)[:, None]
-        runs = {"prefill": lambda: prefill(eng.params, cfg, prompt, SERVE_T),
-                "decode_step": lambda: decode_step(eng.params, cfg, tok, cache,
-                                                   SERVE_S)}
+        logits, cache, _ = prefill(eng.params, cfg, prompt, max_len)
+        x = greedy_input(cfg, logits)
+        del logits
+        runs = {"prefill": lambda: prefill(eng.params, cfg, prompt, max_len),
+                "decode_step": lambda: decode_step(
+                    eng.params, cfg, x, cache, prompt_length(cfg, prompt))}
         k8_kernels = {}
         for name, fn in runs.items():
             torch.cuda.synchronize()
@@ -3689,7 +3768,8 @@ def serve_profile(torch, eng, prompt) -> dict:
                                              "fa_wgmma_kernel", "fa_kernel"))
             k8_us, k8_n = kernel_time(prof, K8_KERNELS)
             k8_kernels[name] = k8_n
-            emit(dict(phase="serve_profile", run=name, wall_ms=wall_us / 1e3,
+            emit(dict(phase=phase, model=cfg.name, run=name,
+                      wall_ms=wall_us / 1e3,
                       device_busy_ms=busy / 1e3,
                       device_busy_share=busy / wall_us if n_ops else None,
                       device_ops=n_ops, k7_ms=k7_us / 1e3, k7_launches=k7_n,
@@ -3700,6 +3780,220 @@ def serve_profile(torch, eng, prompt) -> dict:
             if not n_ops:
                 raise SystemExit("chip_smoke: the profiler saw no device op")
     return k8_kernels
+
+
+def serve_run(torch, arch: str):
+    """``arch`` at full width and depth (bf16, random from SEED) through
+    Engine.generate on the kernel path: init seconds and peak memory,
+    then a batch of 8 prompts of 2048 positions (vlm: the config's patch
+    embeddings, then tokens), ZOO_NEW greedy tokens twice (cold, then
+    warm), the launches of the first run read from counts set to 0 just
+    before it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Engine, prompt_batch
+    from repro_torch.utils.tree_math import count_params, tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
+                              ssd_impl="pallas")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    eng = Engine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_params = count_params(eng.params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = prompt_batch(cfg, SERVE_B, SERVE_S - cfg.n_prefix_tokens, gen)
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    tokens, cold = eng.generate(prompt, ZOO_NEW)
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again, warm = eng.generate(prompt, ZOO_NEW)
+    line = dict(model=cfg.name, params=n_params, dtype=str(cfg.dtype)[6:],
+                batch=SERVE_B, prompt_positions=SERVE_S,
+                new_tokens=ZOO_NEW, init_s=init_s,
+                memory_before_init_gb=before_gb,
+                init_peak_memory_gb=init_peak_gb,
+                params_gb=sum(t.numel() * t.element_size()
+                              for t in tree_leaves(eng.params)) / 1e9,
+                prefill_ms=cold.prefill_s * 1e3,
+                decode_ms_per_step=cold.decode_s * 1e3 / ZOO_NEW,
+                tok_per_s=cold.tok_per_s,
+                warm_prefill_ms=warm.prefill_s * 1e3,
+                warm_decode_ms_per_step=warm.decode_s * 1e3 / ZOO_NEW,
+                warm_tok_per_s=warm.tok_per_s,
+                prefill_tok_per_s=SERVE_B * SERVE_S / warm.prefill_s,
+                peak_memory_gb=peak_gb, launches=launches,
+                repeat_tokens_identical=bool(torch.equal(tokens, again)),
+                first_tokens=tokens[0, :8].tolist())
+    if n_params != ZOO_PARAMS[arch]:
+        raise SystemExit(f"chip_smoke: {arch} has {n_params} params, "
+                         f"expected {ZOO_PARAMS[arch]}")
+    want_shape = (SERVE_B, ZOO_NEW) + ((cfg.n_codebooks,)
+                                       if cfg.n_codebooks > 1 else ())
+    if tokens.shape != want_shape or \
+            not 0 <= int(tokens.min()) <= int(tokens.max()) < cfg.vocab_size:
+        raise SystemExit(f"chip_smoke: {arch}'s tokens are out of range or "
+                         f"of shape {tuple(tokens.shape)}")
+    return eng, prompt, tokens, line
+
+
+def moe_drops(torch, eng, prompt) -> dict:
+    """The routed pairs each MoE layer drops past its capacity, in one
+    prefill and in one decode step (``layers.record_routing``)."""
+    from repro_torch.launch.serve import prompt_length
+    from repro_torch.models.layers import record_routing
+    from repro_torch.models.transformer import decode_step, prefill
+    cfg, out = eng.cfg, {}
+    with torch.inference_mode():
+        with record_routing() as log:
+            logits, cache, _ = prefill(eng.params, cfg, prompt, ZOO_T)
+        out["prefill"] = log
+        with record_routing() as log:
+            decode_step(eng.params, cfg, greedy_input(cfg, logits), cache,
+                        prompt_length(cfg, prompt))
+        out["decode_step"] = log
+        del cache
+    return {run: dict(capacity=log[0]["capacity"], pairs=log[0]["pairs"],
+                      dropped_per_layer=[int(r["dropped"]) for r in log])
+            for run, log in out.items()}
+
+
+def moe_serve(torch) -> dict:
+    """deepseek-v2-lite-16b at full width and depth (MoE + MLA, 15.7 B
+    bf16 params) through Engine.generate: no K7 launch (MLA is not K7's),
+    repeat-identical tokens, the dropped pairs per MoE layer, one
+    profiled prefill and decode step; then the depth cut (moe_cut).
+    Returns the path's launches."""
+    eng, prompt, tokens, line = serve_run(torch, "deepseek-v2-lite-16b")
+    drops = moe_drops(torch, eng, prompt)
+    emit(dict(phase="moe_serve", **line, routing=drops))
+    if line["launches"]["flash_attention"] != 0:
+        raise SystemExit(f"chip_smoke: deepseek's MLA launched K7: "
+                         f"{line['launches']}")
+    if not line["repeat_tokens_identical"]:
+        raise SystemExit("chip_smoke: deepseek's repeat run gave other "
+                         "tokens")
+    serve_profile(torch, eng, prompt, ZOO_T, phase="moe_serve_profile")
+    cfg = eng.cfg
+    del eng, prompt, tokens
+    torch.cuda.empty_cache()
+    moe_cut(torch, cfg)
+    return line["launches"]
+
+
+def routing_diff(torch, a, b) -> int:
+    """(token, k) routing choices that differ between two record_routing
+    logs of the same run."""
+    return sum(int((x["topk_idx"].cpu() != y["topk_idx"].cpu()).sum())
+               for x, y in zip(a, b))
+
+
+def moe_cut(torch, cfg) -> None:
+    """deepseek-v2-lite-16b at full width cut to n_layers 3 (the dense
+    layer and two MoE layers; a full-width f32 copy of the whole model,
+    63 GB, does not fit beside it): bf16 against f32 on the card,
+    teacher-forced at the serve shapes (the gap reported), and the card's
+    f32 against the same code on the host CPU at batch 2 x prompt 128:
+    logits within MOE_CPU_TOL and identical top-k routing."""
+    import dataclasses
+    from repro_torch.configs import param_count
+    from repro_torch.launch.serve import Engine, prompt_batch
+    from repro_torch.models.layers import record_routing
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.tree_math import tree_map
+
+    cut = dataclasses.replace(cfg, n_layers=3)
+    cut32 = dataclasses.replace(cut, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    p16 = init_lm(cut, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = prompt_batch(cut, SERVE_B, SERVE_S, gen)
+    tokens, _ = Engine(cut, params=p16).generate(prompt, MOE_CUT_NEW)
+    max_len = SERVE_S + MOE_CUT_NEW
+    with record_routing() as r16:
+        l16 = forced_logits(torch, p16, cut, prompt, tokens, max_len)
+    p32 = tree_map(lambda t: t.float(), p16)
+    del p16
+    with record_routing() as r32:
+        l32 = forced_logits(torch, p32, cut32, prompt, tokens, max_len)
+    bf16_vs_f32 = dict(logit_gap(l16, l32),
+                       routing_pairs_differing=routing_diff(torch, r16, r32),
+                       routing_pairs=sum(r["pairs"] for r in r16))
+    del l16, l32, r16, r32
+
+    small = {"tokens": prompt["tokens"][:MOE_CPU_B, :MOE_CPU_S]}
+    toks = tokens[:MOE_CPU_B, :MOE_CPU_NEW]
+    max_len = MOE_CPU_S + MOE_CPU_NEW
+    with record_routing() as rc:
+        card = forced_logits(torch, p32, cut32, small, toks, max_len).cpu()
+    host_params = tree_map(lambda t: t.cpu(), p32)
+    del p32
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with record_routing() as rh:
+        host = forced_logits(torch, host_params, cut32,
+                             {"tokens": small["tokens"].cpu()}, toks.cpu(),
+                             max_len)
+    host_s = time.perf_counter() - t0
+    del host_params
+    d = (card - host).abs()
+    within = bool((d <= MOE_CPU_TOL + MOE_CPU_TOL * host.abs()).all())
+    differing = routing_diff(torch, rc, rh)
+    ok = within and differing == 0 and bool(torch.isfinite(card).all())
+    emit(dict(phase="moe_cut", model=cut.name, n_layers=cut.n_layers,
+              params=param_count(cut),
+              bf16_vs_f32=dict(bf16_vs_f32, batch=SERVE_B, prompt=SERVE_S,
+                               steps=MOE_CUT_NEW),
+              card_vs_cpu_f32=dict(max_abs=float(d.max()),
+                                   tolerance=f"{MOE_CPU_TOL} + "
+                                   f"{MOE_CPU_TOL}*|cpu|",
+                                   within_tol=within,
+                                   routing_pairs_differing=differing,
+                                   routing_pairs=sum(r["pairs"] for r in rh),
+                                   batch=MOE_CPU_B, prompt=MOE_CPU_S,
+                                   steps=MOE_CPU_NEW, cpu_s=host_s),
+              ok=ok))
+    if not ok:
+        raise SystemExit("chip_smoke: deepseek's depth cut on the card "
+                         "disagrees with the CPU in f32")
+
+
+def zoo_serve(torch) -> dict:
+    """internvl2-1b (256 patch embeddings + 1792 tokens) and
+    musicgen-medium (2048 frames) at full width through Engine.generate
+    on the kernel path: K7 launched n_layers x (1 + ZOO_NEW) times, split
+    into prefill and decode as phase_launches counts them, and the kernel
+    path within the plain path's bf16 noise (serve_e2e).  Returns each
+    model's K7 launches."""
+    out = {}
+    for arch in ("internvl2-1b", "musicgen-medium"):
+        eng, prompt, tokens, line = serve_run(torch, arch)
+        per_phase = phase_launches(torch, eng, prompt, ZOO_T)
+        want = {"flash_attention": eng.cfg.n_layers * (1 + ZOO_NEW),
+                "ssd_scan": 0}
+        emit(dict(phase="zoo_serve", **line, expected_launches=want,
+                  launches_by_phase=per_phase))
+        if line["launches"] != want:
+            raise SystemExit(f"chip_smoke: {arch} launches "
+                             f"{line['launches']} != {want}")
+        split = per_phase["flash_attention"]
+        if split["prefill"] + ZOO_NEW * split["decode_step"] != \
+                want["flash_attention"]:
+            raise SystemExit(f"chip_smoke: {arch}'s K7 launches per prefill "
+                             f"and decode step {split} do not make up the "
+                             "total")
+        serve_e2e(torch, eng, prompt, tokens, ZOO_T, phase="zoo_serve_e2e")
+        out[arch] = dict(launches=line["launches"]["flash_attention"],
+                         launches_per_prefill=split["prefill"],
+                         launches_per_decode_step=split["decode_step"])
+        del eng, prompt, tokens
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> int:
@@ -3787,9 +4081,11 @@ def main(argv=None) -> int:
     del main_res
     llm_launches = llm_lora(torch, fu, mesh)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
-    serve_e2e(torch, eng, prompt, tokens)
+    serve_e2e(torch, eng, prompt, tokens[:, :E2E_STEPS])
     k8_kernels = serve_profile(torch, eng, prompt)
-    del eng
+    del eng, prompt, tokens
+    moe_launches = moe_serve(torch)
+    zoo_launches = zoo_serve(torch)
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
     replaces = {"local_step": "src/repro/kernels/fused_update.py:131",
@@ -3967,7 +4263,9 @@ def main(argv=None) -> int:
         shapes={lbl: {k: r[k] for k in keys}
                 for lbl, r in attn_shapes.items() if lbl != "ssd_scan"},
         launches_per_prefill=per_phase["flash_attention"]["prefill"],
-        launches_per_decode_step=per_phase["flash_attention"]["decode_step"]))
+        launches_per_decode_step=per_phase["flash_attention"]["decode_step"],
+        zoo_serve_launches=zoo_launches,
+        moe_serve_launches=moe_launches["flash_attention"]))
     sm = attn_shapes["ssd_scan"]
     kernels.append(dict(
         name="ssd_scan", route="cuda",

@@ -16,10 +16,11 @@ counts are taken without allocating.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -304,7 +305,97 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLA — multi-head latent attention (DeepSeek V2/V3)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int           # 512
+    q_lora_rank: Optional[int]  # None (v2-lite) or 1536 (v3)
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla(gen, cfg: MLAConfig, dtype=torch.float32) -> Pytree:
+    d, H = cfg.d_model, cfg.n_heads
+    qk_dim = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = init_linear(gen, d, cfg.q_lora_rank, dtype=dtype)
+        p["q_a_norm"] = init_rmsnorm(cfg.q_lora_rank, dtype, gen_device(gen))
+        p["wq_b"] = init_linear(gen, cfg.q_lora_rank, H * qk_dim, dtype=dtype)
+    else:
+        p["wq"] = init_linear(gen, d, H * qk_dim, dtype=dtype)
+    # joint KV compression + decoupled rope key
+    p["wkv_a"] = init_linear(gen, d, cfg.kv_lora_rank + cfg.qk_rope_dim,
+                             dtype=dtype)
+    p["kv_a_norm"] = init_rmsnorm(cfg.kv_lora_rank, dtype, gen_device(gen))
+    p["wkv_b"] = init_linear(gen, cfg.kv_lora_rank,
+                             H * (cfg.qk_nope_dim + cfg.v_head_dim),
+                             dtype=dtype)
+    p["wo"] = init_linear(gen, H * cfg.v_head_dim, d, dtype=dtype)
+    return p
+
+
+def mla_attention(p: Pytree, x: torch.Tensor, cfg: MLAConfig,
+                  positions: torch.Tensor,
+                  kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  cache_len: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """MLA with a latent cache: it holds (c_kv, k_rope) only, (B, T,
+    kv_lora_rank) + (B, T, qk_rope_dim), written IN PLACE at the host int
+    ``cache_len`` as :func:`attention` writes its k/v.  ``wkv_b`` expands
+    the whole cache to per-head keys and values on every call; the
+    logits are f32 under the causal mask alone.  Returns (out, cache)."""
+    B, S, d = x.shape
+    H, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = linear(p["wq_b"], rmsnorm(p["q_a_norm"], linear(p["wq_a"], x)))
+    else:
+        q = linear(p["wq"], x)
+    q_nope, q_rope = q.reshape(B, S, H, nope + rope).split([nope, rope], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv, k_rope = linear(p["wkv_a"], x).split([cfg.kv_lora_rank, rope], -1)
+    c_kv = rmsnorm(p["kv_a_norm"], c_kv)                     # (B, S, r)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)  # shared by heads
+
+    if kv_cache is not None:
+        cc, kr = kv_cache
+        if not 0 <= cache_len <= cc.shape[1] - S:
+            raise ValueError(f"cache_len {cache_len} + {S} new positions "
+                             f"exceed the cache's {cc.shape[1]}")
+        cc[:, cache_len:cache_len + S] = c_kv.to(cc.dtype)
+        kr[:, cache_len:cache_len + S] = k_rope.to(kr.dtype)
+        c_kv, k_rope, q_offset, new_cache = cc, kr, cache_len, (cc, kr)
+    else:
+        q_offset, new_cache = 0, (c_kv, k_rope)
+
+    T = c_kv.shape[1]
+    kv = linear(p["wkv_b"], c_kv).reshape(B, T, H, nope + cfg.v_head_dim)
+    k_nope, v = kv.split([nope, cfg.v_head_dim], -1)
+    # (q_nope·k_nope + q_rope·k_rope) * scale, masked, in place: at
+    # deepseek-v2-lite's prefill each (B, H, S, T) f32 copy is 2.2 GB
+    logits = torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+    logits.add_(torch.einsum("bshd,btd->bhst", q_rope.float(),
+                             k_rope.float()))
+    logits.mul_((nope + rope) ** -0.5)
+    qpos = q_offset + torch.arange(S, device=x.device)
+    mask = torch.arange(T, device=x.device)[None, :] <= qpos[:, None]
+    logits.masked_fill_(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.einsum("bhst,bthd->bshd", probs, v.float())
+    out = out.reshape(B, S, H * cfg.v_head_dim).to(x.dtype)
+    return linear(p["wo"], out), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs and MoE
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32,
@@ -323,3 +414,125 @@ def mlp(p: Pytree, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP."""
     return linear(p["w_down"],
                   F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    d_ff_shared: int = 0
+    capacity_factor: float = 1.25
+    router_scoring: str = "softmax"  # softmax (v2) | sigmoid (v3)
+    aux_loss_coef: float = 0.001
+    routed_scaling: float = 1.0
+
+
+def init_moe(gen, cfg: MoEConfig, dtype=torch.float32) -> Pytree:
+    """The router in f32 whatever ``dtype``; the experts' SwiGLU weights
+    stacked over a leading expert axis; the shared experts a plain MLP
+    (no LoRA, as in the JAX package)."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    std = d ** -0.5
+    p = {
+        "router": {"w": normal_init(gen, (d, E), std=std)},
+        "experts": {
+            "w_gate": normal_init(gen, (E, d, f), std=std, dtype=dtype),
+            "w_up": normal_init(gen, (E, d, f), std=std, dtype=dtype),
+            "w_down": normal_init(gen, (E, f, d), std=f ** -0.5, dtype=dtype),
+        },
+    }
+    if cfg.n_shared:
+        p["shared"] = init_mlp(gen, d, cfg.d_ff_shared
+                               or cfg.d_ff_expert * cfg.n_shared, dtype=dtype)
+    return p
+
+
+# Set by ``record_routing``: each ``moe`` call appends its routing there.
+_ROUTING_LOG: Optional[List[Dict[str, Any]]] = None
+
+
+@contextlib.contextmanager
+def record_routing() -> Iterator[List[Dict[str, Any]]]:
+    """Within the block, every ``moe`` call appends ``{"topk_idx" (T, K),
+    "dropped" (a 0-d count of routed pairs past capacity), "capacity",
+    "pairs"}`` to the yielded list: device tensors, read by the caller
+    after the run, so the calls wait on nothing."""
+    global _ROUTING_LOG
+    prev, _ROUTING_LOG = _ROUTING_LOG, []
+    try:
+        yield _ROUTING_LOG
+    finally:
+        _ROUTING_LOG = prev
+
+
+def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE, the JAX package's semantics: f32 router
+    logits; softmax or sigmoid scores; the top-k weights normalised by
+    ``sum + 1e-20`` and times ``routed_scaling``; the aux loss from the
+    softmax probabilities and the top-1 choice whatever the scoring.
+    Each expert takes ``C = max(ceil(K·T/E · capacity_factor), 1)``
+    slots, filled in token-major (token, k) order; a pair past them is
+    dropped.  Returns (out, aux_loss).
+
+    The kept slots are unique, so dispatch is a plain index write (the
+    dropped pairs all go to one spare row, which nothing reads), and the
+    combine sums each token's K weighted rows in k order: no atomics,
+    so two calls on the same input give the same bits."""
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    E, K = cfg.n_experts, cfg.top_k
+
+    router_logits = torch.matmul(xt.float(), p["router"]["w"].float())
+    probs = torch.softmax(router_logits, dim=-1)
+    scores = torch.sigmoid(router_logits) \
+        if cfg.router_scoring == "sigmoid" else probs
+    topk_scores, topk_idx = torch.topk(scores, K, dim=-1)       # (T, K)
+    topk_w = topk_scores / (topk_scores.sum(-1, keepdim=True) + 1e-20)
+    topk_w = topk_w * cfg.routed_scaling
+
+    # load-balance aux loss (Switch-style)
+    frac_tokens = F.one_hot(topk_idx[:, 0], E).float().mean(0)
+    aux = cfg.aux_loss_coef * E * torch.sum(frac_tokens * probs.mean(0))
+
+    # capacity dispatch: a pair's slot is the number of pairs before it
+    # (in flattened (token, k) order) routed to the same expert — its
+    # rank in a stable sort by expert, less its expert's first position
+    C = max(int(math.ceil(K * T / E * cfg.capacity_factor)), 1)
+    flat_e = topk_idx.reshape(-1)                               # (T*K,)
+    order = torch.sort(flat_e, stable=True).indices
+    counts = torch.bincount(flat_e, minlength=E)
+    first = torch.cumsum(counts, dim=0) - counts
+    rank = torch.arange(T * K, device=x.device) - first[flat_e[order]]
+    slot = torch.empty_like(rank).scatter_(0, order, rank)
+    keep = slot < C
+    dst = torch.where(keep, flat_e * C + slot, E * C)
+    token = torch.arange(T, device=x.device).repeat_interleave(K)
+    buf = xt.new_zeros(E * C + 1, d)
+    buf[dst] = xt[token]
+    h = buf[:E * C].view(E, C, d)
+
+    # expert computation: batched SwiGLU GEMMs over (E, C, d)
+    w = p["experts"]
+    y = torch.bmm(F.silu(torch.bmm(h, w["w_gate"].to(x.dtype)))
+                  * torch.bmm(h, w["w_up"].to(x.dtype)),
+                  w["w_down"].to(x.dtype))
+
+    # combine: each pair's row (zero when dropped) times its weight, the
+    # K of a token summed in k order
+    y = torch.cat([y.reshape(E * C, d), y.new_zeros(1, d)])
+    gathered = (y[dst] * topk_w.reshape(-1, 1).to(x.dtype)).view(T, K, d)
+    out = gathered[:, 0]
+    for k in range(1, K):
+        out = out + gathered[:, k]
+
+    if _ROUTING_LOG is not None:
+        _ROUTING_LOG.append({"topk_idx": topk_idx, "dropped": (~keep).sum(),
+                             "capacity": C, "pairs": T * K})
+    if cfg.n_shared:
+        out = out + mlp(p["shared"], xt)
+    return out.reshape(B, S, d), aux

@@ -1,11 +1,14 @@
 """Decoder-LM assembly (the counterpart of ``repro/models/transformer.py``)
-for the dense (GQA), SSM (Mamba2) and hybrid (parallel attention + SSM
-heads, Hymba) families.
+for every family of the JAX package's zoo: dense (GQA), MoE with MLA
+(deepseek), SSM (Mamba2), hybrid (parallel attention + SSM heads,
+Hymba), and the VLM and audio backbones, whose front ends are stubs fed
+precomputed patch or frame embeddings.
 
 One ``TransformerConfig`` with every field of the JAX package's, so a
 JAX config maps over one to one.  The blocks' params are stacked along a
-leading layer axis, as the JAX package stacks them for ``lax.scan``; the
-port walks that axis in a Python loop, so a JAX ``init_lm`` tree carries
+leading layer axis, as the JAX package stacks them for ``lax.scan``, and
+a dense-FFN prefix (``n_dense_layers``) is a list of blocks before them;
+the port walks both in a Python loop, so a JAX ``init_lm`` tree carries
 across as a copy (``repro_torch.bridge``) and each layer is a view.
 
 Entry points:
@@ -19,12 +22,12 @@ Entry points:
 ``cache_len`` is a host int: the decode loop knows it, and the attention
 kernel takes it (and each layer's window) as a launch argument, so no
 step waits on the device.  The cache is updated in place.  LoRA
-adapters (``lora_rank``) ride on every block linear.  Training runs the
-plain attention (``attn_impl="xla"``): the attention kernel has no
-backward, as in the JAX package.  ``remat`` is ignored: it trades
-memory for recompute and changes no number.  MoE, MLA, multi-token
-prediction, non-token inputs and dense prefix layers raise
-``NotImplementedError`` naming their ROADMAP item.
+adapters (``lora_rank``) ride on every attention and MLP linear of the
+GQA blocks; MLA, the experts and the shared experts take none, as in
+the JAX package.  Training runs the plain attention
+(``attn_impl="xla"``): the attention kernel has no backward, as in the
+JAX package.  ``remat`` is ignored: it trades memory for recompute and
+changes no number.
 """
 from __future__ import annotations
 
@@ -34,8 +37,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import (
-    FULL_WINDOW, AttnConfig, attention, gen_device, init_attention,
-    init_mlp, init_rmsnorm, mlp, normal_init, rmsnorm)
+    FULL_WINDOW, AttnConfig, MLAConfig, MoEConfig, attention, gen_device,
+    init_attention, init_linear, init_mla, init_mlp, init_moe, init_rmsnorm,
+    linear, mla_attention, mlp, moe, normal_init, rmsnorm)
 from repro_torch.models.ssm import (
     SSMConfig, init_ssm, init_ssm_state, ssm_decode_step, ssm_forward)
 from repro_torch.utils import tree_math as tm
@@ -121,6 +125,22 @@ class TransformerConfig:
             rope_theta=self.rope_theta, window=self.window,
             attn_impl=self.attn_impl, lora_rank=self.lora_rank)
 
+    def mla_cfg(self) -> MLAConfig:
+        return MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            kv_lora_rank=self.kv_lora_rank, q_lora_rank=self.q_lora_rank,
+            qk_nope_dim=self.qk_nope_dim, qk_rope_dim=self.qk_rope_dim,
+            v_head_dim=self.v_head_dim, rope_theta=self.rope_theta)
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
+            d_ff_expert=self.d_ff_expert, n_shared=self.n_shared_experts,
+            d_ff_shared=self.d_ff_shared,
+            capacity_factor=self.capacity_factor,
+            router_scoring=self.router_scoring,
+            aux_loss_coef=self.aux_loss_coef)
+
     def ssm_cfg(self) -> SSMConfig:
         return SSMConfig(
             d_model=self.d_model, d_state=self.ssm_state,
@@ -155,49 +175,38 @@ class TransformerConfig:
             raise ValueError("top_k must lie in (0, n_experts]")
         if self.arch_type == "ssm" and self.ssm_state <= 0:
             raise ValueError("an ssm arch needs ssm_state > 0")
-        _check_ported(self)
-
-
-def _check_ported(cfg: TransformerConfig) -> None:
-    """The dense, ssm and hybrid token models are ported; the rest of the
-    zoo raises, naming its ROADMAP item."""
-    missing = []
-    if cfg.is_moe or cfg.n_dense_layers:
-        missing.append("MoE")
-    if cfg.has_attn and cfg.attention == "mla":
-        missing.append("MLA")
-    if cfg.mtp:
-        missing.append("multi-token prediction")
-    if cfg.input_mode != "tokens" or cfg.arch_type in ("vlm", "audio"):
-        missing.append(f"input_mode {cfg.input_mode!r} ({cfg.arch_type})")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  "ported yet (ROADMAP M12b)")
 
 
 # ---------------------------------------------------------------------------
 # block init / apply
 # ---------------------------------------------------------------------------
 
-def _init_block(gen, cfg: TransformerConfig) -> Pytree:
+def _init_block(gen, cfg: TransformerConfig, moe_layer: bool) -> Pytree:
     pd, dev = cfg.param_dtype, gen_device(gen)
     p: Dict[str, Pytree] = {}
     if cfg.has_attn:
         p["attn_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
-        p["attn"] = init_attention(gen, cfg.attn_cfg(), pd)
+        if cfg.attention == "mla":
+            p["attn"] = init_mla(gen, cfg.mla_cfg(), pd)
+        else:
+            p["attn"] = init_attention(gen, cfg.attn_cfg(), pd)
     if cfg.has_ssm:
         if cfg.arch_type == "ssm":
             p["ssm_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
         p["ssm"] = init_ssm(gen, cfg.ssm_cfg(), pd)
-    if cfg.d_ff > 0:
+    if cfg.has_ffn:
         p["ffn_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, pd,
-                            lora_rank=cfg.lora_rank)
+        if moe_layer:
+            p["moe"] = init_moe(gen, cfg.moe_cfg(), pd)
+        elif cfg.d_ff > 0:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, pd,
+                                lora_rank=cfg.lora_rank)
     return p
 
 
 def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
-                 positions: torch.Tensor, is_global: Optional[bool] = None,
+                 positions: torch.Tensor, moe_layer: bool,
+                 is_global: Optional[bool] = None,
                  cache: Optional[Pytree] = None,
                  cache_len: Optional[int] = None):
     """One decoder block.  Returns (x, new_cache, aux_loss)."""
@@ -233,8 +242,13 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
             cache["kv"] if cache else None, cache_len)
         x = x + attn_out
 
-    if cfg.d_ff > 0:
-        x = x + mlp(p["mlp"], rmsnorm(p["ffn_norm"], x, cfg.norm_eps))
+    if cfg.has_ffn:
+        xn = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
+        if moe_layer:
+            out, aux = moe(p["moe"], xn, cfg.moe_cfg())
+        else:
+            out = mlp(p["mlp"], xn)
+        x = x + out
     return x, new_cache, aux
 
 
@@ -251,6 +265,9 @@ def _run_ssm_cached(ssm_params, xn, ssm_state, cfg: TransformerConfig):
 
 def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
                    kv_cache, cache_len):
+    if cfg.attention == "mla":
+        return mla_attention(p["attn"], xn, cfg.mla_cfg(), positions,
+                             kv_cache=kv_cache, cache_len=cache_len)
     acfg = cfg.attn_cfg()
     if cfg.window is not None and is_global is not None:
         # the layer's SWA/global choice: a "window" longer than any
@@ -272,27 +289,53 @@ def init_lm(cfg: TransformerConfig, seed: int = 0,
     CPU; ``"meta"`` draws nothing, for counting) from a generator on that
     device seeded with ``seed`` — or from ``gen``, on its device — with
     the JAX package's distributions: normal(0.02) embedding,
-    normal(d_in^-0.5) linears, LoRA ``A`` and lm_head, zero LoRA ``B``,
-    normal(d_conv^-0.5) conv, ``A_log = log(linspace(1, 16))``, the
-    inverse-softplus ``dt_bias``."""
+    normal(d_in^-0.5) linears, LoRA ``A``, router, experts (``w_down``:
+    d_ff_expert^-0.5) and lm_head, zero LoRA ``B``, normal(d_conv^-0.5)
+    conv, ``A_log = log(linspace(1, 16))``, the inverse-softplus
+    ``dt_bias``.  Each stacked layer is drawn, then copied into its slot
+    of the stack, so the device holds the stack and one layer at most."""
     cfg.validate()
     if gen is None:
         dev = resolve_device(device)
         gen = None if dev.type == "meta" else seeded_generator(seed, dev)
     dev = gen_device(gen)
     pd = cfg.param_dtype
-    params: Dict[str, Pytree] = {
-        "embed": normal_init(gen, (cfg.vocab_size, cfg.d_model), std=0.02,
-                             dtype=pd)}
-    blocks = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
-    params["blocks"] = tm.tree_map(lambda *xs: torch.stack(xs), *blocks)
-    del blocks
+    params: Dict[str, Pytree] = {}
+    if cfg.input_mode in ("tokens", "vlm"):
+        params["embed"] = normal_init(gen, (cfg.vocab_size, cfg.d_model),
+                                      std=0.02, dtype=pd)
+    params["blocks"] = _init_stack(gen, cfg, cfg.n_layers - cfg.n_dense_layers)
+    # the dense-FFN prefix (deepseek v2/v3's first layers)
+    if cfg.n_dense_layers:
+        params["dense_blocks"] = [_init_block(gen, cfg, moe_layer=False)
+                                  for _ in range(cfg.n_dense_layers)]
     params["final_norm"] = init_rmsnorm(cfg.d_model, pd, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(
             gen, (cfg.d_model, cfg.vocab_size * cfg.n_codebooks),
             std=cfg.d_model ** -0.5, dtype=pd)
+    if cfg.mtp:
+        params["mtp"] = {
+            "block": _init_block(gen, cfg, moe_layer=cfg.is_moe),
+            "proj": init_linear(gen, 2 * cfg.d_model, cfg.d_model, dtype=pd),
+            "norm_prev": init_rmsnorm(cfg.d_model, pd, dev),
+            "norm_emb": init_rmsnorm(cfg.d_model, pd, dev),
+        }
     return params
+
+
+def _init_stack(gen, cfg: TransformerConfig, n: int) -> Pytree:
+    """``n`` blocks stacked along a leading axis, drawn one at a time in
+    layer order into a preallocated stack."""
+    stack = None
+    for i in range(n):
+        block = _init_block(gen, cfg, moe_layer=cfg.is_moe)
+        if stack is None:
+            stack = tm.tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                                block)
+        for dst, src in zip(tm.tree_leaves(stack), tm.tree_leaves(block)):
+            dst[i].copy_(src)
+    return stack
 
 
 # ---------------------------------------------------------------------------
@@ -302,16 +345,31 @@ def init_lm(cfg: TransformerConfig, seed: int = 0,
 def _embed_inputs(params, cfg: TransformerConfig,
                   batch: Dict[str, torch.Tensor]):
     """Returns (x, positions, text_offset)."""
-    _check_ported(cfg)
-    x = params["embed"][batch["tokens"]].to(cfg.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    return x, positions, 0
+    if cfg.input_mode == "tokens":
+        x = params["embed"][batch["tokens"]].to(cfg.dtype)
+        offset = 0
+    elif cfg.input_mode == "vlm":
+        # stub front end: precomputed patch embeddings, then the tokens'
+        pe = batch["patch_embeds"].to(cfg.dtype)             # (B, P, d)
+        x = torch.cat([pe, params["embed"][batch["tokens"]].to(cfg.dtype)],
+                      dim=1)
+        offset = pe.shape[1]
+    elif cfg.input_mode == "embeddings":
+        # audio stub: precomputed EnCodec frame embeddings
+        x = batch["frame_embeds"].to(cfg.dtype)
+        offset = 0
+    else:
+        raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
+    return x, torch.arange(x.shape[1], device=x.device), offset
 
 
 def _global_flags(cfg: TransformerConfig) -> Optional[List[bool]]:
+    """Per stacked layer: whether it is a global-attention layer (layer
+    ids count the dense prefix)."""
     if cfg.window is None:
         return None
-    return [i in cfg.global_attn_layers for i in range(cfg.n_layers)]
+    return [i + cfg.n_dense_layers in cfg.global_attn_layers
+            for i in range(cfg.n_layers - cfg.n_dense_layers)]
 
 
 def _layer(tree: Pytree, i: int) -> Pytree:
@@ -328,15 +386,25 @@ def _store(dst: Pytree, src: Pytree) -> None:
 
 def _run_blocks(params, cfg: TransformerConfig, x, positions,
                 caches=None, cache_len=None):
-    """The stacked blocks in order.  ``caches`` is None for a full-
-    sequence pass, else ``{"dense": [], "scan": stacked}``, updated in
-    place.  Returns (x, caches, total_aux)."""
-    flags = _global_flags(cfg)
+    """The dense prefix, then the stacked blocks, in order.  ``caches`` is
+    None for a full-sequence pass, else ``{"dense": [one per prefix
+    layer], "scan": stacked}``, updated in place.  Returns (x, caches,
+    total_aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_dense_layers):
+        cache_l = caches["dense"][i] if caches is not None else None
+        x, new_cache, aux = _block_apply(
+            params["dense_blocks"][i], x, cfg, positions, moe_layer=False,
+            cache=cache_l, cache_len=cache_len)
+        if caches is not None:
+            _store(cache_l, new_cache)
+        aux_total = aux_total + aux
+    flags = _global_flags(cfg)
+    for i in range(cfg.n_layers - cfg.n_dense_layers):
         cache_l = _layer(caches["scan"], i) if caches is not None else None
         x, new_cache, aux = _block_apply(
             _layer(params["blocks"], i), x, cfg, positions,
+            moe_layer=cfg.is_moe,
             is_global=None if flags is None else flags[i], cache=cache_l,
             cache_len=cache_len)
         if caches is not None:
@@ -377,14 +445,41 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
 
 def lm_loss(params, cfg: TransformerConfig,
             batch: Dict[str, torch.Tensor]):
-    """Next-token loss over ``batch["tokens"]`` (B, S) and
-    ``batch["labels"]`` (B, S), label −1 ignored.  Returns ``(loss,
-    metrics)``.  Multi-token prediction and the VLM / audio inputs raise
-    with the rest of M12 (``_check_ported``)."""
-    logits, aux, _ = lm_forward(params, cfg, batch)
+    """Next-token loss.  ``batch["labels"]``, label −1 ignored: (B, S) —
+    (B, S, n_codebooks) for audio; in vlm mode (B, S_text), the image
+    prefix's positions left out.  The MoE aux loss is added, and under
+    ``mtp`` the multi-token loss times ``mtp_loss_weight``.  Returns
+    ``(loss, metrics)``."""
+    logits, aux, hidden = lm_forward(params, cfg, batch)
+    if cfg.input_mode == "vlm":
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     loss, _ = _xent(logits, batch["labels"])
+    metrics = {"xent": loss, "aux": aux}
     total = loss + aux
-    return total, {"xent": loss, "aux": aux, "loss": total}
+    if cfg.mtp:
+        metrics["mtp"] = _mtp_loss(params, cfg, batch, hidden)
+        total = total + cfg.mtp_loss_weight * metrics["mtp"]
+    metrics["loss"] = total
+    return total, metrics
+
+
+def _mtp_loss(params, cfg: TransformerConfig, batch, hidden):
+    """DeepSeek-V3 multi-token prediction (depth 1): the trunk's hidden
+    state at position i and the embedding of token i+1 go through one
+    extra block to predict token i+2."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    mp = params["mtp"]
+    h_prev = rmsnorm(mp["norm_prev"], hidden[:, :S - 1])
+    emb_next = rmsnorm(mp["norm_emb"],
+                       params["embed"][tokens[:, 1:]].to(cfg.dtype))
+    h = linear(mp["proj"], torch.cat([h_prev, emb_next], dim=-1))
+    positions = torch.arange(S - 1, device=h.device)
+    h, _, _ = _block_apply(mp["block"], h, cfg, positions,
+                           moe_layer=cfg.is_moe)
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    loss, _ = _xent(_logits(params, cfg, h), batch["labels"][:, 1:])
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -392,28 +487,34 @@ def lm_loss(params, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
-                        device, n: int):
-    """The cache of ``n`` stacked blocks (leading layer axis)."""
+                        device, n: Optional[int] = None):
+    """The cache of one block, or of ``n`` stacked blocks (a leading
+    layer axis): k/v rows, MLA's latent rows and rope keys, SSM state."""
+    lead = () if n is None else (n,)
+
+    def zeros(*shape, dtype=cfg.dtype):
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
     c: Dict[str, Any] = {}
     if cfg.has_attn:
-        hd, KH = cfg.resolved_head_dim, cfg.n_kv_heads
-        c["kv"] = tuple(torch.zeros(n, batch, max_len, KH, hd,
-                                    dtype=cfg.dtype, device=device)
-                        for _ in range(2))
+        if cfg.attention == "mla":
+            c["kv"] = (zeros(batch, max_len, cfg.kv_lora_rank),
+                       zeros(batch, max_len, cfg.qk_rope_dim))
+        else:
+            hd, KH = cfg.resolved_head_dim, cfg.n_kv_heads
+            c["kv"] = tuple(zeros(batch, max_len, KH, hd) for _ in range(2))
     if cfg.has_ssm:
         one = init_ssm_state(cfg.ssm_cfg(), batch, cfg.dtype, device)
-        c["ssm"] = tuple(torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
-                                     device=device) for t in one)
+        c["ssm"] = tuple(zeros(*t.shape, dtype=t.dtype) for t in one)
     return c
 
 
 def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
                       device: Device = None):
-    _check_ported(cfg)
     dev = resolve_device(device)
-    return {"dense": [],
+    return {"dense": [_layer_cache_struct(cfg, batch, max_len, dev)
+                      for _ in range(cfg.n_dense_layers)],
             "scan": _layer_cache_struct(cfg, batch, max_len, dev,
-                                        cfg.n_layers)}
+                                        cfg.n_layers - cfg.n_dense_layers)}
 
 
 def prefill(params, cfg: TransformerConfig, batch: Dict[str, torch.Tensor],
@@ -432,11 +533,14 @@ def prefill(params, cfg: TransformerConfig, batch: Dict[str, torch.Tensor],
 
 def decode_step(params, cfg: TransformerConfig, token: torch.Tensor,
                 caches, cache_len: int):
-    """One decode step.  token: (B, 1) int64; cache_len: the host count of
-    valid cache positions.  Returns (logits (B, 1, V), caches), the cache
-    updated in place."""
-    _check_ported(cfg)
-    x = params["embed"][token].to(cfg.dtype)
+    """One decode step.  token: (B, 1) int64, or (B, 1, d) frame
+    embeddings for the audio stub; cache_len: the host count of valid
+    cache positions.  Returns (logits (B, 1, V[, n_codebooks]), caches),
+    the cache updated in place."""
+    if cfg.input_mode == "embeddings":
+        x = token.to(cfg.dtype)
+    else:
+        x = params["embed"][token].to(cfg.dtype)
     positions = torch.arange(cache_len, cache_len + 1, device=x.device)
     x, caches, _ = _run_blocks(params, cfg, x, positions, caches=caches,
                                cache_len=cache_len)

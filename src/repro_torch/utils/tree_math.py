@@ -22,44 +22,48 @@ def tree_flatten(tree: Pytree, is_leaf: Optional[Callable[[Any], bool]] = None
     """``(leaves, treedef)`` in jax.tree_util order (sorted dict keys);
     ``is_leaf(node)`` True stops the walk at that node (as in JAX)."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves, is_leaf)
 
-    def rec(t):
-        if is_leaf is not None and is_leaf(t):
-            leaves.append(t)
-            return ("leaf", None, ())
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(rec(t[k]) for k in keys))
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return ("namedtuple", type(t), tuple(rec(x) for x in t))
-        if isinstance(t, (list, tuple)):
-            return (type(t).__name__, None, tuple(rec(x) for x in t))
-        if t is None:
-            return ("none", None, ())
+
+# The walks are module-level functions, not closures over the leaf list:
+# a closure that calls itself is a reference cycle, which would keep
+# every leaf it saw (whole models) alive until the cyclic GC ran.
+def _flatten(t, leaves: List[Any], is_leaf):
+    if is_leaf is not None and is_leaf(t):
         leaves.append(t)
         return ("leaf", None, ())
-
-    treedef = rec(tree)
-    return leaves, treedef
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys,
+                tuple(_flatten(t[k], leaves, is_leaf) for k in keys))
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return ("namedtuple", type(t),
+                tuple(_flatten(x, leaves, is_leaf) for x in t))
+    if isinstance(t, (list, tuple)):
+        return (type(t).__name__, None,
+                tuple(_flatten(x, leaves, is_leaf) for x in t))
+    if t is None:
+        return ("none", None, ())
+    leaves.append(t)
+    return ("leaf", None, ())
 
 
 def tree_unflatten(treedef: Any, leaves) -> Pytree:
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        kind, meta, children = d
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(meta, children)}
-        built = [build(c) for c in children]
-        if kind == "namedtuple":
-            return meta(*built)
-        return built if kind == "list" else tuple(built)
 
-    return build(treedef)
+def _build(d, it):
+    kind, meta, children = d
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(meta, children)}
+    built = [_build(c, it) for c in children]
+    if kind == "namedtuple":
+        return meta(*built)
+    return built if kind == "list" else tuple(built)
 
 
 def tree_paths(tree: Pytree) -> List[str]:

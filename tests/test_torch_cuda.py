@@ -11,6 +11,7 @@ import torch
 from repro_torch.kernels import fused_update as fu
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import layers as L
 
 
 @pytest.fixture
@@ -195,6 +196,13 @@ FA_CASES = [
     (2, 150, 300, 25, 5, 64, 100, 140, None),     # offset, window edge
                                                   # inside a tile
     (1, 200, 230, 10, 5, 128, 37, 10, 190),       # hd 128, window, kv_len
+    # internvl2-1b (14 heads on 2: G 7) and musicgen-medium (24 on 24:
+    # G 1), hd 64: prefill (wgmma) and the split decode
+    (2, 300, 300, 14, 2, 64, None, 0, None),
+    (8, 1, 2080, 14, 2, 64, None, 2079, None),
+    (2, 2, 300, 14, 2, 64, None, 150, None),      # S * G = 14
+    (2, 300, 300, 24, 24, 64, None, 0, None),
+    (8, 1, 2080, 24, 24, 64, None, 2048, None),
 ]
 
 
@@ -1409,3 +1417,25 @@ def test_lora_round_fused_matches_plain_bitwise():
                            tree_leaves(init), mask):
         assert a.is_cuda and a.dtype == torch.bfloat16 and torch.equal(a, b)
         assert torch.equal(a, i0) != m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(8, 1), (2, 256)])
+def test_moe_is_bitwise_repeatable_in_bf16(gen, B, S):
+    """deepseek-v2-lite-16b's MoE layer at full width in bf16, at its
+    decode (T 8: C = 1, most pairs dropped) and a prefill-like T 512:
+    dispatch writes unique slots and the combine sums the top-6 in k
+    order, so with no atomics two calls give the same bits."""
+    cfg = L.MoEConfig(d_model=2048, n_experts=64, top_k=6, d_ff_expert=1408,
+                      n_shared=2, d_ff_shared=2816)
+    p = L.init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn(B, S, 2048, generator=gen, device="cuda").bfloat16()
+    with L.record_routing() as log:
+        a, aux_a = L.moe(p, x, cfg)
+        b, aux_b = L.moe(p, x, cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(a.float()).all()
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    assert torch.equal(log[0]["topk_idx"], log[1]["topk_idx"])
+    if B * S == 8:
+        assert log[0]["capacity"] == 1 and int(log[0]["dropped"]) > 0

@@ -115,3 +115,26 @@ def test_structure_mismatch_raises():
     view = FlatView.of({"a": torch.zeros(2)})
     with pytest.raises(ValueError):
         view.flatten({"b": torch.zeros(2)})
+
+
+def test_tree_walks_free_their_leaves_without_the_cyclic_gc():
+    """``tree_flatten``/``tree_map`` hold no reference cycle to the
+    leaves they walked: dropping the trees frees the tensors at once,
+    not when the cyclic GC next runs (a served model's params, and each
+    layer ``init_lm`` draws before copying it into its stack)."""
+    import gc
+    import weakref
+    from repro_torch.utils import tree_math as tm
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.zeros(4)
+        ref = weakref.ref(t)
+        tree = {"a": [t, (t,)], "b": {"c": t}}
+        out = tm.tree_map(lambda x: x + 1, tree)
+        assert len(tm.tree_leaves(out)) == 3
+        del tree, out, t
+        assert ref() is None
+    finally:
+        if enabled:
+            gc.enable()

@@ -213,19 +213,24 @@ def test_configs_map_over_field_for_field(arch):
 
 
 def test_unported_options_raise():
-    moe = torch_config(jget_reduced("deepseek-v2-lite-16b"))
-    with pytest.raises(NotImplementedError, match="M12"):
-        TT.init_lm(moe, device="cpu")
-    # LoRA (M11) is ported: the adapted model builds; multi-token
-    # prediction still raises with the rest of M12
+    """The options that raised before the port had them (MoE, MLA,
+    multi-token prediction, the VLM and audio inputs) now build: every
+    config of the JAX package's zoo, and ``mtp`` on a dense model.
+    Their numbers are held against the JAX package in
+    ``test_torch_zoo.py``."""
+    from repro.configs import list_archs as jlist_archs
+    for arch in jlist_archs():
+        TT.init_lm(torch_config(jget_reduced(arch)), device="meta")
+    moe = TT.init_lm(torch_config(jget_reduced("deepseek-v2-lite-16b")),
+                     device="cpu")
+    assert "moe" in moe["blocks"] and "mlp" in moe["dense_blocks"][0]
     lora = dataclasses.replace(get_reduced("qwen1.5-0.5b"), lora_rank=4)
     assert "lora_a" in TT.init_lm(lora, device="cpu")["blocks"]["attn"]["wq"]
     mtp = dataclasses.replace(get_reduced("qwen1.5-0.5b"), mtp=True)
-    with pytest.raises(NotImplementedError, match="M12"):
-        TT.init_lm(mtp, device="cpu")
-    vlm = torch_config(jget_reduced("internvl2-1b"))
-    with pytest.raises(NotImplementedError, match="M12"):
-        TT.init_lm(vlm, device="cpu")
+    assert set(TT.init_lm(mtp, device="cpu")["mtp"]) == \
+        {"block", "proj", "norm_prev", "norm_emb"}
+    vlm = TT.init_lm(torch_config(jget_reduced("internvl2-1b")), device="cpu")
+    assert "embed" in vlm and "lm_head" not in vlm     # tied embeddings
 
 
 def test_entry_points_default_to_cuda():
