@@ -57,6 +57,10 @@ JSON line per phase:
                      K3 (aggregate form and "none") and K6 at llm_lora's
                      adapter bucket (N 6,307,840), and K1 over its whole
                      model (N 1,106,356,224), bitwise (path "llm_lora");
+                     K1, K6 and K3 at moe_train's two buckets, K2 and
+                     K3's aggregate form at its cut's, K1 over the cut's
+                     whole bf16 model (path "moe_train"); K7 at
+                     qwen2-1.5b's shapes (hd 128, G 6);
                      the variant sweeps timed with one trial each (the
                      mean of 20 calls), the paths' shapes with five;
   3. main_path     — the paper pipeline at full width: LeNet-5 on
@@ -66,11 +70,11 @@ JSON line per phase:
                      asserted, then one profiled round of each phase
                      (P1's cut to 5 clients);
      p2_algorithms — the paper's Table I baselines from the main path's
-                     P1 params: P2 2 rounds × 10 clients × 25 steps of
+                     P1 params: P2 2 rounds × 10 clients × 10 steps of
                      fedavg, fedprox, scaffold and moon (mu 0.01,
-                     temperature 0.5, no server optimizer); K1 500
+                     temperature 0.5, no server optimizer); K1 200
                      launches each, K1 with SCAFFOLD's correction c
-                     500 under scaffold and 0 otherwise, K2 2, K3 0,
+                     200 under scaffold and 0 otherwise, K2 2, K3 0,
                      accuracy above chance, ledger == closed form;
                      rounds/s, ms per SGD step and a profiled round's
                      device ops per step; scaffold's first round bitwise
@@ -108,7 +112,7 @@ JSON line per phase:
                      of 814,080, above the threshold's cluster cut) on
                      shakespeare-like (66 clients) through
                      run_cyclic_then_federated: P1 1 × 7 × 10, P2
-                     FedAvgM 1 × 7 × 10, lr 0.8; K1 140, K2 1, K3 1,
+                     FedAvgM 1 × 7 × 5, lr 0.8; K1 70, K2 1, K3 1,
                      ledger == closed form, held-out loss below the
                      init's, accuracy above 1/64, fused == plain
                      bitwise (1 + 1 rounds of 2 clients); ms per step
@@ -126,9 +130,10 @@ JSON line per phase:
      pod_path      — the main path on the pod backend (fl/pod.py) over a
                      one-rank NCCL mesh (make_host_mesh): P1 and P2
                      through run_phase_schedule with PodCyclicConfig /
-                     PodFLConfig; launches K1 3000, K6 40 (with p, one per
+                     PodFLConfig, 2 rounds a phase; launches K1 1500,
+                     K6 20 (with p, one per
                      client; K6 is launched with programmatic dependent
-                     launch), K2 0, K3 8 (apply + FedAvgM per round), one
+                     launch), K2 0, K3 4 (apply + FedAvgM per round), one
                      gradient all-reduce per SGD step, ledger == closed
                      form, accuracy above chance;
      pod_hierarchical — the pod P2 with aggregation="hierarchical",
@@ -151,12 +156,12 @@ JSON line per phase:
                      rounds a turn;
      client_store  — the sparse client store and the overlapped pipeline
                      (M10): from the main path's P1 params, P2 6 × 10 ×
-                     10, chunk 2, of SCAFFOLD with p2_compressed's
+                     5, chunk 2, of SCAFFOLD with p2_compressed's
                      uploads and of MOON, each dense-sync, sparse-sync
                      and sparse-overlap (capacity 20), and SCAFFOLD under
                      device sampling dense against sparse-overlap: all
                      bitwise (cuDNN deterministic), rows spilled and
-                     refaulted, K1 600 (with c under SCAFFOLD),
+                     refaulted, K1 300 (with c under SCAFFOLD),
                      topk_compress 60, K2 6 per run, the engine's timing
                      split; cnn_femnist on femnist-like at LEAF FEMNIST's
                      3,550 writers (227,200 samples), SCAFFOLD 2 × 10 ×
@@ -175,8 +180,8 @@ JSON line per phase:
                      (1,106,356,224 bf16 params, random from the seed) on
                      make_synthetic_tokenlm (16 clients × 32 sequences of
                      128, vocab 32,000) through run_pod_training: P1 1 ×
-                     4 × 4 over the whole model, P2 2 × 4 × 4 over the
-                     adapters; P1 K1 16, P2 K1 32, K6 8, K3 2, K2 0
+                     4 × 2 over the whole model, P2 2 × 4 × 2 over the
+                     adapters; P1 K1 8, P2 K1 16, K6 8, K3 2, K2 0
                      asserted, the frozen leaves bitwise, the adapters
                      moved, upload bytes = the slice's, the eval loss
                      below the init's, fused == plain bitwise, the host
@@ -221,6 +226,31 @@ JSON line per phase:
                      and 48 x 9 launches, split into prefill and decode;
                      zoo_serve_e2e holds each against the plain path as
                      serve_e2e does;
+ 10. qwen_serve    — qwen2-1.5b, the serve CLI's default arch, the same
+                     way (1,543,714,304 params, the JAX package's count;
+                     K7 at head_dim 128, G 6: 28 x 9 launches; tokens
+                     repeat-identical; qwen_serve_e2e);
+ 11. moe_train     — deepseek-v2-lite-16b + lora:8 at full width and
+                     depth through run_pod_training on the one-rank NCCL
+                     mesh, P2 only, 2 rounds x 4 clients x 2 steps of
+                     batch 8, the slice the verbatim regex
+                     /(lora_a|lora_b)$|/router/w$ (f32 routers 3,407,872,
+                     bf16 adapters 311,808): K1 32, K6 16, K3 4, K2 0,
+                     frozen leaves bitwise, every trainable leaf and each
+                     of the 26 routers moved, upload = the slice's bytes,
+                     eval loss below the init's; a profiled warm P2
+                     round; moe_cut_train: the 3-layer cut, P1 relaying
+                     the whole model then P2, and under deterministic
+                     algorithms fused == fused_interpret, a repeat run
+                     and the host engine's FedAvgM round against the
+                     pod's;
+ 12. zoo_train     — launch.steps.make_train_step at full width (bf16
+                     params, f32 momentum, batch 4) on internvl2-1b,
+                     musicgen-medium and deepseek's 3-layer cut: 4 steps
+                     lower the batch's loss, n_micro 2 against 1 (in f32,
+                     the reference test's dtype; bf16 reported), and a
+                     CheckpointManager round trip of internvl2-1b's
+                     params and momentum, bitwise;
 then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
 at llm_lora's buckets and its launches there; K1–K3 with their N
 814,080 rows and
@@ -240,6 +270,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -248,6 +279,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's deterministic workspace (its size on an H100 is the default's),
+# set before any cuBLAS call: moe_cut_train's gates run under
+# torch.use_deterministic_algorithms
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 N_SMALL = 137_216          # LeNet-5's 136,886 params padded to 1024
 N_LARGE = 16_777_216
@@ -272,11 +307,32 @@ ZOO_NEW = 8
 ZOO_T = SERVE_S + ZOO_NEW
 ZOO_PARAMS = {"deepseek-v2-lite-16b": 15_706_484_224,
               "internvl2-1b": 493_780_992,
-              "musicgen-medium": 1_824_671_232}
+              "musicgen-medium": 1_824_671_232,
+              # qwen_serve: the serve CLI's default arch (28 layers, d
+              # 1536, 12 heads on 2, head_dim 128, no window)
+              "qwen2-1.5b": 1_543_714_304}
 # moe_serve's depth cut: 8 teacher-forced decode steps; the card-vs-CPU
 # f32 check at batch 2 x prompt 128, 4 steps, within MOE_CPU_TOL
 MOE_CUT_NEW, MOE_CPU_B, MOE_CPU_S, MOE_CPU_NEW = 8, 2, 128, 4
 MOE_CPU_TOL = 2e-4      # |card - cpu| <= tol + tol*|cpu|, f32 logits
+# moe_train: deepseek-v2-lite-16b + lora:8 (15,706,796,032 params), its
+# trainable slice by a verbatim regex: the 26 MoE routers of 2048 x 64
+# (one stacked leaf, f32 as in the JAX package) and the dense layer's MLP
+# adapters (bf16), two buckets; P2 2 rounds x 4 clients x 2 steps of
+# batch 8 at full width and depth, then the 3-layer cut (the dense layer
+# and two MoE layers) whose slice holds two routers
+MOE_PEFT, MOE_FILTER, MOE_K = "lora:8", r"/(lora_a|lora_b)$|/router/w$", 4
+MOE_LORA_PARAMS = 15_706_796_032
+MOE_SLICE = {"float32": 3_407_872, "bfloat16": 311_808}
+MOE_CUT_SLICE = {"float32": 262_144, "bfloat16": 311_808}
+MOE_CUT_LAYERS = 3
+# zoo_train: make_train_step at full width, bf16 params, f32 momentum,
+# batch 4: (arch, depth cut or None, prompt positions); 4 steps on one
+# batch at ZOO_TRAIN_LR, n_micro 2 against 1 within ZOO_MICRO_TOL
+ZOO_TRAIN = (("internvl2-1b", None, 256), ("musicgen-medium", None, 512),
+             ("deepseek-v2-lite-16b", MOE_CUT_LAYERS, 256))
+ZOO_TRAIN_B, ZOO_TRAIN_STEPS, ZOO_TRAIN_LR = 4, 4, 1e-2
+ZOO_MICRO_TOL = {"moe": 5e-2, "other": 2e-2}   # max|diff| / max|p|, a leaf
 
 
 def _kernel_cases() -> dict:
@@ -298,13 +354,16 @@ def _kernel_cases() -> dict:
             "ragged_777": dict(B=2, S=777, T=777, window=None, q_offset=0,
                                **att),
             # zoo_serve's shapes: internvl2-1b (14 heads on 2, G 7) and
-            # musicgen-medium (24 on 24, G 1), hd 64, 2048 prompt
-            # positions + ZOO_NEW tokens: prefill and the last decode step
+            # musicgen-medium (24 on 24, G 1), hd 64, and qwen_serve's:
+            # qwen2-1.5b (12 on 2, G 6), hd 128; 2048 prompt positions +
+            # ZOO_NEW tokens: prefill and the last decode step
             **{f"{name}_{kind}": dict(
                 B=B, S=S if kind == "prefill" else 1, T=ZOO_T,
                 window=None, q_offset=0 if kind == "prefill" else ZOO_T - 1,
-                H=h, KH=kh, hd=64)
-               for name, h, kh in (("internvl2", 14, 2), ("musicgen", 24, 24))
+                H=h, KH=kh, hd=d)
+               for name, h, kh, d in (("internvl2", 14, 2, 64),
+                                      ("musicgen", 24, 24, 64),
+                                      ("qwen2", 12, 2, 128))
                for kind in ("prefill", f"decode_{ZOO_T - 1}")},
         },
         "ssd_scan": {
@@ -1549,6 +1608,67 @@ def check_llm_kernels(torch, bench) -> dict:
     return out
 
 
+def padded(n: int) -> int:
+    """A bucket's length as the kernels get it: padded to GRID_ALIGN."""
+    from repro_torch.kernels.fused_update import GRID_ALIGN
+    return -(-n // GRID_ALIGN) * GRID_ALIGN
+
+
+def moe_cut_p1_buckets() -> dict:
+    """The 3-layer cut's whole-model buckets (P1 relays every leaf)."""
+    import dataclasses
+    from repro_torch.configs import get_config, with_peft
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils.flatten import FlatView
+    cut = dataclasses.replace(with_peft(get_config("deepseek-v2-lite-16b"),
+                                        MOE_PEFT), n_layers=MOE_CUT_LAYERS)
+    return FlatView.of(init_lm(cut, device="meta")).buffer_sizes
+
+
+def check_moe_kernels(torch, bench) -> dict:
+    """Phase 2 at moe_train's buckets, bitwise against the plain versions
+    (returned, keyed ``<kernel>[_form]_<dtype>``): at full width each of
+    the slice's two padded buckets (the f32 routers, 3,407,872, and the
+    bf16 adapters, 311,808 -> 312,320): K1 at clip 1, no decay, no
+    momentum, K6 (w and p of the bucket's dtype, f32 d) and K3's apply
+    ("none", an f32 delta); on the 3-layer cut K2 over the host engine's
+    4 clients and K3's FedAvgM aggregate form at its slice's buckets
+    (262,144 and 312,320), and K1 over its whole-model bf16 P1 bucket
+    (three trials of three calls).  Three trials a row (the other
+    paths' rows take five) hold the script's time."""
+    out = {}
+    bench.trials = 3
+    for name, n in MOE_SLICE.items():
+        dt = getattr(torch, name)
+        n = padded(n)
+        out[f"local_step_{name}"] = bench.local_step(n, dt, False, False,
+                                                     wd=0.0, clip=1.0)
+        out[f"delta_accum_{name}"] = bench.delta_accum(n, dt, True)
+        out[f"server_update_none_{name}"] = bench.server_update(
+            n, "none", dtype=dt)
+    for name, n in MOE_CUT_SLICE.items():
+        dt = getattr(torch, name)
+        n = padded(n)
+        out[f"weighted_delta_{name}"] = bench.weighted_delta(
+            n, MOE_K, False, False, dtype=dt)
+        out[f"server_update_{name}"] = bench.server_update(
+            n, "momentum", dtype=dt, form="avg")
+    bench.trials, bench.reps = 3, 3
+    out["local_step_cut_p1"] = bench.local_step(
+        padded(moe_cut_p1_buckets()["bfloat16"]), torch.bfloat16, False,
+        False, wd=0.0, clip=1.0)
+    bench.trials, bench.reps = 5, 20
+    torch.cuda.empty_cache()
+    for r in out.values():
+        emit(dict(phase="kernel", path="moe_train", **r))
+    bad = [k for k, r in out.items()
+           if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
+    if bad:
+        raise SystemExit(f"chip_smoke: kernels at moe_train's buckets "
+                         f"disagree with their plain versions: {bad}")
+    return out
+
+
 def main_path(torch, fu):
     """Phase 3: the paper pipeline at full width through the user entry
     point, launch counts asserted."""
@@ -1633,11 +1753,12 @@ ALGORITHMS = ("fedavg", "fedprox", "scaffold", "moon")
 
 def p2_algorithms(torch, fu, init) -> dict:
     """Phase p2_algorithms: the paper's Table I baselines on the card.
-    From the main path's P1 params, P2 2 rounds × 10 clients × 25 steps
-    (batch 32, the FLConfig defaults: mu 0.01, temperature 0.5, no
-    server optimizer) for fedavg, fedprox, scaffold and moon.  Asserted
-    per algorithm: K1 500 launches, K1 with SCAFFOLD's correction c
-    500 under scaffold and 0 otherwise, K2 2, K3 and the upload
+    From the main path's P1 params, P2 2 rounds × 10 clients × 10 steps
+    (cut from 25 to hold the script's time; batch 32, the FLConfig
+    defaults: mu 0.01, temperature 0.5, no server optimizer) for fedavg,
+    fedprox, scaffold and moon.  Asserted per algorithm: K1 200
+    launches, K1 with SCAFFOLD's correction c 200 under scaffold and 0
+    otherwise, K2 2, K3 and the upload
     kernels 0, accuracy above chance, ledger == closed form (4 X per
     client per round for scaffold, 2 X for the others).  Reported:
     rounds/s, ms per SGD step, and a profiled warm round's device ops
@@ -1654,7 +1775,7 @@ def p2_algorithms(torch, fu, init) -> dict:
     rows, c_launches = {}, {}
     for algo in ALGORITHMS:
         fed = FLConfig(algorithm=algo, rounds=2, participation=0.1,
-                       local_steps=25, batch_size=32, update_impl="fused",
+                       local_steps=10, batch_size=32, update_impl="fused",
                        sampling="host")
         steps = fed.rounds * fed.n_selected(100) * fed.local_steps
         ledger = acc.CommLedger()
@@ -1713,7 +1834,7 @@ def p2_algorithms(torch, fu, init) -> dict:
     first = {}
     for algo in ("fedavg", "scaffold"):
         fed = FLConfig(algorithm=algo, rounds=1, participation=0.1,
-                       local_steps=25, batch_size=32, update_impl="fused",
+                       local_steps=10, batch_size=32, update_impl="fused",
                        sampling="host")
         first[algo] = [t.detach().clone() for t in tree_leaves(
             run_federated(task, data, fed, init_params=init).params)]
@@ -1721,7 +1842,7 @@ def p2_algorithms(torch, fu, init) -> dict:
     bitwise = all(bool(torch.equal(a, b))
                   for a, b in zip(first["scaffold"], first["fedavg"]))
     emit(dict(phase="p2_algorithms", model="lenet5", rounds=2, clients=10,
-              local_steps=25, batch=32, mu=0.01, temperature=0.5,
+              local_steps=10, batch=32, mu=0.01, temperature=0.5,
               server_opt="none", algorithms=rows,
               scaffold_round1_equals_fedavg_bitwise=bitwise))
     if not bitwise:
@@ -2205,6 +2326,7 @@ N_CHARLM = 814_080         # CharLSTM-256's 813,632 params padded to 1024
 # tinyllama-1.1b + lora:8 (llm_lora): 1,100,048,384 base and 6,307,840
 # adapter params, all bf16: P1's one bucket holds both, P2's the adapters
 LLM_ARCH, LLM_PEFT, LLM_K = "tinyllama-1.1b", "lora:8", 4
+LLM_STEPS = 2       # SGD steps a client (4 before the MoE and zoo phases)
 LLM_BASE, N_LORA = 1_100_048_384, 6_307_840
 N_TINYLLAMA = LLM_BASE + N_LORA       # a multiple of 1024: no pad lanes
 L2_FLUSH_BYTES = 256 << 20  # read before a cold-L2 call: 5x the H100's L2
@@ -2225,15 +2347,15 @@ def charlm_setup():
 
 
 def charlm_configs(impl: str = "fused", **fed_kw):
-    """P1 1 round × 7 clients (participation 0.1 of 66) × 10 steps, P2
-    FedAvgM 1 × 7 × 10, batch 32, host sampling (2 + 2 rounds before PR
-    23: cut to hold the script's time).  The SGD step is
+    """P1 1 round × 7 clients (participation 0.1 of 66) × 5 steps, P2
+    FedAvgM 1 × 7 × 5, batch 32, host sampling (cut from 2 + 2 rounds
+    of 10 steps to hold the script's time).  The SGD step is
     ``CHARLM_LR`` = 0.8, the Shakespeare LSTM's in LEAF and FedProx: at
     the configs' default 0.01 the loss moves by ~5e-3 in 280 steps (a
     CPU run of this phase)."""
     from repro_torch.core.cyclic import CyclicConfig
     from repro_torch.fl.simulation import FLConfig
-    common = dict(participation=0.1, local_steps=10, batch_size=32,
+    common = dict(participation=0.1, local_steps=5, batch_size=32,
                   lr=CHARLM_LR, update_impl=impl, sampling="host")
     return (CyclicConfig(rounds=1, **common),
             FLConfig(algorithm="fedavg", rounds=1, server_opt="momentum",
@@ -2281,7 +2403,7 @@ def same_leaves(torch, a, b) -> bool:
 def charlm_path(torch, fu):
     """Phase charlm_path: the paper's CharLSTM-256 at full width through
     ``run_cyclic_then_federated`` (``charlm_configs``).  Asserted: K1
-    140, K2 1, K3 1 and no upload kernel; ledger == closed form; the
+    70, K2 1, K3 1 and no upload kernel; ledger == closed form; the
     P2 model's loss over the 512 test sequences below the init's (the
     P1 model's reported beside them); accuracy above chance (1/64); the
     pipeline cut to 1 P1 + 1 P2 round of 2 clients (the SGD step is
@@ -2528,6 +2650,11 @@ def fashion_path(torch, fu):
 
 # --- the pod backend on a one-rank NCCL mesh ---------------------------------
 
+# pod_path's rounds a phase (4 before the MoE and zoo training phases
+# joined the script)
+POD_PATH_ROUNDS = 2
+
+
 def pod_configs(mesh, *, rounds: int = 4, impl: str = "fused",
                 batch_indices=None, cfg_kw=None, spec_kw=None):
     """The main path's two phases as pod configs on ``mesh``: P1 4 rounds
@@ -2563,7 +2690,7 @@ def pod_path(torch, fu, mesh):
     from repro_torch.utils.tree_math import size_bytes
 
     task, data = lenet_setup()
-    cyc, fed = pod_configs(mesh)
+    cyc, fed = pod_configs(mesh, rounds=POD_PATH_ROUNDS)
     fu.reset_launch_counts()
     pod.reset_collective_counts()
     torch.cuda.synchronize()
@@ -2989,13 +3116,14 @@ def bitwise_runs(torch, a, b) -> bool:
 
 # client_store's parity runs: SGD steps per client (25 before PR 23; the
 # residency plan, the gates and the spills depend on the ids only)
-STORE_STEPS = 10
+STORE_STEPS = 5      # SGD steps a client in the parity runs (10 before
+                     # the MoE and zoo training phases joined the script)
 
 
 def client_store(torch, fu, init, mesh) -> dict:
     """Phase client_store (M10).  Parity: the main path's LeNet-5 on
     cifar10-like from its P1 params, P2 6 rounds × 10 clients ×
-    ``STORE_STEPS`` (10) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
+    ``STORE_STEPS`` (5) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
     (int8 + top-k 25% + EF: the control variates AND the residual rows
     in sparse stores) and of MOON, each with the dense store and the
     synchronous loop, the sparse store (capacity 20 = chunk × K) and the
@@ -3004,7 +3132,7 @@ def client_store(torch, fu, init, mesh) -> dict:
     bitwise (params, losses, control variates, residual rows, moon's
     previous models through ``to_dense``; cuDNN deterministic), rows
     spilled and faulted back in under host sampling, launches per run K1
-    600 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
+    300 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
     dispatches.  Scale: cnn_femnist
     on femnist-like at LEAF FEMNIST's 3,550 writers (n_train cut to
     227,200, 64 a writer), SCAFFOLD 2 rounds × 10 × 25, dense-sync
@@ -3335,12 +3463,13 @@ def ulp_close(torch, a, b, n_ulp: int = 2) -> bool:
 def llm_lora(torch, fu, mesh) -> dict:
     """Phase llm_lora: federated next-token training of tinyllama-1.1b +
     lora:8 (``llm_setup``) through ``launch.train.run_pod_training`` on
-    the one-rank NCCL mesh, the example's settings with 2 P2 rounds:
-    P1 1 round × 4 clients × 4 steps relaying the whole model (one bf16
-    bucket of 1,106,356,224), P2 2 rounds × 4 × 4 on the adapter bucket
-    (6,307,840), batch 8, lr 0.03, the example's per-sequence loss as
-    the eval metric every round (batch 16).  Asserted: K1 16 in P1
-    (its launches at P1's evaluation, the one before P2 starts), K1 32,
+    the one-rank NCCL mesh, the example's settings with 2 P2 rounds and
+    LLM_STEPS (2) steps a client: P1 1 round × 4 clients × 2 steps
+    relaying the whole model (one bf16 bucket of 1,106,356,224), P2 2
+    rounds × 4 × 2 on the adapter bucket (6,307,840), batch 8, lr 0.03,
+    the example's per-sequence loss as the eval metric every round
+    (batch 16).  Asserted: K1 8 in P1 (its launches at P1's evaluation,
+    the one before P2 starts), K1 16,
     K6 8, K3 2 and K2 0 in P2, no upload kernel; every frozen leaf after
     P2 bitwise P1's end value, every adapter leaf moved; the ledger's
     upload per client the adapter slice's bytes (12,615,680); the eval
@@ -3382,7 +3511,7 @@ def llm_lora(torch, fu, mesh) -> dict:
         raise SystemExit(f"chip_smoke: tinyllama-1.1b + lora:8 has "
                          f"{n_params} params, buckets "
                          f"{p1_view.buffer_sizes} / {p2_view.buffer_sizes}")
-    spec = PodFLSpec(local_steps=4, batch_size=8, lr=0.03,
+    spec = PodFLSpec(local_steps=LLM_STEPS, batch_size=8, lr=0.03,
                      update_impl="fused", peft=LLM_PEFT)
     metric = sequence_loss_metric(cfg)
     p1_launches = {}
@@ -3409,8 +3538,9 @@ def llm_lora(torch, fu, mesh) -> dict:
     launches = all_launches(fu)
     p2_launches = {k: launches[k] - p1_launches[k] for k in launches}
     zero = dict.fromkeys(launches, 0)
-    want_p1 = dict(zero, local_step=1 * LLM_K * 4)
-    want_p2 = dict(zero, local_step=2 * LLM_K * 4, delta_accum=2 * LLM_K,
+    want_p1 = dict(zero, local_step=1 * LLM_K * LLM_STEPS)
+    want_p2 = dict(zero, local_step=2 * LLM_K * LLM_STEPS,
+                   delta_accum=2 * LLM_K,
                    server_update=2)
     p1 = res.schedule.phases[0].result.params
     frozen_ok, moved = True, 0
@@ -3442,7 +3572,8 @@ def llm_lora(torch, fu, mesh) -> dict:
     pod_launches = all_launches(fu)
     fu.reset_launch_counts()
     host = run_rounds(task, data, AggregateStrategy(
-        spec=LocalSpec(n_steps=4, batch_size=8, lr=0.03, update_impl="fused",
+        spec=LocalSpec(n_steps=LLM_STEPS, batch_size=8, lr=0.03,
+                       update_impl="fused",
                        peft=LLM_PEFT),
         participation=LLM_K / data.n_clients, server_opt="momentum"),
         RoundSchedule(rounds=1, lr_decay=1.0, eval_every=0, seed=SEED + 17,
@@ -3463,7 +3594,7 @@ def llm_lora(torch, fu, mesh) -> dict:
     t0 = time.perf_counter()
     run_pod_rounds(task, data, c1, init_params=p1, phase="P1")
     torch.cuda.synchronize()
-    p1_step_ms = (time.perf_counter() - t0) * 1e3 / 4
+    p1_step_ms = (time.perf_counter() - t0) * 1e3 / LLM_STEPS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3471,7 +3602,7 @@ def llm_lora(torch, fu, mesh) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     busy, n_ops, top = device_activity(prof, n_top=8)
-    steps = LLM_K * 4
+    steps = LLM_K * LLM_STEPS
     emit(dict(phase="llm_lora", model=f"{LLM_ARCH} + {LLM_PEFT}",
               params=n_params, base_params=LLM_BASE, adapter_params=N_LORA,
               p1_bucket=N_TINYLLAMA, p2_bucket=N_LORA, dtype="bfloat16",
@@ -3963,35 +4094,555 @@ def moe_cut(torch, cfg) -> None:
                          "disagrees with the CPU in f32")
 
 
+def serve_family(torch, arch: str, phase: str) -> dict:
+    """``arch`` at full width through Engine.generate on the kernel path
+    (serve_run): K7 launched n_layers x (1 + ZOO_NEW) times, split into
+    prefill and decode as phase_launches counts them, and the kernel path
+    within the plain path's bf16 noise (serve_e2e).  Returns its K7
+    launches."""
+    eng, prompt, tokens, line = serve_run(torch, arch)
+    per_phase = phase_launches(torch, eng, prompt, ZOO_T)
+    want = {"flash_attention": eng.cfg.n_layers * (1 + ZOO_NEW),
+            "ssd_scan": 0}
+    emit(dict(phase=phase, **line, expected_launches=want,
+              launches_by_phase=per_phase))
+    if line["launches"] != want:
+        raise SystemExit(f"chip_smoke: {arch} launches {line['launches']} "
+                         f"!= {want}")
+    split = per_phase["flash_attention"]
+    if split["prefill"] + ZOO_NEW * split["decode_step"] != \
+            want["flash_attention"]:
+        raise SystemExit(f"chip_smoke: {arch}'s K7 launches per prefill and "
+                         f"decode step {split} do not make up the total")
+    if phase == "qwen_serve" and not line["repeat_tokens_identical"]:
+        raise SystemExit(f"chip_smoke: {arch}'s repeat run gave other tokens")
+    serve_e2e(torch, eng, prompt, tokens, ZOO_T, phase=f"{phase}_e2e")
+    del eng, prompt, tokens
+    torch.cuda.empty_cache()
+    return dict(launches=line["launches"]["flash_attention"],
+                launches_per_prefill=split["prefill"],
+                launches_per_decode_step=split["decode_step"])
+
+
 def zoo_serve(torch) -> dict:
     """internvl2-1b (256 patch embeddings + 1792 tokens) and
-    musicgen-medium (2048 frames) at full width through Engine.generate
-    on the kernel path: K7 launched n_layers x (1 + ZOO_NEW) times, split
-    into prefill and decode as phase_launches counts them, and the kernel
-    path within the plain path's bf16 noise (serve_e2e).  Returns each
-    model's K7 launches."""
+    musicgen-medium (2048 frames) at full width (serve_family).  Returns
+    each model's K7 launches."""
+    return {arch: serve_family(torch, arch, "zoo_serve")
+            for arch in ("internvl2-1b", "musicgen-medium")}
+
+
+def qwen_serve(torch) -> dict:
+    """qwen2-1.5b, the serve CLI's default arch, at full width
+    (serve_family): K7 at head_dim 128, G 6, 28 x 9 launches, its param
+    count the JAX package's, tokens in range and repeat-identical."""
+    return serve_family(torch, "qwen2-1.5b", "qwen_serve")
+
+
+# --- training the MoE, VLM and audio zoo ------------------------------------
+
+@functools.lru_cache(maxsize=1)
+def moe_setup():
+    """deepseek-v2-lite-16b + lora:8 at full width and depth (27 layers,
+    d_model 2048, MLA, 64 routed experts top-6 + 2 shared, vocab 102400,
+    bf16, random weights from the seed) and its federated token data:
+    ``make_synthetic_tokenlm(n_clients=16, seq_len=128,
+    n_seq_per_client=32, vocab=102400, beta=0.5)``, made on the host
+    (seconds returned)."""
+    from repro_torch.configs import get_config, with_peft
+    from repro_torch.data.synthetic import make_synthetic_tokenlm
+    cfg = with_peft(get_config("deepseek-v2-lite-16b"), MOE_PEFT)
+    t0 = time.perf_counter()
+    data = make_synthetic_tokenlm(n_clients=16, seq_len=128,
+                                  n_seq_per_client=32, vocab=cfg.vocab_size,
+                                  beta=0.5, seed=SEED)
+    return cfg, data, time.perf_counter() - t0
+
+
+def moe_spec(**kw):
+    """moe_train's PodFLSpec; ``kw`` overrides its fields."""
+    from repro_torch.launch.train import PodFLSpec
+    return PodFLSpec(**dict(dict(peft=MOE_PEFT, trainable_filter=MOE_FILTER,
+                                 local_steps=2, batch_size=8, lr=0.03,
+                                 update_impl="fused"), **kw))
+
+
+def slice_moves(torch, before, after, mask, paths) -> dict:
+    """Per trainable leaf, whether it moved, and for a stacked leaf
+    (``blocks/...``: one row per layer) whether every layer's row did;
+    whether every frozen leaf stayed bitwise."""
+    from repro_torch.utils.tree_math import tree_leaves
+    moved, frozen_ok = {}, True
+    for path, a, b, m in zip(paths, tree_leaves(before), tree_leaves(after),
+                             mask):
+        if not m:
+            frozen_ok &= bool(torch.equal(a, b))
+            continue
+        ne = a != b
+        rows = ne.reshape(a.shape[0], -1).any(1) if \
+            path.startswith("blocks/") else ne.reshape(1, -1).any(1)
+        moved[path] = int(rows.sum()), int(rows.numel())
+    return dict(frozen_bitwise=frozen_ok, moved_rows=moved,
+                all_moved=all(k == n for k, n in moved.values()))
+
+
+class Deterministic:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for
+    the block (the MoE backward's index writes then sort instead of
+    adding with atomics); records the ops that have no deterministic CUDA
+    version (their warnings) in ``nondeterministic``.  The script sets
+    CUBLAS_WORKSPACE_CONFIG before any cuBLAS call, so cuBLAS raises no
+    warning here."""
+
+    def __init__(self, torch):
+        self.torch, self.nondeterministic = torch, []
+
+    def __enter__(self):
+        import warnings
+        self._warn = warnings.catch_warnings(record=True)
+        self._log = self._warn.__enter__()
+        warnings.simplefilter("always")
+        self.torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(False)
+        self._warn.__exit__(*exc)
+        self.nondeterministic = sorted({
+            str(w.message).split(" does not have")[0][:120]
+            for w in self._log if "deterministic" in str(w.message)})
+        return False
+
+
+def moe_train(torch, fu, mesh) -> dict:
+    """Phase moe_train: federated fine-tuning of deepseek-v2-lite-16b +
+    lora:8 (``moe_setup``) through ``launch.train.run_pod_training`` on
+    the one-rank NCCL mesh, P2 only: 2 rounds x 4 clients x 2 steps of
+    batch 8, lr 0.03, the trainable slice the regex
+    ``/(lora_a|lora_b)$|/router/w$`` (two buckets: the f32 routers,
+    3,407,872, and the bf16 adapters, 311,808), the per-sequence loss as
+    the eval metric every round (batch 16).  The init tree (31.4 GB) and
+    the engine's frozen bucket (31.4 GB) are the base held twice.
+    Asserted: K1 32, K6 16, K3 4 (one launch a bucket), K2 0, no upload
+    kernel; every frozen leaf bitwise its init, every trainable leaf
+    moved, each of the 26 routers; the ledger's upload per client the
+    slice's bytes (14,255,104); the eval loss finite and P2's last below
+    the init's.  Reported: init seconds, run seconds, peak memory, and a
+    profiled warm P2 round of 2 clients (ms and device ops per step, busy
+    share).  Then the 3-layer cut (moe_cut_train)."""
+    from repro_torch.configs import param_count
+    from repro_torch.fl.pod import PodFLConfig, run_pod_rounds
+    from repro_torch.fl.task import lm_task
+    from repro_torch.launch.train import (run_pod_training,
+                                          sequence_loss_metric)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.utils.flatten import FlatView
+    from repro_torch.utils.tree_math import tree_paths
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    cfg, data, data_s = moe_setup()
+    task = lm_task(cfg)
+    shapes = task.shapes()
+    mask = rules.trainable_mask(shapes, MOE_FILTER)
+    paths = tree_paths(shapes)
+    view = FlatView.of(shapes, filter=mask)
+    n_params = param_count(cfg)
+    if (n_params, view.buffer_sizes) != (MOE_LORA_PARAMS, MOE_SLICE):
+        raise SystemExit(f"chip_smoke: deepseek-v2-lite-16b + lora:8 has "
+                         f"{n_params} params, slice {view.buffer_sizes}")
+    del shapes
+    metric = sequence_loss_metric(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    init = init_lm(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_loss = stream_mean(torch, metric, init, data)
+    fu.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_pod_training(cfg, data, cyclic_rounds=0, fl_rounds=2,
+                           clients_per_round=MOE_K, spec=moe_spec(),
+                           mesh=mesh, seed=SEED, eval_fn=metric,
+                           eval_batch=16, init_params=init)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches(fu)
+    nb = len(MOE_SLICE)         # one launch a bucket
+    want = dict(dict.fromkeys(launches, 0), local_step=2 * MOE_K * 2 * nb,
+                delta_accum=2 * MOE_K * nb, server_update=2 * nb)
+    moves = slice_moves(torch, init, res.params, mask, paths)
+    routers = moves["moved_rows"].get("blocks/moe/router/w")
+    del init
+    led = res.schedule.ledger
+    per_client = led.p2_upload_bytes // (2 * MOE_K)
+    closed = sum(n * getattr(torch, k).itemsize for k, n in MOE_SLICE.items())
+    evals = [h["eval"] for h in res.history]
+
+    # a profiled warm P2 round of 2 clients from the trained params
+    c = PodFLConfig(mesh, rounds=1, clients_per_round=2, seed=SEED + 17,
+                    spec=moe_spec())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_pod_rounds(task, data, c, init_params=res.params)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy, n_ops, top = device_activity(prof, n_top=12)
+    del prof
+    steps = 2 * 2
+    emit(dict(phase="moe_train", model=f"{cfg.name} + {MOE_PEFT}",
+              params=n_params, trainable_filter=MOE_FILTER,
+              slice=MOE_SLICE,
+              slice_buckets={k: padded(n) for k, n in MOE_SLICE.items()},
+              dtype="bfloat16", dataset="make_synthetic_tokenlm(16 clients, "
+              "32 x 128, vocab 102400, beta 0.5)", data_s=data_s,
+              init_s=init_s, history=res.history, init_eval_loss=init_loss,
+              run_s=run_s, launches=launches, expected_launches=want,
+              **moves, upload_bytes_per_client=per_client,
+              upload_closed_form=closed, ledger=led.summary(),
+              peak_memory_bytes=peak,
+              profiled_p2_round=dict(
+                  clients=2, sgd_steps=steps, wall_ms=wall_us / 1e3,
+                  ms_per_step=wall_us / 1e3 / steps,
+                  device_busy_ms=busy / 1e3,
+                  device_busy_share=busy / wall_us if n_ops else None,
+                  device_ops=n_ops, device_ops_per_step=n_ops / steps,
+                  top_device_ops=top),
+              phase_s=time.perf_counter() - t_phase))
+    if launches != want:
+        raise SystemExit(f"chip_smoke: moe_train launches {launches}")
+    if not (moves["frozen_bitwise"] and moves["all_moved"]) or \
+            routers != (26, 26):
+        raise SystemExit(f"chip_smoke: moe_train's frozen leaves changed or "
+                         f"a trainable leaf did not move: {moves}")
+    if per_client != closed or \
+            led.p2_upload_bytes != 2 * MOE_K * per_client:
+        raise SystemExit(f"chip_smoke: moe_train upload bytes {per_client} "
+                         f"!= the slice's {closed}")
+    if not (all(math.isfinite(e) for e in evals) and evals[-1] < init_loss):
+        raise SystemExit(f"chip_smoke: moe_train eval loss {evals} did not "
+                         f"fall below the init's {init_loss}")
+    if not n_ops:
+        raise SystemExit("chip_smoke: the profiler saw no device op")
+    del res
+    torch.cuda.empty_cache()
+    cut = moe_cut_train(torch, fu, mesh, cfg, data)
+    return dict(full=launches, **cut)
+
+
+def moe_cut_train(torch, fu, mesh, cfg, data) -> dict:
+    """The 3-layer full-width cut of moe_train (its slice: the adapters
+    and 2 routers: 311,808 bf16 and 262,144 f32): P1 1 round x 4 x 2
+    relaying the whole model (K1 16 over the two buckets of every leaf,
+    every leaf moved), then P2 1 round (K1 16, K6 8, K3 2; K2 and K3 2
+    each in the host engine's round).  Under deterministic algorithms
+    (``Deterministic``): one P2 round under "fused" bitwise the same
+    round under "fused_interpret" and bitwise a repeat of itself; one P2
+    FedAvgM round of the host engine (AggregateStrategy: K2 and K3's
+    aggregate form) against the pod's from P1's params, losses bitwise
+    and params within 2 bf16 ulps (as llm_lora).  An op with no
+    deterministic CUDA version is named, and the bitwise gates then hold
+    within 2 bf16 ulps."""
+    import dataclasses
+    from repro_torch.fl.engine import (AggregateStrategy, RoundSchedule,
+                                       run_rounds)
+    from repro_torch.fl.local import LocalSpec
+    from repro_torch.fl.pod import PodFLConfig, run_pod_rounds
+    from repro_torch.fl.task import lm_task
+    from repro_torch.launch.train import (run_pod_training,
+                                          sequence_loss_metric)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.utils.flatten import FlatView
+    from repro_torch.utils.tree_math import tree_leaves, tree_paths
+
+    t_phase = time.perf_counter()
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)
+    task = lm_task(cut)
+    shapes = task.shapes()
+    mask = rules.trainable_mask(shapes, MOE_FILTER)
+    p1_sizes = FlatView.of(shapes).buffer_sizes
+    p2_sizes = FlatView.of(shapes, filter=mask).buffer_sizes
+    if (p1_sizes, p2_sizes) != (moe_cut_p1_buckets(), MOE_CUT_SLICE):
+        raise SystemExit(f"chip_smoke: the cut's buckets {p1_sizes} / "
+                         f"{p2_sizes}")
+    metric = sequence_loss_metric(cut)
+    p1_launches = {}
+
+    def eval_fn(params, bx, by):
+        # P1's one round evaluates before P2 starts: its launches so far
+        if not p1_launches:
+            p1_launches.update(all_launches(fu))
+        return metric(params, bx, by)
+
+    init = init_lm(cut, SEED, "cuda")
+    fu.reset_launch_counts()
+    res = run_pod_training(cut, data, cyclic_rounds=1, fl_rounds=1,
+                           clients_per_round=MOE_K, spec=moe_spec(),
+                           mesh=mesh, seed=SEED, eval_fn=eval_fn,
+                           eval_batch=16, init_params=init)
+    launches = all_launches(fu)
+    p2_launches = {k: launches[k] - p1_launches[k] for k in launches}
+    zero = dict.fromkeys(launches, 0)
+    nb = len(MOE_CUT_SLICE)     # one launch a bucket, in P1 and in P2
+    want_p1 = dict(zero, local_step=MOE_K * 2 * nb)
+    want_p2 = dict(zero, local_step=MOE_K * 2 * nb, delta_accum=MOE_K * nb,
+                   server_update=nb)
+    p1 = res.schedule.phases[0].result.params
+    p1_still = [path for path, a, b in zip(tree_paths(shapes),
+                                           tree_leaves(init),
+                                           tree_leaves(p1))
+                if torch.equal(a, b)]
+    n_leaves = len(mask)
+    del init
+
+    def p2_round(impl, **kw):
+        c = PodFLConfig(mesh, rounds=1, clients_per_round=MOE_K,
+                        seed=SEED + 17, spec=moe_spec(update_impl=impl, **kw))
+        return run_pod_rounds(task, data, c, init_params=p1)
+
+    with Deterministic(torch) as det:
+        fu.reset_launch_counts()
+        fused = p2_round("fused")
+        plain = p2_round("fused_interpret")
+        again = p2_round("fused")
+        fu.reset_launch_counts()
+        pod_m = p2_round("fused", server_opt="momentum")
+        pod_launches = all_launches(fu)
+        fu.reset_launch_counts()
+        host = run_rounds(task, data, AggregateStrategy(
+            spec=LocalSpec(n_steps=2, batch_size=8, lr=0.03,
+                           update_impl="fused", peft=MOE_PEFT,
+                           trainable_filter=MOE_FILTER),
+            participation=MOE_K / data.n_clients, server_opt="momentum"),
+            RoundSchedule(rounds=1, lr_decay=1.0, eval_every=0,
+                          seed=SEED + 17, chunk_size=4), init_params=p1)
+        host_launches = all_launches(fu)
+    exact = not det.nondeterministic
+
+    def agree(a, b):
+        return same_leaves(torch, a, b) if exact else ulp_close(torch, a, b)
+    fused_plain = agree(fused.params, plain.params)
+    repeat = agree(fused.params, again.params) and \
+        [h["local_loss"] for h in fused.history] == \
+        [h["local_loss"] for h in again.history]
+    host_loss_bitwise = [h["local_loss"] for h in host.history] == \
+        [h["local_loss"] for h in pod_m.history]
+    host_ok = ulp_close(torch, host.params, pod_m.params)
+    host_gap = max(float((a.float() - b.float()).abs().max()) for a, b in
+                   zip(tree_leaves(host.params), tree_leaves(pod_m.params)))
+    emit(dict(phase="moe_cut_train", model=cut.name, n_layers=cut.n_layers,
+              p1_buckets=p1_sizes, p2_slice=MOE_CUT_SLICE,
+              history=res.history, launches_p1=p1_launches,
+              expected_p1=want_p1, launches_p2=p2_launches,
+              expected_p2=want_p2, p1_leaves_moved=n_leaves - len(p1_still),
+              leaves=n_leaves, p1_leaves_unmoved=p1_still, deterministic=dict(
+                  nondeterministic_ops=det.nondeterministic,
+                  gates="bitwise" if exact else "2 bf16 ulps"),
+              fused_equals_plain=fused_plain, repeat_equal=repeat,
+              host_vs_pod=dict(server_opt="momentum", rounds=1,
+                               tol="2 bf16 ulps", within_tol=host_ok,
+                               max_abs_diff=host_gap,
+                               losses_bitwise=host_loss_bitwise,
+                               host_launches=host_launches,
+                               pod_launches=pod_launches),
+              phase_s=time.perf_counter() - t_phase))
+    if p1_launches != want_p1 or p2_launches != want_p2:
+        raise SystemExit(f"chip_smoke: moe_cut_train launches P1 "
+                         f"{p1_launches} P2 {p2_launches}")
+    if any("norm" not in path for path in p1_still):
+        raise SystemExit(f"chip_smoke: the cut's P1 left leaves other than "
+                         f"norm scales bitwise their init: {p1_still}")
+    if not (fused_plain and repeat):
+        raise SystemExit("chip_smoke: moe_cut_train's kernels and plain path "
+                         "or its repeat runs disagree")
+    if not (host_ok and host_loss_bitwise):
+        raise SystemExit("chip_smoke: moe_cut_train's host engine and pod "
+                         "disagree")
+    if host_launches["weighted_delta"] != nb or \
+            host_launches["server_update"] != nb:
+        raise SystemExit(f"chip_smoke: the host engine's P2 round launched "
+                         f"{host_launches}")
+    del res, p1, fused, plain, again, pod_m, host
+    torch.cuda.empty_cache()
+    return dict(cut_p1=p1_launches, cut_p2=p2_launches, host=host_launches)
+
+
+def train_batch(torch, cfg, S: int, gen) -> dict:
+    """A batch of ZOO_TRAIN_B rows with labels on the card: S tokens
+    (with the config's n_prefix_tokens patch embeddings before them in
+    vlm mode), or S frame embeddings and n_codebooks labels a frame."""
+    B, dev = ZOO_TRAIN_B, "cuda"
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                             device=dev)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(cfg.dtype)
+    if cfg.input_mode == "tokens":
+        return {"tokens": ids(B, S), "labels": ids(B, S)}
+    if cfg.input_mode == "vlm":
+        return {"patch_embeds": normal(B, cfg.n_prefix_tokens, cfg.d_model),
+                "tokens": ids(B, S), "labels": ids(B, S)}
+    return {"frame_embeds": normal(B, S, cfg.d_model),
+            "labels": ids(B, S, cfg.n_codebooks)}
+
+
+def micro_gaps(torch, a, b) -> dict:
+    """Per leaf max|a - b| / (max|a| + 1e-6), as
+    tests/test_smoke_archs.py measures n_micro 2 against 1, by path."""
+    from repro_torch.utils.tree_math import tree_leaves, tree_paths
+    return {path: float((x.float() - y.float()).abs().max()
+                        / (x.float().abs().max() + 1e-6))
+            for path, x, y in zip(tree_paths(a), tree_leaves(a),
+                                  tree_leaves(b))}
+
+
+def worst_gaps(gaps: dict, n: int = 4) -> list:
+    return sorted(gaps.items(), key=lambda kv: -kv[1])[:n]
+
+
+def micro_gaps_f32(torch, cfg, batch) -> dict:
+    """n_micro 2 against 1 as tests/test_smoke_archs.py holds them, in
+    its dtype (the reduced configs are f32): one step from the seed's
+    f32 params at full width on the same batch.  In bf16 the measure is
+    ill-posed on zero-init leaves whose gradient is rounding noise: a key
+    bias's is 0 in exact arithmetic (softmax is shift-invariant), so
+    there max|diff| / max|p| compares noise with noise (zoo_train
+    reports the bf16 gaps beside)."""
+    import dataclasses
+    from repro_torch.launch.steps import (TrainSpec, init_momentum,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_lm
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32)
+    params = init_lm(cfg32, SEED, "cuda")
+    mom = init_momentum(params)
+    b32 = {k: v.float() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    one, _, _ = make_train_step(cfg32, TrainSpec(lr=ZOO_TRAIN_LR))(
+        params, mom, b32)
+    two, _, _ = make_train_step(cfg32, TrainSpec(
+        lr=ZOO_TRAIN_LR, n_micro=2))(params, mom, b32)
+    gaps = micro_gaps(torch, one, two)
+    del params, mom, one, two
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def checkpoint_round_trip(torch, tree) -> dict:
+    """CheckpointManager(keep=2) under a temporary directory: save
+    ``tree`` (copied to the host once per leaf), restore it to the card,
+    every leaf bitwise, dtypes included; seconds and bytes."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, load_metadata
+    from repro_torch.utils.tree_math import tree_leaves
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        mgr = CheckpointManager(d, keep=2)
+        t0 = time.perf_counter()
+        path = mgr.save(ZOO_TRAIN_STEPS, tree, metadata={"arch": "zoo"})
+        save_s = time.perf_counter() - t0
+        n_bytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = mgr.restore(device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ok = all(x.dtype == y.dtype and x.device == y.device and
+                 bool(torch.equal(x, y))
+                 for x, y in zip(tree_leaves(tree), tree_leaves(back)))
+        meta = load_metadata(path)
+        del back
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(bitwise=ok, file_bytes=n_bytes, save_s=save_s, load_s=load_s,
+                metadata=meta,
+                dtypes=sorted({str(t.dtype)[6:] for t in tree_leaves(tree)}))
+
+
+def zoo_train(torch) -> dict:
+    """Phase zoo_train: ``launch.steps.make_train_step`` at full width,
+    bf16 params and f32 momentum (TrainSpec lr ZOO_TRAIN_LR, momentum
+    0.9), batch ZOO_TRAIN_B: internvl2-1b (256 patch embeddings + 256
+    tokens), musicgen-medium (512 frames, 4 codebooks) and the 3-layer
+    cut of deepseek-v2-lite-16b (256 tokens).  Gates: 4 steps on one
+    batch lower its loss; one n_micro 2 step equals the n_micro 1 step
+    within ZOO_MICRO_TOL (tests/test_smoke_archs.py's measure, in its
+    f32: micro_gaps_f32; the bf16 gaps reported beside); a
+    CheckpointManager(keep=2) round trip of internvl2-1b's params and
+    momentum after its steps bitwise on every leaf.  Reported: ms a
+    step, peak memory, the checkpoint's seconds and bytes."""
+    import dataclasses
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.launch.steps import (TrainSpec, init_momentum,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_lm, lm_loss
+
     out = {}
-    for arch in ("internvl2-1b", "musicgen-medium"):
-        eng, prompt, tokens, line = serve_run(torch, arch)
-        per_phase = phase_launches(torch, eng, prompt, ZOO_T)
-        want = {"flash_attention": eng.cfg.n_layers * (1 + ZOO_NEW),
-                "ssd_scan": 0}
-        emit(dict(phase="zoo_serve", **line, expected_launches=want,
-                  launches_by_phase=per_phase))
-        if line["launches"] != want:
-            raise SystemExit(f"chip_smoke: {arch} launches "
-                             f"{line['launches']} != {want}")
-        split = per_phase["flash_attention"]
-        if split["prefill"] + ZOO_NEW * split["decode_step"] != \
-                want["flash_attention"]:
-            raise SystemExit(f"chip_smoke: {arch}'s K7 launches per prefill "
-                             f"and decode step {split} do not make up the "
-                             "total")
-        serve_e2e(torch, eng, prompt, tokens, ZOO_T, phase="zoo_serve_e2e")
-        out[arch] = dict(launches=line["launches"]["flash_attention"],
-                         launches_per_prefill=split["prefill"],
-                         launches_per_decode_step=split["decode_step"])
-        del eng, prompt, tokens
+    for arch, n_layers, S in ZOO_TRAIN:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = init_lm(cfg, SEED, "cuda")
+        mom = init_momentum(params)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        batch = train_batch(torch, cfg, S, gen)
+        step = make_train_step(cfg, TrainSpec(lr=ZOO_TRAIN_LR))
+        losses, ms = [], []
+        p, m = params, mom
+        for i in range(ZOO_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, m, met = step(p, m, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            if i == 0:
+                first = p
+        with torch.no_grad():
+            final = float(lm_loss(p, cfg, batch)[0])
+        p2, _, met2 = make_train_step(cfg, TrainSpec(
+            lr=ZOO_TRAIN_LR, n_micro=2))(params, mom, batch)
+        tol = ZOO_MICRO_TOL["moe" if cfg.is_moe else "other"]
+        bf16_gaps = worst_gaps(micro_gaps(torch, first, p2))
+        peak = torch.cuda.max_memory_allocated()
+        del params, mom, first, p2
+        ckpt = checkpoint_round_trip(torch, {"params": p, "momentum": m}) \
+            if arch == "internvl2-1b" else None
+        del p, m
+        torch.cuda.empty_cache()
+        f32_gaps = micro_gaps_f32(torch, cfg, batch)
+        gap = max(f32_gaps.values())
+        ok = all(math.isfinite(x) for x in losses + [final]) and \
+            final < losses[0] and gap < tol and \
+            (ckpt is None or ckpt["bitwise"])
+        emit(dict(phase="zoo_train", model=cfg.name, n_layers=cfg.n_layers,
+                  params=param_count(cfg), dtype=str(cfg.dtype)[6:],
+                  momentum_dtype="float32", batch=ZOO_TRAIN_B,
+                  positions=S + (cfg.n_prefix_tokens if cfg.input_mode ==
+                                 "vlm" else 0), lr=ZOO_TRAIN_LR,
+                  losses=losses, loss_after=final, ms_per_step=ms,
+                  n_micro_2_loss=float(met2["loss"]),
+                  n_micro_2_vs_1=dict(
+                      dtype="float32", max_rel_gap=gap, tol=tol,
+                      worst_leaves=worst_gaps(f32_gaps),
+                      bf16_worst_leaves=bf16_gaps),
+                  checkpoint=ckpt, peak_memory_bytes=peak, ok=ok,
+                  phase_s=time.perf_counter() - t_phase))
+        if not ok:
+            raise SystemExit(f"chip_smoke: zoo_train {arch} failed its gates")
+        out[arch] = dict(ms_per_step=ms[1:], loss=[losses[0], final])
+        del batch
         torch.cuda.empty_cache()
     return out
 
@@ -4053,6 +4704,7 @@ def main(argv=None) -> int:
     pod_shapes = check_pod_kernels(torch, bench)
     charlm_shapes = check_charlm_kernels(torch, bench)
     llm_shapes = check_llm_kernels(torch, bench)
+    moe_shapes = check_moe_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches, p1_params, main_res = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
@@ -4086,6 +4738,9 @@ def main(argv=None) -> int:
     del eng, prompt, tokens
     moe_launches = moe_serve(torch)
     zoo_launches = zoo_serve(torch)
+    qwen_launches = qwen_serve(torch)
+    moe_train_launches = moe_train(torch, fu, mesh)
+    zoo_train(torch)
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
     replaces = {"local_step": "src/repro/kernels/fused_update.py:131",
@@ -4247,6 +4902,40 @@ def main(argv=None) -> int:
     k3["bf16_form"]["none"] = dict({t: r[t] for t in timing}, n=r["n"],
                                    launches=llm_launches["all"][
                                        "server_update"])
+    # the instances at moe_train's buckets (f32 routers, bf16 adapters),
+    # with their launches there: K1, K6 and K3's apply over the
+    # full-width slice on the pod; K1 over the 3-layer cut's whole bf16
+    # model in its P1; K2 and K3's aggregate form in the cut's
+    # host-engine FedAvgM round (launches: both buckets together)
+    full, host = moe_train_launches["full"], moe_train_launches["host"]
+    moe_rows = {"local_step": ("local_step", full, "run_pod_training P2 "
+                               "at full width"),
+                "delta_accum": ("delta_accum", full, "run_pod_training P2 "
+                                "at full width, with p, f32 d"),
+                "server_update": ("server_update_none", full,
+                                  "the pod's apply at full width"),
+                "weighted_delta": ("weighted_delta", host, "the 3-layer "
+                                   "cut's host engine P2 round (K 4)")}
+    for k in kernels:
+        if k["name"] in moe_rows:
+            key, counts, where = moe_rows[k["name"]]
+            k["moe_form"] = dict(
+                launches=counts[k["name"]], path="moe_train", where=where,
+                buckets={dt: dict({t: moe_shapes[f"{key}_{dt}"][t]
+                                   for t in timing},
+                                  n=moe_shapes[f"{key}_{dt}"]["n"])
+                         for dt in MOE_SLICE})
+    r = moe_shapes["local_step_cut_p1"]
+    next(k for k in kernels if k["name"] == "local_step")["moe_form"][
+        "cut_p1"] = dict({t: r[t] for t in timing}, n=r["n"],
+                         launches=moe_train_launches["cut_p1"]["local_step"])
+    next(k for k in kernels if k["name"] == "server_update")["moe_form"][
+        "cut_aggregate"] = dict(
+            launches=host["server_update"],
+            buckets={dt: dict({t: moe_shapes[f"server_update_{dt}"][t]
+                               for t in timing},
+                              n=moe_shapes[f"server_update_{dt}"]["n"])
+                     for dt in MOE_CUT_SLICE})
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"
@@ -4264,7 +4953,7 @@ def main(argv=None) -> int:
                 for lbl, r in attn_shapes.items() if lbl != "ssd_scan"},
         launches_per_prefill=per_phase["flash_attention"]["prefill"],
         launches_per_decode_step=per_phase["flash_attention"]["decode_step"],
-        zoo_serve_launches=zoo_launches,
+        zoo_serve_launches=zoo_launches, qwen_serve_launches=qwen_launches,
         moe_serve_launches=moe_launches["flash_attention"]))
     sm = attn_shapes["ssd_scan"]
     kernels.append(dict(

@@ -19,6 +19,8 @@ seeds, so every array is byte-identical to the JAX package's:
 """
 from __future__ import annotations
 
+import functools
+
 from typing import Optional, Tuple
 
 import numpy as np
@@ -60,12 +62,13 @@ def make_synthetic_vision(
 
     def gen(n, r):
         y = r.integers(0, n_classes, size=n)
-        x = tmpl[y].copy()
-        # random circular shift per sample (translation invariance pressure)
+        # random circular shift per sample (translation invariance
+        # pressure): np.roll by (sy, sx) as one gather of rows and columns
         sy = r.integers(-max_shift, max_shift + 1, size=n)
         sx = r.integers(-max_shift, max_shift + 1, size=n)
-        for i in range(n):
-            x[i] = np.roll(np.roll(x[i], sy[i], axis=0), sx[i], axis=1)
+        rows = (np.arange(h)[None, :] - sy[:, None]) % h
+        cols = (np.arange(w)[None, :] - sx[:, None]) % w
+        x = tmpl[y[:, None, None], rows[:, :, None], cols[:, None, :]]
         contrast = r.uniform(0.7, 1.3, size=(n, 1, 1, 1)).astype(np.float32)
         x = x * contrast + r.normal(scale=noise, size=x.shape).astype(np.float32)
         return x.astype(np.float32), y.astype(np.int32)
@@ -125,6 +128,27 @@ def make_synthetic_charlm(
     )
 
 
+@functools.lru_cache(maxsize=1)
+def _topic_cdfs(seed: int, bucket: int, n_topics: int) -> np.ndarray:
+    """The ``n_topics`` bigram teachers' row CDFs, (n_topics, bucket,
+    bucket): the costly part of a token dataset (8 x 4096² Dirichlet
+    draws at a large vocab), drawn from ``seed`` alone, so datasets that
+    differ only in vocab (above the bucket), clients or lengths share
+    it.  Read only."""
+    rng = np.random.default_rng(seed)
+
+    def row_norm(m):
+        return m / m.sum(axis=1, keepdims=True)
+
+    chains = np.stack([
+        row_norm(rng.dirichlet(np.full(bucket, 0.05), size=bucket))
+        for _ in range(n_topics)
+    ])
+    cdfs = np.cumsum(chains, axis=2)
+    cdfs.setflags(write=False)
+    return cdfs
+
+
 def make_synthetic_tokenlm(
     n_clients: int,
     seq_len: int,
@@ -141,18 +165,9 @@ def make_synthetic_tokenlm(
     mixture from Dir(beta) (non-IID across clients) and samples token
     streams from its mixture — CyclicFL's P1/P2 both consume this.
     """
-    rng = np.random.default_rng(seed)
     # topic chains over a *bucketed* vocab to keep memory bounded for huge vocabs
     bucket = min(vocab, 4096)
-
-    def row_norm(m):
-        return m / m.sum(axis=1, keepdims=True)
-
-    chains = np.stack([
-        row_norm(rng.dirichlet(np.full(bucket, 0.05), size=bucket))
-        for _ in range(n_topics)
-    ])
-    cdfs = np.cumsum(chains, axis=2)
+    cdfs = _topic_cdfs(seed, bucket, n_topics)
 
     def sample(topic_probs, n, L, r):
         out = np.empty((n, L), dtype=np.int32)

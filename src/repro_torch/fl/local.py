@@ -212,10 +212,13 @@ class FlatParamOps:
 
     def place_frozen(self, bufs: Dict[str, torch.Tensor]
                      ) -> Dict[str, torch.Tensor]:
-        """Commit the frozen constant on ``device``: a copy (never the
-        caller's tensors), not padded — no kernel reads it — and read
-        only for the rest of the phase."""
-        return {name: b.detach().to(self.device, copy=True)
+        """Commit the frozen constant on ``device``, not padded — no
+        kernel reads it — and read only for the rest of the phase.
+        ``bufs`` come from :meth:`flatten_frozen`, which packs into fresh
+        storage (never the caller's tensors), so buffers already on the
+        device are kept as they are: a second copy of a full-width base
+        model does not fit beside the first."""
+        return {name: b.detach().to(self.device)
                 for name, b in bufs.items()}
 
     @staticmethod

@@ -15,7 +15,7 @@ MLA layers (deepseek) run their plain attention, as in the JAX package.
 The cache length is a host int, so the decode loop never waits on the
 device until the end.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
         --batch 4 --prompt-len 32 --new-tokens 16
 
 The CLI serves an arch's reduced config, on the card unless ``--device
@@ -167,7 +167,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_reduced
 
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)

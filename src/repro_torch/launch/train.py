@@ -244,6 +244,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = with_peft(get_reduced(args.arch), args.peft)
+    if cfg.input_mode != "tokens":
+        print(f"[train] {args.arch}: pod driver trains token-mode archs; "
+              f"{cfg.input_mode}-mode archs train via the same round fns "
+              "with embedding batches (see examples/)", file=sys.stderr)
+        return 2
     data = make_synthetic_tokenlm(
         n_clients=args.clients, seq_len=args.seq, n_seq_per_client=64,
         vocab=cfg.vocab_size, beta=0.5, seed=args.seed)

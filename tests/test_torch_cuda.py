@@ -203,6 +203,9 @@ FA_CASES = [
     (2, 2, 300, 14, 2, 64, None, 150, None),      # S * G = 14
     (2, 300, 300, 24, 24, 64, None, 0, None),
     (8, 1, 2080, 24, 24, 64, None, 2048, None),
+    # qwen2-1.5b (12 heads on 2: G 6, hd 128), no window: its decode
+    # after a 2048-position prompt and 8 tokens (the split decode)
+    (8, 1, 2056, 12, 2, 128, None, 2055, None),
 ]
 
 
@@ -1439,3 +1442,65 @@ def test_moe_is_bitwise_repeatable_in_bf16(gen, B, S):
     assert torch.equal(log[0]["topk_idx"], log[1]["topk_idx"])
     if B * S == 8:
         assert log[0]["capacity"] == 1 and int(log[0]["dropped"]) > 0
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_of_cuda_tensors_bitwise(gen, tmp_path):
+    """Card tensors (bf16 with its odd bit patterns, f32, int) saved once
+    per leaf through the host and restored onto the card, bitwise."""
+    from repro_torch.checkpoint import CheckpointManager, load_pytree
+    bits = torch.randint(-2 ** 15, 2 ** 15, (3, 1001), generator=gen,
+                         device="cuda", dtype=torch.int32).to(torch.int16)
+    tree = {"w": bits.view(torch.bfloat16),
+            "m": torch.randn(1001, generator=gen, device="cuda"),
+            "step": torch.tensor(7, device="cuda"),
+            "seq": [torch.randn(4, generator=gen, device="cuda").bfloat16()]}
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    for r in (1, 2, 3):
+        path = mgr.save(r, tree)
+    back = mgr.restore(device="cuda")
+    host = load_pytree(path)
+    def raw(t):         # bf16 NaN patterns compare by their bytes
+        return t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+    for key in ("w", "m", "step"):
+        assert back[key].device.type == "cuda"
+        assert back[key].dtype == tree[key].dtype
+        assert torch.equal(raw(back[key]), raw(tree[key]))
+        assert host[key].device.type == "cpu"
+    assert torch.equal(back["seq"][0], tree["seq"][0])
+    assert mgr._rounds() == [2, 3]
+
+
+@pytest.mark.cuda
+def test_moe_backward_is_bitwise_repeatable_deterministic(gen):
+    """deepseek-v2-lite-16b's MoE layer at full width, bf16, 2 x 256
+    tokens: under torch.use_deterministic_algorithms the backward's index
+    writes (the dispatch and combine gathers' gradients) sort instead of
+    adding with atomics, so two backward passes give the same bits."""
+    cfg = L.MoEConfig(d_model=2048, n_experts=64, top_k=6, d_ff_expert=1408,
+                      n_shared=2, d_ff_shared=2816)
+    p = L.init_moe(gen, cfg, torch.bfloat16)
+    x = torch.randn(2, 256, 2048, generator=gen, device="cuda").bfloat16()
+    dy = torch.randn(2, 256, 2048, generator=gen, device="cuda").bfloat16()
+    leaves = [p["router"]["w"], p["experts"]["w_up"]]
+
+    def grads():
+        xs = x.clone().requires_grad_(True)
+        for t in leaves:
+            t.requires_grad_(True)
+        y, aux = L.moe(p, xs, cfg)
+        out = torch.autograd.grad((y.float() * dy.float()).sum() + aux,
+                                  [xs] + leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        return out
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, b = grads(), grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.synchronize()
+    for ga, gb in zip(a, b):
+        assert torch.isfinite(ga.float()).all()
+        assert torch.equal(ga, gb)
+    assert a[0].abs().sum() > 0 and a[1].abs().sum() > 0

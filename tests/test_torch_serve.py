@@ -151,3 +151,16 @@ def test_cli_serves_each_family(arch, capsys):
                  "--prompt-len", "12", "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert f"[serve] {arch}: batch=2 prompt=12 new=3" in out
+
+
+def test_cli_default_arch_is_the_jax_clis(capsys):
+    """Without ``--arch`` both CLIs serve qwen2-1.5b (the port on its
+    kernel path) and return 0."""
+    from repro.launch.serve import main as jmain
+    argv = ["--batch", "2", "--prompt-len", "8", "--new-tokens", "2"]
+    assert jmain(argv) == 0
+    want = capsys.readouterr().out.splitlines()[0]
+    assert main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()[0]
+    assert got.split("  ")[0] == want.split("  ")[0] == \
+        "[serve] qwen2-1.5b: batch=2 prompt=8 new=2"

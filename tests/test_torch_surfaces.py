@@ -195,3 +195,21 @@ def test_torch_example_runs_on_the_cpu(example, extra, expect):
                          env=env, timeout=600, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert expect in out.stdout
+
+
+def test_serve_batch_example_runs_on_the_cpu():
+    """``examples/serve_batch_torch.py``: the four input families of the
+    JAX package's ``serve_batch.py`` through ``Engine.generate``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "serve_batch_torch.py"),
+         "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+         "--new-tokens", "2"], capture_output=True, text=True, env=env,
+        timeout=600, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    for arch, shape in (("qwen2-1.5b", "(2, 2)"), ("mamba2-1.3b", "(2, 2)"),
+                        ("internvl2-1b", "(2, 2)"),
+                        ("musicgen-medium", "(2, 2, 4)")):
+        line = next(ln for ln in out.stdout.splitlines()
+                    if ln.startswith(f"[{arch}"))
+        assert line.endswith(f"out_shape={shape}")
