@@ -57,6 +57,9 @@ JSON line per phase:
                      K3 (aggregate form and "none") and K6 at llm_lora's
                      adapter bucket (N 6,307,840), and K1 over its whole
                      model (N 1,106,356,224), bitwise (path "llm_lora");
+                     K1 at pod_sharded's per-shard rows (N
+                     274,989,056 in P1, 1,576,960 in P2), K6 and K3's
+                     apply at 1,576,960, bitwise (path "pod_sharded");
                      K1, K6 and K3 at moe_train's two buckets, K2 and
                      K3's aggregate form at its cut's, K1 over the cut's
                      whole bf16 model (path "moe_train"); K7 at
@@ -136,8 +139,8 @@ JSON line per phase:
                      launch), K2 0, K3 4 (apply + FedAvgM per round), one
                      gradient all-reduce per SGD step, ledger == closed
                      form, accuracy above chance;
-     pod_hierarchical — the pod P2 with aggregation="hierarchical",
-                     n_pods=2 against the sequential one (rtol 1e-5), 40
+     pod_hierarchical — one pod P2 round with aggregation="hierarchical",
+                     n_pods=2 against the sequential one (rtol 1e-5), 10
                      K6 launches;
      pod_compressed — the pod P2 with int8 + top-k 25% + EF uploads:
                      accum-only K6 40, topk_compress 40 (K4 and the
@@ -156,12 +159,12 @@ JSON line per phase:
                      rounds a turn;
      client_store  — the sparse client store and the overlapped pipeline
                      (M10): from the main path's P1 params, P2 6 × 10 ×
-                     5, chunk 2, of SCAFFOLD with p2_compressed's
+                     2, chunk 2, of SCAFFOLD with p2_compressed's
                      uploads and of MOON, each dense-sync, sparse-sync
                      and sparse-overlap (capacity 20), and SCAFFOLD under
                      device sampling dense against sparse-overlap: all
                      bitwise (cuDNN deterministic), rows spilled and
-                     refaulted, K1 300 (with c under SCAFFOLD),
+                     refaulted, K1 120 (with c under SCAFFOLD),
                      topk_compress 60, K2 6 per run, the engine's timing
                      split; cnn_femnist on femnist-like at LEAF FEMNIST's
                      3,550 writers (227,200 samples), SCAFFOLD 2 × 10 ×
@@ -251,8 +254,22 @@ JSON line per phase:
                      the reference test's dtype; bf16 reported), and a
                      CheckpointManager round trip of internvl2-1b's
                      params and momentum, bitwise;
+ 13. pod_sharded   — sharded FSDP/TP groups: tinyllama-1.1b + lora:8 at
+                     full width through run_pod_training on a (2, 2)
+                     data x model mesh of four gloo ranks, four processes
+                     on the one card (NCCL refuses two ranks on one
+                     device; gloo takes the CUDA tensors), P1 1 x 2 x 2
+                     then P2 1 x 2 x 2 of batch 8, under fsdp_tp and
+                     then replicated: final params bitwise between the
+                     layouts, each rank's frozen rows the fsdp_tp view's
+                     per-shard sizes (550,162,432 bytes against
+                     2,200,096,768), K1, K6 and K3 once per bucket row,
+                     gathers only under fsdp_tp, P2's frozen leaves kept;
+                     ms a step, bytes gathered a step, collectives and
+                     peak memory per rank;
 then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
-at llm_lora's buckets and its launches there; K1–K3 with their N
+at llm_lora's buckets and its launches there; K1, K3 and K6 with a
+``sharded_form`` at pod_sharded's per-shard rows; K1–K3 with their N
 814,080 rows and
 launches on charlm_path and fashion_path; the threshold's row its
 radix route on charlm_compressed, its cluster form beside it; K4 with
@@ -2753,11 +2770,14 @@ def pod_path(torch, fu, mesh):
 
 
 def pod_hierarchical(torch, fu, mesh, init):
-    """Phase pod_hierarchical: the pod P2 from the pod P1's params with
-    ``aggregation="hierarchical", n_pods=2`` (two unsharded lanes on one
-    rank) against the sequential P2 from the same start, cuDNN
-    deterministic: only the order of addition differs, so the params
-    agree within rtol 1e-5 (atol 1e-7); 40 K6 launches asserted."""
+    """Phase pod_hierarchical: one round of the pod P2 from the pod P1's
+    params with ``aggregation="hierarchical", n_pods=2`` (two unsharded
+    lanes on one rank) against the sequential round from the same start,
+    cuDNN deterministic: only the order of addition differs, so the
+    params agree within rtol 1e-5 (atol 1e-7); 10 K6 launches asserted.
+    One round: each later round's 250 SGD steps amplify that difference
+    by a factor that depends on the start (``tools/pod_hierarchical_
+    drift.py``), so after four the gate read the start, not the lanes."""
     from repro_torch.fl.pod import run_pod_rounds
     from repro_torch.utils.tree_math import tree_leaves
     task, data = lenet_setup()
@@ -2766,7 +2786,7 @@ def pod_hierarchical(torch, fu, mesh, init):
     for agg, kw in (("sequential", {}),
                     ("hierarchical", {"aggregation": "hierarchical",
                                       "n_pods": 2})):
-        _, fed = pod_configs(mesh, cfg_kw=kw)
+        _, fed = pod_configs(mesh, rounds=1, cfg_kw=kw)
         fu.reset_launch_counts()
         r = run_pod_rounds(task, data, fed, init_params=init)
         launches[agg] = all_launches(fu)
@@ -2778,9 +2798,9 @@ def pod_hierarchical(torch, fu, mesh, init):
               max_abs_diff=max(float((a - b).abs().max()) for a, b in pairs),
               bitwise=all(bool(torch.equal(a, b)) for a, b in pairs),
               allclose=close, launches=launches))
-    if launches["hierarchical"]["delta_accum"] != 40:
+    if launches["hierarchical"]["delta_accum"] != 10:
         raise SystemExit(f"chip_smoke: pod_hierarchical K6 launches "
-                         f"{launches['hierarchical']['delta_accum']} != 40")
+                         f"{launches['hierarchical']['delta_accum']} != 10")
     if not close:
         raise SystemExit("chip_smoke: hierarchical and sequential pod "
                          "aggregation disagree")
@@ -3116,14 +3136,15 @@ def bitwise_runs(torch, a, b) -> bool:
 
 # client_store's parity runs: SGD steps per client (25 before PR 23; the
 # residency plan, the gates and the spills depend on the ids only)
-STORE_STEPS = 5      # SGD steps a client in the parity runs (10 before
-                     # the MoE and zoo training phases joined the script)
+STORE_STEPS = 2      # SGD steps a client in the parity runs (5 before
+                     # pod_sharded joined the script, 10 before the MoE
+                     # and zoo training phases)
 
 
 def client_store(torch, fu, init, mesh) -> dict:
     """Phase client_store (M10).  Parity: the main path's LeNet-5 on
     cifar10-like from its P1 params, P2 6 rounds × 10 clients ×
-    ``STORE_STEPS`` (5) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
+    ``STORE_STEPS`` (2) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
     (int8 + top-k 25% + EF: the control variates AND the residual rows
     in sparse stores) and of MOON, each with the dense store and the
     synchronous loop, the sparse store (capacity 20 = chunk × K) and the
@@ -3132,7 +3153,7 @@ def client_store(torch, fu, init, mesh) -> dict:
     bitwise (params, losses, control variates, residual rows, moon's
     previous models through ``to_dense``; cuDNN deterministic), rows
     spilled and faulted back in under host sampling, launches per run K1
-    300 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
+    120 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
     dispatches.  Scale: cnn_femnist
     on femnist-like at LEAF FEMNIST's 3,550 writers (n_train cut to
     227,200, 64 a writer), SCAFFOLD 2 rounds × 10 × 25, dense-sync
@@ -3420,16 +3441,16 @@ def landscape(torch, states: dict, card: str = "cuda") -> dict:
 
 # --- federated LM training with LoRA through run_pod_training ---------------
 
+@functools.lru_cache(maxsize=1)
 def llm_setup():
     """tinyllama-1.1b with rank-8 LoRA adapters at full width and depth
     (22 layers, d_model 2048, 32 heads over 4 KV heads, d_ff 5632, vocab
     32000, bf16, random weights from the seed) and the example's data:
     ``make_synthetic_tokenlm(n_clients=16, seq_len=128,
     n_seq_per_client=32, vocab=32000, beta=0.5)``, made on the host
-    (seconds returned)."""
-    from repro_torch.configs import get_config, with_peft
+    once (seconds returned; ``llm_lora`` and ``pod_sharded`` share it)."""
     from repro_torch.data.synthetic import make_synthetic_tokenlm
-    cfg = with_peft(get_config(LLM_ARCH), LLM_PEFT)
+    cfg = llm_setup_config()
     t0 = time.perf_counter()
     data = make_synthetic_tokenlm(n_clients=16, seq_len=128,
                                   n_seq_per_client=32, vocab=cfg.vocab_size,
@@ -3662,6 +3683,272 @@ def llm_lora(torch, fu, mesh) -> dict:
     torch.cuda.empty_cache()
     return dict(p1=p1_launches, p2=p2_launches, host=host_launches,
                 all={k: p1_launches[k] + p2_launches[k] for k in launches})
+
+
+# pod_sharded: tinyllama-1.1b + lora:8 on a (2, 2) data x model mesh of
+# four gloo ranks, each a process driving cuda:0 (one card: NCCL refuses
+# two ranks on one device)
+SHARDED_MESH = (2, 2)
+SHARDED_K, SHARDED_STEPS, SHARDED_BATCH = 2, 2, 8
+SHARDED_LAYOUTS = ("fsdp_tp", "replicated")
+# the per-shard rows of its fsdp_tp buckets: P1's base over data + model,
+# P2's adapters over data and over model (kernel rows at these sizes)
+SHARDED_P1_ROW, SHARDED_P2_ROW = 274_989_056, 1_576_960
+
+
+def pod_sharded_worker(rank: int, store: str, out: str) -> int:
+    """One rank of ``pod_sharded`` (``chip_smoke.py --pod-sharded-rank R
+    STORE OUT``): joins the four-rank gloo group over the ``file://``
+    store on cuda:0, then under each of SHARDED_LAYOUTS runs
+    tinyllama-1.1b + lora:8 on ``llm_setup``'s data (the parent's, read
+    from ``OUT/data.pkl``) through ``run_pod_training`` from one seeded
+    init, made once: P1 1 round x 2 clients x 2 steps relaying the whole
+    model, then P2 1 x 2 x 2 on the adapters, batch 8, lr 0.03.
+    Writes ``OUT/rank<R>.json`` (per layout: seconds, ms a step, the
+    collectives and their bytes, K1/K6/K3 launches, the bytes of the
+    carried buffers, peak memory, whether P2 kept the frozen leaves) and
+    whether the two layouts' final params agree bit for bit."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=math.prod(SHARDED_MESH), rank=rank)
+    from repro_torch.fl import pod
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import PodFLSpec, run_pod_training
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.utils.tree_math import tree_leaves
+
+    mesh = make_mesh(SHARDED_MESH, ("data", "model"), "cuda:0")
+    cfg = llm_setup_config()
+    t0 = time.perf_counter()
+    data = pickle.loads(Path(out, "data.pkl").read_bytes())
+    init = init_lm(cfg, SEED, "cuda")
+    mask = rules.trainable_mask(init, "lora")
+    torch.cuda.synchronize()
+    spec = PodFLSpec(local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH,
+                     lr=0.03, update_impl="fused", peft=LLM_PEFT)
+    steps = SHARDED_K * SHARDED_STEPS
+    report, finals = {"rank": rank, "coords": mesh.coords,
+                      "setup_s": time.perf_counter() - t0}, {}
+    for layout in SHARDED_LAYOUTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pod.reset_collective_counts()
+        fu.reset_launch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = run_pod_training(cfg, data, cyclic_rounds=1, fl_rounds=1,
+                               clients_per_round=SHARDED_K, spec=spec,
+                               mesh=mesh, seed=SEED, layout=layout,
+                               init_params=init)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        p1, p2 = (ph.result for ph in res.schedule.phases)
+        frozen_kept = all(torch.equal(a, b) for a, b, m in zip(
+            tree_leaves(p1.params), tree_leaves(res.params), mask) if not m)
+        report[layout] = dict(
+            run_s=run_s, ms_per_step=run_s * 1e3 / (2 * steps),
+            collectives=dict(pod.COLLECTIVES),
+            collective_bytes=dict(pod.COLLECTIVE_BYTES),
+            gathered_bytes_per_step=pod.COLLECTIVE_BYTES["gather"] /
+            (2 * steps),
+            launches={k: fn.launches for k, fn in (
+                ("local_step", fu.local_step),
+                ("delta_accum", fu.delta_accum),
+                ("server_update", fu.server_update))},
+            resident_p1=p1.resident_bytes, resident_p2=p2.resident_bytes,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            losses=[h["loss"] for h in res.history],
+            frozen_kept_by_p2=frozen_kept)
+        finals[layout] = tree_leaves(res.params)
+        del res, p1, p2
+        torch.cuda.empty_cache()
+    a, b = (finals[layout] for layout in SHARDED_LAYOUTS)
+    report["params_bitwise"] = len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    # the runs read the init and never write it: a run that did would
+    # start the other layout elsewhere and fail the bitwise gate
+    report["moved"] = sum(int(not torch.equal(x, y)) for x, y in zip(
+        a, tree_leaves(init)))
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pod_sharded(torch) -> dict:
+    """Phase pod_sharded: sharded FSDP/TP groups on four ranks of one
+    card.  Spawns four ``pod_sharded_worker`` processes (gloo over a
+    ``file://`` store under TMPDIR, all on cuda:0; the kernels run on the
+    card, the collectives go through gloo, which takes CUDA tensors) and
+    gates: each rank's final params bitwise the same under ``fsdp_tp``
+    and ``replicated``; its resident frozen rows in P2 the per-shard
+    sizes of the fsdp_tp view, a quarter of the replicated run's but for
+    the few leaves sharded over one axis or none (550 MB against 2.2 GB);
+    K1, K6 and K3 launched once per bucket each step, client and round
+    (4 x P1's buckets + 4 x P2's, 2 x P2's, P2's); the collectives by
+    kind, exactly (``want_collectives``); P2 kept every frozen leaf; the
+    losses finite.  Reported per rank: ms a step,
+    bytes gathered a step, collectives by kind, peak memory.  Returns
+    the fsdp_tp launches of rank 0 (the kernel rows' launches)."""
+    import pickle
+    import tempfile
+    from repro_torch.fl.task import lm_task
+    from repro_torch.sharding import rules
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, data, _ = llm_setup()
+    shapes = lm_task(cfg).shapes()
+    mesh = _StaticMesh(SHARDED_MESH)
+    views = {(layout, ph): rules.sharded_flat_view(
+        shapes, mesh, layout, "lora" if ph == "P2" else None)
+        for layout in SHARDED_LAYOUTS for ph in ("P1", "P2")}
+    tp1, tp2 = views[("fsdp_tp", "P1")], views[("fsdp_tp", "P2")]
+    rows = {g.size for g in tp1.trainable_groups} | \
+        {g.size for g in tp2.trainable_groups}
+    if not {SHARDED_P1_ROW, SHARDED_P2_ROW} <= rows:
+        raise SystemExit(f"chip_smoke: pod_sharded's fsdp_tp rows are "
+                         f"{sorted(rows)}")
+    tmp = tempfile.mkdtemp(prefix="pod_sharded_")
+    Path(tmp, "data.pkl").write_bytes(pickle.dumps(data))
+    store = os.path.join(tmp, "store")
+    world = math.prod(SHARDED_MESH)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--pod-sharded-rank",
+         str(r), store, tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: pod_sharded rank {r} exited "
+                             f"{p.returncode}:\n{err[-3000:]}")
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+             for r in range(world)]
+    steps = SHARDED_K * SHARDED_STEPS
+
+    def want(layout):
+        n1 = len(views[(layout, "P1")].trainable_groups)
+        n2 = len(views[(layout, "P2")].trainable_groups)
+        return dict(local_step=steps * (n1 + n2), delta_accum=SHARDED_K * n2,
+                    server_update=n2)
+
+    def want_collectives(layout):
+        """A phase's collectives a rank: each step gathers every bucket
+        sharded over mesh axes (trainable and frozen) at the loss, and
+        the result gathers them once more; each step reduces each
+        trainable bucket's gradient with one collective (the mesh's one
+        batch axis, data: a reduce-scatter for a bucket sharded over it,
+        else an all-reduce); one loss reduction a phase (one chunk)."""
+        out = dict.fromkeys(("grad", "gather", "clip", "batch",
+                             "lane_combine", "store_gather", "store_spill"),
+                            0)
+        for ph in ("P1", "P2"):
+            v = views[(layout, ph)]
+            out["gather"] += (steps + 1) * sum(1 for g in v.groups if g.axes)
+            out["grad"] += steps * len(v.trainable_groups)
+            out["batch"] += 1
+        return out
+    frozen_rows = 2 * sum(g.size for g in tp2.frozen_groups)
+    frozen_whole = 2 * sum(g.size * g.n_shards for g in tp2.frozen_groups)
+    bad = []
+    for rk in ranks:
+        tp, rep = rk["fsdp_tp"], rk["replicated"]
+        for layout in SHARDED_LAYOUTS:
+            if rk[layout]["launches"] != want(layout):
+                bad.append(f"rank {rk['rank']} {layout} launches "
+                           f"{rk[layout]['launches']} != {want(layout)}")
+            if not (rk[layout]["frozen_kept_by_p2"] and all(
+                    math.isfinite(x) for x in rk[layout]["losses"])):
+                bad.append(f"rank {rk['rank']} {layout}: frozen leaves "
+                           f"changed or losses {rk[layout]['losses']}")
+        if (tp["resident_p2"]["frozen"], rep["resident_p2"]["frozen"]) != \
+                (frozen_rows, frozen_whole):
+            bad.append(f"rank {rk['rank']} frozen bytes "
+                       f"{tp['resident_p2']['frozen']} / "
+                       f"{rep['resident_p2']['frozen']}")
+        for layout in SHARDED_LAYOUTS:
+            if rk[layout]["collectives"] != want_collectives(layout):
+                bad.append(f"rank {rk['rank']} {layout} collectives "
+                           f"{rk[layout]['collectives']} != "
+                           f"{want_collectives(layout)}")
+        if not rk["params_bitwise"] or rk["moved"] == 0:
+            bad.append(f"rank {rk['rank']}: fsdp_tp and replicated params "
+                       f"differ ({rk['params_bitwise']}) or none moved")
+    emit(dict(phase="pod_sharded", model=f"{LLM_ARCH} + {LLM_PEFT}",
+              mesh=dict(zip(("data", "model"), SHARDED_MESH)),
+              backend="gloo, four processes on cuda:0",
+              rounds={"P1": "1 x 2 clients x 2 steps",
+                      "P2": "1 x 2 clients x 2 steps"},
+              batch=SHARDED_BATCH,
+              buckets={f"{layout}/{ph}": {
+                  g.name: [g.n_shards, g.size] for g in v.groups}
+                  for (layout, ph), v in views.items()},
+              frozen_bytes_per_rank={"fsdp_tp": frozen_rows,
+                                     "replicated": frozen_whole},
+              expected_launches={layout: want(layout)
+                                 for layout in SHARDED_LAYOUTS},
+              expected_collectives={layout: want_collectives(layout)
+                                    for layout in SHARDED_LAYOUTS},
+              ranks=ranks, phase_s=time.perf_counter() - t_phase))
+    if bad:
+        raise SystemExit("chip_smoke: pod_sharded: " + "; ".join(bad))
+    return ranks[0]["fsdp_tp"]["launches"]
+
+
+class _StaticMesh:
+    """What the sharding rules read of a mesh, without a process group."""
+
+    def __init__(self, shape):
+        import numpy as np
+        self.axis_names = ("data", "model")
+        self.devices = np.zeros(shape)
+        self.shape = dict(zip(self.axis_names, shape))
+
+
+def llm_setup_config():
+    """``llm_setup``'s model config without its data."""
+    from repro_torch.configs import get_config, with_peft
+    return with_peft(get_config(LLM_ARCH), LLM_PEFT)
+
+
+def check_sharded_kernels(torch, bench) -> dict:
+    """Phase 2 at pod_sharded's per-shard rows under fsdp_tp (returned,
+    bitwise against their plain versions): K1 (clip 1, no decay, no
+    momentum) over P1's row of the base (N 274,989,056; three trials of
+    three calls) and over P2's row of an adapter bucket (N 1,576,960),
+    K6 with p at that row (bf16 w and p, f32 delta) and K3's apply
+    ("none")."""
+    bf16 = torch.bfloat16
+    out = {"local_step": bench.local_step(SHARDED_P2_ROW, bf16, False,
+                                          False, wd=0.0, clip=1.0),
+           "delta_accum": bench.delta_accum(SHARDED_P2_ROW, bf16, True),
+           "server_update": bench.server_update(SHARDED_P2_ROW, "none",
+                                                dtype=bf16)}
+    bench.trials, bench.reps = 3, 3
+    out["local_step_p1"] = bench.local_step(SHARDED_P1_ROW, bf16, False,
+                                            False, wd=0.0, clip=1.0)
+    bench.trials, bench.reps = 5, 20
+    torch.cuda.empty_cache()
+    for r in out.values():
+        emit(dict(phase="kernel", path="pod_sharded", **r))
+    bad = [k for k, r in out.items()
+           if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
+    if bad:
+        raise SystemExit(f"chip_smoke: kernels at pod_sharded's rows "
+                         f"disagree with their plain versions: {bad}")
+    return out
 
 
 def deterministic_cudnn(torch):
@@ -4651,11 +4938,17 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA GPU (see the module doc).")
-    ap.parse_args(argv)
+    # one rank of pod_sharded, spawned by that phase
+    ap.add_argument("--pod-sharded-rank", nargs=3, default=None,
+                    metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.pod_sharded_rank is not None:
+        rank, store, out = args.pod_sharded_rank
+        return pod_sharded_worker(int(rank), store, out)
     from repro_torch.kernels import fused_update as fu
 
     smi = nvidia_smi()
@@ -4705,6 +4998,7 @@ def main(argv=None) -> int:
     charlm_shapes = check_charlm_kernels(torch, bench)
     llm_shapes = check_llm_kernels(torch, bench)
     moe_shapes = check_moe_kernels(torch, bench)
+    sharded_shapes = check_sharded_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches, p1_params, main_res = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
@@ -4741,6 +5035,7 @@ def main(argv=None) -> int:
     qwen_launches = qwen_serve(torch)
     moe_train_launches = moe_train(torch, fu, mesh)
     zoo_train(torch)
+    sharded_launches = pod_sharded(torch)
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
     replaces = {"local_step": "src/repro/kernels/fused_update.py:131",
@@ -4936,6 +5231,21 @@ def main(argv=None) -> int:
                                for t in timing},
                               n=moe_shapes[f"server_update_{dt}"]["n"])
                      for dt in MOE_CUT_SLICE})
+    # K1, K6 and K3 at pod_sharded's per-shard rows under fsdp_tp, with
+    # rank 0's launches there (P1's row of the base and P2's adapter rows)
+    sharded_rows = {"local_step": "local_step", "delta_accum": "delta_accum",
+                    "server_update": "server_update"}
+    for k in kernels:
+        if k["name"] in sharded_rows:
+            r = sharded_shapes[sharded_rows[k["name"]]]
+            k["sharded_form"] = dict(
+                {t: r[t] for t in timing}, n=r["n"], path="pod_sharded",
+                launches=sharded_launches[k["name"]],
+                where="run_pod_training on a (2, 2) mesh of four gloo "
+                      "ranks, fsdp_tp: a rank's row of each bucket")
+    r = sharded_shapes["local_step_p1"]
+    next(k for k in kernels if k["name"] == "local_step")["sharded_form"][
+        "p1_row"] = dict({t: r[t] for t in timing}, n=r["n"])
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"

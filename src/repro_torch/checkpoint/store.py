@@ -26,6 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import Device
@@ -120,7 +121,14 @@ def load_metadata(path: str) -> Dict:
 
 class CheckpointManager:
     """Rolling round-numbered checkpoints: ``<dir>/ckpt_<round>.npz``,
-    the newest ``keep`` kept."""
+    the newest ``keep`` kept.
+
+    Under a ``torch.distributed`` process group of more than one rank
+    every rank calls :meth:`save` with the same whole tree (the pod hands
+    out gathered leaves whatever its layout, so a sharded run writes the
+    files of a replicated one): rank 0 writes, and every rank waits at a
+    barrier until the file is in place, so a :meth:`restore` that follows
+    reads it on every rank."""
 
     PATTERN = re.compile(r"ckpt_(\d+)\.npz$")
 
@@ -134,8 +142,13 @@ class CheckpointManager:
         path = os.path.join(self.directory, f"ckpt_{round_}.npz")
         meta = dict(metadata or {})
         meta["round"] = round_
-        save_pytree(path, tree, meta)
-        self._gc()
+        many = dist.is_available() and dist.is_initialized() and \
+            dist.get_world_size() > 1
+        if not many or dist.get_rank() == 0:
+            save_pytree(path, tree, meta)
+            self._gc()
+        if many:
+            dist.barrier()
         return path
 
     def latest(self) -> Optional[str]:

@@ -366,12 +366,16 @@ class SparseClientStateStore:
 
     # -- the table on the device ---------------------------------------------
 
-    def _table_rows(self, cap: int) -> int:
+    def _table_rows(self, cap: int, whole: bool) -> int:
         """Rows of this process's table (the sharded flavor holds its
-        block of slots plus a scratch row)."""
+        block of slots plus a scratch row, unless ``whole``)."""
         return cap
 
-    def init(self, template: Pytree, n_clients: int) -> Pytree:
+    def init(self, template: Pytree, n_clients: int,
+             whole: bool = False) -> Pytree:
+        """The table of ``template`` rows (``whole``: every slot on every
+        process, where a flavor would shard them; a process here always
+        holds every slot)."""
         leaves, treedef = tm.tree_flatten(template)
         dev = leaves[0].device
         cap = max(1, min(self.capacity, n_clients))
@@ -388,7 +392,7 @@ class SparseClientStateStore:
             stage_bufs=[None, None], stage_turn=0,
             side=torch.cuda.Stream(dev) if dev.type == "cuda" else None,
             transfer_ms=0.0, spill_ms=0.0, spilled=0, refaulted=0)
-        rows = self._table_rows(cap)
+        rows = self._table_rows(cap, whole)
         return {
             "table": tm.tree_map(lambda t: t.detach().unsqueeze(0).expand(
                 (rows,) + tuple(t.shape)).clone(), template),
@@ -685,9 +689,11 @@ class HostBackend:
                 torch.as_tensor(ev_y).to(device=device, dtype=torch.int64),
                 torch.as_tensor(ev_w).to(device))
 
-    def grad_reducer(self) -> Optional[Callable[[Pytree], Pytree]]:
+    def grad_reducer(self, fops: Optional[FlatParamOps] = None
+                     ) -> Optional[Callable[[Pytree], Pytree]]:
         """The gradient hook between a step's backward and its step tail,
-        on the tree and the fused path (None: the identity)."""
+        on the tree and the fused path (``fops`` the fused path's flat
+        ops, None on the tree path; the hook None: the identity)."""
         return None
 
     def batch_shard(self, n: int) -> Optional[slice]:
@@ -801,8 +807,8 @@ class RelayStrategy(HostBackend):
         return None
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
-        local = make_local_fn(task, self.spec, self.flat_ops(task, device),
-                              self.grad_reducer())
+        fops = self.flat_ops(task, device)
+        local = make_local_fn(task, self.spec, fops, self.grad_reducer(fops))
 
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
             losses = []
@@ -917,15 +923,24 @@ class AggregateStrategy(HostBackend):
         if self.algorithm == "scaffold":
             zeros = fops.zeros() if fops is not None else tm.zeros_like(params)
             state = {"c_global": zeros,
-                     "c_clients": store.init(zeros, n_clients)}
+                     "c_clients": self._init_rows(store, zeros, n_clients,
+                                                  fops)}
         elif self.algorithm == "moon":
-            state = {"w_prev": store.init(params, n_clients)}
+            state = {"w_prev": self._init_rows(store, params, n_clients,
+                                               fops)}
         if self._ef:
             tmpl = (fops.zeros(torch.float32) if fops is not None else
                     FlatView.of(param_shapes(task)).zeros(
                         torch.float32, self._device(params)))
-            state["ef_residuals"] = self._ef_store.init(tmpl, n_clients)
+            state["ef_residuals"] = self._init_rows(self._ef_store, tmpl,
+                                                    n_clients, fops)
         return state
+
+    def _init_rows(self, store, template: Pytree, n_clients: int,
+                   fops: Optional[FlatParamOps]) -> Any:
+        """``store``'s rows of ``template`` for ``n_clients`` clients (the
+        pod's stores also read how ``fops`` lays the rows out)."""
+        return store.init(template, n_clients)
 
     @staticmethod
     def _device(params: Pytree) -> torch.device:
@@ -1118,7 +1133,7 @@ class AggregateStrategy(HostBackend):
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, self.spec, fops, self.grad_reducer())
+        local = make_local_fn(task, self.spec, fops, self.grad_reducer(fops))
         aggregate = self._aggregate(task, device, fops)
 
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
@@ -1289,6 +1304,10 @@ class EngineResult:
     # device_wait_ms = waiting on the chunk's one read,
     # spill_materialize_ms = the spill worker's ms (off the loop's path)
     timing: Optional[Dict[str, float]] = None
+    # bytes of this process's carried buffers on the flat path: the
+    # trainable "params" and the read-only "frozen" buckets (on a mesh,
+    # the rank's rows); None on the tree path
+    resident_bytes: Optional[Dict[str, int]] = None
 
 
 @dataclasses.dataclass
@@ -1581,9 +1600,14 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
         transfer_ms0
     timing["spill_materialize_ms"] = stores_ms("spill_materialize_ms") - \
         spill_ms0
+    resident = None
     if fops is not None:                # EngineResult speaks trees
+        resident = {key: sum(b.numel() * b.element_size()
+                             for b in (bufs or {}).values())
+                    for key, bufs in (("params", params), ("frozen", frozen))}
         params = fops.unflatten(params, frozen)
         server_state = unpack_server_state(fops, server_state)
     return EngineResult(params=params, history=history,
                         algo_state=algo_state, server_state=server_state,
-                        dispatches=dispatches, timing=timing)
+                        dispatches=dispatches, timing=timing,
+                        resident_bytes=resident)

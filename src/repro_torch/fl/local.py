@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.fl.compression import (CompressionSpec, topk_k,
                                         validate_compression)
-from repro_torch.fl.privacy import DPSpec
+from repro_torch.fl.privacy import DPSpec, flat_delta_sqnorm
 from repro_torch.fl.task import Task
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_update import GRID_ALIGN
@@ -274,6 +274,11 @@ class FlatParamOps:
     def grad_sqsum(self, g_bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Σ‖g‖² over every bucket — one reduction per bucket."""
         return sum(torch.dot(g, g) for g in g_bufs.values())
+
+    def delta_sqnorm(self, w_bufs: Dict[str, torch.Tensor],
+                     p_bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """‖w − p‖² over every bucket for one client (DP's clip norm)."""
+        return flat_delta_sqnorm(w_bufs, p_bufs)
 
     def local_step(self, p_bufs, g_bufs, m_bufs, c_bufs, scalars, *,
                    weight_decay: float, momentum: float):

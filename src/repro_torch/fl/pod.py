@@ -19,18 +19,30 @@ axis names, and this module reads it through the port's sharding rules
     the global batch mean up to reduction order.  Losses and eval sums
     reduce over the same group once per chunk.
   * Params ride the rounds as the rank's rows of the
-    ``ShardedFlatView`` buckets (``ShardedFlatOps``).  The paper's
-    vision models replicate under every layout, so the rank's row of
-    each bucket is the whole bucket and every kernel runs on it as on
-    one device.  A bucket sharded over mesh axes (the LLM trees on a
-    world larger than one) needs all_gather/reduce_scatter around the
-    model: ROADMAP.md item M13b.
+    ``ShardedFlatView`` buckets (``ShardedFlatOps``), trainable and
+    frozen: a rank holds only its row of each bucket, every kernel (K1,
+    K6, K3, the compressed upload, K5) runs on that row with no
+    collective, and top-k keeps k of each shard's population.  The
+    paper's vision models replicate under every layout, so their row is
+    the whole bucket.  A bucket sharded over mesh axes (the LLM trees
+    under ``fsdp_tp`` and ``fsdp_only``) is all-gathered over its axes
+    into whole leaves wherever the model runs: each step's loss (the
+    trainable buckets through an autograd function whose backward
+    reduce-scatters the gradient to the row, summed once over (pod,
+    data) and never over ``model``), the eval, the anchors of fedprox
+    and moon and the result.  The one collective of the update path is
+    the global clip norm: each bucket's Σg² summed over its own axes.
+    A gathered copy lives one step, as in FSDP; the model computes on
+    whole leaves (tensor-parallel compute is a later item).  The tree
+    path (``update_impl="tree"``) keeps whole leaves on every rank.
   * Per-client state (scaffold's control variates, moon's previous
     local models, the error-feedback rows of compressed uploads) lives
     in a ``ShardedClientStateStore`` whose client axis shards over
     ``data``: each rank holds its block of rows, a gather is one
     ``all_reduce`` of a zero-filled ``(K, N)`` buffer into which each
     owner writes its rows (exact), a scatter writes the owned rows.
+    Where a bucket's rows differ over ``data`` the client axis stays
+    whole instead: each rank holds every client's rows of its own shard.
     ``PodFLConfig(store="sparse")`` swaps in a
     ``ShardedSparseClientStateStore``: the host engine's bounded table
     of active clients with its ``capacity`` axis sharded over ``data``
@@ -50,8 +62,9 @@ coordinate g owns lane g's p-free partial: the accum-only K6 adds
 ``coeff·w_end`` of its lane's clients with no collective, and the
 cross-pod combine is exactly ONE ``all_reduce`` per bucket over
 ``data`` (``ShardedFlatOps.lane_combine``, counted in
-``COLLECTIVES``); ``−(Σcoeff)·p`` applies once after it.  Otherwise
-each rank keeps all G lane accumulators and sums them.  Either way the
+``COLLECTIVES``); ``−(Σcoeff)·p`` applies once after it.  Otherwise —
+also whenever a bucket is sharded over ``data``, whose ranks hold
+different rows — each rank keeps all G lane accumulators and sums them.  Either way the
 result equals the sequential sum up to the order of addition.
 
 The algorithms are the host engine's (fedavg, fedprox, scaffold, moon):
@@ -71,9 +84,8 @@ on the host engine: the frozen buckets are this rank's rows of the
 ``ShardedFlatView``'s ``frozen:`` groups, placed once per phase where
 ``rules.frozen_flat_shardings`` puts them and merged at the loss.
 
-Not ported yet, each raising ``NotImplementedError`` naming its item:
-sharded groups on a world larger than one (M13b; trainable and frozen
-alike), and AOT lowering of the pod round (M15).
+Not ported yet, raising ``NotImplementedError`` naming its item: AOT
+lowering of the pod round (M15).
 """
 from __future__ import annotations
 
@@ -104,9 +116,11 @@ from repro_torch.fl.local import (FlatParamOps, LocalSpec,
 from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
 from repro_torch.fl.task import Task
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import all_gather_into, reduce_scatter_into
 from repro_torch.sharding import rules
 from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import Device, resolve_device
+from repro_torch.utils.flatten import FlatView, torch_dtype
 
 Pytree = Any
 
@@ -117,24 +131,41 @@ POD_TASK_KINDS = ("vision", "charlm", "tokenlm")
 _VARIANTS = {"fedavg": "plain", "fedprox": "fedprox",
              "scaffold": "scaffold", "moon": "moon"}
 
-# the collectives this module issues, by purpose: "grad" (one per bucket
-# per SGD step), "batch" (losses and eval sums, once per chunk),
-# "lane_combine" (one per bucket per hierarchical round), "store_gather"
-# (one per leaf per round of a sharded client store), "store_spill" (one
-# per leaf per commit that evicts live rows of a sharded sparse store)
-COLLECTIVES: Dict[str, int] = {"grad": 0, "batch": 0, "lane_combine": 0,
-                               "store_gather": 0, "store_spill": 0}
+# the collectives this module issues, by purpose: "grad" (per SGD step:
+# one all-reduce per batch axis for each replicated bucket, and for each
+# bucket sharded over mesh axes the reduce-scatter over its batch axes
+# plus one all-reduce per batch axis it is not sharded on), "gather" (one
+# all-gather per sharded bucket each time the model's whole leaves are
+# formed: every step's loss, trainable and frozen, each eval, the
+# anchors of fedprox and moon, the result), "clip" (one all-reduce per
+# distinct axis set of the sharded buckets per global norm: the step's
+# clip norm and DP's delta clip), "batch" (losses and eval sums, once per
+# chunk), "lane_combine" (one per bucket per hierarchical round),
+# "store_gather" (one per leaf per round of a client store sharded over
+# data), "store_spill" (one per leaf per commit that evicts live rows of
+# a sharded sparse store).  COLLECTIVE_BYTES holds the bytes each kind
+# received on this rank.
+_KINDS = ("grad", "gather", "clip", "batch", "lane_combine",
+          "store_gather", "store_spill")
+COLLECTIVES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
+COLLECTIVE_BYTES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
 
 
 def reset_collective_counts() -> None:
-    for k in COLLECTIVES:
+    for k in _KINDS:
         COLLECTIVES[k] = 0
+        COLLECTIVE_BYTES[k] = 0
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COLLECTIVES[kind] += 1
+    COLLECTIVE_BYTES[kind] += int(nbytes)
 
 
 def _all_reduce(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     """Sum ``t`` in place over ``group``."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
-    COLLECTIVES[kind] += 1
+    _count(kind, t.numel() * t.element_size())
     return t
 
 
@@ -221,13 +252,20 @@ class ClientRows:
 class ShardedClientStateStore(DenseClientStateStore):
     """Per-client state stacks with the client axis sharded over the mesh
     ``data`` axis (``rules.client_axis_pspec``: replicated when the
-    client count does not divide it).  No host read of the ids: owned
-    rows are selected on the device."""
+    client count does not divide it, or ``whole``).  No host read of
+    the ids: owned rows are selected on the device."""
     mesh: Any = None
 
-    def init(self, template: Pytree, n_clients: int) -> ClientRows:
+    def init(self, template: Pytree, n_clients: int,
+             whole: bool = False) -> ClientRows:
+        """The stack of ``template`` rows.  ``whole`` (the template's rows
+        differ over ``data``: ``ShardedFlatOps.varies_over``) keeps the
+        client axis whole: every rank holds every client's rows of its
+        own shards, and a gather is a local index — an all-reduce over
+        ``data`` would sum different shards.  (Held per rank, that is the
+        memory of a client axis sharded over ``data``.)"""
         spec = rules.client_axis_pspec(self.mesh, 1, n_clients)
-        if spec[0] is None:
+        if spec[0] is None or whole:
             return ClientRows(rows=super().init(template, n_clients), lo=0,
                               per=n_clients, sharded=False)
         per = n_clients // self.mesh.axis_size(rules.DATA)
@@ -274,7 +312,8 @@ class ShardedClientStateStore(DenseClientStateStore):
 class ShardedSparseClientStateStore(SparseClientStateStore):
     """The sparse store on the mesh: the table's ``capacity`` slot axis
     shards over ``data`` as ``ShardedClientStateStore`` shards clients
-    (replicated when the capacity does not divide it).  Each rank holds
+    (replicated when the capacity does not divide it, or ``whole`` as
+    in ``ShardedClientStateStore.init``).  Each rank holds
     its block of slots plus a scratch row; a gather (and a spill) is one
     ``all_reduce`` per leaf of the owned rows, a scatter and a refill
     write the owned slots.  The id→slot index, the LRU state, the host
@@ -283,9 +322,9 @@ class ShardedSparseClientStateStore(SparseClientStateStore):
     may refault into a slot another rank owns."""
     mesh: Any = None
 
-    def _table_rows(self, cap: int) -> int:
+    def _table_rows(self, cap: int, whole: bool) -> int:
         spec = rules.client_axis_pspec(self.mesh, 1, cap)
-        if spec[0] is None:
+        if spec[0] is None or whole:
             self._meta.update(sharded=False, lo=0, per=cap)
             return cap
         per = cap // self.mesh.axis_size(rules.DATA)
@@ -335,27 +374,212 @@ class ShardedSparseClientStateStore(SparseClientStateStore):
 # sharded flat ops — the pod's flat-first representation
 # ---------------------------------------------------------------------------
 
+class _GatherRows(torch.autograd.Function):
+    """The model's whole trainable leaves from this rank's rows: the
+    forward all-gathers each sharded bucket over its axes into the
+    ``whole_view`` buffers; the backward hands each bucket's row its
+    gradient, reduced over the batch group once
+    (``ShardedFlatOps._row_grad``)."""
+
+    @staticmethod
+    def forward(ctx, ops, names, *rows):
+        ctx.ops, ctx.names = ops, names
+        ctx.widths = tuple(r.shape[-1] for r in rows)
+        whole = ops._gather(dict(zip(names, rows)))
+        ctx.whole_names = tuple(whole)
+        return tuple(whole.values())
+
+    @staticmethod
+    def backward(ctx, *grads):
+        ops = ctx.ops
+        whole = {}
+        for name, g in zip(ctx.whole_names, grads):
+            whole[name] = g if g is not None else torch.zeros(
+                ops.whole.buffer_sizes[name], dtype=torch_dtype(name),
+                device=ops.device)
+        return (None, None) + tuple(
+            ops._row_grad(name, ops.sharded.whole_to_rows(name, whole, w))
+            for name, w in zip(ctx.names, ctx.widths))
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedFlatOps(FlatParamOps):
     """FlatParamOps over this rank's rows of the ``ShardedFlatView``
-    buckets (``view`` is their local layout).  Every kernel runs on the
-    rank's own buffer with no collective; the lane methods carry the
-    hierarchical aggregation."""
+    buckets (``view`` is their per-shard layout, ``local_view``).
+
+    Every kernel runs on the rank's own row with no collective: K1, K6,
+    K3, the compressed upload (top-k keeps k of the PER-SHARD population,
+    ``_logical_size``) and K5.  The collectives sit around the model:
+    :meth:`unflatten` all-gathers each sharded bucket over its axes into
+    whole leaves (trainable ones through ``_GatherRows``, whose backward
+    reduce-scatters the gradient back to the row), and the global clip
+    norm sums each bucket's Σg² over its axes (:meth:`grad_sqsum`).
+    ``split_batch`` says whether each rank computes its own part of the
+    batch (the gradient then reduces over the batch group)."""
     sharded: Any = None             # the ShardedFlatView
     mesh: Any = None
+    split_batch: bool = False
 
-    def _rows(self, full: Dict[str, torch.Tensor]
-              ) -> Dict[str, torch.Tensor]:
-        rows = self.sharded.local_rows(self.mesh.coords)
-        return {name: b[rows[name]] for name, b in full.items()}
+    @functools.cached_property
+    def whole(self) -> FlatView:
+        """The whole leaves' layout (``ShardedFlatView.whole_view``)."""
+        return self.sharded.whole_view()
+
+    @functools.cached_property
+    def _coords(self) -> Dict[str, int]:
+        return dict(self.mesh.coords)
 
     def flatten(self, tree: Pytree) -> Dict[str, torch.Tensor]:
-        return self._rows(self.sharded.flatten(tree))
+        return self.sharded.flatten_local(tree, self._coords)
 
     def flatten_frozen(self, tree: Pytree) -> Dict[str, torch.Tensor]:
         """This rank's rows of the ``frozen:`` groups, placed by
-        ``rules.frozen_flat_shardings``."""
-        return self._rows(self.sharded.flatten_frozen(tree))
+        ``rules.frozen_flat_shardings``: never replicated beyond its
+        group."""
+        return self.sharded.flatten_local(tree, self._coords, frozen=True)
+
+    def normal(self, key: int) -> Dict[str, torch.Tensor]:
+        return self.pad(self.sharded.normal_local(key, self._coords,
+                                                  self.device))
+
+    def varies_over(self, axis: str) -> bool:
+        """Whether a trainable bucket's rows differ over mesh ``axis``."""
+        return any(axis in g.axes for g in self.sharded.trainable_groups)
+
+    @functools.cached_property
+    def row_reduced(self) -> frozenset:
+        """The trainable buckets whose gradient the gather's backward has
+        already reduced over the batch group (``_row_grad``): those
+        sharded over mesh axes, when the batch is split.  The rest is
+        ``grad_reducer``'s."""
+        if not self.split_batch:
+            return frozenset()
+        return frozenset(g.name for g in self.sharded.trainable_groups
+                         if g.axes)
+
+    # -- the model's whole leaves ----------------------------------------
+
+    def _gather(self, rows: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """The whole-view buffers of the buckets ``rows`` (this rank's
+        rows, padded or not): one all-gather per sharded bucket over its
+        axes, counted as "gather" with its bytes."""
+        whole = {n: torch.empty(self.whole.all_sizes[n],
+                                dtype=torch_dtype(n), device=self.device)
+                 for n in self._whole_names(rows)}
+        for name, row in rows.items():
+            g = self.sharded.group_map[name]
+            row = row.detach()
+            if g.axes:
+                full = torch.empty((g.n_shards, row.shape[-1]),
+                                   dtype=row.dtype, device=row.device)
+                all_gather_into(full.reshape(-1), row,
+                                self.mesh.group(g.axes))
+                _count("gather", full.numel() * full.element_size())
+            else:
+                full = row.reshape(1, -1)
+            self.sharded.rows_to_whole(name, full, whole)
+        return whole
+
+    def _row_grad(self, name: str, G: torch.Tensor) -> torch.Tensor:
+        """This rank's row gradient of bucket ``name`` from the whole
+        leaves' gradient rows ``G`` ``(n_shards, width)``.  Every element
+        sums exactly once over the batch group (pod, data), never over
+        ``model``, whose ranks compute the same part of the batch: the
+        ``model`` axes of the bucket are sliced at this rank's
+        coordinate, its batch axes reduce-scattered, and the batch axes
+        it is not sharded on all-reduced; then the batch mean.  A
+        replicated bucket returns its one row: ``grad_reducer`` reduces
+        it as on any layout."""
+        g = self.sharded.group_map[name]
+        if not g.axes:
+            return G[0]
+        mesh, width = self.mesh, G.shape[-1]
+        if not self.split_batch:        # every rank computed the batch
+            return G[self.sharded.local_rows(self._coords)[name]].clone()
+        baxes = rules.batch_axes(mesh)
+        own, G = self._batch_rows(name, G)
+        if own:
+            out = torch.empty(width, dtype=G.dtype, device=G.device)
+            reduce_scatter_into(out, G.contiguous().reshape(-1),
+                                mesh.group(own))
+            _count("grad", out.numel() * out.element_size())
+        else:
+            out = G[0].clone()
+        for a in baxes:
+            if a not in own:
+                _all_reduce(out, mesh.group(a), "grad")
+        shards = _batch_shards(mesh)
+        return out.div_(shards) if shards > 1 else out
+
+    def _batch_rows(self, name: str, G: torch.Tensor):
+        """``(own, rows)``: the batch axes bucket ``name`` is sharded on
+        (mesh order), and the rows of ``G`` ``(n_shards, width)`` at this
+        rank's coordinates on its other axes — one row per shard of
+        ``own``, row-major, the order of the group over ``own``."""
+        axes, width = self.sharded.group_map[name].axes, G.shape[-1]
+        own = tuple(a for a in axes if a in rules.batch_axes(self.mesh))
+        G = G.reshape(tuple(self.mesh.axis_size(a) for a in axes) +
+                      (width,))
+        return own, G[tuple(slice(None) if a in own else self._coords[a]
+                            for a in axes)].reshape(-1, width)
+
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  frozen: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Pytree:
+        """The whole tree from this rank's rows, gathered over each
+        bucket's axes (the ``frozen`` rows too, without a gradient; zero
+        when absent).  When a row requires grad, the leaves carry the
+        gradient back to the rows through ``_GatherRows``.  The gathered
+        copy lives as long as the tree: one step.  With every bucket
+        replicated (a one-rank mesh, the replicated layout) the leaves
+        are views of the rows, as on the host."""
+        if not any(g.axes for g in self.sharded.groups):
+            return super().unflatten(bufs, frozen)
+        wf = (self._gather(frozen) if frozen
+              else self.whole.frozen_zeros(self.device))
+        if torch.is_grad_enabled() and any(b.requires_grad
+                                           for b in bufs.values()):
+            names = tuple(bufs)
+            out = _GatherRows.apply(self, names, *bufs.values())
+            wb = dict(zip(self._whole_names(names), out))
+        else:
+            with torch.no_grad():
+                wb = self._gather(bufs)
+        return self.whole.unflatten(wb, wf)
+
+    def _whole_names(self, names) -> List[str]:
+        seen = {s.buffer.partition("@")[0] for s in self.sharded.slots
+                if s.buffer in names}
+        return [n for n in self.whole.all_sizes if n in seen]
+
+    # -- the global norms: one all-reduce per axis set --------------------
+
+    def _sum_over_axes(self, parts: Dict[str, torch.Tensor]
+                       ) -> torch.Tensor:
+        """Σ of per-bucket local sums, each summed over the mesh axes its
+        bucket is sharded on (never over the replicas): one all-reduce
+        per distinct axis set, counted as "clip"."""
+        by_axes: Dict[tuple, torch.Tensor] = {}
+        for name, v in parts.items():
+            axes = self.sharded.group_map[name].axes
+            by_axes[axes] = by_axes[axes] + v if axes in by_axes else v
+        total = None
+        for axes, v in by_axes.items():
+            if axes:
+                v = _all_reduce(v.reshape(1).clone(),
+                                self.mesh.group(axes), "clip").reshape(())
+            total = v if total is None else total + v
+        return total
+
+    def grad_sqsum(self, g_bufs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self._sum_over_axes({name: torch.dot(g, g)
+                                    for name, g in g_bufs.items()})
+
+    def delta_sqnorm(self, w_bufs, p_bufs) -> torch.Tensor:
+        return self._sum_over_axes({
+            name: privacy.flat_delta_sqnorm({name: w}, p_bufs)
+            for name, w in w_bufs.items()})
 
     def stacked_empty(self, K: int):
         raise NotImplementedError("the pod backend aggregates "
@@ -400,9 +624,8 @@ class ShardedFlatOps(FlatParamOps):
 @functools.lru_cache(maxsize=32)
 def _sharded_view(task: Task, mesh, layout: str,
                   filter_spec: Optional[str] = None):
-    """The task's ShardedFlatView on ``mesh`` (split by ``filter_spec``);
-    raises (M13b) when a bucket, trainable or frozen, is sharded over
-    mesh axes."""
+    """The task's ShardedFlatView on ``mesh`` (split by ``filter_spec``)
+    and its per-shard layout."""
     view = rules.sharded_flat_view(param_shapes(task), mesh, layout,
                                    filter_spec)
     return view, view.local_view()
@@ -410,10 +633,12 @@ def _sharded_view(task: Task, mesh, layout: str,
 
 @functools.lru_cache(maxsize=32)
 def _sharded_flat_ops(task: Task, mesh, layout: str, interpret: bool,
-                      filter_spec: Optional[str] = None) -> ShardedFlatOps:
+                      filter_spec: Optional[str] = None,
+                      split_batch: bool = False) -> ShardedFlatOps:
     sharded, local = _sharded_view(task, mesh, layout, filter_spec)
     return ShardedFlatOps(view=local, interpret=interpret,
-                          device=mesh.device, sharded=sharded, mesh=mesh)
+                          device=mesh.device, sharded=sharded, mesh=mesh,
+                          split_batch=split_batch)
 
 
 # ---------------------------------------------------------------------------
@@ -436,13 +661,13 @@ class PodBackendMixin:
         if task.kind not in POD_TASK_KINDS:
             raise ValueError(f"unknown task kind {task.kind!r} (the pod "
                              f"runs {POD_TASK_KINDS})")
-        filt = effective_trainable_filter(self.spec)
-        _sharded_view(task, self.mesh, self.layout, filt)   # M13b check
         if self.spec.update_impl == "tree":
             return None
-        return _sharded_flat_ops(task, self.mesh, self.layout,
-                                 ops.fused_interpret(self.spec.update_impl),
-                                 filt)
+        return _sharded_flat_ops(
+            task, self.mesh, self.layout,
+            ops.fused_interpret(self.spec.update_impl),
+            effective_trainable_filter(self.spec),
+            self.batch_shard(self.spec.batch_size) is not None)
 
     def n_selected(self, n_clients: int) -> int:
         if self.clients_per_round:
@@ -470,16 +695,22 @@ class PodBackendMixin:
         shards = _batch_shards(self.mesh)
         return t / shards if mean and shards > 1 else t
 
-    def grad_reducer(self) -> Optional[Callable[[Pytree], Pytree]]:
+    def grad_reducer(self, fops: Optional[ShardedFlatOps] = None
+                     ) -> Optional[Callable[[Pytree], Pytree]]:
         """The gradient mean over the batch group (pod, data): one
         all-reduce per leaf (a tree's leaf or a fused bucket), in place;
-        None when every rank computes the whole batch."""
+        None when every rank computes the whole batch.  The fused buckets
+        of ``fops.row_reduced`` are skipped: the gather's backward
+        reduced them."""
         if self.batch_shard(self.spec.batch_size) is None:
             return None
         mesh, shards = self.mesh, _batch_shards(self.mesh)
+        skip = fops.row_reduced if fops is not None else frozenset()
 
         def reduce(grads):
-            for g in tm.tree_leaves(grads):
+            left = ([g for name, g in grads.items() if name not in skip]
+                    if skip else grads)
+            for g in tm.tree_leaves(left):
                 _batch_all_reduce(g, mesh, "grad")
                 if shards > 1:
                     g.div_(shards)
@@ -535,6 +766,13 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                                ShardedClientStateStore(mesh=self.mesh))
         super().__post_init__()
 
+    def _init_rows(self, store, template: Pytree, n_clients: int,
+                   fops: Optional[ShardedFlatOps]) -> Any:
+        """A stack of rows that differ over ``data`` keeps its client axis
+        whole (``ShardedClientStateStore.init``)."""
+        return store.init(template, n_clients, whole=(
+            fops is not None and fops.varies_over(rules.DATA)))
+
     def _n_pods(self) -> int:
         if self.n_pods:
             return int(self.n_pods)
@@ -543,7 +781,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
     def build_round(self, task: Task, device: torch.device) -> Callable:
         spec = self.spec
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, spec, fops, self.grad_reducer())
+        local = make_local_fn(task, spec, fops, self.grad_reducer(fops))
         fused = fops is not None
         ef_store = self._ef_store
         G = self._n_pods() if self.aggregation == "hierarchical" else 1
@@ -552,7 +790,10 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
         comp = spec.compression
         compressed = compression.compression_on(comp)   # fused (PodFLSpec)
         ef = compressed and comp.error_feedback
-        lane_psum = fused and G > 1 and G == fops.lane_count()
+        # the owned-lane partial needs the same rows on every data rank:
+        # a bucket sharded over data keeps all G lanes
+        lane_psum = fused and G > 1 and G == fops.lane_count() and \
+            not fops.varies_over(rules.DATA)
 
         def to_device(tree):
             return tm.tree_map(lambda x: torch.as_tensor(x).to(
@@ -591,7 +832,7 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
                 def add_delta(delta, w_end, c):
                     return fops.delta_accum(delta, w_end, params, c)
 
-                sqnorm = privacy.flat_delta_sqnorm
+                sqnorm = fops.delta_sqnorm
             else:
                 def zeros_delta():
                     return tm.tree_map(lambda p: torch.zeros(

@@ -8,8 +8,9 @@ CUDA tensor, the plain version on a CPU tensor) or ``"pallas_interpret"``
 
 The FL layers call the ``fused_*`` half (the update kernels, the
 client-upload kernels ``fused_compress_delta``, ``fused_topk_threshold``,
-``fused_topk_compress`` and ``fused_dp_clip_noise_rows``, and the pod
-backend's ``fused_delta_accum``) through
+``fused_topk_compress``, ``fused_dp_clip_noise_rows`` and its one-client
+form ``fused_dp_clip_noise``, and the pod backend's
+``fused_delta_accum``) through
 ``repro_torch.fl.local.FlatParamOps`` (one call per dtype bucket) with
 ``interpret=fused_interpret(impl)``:
 
@@ -131,6 +132,20 @@ def fused_topk_compress(d, k: int, *, bits: int = 32,
     τ)``, ``r`` None unless ``with_residual``."""
     fn = _fu.topk_compress_plain if interpret else _fu.topk_compress
     return fn(d, k, bits=bits, with_residual=with_residual)
+
+
+def fused_dp_clip_noise(d, z, clip_scale, noise_scale, *,
+                        interpret: bool = False) -> torch.Tensor:
+    """One client's DP upload over one flat buffer:
+    ``clip_scale·d₃₂ (+ noise_scale·z)`` in a single pass (K5), as a new
+    f32 tensor; ``z=None`` drops the Gaussian term.  The scales are
+    floats or f32 device scalars."""
+    def scalar(x):
+        return torch.as_tensor(x, dtype=torch.float32,
+                               device=d.device).reshape(())
+    scalars = torch.stack([scalar(clip_scale), scalar(noise_scale)])
+    fn = _fu.dp_clip_noise_plain if interpret else _fu.dp_clip_noise
+    return fn(d.float(), z, scalars)
 
 
 def fused_dp_clip_noise_rows(w, p, z, clip_scales, noise_scale, *,

@@ -24,7 +24,7 @@ import dataclasses
 import math
 import os
 import tempfile
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -66,6 +66,7 @@ class Mesh:
         self.rank = dist.get_rank()
         self.coords: Dict[str, int] = dict(zip(
             self.axis_names, device_mesh.get_coordinate()))
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
@@ -75,10 +76,29 @@ class Mesh:
         """Size of a named axis (1 when the mesh has no such axis)."""
         return self.shape.get(axis, 1)
 
-    def group(self, axis: str):
+    def group(self, axes: Union[str, Sequence[str]]):
         """The process group of the ranks that differ from this one only
-        on ``axis``."""
-        return self.device_mesh.get_group(axis)
+        on ``axes`` (one axis name, or several).  A group's ranks are in
+        row-major order over ``axes`` in mesh order, so a rank's place in
+        it is its shard of a dim tiled by them.  Groups over several
+        axes are made on first use, by every rank at once (the pod's
+        collectives run in one order on every rank): all of the mesh's
+        axes is the default group."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        if axes == self.axis_names:
+            return dist.group.WORLD
+        if axes not in self._groups:
+            moved = np.moveaxis(self.devices, [self.axis_names.index(a)
+                                               for a in axes],
+                                range(-len(axes), 0))
+            lists = [sorted(int(r) for r in block.reshape(-1))
+                     for block in moved.reshape((-1,) + tuple(
+                         self.shape[a] for a in axes))]
+            self._groups[axes], _ = dist.new_subgroups_by_enumeration(lists)
+        return self._groups[axes]
 
     def index(self, axes: Sequence[str]) -> int:
         """This rank's row-major index over ``axes`` (absent axes count
@@ -129,6 +149,28 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         torch.cuda.set_device(dev)
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
     return Mesh(dm, dev)
+
+
+# The pod's two tensor collectives, by the names torch 2.13 gives them
+# (``all_gather_single``, ``reduce_scatter_single``; it deprecates the
+# ``*_tensor`` names) or, where those are absent, by torch 2.11's.  gloo
+# takes CUDA tensors for both and for ``all_reduce``, in f32 and bf16, on
+# torch 2.11 (checked on an H100): the tensors go to it as they are.
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """``out`` ← every rank's ``t`` of ``group``, concatenated in group
+    rank order."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, t, group=group)
+
+
+def reduce_scatter_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
+    """``out`` ← the sum over ``group`` of block i of every rank's ``t``,
+    i this rank's place in the group."""
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, t, group=group)
 
 
 def make_host_mesh(device: Device = None) -> Mesh:

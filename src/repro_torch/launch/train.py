@@ -16,6 +16,13 @@ CLI (reduced configs):
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch \\
         tinyllama-1.1b --rounds 4 --cyclic-rounds 2 --clients 8
+
+On a mesh of several ranks, each rank runs the CLI with ``--mesh DxM``
+and its ``--rank``, the ``--world-size`` and one ``--init-method`` (a
+``file://`` path or ``tcp://localhost:<port>``); it joins the process
+group itself (nccl on CUDA, gloo on the CPU), and the layout
+(``--layout``, default ``fsdp_tp``) shards the model's buckets over the
+mesh.
 """
 from __future__ import annotations
 
@@ -43,7 +50,7 @@ from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
 from repro_torch.fl.task import lm_task
 from repro_torch.models.transformer import TransformerConfig, init_lm
 from repro_torch.sharding import rules
-from repro_torch.utils.device import Device
+from repro_torch.utils.device import Device, resolve_device
 
 Pytree = Any
 
@@ -241,6 +248,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="the mesh's device: CUDA by default, or cpu")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="a (data, model) mesh over --world-size ranks "
+                         "(default: the one-rank mesh)")
+    ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--world-size", type=int, default=1)
+    ap.add_argument("--init-method", default=None,
+                    help="the process group's rendezvous: file:///path "
+                         "or tcp://localhost:<port>")
     args = ap.parse_args(argv)
 
     cfg = with_peft(get_reduced(args.arch), args.peft)
@@ -265,19 +280,34 @@ def main(argv=None) -> int:
                      secure_agg=args.secure_agg,
                      compression=None if comp.identity else comp,
                      peft=args.peft, trainable_filter=args.trainable_filter)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import destroy, make_mesh
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+        if args.world_size > 1:
+            import torch.distributed as dist
+            cuda = resolve_device(args.device).type == "cuda"
+            dist.init_process_group("nccl" if cuda else "gloo",
+                                    init_method=args.init_method,
+                                    world_size=args.world_size,
+                                    rank=args.rank)
+        mesh = make_mesh(shape, ("data", "model"), args.device)
     t0 = time.time()
     res = run_pod_training(
         cfg, data, cyclic_rounds=args.cyclic_rounds, fl_rounds=args.rounds,
         clients_per_round=args.clients_per_round, spec=spec,
-        seed=args.seed, verbose=True, chunk_size=args.chunk_size,
+        seed=args.seed, verbose=args.rank == 0, chunk_size=args.chunk_size,
         eval_every=args.eval_every, sampling=args.sampling,
         layout=args.layout, aggregation=args.aggregation,
         n_pods=args.n_pods, store=args.store,
         store_capacity=args.store_capacity, overlap=args.overlap,
-        device=args.device)
+        mesh=mesh, device=args.device)
     first, last = res.history[0]["loss"], res.history[-1]["loss"]
-    print(f"[train] {args.arch}: loss {first:.4f} -> {last:.4f} "
-          f"({time.time() - t0:.1f}s)")
+    if args.rank == 0:
+        print(f"[train] {args.arch}: loss {first:.4f} -> {last:.4f} "
+              f"({time.time() - t0:.1f}s)")
+    if mesh is not None:
+        destroy()
     return 0 if last < first else 1
 
 

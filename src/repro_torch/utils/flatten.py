@@ -34,11 +34,19 @@ them, and autograd computes no gradient for a frozen weight.
 :class:`ShardedFlatView` is the mesh-aware sibling (the pod backend's):
 leaves bucket per (dtype, mesh-axis group) into ``(n_shards,
 per_shard)`` buffers, the JAX package's layout element for element,
-tile permutation included; frozen leaves keep their group.
+tile permutation included; frozen leaves keep their group.  A rank
+holds one row of each bucket: each leaf's local tile, packed
+(:meth:`ShardedFlatView.flatten_local`, laid out by
+:meth:`ShardedFlatView.local_view`).  The model sees whole leaves: the
+rows gathered over a bucket's axes go back into the leaves of
+:meth:`ShardedFlatView.whole_view` (:meth:`ShardedFlatView.rows_to_whole`),
+and a whole-leaf gradient comes back as the bucket's rows
+(:meth:`ShardedFlatView.whole_to_rows`).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -58,8 +66,10 @@ def dtype_name(dtype) -> str:
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    return getattr(torch, name[len(FROZEN_PREFIX):]
-                   if is_frozen_bucket(name) else name)
+    """The dtype of a bucket from its name (a dtype name, possibly with
+    the frozen prefix and the ``@axes`` of a sharded group)."""
+    name = name[len(FROZEN_PREFIX):] if is_frozen_bucket(name) else name
+    return getattr(torch, name.partition("@")[0])
 
 
 # frozen leaves pack into buckets under this name prefix; the plain
@@ -423,20 +433,126 @@ class ShardedFlatView:
             rows[g.name] = i
         return rows
 
+    @functools.cached_property
+    def group_map(self) -> Dict[str, ShardGroup]:
+        return {g.name: g for g in self.groups}
+
+    def _tile_shape(self, slot: ShardedLeafSlot) -> Tuple[int, ...]:
+        """The shape of one rank's tile of a leaf: each dim divided by the
+        product of the axes that tile it."""
+        return tuple(dim // math.prod(self._axis_size(a) for a in entry)
+                     for dim, entry in zip(slot.shape, slot.dim_axes))
+
     def local_view(self) -> FlatView:
-        """The rank-local layout as a :class:`FlatView` — the same
-        buckets (frozen ones included), offsets and leaf shapes — when
-        every group is replicated (each rank holds whole leaves)."""
-        sharded = [g.name for g in self.groups if g.n_shards > 1]
-        if sharded:
-            raise NotImplementedError(
-                f"buckets {sharded} are sharded over mesh axes: FSDP/TP "
-                f"groups need all_gather/reduce_scatter around the model, "
-                f"which are not ported to repro_torch yet (ROADMAP.md item "
-                f"M13b)")
+        """The rank-local layout as a :class:`FlatView`: the same buckets
+        (frozen ones included) and per-shard offsets, each slot one
+        leaf's local tile.  A shard row is its tiles packed in row-major
+        order (the factor axes of ``_leaf_to_shards`` lead, the blocks
+        follow in dim order), so every per-shard size, offset and the
+        top-k population of a bucket is the view's.  With every group
+        replicated it is the host :class:`FlatView` of the tree."""
         return FlatView(treedef=self.treedef, slots=tuple(
             LeafSlot(buffer=s.buffer, offset=s.offset, size=s.size,
-                     shape=s.shape) for s in self.slots))
+                     shape=self._tile_shape(s)) for s in self.slots))
+
+    @functools.cached_property
+    def _whole_view(self) -> FlatView:
+        slots, sizes = [], {}
+        for s in self.slots:
+            name = s.buffer.partition("@")[0]
+            size = int(math.prod(s.shape))
+            off = sizes.get(name, 0)
+            slots.append(LeafSlot(buffer=name, offset=off, size=size,
+                                  shape=s.shape))
+            sizes[name] = off + size
+        return FlatView(treedef=self.treedef, slots=tuple(slots))
+
+    def whole_view(self) -> FlatView:
+        """The layout of whole leaves: one bucket per dtype (and
+        ``frozen:`` dtype), the :class:`FlatView` of the tree under the
+        same filter — what a one-rank mesh carries.  A gathered model
+        lives in its buffers, so its leaves sit at the offsets of a
+        replicated run's."""
+        return self._whole_view
+
+    def _local_tile(self, leaf: torch.Tensor, slot: ShardedLeafSlot,
+                    coords: Dict[str, int]) -> torch.Tensor:
+        """The rank at ``coords``'s tile of ``leaf`` (a view): along each
+        dim, block number row-major over the dim's axes."""
+        for d, entry in enumerate(slot.dim_axes):
+            if not entry:
+                continue
+            i, n = 0, 1
+            for a in entry:
+                i = i * self._axis_size(a) + int(coords.get(a, 0))
+                n *= self._axis_size(a)
+            blk = leaf.shape[d] // n
+            leaf = leaf.narrow(d, i * blk, blk)
+        return leaf
+
+    def flatten_local(self, tree: Pytree, coords: Dict[str, int], *,
+                      frozen: bool = False) -> Dict[str, torch.Tensor]:
+        """The rank at ``coords``'s row of every trainable bucket (or of
+        every ``frozen:`` bucket), packed from its tiles only — equal to
+        ``flatten(tree)[name][local_rows(coords)[name]]`` without forming
+        the other rows."""
+        parts: Dict[str, list] = {}
+        for slot, leaf in zip(self.slots, self._check(tree)):
+            if is_frozen_bucket(slot.buffer) == frozen:
+                parts.setdefault(slot.buffer, []).append(
+                    self._local_tile(leaf, slot, coords).reshape(-1))
+        return {name: torch.cat(chunks) for name, chunks in parts.items()}
+
+    def normal_local(self, key: int, coords: Dict[str, int],
+                     device=None) -> Dict[str, torch.Tensor]:
+        """The rank's rows of standard-normal f32 trainable buckets: each
+        leaf draws at its GLOBAL shape from ``fold_in(key, i)`` (as
+        :meth:`FlatView.normal` does, and the JAX package's sharded view)
+        and the rank keeps its tile, so a value depends on its parameter
+        only, never on the layout."""
+        gen = torch.Generator(device=device or "cpu")
+        parts: Dict[str, list] = {}
+        for i, slot in enumerate(self.slots):
+            if is_frozen_bucket(slot.buffer):
+                continue
+            if torch_dtype(self.group_map[slot.buffer].dtype) \
+                    .is_floating_point:
+                gen.manual_seed(fold_in(key, i))
+                draw = torch.randn(slot.shape, generator=gen,
+                                   dtype=torch.float32, device=device)
+            else:
+                draw = torch.zeros(slot.shape, dtype=torch.float32,
+                                   device=device)
+            parts.setdefault(slot.buffer, []).append(
+                self._local_tile(draw, slot, coords).reshape(-1))
+        return {name: torch.cat(chunks) for name, chunks in parts.items()}
+
+    def rows_to_whole(self, name: str, rows: torch.Tensor,
+                      whole: Dict[str, torch.Tensor]) -> None:
+        """Write bucket ``name``'s leaves from its gathered ``(n_shards,
+        >= size)`` rows into the :meth:`whole_view` buffers ``whole``,
+        in place."""
+        for s, w in zip(self.slots, self._whole_view.slots):
+            if s.buffer == name:
+                whole[w.buffer][w.offset:w.offset + w.size].view(
+                    w.shape).copy_(self._shards_to_leaf(
+                        rows[:, s.offset:s.offset + s.size], s))
+
+    def whole_to_rows(self, name: str, whole: Dict[str, torch.Tensor],
+                      width: Optional[int] = None) -> torch.Tensor:
+        """Bucket ``name``'s ``(n_shards, width)`` rows (``width`` ≥ the
+        per-shard size, zero past it; default the size) of the leaves
+        held in the :meth:`whole_view` buffers ``whole``: the inverse of
+        :meth:`rows_to_whole`, for a gradient."""
+        g = self.group_map[name]
+        parts = [self._leaf_to_shards(
+            whole[w.buffer][w.offset:w.offset + w.size].view(w.shape), s)
+            for s, w in zip(self.slots, self._whole_view.slots)
+            if s.buffer == name]
+        width = g.size if width is None else width
+        if width > g.size:
+            parts.append(parts[0].new_zeros((g.n_shards, width - g.size)))
+        return torch.cat(parts, dim=1)
 
     # -- per-leaf shard transform ------------------------------------------
 

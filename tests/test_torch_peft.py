@@ -259,9 +259,13 @@ def test_sharded_filtered_buffers_match_jax(mesh_name, shape):
         assert local.frozen_sizes and local.buffer_sizes == {"float32": sum(
             g.size for g in view.trainable_groups)}
     else:
+        # a rank holds its row of every group: per-shard sizes
         assert any(g.n_shards > 1 for g in view.frozen_groups)
-        with pytest.raises(NotImplementedError, match="M13b"):
-            view.local_view()
+        local = view.local_view()
+        assert local.frozen_sizes == {g.name: g.size
+                                      for g in view.frozen_groups}
+        assert local.buffer_sizes == {g.name: g.size
+                                      for g in view.trainable_groups}
 
 
 class _CountMatmuls(TorchDispatchMode):

@@ -252,13 +252,20 @@ class _FourRankMesh:
     coords = {"data": 0, "model": 0}
     device = torch.device("cpu")
 
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
+    def index(self, axes):
+        return 0
+
 
 def test_unported_pod_options_raise_naming_their_items(mesh):
     # M10 is ported: the sparse store builds on the mesh
     assert isinstance(pod.PodFLConfig(mesh, store="sparse").strategy()
                       .state_store, pod.ShardedSparseClientStateStore)
     # M11 is ported: the knobs need the fused path and reach the local
-    # spec; a bucket sharded over four ranks still raises M13b
+    # spec; M13b is ported: four ranks build ShardedFlatOps over sharded
+    # groups, each rank's view the per-shard layout
     with pytest.raises(ValueError, match="fused flat path"):
         pod.PodFLSpec(peft="lora:8")
     assert pod.PodFLSpec(peft="lora:8", update_impl="fused").local_spec() \
@@ -271,8 +278,15 @@ def test_unported_pod_options_raise_naming_their_items(mesh):
         strat = pod.PodAggregateStrategy(
             spec=pod.PodFLSpec(update_impl="fused", peft="lora:4")
             .local_spec(), mesh=four, layout=layout)
-        with pytest.raises(NotImplementedError, match="M13b"):
-            strat.flat_ops(task, torch.device("cpu"))
+        fops = strat.flat_ops(task, torch.device("cpu"))
+        assert isinstance(fops, pod.ShardedFlatOps) and fops.split_batch
+        view = fops.sharded
+        assert any(g.n_shards > 1 for g in view.trainable_groups)
+        assert any(g.n_shards == 4 for g in view.frozen_groups)
+        assert fops.view.buffer_sizes == {g.name: g.size
+                                          for g in view.trainable_groups}
+        assert fops.view.frozen_sizes == {g.name: g.size
+                                          for g in view.frozen_groups}
     strat = pod.PodAggregateStrategy(
         spec=pod.PodFLSpec(update_impl="fused", peft="lora:4").local_spec(),
         mesh=four, layout="replicated")

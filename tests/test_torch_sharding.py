@@ -161,13 +161,17 @@ def test_vision_models_replicate_to_the_host_layout():
 
 
 def test_sharded_groups_and_filters_raise_naming_their_items():
-    """Sharded groups still raise M13b on a rank; the filters (M11) are
+    """Sharded groups (M13b) are ported: a rank's view is the per-shard
+    layout, each slot its leaf's local tile; the filters (M11) are
     ported: a filter splits the view into trainable and frozen groups
     (as the JAX package's), and one that selects no leaf raises."""
     t_tree = bridge.params_from_numpy(_numpy_tree("qwen1.5-0.5b"))
     view = rules.sharded_flat_view(t_tree, _mesh("2x2"), "fsdp_tp")
-    with pytest.raises(NotImplementedError, match="M13b"):
-        view.local_view()
+    local = view.local_view()
+    assert local.buffer_sizes == {g.name: g.size for g in view.groups}
+    for s, ls in zip(view.slots, local.slots):
+        n = view.group_map[s.buffer].n_shards
+        assert int(np.prod(ls.shape)) * n == int(np.prod(s.shape)), s
     head = rules.sharded_flat_view(t_tree, _mesh("1x1"), filter_spec="head")
     jhead = jrules.sharded_flat_view(_numpy_tree("qwen1.5-0.5b"),
                                      _mesh("1x1"), filter_spec="head")
