@@ -267,6 +267,38 @@ JSON line per phase:
                      gathers only under fsdp_tp, P2's frozen leaves kept;
                      ms a step, bytes gathered a step, collectives and
                      peak memory per rank;
+ 14. dryrun        — the compile analysis (repro_torch.launch.dryrun) in
+                     subprocesses on fake tensors over fake process
+                     groups, five at a time, started before llm_lora so
+                     that they run on the host's cores beside the
+                     whole-step phases, never beside the kernel phase
+                     (read after pod_sharded): every assigned arch at
+                     train_4k, qwen2-1.5b at prefill_32k,
+                     deepseek-v2-lite-16b at decode_32k and hymba-1.5b at
+                     long_500k on 16x16, tinyllama-1.1b and
+                     deepseek-v3-671b at train_4k on 2x16x16; one row a
+                     pair (per-rank FLOPs, bytes, collective bytes by
+                     kind, the roofline terms against the H100's peaks,
+                     useful_flops_ratio), every pair ok;
+ 15. dryrun_check  — (a) tinyllama-1.1b's train step at batch 8 x 512
+                     captured on fake tensors and run on the card under
+                     the same counter: FLOPs and bytes equal exactly; the
+                     warm step's ms (CUDA events, median of 5) beside its
+                     t_compute_s, t_memory_s and model FLOPs / (ms x
+                     989e12); (b) lower_pod_round on a fake (2, 2) mesh
+                     for pod_sharded's configuration (a subprocess),
+                     cyclic + fl: its collectives and bytes by kind equal
+                     each pod_sharded rank's under fsdp_tp;
+ 16. pod_aot       — tinyllama-1.1b at full width (f32) through
+                     make_pod_cyclic_round and make_pod_fl_round, K 2, 2
+                     local steps, batch 8 x 128: P1 bitwise the chain of
+                     _local_sgd (deterministic algorithms), P2 within
+                     3e-5 of the clients' weighted mean; ms a round, peak
+                     GB;
+ 17. resnet8       — ResNet-8's forward at cifar100c-hard's shape (batch
+                     64, 32 x 32 x 3, 20 classes), batch and group norm,
+                     TF32 off, against the same forward in f32 on the
+                     CPU within RESNET8_TOL; its ms;
 then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
 at llm_lora's buckets and its launches there; K1, K3 and K6 with a
 ``sharded_form`` at pod_sharded's per-shard rows; K1–K3 with their N
@@ -529,7 +561,11 @@ class KernelBench:
     """Kernel-vs-plain checks on the card (phase 2)."""
 
     def __init__(self, torch, fu, peaks):
+        from repro_torch.kernels import work
         self.torch, self.fu = torch, fu
+        # each kernel's operations and bytes (its bound's numerator), as
+        # the compile analysis counts them
+        self.work = work
         self.bw, self.flops, self.flops_bf16 = peaks
         self.gen = torch.Generator(device="cuda")
         self.gen.manual_seed(SEED)
@@ -583,9 +619,7 @@ class KernelBench:
         pp, mp = clones()
         plain = self.time(lambda: fu.local_step_plain(pp, g, mp, c, sc,
                                                            **kw))
-        e = p.element_size()
-        n_bytes = n * e * (3 + 2 * has_m + has_c) + 8
-        n_ops = n * (1 + has_c + 2 * bool(wd) + 2 * has_m + 2)
+        n_ops, n_bytes = self.work.local_step(p, g, m, c, sc, **kw)
         library, why = None, "no single PyTorch call applies clip scale, " \
             "weight decay and momentum in this order"
         if not has_m and not has_c and not wd and clip == 1.0:
@@ -618,9 +652,7 @@ class KernelBench:
         ms = self.time(lambda: fu.weighted_delta(stacked, p, w, **kw))
         plain = self.time(lambda: fu.weighted_delta_plain(stacked, p, w,
                                                                **kw))
-        e = p.element_size()
-        n_bytes = n * e * (K + 2) + n * 4 * has_extra + 4 * K
-        n_ops = n * ((2 if deltas else 3) * K + 1 + has_extra)
+        n_ops, n_bytes = self.work.weighted_delta(stacked, p, w, **kw)
         library, why = None, "no single PyTorch call adds the extra term"
         if dtype != torch.float32:
             why = "torch.addmv takes one dtype; the stack is bf16, the " \
@@ -697,13 +729,11 @@ class KernelBench:
                 chain_ms.append(self.time(lambda: chain(pk, mk)))
         pp, mp = clones()
         plain_ms = self.time(lambda: plain(pp, mp))
-        e = p.element_size()
         # p, the delta (f32) or avg (p's dtype) and the moments read once;
         # p and the moments written once
-        src = 4 if form == "delta" else e
-        n_bytes = n * (2 * e + src + 2 * e * n_m) + 4 * sc.numel()
-        n_ops = n * ({"none": 1, "momentum": 4, "adam": 13}[opt]
-                     + (form == "avg"))
+        n_ops, n_bytes = self.work.server_update(
+            p, d if form == "delta" else None, moments, sc,
+            avg=avg if form == "avg" else None, opt=opt)
         pl, ml = clones()
         neg_d = (-d).to(dtype)
         library, why = None, "no single PyTorch call forms avg - p and " \
@@ -760,8 +790,7 @@ class KernelBench:
         bitwise = all(bool(torch.equal(a, b)) for a, b in pairs)
         ms = self.time(lambda: fu.compress_delta(d, tau, **kw))
         plain = self.time(lambda: fu.compress_delta_plain(d, tau, **kw))
-        n_bytes = 4 * n + 4 * n * (1 + res) + 4 * topk
-        n_ops = n * (3 * topk + (7 if bits != 32 else 0) + res)
+        n_ops, n_bytes = self.work.compress_delta(d, tau, **kw)
         bound, by = self.bound_ms(n_bytes, n_ops)
         return dict(kernel="compress_delta", n=n, bits=bits, topk=topk,
                     residual=res, max_abs_err=err, bitwise=bitwise,
@@ -789,7 +818,8 @@ class KernelBench:
         library = self.time(lambda: torch.kthvalue(a, n - k + 1),
                           trials=3, reps=5, warmup=1)
         # the selection reads |d| once; the ops: abs + compare per element
-        bound, by = self.bound_ms(4 * n + 4, 2 * n)
+        n_ops, n_bytes = self.work.topk_threshold(d, k)
+        bound, by = self.bound_ms(n_bytes, n_ops)
         shape = {}
         if per_call == 1:                   # the cluster kernel
             # as the library sizes the launch (csrc/upload.cu)
@@ -856,8 +886,7 @@ class KernelBench:
         plain_ms = self.time(plain, trials=3, reps=5, warmup=1)
         # d read once, c (and r) written once, τ written; the threshold's
         # abs + compare and the compression's operations per element
-        n_bytes = 4 * n + 4 * n * (1 + res) + 4
-        n_ops = 2 * n + n * (3 + (7 if bits != 32 else 0) + res)
+        n_ops, n_bytes = self.work.topk_compress(d, k, **kw)
         bound, by = self.bound_ms(n_bytes, n_ops)
         lib, shape = fu._lib(), {}
         if n <= fu.topk_cut() and fused:    # as the library sizes the launch
@@ -1021,8 +1050,8 @@ class KernelBench:
             if not has_z:
                 library = self.time(lambda: torch.mul(d, sc[0]))
                 why = "torch.mul(d, clip_scale)"
-            bound, by = self.bound_ms(4 * n * (2 + has_z) + 8,
-                                      n * (1 + 2 * has_z))
+            n_ops, n_bytes = self.work.dp_clip_noise(d, z, sc)
+            bound, by = self.bound_ms(n_bytes, n_ops)
             return dict(kernel="dp_clip_noise", case=label, form="per_client",
                         n=n, noise=has_z, max_abs_err=err, bitwise=bitwise,
                         within_tol=bitwise, ms=ms, plain_ms=plain,
@@ -1055,11 +1084,10 @@ class KernelBench:
             ms.append(self.time(run))
             chain_ms.append(self.time(chain))
         plain_ms = self.time(plain, trials=3, reps=5, warmup=1)
-        e = p.element_size()
         # w (and z) read once, the uploads written once, p read once, the
         # scales; a subtraction and a multiply (and a multiply-add) each
-        n_bytes = K * n * (e + 4 * has_z + 4) + n * e + 4 * K + 4
-        bound, by = self.bound_ms(n_bytes, K * n * (2 + 2 * has_z))
+        n_ops, n_bytes = self.work.dp_clip_noise_rows(w, p, z, scales, ns)
+        bound, by = self.bound_ms(n_bytes, n_ops)
         return dict(kernel="dp_clip_noise", case=label, form="rows",
                     rows_form=rows is not None, n=n, K=K,
                     dtype=str(dtype)[6:], noise=has_z,
@@ -1142,9 +1170,8 @@ class KernelBench:
                 why = "Tensor.addcmul_(c, w): d + c*w in place"
             else:
                 why = "Tensor.addcmul_ takes one dtype; w is bf16, d f32"
-        e = w.element_size()
-        n_bytes = n * (4 + e + e * with_p + 4) + 4
-        bound, by = self.bound_ms(n_bytes, n * (2 + with_p))
+        n_ops, n_bytes = self.work.delta_accum(d, w, p, c)
+        bound, by = self.bound_ms(n_bytes, n_ops)
         return dict(kernel="delta_accum", n=n, dtype=str(dtype)[6:],
                     with_p=with_p, max_abs_err=err, bitwise=bitwise,
                     within_tol=bitwise, ms=ms, plain_ms=plain,
@@ -1180,15 +1207,8 @@ class KernelBench:
         library = self.time(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                               enable_gqa=True), **t)
         # the unmasked work: (query, key) pairs and the key rows they read
-        pairs = 0
-        for i in range(S):
-            qp = q_offset + i
-            pairs += max(0, min(qp, kvl - 1) - max(0, qp - win + 1) + 1)
-        rows = max(0, min(q_offset + S - 1, kvl - 1)
-                   - max(0, q_offset - win + 1) + 1)
-        e = q.element_size()
-        n_bytes = 2 * B * S * H * hd * e + 2 * B * rows * KH * hd * e
-        n_ops = 4 * hd * pairs * B * H
+        pairs, _ = self.work.attention_pairs(S, T, window, q_offset, kv_len)
+        n_ops, n_bytes = self.work.flash_attention(q, k, v, **kw)
         peak = self.flops_bf16 if dtype == torch.bfloat16 else self.flops
         bound, by = self.bound_ms(n_bytes, n_ops, peak)
         return dict(kernel="flash_attention", case=label, B=B, S=S, T=T, H=H,
@@ -1219,14 +1239,7 @@ class KernelBench:
         plain = self.time(lambda: ssd.ssd_scan_plain(x, dt, A, Bm, Cm,
                                                           chunk=chunk),
                         trials=3, reps=3, warmup=1)
-        e = x.element_size()
-        n_bytes = (2 * b * s * h * p * e + 2 * b * s * g * n * e
-                   + 4 * b * s * h + 4 * h + 4 * b * h * p * n)
-        n_ops = 0
-        for c0 in range(0, s, chunk):
-            lc = min(chunk, s - c0)
-            n_ops += lc * (lc + 1) * (n + p) + 4 * lc * p * n
-        n_ops *= b * h
+        n_ops, n_bytes = self.work.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
         peak = self.flops_bf16 if dtype == torch.bfloat16 else self.flops
         bound, by = self.bound_ms(n_bytes, n_ops, peak)
         return dict(kernel="ssd_scan", case=label, b=b, s=s, h=h, p=p, n=n,
@@ -3794,7 +3807,8 @@ def pod_sharded(torch) -> dict:
     kind, exactly (``want_collectives``); P2 kept every frozen leaf; the
     losses finite.  Reported per rank: ms a step,
     bytes gathered a step, collectives by kind, peak memory.  Returns
-    the fsdp_tp launches of rank 0 (the kernel rows' launches)."""
+    the fsdp_tp launches of rank 0 (the kernel rows' launches) and every
+    rank's report (dryrun_check reads their collectives)."""
     import pickle
     import tempfile
     from repro_torch.fl.task import lm_task
@@ -3904,7 +3918,7 @@ def pod_sharded(torch) -> dict:
               ranks=ranks, phase_s=time.perf_counter() - t_phase))
     if bad:
         raise SystemExit("chip_smoke: pod_sharded: " + "; ".join(bad))
-    return ranks[0]["fsdp_tp"]["launches"]
+    return ranks[0]["fsdp_tp"]["launches"], ranks
 
 
 class _StaticMesh:
@@ -4934,6 +4948,334 @@ def zoo_train(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the compile analysis (dryrun, dryrun_check), the pre-sampled pod rounds
+# (pod_aot) and ResNet-8's forward (resnet8)
+# ---------------------------------------------------------------------------
+
+# (arch, shapes, multi_pod): one dry-run subprocess each
+DRYRUN_JOBS = tuple(
+    [(a, ("train_4k",) + {"qwen2-1.5b": ("prefill_32k",),
+                          "deepseek-v2-lite-16b": ("decode_32k",),
+                          "hymba-1.5b": ("long_500k",)}.get(a, ()), False)
+     for a in ("qwen3-32b", "qwen1.5-0.5b", "deepseek-v2-lite-16b",
+               "internvl2-1b", "qwen2-1.5b", "hymba-1.5b",
+               "deepseek-v3-671b", "mamba2-1.3b", "musicgen-medium",
+               "tinyllama-1.1b")]
+    + [("tinyllama-1.1b", ("train_4k",), True),
+       ("deepseek-v3-671b", ("train_4k",), True)])
+DRYRUN_PARALLEL = 5
+CHECK_ARCH, CHECK_B, CHECK_S = "tinyllama-1.1b", 8, 512
+AOT_K, AOT_STEPS, AOT_B, AOT_S, AOT_TOL = 2, 2, 8, 128, 3e-5
+RESNET8_B, RESNET8_CLASSES, RESNET8_TOL = 64, 20, 1e-4
+
+
+def _subprocess_env() -> dict:
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+
+
+def start_captures(out: str):
+    """The dry-run jobs and dryrun_check's lower_pod_round, started in
+    subprocesses (DRYRUN_PARALLEL at a time, on the host's cores), so
+    they run while the card runs the phases from llm_lora on.
+    Returns the futures: (job, rc, start, end, stderr) each."""
+    import concurrent.futures
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=DRYRUN_PARALLEL)
+
+    def run(job):
+        if job == "lower":
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--lower-pod-round", out]
+        else:
+            arch, shapes, multi = job
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", *shapes, "--out", out,
+                   "--no-correct-scan"] + (["--multi-pod"] if multi else [])
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, env=_subprocess_env(), capture_output=True,
+                           text=True, timeout=600)
+        return job, p.returncode, t0, time.perf_counter(), p.stderr[-3000:]
+    futures = [pool.submit(run, job) for job in ("lower",) + DRYRUN_JOBS]
+    pool.shutdown(wait=False)
+    return futures
+
+
+def lower_pod_round_worker(out: str) -> int:
+    """``chip_smoke.py --lower-pod-round OUT``: lower_pod_round of
+    pod_sharded's configuration on a fake (2, 2) mesh, the cyclic and the
+    fl round, into ``OUT/lowered.json``."""
+    from repro_torch.launch.mesh import destroy, make_fake_mesh
+    from repro_torch.launch.train import PodFLSpec, lower_pod_round
+    mesh = make_fake_mesh(SHARDED_MESH, ("data", "model"))
+    spec = PodFLSpec(local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH,
+                     lr=0.03, update_impl="fused", peft=LLM_PEFT)
+    res = {}
+    for kind in ("cyclic", "fl"):
+        t0 = time.perf_counter()
+        c = lower_pod_round(llm_setup_config(), mesh, kind=kind, spec=spec,
+                            K=SHARDED_K, batch=SHARDED_BATCH, seq=128,
+                            layout="fsdp_tp", seed=SEED)
+        res[kind] = dict(collectives=c.collectives,
+                         collective_bytes=c.collective_bytes,
+                         flops=c.flops, bytes=c.bytes, kernels=c.kernels,
+                         capture_s=time.perf_counter() - t0)
+    destroy()
+    Path(out, "lowered.json").write_text(json.dumps(res))
+    return 0
+
+
+def finish_dryrun(futures, out: str, smi: str) -> dict:
+    """Phase dryrun: one line a pair, gated on every pair ok; returns
+    the lower_pod_round result for dryrun_check (b).  ``wall_s`` is the
+    subprocesses' span, ``phase_s`` the wait for them here."""
+    t_phase = time.perf_counter()
+    failed, job_s, span = [], {}, []
+    for f in futures:
+        job, rc, t0, t1, err = f.result()
+        job_s[job if job == "lower" else
+              f"{job[0]} {'2x16x16' if job[2] else '16x16'}"] = t1 - t0
+        span += [t0, t1]
+        if rc != 0:
+            failed.append(f"{job}: exit {rc}: {err}")
+    rows = [json.loads(p.read_text()) for p in sorted(Path(out).glob(
+        "*_16x16.json")) + sorted(Path(out).glob("*_2x16x16.json"))]
+    keys = ("arch", "shape", "mesh", "ok", "hlo_flops_per_chip",
+            "hlo_bytes_per_chip", "collective_bytes_per_chip",
+            "collective_detail", "collective_counts", "t_compute_s",
+            "t_memory_s", "t_collective_s", "bottleneck", "model_flops",
+            "useful_flops_ratio", "t_capture_s", "kernels", "error")
+    for row in rows:
+        emit(dict(phase="dryrun", card=smi,
+                  **{k: row[k] for k in keys if k in row}))
+    want = sum(len(shapes) for _, shapes, _ in DRYRUN_JOBS)
+    bad = [f"{r['arch']} {r['shape']} {r['mesh']}" for r in rows
+           if not r["ok"]]
+    emit(dict(phase="dryrun", summary=True, pairs=len(rows), want=want,
+              ok=len(rows) - len(bad), processes=DRYRUN_PARALLEL,
+              process_s=job_s, wall_s=max(span) - min(span),
+              phase_s=time.perf_counter() - t_phase, card=smi))
+    if failed or bad or len(rows) != want:
+        raise SystemExit(f"chip_smoke: dryrun: {len(rows)}/{want} rows, "
+                         f"not ok: {bad}; {failed}")
+    return json.loads(Path(out, "lowered.json").read_text())
+
+
+def dryrun_check_step(torch, smi: str) -> dict:
+    """Phase dryrun_check (a): tinyllama-1.1b's train step at CHECK_B x
+    CHECK_S captured on fake tensors, then run on the card under the same
+    counter; FLOPs and bytes must agree exactly.  The warm step is timed
+    with CUDA events (median of 5) beside its roofline terms."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config, param_count, params_specs
+    from repro_torch.launch.hlo_analysis import StepCounter, analyze_captured
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    from repro_torch.launch.steps import (TrainSpec, init_momentum,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils import tree_math as tm
+    t_phase = time.perf_counter()
+    cfg = get_config(CHECK_ARCH)
+    step = make_train_step(cfg, TrainSpec())
+    B, S = CHECK_B, CHECK_S
+    with FakeTensorMode():
+        params = tm.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                             params_specs(cfg))
+        mom = init_momentum(params)
+        batch = {k: torch.empty((B, S), dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        with StepCounter() as cap:
+            step(params, mom, batch)
+    capture_s = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, SEED, "cuda")
+    mom = init_momentum(params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with StepCounter() as card:
+        _, _, met = step(params, mom, batch)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(params, mom, batch)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    step_ms = statistics.median(ms)
+    n = param_count(cfg)
+    model_flops = 6.0 * n * B * S
+    terms = analyze_captured(cap, arch=CHECK_ARCH, shape=f"train {B}x{S}",
+                             mesh_name="1 card", n_chips=1,
+                             model_flops=model_flops)
+    ok = (cap.flops, cap.bytes) == (card.flops, card.bytes) and \
+        math.isfinite(float(met["loss"]))
+    out = dict(phase="dryrun_check", part="capture_vs_card",
+               model=CHECK_ARCH, batch=B, seq=S, dtype=str(cfg.dtype)[6:],
+               capture=dict(flops=cap.flops, bytes=cap.bytes),
+               card_run=dict(flops=card.flops, bytes=card.bytes),
+               equal=ok, capture_s=capture_s, step_ms=step_ms,
+               step_ms_all=ms, t_compute_s=terms.t_compute,
+               t_memory_s=terms.t_memory, bottleneck=terms.bottleneck,
+               model_flops=model_flops,
+               model_flops_share=model_flops / (step_ms * 1e-3
+                                                * PEAK_FLOPS_BF16),
+               counted_flops_share=cap.flops / (step_ms * 1e-3
+                                                * PEAK_FLOPS_BF16),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               card=smi, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del params, mom, batch
+    torch.cuda.empty_cache()
+    if not ok:
+        raise SystemExit(f"chip_smoke: dryrun_check: the capture counts "
+                         f"{cap.flops} FLOPs / {cap.bytes} B, the card run "
+                         f"{card.flops} / {card.bytes}")
+    return out
+
+
+def dryrun_check_collectives(lowered: dict, ranks: list, smi: str) -> None:
+    """Phase dryrun_check (b): lower_pod_round's cyclic + fl collectives
+    and bytes, by kind, against what each pod_sharded rank counted under
+    fsdp_tp in this run."""
+    got = {key: {k: lowered["cyclic"][key][k] + lowered["fl"][key][k]
+                 for k in lowered["fl"][key]}
+           for key in ("collectives", "collective_bytes")}
+    bad = [rk["rank"] for rk in ranks
+           if rk["fsdp_tp"]["collectives"] != got["collectives"]
+           or rk["fsdp_tp"]["collective_bytes"] != got["collective_bytes"]]
+    emit(dict(phase="dryrun_check", part="lower_pod_round_vs_pod_sharded",
+              lowered=got, lowered_rounds=lowered,
+              pod_sharded_rank0=dict(
+                  collectives=ranks[0]["fsdp_tp"]["collectives"],
+                  collective_bytes=ranks[0]["fsdp_tp"]["collective_bytes"]),
+              ranks_equal=[rk["rank"] for rk in ranks
+                           if rk["rank"] not in bad], card=smi))
+    if bad:
+        raise SystemExit(f"chip_smoke: dryrun_check: lower_pod_round's "
+                         f"collectives {got} differ from ranks {bad}")
+
+
+def pod_aot(torch, smi: str) -> dict:
+    """Phase pod_aot: the pre-sampled rounds at full width (f32, so the
+    P2 check compares f32 sums, not bf16 roundings of them)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.utils import tree_math as tm
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LLM_ARCH), dtype=torch.float32,
+                              param_dtype=torch.float32)
+    spec = train.PodFLSpec(local_steps=AOT_STEPS, batch_size=AOT_B, lr=0.03)
+    params = init_lm(cfg, SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (AOT_K, AOT_STEPS, AOT_B,
+                                             AOT_S + 1), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    batches = {"tokens": toks[..., :-1].contiguous(),
+               "labels": toks[..., 1:].contiguous()}
+    weights = torch.tensor([3.0, 5.0], device="cuda")
+    lr = torch.tensor(1.0, device="cuda")
+    local = train._local_sgd(cfg, spec)
+
+    def client(i):
+        return {k: v[i] for k, v in batches.items()}
+    with Deterministic(torch) as det:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1, m1 = train.make_pod_cyclic_round(cfg, spec)(params, batches, lr)
+        torch.cuda.synchronize()
+        p1_ms = (time.perf_counter() - t0) * 1e3
+        chain = params
+        for i in range(AOT_K):
+            chain, _ = local(chain, client(i), lr, None)
+        p1_bitwise = all(torch.equal(a, b) for a, b in zip(
+            tm.tree_leaves(p1), tm.tree_leaves(chain)))
+    del p1, chain
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, m2 = train.make_pod_fl_round(cfg, spec)(params, batches, weights, lr)
+    torch.cuda.synchronize()
+    p2_ms = (time.perf_counter() - t0) * 1e3
+    want = None
+    for i in range(AOT_K):
+        end, _ = local(params, client(i), lr, None)
+        c = weights[i] / weights.sum()
+        want = tm.tree_map(lambda e: c * e, end) if want is None else \
+            tm.tree_map(lambda a, e: a + c * e, want, end)
+        del end
+    err, ok = 0.0, True
+    for a, b in zip(tm.tree_leaves(p2), tm.tree_leaves(want)):
+        gap = (a - b).abs()
+        err = max(err, float(gap.max()))
+        ok &= bool((gap <= AOT_TOL + AOT_TOL * b.abs()).all())
+    moved = sum(int(not torch.equal(a, b)) for a, b in zip(
+        tm.tree_leaves(p2), tm.tree_leaves(params)))
+    losses = [float(m1["local_loss"]), float(m2["local_loss"])]
+    out = dict(phase="pod_aot", model=f"{LLM_ARCH} (f32)", K=AOT_K,
+               local_steps=AOT_STEPS, batch=AOT_B, seq=AOT_S,
+               p1_bitwise=p1_bitwise, nondeterministic=det.nondeterministic,
+               p2_max_abs_err=err, p2_tol=AOT_TOL, p2_within_tol=ok,
+               leaves_moved=moved, losses=losses, p1_ms=p1_ms, p2_ms=p2_ms,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi,
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    del params, p2, want, batches
+    torch.cuda.empty_cache()
+    if not (p1_bitwise and ok and moved > 0 and
+            all(math.isfinite(x) for x in losses)):
+        raise SystemExit(f"chip_smoke: pod_aot failed its gates: {out}")
+    return out
+
+
+def resnet8_phase(torch, smi: str) -> dict:
+    """Phase resnet8: the forward on the card against the CPU, TF32 off."""
+    from repro_torch.models.paper_models import resnet8_apply, resnet8_init
+    from repro_torch.utils import tree_math as tm
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows, bad = {}, []
+    try:
+        for norm in ("batch", "group"):
+            gen = torch.Generator().manual_seed(SEED)
+            params = resnet8_init(gen, n_classes=RESNET8_CLASSES, norm=norm)
+            x = torch.randn(RESNET8_B, 32, 32, 3, generator=gen)
+            want = resnet8_apply(params, x)
+            pc = tm.tree_map(lambda t: t.cuda() if isinstance(
+                t, torch.Tensor) else t, params)
+            xc = x.cuda()
+            got = resnet8_apply(pc, xc).cpu()
+            err = float((got - want).abs().max())
+            ok = bool(((got - want).abs() <= RESNET8_TOL
+                       + RESNET8_TOL * want.abs()).all())
+            ms = time_ms(torch, lambda: resnet8_apply(pc, xc))
+            rows[norm] = dict(max_abs_err=err, within_tol=ok, ms=ms,
+                              logits_shape=list(got.shape))
+            if not ok:
+                bad.append(norm)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+    out = dict(phase="resnet8", batch=RESNET8_B, image="32x32x3",
+               classes=RESNET8_CLASSES, tf32=False, tol=RESNET8_TOL,
+               norms=rows, card=smi, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    if bad:
+        raise SystemExit(f"chip_smoke: resnet8 disagrees with the CPU "
+                         f"under {bad}: {rows}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
@@ -4941,7 +5283,12 @@ def main(argv=None) -> int:
     # one rank of pod_sharded, spawned by that phase
     ap.add_argument("--pod-sharded-rank", nargs=3, default=None,
                     metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
+    # dryrun_check's lower_pod_round, spawned by the dryrun phase
+    ap.add_argument("--lower-pod-round", default=None, metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.lower_pod_round is not None:
+        return lower_pod_round_worker(args.lower_pod_round)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5025,6 +5372,11 @@ def main(argv=None) -> int:
     client_store(torch, fu, p1_params, mesh)
     landscape(torch, fig7_states(torch, main_res))
     del main_res
+    # the dry run's captures run on the host's cores beside the phases
+    # that time whole steps, never beside the kernel phase's rows
+    import tempfile
+    dry_out = tempfile.mkdtemp(prefix="dryrun_")
+    captures = start_captures(dry_out)
     llm_launches = llm_lora(torch, fu, mesh)
     eng, prompt, tokens, serve_launches, per_phase = serve(torch)
     serve_e2e(torch, eng, prompt, tokens[:, :E2E_STEPS])
@@ -5035,7 +5387,12 @@ def main(argv=None) -> int:
     qwen_launches = qwen_serve(torch)
     moe_train_launches = moe_train(torch, fu, mesh)
     zoo_train(torch)
-    sharded_launches = pod_sharded(torch)
+    sharded_launches, sharded_ranks = pod_sharded(torch)
+    lowered = finish_dryrun(captures, dry_out, smi)
+    dryrun_check_collectives(lowered, sharded_ranks, smi)
+    dryrun_check_step(torch, smi)
+    pod_aot(torch, smi)
+    resnet8_phase(torch, smi)
 
     source = "src/repro_torch/kernels/csrc/fused_update.cu"
     replaces = {"local_step": "src/repro/kernels/fused_update.py:131",

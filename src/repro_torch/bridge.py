@@ -5,7 +5,9 @@ HWIO conv weights, ``(d_in, d_out)`` fc weights — so a conversion is a
 copy, and the flat buffers of the two packages line up element for
 element.  The JAX side hands its params over as numpy
 (``jax.tree.map(np.asarray, params)``); bf16 arrives as ``ml_dtypes``'
-bfloat16 and is carried through its bit pattern.
+bfloat16 and is carried through its bit pattern.  Leaves that are not
+arrays (ResNet-8's int ``stride`` and string ``norm_kind``) are carried
+as they are.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ Pytree = Any
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, (int, str)):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         bits = torch.from_numpy(a.view(np.uint16).astype(np.int16))
@@ -29,6 +33,8 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, (int, str)):
+        return t
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes

@@ -1324,6 +1324,17 @@ class _ChunkPlan:
     staged: Any = None
 
 
+def check_tensor_leaves(params: Pytree) -> None:
+    """Raise ``TypeError`` for a param leaf that is not a tensor (as
+    ResNet-8's int ``stride`` and string ``norm_kind``): the engines
+    train tensor leaves only, as the JAX package's take arrays only."""
+    for path, leaf in zip(tm.tree_paths(params), tm.tree_leaves(params)):
+        if not isinstance(leaf, torch.Tensor):
+            raise TypeError(f"param leaf {path!r} is a "
+                            f"{type(leaf).__name__}, not a tensor: only "
+                            f"tensor leaves train")
+
+
 def run_rounds(task: Task, data: FederatedDataset, strategy,
                schedule: RoundSchedule, *,
                init_params: Optional[Pytree] = None,
@@ -1332,7 +1343,8 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                switch_policy=None,
                phase: str = "P2",
                label: Optional[str] = None,
-               device: Device = None) -> EngineResult:
+               device: Device = None,
+               history: bool = True) -> EngineResult:
     """Run ``schedule.rounds`` rounds of ``strategy`` on ``device``
     (default CUDA; raises without one unless ``device="cpu"``) and
     return the final params plus the per-round history.
@@ -1345,10 +1357,14 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     chunk are known on the host before it runs (both sampling modes);
     a strategy whose stores need them (``SparseClientStateStore``)
     stages and commits residency before each chunk, and
-    ``schedule.overlap`` stages chunk N+1 while chunk N runs."""
+    ``schedule.overlap`` stages chunk N+1 while chunk N runs.
+    ``history=False`` never reads a value back to the host (a capture on
+    fake tensors, ``repro_torch.launch.train.lower_pod_round``): the
+    device work is the same, the history stays empty."""
     dev = resolve_device(device)
     if init_params is None:
         init_params = task.init(seeded_generator(schedule.seed))
+    check_tensor_leaves(init_params)
     fops = strategy.flat_ops(task, dev)
     # a trainable filter's frozen buckets: placed once, read only, never
     # padded or handed to a kernel, merged at the loss and the eval
@@ -1546,7 +1562,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
             metrics.append(evaluate(params) if plan.do_eval[j] else None)
         return params, algo_state, server_state, losses, metrics
 
-    history: List[Dict[str, float]] = []
+    rows: List[Dict[str, float]] = []
     dispatches = 0
     plan = make_plan(0) if schedule.rounds > 0 else None
     staged_plan = None
@@ -1569,25 +1585,27 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
             nxt = staged_plan = make_plan(rnd + R)
             stage(nxt)
 
-        t0 = time.perf_counter()
-        losses = losses.cpu().numpy()                 # one read per chunk
-        timing["device_wait_ms"] += (time.perf_counter() - t0) * 1e3
-        for j in range(R):
-            if ledger is not None:
-                strategy.record(ledger, K, params, task)
-            row = {"round": rnd + j, "local_loss": float(losses[j]),
-                   "phase": phase}
-            if plan.do_eval[j]:
-                row["acc"] = float(metrics[j])
-                if verbose:
-                    print(f"[{label}] round {rnd + j + 1}/{schedule.rounds} "
-                          f"loss={row['local_loss']:.4f} acc={row['acc']:.4f}",
-                          flush=True)
-            history.append(row)
+        if history:
+            t0 = time.perf_counter()
+            losses = losses.cpu().numpy()             # one read per chunk
+            timing["device_wait_ms"] += (time.perf_counter() - t0) * 1e3
+            for j in range(R):
+                if ledger is not None:
+                    strategy.record(ledger, K, params, task)
+                row = {"round": rnd + j, "local_loss": float(losses[j]),
+                       "phase": phase}
+                if plan.do_eval[j]:
+                    row["acc"] = float(metrics[j])
+                    if verbose:
+                        print(f"[{label}] round {rnd + j + 1}/"
+                              f"{schedule.rounds} loss="
+                              f"{row['local_loss']:.4f} "
+                              f"acc={row['acc']:.4f}", flush=True)
+                rows.append(row)
 
-        if switch_policy is not None and switch_policy.should_switch(
-                rnd + R - 1, history):
-            break
+            if switch_policy is not None and switch_policy.should_switch(
+                    rnd + R - 1, rows):
+                break
         if not overlap:
             nxt = make_plan(rnd + R) if rnd + R < schedule.rounds else None
         plan = nxt
@@ -1607,7 +1625,7 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
                     for key, bufs in (("params", params), ("frozen", frozen))}
         params = fops.unflatten(params, frozen)
         server_state = unpack_server_state(fops, server_state)
-    return EngineResult(params=params, history=history,
+    return EngineResult(params=params, history=rows,
                         algo_state=algo_state, server_state=server_state,
                         dispatches=dispatches, timing=timing,
                         resident_bytes=resident)

@@ -114,13 +114,6 @@ def effective_trainable_filter(spec: "LocalSpec") -> Optional[str]:
     return None
 
 
-def not_ported(option: str, item: str):
-    """Raise for an option the port does not run yet, naming the
-    ROADMAP.md item that will bring it."""
-    raise NotImplementedError(
-        f"{option} is not ported to repro_torch yet (ROADMAP.md item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class LocalSpec:
     """Static description of one client's local-training run."""

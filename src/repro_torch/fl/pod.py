@@ -83,9 +83,6 @@ filter (``PodFLSpec.peft`` / ``trainable_filter``) splits the buckets as
 on the host engine: the frozen buckets are this rank's rows of the
 ``ShardedFlatView``'s ``frozen:`` groups, placed once per phase where
 ``rules.frozen_flat_shardings`` puts them and merged at the loss.
-
-Not ported yet, raising ``NotImplementedError`` naming its item: AOT
-lowering of the pod round (M15).
 """
 from __future__ import annotations
 
@@ -111,7 +108,7 @@ from repro_torch.fl.engine import (
 )
 from repro_torch.fl.local import (FlatParamOps, LocalSpec,
                                   effective_trainable_filter, make_local_fn,
-                                  not_ported, param_shapes, validate_peft,
+                                  param_shapes, validate_peft,
                                   validate_update_impl)
 from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
 from repro_torch.fl.task import Task
@@ -180,6 +177,31 @@ def _batch_all_reduce(t: torch.Tensor, mesh, kind: str) -> torch.Tensor:
 def _batch_shards(mesh) -> int:
     """The size of the batch group (pod, data)."""
     return math.prod(mesh.axis_size(a) for a in rules.batch_axes(mesh))
+
+
+def batch_mean_(tensors, mesh) -> None:
+    """Each tensor averaged over the batch group (pod, data) in place: one
+    all-reduce per batch axis each, counted as "grad"."""
+    shards = _batch_shards(mesh)
+    for t in tensors:
+        _batch_all_reduce(t, mesh, "grad")
+        if shards > 1:
+            t.div_(shards)
+
+
+def gather_dim(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The whole of a tensor of which this rank holds block ``dim`` of
+    the ranks over mesh ``axes`` (row-major): one all-gather over them,
+    counted as "gather"."""
+    axes = tuple(axes)
+    n = math.prod(mesh.axis_size(a) for a in axes)
+    full = torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    all_gather_into(full.reshape(-1), t.contiguous().reshape(-1),
+                     mesh.group(axes))
+    _count("gather", full.numel() * full.element_size())
+    shape = list(t.shape)
+    shape[dim] *= n
+    return full.movedim(0, dim).reshape(shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -704,16 +726,13 @@ class PodBackendMixin:
         reduced them."""
         if self.batch_shard(self.spec.batch_size) is None:
             return None
-        mesh, shards = self.mesh, _batch_shards(self.mesh)
+        mesh = self.mesh
         skip = fops.row_reduced if fops is not None else frozenset()
 
         def reduce(grads):
             left = ([g for name, g in grads.items() if name not in skip]
                     if skip else grads)
-            for g in tm.tree_leaves(left):
-                _batch_all_reduce(g, mesh, "grad")
-                if shards > 1:
-                    g.div_(shards)
+            batch_mean_(tm.tree_leaves(left), mesh)
             return grads
         return reduce
 
@@ -1060,16 +1079,6 @@ def run_pod_rounds(task: Task, data: FederatedDataset, cfg,
                       init_params=init_params, ledger=ledger, verbose=verbose,
                       eval_fn=eval_fn, switch_policy=switch_policy,
                       phase=phase, label=f"pod-{strategy.name}", device=dev)
-
-
-def make_pod_fl_round(*args, **kwargs):
-    """The AOT-lowerable pod round of the JAX package's dry run."""
-    not_ported("make_pod_fl_round", "M15")
-
-
-def lower_pod_round(*args, **kwargs):
-    """Lowering of the pod round for compile analysis."""
-    not_ported("lower_pod_round", "M15")
 
 
 # register with the declarative schedule so Phase(cfg=Pod*Config) works

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import library
+from repro_torch.kernels import library, work
 
 NEG_INF = -1e30
 FULL_WINDOW = 2 ** 30
@@ -143,6 +143,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+@work.counted("flash_attention", work.flash_attention)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: Optional[int] = None, q_offset: int = 0,
                     kv_len: Optional[int] = None) -> torch.Tensor:

@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import work as _work
 from repro_torch.kernels.library import (
     DTYPE_CODE as _DTYPE_CODE, check_launch as _check_launch, lib as _lib,
     ptr as _ptr, stream as _stream)
@@ -111,6 +112,7 @@ def local_step_plain(p, g, m, c, scalars, *, weight_decay: float = 0.0,
     return p, m
 
 
+@_work.counted("local_step", _work.local_step)
 def local_step(p: torch.Tensor, g: torch.Tensor, m: Optional[torch.Tensor],
                c: Optional[torch.Tensor], scalars: torch.Tensor, *,
                weight_decay: float = 0.0, momentum: float = 0.0):
@@ -162,6 +164,7 @@ def weighted_delta_plain(stacked, p, weights, *, extra=None,
     return (p32 + acc).to(p.dtype)
 
 
+@_work.counted("weighted_delta", _work.weighted_delta)
 def weighted_delta(stacked: torch.Tensor, p: torch.Tensor,
                    weights: torch.Tensor, *,
                    extra: Optional[torch.Tensor] = None,
@@ -216,6 +219,7 @@ def delta_accum_plain(d, w, p, coeff):
     return d
 
 
+@_work.counted("delta_accum", _work.delta_accum)
 def delta_accum(d: torch.Tensor, w: torch.Tensor, p: Optional[torch.Tensor],
                 coeff: torch.Tensor) -> torch.Tensor:
     """One client's contribution to the pod backend's running f32
@@ -290,6 +294,7 @@ def server_update_plain(p, delta, moments, scalars, *, avg=None,
     return p, (mu, nu)
 
 
+@_work.counted("server_update", _work.server_update)
 def server_update(p: torch.Tensor, delta: Optional[torch.Tensor],
                   moments: Sequence[torch.Tensor], scalars: torch.Tensor, *,
                   avg: Optional[torch.Tensor] = None, opt: str = "none",
@@ -391,6 +396,7 @@ def compress_delta_plain(d, thresh, *, bits: int = 32, topk: bool = False,
     return (x, d0 - x) if with_residual else x
 
 
+@_work.counted("compress_delta", _work.compress_delta)
 def compress_delta(d: torch.Tensor, thresh: Optional[torch.Tensor], *,
                    bits: int = 32, topk: bool = False,
                    with_residual: bool = False):
@@ -491,7 +497,6 @@ def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
     keys = keys.view(n_ctas, slice_)
     prefix = torch.zeros((), dtype=torch.long, device=dev)
     rank = torch.full((), k, dtype=torch.long, device=dev)
-    bins = torch.arange(256, device=dev)
     for p in range(4):
         shift = 24 - 8 * p
         fixed = (0xFFFFFFFF << (shift + 8)) & 0xFFFFFFFF if p else 0
@@ -503,8 +508,9 @@ def topk_cluster_plain(d, k: int, n_ctas: int = TOPK_CLUSTER
         suffix = total.flip(0).cumsum(0).flip(0)        # S(t)
         above = suffix - total                          # S(t + 1)
         t = torch.argmax(((suffix >= rank) & (above < rank)).long())
-        prefix = prefix | (bins[t] << shift)
-        rank = rank - above[t]
+        # (t read on the device: a fake-tensor capture has no value)
+        prefix = prefix | (t << shift)
+        rank = rank - above.gather(0, t.reshape(1)).reshape(())
     return prefix.to(torch.int32).view(torch.float32)
 
 
@@ -513,6 +519,7 @@ def _topk_workspace_words() -> int:
     return int(_lib().up_topk_workspace_words())
 
 
+@_work.counted("topk_threshold", _work.topk_threshold)
 def topk_threshold(d: torch.Tensor, k: int) -> torch.Tensor:
     """τ = the k-th largest |d| of a 1-D f32 buffer, exactly, as a 0-dim
     f32 tensor on ``d``'s device; the card never waits on the host and
@@ -557,6 +564,7 @@ def topk_compress_plain(d, k: int, *, bits: int = 32,
     return c, r, tau
 
 
+@_work.counted("topk_compress", _work.topk_compress)
 def topk_compress(d: torch.Tensor, k: int, *, bits: int = 32,
                   with_residual: bool = False):
     """The top-k compressed upload of one client's 1-D f32 delta: τ = the
@@ -610,6 +618,7 @@ def dp_clip_noise_plain(d, z, scalars):
     return u
 
 
+@_work.counted("dp_clip_noise", _work.dp_clip_noise)
 def dp_clip_noise(d: torch.Tensor, z: Optional[torch.Tensor],
                   scalars: torch.Tensor) -> torch.Tensor:
     """One client's DP upload over a 1-D f32 delta in one pass, as a new
@@ -652,6 +661,7 @@ def dp_clip_noise_rows_plain(w, p, z, clip_scales, noise_scale):
     return torch.stack(rows)
 
 
+@_work.counted("dp_clip_noise_rows", _work.dp_clip_noise_rows)
 def dp_clip_noise_rows(w: torch.Tensor, p: torch.Tensor,
                        z: Optional[torch.Tensor], clip_scales: torch.Tensor,
                        noise_scale: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import library
+from repro_torch.kernels import library, work
 
 SMEM_LIMIT = 232_448       # bytes of shared memory a block may use (sm_90)
 HEAD_DIMS = (32, 64, 128)  # the head sizes the kernel is built for
@@ -181,6 +181,7 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
         raise ValueError(f"chunk must be positive, got {chunk}")
 
 
+@work.counted("ssd_scan", work.ssd_scan)
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,6 +17,15 @@ with an address, a world size and a rank before :func:`make_mesh`.
 exists yet it first makes one (``nccl`` for CUDA, ``gloo`` for the CPU)
 over a ``file://`` store in a fresh temporary directory, so a single
 device runs the same code path as a multi-rank run.
+
+:func:`make_production_mesh` gives the JAX package's production meshes,
+16×16 ``("data", "model")`` and 2×16×16 ``("pod", "data", "model")``,
+as a stand-in that only names the axes (:class:`AbstractMesh`, what the
+sharding rules read).  For the compile analysis
+(``repro_torch.launch.dryrun``), :func:`make_fake_mesh` gives a
+:class:`Mesh` of the same shape over a ``fake`` process group of 256 or
+512 ranks seen from rank 0, whose collectives move nothing.  The roofline constants are the H100 SXM's (the counterpart of
+the JAX package's TPU v5e figures).
 """
 from __future__ import annotations
 
@@ -32,6 +41,13 @@ import torch.distributed as dist
 
 from repro_torch.utils.device import Device, resolve_device
 
+# the roofline's rates per card: the H100 SXM's dense bf16 tensor-core
+# peak, its HBM3 bandwidth, and NVLink 4's bandwidth each way (the
+# counterpart of the JAX package's per-link ICI_BW)
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s
+HBM_BW = 3.35e12              # B/s
+NVLINK_BW = 450e9             # B/s each way
+
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
@@ -46,6 +62,20 @@ class MeshSpec:
 
 SINGLE_POD = MeshSpec("pod", (16, 16), ("data", "model"))
 MULTI_POD = MeshSpec("multipod", (2, 16, 16), ("pod", "data", "model"))
+
+
+class AbstractMesh:
+    """What the sharding rules read of a mesh (``axis_names``, ``devices``
+    — the ranks in the mesh shape — and the ``shape`` dict), with no
+    process group."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        self.axis_names: Tuple[str, ...] = tuple(axes)
+        self.devices = np.arange(math.prod(shape)).reshape(tuple(shape))
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, shape))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
 
 
 class Mesh:
@@ -171,6 +201,33 @@ def reduce_scatter_into(out: torch.Tensor, t: torch.Tensor, group) -> None:
     fn = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     fn(out, t, group=group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The 16×16 pod mesh, or with ``multi_pod`` the 2×16×16 one, as an
+    :class:`AbstractMesh` (no process group).  The compile analysis runs
+    over :func:`make_fake_mesh` of the same shape and axes."""
+    spec = MULTI_POD if multi_pod else SINGLE_POD
+    return AbstractMesh(spec.shape, spec.axes)
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A :class:`Mesh` on the CPU over a ``fake`` process group of
+    ``prod(shape)`` ranks, seen from rank 0.  The group is made when none
+    exists and made anew when the fake group has another size; a real
+    group raises (a fake one needs a process of its own)."""
+    world = math.prod(shape)
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError("a fake mesh needs a process with no "
+                               "process group (or a fake one)")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+    return make_mesh(shape, axes, "cpu")
 
 
 def make_host_mesh(device: Device = None) -> Mesh:

@@ -75,14 +75,19 @@ def _value_and_grad(cfg: TransformerConfig, params: Pytree, batch):
     return loss.detach(), out
 
 
-def make_train_step(cfg: TransformerConfig, spec: TrainSpec) -> Callable:
-    """(params, mom, batch) -> (params, mom, metrics)."""
+def make_train_step(cfg: TransformerConfig, spec: TrainSpec,
+                    value_and_grad: Callable = _value_and_grad) -> Callable:
+    """(params, mom, batch) -> (params, mom, metrics).  ``value_and_grad
+    (cfg, params, batch) -> (loss, grads in tree_leaves order)`` gives
+    the gradient: by default of ``lm_loss`` over the param tree; the
+    compile analysis passes one over a rank's rows of the flat buckets
+    (``repro_torch.launch.dryrun``)."""
 
     def train_step(params, mom, batch):
         p_leaves, treedef = tm.tree_flatten(params)
         m_leaves = tm.tree_leaves(mom)
         if spec.n_micro == 1:
-            loss, grads = _value_and_grad(cfg, params, batch)
+            loss, grads = value_and_grad(cfg, params, batch)
             new_m = [spec.momentum * m + g.to(m.dtype)
                      for m, g in zip(m_leaves, grads)]
         else:
@@ -91,7 +96,7 @@ def make_train_step(cfg: TransformerConfig, spec: TrainSpec) -> Callable:
             losses = []
             for i in range(spec.n_micro):
                 mb = {k: v[i] for k, v in micro.items()}
-                loss_i, grads = _value_and_grad(cfg, params, mb)
+                loss_i, grads = value_and_grad(cfg, params, mb)
                 new_m = [c + g.to(c.dtype) / spec.n_micro
                          for c, g in zip(new_m, grads)]
                 losses.append(loss_i)

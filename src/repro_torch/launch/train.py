@@ -23,6 +23,13 @@ and its ``--rank``, the ``--world-size`` and one ``--init-method`` (a
 group itself (nccl on CUDA, gloo on the CPU), and the layout
 (``--layout``, default ``fsdp_tp``) shards the model's buckets over the
 mesh.
+
+The pre-sampled round bodies ``make_pod_cyclic_round`` and
+``make_pod_fl_round`` (clients in order over batches sampled up front,
+plain tree math) are the JAX package's per-round baseline;
+``lower_pod_round`` captures one pod round as a rank runs it, on fake
+tensors over a fake process group, for the compile analysis
+(``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -42,21 +49,174 @@ from repro_torch.fl.pod import (
     PodCyclicConfig,
     PodFLConfig,
     PodFLSpec,
-    lower_pod_round,
-    make_pod_fl_round,
 )
 from repro_torch.fl.privacy import DPSpec
 from repro_torch.fl.simulation import HOST_RNG_OFFSET_P2
 from repro_torch.fl.task import lm_task
-from repro_torch.models.transformer import TransformerConfig, init_lm
+from repro_torch.models.transformer import (TransformerConfig, init_lm,
+                                            lm_loss)
 from repro_torch.sharding import rules
+from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import Device, resolve_device
 
 Pytree = Any
 
 __all__ = ["sample_round_batches", "sequence_loss_metric",
-           "PodTrainResult", "run_pod_training", "make_pod_fl_round",
-           "lower_pod_round", "main"]
+           "PodTrainResult", "run_pod_training", "make_pod_cyclic_round",
+           "make_pod_fl_round", "lower_pod_round", "main"]
+
+
+def _local_sgd(cfg: TransformerConfig, spec: PodFLSpec) -> Callable:
+    """t_i SGD steps on one client's pre-sampled batches.
+
+    ``(params, batches, lr_scale, anchor) -> (params, mean_loss)``;
+    ``batches`` leaves ``(t_i, B, S)``; ``anchor`` is fedprox's anchor
+    (the round's global params) or None.  Per step, in the reference's
+    order: clip the raw gradient, then weight decay, then momentum; the
+    FedProx term is in the loss.  The step is taken in f32 and cast to
+    each leaf's dtype."""
+
+    def loss_fn(params, mb, anchor):
+        loss, _ = lm_loss(params, cfg, mb)
+        if spec.algorithm == "fedprox" and anchor is not None:
+            loss = loss + 0.5 * spec.mu * tm.squared_norm(tm.tree_map(
+                lambda p, a: (p - a).float(), params, anchor))
+        return loss
+
+    def value_and_grad(w, mb, anchor):
+        leaves, treedef = tm.tree_flatten(w)
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(tm.tree_unflatten(treedef, live), mb, anchor)
+            grads = torch.autograd.grad(loss, live)
+        return loss.detach(), tm.tree_unflatten(treedef, list(grads))
+
+    def run(params, batches, lr_scale, anchor):
+        mom = tm.zeros_like(params) if spec.momentum else None
+        step_size = spec.lr * torch.as_tensor(lr_scale, dtype=torch.float32)
+        w, losses = params, []
+        for t in range(next(iter(batches.values())).shape[0]):
+            loss, grads = value_and_grad(w, {k: v[t] for k, v in
+                                             batches.items()}, anchor)
+            if spec.grad_clip:
+                grads = tm.global_clip(grads, spec.grad_clip)
+            if spec.weight_decay:
+                grads = tm.add_scaled(grads, w, spec.weight_decay)
+            if spec.momentum:
+                mom = tm.add_scaled(grads, mom, spec.momentum)
+                eff = mom
+            else:
+                eff = grads
+            w = tm.tree_map(lambda p, g: (p.float() - step_size * g.float()
+                                          ).to(p.dtype), w, eff)
+            losses.append(loss)
+        return w, torch.stack(losses).mean()
+
+    return run
+
+
+def make_pod_cyclic_round(cfg: TransformerConfig, spec: PodFLSpec
+                          ) -> Callable:
+    """P1: the sequential relay over K clients (Algorithm 1, one round).
+
+    ``(params, batches, lr_scale) -> (params, metrics)``; ``batches``
+    leaves ``(K, t_i, B, S)``, client-major.  The model hops client to
+    client; there is deliberately no aggregation."""
+    local = _local_sgd(cfg, spec)
+
+    def round_fn(params, batches, lr_scale):
+        losses = []
+        for i in range(next(iter(batches.values())).shape[0]):
+            params, loss = local(params, {k: v[i] for k, v in
+                                          batches.items()}, lr_scale, None)
+            losses.append(loss)
+        return params, {"local_loss": torch.stack(losses).mean()}
+
+    return round_fn
+
+
+def make_pod_fl_round(cfg: TransformerConfig, spec: PodFLSpec) -> Callable:
+    """P2: one federated round, the clients' local runs one after another
+    and their weighted delta accumulated in f32.
+
+    ``(params, batches, weights, lr_scale) -> (params, metrics)``;
+    ``batches`` leaves ``(K, t_i, B, S)``; ``weights`` ``(K,)`` the
+    clients' sample counts N_i.  Client i adds ``(w_i/Σw)·(w_end − p)``
+    to the accumulator, so the peak is 2×params (+ momentum) whatever K;
+    the new params are ``p + delta`` cast to each leaf's dtype."""
+    local = _local_sgd(cfg, spec)
+
+    def round_fn(params, batches, weights, lr_scale):
+        weights = torch.as_tensor(weights).float()
+        wsum = torch.sum(weights)
+        anchor = params if spec.algorithm == "fedprox" else None
+        delta = tm.tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        losses = []
+        for i in range(weights.shape[0]):
+            w_end, loss = local(params, {k: v[i] for k, v in
+                                         batches.items()}, lr_scale, anchor)
+            coeff = weights[i] / wsum
+            delta = tm.tree_map(lambda a, we, p: a + coeff * (we - p).float(),
+                                delta, w_end, params)
+            losses.append(loss)
+        new_params = tm.tree_map(lambda p, d: (p.float() + d).to(p.dtype),
+                                 params, delta)
+        return new_params, {"local_loss": torch.stack(losses).mean()}
+
+    return round_fn
+
+
+def relay_spec(spec: PodFLSpec) -> PodFLSpec:
+    """P1's spec: privacy, compression and the trainable slice apply at
+    the P2 aggregate only — the relay hops the full model."""
+    return dataclasses.replace(spec, dp=None, secure_agg=False,
+                               compression=None, peft=None,
+                               trainable_filter=None)
+
+
+def lower_pod_round(cfg: TransformerConfig, mesh, *, kind: str = "fl",
+                    spec: Optional[PodFLSpec] = None, K: int = 8,
+                    batch: int = 32, seq: int = 512,
+                    layout: str = "fsdp_tp", seed: int = 0):
+    """Capture one pod round on ``mesh`` as rank 0 runs it: the engine's
+    round of ``PodCyclicConfig`` (``kind="cyclic"``, with
+    :func:`relay_spec`, as ``run_pod_training``'s P1) or ``PodFLConfig``
+    (``"fl"``) with ``spec`` at batch ``batch``, K clients of ``seq``
+    tokens, ``sampling="host"``, one round in one chunk, the final
+    gather of the result included — the program a real run of that
+    phase issues, collective for collective.  ``mesh`` is a
+    ``launch.mesh.Mesh`` over a fake process group
+    (``launch.mesh.make_fake_mesh``): every tensor is fake and nothing
+    is allocated.  Returns the ``hlo_analysis.StepCounter`` of the
+    round: FLOPs, bytes, the pod's collectives and the kernels' work.
+
+    The port has no SPMD partitioner: what a rank runs is the pod's
+    gather-then-compute (``fl.pod.ShardedFlatOps``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.fl.engine import run_rounds
+    from repro_torch.launch.hlo_analysis import StepCounter
+    if kind not in ("cyclic", "fl"):
+        raise ValueError(f"kind must be 'cyclic' or 'fl', got {kind!r}")
+    spec = dataclasses.replace(spec or PodFLSpec(), batch_size=batch)
+    task = lm_task(cfg)
+    tokens = np.zeros((K, batch, seq), np.int32)
+    data = FederatedDataset(x=tokens, y=tokens, n_real=np.full(K, batch),
+                            test_x=tokens[0], test_y=tokens[0],
+                            n_classes=cfg.vocab_size, name="capture")
+    common = dict(rounds=1, clients_per_round=K, layout=layout, seed=seed,
+                  sampling="host", chunk_size=1)
+    phase = (PodCyclicConfig(mesh, spec=relay_spec(spec), **common)
+             if kind == "cyclic" else PodFLConfig(mesh, spec=spec, **common))
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        init = tm.tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device=mesh.device), task.shapes())
+        with StepCounter() as counter:
+            run_rounds(task, data, phase.strategy(), phase.schedule(),
+                       init_params=init, device=mesh.device, history=False,
+                       phase="P1" if kind == "cyclic" else "P2")
+    return counter
 
 
 def sample_round_batches(data, ids: np.ndarray, steps: int, batch: int,
@@ -150,13 +310,8 @@ def run_pod_training(cfg: TransformerConfig, data, *,
                   eval_every=eval_every, eval_batch=eval_batch)
     phases = []
     if cyclic_rounds > 0:
-        # privacy, compression and the trainable slice apply at the P2
-        # aggregate only: the relay hops the full model client to client
-        p1_spec = dataclasses.replace(spec, dp=None, secure_agg=False,
-                                      compression=None, peft=None,
-                                      trainable_filter=None)
         phases.append(Phase("P1", PodCyclicConfig(
-            rounds=cyclic_rounds, seed=seed, **dict(common, spec=p1_spec),
+            rounds=cyclic_rounds, seed=seed, **dict(common, spec=relay_spec(spec)),
             batch_indices=batch_indices.get("P1")), eval_fn=eval_fn))
     if fl_rounds > 0:
         # each phase restarts its streams from its own seed: offset P2's

@@ -496,7 +496,13 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     topk_w = topk_w * cfg.routed_scaling
 
     # load-balance aux loss (Switch-style)
-    frac_tokens = F.one_hot(topk_idx[:, 0], E).float().mean(0)
+    # (the top-1 share of each expert: a one-hot mean, counted at a fixed
+    # shape so that no device validates the indices on the host)
+    top1 = topk_idx[:, 0]
+    frac_tokens = torch.zeros(E, dtype=torch.float32, device=x.device
+                              ).scatter_add_(0, top1, torch.ones(
+                                  top1.shape, dtype=torch.float32,
+                                  device=x.device)) / T
     aux = cfg.aux_loss_coef * E * torch.sum(frac_tokens * probs.mean(0))
 
     # capacity dispatch: a pair's slot is the number of pairs before it
@@ -505,7 +511,10 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     C = max(int(math.ceil(K * T / E * cfg.capacity_factor)), 1)
     flat_e = topk_idx.reshape(-1)                               # (T*K,)
     order = torch.sort(flat_e, stable=True).indices
-    counts = torch.bincount(flat_e, minlength=E)
+    # the per-expert counts at a fixed shape (E,): a bincount's shape
+    # would depend on the data, which a fake-tensor capture cannot follow
+    counts = torch.zeros(E, dtype=flat_e.dtype, device=x.device
+                         ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
     first = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(T * K, device=x.device) - first[flat_e[order]]
     slot = torch.empty_like(rank).scatter_(0, order, rank)

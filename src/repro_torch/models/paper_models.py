@@ -1,17 +1,21 @@
 """The paper's evaluation models, in PyTorch.
 
 The counterpart of ``repro/models/paper_models.py`` for LeNet-5,
-CNN-FEMNIST, CNN-Fashion, CharLSTM-256 and the two-layer MLP.  The
+ResNet-8, CNN-FEMNIST, CNN-Fashion, CharLSTM-256 and the two-layer
+MLP.  The
 parameter layout is the JAX package's, so weights carry across by copy
 (``repro_torch.bridge``): the same dict keys, HWIO conv weights,
 ``(d_in, d_out)`` fc weights and NHWC activations at every public
 function.  Inside ``conv2d`` the
 activations are permuted to NCHW and the weights to OIHW for
-``F.conv2d``; a 5×5 "SAME" convolution at stride 1 pads by 2.  The
-flatten before a classifier happens in NHWC order, as in the JAX
-package — ``f1["w"]``'s rows are in (H, W, C) order.
+``F.conv2d``; a "SAME" convolution pads as XLA does (a 5×5 at stride 1
+by 2 each side; at stride 2 the odd pad goes after).  The flatten
+before a classifier happens in NHWC order, as in the JAX package —
+``f1["w"]``'s rows are in (H, W, C) order.
 
-ResNet-8 is not ported (ROADMAP.md item M2b).
+ResNet-8 is forward only, as in the JAX package: its param tree holds
+an int ``stride`` leaf per block and the string ``norm_kind``, so the
+engines, which train tensor leaves, refuse it with a ``TypeError``.
 
 Each model is an (init, apply) pair over dict params:
 ``init(gen, n_classes, in_ch) -> params`` on ``gen``'s device (CharLSTM:
@@ -22,6 +26,7 @@ device draws the keep-mask, a tensor IS the keep-mask.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -46,14 +51,53 @@ def init_conv(gen, k: int, c_in: int, c_out: int, dtype=torch.float32) -> Pytree
 def conv2d(p: Pytree, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """NHWC × HWIO → NHWC, "SAME" padding (odd square kernels)."""
     w = p["w"].to(x.dtype).permute(3, 2, 0, 1)          # HWIO → OIHW
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, p["b"].to(x.dtype),
-                 stride=stride, padding=w.shape[-1] // 2)
+    xc, k = x.permute(0, 3, 1, 2), w.shape[-1]
+    if stride == 1:
+        y = F.conv2d(xc, w, p["b"].to(x.dtype), padding=k // 2)
+    else:
+        # XLA's SAME: the total pad (out-1)·s + k - in, the odd one after
+        pads = []
+        for n in (xc.shape[3], xc.shape[2]):
+            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        y = F.conv2d(F.pad(xc, pads), w, p["b"].to(x.dtype), stride=stride)
     return y.permute(0, 2, 3, 1)
 
 
 def maxpool(x: torch.Tensor, k: int = 2) -> torch.Tensor:
     """k×k max pool, stride k, "VALID" (NHWC)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), k, k).permute(0, 2, 3, 1)
+
+
+def avgpool_global(x: torch.Tensor) -> torch.Tensor:
+    return torch.mean(x, dim=(1, 2))
+
+
+def init_bn(gen, c: int, dtype=torch.float32) -> Pytree:
+    return {"scale": torch.ones((c,), dtype=dtype, device=gen.device),
+            "bias": torch.zeros((c,), dtype=dtype, device=gen.device)}
+
+
+def batchnorm(p: Pytree, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Train-mode BN (batch statistics), in training and evaluation
+    alike, as in the JAX package (running statistics are unreliable
+    under non-IID clients)."""
+    mu = torch.mean(x, dim=(0, 1, 2), keepdim=True)
+    var = torch.var(x, dim=(0, 1, 2), keepdim=True, correction=0)
+    xhat = (x - mu) * torch.rsqrt(var + eps)
+    return xhat * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
+
+
+def groupnorm(p: Pytree, x: torch.Tensor, groups: int = 8,
+              eps: float = 1e-5) -> torch.Tensor:
+    N, H, W, C = x.shape
+    g = math.gcd(groups, C)
+    xg = x.reshape(N, H, W, g, C // g)
+    mu = torch.mean(xg, dim=(1, 2, 4), keepdim=True)
+    var = torch.var(xg, dim=(1, 2, 4), keepdim=True, correction=0)
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    return xg.reshape(N, H, W, C) * p["scale"].to(x.dtype) + \
+        p["bias"].to(x.dtype)
 
 
 def init_fc(gen, d_in: int, d_out: int, dtype=torch.float32) -> Pytree:
@@ -91,6 +135,53 @@ def lenet5_apply(p: Pytree, x: torch.Tensor, train: bool = False,
     x = F.relu(fc(p["f1"], x))
     x = F.relu(fc(p["f2"], x))
     return fc(p["f3"], x)
+
+
+# ---------------------------------------------------------------------------
+# ResNet-8 (CIFAR-100): conv stem + 3 basic blocks + linear
+# ---------------------------------------------------------------------------
+
+def _init_basic_block(gen, c_in: int, c_out: int, stride: int) -> Pytree:
+    p = {"conv1": init_conv(gen, 3, c_in, c_out), "n1": init_bn(gen, c_out),
+         "conv2": init_conv(gen, 3, c_out, c_out), "n2": init_bn(gen, c_out),
+         "stride": stride}
+    if stride != 1 or c_in != c_out:
+        p["proj"] = init_conv(gen, 1, c_in, c_out)
+    return p
+
+
+def _basic_block(p: Pytree, x: torch.Tensor, norm_fn) -> torch.Tensor:
+    s = p["stride"]
+    h = F.relu(norm_fn(p["n1"], conv2d(p["conv1"], x, stride=s)))
+    h = norm_fn(p["n2"], conv2d(p["conv2"], h))
+    sc = conv2d(p["proj"], x, stride=s) if "proj" in p else x
+    return F.relu(h + sc)
+
+
+def resnet8_init(gen, n_classes: int = 100, in_ch: int = 3,
+                 norm: str = "batch") -> Pytree:
+    """The JAX package's tree: its int ``stride`` leaves and the string
+    ``norm_kind`` ("batch" or "group") included."""
+    return {
+        "stem": init_conv(gen, 3, in_ch, 16),
+        "stem_n": init_bn(gen, 16),
+        "b1": _init_basic_block(gen, 16, 16, 1),
+        "b2": _init_basic_block(gen, 16, 32, 2),
+        "b3": _init_basic_block(gen, 32, 64, 2),
+        "head": init_fc(gen, 64, n_classes),
+        "norm_kind": norm,
+    }
+
+
+def resnet8_apply(p: Pytree, x: torch.Tensor, train: bool = False,
+                  rng=None) -> torch.Tensor:
+    norm_fn = batchnorm if p.get("norm_kind", "batch") == "batch" \
+        else groupnorm
+    x = F.relu(norm_fn(p["stem_n"], conv2d(p["stem"], x)))
+    x = _basic_block(p["b1"], x, norm_fn)
+    x = _basic_block(p["b2"], x, norm_fn)
+    x = _basic_block(p["b3"], x, norm_fn)
+    return fc(p["head"], avgpool_global(x))
 
 
 # ---------------------------------------------------------------------------
@@ -229,6 +320,7 @@ def charlstm_apply(p: Pytree, tokens: torch.Tensor, train: bool = False,
 # ---------------------------------------------------------------------------
 
 PAPER_MODELS.register("lenet5")((lenet5_init, lenet5_apply, "vision"))
+PAPER_MODELS.register("resnet8")((resnet8_init, resnet8_apply, "vision"))
 PAPER_MODELS.register("cnn_femnist")((cnn_femnist_init, cnn_femnist_apply,
                                       "vision"))
 PAPER_MODELS.register("cnn_fashion")((cnn_fashion_init, cnn_fashion_apply,

@@ -380,8 +380,18 @@ def _store(dst: Pytree, src: Pytree) -> None:
     """Write a layer's new cache into its views of the stacked cache
     (attention already wrote its k/v there in place)."""
     for d, s in zip(tm.tree_leaves(dst), tm.tree_leaves(src)):
-        if d.data_ptr() != s.data_ptr():
+        if not _same_storage(d, s):
             d.copy_(s)
+
+
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are one view of one storage (then the copy
+    is a no-op).  Fake and meta tensors have no data pointer: their
+    storages compare by identity."""
+    if a.shape != b.shape or a.stride() != b.stride() or \
+            a.storage_offset() != b.storage_offset():
+        return False
+    return a.untyped_storage()._cdata == b.untyped_storage()._cdata
 
 
 def _run_blocks(params, cfg: TransformerConfig, x, positions,

@@ -16,8 +16,8 @@ dim the axis does not divide replicates on that axis, so the same rules
 drive a 16×16 pod, a 2×16×16 multi-pod and a one-rank mesh.
 
 The trainable-slice filters (``TRAINABLE_FILTERS``, ``trainable_mask``)
-pick the leaves a PEFT run trains; the decode-cache layout waits for a
-sharded serve path.
+pick the leaves a PEFT run trains; ``batch_pspecs`` and ``cache_pspecs``
+place a step's batch and decode cache (the compile analysis reads them).
 """
 from __future__ import annotations
 
@@ -241,9 +241,78 @@ def lane_axis_pspec(leaf_rank: int = 3) -> P:
 # federated batch / client-stack sharding
 # ---------------------------------------------------------------------------
 
-def batch_axes(mesh) -> Tuple[str, ...]:
-    """The mesh axes a federated batch shards over: (pod, data)."""
+def batch_axes(mesh, layout: str = "fsdp_tp") -> Tuple[str, ...]:
+    """The mesh axes a batch shards over: (pod, data), or every axis for
+    the ``fsdp_only`` and ``replicated`` layouts' step batches
+    (``batch_pspecs``).  The pod's federated batch reads the default:
+    (pod, data) under every layout."""
+    if layout in ("fsdp_only", "replicated"):
+        return tuple(a for a in (POD, DATA, MODEL) if a in mesh.axis_names)
     return tuple(a for a in (POD, DATA) if a in mesh.axis_names)
+
+
+def batch_pspecs(batch_tree: Pytree, mesh, layout: str = "fsdp_tp"
+                 ) -> Pytree:
+    """Shard every batch leaf's leading batch dim over (pod, data) — over
+    ALL axes for the fsdp_only and replicated layouts; when the batch dim
+    is too small (long_500k's B 1), shard the sequence dim over ``data``
+    instead, so a giant cache still distributes."""
+    axis_sizes = _axis_sizes(mesh)
+    baxes = batch_axes(mesh, layout)
+    b_total = math.prod(axis_sizes[a] for a in baxes)
+    n_data = axis_sizes.get(DATA, 1)
+
+    def leaf_spec(leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return P()
+        if shape[0] % b_total == 0 and shape[0] >= b_total:
+            return P(baxes if len(baxes) > 1 else baxes[0],
+                     *([None] * (len(shape) - 1)))
+        # sequence-dim fallback (dim 1 is time for caches and long decode)
+        if len(shape) >= 2 and shape[1] % n_data == 0 \
+                and shape[1] >= n_data and n_data > 1:
+            return P(None, DATA, *([None] * (len(shape) - 2)))
+        return P()
+
+    return tm.tree_map(leaf_spec, batch_tree)
+
+
+def cache_pspecs(cache_tree: Pytree, mesh, batch_size: int) -> Pytree:
+    """The KV/SSM decode cache's layout.  Leaves are per-layer ``(B, ...)``
+    or stacked ``(L, B, ...)``: the batch dim shards over (pod, data),
+    then ONE more dim over ``model`` — the largest trailing dim the axis
+    divides (KV heads, MLA's latent rank, the SSM head dim, or the time
+    axis when the batch is too small to shard, as long_500k's B 1)."""
+    axis_sizes = _axis_sizes(mesh)
+    baxes = batch_axes(mesh)
+    b_total = math.prod(axis_sizes[a] for a in baxes)
+    m = axis_sizes.get(MODEL, 1)
+
+    def leaf_spec(leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return P()
+        # the batch dim: 0 for per-layer leaves, 1 for stacked ones
+        bdim = None
+        if shape[0] == batch_size:
+            bdim = 0
+        elif len(shape) > 1 and shape[1] == batch_size:
+            bdim = 1
+        spec: list = [None] * len(shape)
+        if bdim is not None and batch_size % b_total == 0 \
+                and batch_size >= b_total:
+            spec[bdim] = baxes if len(baxes) > 1 else baxes[0]
+        # one model-sharded dim: the largest eligible dim after the batch
+        if m > 1:
+            start = (bdim + 1) if bdim is not None else 1
+            cands = [(shape[d], d) for d in range(start, len(shape))
+                     if shape[d] % m == 0 and shape[d] >= m]
+            if cands:
+                spec[max(cands)[1]] = MODEL
+        return P(*spec)
+
+    return tm.tree_map(leaf_spec, cache_tree)
 
 
 def fl_batch_pspec(mesh, leaf_rank: int, batch_axis: int = 2) -> P:

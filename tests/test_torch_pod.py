@@ -291,8 +291,6 @@ def test_unported_pod_options_raise_naming_their_items(mesh):
         spec=pod.PodFLSpec(update_impl="fused", peft="lora:4").local_spec(),
         mesh=four, layout="replicated")
     assert strat.flat_ops(task, torch.device("cpu")).view.frozen_sizes
-    with pytest.raises(NotImplementedError, match="M15"):
-        pod.lower_pod_round()
     with pytest.raises(ValueError, match="fused flat path"):
         pod.PodFLSpec(compression=compression.CompressionSpec(8, 0.25, True))
     with pytest.raises(ValueError, match="requires a mesh"):

@@ -318,6 +318,70 @@ def test_four_ranks_sharded_match_jax(runs, case):
                     atol=ATOL / (STEPS * LR), rtol=0)
 
 
+# the fsdp_tp cases lower_pod_round takes (its phase kwargs are the
+# defaults: no hierarchical lanes, the dense store)
+LOWERED = ("tp-lora-fedavgm", "tp-relay", "tp-compressed-ef", "tp-lora-dp",
+           "tp-clip")
+
+_LOWER = textwrap.dedent("""
+    import json, sys
+    from repro_torch.configs import get_reduced, with_peft
+    from repro_torch.fl import compression, privacy
+    from repro_torch.launch.mesh import destroy, make_fake_mesh
+    from repro_torch.launch.train import PodFLSpec, lower_pod_round
+    cfg = json.load(open(sys.argv[1]))
+    out = {}
+    for name in cfg["lowered"]:
+        case = cfg["cases"][name]
+        mesh = make_fake_mesh(case["shape"], ("data", "model"))
+        peft = case.get("peft")
+        spec = PodFLSpec(
+            update_impl="fused", algorithm=case.get("algorithm", "fedavg"),
+            server_opt=case.get("server_opt", "none"), peft=peft,
+            dp=privacy.DPSpec(case["dp"]) if case.get("dp") else None,
+            compression=(compression.CompressionSpec(8, 0.25, True)
+                         if case.get("compressed") else None),
+            grad_clip=case.get("grad_clip"), **cfg["spec"])
+        c = lower_pod_round(
+            with_peft(get_reduced(cfg["arch"]), peft), mesh,
+            kind="cyclic" if case["kind"] == "relay" else "fl", spec=spec,
+            K=cfg["K"], batch=cfg["spec"]["batch_size"], seq=cfg["seq"],
+            layout=case["layout"], seed=cfg["seed"])
+        out[name] = {"collectives": c.collectives,
+                     "bytes": c.collective_bytes, "kernels": c.kernels}
+    destroy()
+    json.dump(out, open(cfg["out"], "w"))
+""")
+
+
+@pytest.fixture(scope="module")
+def lowered(runs):
+    """``lower_pod_round`` of each case of LOWERED, in a process of its
+    own (the fake process group cannot share one with gloo)."""
+    cfg = json.loads((runs / "cfg.json").read_text())
+    cfg.update(lowered=LOWERED, out=str(runs / "lowered.json"))
+    (runs / "lcfg.json").write_text(json.dumps(cfg))
+    proc = _spawn([sys.executable, "-c", _LOWER, str(runs / "lcfg.json")],
+                  {"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"})
+    _wait([proc], "lower_pod_round")
+    return json.loads((runs / "lowered.json").read_text())
+
+
+@pytest.mark.parametrize("case", LOWERED)
+def test_lower_pod_round_counts_the_runs_collectives(runs, lowered, case):
+    """The captured round issues every collective of the real four-rank
+    run, kind by kind, count and bytes; its kernels are the real run's
+    calls."""
+    low = lowered[case]
+    for cnt in _counts(runs, case):
+        assert cnt["collectives"] == low["collectives"]
+        assert cnt["bytes"] == low["bytes"]
+        for k in ("local_step", "delta_accum", "server_update"):
+            assert cnt["calls"][k] == low["kernels"].get(
+                k, {"calls": 0})["calls"], k
+    assert low["collectives"]["gather"] > 0 and low["collectives"]["grad"] > 0
+
+
 @pytest.mark.parametrize("case", BITWISE)
 def test_fsdp_tp_equals_replicated_bitwise(runs, case):
     """On (2, 2) the sharded layout gives the replicated layout's params

@@ -144,13 +144,6 @@ def test_sample_round_batches_matches_jax():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_aot_round_surfaces_stay_m15():
-    with pytest.raises(NotImplementedError, match="M15"):
-        train.make_pod_fl_round()
-    with pytest.raises(NotImplementedError, match="M15"):
-        train.lower_pod_round()
-
-
 def _run(args, timeout=240):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable] + args, cwd=ROOT, env=env,
