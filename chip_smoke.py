@@ -259,14 +259,21 @@ JSON line per phase:
                      data x model mesh of four gloo ranks, four processes
                      on the one card (NCCL refuses two ranks on one
                      device; gloo takes the CUDA tensors), P1 1 x 2 x 2
-                     then P2 1 x 2 x 2 of batch 8, under fsdp_tp and
-                     then replicated: final params bitwise between the
-                     layouts, each rank's frozen rows the fsdp_tp view's
-                     per-shard sizes (550,162,432 bytes against
-                     2,200,096,768), K1, K6 and K3 once per bucket row,
-                     gathers only under fsdp_tp, P2's frozen leaves kept;
-                     ms a step, bytes gathered a step, collectives and
-                     peak memory per rank;
+                     then P2 1 x 2 x 2 of batch 8, under fsdp_tp
+                     (tensor-parallel compute over model on every rank:
+                     tp_compute, "tp" all-reduces), replicated, and
+                     fsdp_only (gather-then-compute; P1 alone): fsdp_only's
+                     P1 params bitwise the replicated run's, fsdp_tp's
+                     losses within SHARDED_LOSS_RTOL and params within
+                     SHARDED_TP_TOL of the replicated run's, each rank's
+                     frozen rows the fsdp_tp view's per-shard sizes
+                     (550,162,432 bytes against 2,200,096,768), K1, K6
+                     and K3 once per bucket row, gathers only when
+                     sharded, fsdp_tp's bytes gathered a step below the
+                     gather-then-compute 2,765,660,160, P2's frozen
+                     leaves kept; ms a step, bytes gathered and
+                     all-reduced over model a step, collectives and peak
+                     memory per rank, the card's name and power limit;
  14. dryrun        — the compile analysis (repro_torch.launch.dryrun) in
                      subprocesses on fake tensors over fake process
                      groups, five at a time, started before llm_lora so
@@ -279,7 +286,9 @@ JSON line per phase:
                      deepseek-v3-671b at train_4k on 2x16x16; one row a
                      pair (per-rank FLOPs, bytes, collective bytes by
                      kind, the roofline terms against the H100's peaks,
-                     useful_flops_ratio), every pair ok;
+                     useful_flops_ratio, tp_compute: the dense token
+                     archs compute tensor-parallel over model since PR
+                     28), every pair ok;
  15. dryrun_check  — (a) tinyllama-1.1b's train step at batch 8 x 512
                      captured on fake tensors and run on the card under
                      the same counter: FLOPs and bytes equal exactly; the
@@ -3703,7 +3712,23 @@ def llm_lora(torch, fu, mesh) -> dict:
 # two ranks on one device)
 SHARDED_MESH = (2, 2)
 SHARDED_K, SHARDED_STEPS, SHARDED_BATCH = 2, 2, 8
-SHARDED_LAYOUTS = ("fsdp_tp", "replicated")
+# fsdp_tp computes tensor-parallel; fsdp_only (gather-then-compute) runs
+# P1 alone, the phase its bitwise gate against replicated reads
+SHARDED_LAYOUTS = ("fsdp_tp", "replicated", "fsdp_only")
+# fsdp_tp against replicated in bf16 (the CPU tests' f32 tolerances do
+# not carry over): every GEMM of a tensor-parallel step has other shapes
+# (half the heads, columns or rows), so cuBLAS sums in another order and
+# a bf16 output can round to the neighbouring value; the row-parallel
+# halves then sum over model in bf16.  Through 22 layers and 8 SGD steps
+# that moves the losses by ~2e-5 relative and ~1.5% of the params by an
+# ulp (PR 28 calls 1-2: losses 1.9e-5 and 2.4e-5 apart, the largest
+# difference of a leaf 3.4-3.7% of its largest magnitude); reducing the
+# row-parallel outputs in f32 moved neither (call 2).  The gates: losses within rtol 5e-5, each leaf within 2**-4
+# of its largest magnitude.
+SHARDED_LOSS_RTOL = 5e-5
+SHARDED_TP_TOL = 2.0 ** -4
+# the gather-then-compute bytes gathered a step (PR 26's fsdp_tp)
+SHARDED_GATHERED_BEFORE = 2_765_660_160
 # the per-shard rows of its fsdp_tp buckets: P1's base over data + model,
 # P2's adapters over data and over model (kernel rows at these sizes)
 SHARDED_P1_ROW, SHARDED_P2_ROW = 274_989_056, 1_576_960
@@ -3716,11 +3741,13 @@ def pod_sharded_worker(rank: int, store: str, out: str) -> int:
     tinyllama-1.1b + lora:8 on ``llm_setup``'s data (the parent's, read
     from ``OUT/data.pkl``) through ``run_pod_training`` from one seeded
     init, made once: P1 1 round x 2 clients x 2 steps relaying the whole
-    model, then P2 1 x 2 x 2 on the adapters, batch 8, lr 0.03.
-    Writes ``OUT/rank<R>.json`` (per layout: seconds, ms a step, the
-    collectives and their bytes, K1/K6/K3 launches, the bytes of the
-    carried buffers, peak memory, whether P2 kept the frozen leaves) and
-    whether the two layouts' final params agree bit for bit."""
+    model, then P2 1 x 2 x 2 on the adapters, batch 8, lr 0.03 (fsdp_only:
+    P1 alone).  Writes ``OUT/rank<R>.json`` (per layout: seconds, ms a
+    step, the collectives and their bytes, K1/K6/K3 launches, the bytes
+    of the carried buffers, peak memory, whether P2 kept the frozen
+    leaves, whether each phase computed tensor-parallel), whether
+    fsdp_only's P1 params equal the replicated run's bit for bit, and
+    fsdp_tp's largest difference from the replicated params."""
     import pickle
     import torch
     import torch.distributed as dist
@@ -3748,49 +3775,90 @@ def pod_sharded_worker(rank: int, store: str, out: str) -> int:
     report, finals = {"rank": rank, "coords": mesh.coords,
                       "setup_s": time.perf_counter() - t0}, {}
     for layout in SHARDED_LAYOUTS:
+        fl_rounds = 0 if layout == "fsdp_only" else 1
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         pod.reset_collective_counts()
         fu.reset_launch_counts()
         dist.barrier()
         t0 = time.perf_counter()
-        res = run_pod_training(cfg, data, cyclic_rounds=1, fl_rounds=1,
+        res = run_pod_training(cfg, data, cyclic_rounds=1,
+                               fl_rounds=fl_rounds,
                                clients_per_round=SHARDED_K, spec=spec,
                                mesh=mesh, seed=SEED, layout=layout,
                                init_params=init)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        p1, p2 = (ph.result for ph in res.schedule.phases)
-        frozen_kept = all(torch.equal(a, b) for a, b, m in zip(
-            tree_leaves(p1.params), tree_leaves(res.params), mask) if not m)
+        phases = [ph.result for ph in res.schedule.phases]
+        n_steps = len(phases) * steps
         report[layout] = dict(
-            run_s=run_s, ms_per_step=run_s * 1e3 / (2 * steps),
+            run_s=run_s, ms_per_step=run_s * 1e3 / n_steps,
             collectives=dict(pod.COLLECTIVES),
             collective_bytes=dict(pod.COLLECTIVE_BYTES),
             gathered_bytes_per_step=pod.COLLECTIVE_BYTES["gather"] /
-            (2 * steps),
+            n_steps,
+            tp_bytes_per_step=pod.COLLECTIVE_BYTES["tp"] / n_steps,
+            tp_compute=[ph.tp_compute for ph in phases],
             launches={k: fn.launches for k, fn in (
                 ("local_step", fu.local_step),
                 ("delta_accum", fu.delta_accum),
                 ("server_update", fu.server_update))},
-            resident_p1=p1.resident_bytes, resident_p2=p2.resident_bytes,
+            resident_p1=phases[0].resident_bytes,
+            resident_p2=phases[-1].resident_bytes if fl_rounds else None,
             peak_memory_bytes=torch.cuda.max_memory_allocated(),
             losses=[h["loss"] for h in res.history],
-            frozen_kept_by_p2=frozen_kept)
-        finals[layout] = tree_leaves(res.params)
-        del res, p1, p2
+            frozen_kept_by_p2=all(torch.equal(a, b) for a, b, m in zip(
+                tree_leaves(phases[0].params), tree_leaves(res.params),
+                mask) if not m))
+        if layout == "fsdp_tp":
+            finals[layout] = tree_leaves(res.params)
+        elif layout == "replicated":
+            report["tp_vs_replicated"] = _tp_vs_replicated(
+                torch, finals.pop("fsdp_tp"), tree_leaves(res.params))
+            # the runs read the init and never write it: a run that did
+            # would start the other layouts elsewhere and fail the gates
+            report["moved"] = sum(int(not torch.equal(x, y)) for x, y in
+                                  zip(tree_leaves(res.params),
+                                      tree_leaves(init)))
+            finals["replicated/P1"] = tree_leaves(phases[0].params)
+        else:
+            a, b = tree_leaves(res.params), finals.pop("replicated/P1")
+            report["fsdp_only_bitwise"] = len(a) == len(b) and all(
+                x.dtype == y.dtype and torch.equal(x, y)
+                for x, y in zip(a, b))
+        del res, phases
         torch.cuda.empty_cache()
-    a, b = (finals[layout] for layout in SHARDED_LAYOUTS)
-    report["params_bitwise"] = len(a) == len(b) and all(
-        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
-    # the runs read the init and never write it: a run that did would
-    # start the other layout elsewhere and fail the bitwise gate
-    report["moved"] = sum(int(not torch.equal(x, y)) for x, y in zip(
-        a, tree_leaves(init)))
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def _tp_vs_replicated(torch, a, b) -> dict:
+    """fsdp_tp's leaves ``a`` against replicated's ``b``: the largest
+    difference of a leaf over its largest magnitude (``rel``, and the
+    leaf's index), the largest difference, the share of elements that
+    differ, and the share that differ by more than one ulp of the larger
+    of the two values in the leaves' dtype."""
+    rel = max_abs = differ = beyond = n = 0
+    worst = None
+    for i, (x, y) in enumerate(zip(a, b)):
+        d = (x.float() - y.float()).abs()
+        top = float(d.max())
+        r = top / max(float(y.float().abs().max()), 1e-30)
+        if r > rel:
+            rel, worst = r, i
+        max_abs = max(max_abs, top)
+        differ += int((d > 0).sum())
+        big = torch.maximum(x.float().abs(), y.float().abs())
+        ulp = torch.finfo(x.dtype).eps * torch.exp2(torch.floor(
+            torch.log2(big.clamp(min=torch.finfo(x.dtype).tiny))))
+        beyond += int((d > ulp).sum())
+        n += d.numel()
+        del d, big, ulp
+    return dict(dtypes_equal=all(x.dtype == y.dtype for x, y in zip(a, b)),
+                rel=rel, worst_leaf=worst, max_abs=max_abs,
+                differ=differ / n, beyond_one_ulp=beyond / n)
 
 
 def pod_sharded(torch) -> dict:
@@ -3798,21 +3866,30 @@ def pod_sharded(torch) -> dict:
     card.  Spawns four ``pod_sharded_worker`` processes (gloo over a
     ``file://`` store under TMPDIR, all on cuda:0; the kernels run on the
     card, the collectives go through gloo, which takes CUDA tensors) and
-    gates: each rank's final params bitwise the same under ``fsdp_tp``
-    and ``replicated``; its resident frozen rows in P2 the per-shard
-    sizes of the fsdp_tp view, a quarter of the replicated run's but for
-    the few leaves sharded over one axis or none (550 MB against 2.2 GB);
-    K1, K6 and K3 launched once per bucket each step, client and round
-    (4 x P1's buckets + 4 x P2's, 2 x P2's, P2's); the collectives by
-    kind, exactly (``want_collectives``); P2 kept every frozen leaf; the
-    losses finite.  Reported per rank: ms a step,
-    bytes gathered a step, collectives by kind, peak memory.  Returns
-    the fsdp_tp launches of rank 0 (the kernel rows' launches) and every
-    rank's report (dryrun_check reads their collectives)."""
+    gates: fsdp_tp computed tensor-parallel in both phases on every rank
+    (``tp_compute``, "tp" all-reduces) and fsdp_only and replicated did
+    not; fsdp_only's P1 params bitwise the replicated run's; fsdp_tp's
+    losses within SHARDED_LOSS_RTOL and its params within SHARDED_TP_TOL
+    of the replicated run's; each rank's resident frozen rows in P2 the
+    per-shard sizes of the fsdp_tp view, a quarter of the replicated
+    run's but for the few leaves sharded over one axis or none (550 MB
+    against 2.2 GB); K1, K6 and K3 launched once per bucket each step,
+    client and round (4 x P1's buckets + 4 x P2's, 2 x P2's, P2's); the
+    gathers and gradient collectives by kind, exactly
+    (``want_collectives``: under fsdp_tp one a part of a bucket,
+    ``ShardedFlatView.model_local``; the "tp" kind is dryrun_check
+    (b)'s); fsdp_tp's bytes gathered a step below the
+    gather-then-compute run's; P2 kept every frozen leaf; the losses
+    finite.  Reported per rank: ms a step, bytes gathered and all-reduced
+    over model a step, collectives by kind, peak memory, and the card.
+    Returns the fsdp_tp launches of rank 0 (the kernel rows' launches)
+    and every rank's report (dryrun_check reads their collectives)."""
     import pickle
     import tempfile
+    import dataclasses
     from repro_torch.fl.task import lm_task
-    from repro_torch.sharding import rules
+    from repro_torch.sharding import rules, tensor_parallel
+    from repro_torch.utils.tree_math import tree_paths
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3828,6 +3905,13 @@ def pod_sharded(torch) -> dict:
     if not {SHARDED_P1_ROW, SHARDED_P2_ROW} <= rows:
         raise SystemExit(f"chip_smoke: pod_sharded's fsdp_tp rows are "
                          f"{sorted(rows)}")
+    # the tensor-parallel layout of a rank (the same on every one)
+    tp = tensor_parallel.TPContext(
+        mesh=None, size=SHARDED_MESH[1], rank=0,
+        plan=tensor_parallel.plan(cfg, SHARDED_MESH[1]),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        vocab_size=cfg.vocab_size)
+    local = [tp.local(p) for p in tree_paths(shapes)]
     tmp = tempfile.mkdtemp(prefix="pod_sharded_")
     Path(tmp, "data.pkl").write_bytes(pickle.dumps(data))
     store = os.path.join(tmp, "store")
@@ -3852,60 +3936,100 @@ def pod_sharded(torch) -> dict:
              for r in range(world)]
     steps = SHARDED_K * SHARDED_STEPS
 
+    def phases(layout):
+        return ("P1",) if layout == "fsdp_only" else ("P1", "P2")
+
     def want(layout):
         n1 = len(views[(layout, "P1")].trainable_groups)
+        if layout == "fsdp_only":
+            return dict(local_step=steps * n1, delta_accum=0,
+                        server_update=0)
         n2 = len(views[(layout, "P2")].trainable_groups)
         return dict(local_step=steps * (n1 + n2), delta_accum=SHARDED_K * n2,
                     server_update=n2)
 
     def want_collectives(layout):
-        """A phase's collectives a rank: each step gathers every bucket
-        sharded over mesh axes (trainable and frozen) at the loss, and
-        the result gathers them once more; each step reduces each
-        trainable bucket's gradient with one collective (the mesh's one
-        batch axis, data: a reduce-scatter for a bucket sharded over it,
-        else an all-reduce); one loss reduction a phase (one chunk)."""
+        """A phase's collectives a rank but the "tp" kind: each step
+        gathers every part of a bucket sharded over mesh axes (trainable
+        and frozen; a part: the bucket, or under fsdp_tp its leaves that
+        keep their model tile and the rest) at the loss, and the result
+        gathers the buckets once more; each step reduces each trainable
+        part's gradient with one collective (the mesh's one batch axis,
+        data: a reduce-scatter for a part sharded over it, else an
+        all-reduce); one loss reduction a phase (one chunk)."""
         out = dict.fromkeys(("grad", "gather", "clip", "batch",
                              "lane_combine", "store_gather", "store_spill"),
                             0)
-        for ph in ("P1", "P2"):
+        for ph in phases(layout):
             v = views[(layout, ph)]
-            out["gather"] += (steps + 1) * sum(1 for g in v.groups if g.axes)
-            out["grad"] += steps * len(v.trainable_groups)
+            lv, parts = (v.model_local(local) if layout == "fsdp_tp" else
+                         (v, {g.name: ((g.name, None),) for g in v.groups}))
+            out["gather"] += steps * sum(
+                1 for ps in parts.values() for n, _ in ps
+                if lv.group_map[n].axes)
+            out["gather"] += sum(1 for g in v.groups if g.axes)
+            out["grad"] += steps * sum(len(parts[g.name])
+                                       for g in v.trainable_groups)
             out["batch"] += 1
         return out
     frozen_rows = 2 * sum(g.size for g in tp2.frozen_groups)
     frozen_whole = 2 * sum(g.size * g.n_shards for g in tp2.frozen_groups)
     bad = []
     for rk in ranks:
-        tp, rep = rk["fsdp_tp"], rk["replicated"]
+        tp_run, rep = rk["fsdp_tp"], rk["replicated"]
         for layout in SHARDED_LAYOUTS:
-            if rk[layout]["launches"] != want(layout):
+            got = rk[layout]
+            if got["launches"] != want(layout):
                 bad.append(f"rank {rk['rank']} {layout} launches "
-                           f"{rk[layout]['launches']} != {want(layout)}")
-            if not (rk[layout]["frozen_kept_by_p2"] and all(
-                    math.isfinite(x) for x in rk[layout]["losses"])):
+                           f"{got['launches']} != {want(layout)}")
+            if not (got["frozen_kept_by_p2"] and all(
+                    math.isfinite(x) for x in got["losses"])):
                 bad.append(f"rank {rk['rank']} {layout}: frozen leaves "
-                           f"changed or losses {rk[layout]['losses']}")
-        if (tp["resident_p2"]["frozen"], rep["resident_p2"]["frozen"]) != \
-                (frozen_rows, frozen_whole):
-            bad.append(f"rank {rk['rank']} frozen bytes "
-                       f"{tp['resident_p2']['frozen']} / "
-                       f"{rep['resident_p2']['frozen']}")
-        for layout in SHARDED_LAYOUTS:
-            if rk[layout]["collectives"] != want_collectives(layout):
+                           f"changed or losses {got['losses']}")
+            tp_on = layout == "fsdp_tp"
+            if got["tp_compute"] != [tp_on] * len(phases(layout)) or \
+                    (got["collectives"]["tp"] > 0) != tp_on:
+                bad.append(f"rank {rk['rank']} {layout}: tp_compute "
+                           f"{got['tp_compute']}, tp collectives "
+                           f"{got['collectives']['tp']}")
+            coll = {k: v for k, v in got["collectives"].items() if k != "tp"}
+            if coll != want_collectives(layout):
                 bad.append(f"rank {rk['rank']} {layout} collectives "
-                           f"{rk[layout]['collectives']} != "
-                           f"{want_collectives(layout)}")
-        if not rk["params_bitwise"] or rk["moved"] == 0:
-            bad.append(f"rank {rk['rank']}: fsdp_tp and replicated params "
-                       f"differ ({rk['params_bitwise']}) or none moved")
+                           f"{coll} != {want_collectives(layout)}")
+        if (tp_run["resident_p2"]["frozen"], rep["resident_p2"]["frozen"]) \
+                != (frozen_rows, frozen_whole):
+            bad.append(f"rank {rk['rank']} frozen bytes "
+                       f"{tp_run['resident_p2']['frozen']} / "
+                       f"{rep['resident_p2']['frozen']}")
+        if not rk["fsdp_only_bitwise"] or rk["moved"] == 0:
+            bad.append(f"rank {rk['rank']}: fsdp_only and replicated P1 "
+                       f"params differ ({rk['fsdp_only_bitwise']}) or none "
+                       f"moved")
+        close = rk["tp_vs_replicated"]
+        if not (close["dtypes_equal"] and close["rel"] <= SHARDED_TP_TOL):
+            bad.append(f"rank {rk['rank']}: fsdp_tp params off the "
+                       f"replicated run's: {close}")
+        if not all(math.isclose(a, b, rel_tol=SHARDED_LOSS_RTOL,
+                                abs_tol=0.0)
+                   for a, b in zip(tp_run["losses"], rep["losses"])):
+            bad.append(f"rank {rk['rank']}: fsdp_tp losses "
+                       f"{tp_run['losses']} against {rep['losses']}")
+        if not tp_run["gathered_bytes_per_step"] < SHARDED_GATHERED_BEFORE:
+            bad.append(f"rank {rk['rank']}: fsdp_tp gathers "
+                       f"{tp_run['gathered_bytes_per_step']} B a step")
     emit(dict(phase="pod_sharded", model=f"{LLM_ARCH} + {LLM_PEFT}",
               mesh=dict(zip(("data", "model"), SHARDED_MESH)),
               backend="gloo, four processes on cuda:0",
               rounds={"P1": "1 x 2 clients x 2 steps",
-                      "P2": "1 x 2 clients x 2 steps"},
-              batch=SHARDED_BATCH,
+                      "P2": "1 x 2 clients x 2 steps (not fsdp_only)"},
+              batch=SHARDED_BATCH, tp_plan=dataclasses.asdict(tp.plan),
+              per_step={layout: dict(
+                  ms=[rk[layout]["ms_per_step"] for rk in ranks],
+                  gathered_bytes=ranks[0][layout]["gathered_bytes_per_step"],
+                  tp_bytes=ranks[0][layout]["tp_bytes_per_step"],
+                  peak_memory_bytes=[rk[layout]["peak_memory_bytes"]
+                                     for rk in ranks])
+                  for layout in SHARDED_LAYOUTS},
               buckets={f"{layout}/{ph}": {
                   g.name: [g.n_shards, g.size] for g in v.groups}
                   for (layout, ph), v in views.items()},
@@ -3915,7 +4039,9 @@ def pod_sharded(torch) -> dict:
                                  for layout in SHARDED_LAYOUTS},
               expected_collectives={layout: want_collectives(layout)
                                     for layout in SHARDED_LAYOUTS},
-              ranks=ranks, phase_s=time.perf_counter() - t_phase))
+              tp_tol=SHARDED_TP_TOL, loss_rtol=SHARDED_LOSS_RTOL,
+              ranks=ranks, card=nvidia_smi(),
+              phase_s=time.perf_counter() - t_phase))
     if bad:
         raise SystemExit("chip_smoke: pod_sharded: " + "; ".join(bad))
     return ranks[0]["fsdp_tp"]["launches"], ranks
@@ -5044,7 +5170,8 @@ def finish_dryrun(futures, out: str, smi: str) -> dict:
             "hlo_bytes_per_chip", "collective_bytes_per_chip",
             "collective_detail", "collective_counts", "t_compute_s",
             "t_memory_s", "t_collective_s", "bottleneck", "model_flops",
-            "useful_flops_ratio", "t_capture_s", "kernels", "error")
+            "useful_flops_ratio", "tp_compute", "t_capture_s", "kernels",
+            "error")
     for row in rows:
         emit(dict(phase="dryrun", card=smi,
                   **{k: row[k] for k in keys if k in row}))

@@ -1308,6 +1308,9 @@ class EngineResult:
     # trainable "params" and the read-only "frozen" buckets (on a mesh,
     # the rank's rows); None on the tree path
     resident_bytes: Optional[Dict[str, int]] = None
+    # whether the steps computed tensor-parallel over the mesh's model
+    # axis (the pod's ShardedFlatOps.tp), or on whole leaves
+    tp_compute: bool = False
 
 
 @dataclasses.dataclass
@@ -1628,4 +1631,5 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     return EngineResult(params=params, history=rows,
                         algo_state=algo_state, server_state=server_state,
                         dispatches=dispatches, timing=timing,
-                        resident_bytes=resident)
+                        resident_bytes=resident,
+                        tp_compute=getattr(fops, "tp", None) is not None)

@@ -32,9 +32,15 @@ axis names, and this module reads it through the port's sharding rules
     data) and never over ``model``), the eval, the anchors of fedprox
     and moon and the result.  The one collective of the update path is
     the global clip norm: each bucket's Σg² summed over its own axes.
-    A gathered copy lives one step, as in FSDP; the model computes on
-    whole leaves (tensor-parallel compute is a later item).  The tree
-    path (``update_impl="tree"``) keeps whole leaves on every rank.
+    A gathered copy lives one step, as in FSDP.  Under ``fsdp_tp`` on a
+    ``model`` axis larger than 1 the dense token archs' step computes
+    tensor-parallel (``sharding.tensor_parallel``; ``ShardedFlatOps.
+    tp``): its leaves are gathered over each bucket's other axes only
+    where they keep their ``model`` tile, and the ranks of a ``model``
+    group split the heads, the MLP and the vocabulary; the other
+    families, FedProx, the eval, the anchors and the result compute on
+    whole leaves.  The tree path (``update_impl="tree"``) keeps whole
+    leaves on every rank.
   * Per-client state (scaffold's control variates, moon's previous
     local models, the error-feedback rows of compressed uploads) lives
     in a ``ShardedClientStateStore`` whose client axis shards over
@@ -140,10 +146,14 @@ _VARIANTS = {"fedavg": "plain", "fedprox": "fedprox",
 # chunk), "lane_combine" (one per bucket per hierarchical round),
 # "store_gather" (one per leaf per round of a client store sharded over
 # data), "store_spill" (one per leaf per commit that evicts live rows of
-# a sharded sparse store).  COLLECTIVE_BYTES holds the bytes each kind
-# received on this rank.
+# a sharded sparse store), "tp" (the all-reduces over ``model`` of a
+# tensor-parallel step, ``sharding.tensor_parallel``: per block the
+# row-parallel outputs forward and the column-parallel inputs backward,
+# the vocabulary's embedding and cross-entropy, the gradients of the
+# leaves whose model ranks compute different parts).  COLLECTIVE_BYTES
+# holds the bytes each kind received on this rank.
 _KINDS = ("grad", "gather", "clip", "batch", "lane_combine",
-          "store_gather", "store_spill")
+          "store_gather", "store_spill", "tp")
 COLLECTIVES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
 COLLECTIVE_BYTES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
 
@@ -397,31 +407,48 @@ class ShardedSparseClientStateStore(SparseClientStateStore):
 # ---------------------------------------------------------------------------
 
 class _GatherRows(torch.autograd.Function):
-    """The model's whole trainable leaves from this rank's rows: the
-    forward all-gathers each sharded bucket over its axes into the
-    ``whole_view`` buffers; the backward hands each bucket's row its
-    gradient, reduced over the batch group once
+    """The model's trainable leaves from this rank's rows under a
+    :class:`_Layout`: the forward all-gathers each bucket over the
+    layout's axes into its ``whole`` buffers; the backward hands each
+    bucket's row its gradient, reduced over the batch group once
     (``ShardedFlatOps._row_grad``)."""
 
     @staticmethod
-    def forward(ctx, ops, names, *rows):
-        ctx.ops, ctx.names = ops, names
+    def forward(ctx, ops, layout, names, *rows):
+        ctx.ops, ctx.layout, ctx.names = ops, layout, names
         ctx.widths = tuple(r.shape[-1] for r in rows)
-        whole = ops._gather(dict(zip(names, rows)))
+        whole = ops._gather(dict(zip(names, rows)), layout)
         ctx.whole_names = tuple(whole)
         return tuple(whole.values())
 
     @staticmethod
     def backward(ctx, *grads):
-        ops = ctx.ops
+        ops, layout = ctx.ops, ctx.layout
         whole = {}
         for name, g in zip(ctx.whole_names, grads):
             whole[name] = g if g is not None else torch.zeros(
-                ops.whole.buffer_sizes[name], dtype=torch_dtype(name),
+                layout.whole.buffer_sizes[name], dtype=torch_dtype(name),
                 device=ops.device)
-        return (None, None) + tuple(
-            ops._row_grad(name, ops.sharded.whole_to_rows(name, whole, w))
+        return (None, None, None) + tuple(
+            ops._row_grad(name, whole, w, layout)
             for name, w in zip(ctx.names, ctx.widths))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """How the model's leaves are formed from the rows: ``view`` is a
+    ShardedFlatView over the rows' elements whose ``whole_view()`` is the
+    leaves' layout (``whole``), and ``parts[bucket]`` lists the view's
+    buckets ``(part, index)`` that a row splits into (``index`` None: the
+    whole row).  The plain layout gathers every bucket over all its
+    axes; the tensor-parallel one keeps the local leaves' ``model`` tile
+    (``ShardedFlatView.model_local``)."""
+    view: Any
+    parts: Dict[str, tuple]
+
+    @functools.cached_property
+    def whole(self) -> FlatView:
+        return self.view.whole_view()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,15 +464,39 @@ class ShardedFlatOps(FlatParamOps):
     reduce-scatters the gradient back to the row), and the global clip
     norm sums each bucket's Σg² over its axes (:meth:`grad_sqsum`).
     ``split_batch`` says whether each rank computes its own part of the
-    batch (the gradient then reduces over the batch group)."""
+    batch (the gradient then reduces over the batch group).
+
+    With ``tp`` (a ``sharding.tensor_parallel.TPContext``: the
+    ``fsdp_tp`` layout of a dense token arch on a ``model`` axis larger
+    than 1) the step computes tensor-parallel: its loss runs on the
+    model-local tree (:meth:`tp_tree`), gathered over each bucket's axes
+    other than ``model`` for the leaves that keep their ``model`` tile
+    and over all its axes for the rest.  The eval, the anchors and the
+    result still gather whole leaves."""
     sharded: Any = None             # the ShardedFlatView
     mesh: Any = None
     split_batch: bool = False
+    tp: Any = None                  # TPContext, or None
 
     @functools.cached_property
     def whole(self) -> FlatView:
         """The whole leaves' layout (``ShardedFlatView.whole_view``)."""
         return self.sharded.whole_view()
+
+    @functools.cached_property
+    def _plain(self) -> _Layout:
+        return _Layout(self.sharded, {g.name: ((g.name, None),)
+                                      for g in self.sharded.groups})
+
+    @functools.cached_property
+    def _tp_layout(self) -> _Layout:
+        shapes = tm.tree_unflatten(self.sharded.treedef,
+                                   [0] * len(self.sharded.slots))
+        view, parts = self.sharded.model_local(
+            [self.tp.local(p) for p in tm.tree_paths(shapes)], rules.MODEL)
+        return _Layout(view, {b: tuple(
+            (n, None if i is None else i.to(self.device)) for n, i in ps)
+            for b, ps in parts.items()})
 
     @functools.cached_property
     def _coords(self) -> Dict[str, int]:
@@ -479,48 +530,75 @@ class ShardedFlatOps(FlatParamOps):
         return frozenset(g.name for g in self.sharded.trainable_groups
                          if g.axes)
 
-    # -- the model's whole leaves ----------------------------------------
+    # -- the model's leaves ------------------------------------------------
 
-    def _gather(self, rows: Dict[str, torch.Tensor]
+    def _gather(self, rows: Dict[str, torch.Tensor], layout: _Layout
                 ) -> Dict[str, torch.Tensor]:
-        """The whole-view buffers of the buckets ``rows`` (this rank's
-        rows, padded or not): one all-gather per sharded bucket over its
-        axes, counted as "gather" with its bytes."""
-        whole = {n: torch.empty(self.whole.all_sizes[n],
+        """The ``layout.whole`` buffers of the buckets ``rows`` (this
+        rank's rows, padded or not): one all-gather per part of a bucket
+        over the part's axes, counted as "gather" with its bytes."""
+        view = layout.view
+        whole = {n: torch.empty(layout.whole.all_sizes[n],
                                 dtype=torch_dtype(n), device=self.device)
-                 for n in self._whole_names(rows)}
+                 for n in self._whole_names(rows, layout)}
         for name, row in rows.items():
-            g = self.sharded.group_map[name]
             row = row.detach()
-            if g.axes:
-                full = torch.empty((g.n_shards, row.shape[-1]),
-                                   dtype=row.dtype, device=row.device)
-                all_gather_into(full.reshape(-1), row,
-                                self.mesh.group(g.axes))
-                _count("gather", full.numel() * full.element_size())
-            else:
-                full = row.reshape(1, -1)
-            self.sharded.rows_to_whole(name, full, whole)
+            for part, index in layout.parts[name]:
+                g = view.group_map[part]
+                sub = row[:g.size] if index is None else row[index]
+                if g.axes:
+                    full = torch.empty((g.n_shards, sub.shape[-1]),
+                                       dtype=sub.dtype, device=sub.device)
+                    all_gather_into(full.reshape(-1), sub.contiguous(),
+                                    self.mesh.group(g.axes))
+                    _count("gather", full.numel() * full.element_size())
+                else:
+                    full = sub.reshape(1, -1)
+                view.rows_to_whole(part, full, whole)
         return whole
 
-    def _row_grad(self, name: str, G: torch.Tensor) -> torch.Tensor:
-        """This rank's row gradient of bucket ``name`` from the whole
-        leaves' gradient rows ``G`` ``(n_shards, width)``.  Every element
-        sums exactly once over the batch group (pod, data), never over
-        ``model``, whose ranks compute the same part of the batch: the
-        ``model`` axes of the bucket are sliced at this rank's
-        coordinate, its batch axes reduce-scattered, and the batch axes
-        it is not sharded on all-reduced; then the batch mean.  A
-        replicated bucket returns its one row: ``grad_reducer`` reduces
-        it as on any layout."""
-        g = self.sharded.group_map[name]
-        if not g.axes:
+    def _row_grad(self, name: str, whole: Dict[str, torch.Tensor],
+                  width: int, layout: _Layout) -> torch.Tensor:
+        """This rank's row gradient (``width`` wide, zero past the size) of
+        bucket ``name`` from the leaves' gradient buffers ``whole``, part
+        by part (:meth:`_part_grad`)."""
+        reduce = bool(self.sharded.group_map[name].axes)
+        parts = layout.parts[name]
+        if len(parts) == 1 and parts[0][1] is None:
+            part = parts[0][0]
+            return self._part_grad(layout.view, part, layout.view
+                                   .whole_to_rows(part, whole, width), reduce)
+        out = None
+        for part, index in parts:
+            G = layout.view.whole_to_rows(part, whole)
+            g = self._part_grad(layout.view, part, G, reduce)
+            if out is None:
+                out = g.new_zeros(width)
+            out.index_copy_(0, index, g)
+        return out
+
+    def _part_grad(self, view, name: str, G: torch.Tensor,
+                   reduce: bool) -> torch.Tensor:
+        """This rank's row of part ``name`` from the leaves' gradient rows
+        ``G`` ``(n_shards, width)``.  Every element sums exactly once
+        over the batch group (pod, data) and never over ``model``: a
+        ``model`` rank holds either its tile's own gradient (a local leaf
+        of a tensor-parallel step) or the same whole gradient as the
+        other ``model`` ranks (its model ranks computed the same batch
+        part, or the step summed a leaf whose ranks computed different
+        parts of it: ``tensor_parallel.TPContext.partial``), so the
+        part's ``model`` axis is sliced at this rank's coordinate, its
+        batch axes reduce-scattered, and the batch axes it is not sharded
+        on all-reduced; then the batch mean.  A bucket not sharded over
+        mesh axes (``reduce`` False) returns its one row:
+        ``grad_reducer`` reduces it as on any layout."""
+        if not reduce:
             return G[0]
         mesh, width = self.mesh, G.shape[-1]
         if not self.split_batch:        # every rank computed the batch
-            return G[self.sharded.local_rows(self._coords)[name]].clone()
+            return G[view.local_rows(self._coords)[name]].clone()
         baxes = rules.batch_axes(mesh)
-        own, G = self._batch_rows(name, G)
+        own, G = self._batch_rows(view, name, G)
         if own:
             out = torch.empty(width, dtype=G.dtype, device=G.device)
             reduce_scatter_into(out, G.contiguous().reshape(-1),
@@ -534,46 +612,62 @@ class ShardedFlatOps(FlatParamOps):
         shards = _batch_shards(mesh)
         return out.div_(shards) if shards > 1 else out
 
-    def _batch_rows(self, name: str, G: torch.Tensor):
-        """``(own, rows)``: the batch axes bucket ``name`` is sharded on
-        (mesh order), and the rows of ``G`` ``(n_shards, width)`` at this
-        rank's coordinates on its other axes — one row per shard of
-        ``own``, row-major, the order of the group over ``own``."""
-        axes, width = self.sharded.group_map[name].axes, G.shape[-1]
+    def _batch_rows(self, view, name: str, G: torch.Tensor):
+        """``(own, rows)``: the batch axes part ``name`` of ``view`` is
+        sharded on (mesh order), and the rows of ``G`` ``(n_shards,
+        width)`` at this rank's coordinates on its other axes — one row
+        per shard of ``own``, row-major, the order of the group over
+        ``own``."""
+        axes, width = view.group_map[name].axes, G.shape[-1]
         own = tuple(a for a in axes if a in rules.batch_axes(self.mesh))
         G = G.reshape(tuple(self.mesh.axis_size(a) for a in axes) +
                       (width,))
         return own, G[tuple(slice(None) if a in own else self._coords[a]
                             for a in axes)].reshape(-1, width)
 
-    def unflatten(self, bufs: Dict[str, torch.Tensor],
-                  frozen: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Pytree:
-        """The whole tree from this rank's rows, gathered over each
-        bucket's axes (the ``frozen`` rows too, without a gradient; zero
-        when absent).  When a row requires grad, the leaves carry the
-        gradient back to the rows through ``_GatherRows``.  The gathered
-        copy lives as long as the tree: one step.  With every bucket
-        replicated (a one-rank mesh, the replicated layout) the leaves
-        are views of the rows, as on the host."""
-        if not any(g.axes for g in self.sharded.groups):
-            return super().unflatten(bufs, frozen)
-        wf = (self._gather(frozen) if frozen
-              else self.whole.frozen_zeros(self.device))
+    def _leaves(self, bufs, frozen, layout: _Layout) -> Pytree:
+        wf = (self._gather(frozen, layout) if frozen
+              else layout.whole.frozen_zeros(self.device))
         if torch.is_grad_enabled() and any(b.requires_grad
                                            for b in bufs.values()):
             names = tuple(bufs)
-            out = _GatherRows.apply(self, names, *bufs.values())
-            wb = dict(zip(self._whole_names(names), out))
+            out = _GatherRows.apply(self, layout, names, *bufs.values())
+            wb = dict(zip(self._whole_names(names, layout), out))
         else:
             with torch.no_grad():
-                wb = self._gather(bufs)
-        return self.whole.unflatten(wb, wf)
+                wb = self._gather(bufs, layout)
+        return layout.whole.unflatten(wb, wf)
 
-    def _whole_names(self, names) -> List[str]:
-        seen = {s.buffer.partition("@")[0] for s in self.sharded.slots
-                if s.buffer in names}
-        return [n for n in self.whole.all_sizes if n in seen]
+    def unflatten(self, bufs: Dict[str, torch.Tensor],
+                  frozen: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Pytree:
+        """The tree from this rank's rows, gathered over each bucket's
+        axes (the ``frozen`` rows too, without a gradient; zero when
+        absent).  When a row requires grad, the leaves carry the
+        gradient back to the rows through ``_GatherRows``; under ``tp``
+        that tree is the step's model-local one (:meth:`tp_tree`).  The
+        gathered copy lives as long as the tree: one step.  With every
+        bucket replicated (a one-rank mesh, the replicated layout) the
+        leaves are views of the rows, as on the host."""
+        if not any(g.axes for g in self.sharded.groups):
+            return super().unflatten(bufs, frozen)
+        if self.tp is not None and torch.is_grad_enabled() and any(
+                b.requires_grad for b in bufs.values()):
+            return self.tp_tree(bufs, frozen)
+        return self._leaves(bufs, frozen, self._plain)
+
+    def tp_tree(self, bufs: Dict[str, torch.Tensor],
+                frozen: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Pytree:
+        """The model-local tree of a tensor-parallel step
+        (``tensor_parallel.TPParams``): each local leaf its ``model``
+        tile, whole over the other axes, the rest whole."""
+        from repro_torch.sharding.tensor_parallel import TPParams
+        return TPParams(self._leaves(bufs, frozen, self._tp_layout), self.tp)
+
+    def _whole_names(self, names, layout: _Layout) -> List[str]:
+        seen = {n.partition("@")[0] for n in names}
+        return [n for n in layout.whole.all_sizes if n in seen]
 
     # -- the global norms: one all-reduce per axis set --------------------
 
@@ -656,11 +750,23 @@ def _sharded_view(task: Task, mesh, layout: str,
 @functools.lru_cache(maxsize=32)
 def _sharded_flat_ops(task: Task, mesh, layout: str, interpret: bool,
                       filter_spec: Optional[str] = None,
-                      split_batch: bool = False) -> ShardedFlatOps:
+                      split_batch: bool = False,
+                      tensor_parallel: bool = False) -> ShardedFlatOps:
     sharded, local = _sharded_view(task, mesh, layout, filter_spec)
     return ShardedFlatOps(view=local, interpret=interpret,
                           device=mesh.device, sharded=sharded, mesh=mesh,
-                          split_batch=split_batch)
+                          split_batch=split_batch,
+                          tp=_tp_context(task, mesh, layout)
+                          if tensor_parallel else None)
+
+
+def _tp_context(task: Task, mesh, layout: str):
+    """The ``fsdp_tp`` layout's tensor-parallel context of a task with a
+    model config (``sharding.tensor_parallel.context``), else None."""
+    from repro_torch.sharding import tensor_parallel
+    if layout != "fsdp_tp" or task.model_cfg is None:
+        return None
+    return tensor_parallel.context(task.model_cfg, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -685,11 +791,14 @@ class PodBackendMixin:
                              f"runs {POD_TASK_KINDS})")
         if self.spec.update_impl == "tree":
             return None
+        # FedProx's proximal term reads the whole tree beside the model's:
+        # it keeps gather-then-compute
         return _sharded_flat_ops(
             task, self.mesh, self.layout,
             ops.fused_interpret(self.spec.update_impl),
             effective_trainable_filter(self.spec),
-            self.batch_shard(self.spec.batch_size) is not None)
+            self.batch_shard(self.spec.batch_size) is not None,
+            self.spec.variant != "fedprox")
 
     def n_selected(self, n_clients: int) -> int:
         if self.clients_per_round:

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.models import paper_models as pm
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.tensor_parallel import context_of
 
 Pytree = Any
 
@@ -27,6 +28,9 @@ class Task:
     predict_fn(params, bx)       -> predicted int labels   (test accuracy)
     shapes()                     -> the params on the ``meta`` device
                                     (None: ``init`` on the CPU gives them)
+    model_cfg                    -> the decoder LM's config (token
+                                    tasks), which the pod reads for its
+                                    tensor-parallel plan; else None
     """
 
     name: str
@@ -36,6 +40,7 @@ class Task:
     repr_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
     predict_fn: Callable[[Pytree, torch.Tensor], torch.Tensor]
     shapes: Optional[Callable[[], Pytree]] = None
+    model_cfg: Any = None
 
     def accuracy(self, params: Pytree, x: torch.Tensor,
                  y: torch.Tensor) -> torch.Tensor:
@@ -102,17 +107,21 @@ def lm_task(cfg: "tf.TransformerConfig") -> Task:
     """Federated next-token training over a decoder LM of the zoo:
     ``bx`` tokens (B, S) int, ``by`` labels (B, S) int (−1 ignored).
     ``shapes`` builds the tree on the ``meta`` device, so packing plans
-    and byte counts of a full-size model allocate nothing."""
+    and byte counts of a full-size model allocate nothing.  The loss and
+    the representation run tensor-parallel on a model-local tree
+    (``sharding.tensor_parallel.TPParams``, the pod's)."""
 
     def init(gen):
         return tf.init_lm(cfg, gen=gen)
 
     def loss_fn(params, bx, by, rng=None):
-        loss, _ = tf.lm_loss(params, cfg, {"tokens": bx, "labels": by})
+        loss, _ = tf.lm_loss(params, cfg, {"tokens": bx, "labels": by},
+                             tp=context_of(params))
         return loss
 
     def repr_fn(params, bx):
-        _, _, hidden = tf.lm_forward(params, cfg, {"tokens": bx})
+        _, _, hidden = tf.lm_forward(params, cfg, {"tokens": bx},
+                                     tp=context_of(params))
         return torch.mean(hidden.float(), dim=1)
 
     def predict_fn(params, bx):
@@ -123,4 +132,5 @@ def lm_task(cfg: "tf.TransformerConfig") -> Task:
         return tf.init_lm(cfg, device="meta")
 
     return Task(name=cfg.name, kind="tokenlm", init=init, loss_fn=loss_fn,
-                repr_fn=repr_fn, predict_fn=predict_fn, shapes=shapes)
+                repr_fn=repr_fn, predict_fn=predict_fn, shapes=shapes,
+                model_cfg=cfg)

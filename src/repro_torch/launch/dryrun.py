@@ -15,19 +15,25 @@ and read its roofline terms (``launch.hlo_analysis``):
 Rows are written as JSON to ``experiments/dryrun_torch/<stem>.json``.
 
 The port has no SPMD partitioner, so the program captured is the pod's
-gather-then-compute (``fl.pod.ShardedFlatOps``): the rank holds its rows
-of the params (and of the f32 momentum for train) as
-``rules.param_pspecs`` shards them under ``--layout``; the whole leaves
-are all-gathered through the pod's own collectives; the step
+(``fl.pod.ShardedFlatOps``): the rank holds its rows of the params (and
+of the f32 momentum for train) as ``rules.param_pspecs`` shards them
+under ``--layout``; the leaves are all-gathered through the pod's own
+collectives — whole, or for the dense token archs under ``fsdp_tp``
+the model-local tree of a tensor-parallel step
+(``sharding.tensor_parallel``, ``"tp_compute": true`` in the row); the
+step
 (``make_train_step``, ``make_prefill_step`` or ``make_serve_step``) runs
 on the rank's rows of the batch and cache, split over the pod's batch
 group (pod, data) as ``rules.batch_pspecs`` and ``rules.cache_pspecs``
 place them (a dim they shard otherwise — the cache's ``model`` dim — is
 held sharded and gathered whole before the step); for train the
 gradient is reduce-scattered back to the rows and all-reduced over the
-batch group.  The ``model`` axis splits no compute: every rank of a
-``model`` group computes the same batch rows, so ``useful_flops_ratio``
-falls by the ``model`` size against an SPMD program.
+batch group.  A tensor-parallel step splits the heads, the MLP and the
+vocabulary over ``model`` as XLA's partitioner does, and a decode
+cache keeps the kv heads the rank reads.  Where the step gathers whole
+leaves, the ``model`` axis splits no compute: every rank of a ``model``
+group computes the same batch rows, so ``useful_flops_ratio`` falls by
+the ``model`` size against an SPMD program.
 
 No scan correction: the capture runs every layer eagerly, so the JAX
 package's 1-/2-layer extrapolation (XLA counts a scanned body once) has
@@ -61,7 +67,8 @@ from repro_torch.launch.steps import (
     TrainSpec, make_prefill_step, make_serve_step, make_train_step,
 )
 from repro_torch.models.transformer import lm_loss
-from repro_torch.sharding import rules
+from repro_torch.sharding import rules, tensor_parallel
+from repro_torch.sharding.tensor_parallel import context_of
 from repro_torch.utils import tree_math as tm
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / \
@@ -102,19 +109,28 @@ def _rank_leaf(spec: tm.Pytree, meta: torch.Tensor, mesh, batch: int):
     return torch.zeros(shape, dtype=meta.dtype), gathers
 
 
-def _rank_tree(tree, specs, mesh, batch: int):
+def _rank_tree(tree, specs, mesh, batch: int, tp=None):
     """The rank's leaves of ``tree`` (meta) under ``specs``, and a
     function that gathers each held block whole through the pod's
-    all-gather (run inside the capture: the gathers are the step's)."""
+    all-gather (run inside the capture: the gathers are the step's).
+    Under a ``tp`` that splits the heads, a kv cache leaf ``(..., KH,
+    hd)`` keeps the kv heads this rank reads, narrowed after the gather
+    (``rules.cache_pspecs`` shards the cache's time dim over ``model``,
+    the largest it divides, never its kv heads)."""
     leaves, treedef = tm.tree_flatten(tree)
     spec_leaves = tm.tree_flatten(specs, is_leaf=rules.is_pspec)[0]
-    held = [_rank_leaf(s, t, mesh, batch) for s, t in zip(spec_leaves, leaves)]
+    held = [_rank_leaf(s, t, mesh, batch) + (
+        tp.kv_range if tp is not None and tp.plan.attn and "kv/" in path
+        else None,)
+        for path, s, t in zip(tm.tree_paths(tree), spec_leaves, leaves)]
 
     def whole():
         out = []
-        for local, gathers in held:
+        for local, gathers, heads in held:
             for d, axes in gathers:
                 local = pod.gather_dim(local, mesh, axes, d)
+            if heads is not None:
+                local = local.narrow(local.dim() - 2, *heads)
             out.append(local)
         return tm.tree_unflatten(treedef, out)
     return whole
@@ -131,7 +147,7 @@ def _row_value_and_grad(fops: pod.ShardedFlatOps):
         live = [r.detach().requires_grad_(True) for r in leaves]
         with torch.enable_grad():
             tree = fops.unflatten(tm.tree_unflatten(treedef, live))
-            loss, _ = lm_loss(tree, cfg, batch)
+            loss, _ = lm_loss(tree, cfg, batch, tp=context_of(tree))
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = {name: torch.zeros_like(r) if g is None else g
                  for name, r, g in zip(sorted(rows), live, grads)}
@@ -150,9 +166,12 @@ def build_lowered(cfg, shape, mesh, *, n_micro: int = 1,
     from torch._subclasses.fake_tensor import FakeTensorMode
     p_specs = params_specs(cfg)
     sharded = rules.sharded_flat_view(p_specs, mesh, layout)
+    tp = (tensor_parallel.context(cfg, mesh) if layout == "fsdp_tp"
+          else None)
     fops = pod.ShardedFlatOps(view=sharded.local_view(), interpret=False,
-                              device=mesh.device,
-                              sharded=sharded, mesh=mesh, split_batch=True)
+                              device=mesh.device, sharded=sharded,
+                              mesh=mesh, split_batch=True, tp=tp)
+    tree = fops.unflatten if tp is None else fops.tp_tree
     b_specs = batch_specs(cfg, shape)
     B = shape.global_batch
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -171,15 +190,15 @@ def build_lowered(cfg, shape, mesh, *, n_micro: int = 1,
                                mesh, B)
             step = make_prefill_step(cfg, max_len=shape.seq_len)
             with torch.no_grad(), StepCounter() as counter:
-                step(fops.unflatten(rows), batch())
+                step(tree(rows), batch())
             return counter
         tok = _rank_tree(b_specs["token"],
                          rules.batch_pspecs(b_specs["token"], mesh), mesh, B)
         cache = _rank_tree(b_specs["cache"], rules.cache_pspecs(
-            b_specs["cache"], mesh, B), mesh, B)
+            b_specs["cache"], mesh, B), mesh, B, tp)
         step = make_serve_step(cfg)
         with torch.no_grad(), StepCounter() as counter:
-            step(fops.unflatten(rows), tok(), cache(), shape.seq_len - 1)
+            step(tree(rows), tok(), cache(), shape.seq_len - 1)
         return counter
 
 
@@ -198,8 +217,12 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     t0 = time.time()
     row = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
            "layout": layout}
+    spec = meshlib.MULTI_POD if multi_pod else meshlib.SINGLE_POD
+    # tensor-parallel compute over model (the dense token archs under
+    # fsdp_tp), or the pod's gather-then-compute
+    row["tp_compute"] = layout == "fsdp_tp" and tensor_parallel.plan(
+        cfg, dict(zip(spec.axes, spec.shape))[rules.MODEL]) is not None
     try:
-        spec = meshlib.MULTI_POD if multi_pod else meshlib.SINGLE_POD
         mesh = meshlib.make_fake_mesh(spec.shape, spec.axes)
         counter = build_lowered(cfg, shape, mesh, n_micro=n_micro,
                                 layout=layout)

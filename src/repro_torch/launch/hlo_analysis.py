@@ -53,8 +53,9 @@ COLLECTIVE_OPS = (
 
 # the pod's collective kinds (repro_torch.fl.pod) and the XLA collective
 # each issues: "grad" reduce-scatters a bucket sharded over its batch
-# axes and all-reduces over the rest; the port issues no all-to-all and
-# no collective-permute
+# axes and all-reduces over the rest; "tp" all-reduces over model (a
+# tensor-parallel step; a serve step also all-gathers its logits); the
+# port issues no all-to-all and no collective-permute
 POD_KIND_OPS = {
     "grad": ("reduce-scatter", "all-reduce"),
     "gather": ("all-gather",),
@@ -63,6 +64,7 @@ POD_KIND_OPS = {
     "lane_combine": ("all-reduce",),
     "store_gather": ("all-reduce",),
     "store_spill": ("all-reduce",),
+    "tp": ("all-reduce", "all-gather"),
 }
 
 _FREE_OPS = ("_unsafe_view", "empty", "empty_like", "empty_strided",

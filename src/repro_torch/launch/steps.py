@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.models.transformer import (
     TransformerConfig, decode_step, lm_loss, prefill)
+from repro_torch.sharding.tensor_parallel import context_of
 from repro_torch.utils import tree_math as tm
 
 Pytree = Any
@@ -113,10 +114,12 @@ def make_train_step(cfg: TransformerConfig, spec: TrainSpec,
 
 
 def make_prefill_step(cfg: TransformerConfig, max_len: int) -> Callable:
-    """(params, batch) -> (last-token logits, decode cache)."""
+    """(params, batch) -> (last-token logits, decode cache); a model-local
+    tree (``tensor_parallel.TPParams``) runs tensor-parallel."""
 
     def prefill_step(params, batch):
-        logits, cache, _ = prefill(params, cfg, batch, max_len)
+        logits, cache, _ = prefill(params, cfg, batch, max_len,
+                                   tp=context_of(params))
         return logits, cache
 
     return prefill_step
@@ -127,7 +130,8 @@ def make_serve_step(cfg: TransformerConfig) -> Callable:
     the cache is updated in place and ``cache_len`` is a host int."""
 
     def serve_step(params, token, cache, cache_len):
-        return decode_step(params, cfg, token, cache, cache_len)
+        return decode_step(params, cfg, token, cache, cache_len,
+                           tp=context_of(params))
 
     return serve_step
 

@@ -192,7 +192,8 @@ def lower_pod_round(cfg: TransformerConfig, mesh, *, kind: str = "fl",
     round: FLOPs, bytes, the pod's collectives and the kernels' work.
 
     The port has no SPMD partitioner: what a rank runs is the pod's
-    gather-then-compute (``fl.pod.ShardedFlatOps``)."""
+    program (``fl.pod.ShardedFlatOps``), tensor-parallel where the pod's
+    step is (its ``"tp"`` collectives counted as the run counts them)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.data.federated import FederatedDataset
     from repro_torch.fl.engine import run_rounds

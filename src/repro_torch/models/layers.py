@@ -266,7 +266,7 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
 def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
               positions: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_len: Optional[int] = None
+              cache_len: Optional[int] = None, tp=None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence (train/prefill) or incremental (decode) attention.
 
@@ -274,12 +274,26 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
     the new k/v are written into it IN PLACE at ``cache_len`` (a host
     int) and attention runs over the whole cache; the returned cache is
     the same pair of tensors.  Returns (out, cache).
+
+    ``tp`` (a ``sharding.tensor_parallel.TPContext`` whose plan splits
+    the heads) computes this rank's q heads and the kv heads they read
+    (a cache holds those kv heads only): q, k and v column-parallel, the
+    qkv biases and ``qk_norm`` on the local heads, ``wo`` row-parallel.
     """
     B, S, d = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(B, S, H, hd)
-    k = linear(p["wk"], x).reshape(B, S, KH, hd)
-    v = linear(p["wv"], x).reshape(B, S, KH, hd)
+    if tp is not None and tp.plan.attn:
+        from repro_torch.sharding import tensor_parallel as tpl
+        H, (lo, KH) = tp.heads, tp.kv_range
+        xc = tpl.copy_to_model(x, tp)
+        cols = None if tp.plan.kv else slice(lo * hd, (lo + KH) * hd)
+        q = tpl.column_linear(p["wq"], x, xc, tp).reshape(B, S, H, hd)
+        k = tpl.column_linear(p["wk"], x, xc, tp, cols).reshape(B, S, KH, hd)
+        v = tpl.column_linear(p["wv"], x, xc, tp, cols).reshape(B, S, KH, hd)
+    else:
+        q = linear(p["wq"], x).reshape(B, S, H, hd)
+        k = linear(p["wk"], x).reshape(B, S, KH, hd)
+        v = linear(p["wv"], x).reshape(B, S, KH, hd)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
@@ -301,6 +315,8 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
                     q_offset=cache_len, impl=cfg.attn_impl)
         new_cache = (kc, vc)
     out = out.reshape(B, S, H * hd)
+    if tp is not None and tp.plan.attn:
+        return tpl.row_linear(p["wo"], out, tp), new_cache
     return linear(p["wo"], out), new_cache
 
 
@@ -410,8 +426,15 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype=torch.float32,
     }
 
 
-def mlp(p: Pytree, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP."""
+def mlp(p: Pytree, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU MLP; with ``tp`` whose plan splits the MLP, ``w_gate`` and
+    ``w_up`` column-parallel and ``w_down`` row-parallel."""
+    if tp is not None and tp.plan.mlp:
+        from repro_torch.sharding import tensor_parallel as tpl
+        xc = tpl.copy_to_model(x, tp)
+        h = F.silu(tpl.column_linear(p["w_gate"], x, xc, tp)) * \
+            tpl.column_linear(p["w_up"], x, xc, tp)
+        return tpl.row_linear(p["w_down"], h, tp)
     return linear(p["w_down"],
                   F.silu(linear(p["w_gate"], x)) * linear(p["w_up"], x))
 

@@ -28,6 +28,14 @@ the JAX package.  Training runs the plain attention
 (``attn_impl="xla"``): the attention kernel has no backward, as in the
 JAX package.  ``remat`` is ignored: it trades memory for recompute and
 changes no number.
+
+Tensor parallelism: each entry point takes an optional ``tp`` (a
+``sharding.tensor_parallel.TPContext``; None on one rank and for every
+family but the dense token archs).  With it the params are a rank's
+model-local tree and the blocks compute its share of the heads and the
+MLP, Megatron style; the vocabulary's embedding and cross-entropy run
+vocabulary-parallel, and ``prefill`` / ``decode_step`` gather the
+logits whole.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from repro_torch.models.layers import (
     linear, mla_attention, mlp, moe, normal_init, rmsnorm)
 from repro_torch.models.ssm import (
     SSMConfig, init_ssm, init_ssm_state, ssm_decode_step, ssm_forward)
+from repro_torch.sharding import tensor_parallel as tpl
 from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import Device, resolve_device, seeded_generator
 
@@ -208,7 +217,7 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
                  positions: torch.Tensor, moe_layer: bool,
                  is_global: Optional[bool] = None,
                  cache: Optional[Pytree] = None,
-                 cache_len: Optional[int] = None):
+                 cache_len: Optional[int] = None, tp=None):
     """One decoder block.  Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Pytree] = {}
@@ -239,7 +248,7 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
         xn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
         attn_out, new_cache["kv"] = _run_attention(
             p, xn, cfg, positions, is_global,
-            cache["kv"] if cache else None, cache_len)
+            cache["kv"] if cache else None, cache_len, tp)
         x = x + attn_out
 
     if cfg.has_ffn:
@@ -247,7 +256,7 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
         if moe_layer:
             out, aux = moe(p["moe"], xn, cfg.moe_cfg())
         else:
-            out = mlp(p["mlp"], xn)
+            out = mlp(p["mlp"], xn, tp)
         x = x + out
     return x, new_cache, aux
 
@@ -264,7 +273,7 @@ def _run_ssm_cached(ssm_params, xn, ssm_state, cfg: TransformerConfig):
 
 
 def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
-                   kv_cache, cache_len):
+                   kv_cache, cache_len, tp=None):
     if cfg.attention == "mla":
         return mla_attention(p["attn"], xn, cfg.mla_cfg(), positions,
                              kv_cache=kv_cache, cache_len=cache_len)
@@ -275,7 +284,7 @@ def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
         acfg = dataclasses.replace(
             acfg, window=FULL_WINDOW if is_global else cfg.window)
     return attention(p["attn"], xn, acfg, positions, kv_cache=kv_cache,
-                     cache_len=cache_len)
+                     cache_len=cache_len, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -342,11 +351,17 @@ def _init_stack(gen, cfg: TransformerConfig, n: int) -> Pytree:
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _embed(params, cfg: TransformerConfig, tokens: torch.Tensor, tp=None):
+    if tp is not None and tp.plan.vocab:
+        return tpl.vocab_embedding(params["embed"], tokens, tp).to(cfg.dtype)
+    return params["embed"][tokens].to(cfg.dtype)
+
+
 def _embed_inputs(params, cfg: TransformerConfig,
-                  batch: Dict[str, torch.Tensor]):
+                  batch: Dict[str, torch.Tensor], tp=None):
     """Returns (x, positions, text_offset)."""
     if cfg.input_mode == "tokens":
-        x = params["embed"][batch["tokens"]].to(cfg.dtype)
+        x = _embed(params, cfg, batch["tokens"], tp)
         offset = 0
     elif cfg.input_mode == "vlm":
         # stub front end: precomputed patch embeddings, then the tokens'
@@ -395,12 +410,16 @@ def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _run_blocks(params, cfg: TransformerConfig, x, positions,
-                caches=None, cache_len=None):
+                caches=None, cache_len=None, tp=None):
     """The dense prefix, then the stacked blocks, in order.  ``caches`` is
     None for a full-sequence pass, else ``{"dense": [one per prefix
-    layer], "scan": stacked}``, updated in place.  Returns (x, caches,
-    total_aux)."""
+    layer], "scan": stacked}``, updated in place.  Under ``tp`` the
+    stacked leaves whose model ranks compute different parts
+    (``TPContext.partial``) sum their gradient over ``model`` once.
+    Returns (x, caches, total_aux)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = params["blocks"] if tp is None else \
+        tp.sum_partial_grads(params["blocks"], "blocks/")
     for i in range(cfg.n_dense_layers):
         cache_l = caches["dense"][i] if caches is not None else None
         x, new_cache, aux = _block_apply(
@@ -413,18 +432,23 @@ def _run_blocks(params, cfg: TransformerConfig, x, positions,
     for i in range(cfg.n_layers - cfg.n_dense_layers):
         cache_l = _layer(caches["scan"], i) if caches is not None else None
         x, new_cache, aux = _block_apply(
-            _layer(params["blocks"], i), x, cfg, positions,
+            _layer(blocks, i), x, cfg, positions,
             moe_layer=cfg.is_moe,
             is_global=None if flags is None else flags[i], cache=cache_l,
-            cache_len=cache_len)
+            cache_len=cache_len, tp=tp)
         if caches is not None:
             _store(cache_l, new_cache)
         aux_total = aux_total + aux
     return x, caches, aux_total
 
 
-def _logits(params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
+def _logits(params, cfg: TransformerConfig, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """The logits; under a ``tp`` that splits the vocabulary, this rank's
+    columns of them."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None and tp.plan.vocab:
+        x = tpl.copy_to_model(x, tp)
     logits = torch.matmul(x, head.to(cfg.dtype))
     if cfg.n_codebooks > 1:
         B, S, _ = logits.shape
@@ -433,12 +457,13 @@ def _logits(params, cfg: TransformerConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_forward(params, cfg: TransformerConfig,
-               batch: Dict[str, torch.Tensor]):
-    """Full-sequence forward -> (logits, aux_loss, hidden)."""
-    x, positions, _ = _embed_inputs(params, cfg, batch)
-    x, _, aux = _run_blocks(params, cfg, x, positions)
+               batch: Dict[str, torch.Tensor], tp=None):
+    """Full-sequence forward -> (logits, aux_loss, hidden); under ``tp``
+    the logits are this rank's vocabulary columns."""
+    x, positions, _ = _embed_inputs(params, cfg, batch, tp)
+    x, _, aux = _run_blocks(params, cfg, x, positions, tp=tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), aux, x
+    return _logits(params, cfg, x, tp), aux, x
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
@@ -454,16 +479,20 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
 
 
 def lm_loss(params, cfg: TransformerConfig,
-            batch: Dict[str, torch.Tensor]):
+            batch: Dict[str, torch.Tensor], tp=None):
     """Next-token loss.  ``batch["labels"]``, label −1 ignored: (B, S) —
     (B, S, n_codebooks) for audio; in vlm mode (B, S_text), the image
     prefix's positions left out.  The MoE aux loss is added, and under
     ``mtp`` the multi-token loss times ``mtp_loss_weight``.  Returns
-    ``(loss, metrics)``."""
-    logits, aux, hidden = lm_forward(params, cfg, batch)
+    ``(loss, metrics)``; under ``tp`` the cross-entropy is
+    vocabulary-parallel."""
+    logits, aux, hidden = lm_forward(params, cfg, batch, tp)
     if cfg.input_mode == "vlm":
         logits = logits[:, batch["patch_embeds"].shape[1]:]
-    loss, _ = _xent(logits, batch["labels"])
+    if tp is not None and tp.plan.vocab:
+        loss, _ = tpl.vocab_cross_entropy(logits, batch["labels"], tp)
+    else:
+        loss, _ = _xent(logits, batch["labels"])
     metrics = {"xent": loss, "aux": aux}
     total = loss + aux
     if cfg.mtp:
@@ -497,9 +526,11 @@ def _mtp_loss(params, cfg: TransformerConfig, batch, hidden):
 # ---------------------------------------------------------------------------
 
 def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
-                        device, n: Optional[int] = None):
+                        device, n: Optional[int] = None, tp=None):
     """The cache of one block, or of ``n`` stacked blocks (a leading
-    layer axis): k/v rows, MLA's latent rows and rope keys, SSM state."""
+    layer axis): k/v rows (under a ``tp`` that splits the heads, the kv
+    heads this rank reads), MLA's latent rows and rope keys, SSM
+    state."""
     lead = () if n is None else (n,)
 
     def zeros(*shape, dtype=cfg.dtype):
@@ -511,6 +542,8 @@ def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
                        zeros(batch, max_len, cfg.qk_rope_dim))
         else:
             hd, KH = cfg.resolved_head_dim, cfg.n_kv_heads
+            if tp is not None and tp.plan.attn:
+                KH = tp.kv_range[1]
             c["kv"] = tuple(zeros(batch, max_len, KH, hd) for _ in range(2))
     if cfg.has_ssm:
         one = init_ssm_state(cfg.ssm_cfg(), batch, cfg.dtype, device)
@@ -519,30 +552,39 @@ def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                      device: Device = None):
+                      device: Device = None, tp=None):
     dev = resolve_device(device)
     return {"dense": [_layer_cache_struct(cfg, batch, max_len, dev)
                       for _ in range(cfg.n_dense_layers)],
             "scan": _layer_cache_struct(cfg, batch, max_len, dev,
-                                        cfg.n_layers - cfg.n_dense_layers)}
+                                        cfg.n_layers - cfg.n_dense_layers,
+                                        tp)}
+
+
+def _whole_logits(params, cfg: TransformerConfig, x, tp=None):
+    logits = _logits(params, cfg, x, tp)
+    if tp is not None and tp.plan.vocab:
+        logits = tpl.gather_vocab(logits, tp)
+    return logits
 
 
 def prefill(params, cfg: TransformerConfig, batch: Dict[str, torch.Tensor],
-            max_len: int):
+            max_len: int, tp=None):
     """Process the prompt and build the decode cache.  Returns
     (last-position logits (B, 1, V), cache, prompt_len)."""
-    x, positions, _ = _embed_inputs(params, cfg, batch)
+    x, positions, _ = _embed_inputs(params, cfg, batch, tp)
     S = x.shape[1]
-    caches = init_decode_cache(cfg, x.shape[0], max_len, device=x.device)
+    caches = init_decode_cache(cfg, x.shape[0], max_len, device=x.device,
+                               tp=tp)
     # a full-sequence pass that writes k/v into the preallocated cache
     x, caches, _ = _run_blocks(params, cfg, x, positions, caches=caches,
-                               cache_len=0)
+                               cache_len=0, tp=tp)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return _logits(params, cfg, x), caches, S
+    return _whole_logits(params, cfg, x, tp), caches, S
 
 
 def decode_step(params, cfg: TransformerConfig, token: torch.Tensor,
-                caches, cache_len: int):
+                caches, cache_len: int, tp=None):
     """One decode step.  token: (B, 1) int64, or (B, 1, d) frame
     embeddings for the audio stub; cache_len: the host count of valid
     cache positions.  Returns (logits (B, 1, V[, n_codebooks]), caches),
@@ -550,9 +592,9 @@ def decode_step(params, cfg: TransformerConfig, token: torch.Tensor,
     if cfg.input_mode == "embeddings":
         x = token.to(cfg.dtype)
     else:
-        x = params["embed"][token].to(cfg.dtype)
+        x = _embed(params, cfg, token, tp)
     positions = torch.arange(cache_len, cache_len + 1, device=x.device)
     x, caches, _ = _run_blocks(params, cfg, x, positions, caches=caches,
-                               cache_len=cache_len)
+                               cache_len=cache_len, tp=tp)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), caches
+    return _whole_logits(params, cfg, x, tp), caches

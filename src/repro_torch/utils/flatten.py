@@ -475,6 +475,63 @@ class ShardedFlatView:
         replicated run's."""
         return self._whole_view
 
+    def model_local(self, local, axis: str = "model"):
+        """The model-local layout: each leaf whole over its other axes
+        and, where ``local[i]`` (tree_flatten order), only this rank's
+        tile over ``axis`` — the tree a tensor-parallel step computes on.
+
+        Returns ``(view, parts)``.  ``view`` is a ShardedFlatView over the
+        same per-shard rows in which each bucket sharded over ``axis``
+        splits into a ``|local`` part (its local leaves: ``axis`` dropped
+        from the part's axes, each slot's shape its tile over ``axis``)
+        and a ``|whole`` part (its other leaves, gathered over every axis
+        as before); ``view.whole_view()`` is the model-local layout.
+        ``parts[bucket]`` lists ``(part, index)``: the part's elements in
+        the bucket's row, ``index`` None when the part is the whole row.
+        A dim tiled by ``axis`` and another axis together has no
+        contiguous ``axis`` tile: such a local leaf raises."""
+        m = self._axis_size(axis) if axis in dict(self.axis_sizes) else 1
+        slots, cursor, meta, runs = [], {}, {}, {}
+        for s, keep in zip(self.slots, local):
+            g = self.group_map[s.buffer]
+            name, dim_axes, shape, axes = s.buffer, s.dim_axes, s.shape, \
+                g.axes
+            if m > 1 and axis in g.axes:
+                if keep:
+                    if any(axis in e and len(e) > 1 for e in s.dim_axes):
+                        raise ValueError(f"a dim tiled by {axis!r} and "
+                                         f"another axis: {s.dim_axes}")
+                    name = s.buffer + "|local"
+                    dim_axes = tuple(tuple(a for a in e if a != axis)
+                                     for e in s.dim_axes)
+                    shape = tuple(d // m if axis in e else d
+                                  for d, e in zip(s.shape, s.dim_axes))
+                    axes = tuple(a for a in g.axes if a != axis)
+                else:
+                    name = s.buffer + "|whole"
+            off = cursor.get(name, 0)
+            slots.append(ShardedLeafSlot(buffer=name, offset=off,
+                                         size=s.size, shape=shape,
+                                         dim_axes=dim_axes))
+            cursor[name] = off + s.size
+            meta[name] = (g.dtype, axes,
+                          math.prod(self._axis_size(a) for a in axes))
+            runs.setdefault(s.buffer, {}).setdefault(name, []).append(
+                (s.offset, s.size))
+        view = ShardedFlatView(
+            treedef=self.treedef, slots=tuple(slots), axis_sizes=self.axis_sizes,
+            groups=tuple(ShardGroup(name=n, dtype=d, axes=a, n_shards=k,
+                                    size=cursor[n])
+                         for n, (d, a, k) in meta.items()))
+        parts = {}
+        for bucket, by_part in runs.items():
+            size = self.group_map[bucket].size
+            parts[bucket] = tuple(
+                (name, None if len(by_part) == 1 and cursor[name] == size
+                 else torch.cat([torch.arange(o, o + k) for o, k in r]))
+                for name, r in by_part.items())
+        return view, parts
+
     def _local_tile(self, leaf: torch.Tensor, slot: ShardedLeafSlot,
                     coords: Dict[str, int]) -> torch.Tensor:
         """The rank at ``coords``'s tile of ``leaf`` (a view): along each

@@ -375,3 +375,119 @@ def test_dryrun_cli_runs_a_reduced_arch(tmp_path):
         assert row["bottleneck"] in ("compute", "memory", "collective")
     train_row = next(r for r in rows if r["shape"] == "train_4k")
     assert train_row["collective_counts"]["grad"] > 0
+
+
+# ---------------------------------------------------------------------------
+# per-rank FLOPs against XLA's SPMD partitioner
+# ---------------------------------------------------------------------------
+
+TP_ARCHS = ("qwen1.5-0.5b", "tinyllama-1.1b")
+TP_MESHES = ((1, 1), (2, 2), (1, 4))
+TP_B, TP_S = 8, 16
+
+# each side in a process of its own: the JAX side on 4 fake CPU devices
+# (the backend comes up before repro.launch.dryrun sets its 512), the
+# port's over a fake process group
+_XLA_FLOPS = """
+import dataclasses, json, sys
+import jax
+jax.devices()
+import numpy as np
+from repro.configs import get_reduced
+from repro.configs.common import ShapeSpec
+from repro.launch.dryrun import build_lowered
+from repro.launch.mesh import _make_mesh
+archs, meshes, (B, S) = json.loads(sys.argv[1])
+out = {}
+for arch in archs:
+    cfg = dataclasses.replace(get_reduced(arch), scan_unroll=True)
+    for shape in meshes:
+        mesh = (jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                                  ("data", "model")) if shape == [1, 1]
+                else _make_mesh(tuple(shape), ("data", "model")))
+        cost = build_lowered(cfg, ShapeSpec("t", "train", S, B),
+                             mesh).compile().cost_analysis()
+        cost = cost[0] if isinstance(cost, (list, tuple)) else cost
+        out[f"{arch}/{shape}"] = float(cost["flops"])
+print(json.dumps(out))
+"""
+
+_PORT_FLOPS = """
+import json, sys
+from repro_torch.configs import get_reduced
+from repro_torch.configs.common import ShapeSpec
+from repro_torch.launch import mesh as meshlib
+from repro_torch.launch.dryrun import build_lowered
+archs, meshes, (B, S) = json.loads(sys.argv[1])
+out = {}
+for arch in archs:
+    for shape in meshes:
+        mesh = meshlib.make_fake_mesh(shape, ("data", "model"))
+        c = build_lowered(get_reduced(arch), ShapeSpec("t", "train", S, B),
+                          mesh)
+        out[f"{arch}/{shape}"] = float(c.flops)
+meshlib.destroy()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def tp_flops():
+    """Per-rank FLOPs of the reduced train step (8 × 16, ``fsdp_tp``):
+    XLA's per-device ``cost_analysis`` (layer scan unrolled) and the
+    port's capture, on each mesh of TP_MESHES."""
+    arg = json.dumps([TP_ARCHS, TP_MESHES, [TP_B, TP_S]])
+    src = str(ROOT / "src")
+    env = dict(os.environ, PYTHONPATH=src, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, arg], text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=dict(env, **extra))
+        for code, extra in (
+            (_XLA_FLOPS, {"JAX_PLATFORMS": "cpu", "XLA_FLAGS":
+                          "--xla_force_host_platform_device_count=4"}),
+            (_PORT_FLOPS, {}))]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=240)
+        assert p.returncode == 0, err[-3000:]
+        outs.append(json.loads(out.strip().splitlines()[-1]))
+    return outs
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("shape", TP_MESHES)
+def test_per_rank_flops_match_xla_spmd(tp_flops, arch, shape):
+    """A rank of a (data, model) mesh computes its share of the step as
+    XLA's partitioner splits it: its batch rows over ``data``, its heads,
+    MLP columns and vocabulary over ``model`` (the reduced tinyllama's 2
+    kv heads on 4 ranks replicated), within 10% of XLA's per-device
+    FLOPs (XLA also counts elementwise FLOPs; the port's counter counts
+    the matmul class)."""
+    xla, port = tp_flops
+    key = f"{arch}/{list(shape)}"
+    assert 0.9 <= port[key] / xla[key] <= 1.1, (port[key], xla[key])
+
+
+# the plans of the assigned dense token archs on 16 model ranks (attn,
+# kv, mlp, vocab); every other family keeps gather-then-compute
+TP_PLANS_16 = {"qwen3-32b": (True, False, True, True),
+               "qwen1.5-0.5b": (True, True, True, True),
+               "qwen2-1.5b": (False, False, True, True),
+               "tinyllama-1.1b": (True, False, True, True)}
+
+
+@pytest.mark.parametrize("arch", tconfigs.ASSIGNED)
+def test_tensor_parallel_plans_on_the_pod(arch):
+    """On the 16×16 pod's ``model`` axis: qwen2-1.5b's 12 heads stay
+    whole, tinyllama-1.1b's 4 and qwen3-32b's 8 kv heads are replicated
+    (each rank computes the one its q heads read), the MLP and the
+    vocabulary split everywhere; the MoE, MLA, SSM, hybrid, VLM and
+    audio archs have no plan.  One rank never has one."""
+    from repro_torch.sharding.tensor_parallel import plan
+    cfg = tconfigs.get_config(arch)
+    p = plan(cfg, 16)
+    if arch in TP_PLANS_16:
+        assert (p.attn, p.kv, p.mlp, p.vocab) == TP_PLANS_16[arch]
+    else:
+        assert p is None
+    assert plan(cfg, 1) is None

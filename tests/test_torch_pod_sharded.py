@@ -29,21 +29,32 @@ the JAX package's init on its threefry batch indices (injected) under
   * the compressed case again with the sparse client store
     (``store="sparse"``), port only: its error-feedback rows, kept whole
     on each rank, match the JAX pod's dense rows (the stores are exact)
-    and the port's dense run bit for bit.
+    and the port's dense run bit for bit;
+  * (1, 4) ``fsdp_tp``, the reduced tinyllama-1.1b: pure tensor
+    parallelism, its 2 kv heads replicated on the 4 ``model`` ranks.
+
+Under ``fsdp_tp`` on these meshes the steps compute tensor-parallel over
+``model`` (``sharding.tensor_parallel``: heads, MLP and vocabulary split,
+``"tp"`` all-reduces), as XLA's partitioner splits the JAX pod's step.
 
 Tolerances, as in ``tests/test_torch_pod.py``: losses rtol 1e-5, params
 atol 2e-5 (the matmuls sum in another order), scaffold's ``c`` at the
 params' tolerance over S·lr; compressed uploads within 1e-4, except at
 most 0.1% of the elements, each by no more than twice the largest
-residual.  In the same workers, on (2, 2), ``fsdp_tp`` equals
-``replicated`` bitwise for the FedAvgM and the relay cases (uncompressed,
-no clip: a sum over two ``data`` ranks has one order and K1 is
-elementwise), and each rank holds a quarter of the frozen base.
+residual.  In the same workers, on (2, 2), the FedAvgM and the relay
+cases run under ``fsdp_only`` (gather-then-compute) and ``replicated``
+too: ``fsdp_only`` equals ``replicated`` bitwise (uncompressed, no clip:
+a sum over two ``data`` ranks has one order and K1 is elementwise) and
+``fsdp_tp`` equals it within the tolerances above (the row-parallel
+reduce sums in another order); each sharded rank holds a quarter of the
+frozen base.  The vocabulary-parallel embedding and cross-entropy on
+four ranks against the whole-vocabulary functions.
 
 One process: the per-shard layout (``ShardedFlatView.local_view``,
 ``flatten_local``, ``normal_local``, the whole-leaf round trip) against
 the packed buffers, the row gradient (summed once over ``data``, never
-over ``model``) against a replicated leaf's gradient, the client store
+over ``model``, also for a leaf gathered over ``model`` in a
+tensor-parallel step) against a replicated leaf's gradient, the client store
 under a bucket sharded over ``data``, and ``ops.fused_dp_clip_noise``
 against the JAX entry.
 """
@@ -92,9 +103,14 @@ CASES = {
                        peft="lora:4", dp=1e-4),
     "tp-clip": dict(shape=[2, 2], layout="fsdp_tp", kind="rounds",
                     grad_clip=1.0),
+    "tp14-tinyllama": dict(shape=[1, 4], layout="fsdp_tp", kind="rounds",
+                           arch="tinyllama-1.1b"),
 }
-# the port only: the same runs under the replicated layout, bitwise
+# the port only: the same runs under the replicated layout (fsdp_tp within
+# tolerance) and under fsdp_only (bitwise)
 BITWISE = {"tp-lora-fedavgm": "rep-lora-fedavgm", "tp-relay": "rep-relay"}
+FSDP_ONLY = {"tp-lora-fedavgm": "only-lora-fedavgm",
+             "tp-relay": "only-relay"}
 # the port only: the replicated twin whose step norms the clip case meets
 NORM_TWIN = {"tp-clip": "rep-clip"}
 # the port only: a case under the sparse client store, held against the
@@ -114,13 +130,13 @@ _JAX_REFERENCE = textwrap.dedent("""
     from repro.launch.mesh import _make_mesh
     cfg = json.load(open(sys.argv[1]))
     out = {}
-    data = make_synthetic_tokenlm(n_clients=cfg["n_clients"],
-        seq_len=cfg["seq"], n_seq_per_client=cfg["n_seq"],
-        vocab=get_reduced(cfg["arch"]).vocab_size, seed=cfg["seed"])
     for name, case in cfg["cases"].items():
         mesh = _make_mesh(tuple(case["shape"]), ("data", "model"))
         peft = case.get("peft")
-        mcfg = with_peft(get_reduced(cfg["arch"]), peft)
+        mcfg = with_peft(get_reduced(case.get("arch", cfg["arch"])), peft)
+        data = make_synthetic_tokenlm(n_clients=cfg["n_clients"],
+            seq_len=cfg["seq"], n_seq_per_client=cfg["n_seq"],
+            vocab=mcfg.vocab_size, seed=cfg["seed"])
         task = lm_task(mcfg)
         spec = pod.PodFLSpec(update_impl="fused_interpret",
             algorithm=case.get("algorithm", "fedavg"),
@@ -157,11 +173,11 @@ _JAX_REFERENCE = textwrap.dedent("""
 """)
 
 
-def _jax_init(peft):
+def _jax_init(arch, peft):
     from repro.configs import get_reduced as jget_reduced
     from repro.configs import with_peft as jwith_peft
     from repro.fl.task import lm_task as j_lm_task
-    jtask = j_lm_task(jwith_peft(jget_reduced(ARCH), peft))
+    jtask = j_lm_task(jwith_peft(jget_reduced(arch), peft))
     return [np.asarray(x, np.float32) for x in
             jax.tree_util.tree_leaves(jtask.init(jax.random.PRNGKey(SEED)))]
 
@@ -183,19 +199,23 @@ def runs(tmp_path_factory):
     """The four-rank port runs (every case, and the replicated twins) and
     the four-device JAX runs, side by side."""
     tmp = tmp_path_factory.mktemp("pod4sharded")
-    for peft, tag in ((None, "full"), ("lora:4", "lora")):
-        np.savez(tmp / f"init_{tag}.npz", *_jax_init(peft))
+    for arch, peft in {(c.get("arch", ARCH), c.get("peft"))
+                       for c in CASES.values()}:
+        tag = "lora" if peft else "full"
+        np.savez(tmp / f"init_{arch}_{tag}.npz", *_jax_init(arch, peft))
     np.save(tmp / "indices.npy", jax_engine_indices(SEED, 1, K, STEPS,
                                                     BATCH, N_SEQ))
     cases = dict(CASES)
     for src, twin in BITWISE.items():
-        cases[src] = dict(CASES[src], checkpoint=True)
         cases[twin] = dict(CASES[src], layout="replicated", checkpoint=True)
+        cases[FSDP_ONLY[src]] = dict(CASES[src], layout="fsdp_only",
+                                     checkpoint=True)
     for src, twin in NORM_TWIN.items():
         cases[twin] = dict(CASES[src], layout="replicated")
     for case, ref in SPARSE.items():
         cases[case] = dict(CASES[ref], kw={"store": "sparse",
                                            "store_capacity": N_CLIENTS})
+    cases["vocab"] = dict(shape=[1, 4], kind="vocab")
     spec = dict(local_steps=STEPS, batch_size=BATCH, lr=LR)
     base = dict(arch=ARCH, seed=SEED, n_clients=N_CLIENTS, seq=SEQ,
                 n_seq=N_SEQ, K=K, spec=spec, dir=str(tmp))
@@ -225,7 +245,8 @@ def _view(case, rank, layout=None):
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  devices=np.zeros(shape),
                                  shape=dict(zip(("data", "model"), shape)))
-    task = lm_task(with_peft(get_reduced(ARCH), CASES[case].get("peft")))
+    task = lm_task(with_peft(get_reduced(CASES[case].get("arch", ARCH)),
+                             CASES[case].get("peft")))
     view = rules.sharded_flat_view(task.shapes(), mesh,
                                    layout or CASES[case]["layout"],
                                    "lora" if CASES[case].get("peft") else None)
@@ -256,6 +277,9 @@ def test_four_ranks_sharded_match_jax(runs, case):
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
     view, _ = _view(ref, 0)
     assert any(g.n_shards > 1 for g in view.groups)
+    for cnt in _counts(tmp, case):  # fsdp_tp on model > 1: tensor-parallel
+        assert cnt["tp_compute"] == (c["layout"] == "fsdp_tp")
+        assert (cnt["collectives"]["tp"] > 0) == cnt["tp_compute"]
     if c.get("compressed"):
         pairs = [(got[f"p{i}"], want[f"p{i}"]) for i in range(n)]
         ef_max = 0.0
@@ -321,7 +345,7 @@ def test_four_ranks_sharded_match_jax(runs, case):
 # the fsdp_tp cases lower_pod_round takes (its phase kwargs are the
 # defaults: no hierarchical lanes, the dense store)
 LOWERED = ("tp-lora-fedavgm", "tp-relay", "tp-compressed-ef", "tp-lora-dp",
-           "tp-clip")
+           "tp-clip", "tp14-tinyllama")
 
 _LOWER = textwrap.dedent("""
     import json, sys
@@ -343,7 +367,7 @@ _LOWER = textwrap.dedent("""
                          if case.get("compressed") else None),
             grad_clip=case.get("grad_clip"), **cfg["spec"])
         c = lower_pod_round(
-            with_peft(get_reduced(cfg["arch"]), peft), mesh,
+            with_peft(get_reduced(case.get("arch", cfg["arch"])), peft), mesh,
             kind="cyclic" if case["kind"] == "relay" else "fl", spec=spec,
             K=cfg["K"], batch=cfg["spec"]["batch_size"], seq=cfg["seq"],
             layout=case["layout"], seed=cfg["seed"])
@@ -384,23 +408,55 @@ def test_lower_pod_round_counts_the_runs_collectives(runs, lowered, case):
 
 @pytest.mark.parametrize("case", BITWISE)
 def test_fsdp_tp_equals_replicated_bitwise(runs, case):
-    """On (2, 2) the sharded layout gives the replicated layout's params
-    and losses bit for bit; each rank holds a quarter of the frozen base
-    (LoRA) and gathers it every step, and K1, K6 and K3 run once per
+    """On (2, 2) the sharded gather-then-compute step gives the
+    replicated layout's params and losses bit for bit: the case's
+    ``fsdp_only`` twin (``fsdp_tp`` computes tensor-parallel now, which
+    sums the row-parallel outputs in another order:
+    ``test_fsdp_tp_matches_replicated``).  Each sharded rank gathers every
+    step, and K1, K6 and K3 run once per bucket each."""
+    tmp, only = runs, FSDP_ONLY[case]
+    a = np.load(tmp / f"torch_{only}.npz")
+    b = np.load(tmp / f"torch_{BITWISE[case]}.npz")
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], k)
+    view = _view(case, 0, "fsdp_only")[0]
+    steps = K * STEPS
+    for s, r in zip(_counts(tmp, only), _counts(tmp, BITWISE[case])):
+        assert not s["tp_compute"] and not r["tp_compute"]
+        assert s["collectives"]["tp"] == 0 == r["collectives"]["tp"]
+        assert s["collectives"]["gather"] > 0 == r["collectives"]["gather"]
+        assert s["calls"]["local_step"] == steps * len(view.trainable_groups)
+
+
+@pytest.mark.parametrize("case", BITWISE)
+def test_fsdp_tp_matches_replicated(runs, case):
+    """On (2, 2) the tensor-parallel step gives the replicated layout's
+    params and losses within the JAX comparison's tolerances (losses
+    rtol 1e-5, params atol 2e-5); each rank holds a quarter of the
+    frozen base (LoRA) and gathers it every step over ``data`` only
+    where it keeps its ``model`` tile, and K1, K6 and K3 run once per
     bucket each (two trainable buckets sharded, one replicated)."""
     tmp = runs
     a = np.load(tmp / f"torch_{case}.npz")
     b = np.load(tmp / f"torch_{BITWISE[case]}.npz")
     assert sorted(a.files) == sorted(b.files)
+    np.testing.assert_allclose(a["loss"], b["loss"], rtol=1e-5)
     for k in a.files:
-        np.testing.assert_array_equal(a[k], b[k], k)
+        if k != "loss":
+            np.testing.assert_allclose(a[k], b[k], atol=ATOL, rtol=0,
+                                       err_msg=k)
     sharded, replicated = _counts(tmp, case), _counts(tmp, BITWISE[case])
+    gathered = _counts(tmp, FSDP_ONLY[case])
     view, _ = _view(case, 0)
     n_train = len(view.trainable_groups)
     n_rep = len(_view(case, 0, "replicated")[0].trainable_groups)
     steps = K * STEPS
-    for s, r in zip(sharded, replicated):
+    for s, r, o in zip(sharded, replicated, gathered):
+        assert s["tp_compute"] and s["collectives"]["tp"] > 0
         assert s["collectives"]["gather"] > 0 == r["collectives"]["gather"]
+        # tensor parallelism gathers fewer bytes than the whole leaves
+        assert s["bytes"]["gather"] < o["bytes"]["gather"]
         assert s["calls"]["local_step"] == steps * n_train
         assert r["calls"]["local_step"] == steps * n_rep
         if CASES[case]["kind"] == "train":
@@ -422,8 +478,10 @@ def test_fsdp_tp_equals_replicated_bitwise(runs, case):
 @pytest.mark.parametrize("case", BITWISE)
 def test_sharded_run_checkpoints_as_the_replicated_one(runs, case):
     """Every rank saves the gathered result: one file, written once, with
-    the replicated run's leaves, dtypes and manifest."""
-    a_dir, b_dir = runs / f"ckpt_{case}", runs / f"ckpt_{BITWISE[case]}"
+    the replicated run's leaves, dtypes and manifest (the bitwise
+    ``fsdp_only`` twin's files)."""
+    a_dir = runs / f"ckpt_{FSDP_ONLY[case]}"
+    b_dir = runs / f"ckpt_{BITWISE[case]}"
     assert os.listdir(a_dir) == os.listdir(b_dir) == ["ckpt_1.npz"]
     a, b = load_pytree(str(a_dir / "ckpt_1.npz")), \
         load_pytree(str(b_dir / "ckpt_1.npz"))
@@ -432,6 +490,36 @@ def test_sharded_run_checkpoints_as_the_replicated_one(runs, case):
     assert tm.tree_paths(a) == tm.tree_paths(b)
     for x, y in zip(tm.tree_leaves(a), tm.tree_leaves(b)):
         assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_vocab_parallel_embedding_and_xent_on_four_ranks(runs):
+    """On four gloo ranks, each holding a quarter of a tied vocabulary:
+    the vocabulary-parallel lookup equals ``embed[tokens]`` exactly, the
+    cross-entropy (two labels ignored) ``_xent``'s within f32 rounding,
+    and each rank's gradient rows the whole-vocabulary gradient's; five
+    ``"tp"`` all-reduces (the lookup, the max, Σexp, the gold logit, the
+    logits' input gradient)."""
+    for r in range(4):
+        got = json.loads((runs / f"vocab_vocab_{r}.json").read_text())
+        assert got["embed"] == 0.0
+        assert got["loss"] <= 1e-6 * abs(got["loss_value"])
+        assert got["grad"] <= 1e-6 * got["grad_max"]
+        assert got["tp"] == 5
+
+
+def test_tensor_parallel_prefill_and_decode_on_four_ranks(runs):
+    """The reduced tinyllama-1.1b on (1, 4) under ``fsdp_tp``: prefill
+    and two greedy decode steps on each rank's model-local tree (one q
+    pair and its one kv head, a quarter of the vocabulary, the logits
+    gathered whole) equal the whole tree's, and the rank's cache holds
+    its kv head of the whole cache, within the params' tolerance (the
+    row-parallel outputs sum in another order)."""
+    for r in range(4):
+        got = json.loads((runs / f"vocab_vocab_{r}.json").read_text())
+        serve = got["serve"]
+        assert serve["kv_heads"] == 1 and serve["logits_shape"][-1] == 512
+        assert len(serve["logits"]) == 3
+        assert max(serve["logits"]) <= ATOL and serve["cache"] <= ATOL
 
 
 def test_train_cli_runs_fsdp_tp_on_four_ranks(tmp_path):
@@ -454,12 +542,43 @@ def test_train_cli_runs_fsdp_tp_on_four_ranks(tmp_path):
     assert all("[train]" not in out for out, _ in outs[1:])
 
 
+def _model_tiles(view, tree, m: int):
+    """``tree`` with each leaf that a tensor-parallel step keeps local cut
+    to its tile at ``model`` coordinate ``m`` (the model-local tree)."""
+    from repro_torch.sharding import tensor_parallel
+    cfg = with_peft(get_reduced(ARCH), "lora:4")
+    tp = tensor_parallel.TPContext(
+        mesh=None, size=2, rank=m, plan=tensor_parallel.plan(cfg, 2),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        vocab_size=cfg.vocab_size)
+    leaves, treedef = tm.tree_flatten(tree)
+    out = []
+    for path, leaf, slot in zip(tm.tree_paths(tree), leaves, view.slots):
+        for d, entry in enumerate(slot.dim_axes):
+            if "model" in entry and tp.local(path):
+                blk = leaf.shape[d] // 2
+                leaf = leaf.narrow(d, m * blk, blk)
+        out.append(leaf)
+    return [tp.local(p) for p in tm.tree_paths(tree)], \
+        tm.tree_unflatten(treedef, out)
+
+
 def test_row_gradient_sums_once_over_data_never_over_model():
     """The gather's backward on four simulated ranks of a (2, 2) mesh:
-    each rank's whole-leaf gradient (the two ``model`` ranks of a
-    ``data`` row compute the same batch part) reduces to its row as the
-    replicated layout's all-reduce over ``data`` and batch mean would,
-    element for element — a sum over ``model`` as well would double it."""
+    each rank's leaf gradient (the two ``model`` ranks of a ``data`` row
+    compute the same batch part) reduces to its row as the replicated
+    layout's all-reduce over ``data`` and batch mean would, element for
+    element — a sum over ``model`` as well would double it.  With
+    ``tensor_parallel`` the leaves are the step's model-local ones: a
+    local leaf's gradient is the rank's tile, and a leaf gathered over
+    ``model`` (the row-parallel ``lora_b``, whole on both ``model``
+    ranks with the same gradient) is sliced at the rank's ``model``
+    coordinate, part by part of each bucket."""
+    for tensor_parallel in (False, True):
+        _check_row_gradient(tensor_parallel)
+
+
+def _check_row_gradient(tensor_parallel: bool):
     view, _ = _view("tp-lora-fedavgm", 0)
     whole = view.whole_view()
     gen = torch.Generator().manual_seed(0)
@@ -468,6 +587,20 @@ def test_row_gradient_sums_once_over_data_never_over_model():
     grads = [{n: torch.randn(k, generator=gen)
               for n, k in whole.buffer_sizes.items()} for _ in range(2)]
     mean = {n: (grads[0][n] + grads[1][n]) / 2 for n in grads[0]}
+    if tensor_parallel:
+        local, _ = _model_tiles(view, whole.unflatten(grads[0]), 0)
+        lview, parts = view.model_local(local)
+        # the model-local gradient buffers of rank (d, m)
+        tiles = {(d, m): lview.whole_view().flatten(_model_tiles(
+            view, whole.unflatten(grads[d]), m)[1])
+            for d in range(2) for m in range(2)}
+        assert any(n.endswith("|whole") and "model" in
+                   lview.group_map[n].axes for n in lview.group_map)
+    else:
+        lview = view
+        parts = {g.name: ((g.name, None),) for g in view.groups}
+        tiles = {(d, m): grads[d] for d in range(2) for m in range(2)}
+    checked = 0
     for g in view.trainable_groups:
         for r in range(4):
             coords = {"data": r // 2, "model": r % 2}
@@ -480,30 +613,28 @@ def test_row_gradient_sums_once_over_data_never_over_model():
                                       interpret=True, device=mesh.device,
                                       sharded=view, mesh=mesh,
                                       split_batch=True)
-            # reduce-scatter over data, emulated: rank (d', m)'s block d
-            total = None
-            own = ()
-            for d in range(2):
-                peer = dict(fops._coords, data=d)
-                ops_d = pod.ShardedFlatOps(
-                    view=fops.view, interpret=True, device=mesh.device,
-                    sharded=view, mesh=types.SimpleNamespace(
-                        **dict(vars(mesh), coords=peer)), split_batch=True)
-                own, rows = ops_d._batch_rows(
-                    g.name, view.whole_to_rows(g.name, grads[d]))
-                blk = rows[coords["data"]] if own else rows[0]
-                total = blk if total is None else total + blk
             want = view.whole_to_rows(g.name, mean)[
                 view.local_rows(coords)[g.name]]
-            if "data" in g.axes:
-                assert own == ("data",)
+            for part, index in parts[g.name]:
+                # reduce-scatter over data, emulated: rank (d', m)'s
+                # block d
+                total, own = None, ()
+                for d in range(2):
+                    own, rows = fops._batch_rows(lview, part, lview
+                                                 .whole_to_rows(
+                                                     part, tiles[d, r % 2]))
+                    blk = rows[coords["data"]] if own else rows[0]
+                    total = blk if total is None else total + blk
+                assert own == (("data",) if "data" in
+                               lview.group_map[part].axes else ())
                 got = total / 2
-            else:                   # sharded over model only: all-reduce
-                assert own == ()
-                got = total / 2
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
-            # summing over the model ranks too would give twice the mean
-            assert not torch.allclose(2 * got, want)
+                w = want if index is None else want[index]
+                torch.testing.assert_close(got, w, rtol=1e-6, atol=1e-7)
+                # summing over the model ranks too would give twice the
+                # mean
+                assert not torch.allclose(2 * got, w)
+                checked += 1
+    assert checked >= 4 * len(view.trainable_groups)
 
 
 @pytest.mark.parametrize("layout,shape,peft", [

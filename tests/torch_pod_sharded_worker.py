@@ -4,15 +4,19 @@
     python tests/torch_pod_sharded_worker.py CFG.json RANK WORLD file:///path/store
 
 Joins a gloo process group over the ``file://`` store, then for every
-case of the config builds its mesh and runs the reduced LM (with
-``lora:4`` adapters when the case names ``peft``) from the given init
-params on the given batch indices: through ``run_pod_training`` (kind
-"train": P2 only), the P1 relay (kind "relay") or P2 rounds (kind
-"rounds").  Rank 0 writes the final params and the losses; every rank
+case of the config builds its mesh and runs the reduced LM (the case's
+``arch``, else the config's; with ``lora:4`` adapters when the case
+names ``peft``) from the given init params on the given batch indices:
+through ``run_pod_training`` (kind "train": P2 only), the P1 relay
+(kind "relay") or P2 rounds (kind "rounds").  Kind "vocab" holds the
+vocabulary-parallel embedding and cross-entropy (tied embedding, ignore
+labels) against the whole-vocabulary functions on the case's mesh and
+writes their largest differences.  Rank 0 writes the final params and the losses; every rank
 writes its rows of scaffold's ``c`` and of the error-feedback store, its
 collective counts and bytes, its K1/K6/K3 call counts, DP's clip scales,
-each step's global gradient norm and the bytes of the buffers it carried
-(``EngineResult.resident_bytes``); a case with ``"checkpoint"`` saves
+each step's global gradient norm, the bytes of the buffers it carried
+(``EngineResult.resident_bytes``) and whether it computed
+tensor-parallel (``EngineResult.tp_compute``); a case with ``"checkpoint"`` saves
 its final params through a ``CheckpointManager`` on every rank.
 Imports torch and ``repro_torch`` only.
 """
@@ -56,16 +60,21 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
                                                np.int64))
         return indices
 
-    sides = {}
-    for peft in (None, "lora:4"):
-        mcfg = with_peft(get_reduced(cfg["arch"]), peft)
+    sides, datas = {}, {}
+    for case in cfg["cases"].values():
+        arch, peft = case.get("arch", cfg["arch"]), case.get("peft")
+        if case["kind"] == "vocab" or (arch, peft) in sides:
+            continue
+        mcfg = with_peft(get_reduced(arch), peft)
         task = lm_task(mcfg)
         tag = "lora" if peft else "full"
-        sides[peft] = (mcfg, task, load_init(task, out / f"init_{tag}.npz"))
-    data = make_synthetic_tokenlm(
-        n_clients=cfg["n_clients"], seq_len=cfg["seq"],
-        n_seq_per_client=cfg["n_seq"], vocab=sides[None][0].vocab_size,
-        seed=cfg["seed"])
+        sides[arch, peft] = (mcfg, task, load_init(
+            task, out / f"init_{arch}_{tag}.npz"))
+        if mcfg.vocab_size not in datas:
+            datas[mcfg.vocab_size] = make_synthetic_tokenlm(
+                n_clients=cfg["n_clients"], seq_len=cfg["seq"],
+                n_seq_per_client=cfg["n_seq"], vocab=mcfg.vocab_size,
+                seed=cfg["seed"])
     indices = source(np.load(out / "indices.npy"))
 
     calls = {"local_step": 0, "delta_accum": 0, "server_update": 0}
@@ -100,8 +109,15 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
 
     for name, case in cfg["cases"].items():
         mesh = make_mesh(case["shape"], ("data", "model"), "cpu")
+        if case["kind"] == "vocab":
+            (out / f"vocab_{name}_{rank}.json").write_text(json.dumps(dict(
+                vocab_check(mesh, cfg["seed"]),
+                serve=serve_check(mesh, cfg["seed"]))))
+            dist.barrier()
+            continue
         peft = case.get("peft")
-        mcfg, task, init = sides[peft]
+        mcfg, task, init = sides[case.get("arch", cfg["arch"]), peft]
+        data = datas[mcfg.vocab_size]
         spec = pod.PodFLSpec(
             update_impl="fused", algorithm=case.get("algorithm", "fedavg"),
             server_opt=case.get("server_opt", "none"), peft=peft,
@@ -142,7 +158,7 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
         counts = {"collectives": dict(pod.COLLECTIVES),
                   "bytes": dict(pod.COLLECTIVE_BYTES), "calls": dict(calls),
                   "resident": res.resident_bytes, "clip_scales": scales,
-                  "grad_norms": norms}
+                  "grad_norms": norms, "tp_compute": res.tp_compute}
         if fops is not None:
             arrays = {}
             if "c_global" in algo_state:
@@ -172,6 +188,89 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
             np.savez(out / f"torch_{name}.npz", **arrays)
         dist.barrier()
     dist.destroy_process_group()
+
+
+def vocab_check(mesh, seed: int) -> dict:
+    """The vocabulary-parallel embedding lookup and cross-entropy on this
+    rank's columns of a tied (V, d) table against ``embed[tokens]`` and
+    ``models.transformer._xent`` over the whole vocabulary, forward and
+    gradient (labels −1 ignored; tokens and labels on every rank's
+    columns): the largest absolute differences."""
+    from repro_torch.fl import pod
+    from repro_torch.models.transformer import _xent
+    from repro_torch.sharding import tensor_parallel as tpl
+    V, d, B, S = 64, 8, 2, 6
+    cfg = _vocab_cfg(V)
+    tp = tpl.context(cfg, mesh)
+    assert tp is not None and tp.plan.vocab
+    rng = np.random.default_rng(seed)
+    table = torch.from_numpy(rng.standard_normal((V, d)).astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(0, V, (B, S)))
+    labels = torch.from_numpy(rng.integers(0, V, (B, S)))
+    labels[0, :2] = -1
+    lo, n = tp.vocab_range
+
+    def run(local: bool):
+        t = (table[lo:lo + n] if local else table).clone().requires_grad_()
+        if local:
+            x = tpl.vocab_embedding(t, tokens, tp)
+            logits = tpl.copy_to_model(x, tp) @ t.t()
+            loss, _ = tpl.vocab_cross_entropy(logits, labels, tp)
+        else:
+            x = t[tokens]
+            loss, _ = _xent(x @ t.t(), labels)
+        (g,) = torch.autograd.grad(loss, [t])
+        return x.detach(), loss.detach(), g[lo:lo + n] if not local else g
+    xw, lw, gw = run(False)
+    pod.reset_collective_counts()
+    xl, ll, gl = run(True)
+    return {"embed": float((xl - xw).abs().max()),
+            "loss": float((ll - lw).abs()), "loss_value": float(lw),
+            "grad": float((gl - gw).abs().max()),
+            "grad_max": float(gw.abs().max()),
+            "tp": pod.COLLECTIVES["tp"]}
+
+
+def serve_check(mesh, seed: int) -> dict:
+    """The reduced tinyllama-1.1b's prefill and two greedy decode steps on
+    the model-local tree of the ``fsdp_tp`` layout (its 2 kv heads on 4
+    ``model`` ranks: one each) against the whole tree's: the largest
+    differences of the logits and of the rank's kv heads of the cache."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.fl import pod
+    from repro_torch.fl.task import lm_task
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+    cfg = get_reduced("tinyllama-1.1b")
+    params = init_lm(cfg, seed, "cpu")
+    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True,
+                                 None, False, True)
+    with torch.no_grad():
+        tree = fops.tp_tree(fops.flatten(params))
+        tp = tree.tp
+        tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (2, 6)))
+        lw, cw, S = prefill(params, cfg, {"tokens": tokens}, 9)
+        lt, ct, _ = prefill(tree, cfg, {"tokens": tokens}, 9, tp=tp)
+        logits = [float((lt - lw).abs().max())]
+        for t in range(2):
+            tok = torch.argmax(lw[:, -1:], dim=-1)
+            lw, cw = decode_step(params, cfg, tok, cw, S + t)
+            lt, ct = decode_step(tree, cfg, tok, ct, S + t, tp=tp)
+            logits.append(float((lt - lw).abs().max()))
+    lo, n = tp.kv_range
+    cache = max(float((a - b.narrow(-2, lo, n)).abs().max())
+                for a, b in zip(ct["scan"]["kv"], cw["scan"]["kv"]))
+    return {"logits": logits, "cache": cache, "kv_heads": n,
+            "logits_shape": list(lt.shape)}
+
+
+def _vocab_cfg(vocab: int):
+    """A dense token config of ``vocab`` words (its plan splits the
+    vocabulary on any |model| that divides it)."""
+    from repro_torch.models.transformer import TransformerConfig
+    return TransformerConfig(name="vocab", arch_type="dense", n_layers=1,
+                             d_model=8, vocab_size=vocab, n_heads=4,
+                             n_kv_heads=4, d_ff=8, tie_embeddings=True)
 
 
 if __name__ == "__main__":
