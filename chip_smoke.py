@@ -60,6 +60,11 @@ JSON line per phase:
                      K1 at pod_sharded's per-shard rows (N
                      274,989,056 in P1, 1,576,960 in P2), K6 and K3's
                      apply at 1,576,960, bitwise (path "pod_sharded");
+                     K1, K6 and K3's apply at each trainable row of
+                     pod_sharded_moe's cut in P2 under fsdp_tp (f32
+                     routers 262,144, bf16 adapters 60,160 and 95,744)
+                     and K1 at its P1 row (417,464,320), bitwise (path
+                     "pod_sharded_moe");
                      K1, K6 and K3 at moe_train's two buckets, K2 and
                      K3's aggregate form at its cut's, K1 over the cut's
                      whole bf16 model (path "moe_train"); K7 at
@@ -274,6 +279,29 @@ JSON line per phase:
                      leaves kept; ms a step, bytes gathered and
                      all-reduced over model a step, collectives and peak
                      memory per rank, the card's name and power limit;
+     pod_sharded_moe — the MoE zoo on the same four gloo ranks:
+                     (a) deepseek-v2-lite-16b + lora:8 cut to 3 layers at
+                     full width on (2, 2), P1 1 x 2 x 2 then P2 1 x 2 x 2
+                     on the /(lora_a|lora_b)$|/router/w$ slice, batch 8 x
+                     128, under fsdp_tp (experts, shared experts and MLA
+                     heads over model; every MoE layer's capacity global
+                     over data: tp_compute, "tp" and "moe" collectives)
+                     and replicated ("moe" only): losses and params within
+                     MOE_SHARDED_LOSS_RTOL and MOE_SHARDED_TP_TOL (bf16;
+                     routing flips), P1's changes from the init within
+                     MOE_SHARDED_DELTA_TOL, which a control (fsdp_tp's
+                     P1 with the router's gradient summed over model;
+                     with --pod-sharded-moe-control, the phase alone)
+                     exceeds, frozen rows the
+                     fsdp_tp view's per-shard sizes, K1, K6 and K3 once
+                     a bucket row, pairs dropped (per layer, reported);
+                     (b) the whole model on (1, 4) under fsdp_tp, P2 1 x
+                     2 x 2: each rank draws the init in turn behind a
+                     barrier and keeps only its rows (engine.FlatRows),
+                     so the card holds one whole model at most; finite
+                     losses, every router's layer row moved, every
+                     frozen row bitwise; ms a step, peak GB a rank,
+                     bytes gathered and all-reduced ("tp", "moe") a step;
  14. dryrun        — the compile analysis (repro_torch.launch.dryrun) in
                      subprocesses on fake tensors over fake process
                      groups, five at a time, started before llm_lora so
@@ -295,9 +323,10 @@ JSON line per phase:
                      warm step's ms (CUDA events, median of 5) beside its
                      t_compute_s, t_memory_s and model FLOPs / (ms x
                      989e12); (b) lower_pod_round on a fake (2, 2) mesh
-                     for pod_sharded's configuration (a subprocess),
-                     cyclic + fl: its collectives and bytes by kind equal
-                     each pod_sharded rank's under fsdp_tp;
+                     for pod_sharded's configuration and pod_sharded_moe's
+                     cut (a subprocess), cyclic + fl: its collectives and
+                     bytes by kind equal each pod_sharded and
+                     pod_sharded_moe rank's under fsdp_tp;
  16. pod_aot       — tinyllama-1.1b at full width (f32) through
                      make_pod_cyclic_round and make_pod_fl_round, K 2, 2
                      local steps, batch 8 x 128: P1 bitwise the chain of
@@ -310,7 +339,8 @@ JSON line per phase:
                      CPU within RESNET8_TOL; its ms;
 then the ``kernels`` summary (K1, K2, K3 and K6 with a ``bf16_form``
 at llm_lora's buckets and its launches there; K1, K3 and K6 with a
-``sharded_form`` at pod_sharded's per-shard rows; K1–K3 with their N
+``sharded_form`` at pod_sharded's per-shard rows and a
+``sharded_moe_form`` at pod_sharded_moe's; K1–K3 with their N
 814,080 rows and
 launches on charlm_path and fashion_path; the threshold's row its
 radix route on charlm_compressed, its cluster form beside it; K4 with
@@ -3834,31 +3864,46 @@ def pod_sharded_worker(rank: int, store: str, out: str) -> int:
     return 0
 
 
-def _tp_vs_replicated(torch, a, b) -> dict:
-    """fsdp_tp's leaves ``a`` against replicated's ``b``: the largest
-    difference of a leaf over its largest magnitude (``rel``, and the
-    leaf's index), the largest difference, the share of elements that
-    differ, and the share that differ by more than one ulp of the larger
-    of the two values in the leaves' dtype."""
-    rel = max_abs = differ = beyond = n = 0
-    worst = None
+def _tp_vs_replicated(torch, a, b, base=None) -> dict:
+    """fsdp_tp's leaves ``a`` against replicated's ``b`` (each leaf of
+    ``b`` on ``a``'s device for the comparison), or with ``base`` (the
+    init's leaves) their changes from it, ``a - base`` against
+    ``b - base``: the largest difference of a leaf over its largest
+    magnitude (``rel``, and the leaf's index), the largest of a leaf's
+    L2 norm of the difference over its L2 norm (``l2``, and the leaf's
+    index), the largest difference, the share of elements that differ,
+    and the share that differ by more than one ulp of the larger of the
+    two values in the leaves' dtype."""
+    rel = l2 = max_abs = differ = beyond = n = 0
+    worst = worst_l2 = None
     for i, (x, y) in enumerate(zip(a, b)):
+        y = y.to(x.device)
+        big = torch.maximum(x.float().abs(), y.float().abs())
+        if base is not None:
+            z = base[i].to(x.device).float()
+            x, y = x.float() - z, y.float() - z
+            del z
         d = (x.float() - y.float()).abs()
         top = float(d.max())
         r = top / max(float(y.float().abs().max()), 1e-30)
         if r > rel:
             rel, worst = r, i
+        norm = float(torch.linalg.vector_norm(y.float()))
+        r = float(torch.linalg.vector_norm(d)) / norm if norm else \
+            (0.0 if top == 0 else math.inf)
+        if r > l2:
+            l2, worst_l2 = r, i
         max_abs = max(max_abs, top)
         differ += int((d > 0).sum())
-        big = torch.maximum(x.float().abs(), y.float().abs())
-        ulp = torch.finfo(x.dtype).eps * torch.exp2(torch.floor(
-            torch.log2(big.clamp(min=torch.finfo(x.dtype).tiny))))
+        dt = a[i].dtype
+        ulp = torch.finfo(dt).eps * torch.exp2(torch.floor(
+            torch.log2(big.clamp(min=torch.finfo(dt).tiny))))
         beyond += int((d > ulp).sum())
         n += d.numel()
-        del d, big, ulp
+        del d, big, ulp, x, y
     return dict(dtypes_equal=all(x.dtype == y.dtype for x, y in zip(a, b)),
-                rel=rel, worst_leaf=worst, max_abs=max_abs,
-                differ=differ / n, beyond_one_ulp=beyond / n)
+                rel=rel, worst_leaf=worst, l2=l2, worst_leaf_l2=worst_l2,
+                max_abs=max_abs, differ=differ / n, beyond_one_ulp=beyond / n)
 
 
 def pod_sharded(torch) -> dict:
@@ -3958,8 +4003,8 @@ def pod_sharded(torch) -> dict:
         data: a reduce-scatter for a part sharded over it, else an
         all-reduce); one loss reduction a phase (one chunk)."""
         out = dict.fromkeys(("grad", "gather", "clip", "batch",
-                             "lane_combine", "store_gather", "store_spill"),
-                            0)
+                             "lane_combine", "store_gather", "store_spill",
+                             "moe"), 0)
         for ph in phases(layout):
             v = views[(layout, ph)]
             lv, parts = (v.model_local(local) if layout == "fsdp_tp" else
@@ -4087,6 +4132,482 @@ def check_sharded_kernels(torch, bench) -> dict:
            if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
     if bad:
         raise SystemExit(f"chip_smoke: kernels at pod_sharded's rows "
+                         f"disagree with their plain versions: {bad}")
+    return out
+
+
+# pod_sharded_moe: the MoE zoo on four gloo ranks of one card.  (a) the
+# 3-layer cut of deepseek-v2-lite-16b + lora:8 (the dense layer and two
+# MoE layers at full width) on (2, 2): P1 and P2 1 x 2 x 2 at batch 8 x
+# 128 under fsdp_tp (experts and MLA heads over model, the batch over
+# data) and replicated (the batch over data); (b) the whole model on
+# (1, 4) under fsdp_tp, P2 alone (16 experts and 4 heads a rank)
+MOE_SHARDED_MESH, MOE_FULL_MESH = (2, 2), (1, 4)
+MOE_SHARDED_LAYOUTS = ("fsdp_tp", "replicated")
+# fsdp_tp against replicated in bf16: pod_sharded's reasons, and the
+# router's top-k turns bf16 rounding into other routing: a few pairs of
+# each layer's 49,152 go to other experts and other pairs overflow (the
+# CPU tests hold the f32 step at rtol 1e-5 / atol 2e-5).  Each gate sits
+# between the sound runs' largest reading on an H100 and the control's
+# (fsdp_tp's P1 with the router's gradient summed over model, |model|
+# times too large; PERF.md, pod_sharded_moe): the leaf's change from the
+# init over P1, the L2 norm of its gap over the change's L2 norm (sound
+# 0.382, a LoRA factor that moves by a few bf16 ulps; the control 1.016,
+# the router); a leaf's largest gap over its largest magnitude at P2's
+# end, pod_sharded's 2**-4 (sound 0.0557–0.0566).  The losses (sound
+# 7.0e-5 apart, the same bits on every run) cannot tell the control
+# (6.9e-6) from a sound run: their gate only bounds the bf16 drift
+MOE_SHARDED_LOSS_RTOL = 1e-4
+MOE_SHARDED_TP_TOL = 2.0 ** -4
+MOE_SHARDED_DELTA_TOL = 0.6
+
+
+def _moe_drops(log, n_layers: int) -> dict:
+    """Per MoE layer (a forward's calls in layer order), the routed pairs
+    a rank dropped and routed over a run's ``record_routing`` log, and
+    the capacities."""
+    return dict(dropped=[sum(int(e["dropped"]) for e in log[i::n_layers])
+                         for i in range(n_layers)],
+                routed=[sum(e["pairs"] for e in log[i::n_layers])
+                        for i in range(n_layers)],
+                capacity=sorted({e["capacity"] for e in log}))
+
+
+def pod_sharded_moe_worker(rank: int, store: str, out: str) -> int:
+    """One rank of ``pod_sharded_moe`` (``chip_smoke.py
+    --pod-sharded-moe-rank R STORE OUT``): joins the four-rank gloo group
+    over the ``file://`` store on cuda:0 and reads the parent's
+    ``moe_setup`` config and data from ``OUT/data.pkl``.  (a) on
+    MOE_SHARDED_MESH, under each of MOE_SHARDED_LAYOUTS, the 3-layer cut
+    through ``run_pod_training`` from one seeded init: P1 1 x 2 x 2
+    relaying the whole model, then P2 1 x 2 x 2 on the MOE_FILTER slice,
+    batch 8, lr 0.03; then, when the parent asks for it, the control,
+    fsdp_tp's P1 with a planted fault (``TPContext.partial`` patched in
+    this process to mark the router partial).  (b) on MOE_FULL_MESH under fsdp_tp, the whole
+    model, P2 1 x 2 x 2 on the slice: the ranks draw the init one at a
+    time behind barriers, each packs its rows (``engine.FlatRows``) and
+    frees the tree, so the card holds one whole model at most; the run
+    starts and ends with the rows.  Writes ``OUT/rank<R>.json``: per run
+    the seconds, ms a step, the collectives and their bytes, K1/K6/K3
+    launches, the carried buffers' bytes, peak memory, the losses, the
+    dropped pairs per MoE layer, whether each phase computed
+    tensor-parallel and kept the frozen leaves; fsdp_tp's and the
+    control's differences from the replicated params
+    (``_tp_vs_replicated``: at P2's end, and of the changes from the
+    init at P1's and P2's ends); (b) whether every router moved (each
+    layer's row) and every frozen row stayed bitwise."""
+    import dataclasses
+    import faulthandler
+    import pickle
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    world = math.prod(MOE_SHARDED_MESH)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    from repro_torch.fl import pod
+    from repro_torch.fl.engine import FlatRows
+    from repro_torch.fl.task import lm_task
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import run_pod_training
+    from repro_torch.models.layers import record_routing
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding import tensor_parallel as tpl
+    from repro_torch.utils.tree_math import tree_leaves, tree_map
+
+    cfg, data, control = pickle.loads(Path(out, "data.pkl").read_bytes())
+    cut = dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)
+    spec = moe_spec(local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH)
+    steps = SHARDED_K * SHARDED_STEPS
+
+    def launches():
+        return {k: fn.launches for k, fn in (
+            ("local_step", fu.local_step), ("delta_accum", fu.delta_accum),
+            ("server_update", fu.server_update))}
+
+    def run(model, mesh, layout, init, cyclic_rounds, fl_rounds=1):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pod.reset_collective_counts()
+        fu.reset_launch_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with record_routing() as log:
+            res = run_pod_training(model, data, cyclic_rounds=cyclic_rounds,
+                                   fl_rounds=fl_rounds,
+                                   clients_per_round=SHARDED_K,
+                                   spec=spec, mesh=mesh, seed=SEED,
+                                   layout=layout, init_params=init)
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        phases = [ph.result for ph in res.schedule.phases]
+        n_steps = len(phases) * steps
+        per_step = {k: pod.COLLECTIVE_BYTES[k] / n_steps
+                    for k in ("gather", "tp", "moe")}
+        return res, phases, dict(
+            run_s=run_s, ms_per_step=run_s * 1e3 / n_steps,
+            collectives=dict(pod.COLLECTIVES),
+            collective_bytes=dict(pod.COLLECTIVE_BYTES),
+            bytes_per_step=per_step, tp_compute=[ph.tp_compute
+                                                 for ph in phases],
+            launches=launches(),
+            resident=[ph.resident_bytes for ph in phases],
+            peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            losses=[h["loss"] for h in res.history],
+            drops=_moe_drops(log, model.n_layers - model.n_dense_layers))
+
+    # (a) the cut on (2, 2): replicated, then fsdp_tp, then with
+    # ``control`` the control (fsdp_tp's P1 with the router marked
+    # partial: its gradient, whole on every rank, summed over model,
+    # |model| times what it is); the init waits on the host (each run
+    # copies its rows to the card), so that four ranks' result gathers
+    # fit on the one card.  Every rank ends with the same whole params,
+    # so rank 0 alone keeps replicated's P1 and P2 ends (on the host:
+    # four ranks' copies would exceed the machine's memory) and compares
+    mesh = make_mesh(MOE_SHARDED_MESH, ("data", "model"), "cuda:0")
+    t0 = time.perf_counter()
+    init = tree_map(lambda t: t.cpu(), init_lm(cut, SEED, "cuda"))
+    torch.cuda.empty_cache()
+    base = tree_leaves(init)
+    mask = rules.trainable_mask(init, MOE_FILTER)
+    report = {"rank": rank, "coords": dict(mesh.coords),
+              "setup_s": time.perf_counter() - t0}
+    ref = None
+    for layout in ("replicated", "fsdp_tp"):
+        res, phases, got = run(cut, mesh, layout, init, 1)
+        got["frozen_kept_by_p2"] = all(torch.equal(a, b) for a, b, m in zip(
+            tree_leaves(phases[0].params), tree_leaves(res.params), mask)
+            if not m)
+        report[layout] = got
+        ends = [tree_leaves(phases[0].params), tree_leaves(res.params)]
+        if rank != 0:
+            pass
+        elif ref is None:
+            ref = [[t.cpu() for t in leaves] for leaves in ends]
+        else:
+            report["tp_vs_replicated"] = _tp_vs_replicated(
+                torch, ends[1], ref[1])
+            report["tp_vs_replicated_p1_delta"] = _tp_vs_replicated(
+                torch, ends[0], ref[0], base)
+            report["tp_vs_replicated_delta"] = _tp_vs_replicated(
+                torch, ends[1], ref[1], base)
+        del res, phases, ends
+        torch.cuda.empty_cache()
+    if control:
+        sound = tpl.TPContext.partial
+        tpl.TPContext.partial = lambda self, path: \
+            sound(self, path) or path.endswith("/router/w")
+        try:
+            res, phases, got = run(cut, mesh, "fsdp_tp", init, 1,
+                                   fl_rounds=0)
+        finally:
+            tpl.TPContext.partial = sound
+        report["control"] = got
+        if rank == 0:
+            report["control_vs_replicated_p1_delta"] = _tp_vs_replicated(
+                torch, tree_leaves(res.params), ref[0], base)
+        del res, phases
+    del init, base, ref
+    torch.cuda.empty_cache()
+
+    # (b) the whole model on (1, 4): one whole tree on the card at a time
+    mesh = make_mesh(MOE_FULL_MESH, ("data", "model"), "cuda:0")
+    fops = pod.PodFLConfig(mesh, rounds=1, clients_per_round=SHARDED_K,
+                           spec=spec, layout="fsdp_tp").strategy().flat_ops(
+                               lm_task(cfg), mesh.device)
+    rows = None
+    for r in range(world):
+        if r == rank:
+            t0 = time.perf_counter()
+            tree = init_lm(cfg, SEED, "cuda")
+            rows = FlatRows(fops.flatten(tree), fops.flatten_frozen(tree))
+            del tree
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            init_s = time.perf_counter() - t0
+        dist.barrier()
+    frozen0 = {n: t.cpu() for n, t in rows.frozen.items()}
+    trained0 = {n: t.clone() for n, t in rows.params.items()}
+    res, phases, got = run(cfg, mesh, "fsdp_tp", rows, 0)
+    end = res.params
+    # each layer's router row moved (the slot of the stacked leaf in the
+    # rank's rows); every frozen row bitwise its init
+    moved = []
+    for path, slot in zip(_tree_paths_of(fops), fops.view.slots):
+        if path.endswith("router/w"):
+            a, b = (t[slot.buffer][slot.offset:slot.offset + slot.size]
+                    .reshape(slot.shape) for t in (trained0, end.params))
+            moved.append([bool((x != y).any()) for x, y in zip(a, b)])
+    kept = True
+    for n, t in end.frozen.items():
+        for lo in range(0, t.numel(), 1 << 28):
+            kept &= bool(torch.equal(t[lo:lo + (1 << 28)].cpu(),
+                                     frozen0[n][lo:lo + (1 << 28)]))
+    got.update(init_s=init_s, routers_moved=moved, frozen_kept=kept,
+               rows={n: t.numel() for n, t in end.params.items()},
+               frozen_rows={n: t.numel() for n, t in end.frozen.items()})
+    report["full"] = got
+    del res, phases, end, rows, frozen0, trained0
+    torch.cuda.empty_cache()
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _tree_paths_of(fops):
+    """The leaf paths of a flat view's tree, in its slots' order."""
+    from repro_torch.utils.tree_math import tree_paths, tree_unflatten
+    return tree_paths(tree_unflatten(fops.view.treedef,
+                                     [0] * len(fops.view.slots)))
+
+
+def moe_sharded_views():
+    """The views of pod_sharded_moe's runs on a static mesh: (a) the cut
+    under each layout, P1 (the whole model) and P2 (the MOE_FILTER
+    slice); (b) the whole model's P2 under fsdp_tp on (1, 4)."""
+    import dataclasses
+    from repro_torch.fl.task import lm_task
+    from repro_torch.sharding import rules
+    cfg = moe_setup_config()
+    cut = lm_task(dataclasses.replace(cfg, n_layers=MOE_CUT_LAYERS)).shapes()
+    mesh = _StaticMesh(MOE_SHARDED_MESH)
+    views = {(layout, ph): rules.sharded_flat_view(
+        cut, mesh, layout, MOE_FILTER if ph == "P2" else None)
+        for layout in MOE_SHARDED_LAYOUTS for ph in ("P1", "P2")}
+    views["full"] = rules.sharded_flat_view(
+        lm_task(cfg).shapes(), _StaticMesh(MOE_FULL_MESH), "fsdp_tp",
+        MOE_FILTER)
+    return views
+
+
+def pod_sharded_moe(torch, control: bool = False) -> dict:
+    """Phase pod_sharded_moe: expert parallelism and MLA's heads over
+    ``model``, and each MoE layer's capacity global over the batch
+    group, on four ranks of one card (``pod_sharded_moe_worker``: gloo
+    over a ``file://`` store under TMPDIR, four processes on cuda:0).
+    Gates, (a) the 3-layer cut on (2, 2): fsdp_tp computed with the
+    experts and heads split in both phases on every rank (``tp_compute``,
+    "tp" > 0) and replicated did not, both dispatched over data ("moe"
+    > 0); fsdp_tp's losses within MOE_SHARDED_LOSS_RTOL and its params
+    within MOE_SHARDED_TP_TOL of replicated's, its P1 changes from the
+    init within MOE_SHARDED_DELTA_TOL (L2) of replicated's, and with
+    ``control`` (``--pod-sharded-moe-control``) the control's beyond it; each rank's resident
+    frozen rows in P2 (the experts among them) the fsdp_tp view's
+    per-shard sizes; K1, K6 and K3 launched once per bucket, step,
+    client and round; P2 kept every frozen leaf; pairs dropped.  (b)
+    the whole model on (1, 4): finite losses, tp_compute, every router
+    moved (each layer), every frozen row bitwise, each rank's rows the
+    view's per-shard sizes.
+    The collectives against lower_pod_round are dryrun_check (b)'s.
+    Reported: dropped pairs per layer, ms a step, peak memory a rank,
+    bytes gathered and all-reduced ("tp", "moe") a step, the card.
+    Returns rank 0's fsdp_tp launches of (a) (the kernel rows'
+    launches) and every rank's report."""
+    import pickle
+    import tempfile
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, data, _ = moe_setup()
+    views = moe_sharded_views()
+    tmp = tempfile.mkdtemp(prefix="pod_sharded_moe_")
+    Path(tmp, "data.pkl").write_bytes(pickle.dumps((cfg, data, control)))
+    store = os.path.join(tmp, "store")
+    world = math.prod(MOE_SHARDED_MESH)
+    # four processes share the card: expandable segments keep each
+    # one's freed blocks from pinning memory the others need
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--pod-sharded-moe-rank", str(r), store, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    failed = [f"rank {r} exited {p.returncode}:\n{err[-2000:]}"
+              for r, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise SystemExit("chip_smoke: pod_sharded_moe: " + "\n".join(failed))
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+             for r in range(world)]
+    steps = SHARDED_K * SHARDED_STEPS
+
+    def want(layout):
+        n1 = len(views[(layout, "P1")].trainable_groups)
+        n2 = len(views[(layout, "P2")].trainable_groups)
+        return dict(local_step=steps * (n1 + n2),
+                    delta_accum=SHARDED_K * n2, server_update=n2)
+
+    def nbytes(groups, whole=False):
+        from repro_torch.utils.flatten import torch_dtype
+        return sum(g.size * (g.n_shards if whole else 1) *
+                   torch_dtype(g.name).itemsize for g in groups)
+    frozen_rows = nbytes(views[("fsdp_tp", "P2")].frozen_groups)
+    frozen_whole = nbytes(views[("replicated", "P2")].frozen_groups, True)
+    full = views["full"]
+    want_full = dict(local_step=steps * len(full.trainable_groups),
+                     delta_accum=SHARDED_K * len(full.trainable_groups),
+                     server_update=len(full.trainable_groups))
+    bad = []
+    for rk in ranks:
+        r = rk["rank"]
+        for layout in MOE_SHARDED_LAYOUTS:
+            got, tp_on = rk[layout], layout == "fsdp_tp"
+            if got["launches"] != want(layout):
+                bad.append(f"rank {r} {layout} launches {got['launches']} "
+                           f"!= {want(layout)}")
+            if got["tp_compute"] != [tp_on] * 2 or \
+                    (got["collectives"]["tp"] > 0) != tp_on or \
+                    got["collectives"]["moe"] <= 0:
+                bad.append(f"rank {r} {layout}: tp_compute "
+                           f"{got['tp_compute']}, collectives "
+                           f"{got['collectives']}")
+            if not (got["frozen_kept_by_p2"] and all(
+                    math.isfinite(x) for x in got["losses"])):
+                bad.append(f"rank {r} {layout}: frozen leaves changed or "
+                           f"losses {got['losses']}")
+        tp_run, rep = rk["fsdp_tp"], rk["replicated"]
+        if (tp_run["resident"][1]["frozen"], rep["resident"][1]["frozen"]) \
+                != (frozen_rows, frozen_whole):
+            bad.append(f"rank {r} frozen bytes {tp_run['resident'][1]} / "
+                       f"{rep['resident'][1]}")
+        if not all(math.isclose(a, b, rel_tol=MOE_SHARDED_LOSS_RTOL,
+                                abs_tol=0.0)
+                   for a, b in zip(tp_run["losses"], rep["losses"])):
+            bad.append(f"rank {r}: fsdp_tp losses {tp_run['losses']} "
+                       f"against {rep['losses']}")
+        fr = rk["full"]
+        if not (fr["tp_compute"] == [True] and fr["frozen_kept"] and
+                all(math.isfinite(x) for x in fr["losses"]) and
+                fr["routers_moved"] and all(all(m) for m in
+                                            fr["routers_moved"]) and
+                fr["launches"] == want_full and
+                fr["frozen_rows"] == full.local_view().frozen_sizes and
+                fr["rows"] == full.local_view().buffer_sizes):
+            bad.append(f"rank {r} (1, 4): tp_compute {fr['tp_compute']}, "
+                       f"frozen kept {fr['frozen_kept']}, losses "
+                       f"{fr['losses']}, routers {fr['routers_moved']}, "
+                       f"launches {fr['launches']} != {want_full}, rows "
+                       f"{fr['rows']} / {fr['frozen_rows']}")
+    # the params, whole and alike on every rank: rank 0's comparisons
+    close, moved = (ranks[0][k] for k in ("tp_vs_replicated",
+                                           "tp_vs_replicated_p1_delta"))
+    if not (close["dtypes_equal"] and close["rel"] <= MOE_SHARDED_TP_TOL):
+        bad.append(f"fsdp_tp params off the replicated run's: {close}")
+    if not moved["l2"] <= MOE_SHARDED_DELTA_TOL:
+        bad.append(f"fsdp_tp's P1 changes off the replicated run's: {moved}")
+    readings = dict(
+        loss_gap=max(abs(a / b - 1) for a, b in zip(
+            ranks[0]["fsdp_tp"]["losses"], ranks[0]["replicated"]["losses"])),
+        rel=close["rel"], p1_delta_l2=moved["l2"], p1_delta_rel=moved["rel"],
+        delta_l2=ranks[0]["tp_vs_replicated_delta"]["l2"])
+    if control:
+        ctl = ranks[0]["control_vs_replicated_p1_delta"]
+        readings.update(
+            control_loss_gap=abs(ranks[0]["control"]["losses"][0] /
+                                 ranks[0]["replicated"]["losses"][0] - 1),
+            control_p1_delta_l2=ctl["l2"], control_p1_delta_rel=ctl["rel"])
+        for rk in ranks:
+            if not (rk["control"]["tp_compute"] == [True] and all(
+                    math.isfinite(x) for x in rk["control"]["losses"])):
+                bad.append(f"rank {rk['rank']} control: {rk['control']}")
+        if not ctl["l2"] > MOE_SHARDED_DELTA_TOL:
+            bad.append(f"the control passed the P1 changes' gate: {ctl}")
+    # a layer's drops over the batch: the ranks of one model coordinate
+    batch_ranks = ranks[::MOE_SHARDED_MESH[1]]
+    dropped = {layout: [sum(d) for d in zip(*(
+        rk[layout]["drops"]["dropped"] for rk in batch_ranks))]
+        for layout in MOE_SHARDED_LAYOUTS}
+    if not all(sum(d) > 0 for d in dropped.values()):
+        bad.append(f"no pair dropped: {dropped}")
+    emit(dict(phase="pod_sharded_moe", part="cut",
+              model=f"deepseek-v2-lite-16b + {MOE_PEFT}, "
+                    f"{MOE_CUT_LAYERS} layers", trainable_filter=MOE_FILTER,
+              mesh=dict(zip(("data", "model"), MOE_SHARDED_MESH)),
+              backend="gloo, four processes on cuda:0",
+              rounds={"P1": "1 x 2 clients x 2 steps",
+                      "P2": "1 x 2 clients x 2 steps"},
+              batch=SHARDED_BATCH, seq=128,
+              dropped_per_layer=dropped,
+              per_step={layout: dict(
+                  ms=[rk[layout]["ms_per_step"] for rk in ranks],
+                  bytes=ranks[0][layout]["bytes_per_step"],
+                  peak_memory_bytes=[rk[layout]["peak_memory_bytes"]
+                                     for rk in ranks])
+                  for layout in MOE_SHARDED_LAYOUTS},
+              frozen_bytes_per_rank={"fsdp_tp": frozen_rows,
+                                     "replicated": frozen_whole},
+              expected_launches={layout: want(layout)
+                                 for layout in MOE_SHARDED_LAYOUTS},
+              tp_tol=MOE_SHARDED_TP_TOL, loss_rtol=MOE_SHARDED_LOSS_RTOL,
+              delta_tol=MOE_SHARDED_DELTA_TOL, readings=readings,
+              ranks=[{k: v for k, v in rk.items() if k != "full"}
+                     for rk in ranks], card=nvidia_smi()))
+    emit(dict(phase="pod_sharded_moe", part="full",
+              model=f"deepseek-v2-lite-16b + {MOE_PEFT}",
+              mesh=dict(zip(("data", "model"), MOE_FULL_MESH)),
+              rounds={"P2": "1 x 2 clients x 2 steps"}, batch=SHARDED_BATCH,
+              seq=128, rows=full.local_view().buffer_sizes,
+              frozen_rows=full.local_view().frozen_sizes,
+              expected_launches=want_full,
+              ms_per_step=[rk["full"]["ms_per_step"] for rk in ranks],
+              peak_memory_bytes=[rk["full"]["peak_memory_bytes"]
+                                 for rk in ranks],
+              bytes_per_step=ranks[0]["full"]["bytes_per_step"],
+              ranks=[rk["full"] for rk in ranks], card=nvidia_smi(),
+              phase_s=time.perf_counter() - t_phase))
+    if bad:
+        raise SystemExit("chip_smoke: pod_sharded_moe: " + "; ".join(bad))
+    return ranks[0]["fsdp_tp"]["launches"], ranks
+
+
+def moe_setup_config():
+    """``moe_setup``'s model config without its data."""
+    from repro_torch.configs import get_config, with_peft
+    return with_peft(get_config("deepseek-v2-lite-16b"), MOE_PEFT)
+
+
+def check_sharded_moe_kernels(torch, bench) -> dict:
+    """Phase 2 at pod_sharded_moe's per-shard rows of the cut under
+    fsdp_tp (returned, bitwise against their plain versions): K1 (clip
+    1, no decay, no momentum), K6 with p and K3's apply ("none") at each
+    of P2's rows (the f32 routers, the adapters over data and over
+    model, bf16), and K1 over P1's largest row (the base over data +
+    model, three trials of three calls)."""
+    from repro_torch.utils.flatten import torch_dtype
+    views = moe_sharded_views()
+    out = {}
+    for g in views[("fsdp_tp", "P2")].trainable_groups:
+        dt, n, tag = torch_dtype(g.name), padded(g.size), \
+            g.name.replace("@", "_").replace("+", "_")
+        out[f"local_step_{tag}"] = bench.local_step(n, dt, False, False,
+                                                    wd=0.0, clip=1.0)
+        out[f"delta_accum_{tag}"] = bench.delta_accum(n, dt, True)
+        out[f"server_update_{tag}"] = bench.server_update(n, "none",
+                                                          dtype=dt)
+    top = max(views[("fsdp_tp", "P1")].trainable_groups, key=lambda g: g.size)
+    bench.trials, bench.reps = 3, 3
+    out["local_step_p1"] = bench.local_step(
+        padded(top.size), torch_dtype(top.name), False, False, wd=0.0,
+        clip=1.0)
+    bench.trials, bench.reps = 5, 20
+    torch.cuda.empty_cache()
+    for r in out.values():
+        emit(dict(phase="kernel", path="pod_sharded_moe", **r))
+    bad = [k for k, r in out.items()
+           if not (r["max_abs_err"] <= KERNEL_TOL and r.get("bitwise", True))]
+    if bad:
+        raise SystemExit(f"chip_smoke: kernels at pod_sharded_moe's rows "
                          f"disagree with their plain versions: {bad}")
     return out
 
@@ -4576,9 +5097,8 @@ def moe_setup():
     ``make_synthetic_tokenlm(n_clients=16, seq_len=128,
     n_seq_per_client=32, vocab=102400, beta=0.5)``, made on the host
     (seconds returned)."""
-    from repro_torch.configs import get_config, with_peft
     from repro_torch.data.synthetic import make_synthetic_tokenlm
-    cfg = with_peft(get_config("deepseek-v2-lite-16b"), MOE_PEFT)
+    cfg = moe_setup_config()
     t0 = time.perf_counter()
     data = make_synthetic_tokenlm(n_clients=16, seq_len=128,
                                   n_seq_per_client=32, vocab=cfg.vocab_size,
@@ -5129,23 +5649,31 @@ def start_captures(out: str):
 
 def lower_pod_round_worker(out: str) -> int:
     """``chip_smoke.py --lower-pod-round OUT``: lower_pod_round of
-    pod_sharded's configuration on a fake (2, 2) mesh, the cyclic and the
-    fl round, into ``OUT/lowered.json``."""
+    pod_sharded's configuration and of pod_sharded_moe's cut on a fake
+    (2, 2) mesh under fsdp_tp, the cyclic and the fl round each, into
+    ``OUT/lowered.json``."""
+    import dataclasses
     from repro_torch.launch.mesh import destroy, make_fake_mesh
     from repro_torch.launch.train import PodFLSpec, lower_pod_round
     mesh = make_fake_mesh(SHARDED_MESH, ("data", "model"))
-    spec = PodFLSpec(local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH,
-                     lr=0.03, update_impl="fused", peft=LLM_PEFT)
+    runs = {"pod_sharded": (llm_setup_config(), PodFLSpec(
+        local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH, lr=0.03,
+        update_impl="fused", peft=LLM_PEFT)),
+        "pod_sharded_moe": (dataclasses.replace(
+            moe_setup_config(), n_layers=MOE_CUT_LAYERS), moe_spec(
+            local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH))}
     res = {}
-    for kind in ("cyclic", "fl"):
-        t0 = time.perf_counter()
-        c = lower_pod_round(llm_setup_config(), mesh, kind=kind, spec=spec,
-                            K=SHARDED_K, batch=SHARDED_BATCH, seq=128,
-                            layout="fsdp_tp", seed=SEED)
-        res[kind] = dict(collectives=c.collectives,
-                         collective_bytes=c.collective_bytes,
-                         flops=c.flops, bytes=c.bytes, kernels=c.kernels,
-                         capture_s=time.perf_counter() - t0)
+    for name, (cfg, spec) in runs.items():
+        for kind in ("cyclic", "fl"):
+            t0 = time.perf_counter()
+            c = lower_pod_round(cfg, mesh, kind=kind, spec=spec,
+                                K=SHARDED_K, batch=SHARDED_BATCH, seq=128,
+                                layout="fsdp_tp", seed=SEED)
+            res.setdefault(name, {})[kind] = dict(
+                collectives=c.collectives,
+                collective_bytes=c.collective_bytes, flops=c.flops,
+                bytes=c.bytes, kernels=c.kernels,
+                capture_s=time.perf_counter() - t0)
     destroy()
     Path(out, "lowered.json").write_text(json.dumps(res))
     return 0
@@ -5265,26 +5793,36 @@ def dryrun_check_step(torch, smi: str) -> dict:
     return out
 
 
-def dryrun_check_collectives(lowered: dict, ranks: list, smi: str) -> None:
+def dryrun_check_collectives(lowered: dict, ranks: list, moe_ranks: list,
+                              smi: str) -> None:
     """Phase dryrun_check (b): lower_pod_round's cyclic + fl collectives
-    and bytes, by kind, against what each pod_sharded rank counted under
-    fsdp_tp in this run."""
-    got = {key: {k: lowered["cyclic"][key][k] + lowered["fl"][key][k]
-                 for k in lowered["fl"][key]}
-           for key in ("collectives", "collective_bytes")}
-    bad = [rk["rank"] for rk in ranks
-           if rk["fsdp_tp"]["collectives"] != got["collectives"]
-           or rk["fsdp_tp"]["collective_bytes"] != got["collective_bytes"]]
-    emit(dict(phase="dryrun_check", part="lower_pod_round_vs_pod_sharded",
-              lowered=got, lowered_rounds=lowered,
-              pod_sharded_rank0=dict(
-                  collectives=ranks[0]["fsdp_tp"]["collectives"],
-                  collective_bytes=ranks[0]["fsdp_tp"]["collective_bytes"]),
-              ranks_equal=[rk["rank"] for rk in ranks
-                           if rk["rank"] not in bad], card=smi))
+    and bytes, by kind, against what each pod_sharded rank and each
+    pod_sharded_moe rank (the cut's run) counted under fsdp_tp in this
+    run, the "tp" and "moe" kinds included."""
+    bad = []
+    for name, rks in (("pod_sharded", ranks), ("pod_sharded_moe",
+                                               moe_ranks)):
+        low = lowered[name]
+        got = {key: {k: low["cyclic"][key][k] + low["fl"][key][k]
+                     for k in low["fl"][key]}
+               for key in ("collectives", "collective_bytes")}
+        off = [rk["rank"] for rk in rks
+               if rk["fsdp_tp"]["collectives"] != got["collectives"]
+               or rk["fsdp_tp"]["collective_bytes"] !=
+               got["collective_bytes"]]
+        emit(dict(phase="dryrun_check", part=f"lower_pod_round_vs_{name}",
+                  lowered=got, lowered_rounds=low,
+                  rank0=dict(
+                      collectives=rks[0]["fsdp_tp"]["collectives"],
+                      collective_bytes=rks[0]["fsdp_tp"][
+                          "collective_bytes"]),
+                  ranks_equal=[rk["rank"] for rk in rks
+                               if rk["rank"] not in off], card=smi))
+        if off:
+            bad.append(f"{name}: lower_pod_round's {got} differ from ranks "
+                       f"{off}")
     if bad:
-        raise SystemExit(f"chip_smoke: dryrun_check: lower_pod_round's "
-                         f"collectives {got} differ from ranks {bad}")
+        raise SystemExit("chip_smoke: dryrun_check: " + "; ".join(bad))
 
 
 def pod_aot(torch, smi: str) -> dict:
@@ -5407,9 +5945,16 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA GPU (see the module doc).")
-    # one rank of pod_sharded, spawned by that phase
+    # one rank of pod_sharded or pod_sharded_moe, spawned by that phase
     ap.add_argument("--pod-sharded-rank", nargs=3, default=None,
                     metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--pod-sharded-moe-rank", nargs=3, default=None,
+                    metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
+    # pod_sharded_moe alone, with its control run (a planted fault that
+    # the params gate must refuse): how the gate was placed
+    ap.add_argument("--pod-sharded-moe-control", action="store_true",
+                    help="run the pod_sharded_moe phase alone, with its "
+                    "control")
     # dryrun_check's lower_pod_round, spawned by the dryrun phase
     ap.add_argument("--lower-pod-round", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)
@@ -5423,6 +5968,14 @@ def main(argv=None) -> int:
     if args.pod_sharded_rank is not None:
         rank, store, out = args.pod_sharded_rank
         return pod_sharded_worker(int(rank), store, out)
+    if args.pod_sharded_moe_rank is not None:
+        rank, store, out = args.pod_sharded_moe_rank
+        return pod_sharded_moe_worker(int(rank), store, out)
+    if args.pod_sharded_moe_control:
+        from repro_torch.kernels import library
+        library.build_library()
+        pod_sharded_moe(torch, control=True)
+        return 0
     from repro_torch.kernels import fused_update as fu
 
     smi = nvidia_smi()
@@ -5473,6 +6026,7 @@ def main(argv=None) -> int:
     llm_shapes = check_llm_kernels(torch, bench)
     moe_shapes = check_moe_kernels(torch, bench)
     sharded_shapes = check_sharded_kernels(torch, bench)
+    sharded_moe_shapes = check_sharded_moe_kernels(torch, bench)
     attn_shapes = check_attention_kernels(torch, bench)
     launches, p1_params, main_res = main_path(torch, fu)
     algo_c_launches = p2_algorithms(torch, fu, p1_params)
@@ -5515,8 +6069,9 @@ def main(argv=None) -> int:
     moe_train_launches = moe_train(torch, fu, mesh)
     zoo_train(torch)
     sharded_launches, sharded_ranks = pod_sharded(torch)
+    sharded_moe_launches, sharded_moe_ranks = pod_sharded_moe(torch)
     lowered = finish_dryrun(captures, dry_out, smi)
-    dryrun_check_collectives(lowered, sharded_ranks, smi)
+    dryrun_check_collectives(lowered, sharded_ranks, sharded_moe_ranks, smi)
     dryrun_check_step(torch, smi)
     pod_aot(torch, smi)
     resnet8_phase(torch, smi)
@@ -5730,6 +6285,20 @@ def main(argv=None) -> int:
     r = sharded_shapes["local_step_p1"]
     next(k for k in kernels if k["name"] == "local_step")["sharded_form"][
         "p1_row"] = dict({t: r[t] for t in timing}, n=r["n"])
+    # K1, K6 and K3 at pod_sharded_moe's per-shard rows of the cut under
+    # fsdp_tp (P2's three rows; K1 also at P1's largest), with rank 0's
+    # launches there (P1 + P2)
+    for k in kernels:
+        if k["name"] in sharded_rows:
+            k["sharded_moe_form"] = dict(
+                path="pod_sharded_moe",
+                launches=sharded_moe_launches[k["name"]],
+                where="run_pod_training of deepseek-v2-lite-16b's 3-layer "
+                      "cut on a (2, 2) mesh of four gloo ranks, fsdp_tp",
+                rows={key[len(k["name"]) + 1:]: dict(
+                    {t: r[t] for t in timing}, n=r["n"])
+                    for key, r in sharded_moe_shapes.items()
+                    if key.startswith(k["name"] + "_")})
     # K7 at its main-path shapes: the row is a sliding-window prefill
     # layer (29 of 32 layers); the global prefill and decode shapes ride
     # along under "shapes"

@@ -701,6 +701,11 @@ class HostBackend:
         all of it, and nothing to reduce)."""
         return None
 
+    def task_over_batch(self, task: Task, n: int) -> Task:
+        """``task`` as its model functions run on this process's part of
+        a batch of ``n`` (the pod's: over the batch group)."""
+        return task
+
     def reduce_over_batch(self, t: torch.Tensor, n: int, *,
                           mean: bool) -> torch.Tensor:
         """Combine per-process values of a batch of ``n`` (losses: mean;
@@ -808,7 +813,9 @@ class RelayStrategy(HostBackend):
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, self.spec, fops, self.grad_reducer(fops))
+        local = make_local_fn(
+            self.task_over_batch(task, self.spec.batch_size), self.spec,
+            fops, self.grad_reducer(fops))
 
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
             losses = []
@@ -1133,7 +1140,9 @@ class AggregateStrategy(HostBackend):
 
     def build_round(self, task: Task, device: torch.device) -> Callable:
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, self.spec, fops, self.grad_reducer(fops))
+        local = make_local_fn(
+            self.task_over_batch(task, self.spec.batch_size), self.spec,
+            fops, self.grad_reducer(fops))
         aggregate = self._aggregate(task, device, fops)
 
         def body(params, inputs: RoundInputs, lr_scale, algo_state):
@@ -1291,6 +1300,20 @@ TIMING_KEYS = ("host_residency_ms", "staged_transfer_ms",
 
 
 @dataclasses.dataclass
+class FlatRows:
+    """A flat-path run's params as buffers: this process's rows of the
+    trainable buckets (``params``) and of the frozen ones (``frozen``;
+    None without a trainable filter), as ``FlatParamOps.flatten`` and
+    ``flatten_frozen`` pack them.  Given to :func:`run_rounds` as
+    ``init_params``, the run places them as they are, and its result's
+    ``params`` are the end rows (unpadded views), never gathered whole:
+    a mesh rank of a model too large to hold whole on every rank starts
+    and ends with its rows."""
+    params: Dict[str, torch.Tensor]
+    frozen: Optional[Dict[str, torch.Tensor]] = None
+
+
+@dataclasses.dataclass
 class EngineResult:
     params: Pytree
     history: List[Dict[str, float]]
@@ -1355,9 +1378,11 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     Evaluation runs on rounds where ``(round + 1) % eval_every == 0``
     and on the final round, over :func:`batch_test_set`'s weighted
     stream; ``eval_fn(params, bx, by) -> (B,)`` overrides the default
-    accuracy metric.  ``init_params`` (a tree of tensors) is copied, so
-    the caller's tensors are never modified.  The client ids of every
-    chunk are known on the host before it runs (both sampling modes);
+    accuracy metric.  ``init_params`` (a tree of tensors, or on the flat
+    path a :class:`FlatRows`, which the result then gives back) is
+    copied, so the caller's tensors are never modified.  The client ids
+    of every chunk are known on the host before it runs (both sampling
+    modes);
     a strategy whose stores need them (``SparseClientStateStore``)
     stages and commits residency before each chunk, and
     ``schedule.overlap`` stages chunk N+1 while chunk N runs.
@@ -1367,13 +1392,21 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     dev = resolve_device(device)
     if init_params is None:
         init_params = task.init(seeded_generator(schedule.seed))
-    check_tensor_leaves(init_params)
+    rows_in = isinstance(init_params, FlatRows)
+    if not rows_in:
+        check_tensor_leaves(init_params)
     fops = strategy.flat_ops(task, dev)
+    if rows_in and fops is None:
+        raise ValueError("FlatRows start the flat path only")
     # a trainable filter's frozen buckets: placed once, read only, never
     # padded or handed to a kernel, merged at the loss and the eval
     frozen = None
     if fops is None:
         params = strategy.place_params(init_params, dev)
+    elif rows_in:
+        params = fops.place(init_params.params)
+        if fops.view.frozen_sizes:
+            frozen = fops.place_frozen(init_params.frozen)
     else:
         params = fops.place(fops.flatten(init_params))
         if fops.view.frozen_sizes:
@@ -1401,9 +1434,10 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
     with_eval = schedule.eval_every > 0 and len(np.asarray(data.test_y)) > 0
     metric = ev = None
     if with_eval:
-        metric = eval_fn if eval_fn is not None else make_accuracy_metric(task)
         batched = batch_test_set(data.test_x, data.test_y, schedule.eval_batch)
         ev_batch = batched[0].shape[1]
+        metric = eval_fn if eval_fn is not None else make_accuracy_metric(
+            strategy.task_over_batch(task, ev_batch))
         ev = strategy.prepare_eval_data(batched, dev)
 
     host_rng = ids_gen = None
@@ -1626,7 +1660,9 @@ def run_rounds(task: Task, data: FederatedDataset, strategy,
         resident = {key: sum(b.numel() * b.element_size()
                              for b in (bufs or {}).values())
                     for key, bufs in (("params", params), ("frozen", frozen))}
-        params = fops.unflatten(params, frozen)
+        params = FlatRows({name: b[..., :fops.view.buffer_sizes[name]]
+                           for name, b in params.items()}, frozen) \
+            if rows_in else fops.unflatten(params, frozen)
         server_state = unpack_server_state(fops, server_state)
     return EngineResult(params=params, history=rows,
                         algo_state=algo_state, server_state=server_state,

@@ -40,7 +40,12 @@ axis names, and this module reads it through the port's sharding rules
     group split the heads, the MLP and the vocabulary; the other
     families, FedProx, the eval, the anchors and the result compute on
     whole leaves.  The tree path (``update_impl="tree"``) keeps whole
-    leaves on every rank.
+    leaves on every rank.  Under every layout, where an MoE arch's batch
+    is split, each MoE layer dispatches over the batch group
+    (``sharding.batch_group``, :meth:`PodBackendMixin.task_over_batch`):
+    in the steps of both update paths and in the eval, its capacity,
+    its slots and its aux loss are the whole batch's, as on the JAX
+    pod, whose batch is one global array.
   * Per-client state (scaffold's control variates, moon's previous
     local models, the error-feedback rows of compressed uploads) lives
     in a ``ShardedClientStateStore`` whose client axis shards over
@@ -150,10 +155,15 @@ _VARIANTS = {"fedavg": "plain", "fedprox": "fedprox",
 # tensor-parallel step, ``sharding.tensor_parallel``: per block the
 # row-parallel outputs forward and the column-parallel inputs backward,
 # the vocabulary's embedding and cross-entropy, the gradients of the
-# leaves whose model ranks compute different parts).  COLLECTIVE_BYTES
-# holds the bytes each kind received on this rank.
+# leaves whose model ranks compute different parts), "moe" (an MoE
+# layer's collectives over the batch group of a step whose batch is
+# split: per layer forward the per-expert counts' all-gather, the aux
+# loss's sums, the dispatch buffer's reduce-scatter and the experts'
+# output's all-gather; backward the aux sums, the output's
+# reduce-scatter and the buffer's all-gather).  COLLECTIVE_BYTES holds
+# the bytes each kind received on this rank.
 _KINDS = ("grad", "gather", "clip", "batch", "lane_combine",
-          "store_gather", "store_spill", "tp")
+          "store_gather", "store_spill", "tp", "moe")
 COLLECTIVES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
 COLLECTIVE_BYTES: Dict[str, int] = dict.fromkeys(_KINDS, 0)
 
@@ -467,12 +477,12 @@ class ShardedFlatOps(FlatParamOps):
     batch (the gradient then reduces over the batch group).
 
     With ``tp`` (a ``sharding.tensor_parallel.TPContext``: the
-    ``fsdp_tp`` layout of a dense token arch on a ``model`` axis larger
-    than 1) the step computes tensor-parallel: its loss runs on the
-    model-local tree (:meth:`tp_tree`), gathered over each bucket's axes
-    other than ``model`` for the leaves that keep their ``model`` tile
-    and over all its axes for the rest.  The eval, the anchors and the
-    result still gather whole leaves."""
+    ``fsdp_tp`` layout of a dense or MoE token arch on a ``model`` axis
+    larger than 1) the step computes tensor-parallel: its loss runs on
+    the model-local tree (:meth:`tp_tree`), gathered over each bucket's
+    axes other than ``model`` for the leaves that keep their ``model``
+    tile and over all its axes for the rest.  The eval, the anchors and
+    the result still gather whole leaves."""
     sharded: Any = None             # the ShardedFlatView
     mesh: Any = None
     split_batch: bool = False
@@ -818,6 +828,29 @@ class PodBackendMixin:
         i = self.mesh.index(rules.batch_axes(self.mesh))
         return slice(i * per, (i + 1) * per)
 
+    def task_over_batch(self, task: Task, n: int) -> Task:
+        """``task`` whose model functions get the batch group
+        (``sharding.batch_group``) with their params, when the task's
+        model has MoE layers and a batch of ``n`` splits over more than
+        one rank: each layer then takes its capacity, its slots and its
+        aux loss over the whole batch, as the JAX pod's global batch
+        does — in the steps of both update paths, MOON's anchors and the
+        eval."""
+        from repro_torch.sharding import batch_group as bgl
+        cfg = task.model_cfg
+        bg = bgl.batch_group(self.mesh) if (
+            cfg is not None and cfg.is_moe and
+            self.batch_shard(n) is not None) else None
+        if bg is None:
+            return task
+        on = functools.partial(bgl.on_batch_group, bg=bg)
+        return dataclasses.replace(
+            task,
+            loss_fn=lambda p, bx, by, rng=None: task.loss_fn(on(p), bx, by,
+                                                             rng),
+            repr_fn=lambda p, bx: task.repr_fn(on(p), bx),
+            predict_fn=lambda p, bx: task.predict_fn(on(p), bx))
+
     def reduce_over_batch(self, t: torch.Tensor, n: int, *,
                           mean: bool) -> torch.Tensor:
         if self.batch_shard(n) is None:
@@ -909,7 +942,8 @@ class PodAggregateStrategy(PodBackendMixin, AggregateStrategy):
     def build_round(self, task: Task, device: torch.device) -> Callable:
         spec = self.spec
         fops = self.flat_ops(task, device)
-        local = make_local_fn(task, spec, fops, self.grad_reducer(fops))
+        local = make_local_fn(self.task_over_batch(task, spec.batch_size),
+                              spec, fops, self.grad_reducer(fops))
         fused = fops is not None
         ef_store = self._ef_store
         G = self._n_pods() if self.aggregation == "hierarchical" else 1

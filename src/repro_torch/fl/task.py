@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.models import paper_models as pm
 from repro_torch.models import transformer as tf
+from repro_torch.sharding.batch_group import batch_group_of
 from repro_torch.sharding.tensor_parallel import context_of
 
 Pytree = Any
@@ -109,23 +110,28 @@ def lm_task(cfg: "tf.TransformerConfig") -> Task:
     ``shapes`` builds the tree on the ``meta`` device, so packing plans
     and byte counts of a full-size model allocate nothing.  The loss and
     the representation run tensor-parallel on a model-local tree
-    (``sharding.tensor_parallel.TPParams``, the pod's)."""
+    (``sharding.tensor_parallel.TPParams``, the pod's); the MoE layers of
+    all three functions dispatch over the batch group such a tree
+    carries (``sharding.batch_group``)."""
 
     def init(gen):
         return tf.init_lm(cfg, gen=gen)
 
     def loss_fn(params, bx, by, rng=None):
         loss, _ = tf.lm_loss(params, cfg, {"tokens": bx, "labels": by},
-                             tp=context_of(params))
+                             tp=context_of(params),
+                             group=batch_group_of(params))
         return loss
 
     def repr_fn(params, bx):
         _, _, hidden = tf.lm_forward(params, cfg, {"tokens": bx},
-                                     tp=context_of(params))
+                                     tp=context_of(params),
+                                     group=batch_group_of(params))
         return torch.mean(hidden.float(), dim=1)
 
     def predict_fn(params, bx):
-        logits, _, _ = tf.lm_forward(params, cfg, {"tokens": bx})
+        logits, _, _ = tf.lm_forward(params, cfg, {"tokens": bx},
+                                     group=batch_group_of(params))
         return torch.argmax(logits, dim=-1)
 
     def shapes():

@@ -18,8 +18,8 @@ The port has no SPMD partitioner, so the program captured is the pod's
 (``fl.pod.ShardedFlatOps``): the rank holds its rows of the params (and
 of the f32 momentum for train) as ``rules.param_pspecs`` shards them
 under ``--layout``; the leaves are all-gathered through the pod's own
-collectives — whole, or for the dense token archs under ``fsdp_tp``
-the model-local tree of a tensor-parallel step
+collectives — whole, or for the dense and MoE token archs under
+``fsdp_tp`` the model-local tree of a tensor-parallel step
 (``sharding.tensor_parallel``, ``"tp_compute": true`` in the row); the
 step
 (``make_train_step``, ``make_prefill_step`` or ``make_serve_step``) runs
@@ -28,12 +28,17 @@ group (pod, data) as ``rules.batch_pspecs`` and ``rules.cache_pspecs``
 place them (a dim they shard otherwise — the cache's ``model`` dim — is
 held sharded and gathered whole before the step); for train the
 gradient is reduce-scattered back to the rows and all-reduced over the
-batch group.  A tensor-parallel step splits the heads, the MLP and the
-vocabulary over ``model`` as XLA's partitioner does, and a decode
-cache keeps the kv heads the rank reads.  Where the step gathers whole
-leaves, the ``model`` axis splits no compute: every rank of a ``model``
-group computes the same batch rows, so ``useful_flops_ratio`` falls by
-the ``model`` size against an SPMD program.
+batch group.  A tensor-parallel step splits the heads (GQA or MLA),
+the MLP, the experts and the vocabulary over ``model`` as XLA's
+partitioner does, and a GQA decode cache keeps the kv heads the rank
+reads (MLA's latent cache stays whole).  A train step's MoE layer
+dispatches over the batch group, whose whole batch sets its capacity;
+its expert GEMMs run on the rank's share of the slots
+(``models.layers.moe``).  Where
+the step gathers whole leaves, the ``model`` axis splits no compute:
+every rank of a ``model`` group computes the same batch rows, so
+``useful_flops_ratio`` falls by the ``model`` size against an SPMD
+program.
 
 No scan correction: the capture runs every layer eagerly, so the JAX
 package's 1-/2-layer extrapolation (XLA counts a scanned body once) has
@@ -68,6 +73,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.transformer import lm_loss
 from repro_torch.sharding import rules, tensor_parallel
+from repro_torch.sharding.batch_group import batch_group
 from repro_torch.sharding.tensor_parallel import context_of
 from repro_torch.utils import tree_math as tm
 
@@ -136,18 +142,20 @@ def _rank_tree(tree, specs, mesh, batch: int, tp=None):
     return whole
 
 
-def _row_value_and_grad(fops: pod.ShardedFlatOps):
+def _row_value_and_grad(fops: pod.ShardedFlatOps, group=None):
     """``value_and_grad`` over this rank's rows of the flat buckets: the
-    loss on the gathered whole leaves, the gradient back to the rows
-    through the gather's backward (``ShardedFlatOps._row_grad``), the
-    replicated buckets averaged over the batch group."""
+    loss on the gathered whole leaves (an MoE layer dispatching over the
+    batch group ``group``), the gradient back to the rows through the
+    gather's backward (``ShardedFlatOps._row_grad``), the replicated
+    buckets averaged over the batch group."""
 
     def value_and_grad(cfg, rows: Dict[str, torch.Tensor], batch):
         leaves, treedef = tm.tree_flatten(rows)
         live = [r.detach().requires_grad_(True) for r in leaves]
         with torch.enable_grad():
             tree = fops.unflatten(tm.tree_unflatten(treedef, live))
-            loss, _ = lm_loss(tree, cfg, batch, tp=context_of(tree))
+            loss, _ = lm_loss(tree, cfg, batch, tp=context_of(tree),
+                              group=group)
             grads = torch.autograd.grad(loss, live, allow_unused=True)
         grads = {name: torch.zeros_like(r) if g is None else g
                  for name, r, g in zip(sorted(rows), live, grads)}
@@ -181,7 +189,9 @@ def build_lowered(cfg, shape, mesh, *, n_micro: int = 1,
             batch = _rank_tree(b_specs, rules.batch_pspecs(b_specs, mesh),
                                mesh, B)
             step = make_train_step(cfg, TrainSpec(n_micro=n_micro),
-                                   _row_value_and_grad(fops))
+                                   _row_value_and_grad(
+                                       fops, batch_group(mesh)
+                                       if cfg.is_moe else None))
             with StepCounter() as counter:
                 step(rows, mom, batch())
             return counter
@@ -194,8 +204,10 @@ def build_lowered(cfg, shape, mesh, *, n_micro: int = 1,
             return counter
         tok = _rank_tree(b_specs["token"],
                          rules.batch_pspecs(b_specs["token"], mesh), mesh, B)
+        # MLA's latent cache is whole on every rank of a model group
         cache = _rank_tree(b_specs["cache"], rules.cache_pspecs(
-            b_specs["cache"], mesh, B), mesh, B, tp)
+            b_specs["cache"], mesh, B), mesh, B,
+            tp if cfg.attention != "mla" else None)
         step = make_serve_step(cfg)
         with torch.no_grad(), StepCounter() as counter:
             step(tree(rows), tok(), cache(), shape.seq_len - 1)
@@ -218,8 +230,8 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     row = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
            "layout": layout}
     spec = meshlib.MULTI_POD if multi_pod else meshlib.SINGLE_POD
-    # tensor-parallel compute over model (the dense token archs under
-    # fsdp_tp), or the pod's gather-then-compute
+    # tensor-parallel compute over model (the dense and MoE token archs
+    # under fsdp_tp), or the pod's gather-then-compute
     row["tp_compute"] = layout == "fsdp_tp" and tensor_parallel.plan(
         cfg, dict(zip(spec.axes, spec.shape))[rules.MODEL]) is not None
     try:

@@ -54,8 +54,11 @@ COLLECTIVE_OPS = (
 # the pod's collective kinds (repro_torch.fl.pod) and the XLA collective
 # each issues: "grad" reduce-scatters a bucket sharded over its batch
 # axes and all-reduces over the rest; "tp" all-reduces over model (a
-# tensor-parallel step; a serve step also all-gathers its logits); the
-# port issues no all-to-all and no collective-permute
+# tensor-parallel step; a serve step also all-gathers its logits); "moe"
+# all-gathers an MoE layer's counts and expert outputs, all-reduces its
+# aux sums and reduce-scatters its dispatch buffer over the batch group
+# (XLA's partitioned dispatch); the port issues no all-to-all and no
+# collective-permute
 POD_KIND_OPS = {
     "grad": ("reduce-scatter", "all-reduce"),
     "gather": ("all-gather",),
@@ -65,6 +68,7 @@ POD_KIND_OPS = {
     "store_gather": ("all-reduce",),
     "store_spill": ("all-reduce",),
     "tp": ("all-reduce", "all-gather"),
+    "moe": ("all-gather", "all-reduce", "reduce-scatter"),
 }
 
 _FREE_OPS = ("_unsafe_view", "empty", "empty_like", "empty_strided",

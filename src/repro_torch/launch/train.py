@@ -193,7 +193,9 @@ def lower_pod_round(cfg: TransformerConfig, mesh, *, kind: str = "fl",
 
     The port has no SPMD partitioner: what a rank runs is the pod's
     program (``fl.pod.ShardedFlatOps``), tensor-parallel where the pod's
-    step is (its ``"tp"`` collectives counted as the run counts them)."""
+    step is (its ``"tp"`` collectives counted as the run counts them),
+    and an MoE arch's layers dispatching over the batch group where the
+    batch is split (the ``"moe"`` kind)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.data.federated import FederatedDataset
     from repro_torch.fl.engine import run_rounds

@@ -360,25 +360,48 @@ def init_mla(gen, cfg: MLAConfig, dtype=torch.float32) -> Pytree:
 def mla_attention(p: Pytree, x: torch.Tensor, cfg: MLAConfig,
                   positions: torch.Tensor,
                   kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  cache_len: Optional[int] = None
+                  cache_len: Optional[int] = None, tp=None
                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """MLA with a latent cache: it holds (c_kv, k_rope) only, (B, T,
     kv_lora_rank) + (B, T, qk_rope_dim), written IN PLACE at the host int
     ``cache_len`` as :func:`attention` writes its k/v.  ``wkv_b`` expands
     the whole cache to per-head keys and values on every call; the
-    logits are f32 under the causal mask alone.  Returns (out, cache)."""
+    logits are f32 under the causal mask alone.  Returns (out, cache).
+
+    ``tp`` (a ``sharding.tensor_parallel.TPContext`` whose plan splits
+    the heads) computes this rank's heads: ``wq`` (or ``wq_b``) and
+    ``wkv_b`` column-parallel, ``wo`` row-parallel; the latent
+    projections ``wq_a`` and ``wkv_a`` column-parallel too, their
+    columns gathered whole (``gather_from_model``), as XLA's partitioner
+    splits them; the latents' norms and the cache are whole on every
+    rank, and the latents (the q latent, ``c_kv``, ``k_rope``) pass
+    ``copy_to_model``, so their gradients sum the ranks' heads once."""
     B, S, d = x.shape
     H, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    split = tp is not None and tp.plan.attn
+    if split:
+        from repro_torch.sharding import tensor_parallel as tpl
+        # every linear of x is column-parallel: its gradient sums the
+        # ranks' columns once
+        H, x = tp.heads, tpl.copy_to_model(x, tp)
+
+    def latent(w):                      # column-parallel, gathered whole
+        y = linear(w, x)
+        return tpl.gather_from_model(y, tp) if split else y
     if cfg.q_lora_rank:
-        q = linear(p["wq_b"], rmsnorm(p["q_a_norm"], linear(p["wq_a"], x)))
+        q = rmsnorm(p["q_a_norm"], latent(p["wq_a"]))
+        q = linear(p["wq_b"], tpl.copy_to_model(q, tp) if split else q)
     else:
         q = linear(p["wq"], x)
     q_nope, q_rope = q.reshape(B, S, H, nope + rope).split([nope, rope], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    c_kv, k_rope = linear(p["wkv_a"], x).split([cfg.kv_lora_rank, rope], -1)
+    c_kv, k_rope = latent(p["wkv_a"]).split([cfg.kv_lora_rank, rope], -1)
     c_kv = rmsnorm(p["kv_a_norm"], c_kv)                     # (B, S, r)
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)  # shared by heads
+    if split:
+        c_kv, k_rope = tpl.copy_to_model(c_kv, tp), \
+            tpl.copy_to_model(k_rope, tp)
 
     if kv_cache is not None:
         cc, kr = kv_cache
@@ -407,6 +430,8 @@ def mla_attention(p: Pytree, x: torch.Tensor, cfg: MLAConfig,
     del logits
     out = torch.einsum("bhst,bthd->bshd", probs, v.float())
     out = out.reshape(B, S, H * cfg.v_head_dim).to(x.dtype)
+    if split:
+        return tpl.row_linear(p["wo"], out, tp), new_cache
     return linear(p["wo"], out), new_cache
 
 
@@ -491,7 +516,7 @@ def record_routing() -> Iterator[List[Dict[str, Any]]]:
         _ROUTING_LOG = prev
 
 
-def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
+def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig, tp=None, group=None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE, the JAX package's semantics: f32 router
     logits; softmax or sigmoid scores; the top-k weights normalised by
@@ -504,11 +529,40 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     The kept slots are unique, so dispatch is a plain index write (the
     dropped pairs all go to one spare row, which nothing reads), and the
     combine sums each token's K weighted rows in k order: no atomics,
-    so two calls on the same input give the same bits."""
+    so two calls on the same input give the same bits.
+
+    ``tp`` (a ``sharding.tensor_parallel.TPContext``) whose plan splits
+    the experts: the rank computes its ``n_experts/|model|`` experts and
+    its columns of the shared experts (row-parallel ``w_down``); the two
+    partial outputs sum, then one :func:`reduce_from_model`.  The
+    dispatch input and the combine weights pass :func:`copy_to_model`,
+    so the input's and the router's gradients sum the ranks' experts
+    once; the router is whole and routes alike on every rank.
+
+    ``group`` (a ``sharding.batch_group.BatchGroup`` of n ranks, each
+    with its rows of the batch): the whole batch's MoE, as on the JAX
+    pod, whose batch is one global array.  The aux loss's top-1 counts
+    and probability sums add over the group; C is that of the group's
+    T·n tokens; a pair's slot is its slot among the rank's pairs plus
+    the pairs the earlier ranks (row-major, the batch's row order) sent
+    to its expert, so the kept pairs are the whole batch's first C of
+    each expert.  The ``(E, C_pad, d)`` buffer (C rounded up to a
+    multiple of n; a padded slot is never kept) is reduce-scattered
+    along the slots, the experts run on the rank's ``C_pad/n`` slots,
+    and their output is all-gathered back: the expert GEMMs split n
+    ways, as XLA's partitioner splits them.
+
+    Without either, the function is the one-rank MoE, bit for bit."""
+    if tp is not None and not tp.plan.experts:
+        tp = None
+    if tp is not None or group is not None:
+        from repro_torch.sharding import batch_group as bgl
+        from repro_torch.sharding import tensor_parallel as tpl
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     E, K = cfg.n_experts, cfg.top_k
+    n = 1 if group is None else group.size
 
     router_logits = torch.matmul(xt.float(), p["router"]["w"].float())
     probs = torch.softmax(router_logits, dim=-1)
@@ -522,16 +576,22 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     # (the top-1 share of each expert: a one-hot mean, counted at a fixed
     # shape so that no device validates the indices on the host)
     top1 = topk_idx[:, 0]
-    frac_tokens = torch.zeros(E, dtype=torch.float32, device=x.device
+    top1_counts = torch.zeros(E, dtype=torch.float32, device=x.device
                               ).scatter_add_(0, top1, torch.ones(
                                   top1.shape, dtype=torch.float32,
-                                  device=x.device)) / T
-    aux = cfg.aux_loss_coef * E * torch.sum(frac_tokens * probs.mean(0))
+                                  device=x.device))
+    if group is None:
+        frac_tokens, mean_probs = top1_counts / T, probs.mean(0)
+    else:
+        sums = bgl.batch_sum(torch.cat([top1_counts, probs.sum(0)]), group)
+        frac_tokens, mean_probs = (sums / (T * n)).split(E)
+    aux = cfg.aux_loss_coef * E * torch.sum(frac_tokens * mean_probs)
 
     # capacity dispatch: a pair's slot is the number of pairs before it
     # (in flattened (token, k) order) routed to the same expert — its
     # rank in a stable sort by expert, less its expert's first position
-    C = max(int(math.ceil(K * T / E * cfg.capacity_factor)), 1)
+    C = max(int(math.ceil(K * T * n / E * cfg.capacity_factor)), 1)
+    Cp = -(-C // n) * n
     flat_e = topk_idx.reshape(-1)                               # (T*K,)
     order = torch.sort(flat_e, stable=True).indices
     # the per-expert counts at a fixed shape (E,): a bincount's shape
@@ -541,23 +601,36 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     first = torch.cumsum(counts, dim=0) - counts
     rank = torch.arange(T * K, device=x.device) - first[flat_e[order]]
     slot = torch.empty_like(rank).scatter_(0, order, rank)
+    if group is not None:       # plus the earlier ranks' pairs
+        slot = slot + bgl.gather_counts(counts, group)[:group.index].sum(
+            0)[flat_e]
     keep = slot < C
-    dst = torch.where(keep, flat_e * C + slot, E * C)
+    # this rank's experts: a pair routed elsewhere goes to the spare row
+    lo, El = tp.expert_range if tp is not None else (0, E)
+    mine = keep & (flat_e >= lo) & (flat_e < lo + El) \
+        if tp is not None else keep
+    dst = torch.where(mine, (flat_e - lo) * Cp + slot, El * Cp)
     token = torch.arange(T, device=x.device).repeat_interleave(K)
-    buf = xt.new_zeros(E * C + 1, d)
-    buf[dst] = xt[token]
-    h = buf[:E * C].view(E, C, d)
+    xc = tpl.copy_to_model(xt, tp) if tp is not None else xt
+    buf = xc.new_zeros(El * Cp + 1, d)
+    buf[dst] = xc[token]
+    h = buf[:El * Cp].view(El, Cp, d)
+    if group is not None:       # the rank's C_pad/n slots of the sum
+        h = bgl.scatter_slots(h, group)
 
     # expert computation: batched SwiGLU GEMMs over (E, C, d)
     w = p["experts"]
     y = torch.bmm(F.silu(torch.bmm(h, w["w_gate"].to(x.dtype)))
                   * torch.bmm(h, w["w_up"].to(x.dtype)),
                   w["w_down"].to(x.dtype))
+    if group is not None:
+        y = bgl.gather_slots(y, group)
 
     # combine: each pair's row (zero when dropped) times its weight, the
     # K of a token summed in k order
-    y = torch.cat([y.reshape(E * C, d), y.new_zeros(1, d)])
-    gathered = (y[dst] * topk_w.reshape(-1, 1).to(x.dtype)).view(T, K, d)
+    y = torch.cat([y.reshape(El * Cp, d), y.new_zeros(1, d)])
+    wk = tpl.copy_to_model(topk_w, tp) if tp is not None else topk_w
+    gathered = (y[dst] * wk.reshape(-1, 1).to(x.dtype)).view(T, K, d)
     out = gathered[:, 0]
     for k in range(1, K):
         out = out + gathered[:, k]
@@ -565,6 +638,12 @@ def moe(p: Pytree, x: torch.Tensor, cfg: MoEConfig
     if _ROUTING_LOG is not None:
         _ROUTING_LOG.append({"topk_idx": topk_idx, "dropped": (~keep).sum(),
                              "capacity": C, "pairs": T * K})
-    if cfg.n_shared:
+    if tp is not None:
+        if cfg.n_shared:
+            sp = p["shared"]
+            hs = F.silu(linear(sp["w_gate"], xc)) * linear(sp["w_up"], xc)
+            out = out + linear(sp["w_down"], hs)
+        out = tpl.reduce_from_model(out, tp)
+    elif cfg.n_shared:
         out = out + mlp(p["shared"], xt)
     return out.reshape(B, S, d), aux

@@ -31,11 +31,15 @@ changes no number.
 
 Tensor parallelism: each entry point takes an optional ``tp`` (a
 ``sharding.tensor_parallel.TPContext``; None on one rank and for every
-family but the dense token archs).  With it the params are a rank's
-model-local tree and the blocks compute its share of the heads and the
-MLP, Megatron style; the vocabulary's embedding and cross-entropy run
-vocabulary-parallel, and ``prefill`` / ``decode_step`` gather the
-logits whole.
+family but the dense and MoE token archs).  With it the params are a
+rank's model-local tree and the blocks (deepseek's dense-FFN prefix and
+MTP block too) compute its share of the heads (GQA or MLA), the MLP and
+the experts, Megatron style; the vocabulary's embedding and
+cross-entropy run vocabulary-parallel, and ``prefill`` / ``decode_step``
+gather the logits whole.  ``lm_forward`` and ``lm_loss`` also take
+an optional ``group`` (a ``sharding.batch_group.BatchGroup``: the pod's
+ranks over which the batch is split), over which each MoE layer takes
+its capacity, its slots and its aux loss (``layers.moe``).
 """
 from __future__ import annotations
 
@@ -217,7 +221,7 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
                  positions: torch.Tensor, moe_layer: bool,
                  is_global: Optional[bool] = None,
                  cache: Optional[Pytree] = None,
-                 cache_len: Optional[int] = None, tp=None):
+                 cache_len: Optional[int] = None, tp=None, group=None):
     """One decoder block.  Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache: Dict[str, Pytree] = {}
@@ -254,7 +258,7 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
     if cfg.has_ffn:
         xn = rmsnorm(p["ffn_norm"], x, cfg.norm_eps)
         if moe_layer:
-            out, aux = moe(p["moe"], xn, cfg.moe_cfg())
+            out, aux = moe(p["moe"], xn, cfg.moe_cfg(), tp, group)
         else:
             out = mlp(p["mlp"], xn, tp)
         x = x + out
@@ -276,7 +280,7 @@ def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
                    kv_cache, cache_len, tp=None):
     if cfg.attention == "mla":
         return mla_attention(p["attn"], xn, cfg.mla_cfg(), positions,
-                             kv_cache=kv_cache, cache_len=cache_len)
+                             kv_cache=kv_cache, cache_len=cache_len, tp=tp)
     acfg = cfg.attn_cfg()
     if cfg.window is not None and is_global is not None:
         # the layer's SWA/global choice: a "window" longer than any
@@ -410,7 +414,7 @@ def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _run_blocks(params, cfg: TransformerConfig, x, positions,
-                caches=None, cache_len=None, tp=None):
+                caches=None, cache_len=None, tp=None, group=None):
     """The dense prefix, then the stacked blocks, in order.  ``caches`` is
     None for a full-sequence pass, else ``{"dense": [one per prefix
     layer], "scan": stacked}``, updated in place.  Under ``tp`` the
@@ -422,9 +426,12 @@ def _run_blocks(params, cfg: TransformerConfig, x, positions,
         tp.sum_partial_grads(params["blocks"], "blocks/")
     for i in range(cfg.n_dense_layers):
         cache_l = caches["dense"][i] if caches is not None else None
+        block = params["dense_blocks"][i] if tp is None else \
+            tp.sum_partial_grads(params["dense_blocks"][i],
+                                 f"dense_blocks/{i}/")
         x, new_cache, aux = _block_apply(
-            params["dense_blocks"][i], x, cfg, positions, moe_layer=False,
-            cache=cache_l, cache_len=cache_len)
+            block, x, cfg, positions, moe_layer=False,
+            cache=cache_l, cache_len=cache_len, tp=tp)
         if caches is not None:
             _store(cache_l, new_cache)
         aux_total = aux_total + aux
@@ -435,7 +442,7 @@ def _run_blocks(params, cfg: TransformerConfig, x, positions,
             _layer(blocks, i), x, cfg, positions,
             moe_layer=cfg.is_moe,
             is_global=None if flags is None else flags[i], cache=cache_l,
-            cache_len=cache_len, tp=tp)
+            cache_len=cache_len, tp=tp, group=group)
         if caches is not None:
             _store(cache_l, new_cache)
         aux_total = aux_total + aux
@@ -457,11 +464,11 @@ def _logits(params, cfg: TransformerConfig, x: torch.Tensor,
 
 
 def lm_forward(params, cfg: TransformerConfig,
-               batch: Dict[str, torch.Tensor], tp=None):
+               batch: Dict[str, torch.Tensor], tp=None, group=None):
     """Full-sequence forward -> (logits, aux_loss, hidden); under ``tp``
     the logits are this rank's vocabulary columns."""
     x, positions, _ = _embed_inputs(params, cfg, batch, tp)
-    x, _, aux = _run_blocks(params, cfg, x, positions, tp=tp)
+    x, _, aux = _run_blocks(params, cfg, x, positions, tp=tp, group=group)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _logits(params, cfg, x, tp), aux, x
 
@@ -479,46 +486,59 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor, ignore: int = -1):
 
 
 def lm_loss(params, cfg: TransformerConfig,
-            batch: Dict[str, torch.Tensor], tp=None):
+            batch: Dict[str, torch.Tensor], tp=None, group=None):
     """Next-token loss.  ``batch["labels"]``, label −1 ignored: (B, S) —
     (B, S, n_codebooks) for audio; in vlm mode (B, S_text), the image
     prefix's positions left out.  The MoE aux loss is added, and under
     ``mtp`` the multi-token loss times ``mtp_loss_weight``.  Returns
     ``(loss, metrics)``; under ``tp`` the cross-entropy is
     vocabulary-parallel."""
-    logits, aux, hidden = lm_forward(params, cfg, batch, tp)
+    logits, aux, hidden = lm_forward(params, cfg, batch, tp, group)
     if cfg.input_mode == "vlm":
         logits = logits[:, batch["patch_embeds"].shape[1]:]
-    if tp is not None and tp.plan.vocab:
-        loss, _ = tpl.vocab_cross_entropy(logits, batch["labels"], tp)
-    else:
-        loss, _ = _xent(logits, batch["labels"])
+    loss = _cross_entropy(logits, batch["labels"], tp)
     metrics = {"xent": loss, "aux": aux}
     total = loss + aux
     if cfg.mtp:
-        metrics["mtp"] = _mtp_loss(params, cfg, batch, hidden)
+        metrics["mtp"] = _mtp_loss(params, cfg, batch, hidden, tp, group)
         total = total + cfg.mtp_loss_weight * metrics["mtp"]
     metrics["loss"] = total
     return total, metrics
 
 
-def _mtp_loss(params, cfg: TransformerConfig, batch, hidden):
+def _cross_entropy(logits, labels, tp=None):
+    """``_xent``, vocabulary-parallel under a ``tp`` that splits the
+    vocabulary."""
+    if tp is not None and tp.plan.vocab:
+        return tpl.vocab_cross_entropy(logits, labels, tp)[0]
+    return _xent(logits, labels)[0]
+
+
+def _mtp_loss(params, cfg: TransformerConfig, batch, hidden, tp=None,
+              group=None):
     """DeepSeek-V3 multi-token prediction (depth 1): the trunk's hidden
     state at position i and the embedding of token i+1 go through one
-    extra block to predict token i+2."""
+    extra block to predict token i+2.  Under ``tp`` the block splits as
+    the trunk's do, and ``proj`` column-parallel, gathered whole."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
     mp = params["mtp"]
     h_prev = rmsnorm(mp["norm_prev"], hidden[:, :S - 1])
-    emb_next = rmsnorm(mp["norm_emb"],
-                       params["embed"][tokens[:, 1:]].to(cfg.dtype))
-    h = linear(mp["proj"], torch.cat([h_prev, emb_next], dim=-1))
+    emb_next = rmsnorm(mp["norm_emb"], _embed(params, cfg, tokens[:, 1:], tp))
+    h = torch.cat([h_prev, emb_next], dim=-1)
+    if tp is not None and tp.plan.mtp:      # column-parallel, gathered
+        h = tpl.gather_from_model(
+            linear(mp["proj"], tpl.copy_to_model(h, tp)), tp)
+    else:
+        h = linear(mp["proj"], h)
     positions = torch.arange(S - 1, device=h.device)
-    h, _, _ = _block_apply(mp["block"], h, cfg, positions,
-                           moe_layer=cfg.is_moe)
+    block = mp["block"] if tp is None else \
+        tp.sum_partial_grads(mp["block"], "mtp/block/")
+    h, _, _ = _block_apply(block, h, cfg, positions, moe_layer=cfg.is_moe,
+                           tp=tp, group=group)
     h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
-    loss, _ = _xent(_logits(params, cfg, h), batch["labels"][:, 1:])
-    return loss
+    return _cross_entropy(_logits(params, cfg, h, tp), batch["labels"][:, 1:],
+                          tp)
 
 
 # ---------------------------------------------------------------------------

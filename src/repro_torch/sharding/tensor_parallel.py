@@ -2,30 +2,39 @@
 
 The counterpart of what XLA's SPMD partitioner does for the JAX package
 when it jits a step under ``rules.param_pspecs``' ``fsdp_tp`` shardings:
-the ranks of a ``model`` group split the heads, the MLP and the
-vocabulary of each step instead of each computing the whole model.
+the ranks of a ``model`` group split the heads, the MLP, the experts and
+the vocabulary of each step instead of each computing the whole model.
 
 A rank keeps its own ``model`` tile of the leaves the rules shard over
 ``model`` (``TPContext.local``): the q heads (and the kv heads, when
-|model| divides them) and their biases, the MLP's columns, the rows of
-the out-projections, the vocabulary of ``embed`` and ``lm_head``, and
-the ``lora_b`` of the column-parallel linears.  Everything else is whole
-on every rank of the group.  The dense token archs only
-(:func:`plan`); the other families keep the pod's gather-then-compute.
+|model| divides them) and their biases, MLA's per-head projections
+(``wq`` or ``wq_b``, ``wkv_b``, the rows of ``wo``) and the columns of
+its latent projections (``wq_a``, ``wkv_a``), the MLP's columns, the
+rows of the out-projections, the experts of each MoE layer and the
+shared experts' columns and rows, the vocabulary of ``embed`` and
+``lm_head``, the columns of the MTP block's ``proj``, and the ``lora_b``
+of the column-parallel linears.  Everything else is whole on every rank
+of the group: MLA's latent norms, the router.  The token archs of the
+dense and MoE families (:func:`plan`: the trunk, deepseek's dense-FFN
+prefix and its MTP block); the other families keep the pod's
+gather-then-compute.
 
-Four autograd functions carry the collectives, each an all-reduce over
-the ``model`` group counted as the pod's ``"tp"`` kind with its bytes
-(``repro_torch.fl.pod.COLLECTIVES``):
+Five autograd functions carry the ``model`` collectives, each counted as
+the pod's ``"tp"`` kind with its bytes (``repro_torch.fl.pod.COLLECTIVES``):
 
   * :func:`copy_to_model` — identity forward, all-reduce backward: the
-    replicated input of a column-parallel linear, and a whole leaf whose
+    replicated input of a column-parallel linear (MLA's latents, an MoE
+    layer's dispatch input and combine weights), and a whole leaf whose
     ``model`` ranks compute different parts of its gradient
     (:meth:`TPContext.partial`: replicated kv projections, the per-head
     norms, the ``lora_a`` of a row-parallel linear), so that every rank
     holds the whole gradient;
   * :func:`reduce_from_model` — all-reduce forward, identity backward:
-    the partial output of a row-parallel linear, in its dtype (bf16 on
-    the card, as Megatron reduces);
+    the partial output of a row-parallel linear or of a rank's experts,
+    in its dtype (bf16 on the card, as Megatron reduces);
+  * :func:`gather_from_model` — all-gather forward, the rank's columns
+    backward: the output of a column-parallel linear that the next layer
+    reads whole (MLA's latents, the MTP block's ``proj``);
   * :func:`vocab_embedding` — the lookup of the rank's vocabulary rows,
     zero outside them, then one all-reduce;
   * :func:`vocab_cross_entropy` — ``_xent`` over vocabulary-parallel
@@ -34,7 +43,8 @@ the ``model`` group counted as the pod's ``"tp"`` kind with its bytes
 
 :class:`TPParams` is the model-local tree (``fl.pod.ShardedFlatOps``
 builds it): a dict that carries its :class:`TPContext` to the model
-(``fl.task.lm_task``).
+(``fl.task.lm_task``), and the batch group of a step whose batch the pod
+splits (``sharding.batch_group``).
 """
 from __future__ import annotations
 
@@ -53,46 +63,73 @@ MODEL = "model"
 
 @dataclasses.dataclass(frozen=True)
 class TPPlan:
-    """Which parts of a dense block split over ``model`` ranks: the heads
-    (|model| divides ``n_heads``, and divides ``n_kv_heads`` or is a
-    multiple of it, so that a rank's q heads read whole kv groups or one
-    kv head), the kv heads (|model| divides ``n_kv_heads``; else the kv
-    projections stay whole and each rank computes the one kv head its q
-    heads read), the MLP (divides ``d_ff``) and the vocabulary (divides
-    ``vocab_size``)."""
+    """Which parts of a block split over ``model`` ranks: the heads
+    (|model| divides ``n_heads``; for GQA also divides ``n_kv_heads`` or
+    is a multiple of it, so that a rank's q heads read whole kv groups or
+    one kv head), the kv heads (|model| divides ``n_kv_heads``; else the
+    kv projections stay whole and each rank computes the one kv head its
+    q heads read; MLA's heads split with its latent projections, whose
+    widths |model| also divides), the MLP (divides ``d_ff``: the dense
+    blocks and deepseek's dense-FFN prefix), the experts (divides
+    ``n_experts`` and the shared experts' width), the vocabulary
+    (divides ``vocab_size``) and the MTP block's ``proj`` (divides
+    ``d_model``)."""
     attn: bool
     kv: bool
     mlp: bool
     vocab: bool
+    experts: bool = False
+    mtp: bool = False
 
 
 def plan(cfg, size: int) -> Optional[TPPlan]:
     """The plan of ``cfg`` on ``size`` model ranks, or None: one rank, or
-    an arch outside the dense token family (MoE, MLA, SSM, hybrid, VLM,
+    an arch outside the dense and MoE token families (SSM, hybrid, VLM,
     audio), which keeps gather-then-compute."""
-    if size <= 1 or cfg.arch_type != "dense" or cfg.attention != "gqa" \
-            or cfg.input_mode != "tokens" or cfg.is_moe or cfg.mtp \
-            or cfg.n_codebooks != 1:
+    if size <= 1 or cfg.arch_type not in ("dense", "moe") \
+            or cfg.input_mode != "tokens" or cfg.n_codebooks != 1 \
+            or (cfg.arch_type == "dense" and (cfg.is_moe or cfg.mtp)):
         return None
-    kv = cfg.n_kv_heads % size == 0
-    attn = cfg.n_heads % size == 0 and (kv or size % cfg.n_kv_heads == 0)
-    p = TPPlan(attn=attn, kv=attn and kv,
-               mlp=cfg.d_ff % size == 0, vocab=cfg.vocab_size % size == 0)
-    return p if (p.attn or p.mlp or p.vocab) else None
+    if cfg.attention == "mla":
+        attn = kv = cfg.n_heads % size == 0 and \
+            (cfg.q_lora_rank or 0) % size == 0 and \
+            (cfg.kv_lora_rank + cfg.qk_rope_dim) % size == 0
+    else:
+        kv = cfg.n_kv_heads % size == 0
+        attn = cfg.n_heads % size == 0 and (kv or
+                                            size % cfg.n_kv_heads == 0)
+        kv = attn and kv
+    shared = (cfg.d_ff_shared or cfg.d_ff_expert * cfg.n_shared_experts) \
+        if cfg.n_shared_experts else 0
+    p = TPPlan(attn=attn, kv=kv, mlp=cfg.d_ff > 0 and cfg.d_ff % size == 0,
+               vocab=cfg.vocab_size % size == 0,
+               experts=cfg.is_moe and cfg.n_experts % size == 0
+               and shared % size == 0,
+               mtp=cfg.mtp and cfg.d_model % size == 0)
+    return p if any(dataclasses.astuple(p)) else None
 
 
+# the blocks a plan splits: the trunk's stack, deepseek's dense-FFN
+# prefix and its MTP block
+_BLOCK = r"^(blocks|dense_blocks/\d+|mtp/block)/"
 _LOCAL = {
-    "attn": r"^blocks/attn/wq/(w|b|lora_b)$|^blocks/attn/wo/w$",
-    "kv": r"^blocks/attn/(wk|wv)/(w|b|lora_b)$",
-    "mlp": r"^blocks/mlp/(w_gate|w_up)/(w|lora_b)$|^blocks/mlp/w_down/w$",
+    "attn": _BLOCK + r"attn/wq/(w|b|lora_b)$|" + _BLOCK +
+    r"attn/(wq_a|wq_b|wkv_a|wkv_b|wo)/w$",
+    "kv": _BLOCK + r"attn/(wk|wv)/(w|b|lora_b)$",
+    "mlp": _BLOCK + r"mlp/(w_gate|w_up)/(w|lora_b)$|" + _BLOCK +
+    r"mlp/w_down/w$",
+    "experts": _BLOCK + r"moe/experts/(w_gate|w_up|w_down)$|" + _BLOCK +
+    r"moe/shared/(w_gate|w_up|w_down)/w$",
     "vocab": r"^(embed|lm_head)$",
+    "mtp": r"^mtp/proj/w$",
 }
 _PARTIAL = {
     # per-head norms on the local heads; the row-parallel lora_a's rows
-    "attn": r"^blocks/attn/(q_norm|k_norm)/scale$|^blocks/attn/wo/lora_a$",
+    "attn": _BLOCK + r"attn/(q_norm|k_norm)/scale$|" + _BLOCK +
+    r"attn/wo/lora_a$",
     # replicated kv: each rank computes the kv heads its q heads read
-    "kv_whole": r"^blocks/attn/(wk|wv)/(w|b|lora_b)$",
-    "mlp": r"^blocks/mlp/w_down/lora_a$",
+    "kv_whole": _BLOCK + r"attn/(wk|wv)/(w|b|lora_b)$",
+    "mlp": _BLOCK + r"mlp/w_down/lora_a$",
 }
 
 
@@ -100,7 +137,7 @@ _PARTIAL = {
 class TPContext:
     """One rank's view of its ``model`` group: the mesh (None for a
     layout that runs nothing), the group's size, this rank's coordinate
-    on it, the plan, and the head counts."""
+    on it, the plan, and the head and expert counts."""
     mesh: Any
     size: int
     rank: int
@@ -108,6 +145,7 @@ class TPContext:
     n_heads: int
     n_kv_heads: int
     vocab_size: int
+    n_experts: int = 0
 
     @property
     def group(self):
@@ -152,6 +190,12 @@ class TPContext:
         n = self.vocab_size // self.size
         return self.rank * n, n
 
+    @property
+    def expert_range(self):
+        """``(lo, n)``: the experts of this rank."""
+        n = self.n_experts // self.size
+        return self.rank * n, n
+
     def sum_partial_grads(self, tree: Pytree, prefix: str = "") -> Pytree:
         """``tree`` with every :meth:`partial` leaf passed through
         :func:`copy_to_model`: each such gradient sums over the group
@@ -173,15 +217,19 @@ def context(cfg, mesh) -> Optional[TPContext]:
     return TPContext(mesh=mesh, size=size,
                      rank=mesh.coords.get(MODEL, 0), plan=p,
                      n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                     vocab_size=cfg.vocab_size)
+                     vocab_size=cfg.vocab_size, n_experts=cfg.n_experts)
 
 
 class TPParams(dict):
-    """A model-local parameter tree (a dict) and its :class:`TPContext`."""
+    """A parameter tree (a dict) with its :class:`TPContext` (None: the
+    whole leaves) and the batch group of a step whose batch is split
+    (``sharding.batch_group.BatchGroup``; None: the rank's batch is the
+    whole batch)."""
 
-    def __init__(self, tree: dict, tp: TPContext):
+    def __init__(self, tree: dict, tp: Optional[TPContext], batch=None):
         super().__init__(tree)
         self.tp = tp
+        self.batch = batch
 
 
 def context_of(params) -> Optional[TPContext]:
@@ -231,6 +279,33 @@ def copy_to_model(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
 def reduce_from_model(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
     """The sum of every rank's ``x`` over the group; identity backward."""
     return _ReduceFromModel.apply(x, tp)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        from repro_torch.fl.pod import _count
+        from repro_torch.launch.mesh import all_gather_into
+        full = torch.empty((tp.size,) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device)
+        all_gather_into(full.reshape(-1), x.contiguous().reshape(-1),
+                        tp.group)
+        _count("tp", full.numel() * full.element_size())
+        return full.movedim(0, -2).reshape(x.shape[:-1] + (-1,))
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[-1] // ctx.tp.size
+        return g.narrow(-1, ctx.tp.rank * n, n).contiguous(), None
+
+
+def gather_from_model(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
+    """Every rank's columns ``x`` ``(..., n)`` whole along the last dim, in
+    rank order (one all-gather, counted "tp"); the backward takes this
+    rank's columns of the gradient, which the consumers have summed
+    (a :func:`copy_to_model` after it)."""
+    return _GatherFromModel.apply(x, tp)
 
 
 class _VocabEmbedding(torch.autograd.Function):

@@ -381,7 +381,8 @@ def test_dryrun_cli_runs_a_reduced_arch(tmp_path):
 # per-rank FLOPs against XLA's SPMD partitioner
 # ---------------------------------------------------------------------------
 
-TP_ARCHS = ("qwen1.5-0.5b", "tinyllama-1.1b")
+TP_ARCHS = ("qwen1.5-0.5b", "tinyllama-1.1b", "deepseek-v2-lite-16b",
+            "deepseek-v3-671b")
 TP_MESHES = ((1, 1), (2, 2), (1, 4))
 TP_B, TP_S = 8, 16
 
@@ -458,22 +459,26 @@ def tp_flops():
 @pytest.mark.parametrize("shape", TP_MESHES)
 def test_per_rank_flops_match_xla_spmd(tp_flops, arch, shape):
     """A rank of a (data, model) mesh computes its share of the step as
-    XLA's partitioner splits it: its batch rows over ``data``, its heads,
-    MLP columns and vocabulary over ``model`` (the reduced tinyllama's 2
-    kv heads on 4 ranks replicated), within 10% of XLA's per-device
-    FLOPs (XLA also counts elementwise FLOPs; the port's counter counts
-    the matmul class)."""
+    XLA's partitioner splits it: its batch rows over ``data``, its heads
+    (GQA or MLA), MLP columns, experts and vocabulary over ``model`` (the
+    reduced tinyllama's 2 kv heads on 4 ranks replicated), an MoE
+    layer's expert GEMMs on its share of the batch's slots, within 10% of
+    XLA's per-device FLOPs (XLA also counts elementwise FLOPs; the port's
+    counter counts the matmul class)."""
     xla, port = tp_flops
     key = f"{arch}/{list(shape)}"
     assert 0.9 <= port[key] / xla[key] <= 1.1, (port[key], xla[key])
 
 
-# the plans of the assigned dense token archs on 16 model ranks (attn,
-# kv, mlp, vocab); every other family keeps gather-then-compute
-TP_PLANS_16 = {"qwen3-32b": (True, False, True, True),
-               "qwen1.5-0.5b": (True, True, True, True),
-               "qwen2-1.5b": (False, False, True, True),
-               "tinyllama-1.1b": (True, False, True, True)}
+# the plans of the assigned dense and MoE token archs on 16 model ranks
+# (attn, kv, mlp, vocab, experts); every other family keeps
+# gather-then-compute
+TP_PLANS_16 = {"qwen3-32b": (True, False, True, True, False),
+               "qwen1.5-0.5b": (True, True, True, True, False),
+               "qwen2-1.5b": (False, False, True, True, False),
+               "tinyllama-1.1b": (True, False, True, True, False),
+               "deepseek-v2-lite-16b": (True, True, True, True, True),
+               "deepseek-v3-671b": (True, True, True, True, True)}
 
 
 @pytest.mark.parametrize("arch", tconfigs.ASSIGNED)
@@ -481,13 +486,16 @@ def test_tensor_parallel_plans_on_the_pod(arch):
     """On the 16×16 pod's ``model`` axis: qwen2-1.5b's 12 heads stay
     whole, tinyllama-1.1b's 4 and qwen3-32b's 8 kv heads are replicated
     (each rank computes the one its q heads read), the MLP and the
-    vocabulary split everywhere; the MoE, MLA, SSM, hybrid, VLM and
-    audio archs have no plan.  One rank never has one."""
+    vocabulary split everywhere; the deepseek archs split their MLA
+    heads (the latent whole), their dense-FFN prefix, their experts (4
+    and 16 a rank) and the vocabulary; the SSM, hybrid, VLM and audio
+    archs have no plan.  One rank never has one."""
     from repro_torch.sharding.tensor_parallel import plan
     cfg = tconfigs.get_config(arch)
     p = plan(cfg, 16)
     if arch in TP_PLANS_16:
-        assert (p.attn, p.kv, p.mlp, p.vocab) == TP_PLANS_16[arch]
+        assert (p.attn, p.kv, p.mlp, p.vocab, p.experts) == \
+            TP_PLANS_16[arch]
     else:
         assert p is None
     assert plan(cfg, 1) is None

@@ -8,18 +8,24 @@ case of the config builds its mesh and runs the reduced LM (the case's
 ``arch``, else the config's; with ``lora:4`` adapters when the case
 names ``peft``) from the given init params on the given batch indices:
 through ``run_pod_training`` (kind "train": P2 only), the P1 relay
-(kind "relay") or P2 rounds (kind "rounds").  Kind "vocab" holds the
+(kind "relay") or P2 rounds (kind "rounds"), at the case's
+``capacity_factor`` and ``update_impl`` (default "fused") when it names
+them.  Kind "vocab" holds the
 vocabulary-parallel embedding and cross-entropy (tied embedding, ignore
 labels) against the whole-vocabulary functions on the case's mesh and
-writes their largest differences.  Rank 0 writes the final params and the losses; every rank
+writes their largest differences; kind "serve" holds the case's arch's
+tensor-parallel prefill and decode against the whole model's.  Rank 0
+writes the final params, the losses and the eval accuracies; every rank
 writes its rows of scaffold's ``c`` and of the error-feedback store, its
 collective counts and bytes, its K1/K6/K3 call counts, DP's clip scales,
 each step's global gradient norm, the bytes of the buffers it carried
-(``EngineResult.resident_bytes``) and whether it computed
-tensor-parallel (``EngineResult.tp_compute``); a case with ``"checkpoint"`` saves
+(``EngineResult.resident_bytes``), whether it computed
+tensor-parallel (``EngineResult.tp_compute``) and the MoE layers' routed
+and dropped pairs (``record_routing``); a case with ``"checkpoint"`` saves
 its final params through a ``CheckpointManager`` on every rank.
 Imports torch and ``repro_torch`` only.
 """
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -42,6 +48,7 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
     from repro_torch.kernels import ops
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import record_routing
     from repro_torch.utils import tree_math as tm
 
     cfg = json.loads(Path(cfg_path).read_text())
@@ -60,15 +67,21 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
                                                np.int64))
         return indices
 
+    def side_key(case):
+        return (case.get("arch", cfg["arch"]), case.get("peft"),
+                case.get("capacity_factor"))
+
     sides, datas = {}, {}
     for case in cfg["cases"].values():
-        arch, peft = case.get("arch", cfg["arch"]), case.get("peft")
-        if case["kind"] == "vocab" or (arch, peft) in sides:
+        if case["kind"] in ("vocab", "serve") or side_key(case) in sides:
             continue
+        arch, peft, cf = side_key(case)
         mcfg = with_peft(get_reduced(arch), peft)
+        if cf is not None:
+            mcfg = dataclasses.replace(mcfg, capacity_factor=cf)
         task = lm_task(mcfg)
         tag = "lora" if peft else "full"
-        sides[arch, peft] = (mcfg, task, load_init(
+        sides[arch, peft, cf] = (mcfg, task, load_init(
             task, out / f"init_{arch}_{tag}.npz"))
         if mcfg.vocab_size not in datas:
             datas[mcfg.vocab_size] = make_synthetic_tokenlm(
@@ -115,11 +128,17 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
                 serve=serve_check(mesh, cfg["seed"]))))
             dist.barrier()
             continue
+        if case["kind"] == "serve":
+            (out / f"serve_{name}_{rank}.json").write_text(json.dumps(
+                serve_check(mesh, cfg["seed"], case["arch"])))
+            dist.barrier()
+            continue
         peft = case.get("peft")
-        mcfg, task, init = sides[case.get("arch", cfg["arch"]), peft]
+        mcfg, task, init = sides[side_key(case)]
         data = datas[mcfg.vocab_size]
         spec = pod.PodFLSpec(
-            update_impl="fused", algorithm=case.get("algorithm", "fedavg"),
+            update_impl=case.get("update_impl", "fused"),
+            algorithm=case.get("algorithm", "fedavg"),
             server_opt=case.get("server_opt", "none"), peft=peft,
             dp=privacy.DPSpec(case["dp"]) if case.get("dp") else None,
             compression=(compression.CompressionSpec(8, 0.25, True)
@@ -134,6 +153,8 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
         scales.clear()
         norms.clear()
         algo_state, fops = {}, None
+        routing = record_routing()
+        log = routing.__enter__()
         if case["kind"] == "train":
             res = train.run_pod_training(
                 mcfg, data, cyclic_rounds=0, fl_rounds=1,
@@ -155,10 +176,14 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
                              phase="P1" if case["kind"] == "relay" else "P2")
             losses = [h["local_loss"] for h in res.history]
             params, algo_state = res.params, res.algo_state
+        routing.__exit__(None, None, None)
         counts = {"collectives": dict(pod.COLLECTIVES),
                   "bytes": dict(pod.COLLECTIVE_BYTES), "calls": dict(calls),
                   "resident": res.resident_bytes, "clip_scales": scales,
-                  "grad_norms": norms, "tp_compute": res.tp_compute}
+                  "grad_norms": norms, "tp_compute": res.tp_compute,
+                  "routed": sum(e["pairs"] for e in log),
+                  "dropped": sum(int(e["dropped"]) for e in log),
+                  "capacity": sorted({e["capacity"] for e in log})}
         if fops is not None:
             arrays = {}
             if "c_global" in algo_state:
@@ -185,6 +210,8 @@ def main(cfg_path: str, rank: int, world: int, init_method: str) -> None:
             arrays = {f"p{i}": leaf.detach().float().numpy()
                       for i, leaf in enumerate(tm.tree_leaves(params))}
             arrays["loss"] = np.array(losses)
+            arrays["acc"] = np.array([h["acc"] for h in res.history
+                                      if "acc" in h])
             np.savez(out / f"torch_{name}.npz", **arrays)
         dist.barrier()
     dist.destroy_process_group()
@@ -231,16 +258,19 @@ def vocab_check(mesh, seed: int) -> dict:
             "tp": pod.COLLECTIVES["tp"]}
 
 
-def serve_check(mesh, seed: int) -> dict:
-    """The reduced tinyllama-1.1b's prefill and two greedy decode steps on
-    the model-local tree of the ``fsdp_tp`` layout (its 2 kv heads on 4
-    ``model`` ranks: one each) against the whole tree's: the largest
-    differences of the logits and of the rank's kv heads of the cache."""
+def serve_check(mesh, seed: int, arch: str = "tinyllama-1.1b") -> dict:
+    """The reduced ``arch``'s prefill and two greedy decode steps on the
+    model-local tree of the ``fsdp_tp`` layout (tinyllama-1.1b's 2 kv
+    heads on 4 ``model`` ranks: one each; an MLA arch's heads and experts
+    split, its latent cache whole) against the whole tree's: the largest
+    differences of the logits and of the rank's kv heads of the cache
+    (MLA: of every layer's whole latent cache)."""
     from repro_torch.configs import get_reduced
     from repro_torch.fl import pod
     from repro_torch.fl.task import lm_task
     from repro_torch.models.transformer import decode_step, init_lm, prefill
-    cfg = get_reduced("tinyllama-1.1b")
+    from repro_torch.utils import tree_math as tm
+    cfg = get_reduced(arch)
     params = init_lm(cfg, seed, "cpu")
     fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True,
                                  None, False, True)
@@ -257,11 +287,17 @@ def serve_check(mesh, seed: int) -> dict:
             lw, cw = decode_step(params, cfg, tok, cw, S + t)
             lt, ct = decode_step(tree, cfg, tok, ct, S + t, tp=tp)
             logits.append(float((lt - lw).abs().max()))
-    lo, n = tp.kv_range
-    cache = max(float((a - b.narrow(-2, lo, n)).abs().max())
-                for a, b in zip(ct["scan"]["kv"], cw["scan"]["kv"]))
+    if cfg.attention == "mla":
+        n = cfg.n_heads // tp.size
+        cache = max(float((a - b).abs().max()) for a, b in
+                    zip(tm.tree_leaves(ct), tm.tree_leaves(cw)))
+    else:
+        lo, n = tp.kv_range
+        cache = max(float((a - b.narrow(-2, lo, n)).abs().max())
+                    for a, b in zip(ct["scan"]["kv"], cw["scan"]["kv"]))
     return {"logits": logits, "cache": cache, "kv_heads": n,
-            "logits_shape": list(lt.shape)}
+            "logits_shape": list(lt.shape), "tp_experts": tp.plan.experts,
+            "tp_heads": tp.plan.attn}
 
 
 def _vocab_cfg(vocab: int):
