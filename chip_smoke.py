@@ -164,12 +164,13 @@ JSON line per phase:
                      rounds a turn;
      client_store  — the sparse client store and the overlapped pipeline
                      (M10): from the main path's P1 params, P2 6 × 10 ×
-                     2, chunk 2, of SCAFFOLD with p2_compressed's
-                     uploads and of MOON, each dense-sync, sparse-sync
+                     1 (× 2 before pod_sharded_zoo joined the script),
+                     chunk 2, of SCAFFOLD with p2_compressed's uploads
+                     and of MOON, each dense-sync, sparse-sync
                      and sparse-overlap (capacity 20), and SCAFFOLD under
                      device sampling dense against sparse-overlap: all
                      bitwise (cuDNN deterministic), rows spilled and
-                     refaulted, K1 120 (with c under SCAFFOLD),
+                     refaulted, K1 60 (with c under SCAFFOLD),
                      topk_compress 60, K2 6 per run, the engine's timing
                      split; cnn_femnist on femnist-like at LEAF FEMNIST's
                      3,550 writers (227,200 samples), SCAFFOLD 2 × 10 ×
@@ -188,9 +189,9 @@ JSON line per phase:
                      (1,106,356,224 bf16 params, random from the seed) on
                      make_synthetic_tokenlm (16 clients × 32 sequences of
                      128, vocab 32,000) through run_pod_training: P1 1 ×
-                     4 × 2 over the whole model, P2 2 × 4 × 2 over the
-                     adapters; P1 K1 8, P2 K1 16, K6 8, K3 2, K2 0
-                     asserted, the frozen leaves bitwise, the adapters
+                     4 × 1 over the whole model, P2 2 × 4 × 1 over the
+                     adapters (× 2 steps before pod_sharded_zoo); P1 K1
+                     4, P2 K1 8, K6 8, K3 2, K2 0 asserted, the frozen leaves bitwise, the adapters
                      moved, upload bytes = the slice's, the eval loss
                      below the init's, fused == plain bitwise, the host
                      engine's FedAvgM round against the pod's; ms per
@@ -263,8 +264,10 @@ JSON line per phase:
                      full width through run_pod_training on a (2, 2)
                      data x model mesh of four gloo ranks, four processes
                      on the one card (NCCL refuses two ranks on one
-                     device; gloo takes the CUDA tensors), P1 1 x 2 x 2
-                     then P2 1 x 2 x 2 of batch 8, under fsdp_tp
+                     device; gloo takes the CUDA tensors), P1 1 x 2 x 1
+                     then P2 1 x 2 x 1 (x 2 before pod_sharded_zoo) of
+                     batch 8,
+                     under fsdp_tp
                      (tensor-parallel compute over model on every rank:
                      tp_compute, "tp" all-reduces), replicated, and
                      fsdp_only (gather-then-compute; P1 alone): fsdp_only's
@@ -281,8 +284,9 @@ JSON line per phase:
                      memory per rank, the card's name and power limit;
      pod_sharded_moe — the MoE zoo on the same four gloo ranks:
                      (a) deepseek-v2-lite-16b + lora:8 cut to 3 layers at
-                     full width on (2, 2), P1 1 x 2 x 2 then P2 1 x 2 x 2
-                     on the /(lora_a|lora_b)$|/router/w$ slice, batch 8 x
+                     full width on (2, 2), P1 1 x 2 x 1 then P2 1 x 2 x 1
+                     (x 2 before pod_sharded_zoo) on the
+                     /(lora_a|lora_b)$|/router/w$ slice, batch 8 x
                      128, under fsdp_tp (experts, shared experts and MLA
                      heads over model; every MoE layer's capacity global
                      over data: tp_compute, "tp" and "moe" collectives)
@@ -296,12 +300,46 @@ JSON line per phase:
                      fsdp_tp view's per-shard sizes, K1, K6 and K3 once
                      a bucket row, pairs dropped (per layer, reported);
                      (b) the whole model on (1, 4) under fsdp_tp, P2 1 x
-                     2 x 2: each rank draws the init in turn behind a
+                     2 x 1: each rank draws the init in turn behind a
                      barrier and keeps only its rows (engine.FlatRows),
                      so the card holds one whole model at most; finite
                      losses, every router's layer row moved, every
                      frozen row bitwise; ms a step, peak GB a rank,
                      bytes gathered and all-reduced ("tp", "moe") a step;
+     pod_sharded_zoo — the SSM, hybrid, VLM and audio zoo tensor-
+                     parallel on the same four gloo ranks: (a)
+                     hymba-1.5b + lora:8 at full width and depth on
+                     (2, 2) (25 SSM heads a rank, the MLP's columns
+                     halved, the attention whole), P1 1 x 2 x 2 then P2
+                     1 x 2 x 2 at batch 8 x 128 and a FedProx P2 round
+                     (mu 0.01), under fsdp_tp and replicated, each run
+                     from and to its rows: tp_compute and "tp" on every
+                     fsdp_tp phase (FedProx's too), losses and params
+                     within ZOO_LOSS_RTOL and ZOO_TP_TOL of replicated's
+                     and P1's changes within ZOO_DELTA_TOL (bf16 drift
+                     bounds: with --pod-sharded-zoo-control, the phase
+                     alone, a control, the gated norm's sum of squares
+                     through reduce_from_model, reads as the sound run
+                     there), frozen rows the fsdp_tp view's per-shard
+                     sizes, K1, K6 and K3 once a bucket row, frozen
+                     leaves kept; (b) mamba2-1.3b at full width and
+                     depth on (1, 4) served in f32 from each rank's
+                     model-local tree (16 SSM heads, a quarter of the
+                     vocabulary), batch 2 x prompt 1024 + 8 greedy
+                     tokens: K8 48 launches a prefill on the rank's
+                     heads, the tokens the whole tree's (one process),
+                     logits and SSM state within ZOO_SERVE_TOL; (c)
+                     internvl2-1b (256 patches + 128 tokens),
+                     musicgen-medium (128 frames) and hymba-1.5b (128
+                     tokens) cut to 2 layers at full width in f32:
+                     make_train_step model-local against whole, 2 steps
+                     at batch 4 (losses, the first gradient, the params
+                     within ZOO_STEP_TOL), a prefill through K7 on the
+                     split heads within ZOO_PREFILL_TOL, and the control
+                     on hymba, whose first gradient must miss by more
+                     than 100 x ZOO_STEP_TOL; ms a step, peak GB a rank, bytes
+                     gathered and all-reduced a step, prefill ms and ms
+                     a decode step;
  14. dryrun        — the compile analysis (repro_torch.launch.dryrun) in
                      subprocesses on fake tensors over fake process
                      groups, five at a time, started before llm_lora so
@@ -314,19 +352,21 @@ JSON line per phase:
                      deepseek-v3-671b at train_4k on 2x16x16; one row a
                      pair (per-rank FLOPs, bytes, collective bytes by
                      kind, the roofline terms against the H100's peaks,
-                     useful_flops_ratio, tp_compute: the dense token
-                     archs compute tensor-parallel over model since PR
-                     28), every pair ok;
+                     useful_flops_ratio, tp_compute: every arch whose
+                     plan splits a part computes tensor-parallel over
+                     model), every pair ok;
  15. dryrun_check  — (a) tinyllama-1.1b's train step at batch 8 x 512
                      captured on fake tensors and run on the card under
                      the same counter: FLOPs and bytes equal exactly; the
                      warm step's ms (CUDA events, median of 5) beside its
                      t_compute_s, t_memory_s and model FLOPs / (ms x
                      989e12); (b) lower_pod_round on a fake (2, 2) mesh
-                     for pod_sharded's configuration and pod_sharded_moe's
-                     cut (a subprocess), cyclic + fl: its collectives and
-                     bytes by kind equal each pod_sharded and
-                     pod_sharded_moe rank's under fsdp_tp;
+                     for pod_sharded's configuration, pod_sharded_moe's
+                     cut and pod_sharded_zoo's hymba-1.5b (a
+                     subprocess), cyclic + fl (the zoo's FedProx: fl):
+                     its collectives and bytes by kind equal each
+                     pod_sharded, pod_sharded_moe and pod_sharded_zoo
+                     rank's under fsdp_tp;
  16. pod_aot       — tinyllama-1.1b at full width (f32) through
                      make_pod_cyclic_round and make_pod_fl_round, K 2, 2
                      local steps, batch 8 x 128: P1 bitwise the chain of
@@ -348,7 +388,9 @@ its top-k and residual form's launches there; K1 with its c form's
 times and launches;
 K7 with each serve shape's times and its launches on zoo_serve and
 moe_serve (0); K8 with
-its device kernels per call, since one ``ssd_scan`` call is three), the
+its device kernels per call, since one ``ssd_scan`` call is three, and
+a ``tp_form`` at a rank's 16 heads of mamba2-1.3b with its launches on
+pod_sharded_zoo), the
 nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 the last line; without a CUDA device it exits 1 and prints no result.
@@ -458,6 +500,10 @@ def _kernel_cases() -> dict:
             "hymba": dict(b=B, s=S, h=50, p=64, n=16, g=1, chunk=128),
             "grouped": dict(b=2, s=S, h=48, p=64, n=16, g=4, chunk=128),
             "mamba2_n128": dict(b=2, s=S, h=64, p=64, n=128, g=1, chunk=128),
+            # pod_sharded_zoo (b): a rank's 16 of mamba2-1.3b's 64 heads on
+            # (1, 4), batch 2 x prompt ZOO_SERVE_S
+            "mamba2_tp4": dict(b=2, s=1024, h=16, p=64, n=128, g=1,
+                               chunk=128),
             "ragged_2000": dict(b=2, s=2000, h=50, p=64, n=16, g=1,
                                 chunk=128),
         },
@@ -1321,6 +1367,9 @@ def check_attention_kernels(torch, bench) -> dict:
                 r = getattr(bench, kname)(dtype=dtype, label=f"{label}_{tag}",
                                           **kw)
                 rows.append(r)
+                if kname == "ssd_scan" and label == "mamba2_tp4" and \
+                        dtype == f32:       # pod_sharded_zoo serves f32
+                    main[label] = r
                 if dtype != bf16:
                     continue
                 if kname == "flash_attention" and label != "ragged_777":
@@ -2395,7 +2444,8 @@ N_CHARLM = 814_080         # CharLSTM-256's 813,632 params padded to 1024
 # tinyllama-1.1b + lora:8 (llm_lora): 1,100,048,384 base and 6,307,840
 # adapter params, all bf16: P1's one bucket holds both, P2's the adapters
 LLM_ARCH, LLM_PEFT, LLM_K = "tinyllama-1.1b", "lora:8", 4
-LLM_STEPS = 2       # SGD steps a client (4 before the MoE and zoo phases)
+LLM_STEPS = 1       # SGD steps a client (4 before the MoE and zoo phases,
+#                     2 before pod_sharded_zoo)
 LLM_BASE, N_LORA = 1_100_048_384, 6_307_840
 N_TINYLLAMA = LLM_BASE + N_LORA       # a multiple of 1024: no pad lanes
 L2_FLUSH_BYTES = 256 << 20  # read before a cold-L2 call: 5x the H100's L2
@@ -3188,15 +3238,15 @@ def bitwise_runs(torch, a, b) -> bool:
 
 # client_store's parity runs: SGD steps per client (25 before PR 23; the
 # residency plan, the gates and the spills depend on the ids only)
-STORE_STEPS = 2      # SGD steps a client in the parity runs (5 before
+STORE_STEPS = 1      # SGD steps a client in the parity runs (5 before
                      # pod_sharded joined the script, 10 before the MoE
-                     # and zoo training phases)
+                     # and zoo training phases, 2 before pod_sharded_zoo)
 
 
 def client_store(torch, fu, init, mesh) -> dict:
     """Phase client_store (M10).  Parity: the main path's LeNet-5 on
     cifar10-like from its P1 params, P2 6 rounds × 10 clients ×
-    ``STORE_STEPS`` (2) steps, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
+    ``STORE_STEPS`` (1) step, chunk 2, host sampling, of SCAFFOLD with p2_compressed's uploads
     (int8 + top-k 25% + EF: the control variates AND the residual rows
     in sparse stores) and of MOON, each with the dense store and the
     synchronous loop, the sparse store (capacity 20 = chunk × K) and the
@@ -3205,7 +3255,7 @@ def client_store(torch, fu, init, mesh) -> dict:
     bitwise (params, losses, control variates, residual rows, moon's
     previous models through ``to_dense``; cuDNN deterministic), rows
     spilled and faulted back in under host sampling, launches per run K1
-    120 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
+    60 (with c under SCAFFOLD), topk_compress 60 under SCAFFOLD, K2 6, 3
     dispatches.  Scale: cnn_femnist
     on femnist-like at LEAF FEMNIST's 3,550 writers (n_train cut to
     227,200, 64 a writer), SCAFFOLD 2 rounds × 10 × 25, dense-sync
@@ -3537,12 +3587,12 @@ def llm_lora(torch, fu, mesh) -> dict:
     """Phase llm_lora: federated next-token training of tinyllama-1.1b +
     lora:8 (``llm_setup``) through ``launch.train.run_pod_training`` on
     the one-rank NCCL mesh, the example's settings with 2 P2 rounds and
-    LLM_STEPS (2) steps a client: P1 1 round × 4 clients × 2 steps
+    LLM_STEPS (1) step a client: P1 1 round × 4 clients × 1 step
     relaying the whole model (one bf16 bucket of 1,106,356,224), P2 2
-    rounds × 4 × 2 on the adapter bucket (6,307,840), batch 8, lr 0.03,
+    rounds × 4 × 1 on the adapter bucket (6,307,840), batch 8, lr 0.03,
     the example's per-sequence loss as the eval metric every round
-    (batch 16).  Asserted: K1 8 in P1 (its launches at P1's evaluation,
-    the one before P2 starts), K1 16,
+    (batch 16).  Asserted: K1 4 in P1 (its launches at P1's evaluation,
+    the one before P2 starts), K1 8,
     K6 8, K3 2 and K2 0 in P2, no upload kernel; every frozen leaf after
     P2 bitwise P1's end value, every adapter leaf moved; the ledger's
     upload per client the adapter slice's bytes (12,615,680); the eval
@@ -3741,7 +3791,8 @@ def llm_lora(torch, fu, mesh) -> dict:
 # four gloo ranks, each a process driving cuda:0 (one card: NCCL refuses
 # two ranks on one device)
 SHARDED_MESH = (2, 2)
-SHARDED_K, SHARDED_STEPS, SHARDED_BATCH = 2, 2, 8
+# 1 SGD step a client (2 before pod_sharded_zoo: the script's time)
+SHARDED_K, SHARDED_STEPS, SHARDED_BATCH = 2, 1, 8
 # fsdp_tp computes tensor-parallel; fsdp_only (gather-then-compute) runs
 # P1 alone, the phase its bitwise gate against replicated reads
 SHARDED_LAYOUTS = ("fsdp_tp", "replicated", "fsdp_only")
@@ -3770,8 +3821,8 @@ def pod_sharded_worker(rank: int, store: str, out: str) -> int:
     store on cuda:0, then under each of SHARDED_LAYOUTS runs
     tinyllama-1.1b + lora:8 on ``llm_setup``'s data (the parent's, read
     from ``OUT/data.pkl``) through ``run_pod_training`` from one seeded
-    init, made once: P1 1 round x 2 clients x 2 steps relaying the whole
-    model, then P2 1 x 2 x 2 on the adapters, batch 8, lr 0.03 (fsdp_only:
+    init, made once: P1 1 round x 2 clients x 1 step relaying the whole
+    model, then P2 1 x 2 x 1 on the adapters, batch 8, lr 0.03 (fsdp_only:
     P1 alone).  Writes ``OUT/rank<R>.json`` (per layout: seconds, ms a
     step, the collectives and their bytes, K1/K6/K3 launches, the bytes
     of the carried buffers, peak memory, whether P2 kept the frozen
@@ -4065,8 +4116,9 @@ def pod_sharded(torch) -> dict:
     emit(dict(phase="pod_sharded", model=f"{LLM_ARCH} + {LLM_PEFT}",
               mesh=dict(zip(("data", "model"), SHARDED_MESH)),
               backend="gloo, four processes on cuda:0",
-              rounds={"P1": "1 x 2 clients x 2 steps",
-                      "P2": "1 x 2 clients x 2 steps (not fsdp_only)"},
+              rounds={"P1": f"1 x 2 clients x {SHARDED_STEPS} steps",
+                      "P2": f"1 x 2 clients x {SHARDED_STEPS} steps (not "
+                            f"fsdp_only)"},
               batch=SHARDED_BATCH, tp_plan=dataclasses.asdict(tp.plan),
               per_step={layout: dict(
                   ms=[rk[layout]["ms_per_step"] for rk in ranks],
@@ -4138,7 +4190,7 @@ def check_sharded_kernels(torch, bench) -> dict:
 
 # pod_sharded_moe: the MoE zoo on four gloo ranks of one card.  (a) the
 # 3-layer cut of deepseek-v2-lite-16b + lora:8 (the dense layer and two
-# MoE layers at full width) on (2, 2): P1 and P2 1 x 2 x 2 at batch 8 x
+# MoE layers at full width) on (2, 2): P1 and P2 1 x 2 x 1 at batch 8 x
 # 128 under fsdp_tp (experts and MLA heads over model, the batch over
 # data) and replicated (the batch over data); (b) the whole model on
 # (1, 4) under fsdp_tp, P2 alone (16 experts and 4 heads a rank)
@@ -4179,12 +4231,12 @@ def pod_sharded_moe_worker(rank: int, store: str, out: str) -> int:
     over the ``file://`` store on cuda:0 and reads the parent's
     ``moe_setup`` config and data from ``OUT/data.pkl``.  (a) on
     MOE_SHARDED_MESH, under each of MOE_SHARDED_LAYOUTS, the 3-layer cut
-    through ``run_pod_training`` from one seeded init: P1 1 x 2 x 2
-    relaying the whole model, then P2 1 x 2 x 2 on the MOE_FILTER slice,
+    through ``run_pod_training`` from one seeded init: P1 1 x 2 x 1
+    relaying the whole model, then P2 1 x 2 x 1 on the MOE_FILTER slice,
     batch 8, lr 0.03; then, when the parent asks for it, the control,
     fsdp_tp's P1 with a planted fault (``TPContext.partial`` patched in
     this process to mark the router partial).  (b) on MOE_FULL_MESH under fsdp_tp, the whole
-    model, P2 1 x 2 x 2 on the slice: the ranks draw the init one at a
+    model, P2 1 x 2 x 1 on the slice: the ranks draw the init one at a
     time behind barriers, each packs its rows (``engine.FlatRows``) and
     frees the tree, so the card holds one whole model at most; the run
     starts and ends with the rows.  Writes ``OUT/rank<R>.json``: per run
@@ -4535,8 +4587,8 @@ def pod_sharded_moe(torch, control: bool = False) -> dict:
                     f"{MOE_CUT_LAYERS} layers", trainable_filter=MOE_FILTER,
               mesh=dict(zip(("data", "model"), MOE_SHARDED_MESH)),
               backend="gloo, four processes on cuda:0",
-              rounds={"P1": "1 x 2 clients x 2 steps",
-                      "P2": "1 x 2 clients x 2 steps"},
+              rounds={"P1": f"1 x 2 clients x {SHARDED_STEPS} steps",
+                      "P2": f"1 x 2 clients x {SHARDED_STEPS} steps"},
               batch=SHARDED_BATCH, seq=128,
               dropped_per_layer=dropped,
               per_step={layout: dict(
@@ -4556,7 +4608,8 @@ def pod_sharded_moe(torch, control: bool = False) -> dict:
     emit(dict(phase="pod_sharded_moe", part="full",
               model=f"deepseek-v2-lite-16b + {MOE_PEFT}",
               mesh=dict(zip(("data", "model"), MOE_FULL_MESH)),
-              rounds={"P2": "1 x 2 clients x 2 steps"}, batch=SHARDED_BATCH,
+              rounds={"P2": f"1 x 2 clients x {SHARDED_STEPS} steps"},
+              batch=SHARDED_BATCH,
               seq=128, rows=full.local_view().buffer_sizes,
               frozen_rows=full.local_view().frozen_sizes,
               expected_launches=want_full,
@@ -4610,6 +4663,699 @@ def check_sharded_moe_kernels(torch, bench) -> dict:
         raise SystemExit(f"chip_smoke: kernels at pod_sharded_moe's rows "
                          f"disagree with their plain versions: {bad}")
     return out
+
+
+# pod_sharded_zoo: tensor parallelism over model for the SSM, hybrid, VLM
+# and audio zoo on four gloo ranks of one card.  (a) hymba-1.5b + lora:8
+# at full width and depth on (2, 2): 25 SSM heads a rank, the MLP's
+# columns halved, the attention whole (25 heads); P1 1 x 2 x 2 then P2
+# 1 x 2 x 2 at batch 8 x 128 under fsdp_tp and replicated, then one
+# FedProx P2 round (mu ZOO_PROX_MU) under both; (b) mamba2-1.3b at full
+# width and depth on (1, 4), serving in f32: 16 SSM heads and a quarter
+# of the vocabulary a rank, K8 on the rank's heads, against the whole
+# tree served by one process; (c) internvl2-1b and musicgen-medium cut to
+# ZOO_STEP_LAYERS layers at full width on (2, 2), f32: make_train_step
+# on the model-local tree against the whole tree's, and the prefill on
+# the split heads through K7
+ZOO_MESH, ZOO_SERVE_MESH = (2, 2), (1, 4)
+ZOO_ARCH, ZOO_PEFT, ZOO_PROX_MU = "hymba-1.5b", "lora:8", 0.01
+ZOO_STEPS = 2           # SGD steps a client in (a)
+ZOO_LAYOUTS = ("fsdp_tp", "replicated")
+ZOO_SERVE_ARCH, ZOO_SERVE_B, ZOO_SERVE_S, ZOO_SERVE_NEW = \
+    "mamba2-1.3b", 2, 1024, 8
+# (arch, patch embeddings, text tokens or frames); hymba-1.5b's cut also
+# runs the control: the gated norm's sum of squares through
+# reduce_from_model, an identity backward
+ZOO_STEP_ARCHS = (("internvl2-1b", 256, 128), ("musicgen-medium", 0, 128),
+                  ("hymba-1.5b", 0, 128))
+ZOO_STEP_LAYERS, ZOO_STEP_B, ZOO_STEP_LR = 2, 4, 1e-2
+# (a)'s gates, fsdp_tp against replicated in bf16 (pod_sharded_moe's
+# measures): the losses; a leaf's largest gap over its largest magnitude
+# at P2's end and at the FedProx round's; P1's changes from the init, a
+# leaf's L2 gap over its change's L2 norm.  They bound bf16 drift only:
+# an H100 read 3.1e-4, 0.291 (a LoRA leaf), 0.134 and 0.670, and the
+# control 3.3e-4 and 0.672 on the same measures (PERF.md): through
+# 32 layers at this precision it cannot be told apart; (c) holds the
+# split in f32 and refuses the control there
+ZOO_LOSS_RTOL = 1e-3
+ZOO_TP_TOL = 0.6
+ZOO_DELTA_TOL = 1.0
+# (b), f32: the TP logits against the whole tree's, the largest gap over
+# the largest magnitude of a step's logits, and the SSM state's (in_proj's
+# columns, the norm over model and out_proj's rows sum in other orders).
+# In bf16 (an H100, PERF.md) the prefill's logits were 6.7% apart
+# and the first greedy token differed: a random model's near-flat logits
+# and 48 layers of bf16 rounding, not the split
+ZOO_SERVE_TOL = 1e-3
+# (c), f32: each gradient leaf's and the two-step params' largest gap
+# over the leaf's largest magnitude, and the losses (the CPU tests read
+# ~1e-6); the prefill's logits through K7 (online softmax)
+ZOO_STEP_TOL = 1e-4
+ZOO_PREFILL_TOL = 1e-4
+
+
+def _free_leftovers(torch) -> None:
+    """Free what the last run left: tensors held only by reference cycles
+    (the engine's closures), the card's cached blocks, and the cached
+    pinned host blocks through which gloo moved CUDA tensors (each run's
+    collectives have other sizes; four ranks' caches of whole-model
+    blocks would not fit the host's memory, nor four ranks' leftovers
+    the card's)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    release = getattr(torch._C, "_host_emptyCache", None)
+    if release is not None:
+        release()
+
+
+class _CardLeaves(list):
+    """Host leaves that ``_tp_vs_replicated`` reads one at a time on the
+    card (a whole model's comparison on the host's cores takes minutes)."""
+
+    def __getitem__(self, i):
+        return list.__getitem__(self, i).cuda()
+
+    def __iter__(self):
+        return (t.cuda() for t in list.__iter__(self))
+
+
+def _zoo_hymba(torch, rank, data, control, report):
+    """pod_sharded_zoo (a) in one rank: see ``pod_sharded_zoo_worker``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, with_peft
+    from repro_torch.fl import pod
+    from repro_torch.fl.engine import FlatRows
+    from repro_torch.fl.task import lm_task
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (PodFLSpec, relay_spec,
+                                          run_pod_training)
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.sharding import rules
+    from repro_torch.sharding import tensor_parallel as tpl
+    from repro_torch.utils.tree_math import tree_leaves
+
+    cfg = with_peft(get_config(ZOO_ARCH), ZOO_PEFT)
+    task = lm_task(cfg)
+    mask = rules.trainable_mask(task.shapes(), "lora")
+    mesh = make_mesh(ZOO_MESH, ("data", "model"), "cuda:0")
+    steps = SHARDED_K * ZOO_STEPS
+    t0 = time.perf_counter()
+    # rank 0 alone keeps host copies (the init, the replicated run's
+    # ends) to compare; each run starts from the rows of an init drawn
+    # anew on the card and ends with its rows (engine.FlatRows), so that
+    # no rank holds a whole tree through a run: four ranks' whole trees
+    # and gathers did not fit the card
+    base = [t.cpu() for t in tree_leaves(init_lm(cfg, SEED, "cuda"))] \
+        if rank == 0 else None
+    torch.cuda.empty_cache()
+    report["setup_s"] = time.perf_counter() - t0
+
+    def spec(**kw):
+        return PodFLSpec(local_steps=ZOO_STEPS, batch_size=SHARDED_BATCH,
+                         lr=0.03, update_impl="fused", peft=ZOO_PEFT, **kw)
+
+    def ops(layout, phase, sp):
+        conf = (pod.PodCyclicConfig(mesh, rounds=1, spec=relay_spec(sp),
+                                    clients_per_round=SHARDED_K,
+                                    layout=layout) if phase == "P1" else
+                pod.PodFLConfig(mesh, rounds=1, spec=sp,
+                                clients_per_round=SHARDED_K, layout=layout))
+        return conf.strategy().flat_ops(task, mesh.device)
+
+    def rows(fops, tree):
+        """The rank's rows of ``tree``, on the host: the run copies them
+        to the card (a copy on the card beside the run's own would not
+        fit four replicated ranks)."""
+        def host(bufs):
+            return {n: t.cpu() for n, t in bufs.items()}
+        return FlatRows(host(fops.flatten(tree)),
+                        host(fops.flatten_frozen(tree))
+                        if fops.view.frozen_sizes else None)
+
+    def run(layout, phases, sp, start=None):
+        """``phases`` ("P1", then "P2", or one of them) from ``start``
+        (a whole tree; the init when None), each through
+        ``run_pod_training`` from and to rows; the whole tree after each
+        phase is gathered as the engine's result gather does.  Returns
+        the whole ends and the report."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pod.reset_collective_counts()
+        fu.reset_launch_counts()
+        tree = start if start is not None else init_lm(cfg, SEED, "cuda")
+        got = dict(run_s=0.0, tp_compute=[], resident=[], losses=[])
+        ends = []
+        for phase in phases:
+            fops = ops(layout, phase, sp)
+            r = rows(fops, tree)
+            del tree
+            _free_leftovers(torch)
+            dist.barrier()
+            t0 = time.perf_counter()
+            res = run_pod_training(
+                cfg, data, cyclic_rounds=int(phase == "P1"),
+                fl_rounds=int(phase == "P2"), clients_per_round=SHARDED_K,
+                spec=sp, mesh=mesh, seed=SEED, layout=layout,
+                init_params=r)
+            torch.cuda.synchronize()
+            got["run_s"] += time.perf_counter() - t0
+            ph = res.schedule.phases[-1].result
+            got["tp_compute"].append(ph.tp_compute)
+            got["resident"].append(ph.resident_bytes)
+            got["losses"] += [h["loss"] for h in res.history]
+            end = res.params
+            del r, res, ph
+            # the four ranks' leftovers back to the card before the whole
+            # tree is gathered
+            _free_leftovers(torch)
+            with torch.no_grad():
+                tree = fops.unflatten(end.params, end.frozen)
+            del end
+            ends.append([t.cpu() for t in tree_leaves(tree)]
+                        if rank == 0 else None)
+        del tree
+        if rank == 0 and "P2" in phases:
+            # P2 kept every frozen leaf of its start (P1's end, or the
+            # init): the whole trees hold every rank's rows
+            got["frozen_kept"] = all(torch.equal(a, b) for a, b, m in zip(
+                ends[-1], ends[-2] if len(ends) == 2 else base, mask)
+                if not m)
+        n_steps = len(phases) * steps
+        got.update(
+            ms_per_step=got["run_s"] * 1e3 / n_steps,
+            collectives=dict(pod.COLLECTIVES),
+            collective_bytes=dict(pod.COLLECTIVE_BYTES),
+            bytes_per_step={k: pod.COLLECTIVE_BYTES[k] / n_steps
+                            for k in ("gather", "tp", "grad")},
+            launches={k: fn.launches for k, fn in (
+                ("local_step", fu.local_step),
+                ("delta_accum", fu.delta_accum),
+                ("server_update", fu.server_update))},
+            peak_memory_bytes=torch.cuda.max_memory_allocated())
+        _free_leftovers(torch)
+        return ends, got
+
+    def compare(a, b, start=None):
+        """fsdp_tp's host leaves ``a`` against replicated's ``b`` on the
+        card, its blocks given back before the next run."""
+        out = _tp_vs_replicated(torch, _CardLeaves(a), b, start)
+        _free_leftovers(torch)
+        return out
+
+    ref = None
+    for layout in ("replicated", "fsdp_tp"):
+        ends, report[layout] = run(layout, ("P1", "P2"), spec())
+        if rank == 0 and ref is None:
+            ref = ends
+        elif rank == 0:
+            report["tp_vs_replicated"] = compare(ends[1], ref[1])
+            report["tp_vs_replicated_p1_delta"] = compare(ends[0], ref[0],
+                                                          base)
+        del ends
+    prox_ref = None
+    for layout in ("replicated", "fsdp_tp"):
+        ends, report[f"fedprox_{layout}"] = run(
+            layout, ("P2",), spec(algorithm="fedprox", mu=ZOO_PROX_MU))
+        if rank == 0 and prox_ref is None:
+            prox_ref = ends
+        elif rank == 0:
+            report["fedprox_tp_vs_replicated"] = compare(ends[0],
+                                                         prox_ref[0])
+        del ends
+    if control:
+        sound = tpl.sum_over_model
+        tpl.sum_over_model = tpl.reduce_from_model
+        try:
+            ends, report["control"] = run("fsdp_tp", ("P1",), spec())
+        finally:
+            tpl.sum_over_model = sound
+        if rank == 0:
+            report["control_vs_replicated_p1_delta"] = compare(
+                ends[0], ref[0], base)
+        del ends
+    del base, ref, prox_ref
+    _free_leftovers(torch)
+
+
+def _zoo_serve(torch, rank, report):
+    """pod_sharded_zoo (b) in one rank: see ``pod_sharded_zoo_worker``."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.fl import pod
+    from repro_torch.fl.task import lm_task
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.ssm import local_ssm_state
+    from repro_torch.models.transformer import decode_step, init_lm, prefill
+
+    cfg = dataclasses.replace(get_config(ZOO_SERVE_ARCH), ssd_impl="pallas",
+                              dtype=torch.float32, param_dtype=torch.float32)
+    mesh = make_mesh(ZOO_SERVE_MESH, ("data", "model"), "cuda:0")
+    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", False, None,
+                                 False, True)
+    params = init_lm(cfg, SEED, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size,
+                                      (ZOO_SERVE_B, ZOO_SERVE_S),
+                                      generator=gen, device="cuda")}
+    T = ZOO_SERVE_S + ZOO_SERVE_NEW
+
+    def generate(tree, tp):
+        """A prefill and ZOO_SERVE_NEW greedy decode steps (no warm-up:
+        the prefill is the process's first through the model-local tree;
+        the whole tree's follows it): the tokens, each step's logits, the
+        SSM state after the prefill, the seconds and the K8 launches of
+        the prefill."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            k8 = ssd.ssd_scan.launches
+            t0 = time.perf_counter()
+            logits, cache, S = prefill(tree, cfg, prompt, T, tp=tp)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            k8 = ssd.ssd_scan.launches - k8
+            state = [t.clone() for t in cache["scan"]["ssm"]]
+            steps, toks = [logits.float()], []
+            t0 = time.perf_counter()
+            for i in range(ZOO_SERVE_NEW):
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                toks.append(tok)
+                logits, cache = decode_step(tree, cfg, tok, cache, S + i,
+                                            tp=tp)
+                steps.append(logits.float())
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        return (torch.cat(toks, dim=1), steps, state, prefill_s,
+                decode_s, k8)
+
+    with torch.no_grad():
+        tree = fops.tp_tree(fops.flatten(params))
+    tp = tree.tp
+    pod.reset_collective_counts()
+    ssd.ssd_scan.launches = 0
+    dist.barrier()
+    toks, logits, state, prefill_s, decode_s, k8 = generate(tree, tp)
+    got = dict(prefill_ms=prefill_s * 1e3,
+               decode_ms_per_step=decode_s * 1e3 / ZOO_SERVE_NEW,
+               ssd_launches_per_prefill=k8,
+               ssd_launches=ssd.ssd_scan.launches, ssm_heads=tp.ssm_range[1],
+               vocab_cols=tp.vocab_range[1],
+               tp_plan=dataclasses.asdict(tp.plan),
+               collectives=dict(pod.COLLECTIVES),
+               collective_bytes=dict(pod.COLLECTIVE_BYTES),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del tree
+    torch.cuda.empty_cache()
+    # the whole tree served by one process at a time (the others wait)
+    for r in range(math.prod(ZOO_SERVE_MESH)):
+        if r == rank:
+            w_toks, w_logits, w_state, w_pre, w_dec, w_k8 = generate(
+                params, None)
+        dist.barrier()
+    mine = local_ssm_state(w_state, cfg.ssm_cfg(), tp)
+    got.update(
+        whole_prefill_ms=w_pre * 1e3,
+        whole_decode_ms_per_step=w_dec * 1e3 / ZOO_SERVE_NEW,
+        whole_ssd_launches_per_prefill=w_k8,
+        tokens_equal=bool(torch.equal(toks, w_toks)),
+        tokens=toks.tolist(), whole_tokens=w_toks.tolist(),
+        logits_rel=[float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(logits, w_logits)],
+        state_rel=[float((a.float() - b.float()).abs().max() /
+                         b.float().abs().max()) for a, b in zip(state, mine)],
+        state_shapes=[list(t.shape) for t in state])
+    report["serve"] = got
+    del params, w_state, mine, state
+    _free_leftovers(torch)
+
+
+def _zoo_steps(torch, rank, report):
+    """pod_sharded_zoo (c) in one rank: see ``pod_sharded_zoo_worker``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.fl import pod
+    from repro_torch.fl.task import lm_task
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_lm, prefill
+    from repro_torch.sharding import tensor_parallel as tpl
+    from repro_torch.utils import tree_math as tm
+
+    mesh = make_mesh(ZOO_MESH, ("data", "model"), "cuda:0")
+    out = {}
+    for arch, n_patch, n_text in ZOO_STEP_ARCHS:
+        cfg = dataclasses.replace(
+            get_config(arch), n_layers=ZOO_STEP_LAYERS, dtype=torch.float32,
+            param_dtype=torch.float32)
+        fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", False,
+                                     None, False, True)
+        params = init_lm(cfg, SEED, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        B = ZOO_STEP_B
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        def ints(hi, *shape):
+            return torch.randint(0, hi, shape, generator=gen, device="cuda")
+        if cfg.input_mode == "vlm":
+            batch = {"patch_embeds": randn(B, n_patch, cfg.d_model),
+                     "tokens": ints(cfg.vocab_size, B, n_text),
+                     "labels": ints(cfg.vocab_size, B, n_text)}
+        elif cfg.input_mode == "embeddings":
+            batch = {"frame_embeds": randn(B, n_text, cfg.d_model),
+                     "labels": ints(cfg.vocab_size, B, n_text,
+                                    cfg.n_codebooks)}
+        else:
+            batch = {"tokens": ints(cfg.vocab_size, B, n_text),
+                     "labels": ints(cfg.vocab_size, B, n_text)}
+
+        def local(tree):
+            with torch.no_grad():
+                return fops.tp_tree(fops.flatten(tree))
+
+        def gap(got, want):
+            return max(float((a - b).abs().max() / b.abs().max().clamp(
+                min=1e-30)) for a, b in zip(tm.tree_leaves(got),
+                                            tm.tree_leaves(want)))
+        tree = local(params)
+        _, treedef = tm.tree_flatten(params)
+        pod.reset_collective_counts()
+        lt, gt = steps._value_and_grad(cfg, tree, batch)
+        tp_count = pod.COLLECTIVES["tp"]
+        lw, gw = steps._value_and_grad(cfg, params, batch)
+        want = local(tm.tree_unflatten(treedef, gw))
+        grad = gap(tm.tree_unflatten(treedef, gt), want)
+        control = None
+        if cfg.has_ssm:     # the gated norm's backward left out
+            sound = tpl.sum_over_model
+            tpl.sum_over_model = tpl.reduce_from_model
+            try:
+                _, gc = steps._value_and_grad(cfg, tree, batch)
+            finally:
+                tpl.sum_over_model = sound
+            control = gap(tm.tree_unflatten(treedef, gc), want)
+            del gc
+        del gt, gw, want
+        step = steps.make_train_step(cfg, steps.TrainSpec(lr=ZOO_STEP_LR))
+        pw, mw = params, steps.init_momentum(params)
+        pt, mt = tree, steps.init_momentum(tree)
+        losses = []
+        for _ in range(2):
+            pw, mw, a = step(pw, mw, batch)
+            pt, mt, b = step(pt, mt, batch)
+            losses.append([float(b["loss"]), float(a["loss"])])
+        par = gap(pt, local(pw))
+        del pw, mw, pt, mt
+        # the prefill on the split heads through K7, against the whole
+        # tree's through K7
+        kcfg = dataclasses.replace(cfg, attn_impl="pallas")
+        pre = {k: v for k, v in batch.items() if k != "labels"}
+        with torch.no_grad():
+            lw_, _, _ = prefill(params, kcfg, pre, n_patch + n_text)
+            fa.flash_attention.launches = 0
+            lt_, _, _ = prefill(tree, kcfg, pre, n_patch + n_text,
+                                tp=tree.tp)
+            k7 = fa.flash_attention.launches
+        out[arch] = dict(
+            first_loss=[float(lt), float(lw)], losses=losses, grad=grad,
+            params=par, control_grad=control, tp=tp_count,
+            tp_plan=dataclasses.asdict(tree.tp.plan),
+            heads=tree.tp.heads if tree.tp.plan.attn else cfg.n_heads,
+            kv_heads=tree.tp.kv_range[1] if tree.tp.plan.attn
+            else cfg.n_kv_heads,
+            prefill_rel=float((lt_ - lw_).abs().max() / lw_.abs().max()),
+            k7_launches_per_prefill=k7)
+        del params, tree, lt_, lw_
+        _free_leftovers(torch)
+    report["steps"] = out
+
+
+def pod_sharded_zoo_worker(rank: int, store: str, out: str) -> int:
+    """One rank of ``pod_sharded_zoo`` (``chip_smoke.py
+    --pod-sharded-zoo-rank R STORE OUT``): joins the four-rank gloo group
+    over the ``file://`` store on cuda:0 and reads the parent's
+    ``llm_setup`` data (vocab 32,000: hymba-1.5b's 32,001 words hold
+    them) and whether to run the control from ``OUT/data.pkl``.  (a) on
+    ZOO_MESH, hymba-1.5b + lora:8 from one seeded init (drawn anew on
+    the card for each run) through ``run_pod_training`` under
+    replicated, then fsdp_tp: P1 1 x 2
+    x 2 relaying the whole model, then P2 1 x 2 x 2 on the adapters,
+    batch 8, lr 0.03; then FedProx P2 1 x 2 x 2 (mu ZOO_PROX_MU) from the
+    init under both; with the control, fsdp_tp's P1 again with the gated
+    norm's sum of squares through ``reduce_from_model``.  (b) on
+    ZOO_SERVE_MESH, mamba2-1.3b in f32 with ssd_impl "pallas": the rank's
+    model-local tree serves ZOO_SERVE_B x ZOO_SERVE_S + ZOO_SERVE_NEW
+    greedy tokens (K8 on its 16 heads), then each rank in turn serves the
+    whole tree alone.  (c) on ZOO_MESH, ZOO_STEP_ARCHS cut to
+    ZOO_STEP_LAYERS layers at full width in f32: ``make_train_step`` on
+    the model-local tree and on the whole tree, 2 steps of batch
+    ZOO_STEP_B, and a prefill through K7 on each.  Writes
+    ``OUT/rank<R>.json``: per run the seconds, ms a step, collectives and
+    their bytes, K1/K6/K3 launches, resident bytes, peak memory, losses,
+    tp_compute; rank 0 the params' and P1 changes' gaps from the
+    replicated run; (b) prefill ms, ms a decode step, K8 launches a
+    prefill, the tokens and logits against the whole tree's, the SSM
+    state against its heads of the whole state; (c) the losses', the
+    first gradient's and the params' gaps, K7 launches a prefill."""
+    import faulthandler
+    import pickle
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    torch.cuda.set_device(0)
+    world = math.prod(ZOO_MESH)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    data, control = pickle.loads(Path(out, "data.pkl").read_bytes())
+    report = {"rank": rank}
+    t0 = time.perf_counter()
+    _zoo_hymba(torch, rank, data, control, report)
+    report["hymba_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _zoo_serve(torch, rank, report)
+    report["serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _zoo_steps(torch, rank, report)
+    report["steps_s"] = time.perf_counter() - t0
+    Path(out, f"rank{rank}.json").write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def zoo_views():
+    """The views of pod_sharded_zoo (a)'s runs on a static mesh: under
+    each layout, P1 (the whole model) and P2 (the adapters)."""
+    from repro_torch.configs import get_config, with_peft
+    from repro_torch.fl.task import lm_task
+    from repro_torch.sharding import rules
+    shapes = lm_task(with_peft(get_config(ZOO_ARCH), ZOO_PEFT)).shapes()
+    mesh = _StaticMesh(ZOO_MESH)
+    return {(layout, ph): rules.sharded_flat_view(
+        shapes, mesh, layout, "lora" if ph == "P2" else None)
+        for layout in ZOO_LAYOUTS for ph in ("P1", "P2")}
+
+
+def pod_sharded_zoo(torch, control: bool = False) -> list:
+    """Phase pod_sharded_zoo: tensor parallelism over ``model`` for the
+    SSM, hybrid, VLM and audio zoo, and FedProx under it, on four ranks
+    of one card (``pod_sharded_zoo_worker``: gloo over a ``file://``
+    store under TMPDIR, four processes on cuda:0).  Gates, (a)
+    hymba-1.5b + lora:8 on (2, 2): fsdp_tp computed tensor-parallel in
+    every phase on every rank, FedProx included (``tp_compute``, "tp" >
+    0), replicated did not; fsdp_tp's losses within ZOO_LOSS_RTOL and
+    its params within ZOO_TP_TOL of replicated's, at P2's end and at the
+    FedProx round's, its P1 changes within ZOO_DELTA_TOL (L2) of
+    replicated's (bf16 drift bounds; with ``control``,
+    ``--pod-sharded-zoo-control``, the control's readings beside them);
+    each rank's resident frozen rows in P2 the fsdp_tp view's per-shard
+    sizes; K1, K6 and K3 once a bucket row; the frozen leaves kept.  (b)
+    mamba2-1.3b served on (1, 4) in f32: 16 SSM heads a rank, K8
+    launched once a layer a prefill (48) on each rank and on the whole
+    tree, the greedy tokens the whole tree's, each step's logits within
+    ZOO_SERVE_TOL, each rank's SSM state and conv history its part of
+    the whole tree's within ZOO_SERVE_TOL.  (c) internvl2-1b (7 q + 1 kv
+    heads a rank), musicgen-medium (12 heads and 2 codebooks a rank) and
+    hymba-1.5b (25 SSM heads a rank, the attention whole) cut to 2
+    layers, f32: losses, the first gradient and the two-step params
+    within ZOO_STEP_TOL of the whole tree's, "tp" > 0, the prefill
+    through K7 (2 launches a rank) within ZOO_PREFILL_TOL, hymba's
+    control gradient beyond 100 x ZOO_STEP_TOL.  The collectives against
+    lower_pod_round are dryrun_check (b)'s.  Reported: ms a step, peak
+    memory a rank, bytes gathered and all-reduced a step, prefill ms and
+    ms a decode step, the card.  Returns every rank's report."""
+    import pickle
+    import tempfile
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _, data, data_s = llm_setup()
+    views = zoo_views()
+    tmp = tempfile.mkdtemp(prefix="pod_sharded_zoo_")
+    Path(tmp, "data.pkl").write_bytes(pickle.dumps((data, control)))
+    store = os.path.join(tmp, "store")
+    world = math.prod(ZOO_MESH)
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"),
+         "--pod-sharded-zoo-rank", str(r), store, tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    failed = [f"rank {r} exited {p.returncode}:\n{err[-3000:]}"
+              for r, (p, (_, err)) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    if failed:
+        raise SystemExit("chip_smoke: pod_sharded_zoo: " + "\n".join(failed))
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+             for r in range(world)]
+    steps = SHARDED_K * ZOO_STEPS
+
+    def want(layout, p1=True):
+        n1 = len(views[(layout, "P1")].trainable_groups) if p1 else 0
+        n2 = len(views[(layout, "P2")].trainable_groups)
+        return dict(local_step=steps * (n1 + n2),
+                    delta_accum=SHARDED_K * n2, server_update=n2)
+
+    def nbytes(groups, whole=False):
+        from repro_torch.utils.flatten import torch_dtype
+        return sum(g.size * (g.n_shards if whole else 1) *
+                   torch_dtype(g.name).itemsize for g in groups)
+    frozen_rows = nbytes(views[("fsdp_tp", "P2")].frozen_groups)
+    frozen_whole = nbytes(views[("replicated", "P2")].frozen_groups, True)
+    bad = []
+
+    def finite(xs):
+        return all(math.isfinite(x) for x in xs)
+    for rk in ranks:
+        r = rk["rank"]
+        for layout in ZOO_LAYOUTS:
+            tp_on = layout == "fsdp_tp"
+            for key, p1 in ((layout, True), (f"fedprox_{layout}", False)):
+                got = rk[key]
+                if got["launches"] != want(layout, p1):
+                    bad.append(f"rank {r} {key} launches {got['launches']} "
+                               f"!= {want(layout, p1)}")
+                if got["tp_compute"] != [tp_on] * (2 if p1 else 1) or \
+                        (got["collectives"]["tp"] > 0) != tp_on:
+                    bad.append(f"rank {r} {key}: tp_compute "
+                               f"{got['tp_compute']}, collectives "
+                               f"{got['collectives']}")
+                if not (got.get("frozen_kept", r != 0) and
+                        finite(got["losses"])):
+                    bad.append(f"rank {r} {key}: frozen leaves changed or "
+                               f"losses {got['losses']}")
+                if got["resident"][-1]["frozen"] != (
+                        frozen_rows if tp_on else frozen_whole):
+                    bad.append(f"rank {r} {key} frozen bytes "
+                               f"{got['resident'][-1]}")
+            for key in ("", "fedprox_"):
+                a, b = rk[f"{key}fsdp_tp"], rk[f"{key}replicated"]
+                if not all(math.isclose(x, y, rel_tol=ZOO_LOSS_RTOL,
+                                        abs_tol=0.0)
+                           for x, y in zip(a["losses"], b["losses"])):
+                    bad.append(f"rank {r} {key}fsdp_tp losses {a['losses']}"
+                               f" against {b['losses']}")
+        sv = rk["serve"]
+        if not (sv["ssm_heads"] == 16 and sv["tp_plan"]["ssm"] and
+                sv["ssd_launches_per_prefill"] == 48 and
+                sv["whole_ssd_launches_per_prefill"] == 48 and
+                sv["tokens_equal"] and
+                max(sv["logits_rel"]) <= ZOO_SERVE_TOL and
+                max(sv["state_rel"]) <= ZOO_SERVE_TOL and
+                sv["collectives"]["tp"] > 0):
+            bad.append(f"rank {r} (b): {sv}")
+        for arch, st in rk["steps"].items():
+            ok = st["tp"] > 0 and st["k7_launches_per_prefill"] == \
+                ZOO_STEP_LAYERS and max(st["grad"], st["params"]) <= \
+                ZOO_STEP_TOL and st["prefill_rel"] <= ZOO_PREFILL_TOL and \
+                all(abs(x - y) <= ZOO_STEP_TOL * abs(y)
+                    for x, y in [st["first_loss"]] + st["losses"]) and \
+                (st["control_grad"] is None or
+                 st["control_grad"] > 100 * ZOO_STEP_TOL)
+            if not ok:
+                bad.append(f"rank {r} (c) {arch}: {st}")
+    r0 = ranks[0]
+    close, moved, prox = (r0[k] for k in (
+        "tp_vs_replicated", "tp_vs_replicated_p1_delta",
+        "fedprox_tp_vs_replicated"))
+    for name, c in (("P2", close), ("FedProx", prox)):
+        if not (c["dtypes_equal"] and c["rel"] <= ZOO_TP_TOL):
+            bad.append(f"fsdp_tp's {name} params off replicated's: {c}")
+    if not moved["l2"] <= ZOO_DELTA_TOL:
+        bad.append(f"fsdp_tp's P1 changes off replicated's: {moved}")
+    readings = dict(
+        loss_gap=max(abs(a / b - 1) for a, b in zip(
+            r0["fsdp_tp"]["losses"], r0["replicated"]["losses"])),
+        fedprox_loss_gap=max(abs(a / b - 1) for a, b in zip(
+            r0["fedprox_fsdp_tp"]["losses"],
+            r0["fedprox_replicated"]["losses"])),
+        rel=close["rel"], fedprox_rel=prox["rel"], p1_delta_l2=moved["l2"],
+        p1_delta_rel=moved["rel"],
+        serve_logits_rel=max(max(rk["serve"]["logits_rel"]) for rk in ranks),
+        serve_state_rel=max(max(rk["serve"]["state_rel"]) for rk in ranks),
+        steps={arch: {k: max(rk["steps"][arch][k] or 0.0 for rk in ranks)
+                      for k in ("grad", "params", "prefill_rel",
+                                "control_grad")}
+               for arch in r0["steps"]})
+    if control:         # reported: in bf16 it reads as the sound run
+        ctl = r0["control_vs_replicated_p1_delta"]
+        readings.update(control_p1_delta_l2=ctl["l2"],
+                        control_p1_delta_rel=ctl["rel"],
+                        control_loss_gap=max(abs(a / b - 1) for a, b in zip(
+                            r0["control"]["losses"],
+                            r0["replicated"]["losses"])))
+    emit(dict(phase="pod_sharded_zoo", part="hybrid",
+              model=f"{ZOO_ARCH} + {ZOO_PEFT}",
+              mesh=dict(zip(("data", "model"), ZOO_MESH)),
+              backend="gloo, four processes on cuda:0",
+              rounds={"P1": f"1 x 2 clients x {ZOO_STEPS} steps",
+                      "P2": f"1 x 2 clients x {ZOO_STEPS} steps",
+                      "FedProx P2": f"1 x 2 clients x {ZOO_STEPS} steps, "
+                                    f"mu {ZOO_PROX_MU}"},
+              batch=SHARDED_BATCH, seq=128, data_s=data_s,
+              per_step={key: dict(
+                  ms=[rk[key]["ms_per_step"] for rk in ranks],
+                  bytes=r0[key]["bytes_per_step"],
+                  peak_memory_bytes=[rk[key]["peak_memory_bytes"]
+                                     for rk in ranks])
+                  for key in ("fsdp_tp", "replicated", "fedprox_fsdp_tp",
+                              "fedprox_replicated")},
+              frozen_bytes_per_rank={"fsdp_tp": frozen_rows,
+                                     "replicated": frozen_whole},
+              tp_tol=ZOO_TP_TOL, loss_rtol=ZOO_LOSS_RTOL,
+              delta_tol=ZOO_DELTA_TOL, readings=readings,
+              ranks=[{k: v for k, v in rk.items()
+                      if k not in ("serve", "steps")} for rk in ranks],
+              card=nvidia_smi()))
+    emit(dict(phase="pod_sharded_zoo", part="ssm_serve",
+              model=ZOO_SERVE_ARCH,
+              mesh=dict(zip(("data", "model"), ZOO_SERVE_MESH)),
+              batch=ZOO_SERVE_B, prompt=ZOO_SERVE_S,
+              new_tokens=ZOO_SERVE_NEW, tol=ZOO_SERVE_TOL,
+              ranks=[rk["serve"] for rk in ranks], card=nvidia_smi()))
+    emit(dict(phase="pod_sharded_zoo", part="steps",
+              layers=ZOO_STEP_LAYERS, batch=ZOO_STEP_B, dtype="float32",
+              shapes={a: dict(patches=p, positions=t)
+                      for a, p, t in ZOO_STEP_ARCHS},
+              tol=ZOO_STEP_TOL, prefill_tol=ZOO_PREFILL_TOL,
+              ranks=[rk["steps"] for rk in ranks], card=nvidia_smi(),
+              phase_s=time.perf_counter() - t_phase))
+    if bad:
+        raise SystemExit("chip_smoke: pod_sharded_zoo: " + "; ".join(bad))
+    return ranks
 
 
 def deterministic_cudnn(torch):
@@ -5649,10 +6395,12 @@ def start_captures(out: str):
 
 def lower_pod_round_worker(out: str) -> int:
     """``chip_smoke.py --lower-pod-round OUT``: lower_pod_round of
-    pod_sharded's configuration and of pod_sharded_moe's cut on a fake
-    (2, 2) mesh under fsdp_tp, the cyclic and the fl round each, into
+    pod_sharded's configuration, of pod_sharded_moe's cut and of
+    pod_sharded_zoo's hymba-1.5b + lora:8 on a fake (2, 2) mesh under
+    fsdp_tp, the cyclic and the fl round each, into
     ``OUT/lowered.json``."""
     import dataclasses
+    from repro_torch.configs import get_config, with_peft
     from repro_torch.launch.mesh import destroy, make_fake_mesh
     from repro_torch.launch.train import PodFLSpec, lower_pod_round
     mesh = make_fake_mesh(SHARDED_MESH, ("data", "model"))
@@ -5661,7 +6409,11 @@ def lower_pod_round_worker(out: str) -> int:
         update_impl="fused", peft=LLM_PEFT)),
         "pod_sharded_moe": (dataclasses.replace(
             moe_setup_config(), n_layers=MOE_CUT_LAYERS), moe_spec(
-            local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH))}
+            local_steps=SHARDED_STEPS, batch_size=SHARDED_BATCH)),
+        "pod_sharded_zoo": (with_peft(get_config(ZOO_ARCH), ZOO_PEFT),
+                            PodFLSpec(local_steps=ZOO_STEPS,
+                                      batch_size=SHARDED_BATCH, lr=0.03,
+                                      update_impl="fused", peft=ZOO_PEFT))}
     res = {}
     for name, (cfg, spec) in runs.items():
         for kind in ("cyclic", "fl"):
@@ -5794,14 +6546,15 @@ def dryrun_check_step(torch, smi: str) -> dict:
 
 
 def dryrun_check_collectives(lowered: dict, ranks: list, moe_ranks: list,
-                              smi: str) -> None:
+                              zoo_ranks: list, smi: str) -> None:
     """Phase dryrun_check (b): lower_pod_round's cyclic + fl collectives
-    and bytes, by kind, against what each pod_sharded rank and each
-    pod_sharded_moe rank (the cut's run) counted under fsdp_tp in this
-    run, the "tp" and "moe" kinds included."""
+    and bytes, by kind, against what each pod_sharded rank, each
+    pod_sharded_moe rank (the cut's run) and each pod_sharded_zoo rank
+    (hymba-1.5b's P1 + P2) counted under fsdp_tp in this run, the "tp"
+    and "moe" kinds included."""
     bad = []
-    for name, rks in (("pod_sharded", ranks), ("pod_sharded_moe",
-                                               moe_ranks)):
+    for name, rks in (("pod_sharded", ranks), ("pod_sharded_moe", moe_ranks),
+                      ("pod_sharded_zoo", zoo_ranks)):
         low = lowered[name]
         got = {key: {k: low["cyclic"][key][k] + low["fl"][key][k]
                      for k in low["fl"][key]}
@@ -5812,10 +6565,9 @@ def dryrun_check_collectives(lowered: dict, ranks: list, moe_ranks: list,
                got["collective_bytes"]]
         emit(dict(phase="dryrun_check", part=f"lower_pod_round_vs_{name}",
                   lowered=got, lowered_rounds=low,
-                  rank0=dict(
-                      collectives=rks[0]["fsdp_tp"]["collectives"],
-                      collective_bytes=rks[0]["fsdp_tp"][
-                          "collective_bytes"]),
+                  rank0=dict(collectives=rks[0]["fsdp_tp"]["collectives"],
+                             collective_bytes=rks[0]["fsdp_tp"][
+                                 "collective_bytes"]),
                   ranks_equal=[rk["rank"] for rk in rks
                                if rk["rank"] not in off], card=smi))
         if off:
@@ -5945,7 +6697,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one NVIDIA GPU (see the module doc).")
-    # one rank of pod_sharded or pod_sharded_moe, spawned by that phase
+    # one rank of pod_sharded, pod_sharded_moe or pod_sharded_zoo, spawned
+    # by that phase
     ap.add_argument("--pod-sharded-rank", nargs=3, default=None,
                     metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
     ap.add_argument("--pod-sharded-moe-rank", nargs=3, default=None,
@@ -5954,6 +6707,13 @@ def main(argv=None) -> int:
     # the params gate must refuse): how the gate was placed
     ap.add_argument("--pod-sharded-moe-control", action="store_true",
                     help="run the pod_sharded_moe phase alone, with its "
+                    "control")
+    ap.add_argument("--pod-sharded-zoo-rank", nargs=3, default=None,
+                    metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
+    # pod_sharded_zoo alone, with its control run (the gated norm's
+    # backward left out, which the P1 changes' gate must refuse)
+    ap.add_argument("--pod-sharded-zoo-control", action="store_true",
+                    help="run the pod_sharded_zoo phase alone, with its "
                     "control")
     # dryrun_check's lower_pod_round, spawned by the dryrun phase
     ap.add_argument("--lower-pod-round", default=None, metavar="OUT",
@@ -5971,6 +6731,14 @@ def main(argv=None) -> int:
     if args.pod_sharded_moe_rank is not None:
         rank, store, out = args.pod_sharded_moe_rank
         return pod_sharded_moe_worker(int(rank), store, out)
+    if args.pod_sharded_zoo_rank is not None:
+        rank, store, out = args.pod_sharded_zoo_rank
+        return pod_sharded_zoo_worker(int(rank), store, out)
+    if args.pod_sharded_zoo_control:
+        from repro_torch.kernels import library
+        library.build_library()
+        pod_sharded_zoo(torch, control=True)
+        return 0
     if args.pod_sharded_moe_control:
         from repro_torch.kernels import library
         library.build_library()
@@ -6070,8 +6838,10 @@ def main(argv=None) -> int:
     zoo_train(torch)
     sharded_launches, sharded_ranks = pod_sharded(torch)
     sharded_moe_launches, sharded_moe_ranks = pod_sharded_moe(torch)
+    zoo_ranks = pod_sharded_zoo(torch)
     lowered = finish_dryrun(captures, dry_out, smi)
-    dryrun_check_collectives(lowered, sharded_ranks, sharded_moe_ranks, smi)
+    dryrun_check_collectives(lowered, sharded_ranks, sharded_moe_ranks,
+                             zoo_ranks, smi)
     dryrun_check_step(torch, smi)
     pod_aot(torch, smi)
     resnet8_phase(torch, smi)
@@ -6313,7 +7083,8 @@ def main(argv=None) -> int:
         **{k: fa_main[k] for k in keys}, tol=fa_main["tol"],
         shape="q (8,2048,25,64) bf16 vs k/v (8,2112,5,64), window 1024",
         shapes={lbl: {k: r[k] for k in keys}
-                for lbl, r in attn_shapes.items() if lbl != "ssd_scan"},
+                for lbl, r in attn_shapes.items()
+                if lbl not in ("ssd_scan", "mamba2_tp4")},
         launches_per_prefill=per_phase["flash_attention"]["prefill"],
         launches_per_decode_step=per_phase["flash_attention"]["decode_step"],
         zoo_serve_launches=zoo_launches, qwen_serve_launches=qwen_launches,
@@ -6331,6 +7102,16 @@ def main(argv=None) -> int:
         device_kernels_per_prefill=k8_kernels["prefill"],
         device_kernels_per_call=k8_kernels["prefill"]
         / max(1, per_phase["ssd_scan"]["prefill"])))
+    # K8 on a rank's 16 SSM heads of mamba2-1.3b served tensor-parallel on
+    # (1, 4) (pod_sharded_zoo (b)), with rank 0's launches there
+    tp8 = attn_shapes["mamba2_tp4"]
+    kernels[-1]["tp_form"] = dict(
+        {k: tp8[k] for k in keys}, tol=tp8["tol"],
+        shape="x (2,1024,16,64) f32, B/C (2,1024,1,128), chunk 128",
+        path="pod_sharded_zoo",
+        launches=zoo_ranks[0]["serve"]["ssd_launches"],
+        launches_per_prefill=zoo_ranks[0]["serve"][
+            "ssd_launches_per_prefill"])
     for k in kernels:
         if k["launches"] <= 0:
             raise SystemExit(f"chip_smoke: {k['name']} never launched on "

@@ -1107,7 +1107,9 @@ class AggregateStrategy(HostBackend):
         if algo == "fedavg":
             return (lambda slot: {}), (lambda ends: algo_state)
         if algo == "fedprox":
-            anchor = {"w_global": unpack(params)}
+            anchor = {"w_global": dict(zip(tm.tree_paths(params),
+                                           tm.tree_leaves(params)))
+                      if fops is None else fops.prox_anchor(params)}
             return (lambda slot: anchor), (lambda ends: algo_state)
         if algo == "scaffold":
             c, c_all = algo_state["c_global"], algo_state["c_clients"]

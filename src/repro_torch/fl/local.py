@@ -49,6 +49,7 @@ from repro_torch.fl.privacy import DPSpec, flat_delta_sqnorm
 from repro_torch.fl.task import Task
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_update import GRID_ALIGN
+from repro_torch.sharding import tensor_parallel as tpl
 from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import seeded_generator
 from repro_torch.utils.flatten import FlatView, torch_dtype
@@ -196,6 +197,14 @@ class FlatParamOps:
         """The tree from the trainable buffers, merging ``frozen`` (the
         frozen buckets zero-fill when absent: right for moments)."""
         return self.view.unflatten(bufs, frozen)
+
+    def prox_anchor(self, bufs: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """FedProx's anchor: each trainable leaf's value at the round's
+        start, by path, in the layout of the step's tree (views of
+        ``bufs`` here).  A frozen leaf is left out: it never moves in a
+        round, so its distance is exactly 0."""
+        return self.view.trainable_by_path(bufs)
 
     # -- the frozen bucket (filtered views; empty without a filter) --------
 
@@ -473,7 +482,9 @@ def make_local_fn(task: Task, spec: LocalSpec,
     there.
 
     ``extras`` is the algorithm's context (None or {} when unused):
-      w_global    : anchor tree for fedprox / moon (never written)
+      w_global    : the anchor (never written): fedprox's trainable
+                    leaves by path (``FlatParamOps.prox_anchor``), moon's
+                    tree
       c_diff      : the (c − c_i) correction tree for scaffold (tree)
       c_diff_flat : the same as a buffer dict in ``flat_ops``' carry
                     layout (fused; a row of the round's (K, N) stack is
@@ -487,8 +498,9 @@ def make_local_fn(task: Task, spec: LocalSpec,
     def loss_for_variant(params, extras, bx, by, rng):
         base = task.loss_fn(params, bx, by, rng)
         if spec.variant == "fedprox":
-            prox = 0.5 * spec.mu * tm.squared_norm(
-                tm.sub(params, extras["w_global"]))
+            # over a model-local tree, the distance sums over ``model``
+            prox = 0.5 * spec.mu * tpl.squared_distance(
+                params, extras["w_global"], tpl.context_of(params))
             return base + prox
         if spec.variant == "moon":
             z = task.repr_fn(params, bx)

@@ -33,13 +33,15 @@ axis names, and this module reads it through the port's sharding rules
     and moon and the result.  The one collective of the update path is
     the global clip norm: each bucket's Σg² summed over its own axes.
     A gathered copy lives one step, as in FSDP.  Under ``fsdp_tp`` on a
-    ``model`` axis larger than 1 the dense token archs' step computes
-    tensor-parallel (``sharding.tensor_parallel``; ``ShardedFlatOps.
-    tp``): its leaves are gathered over each bucket's other axes only
-    where they keep their ``model`` tile, and the ranks of a ``model``
-    group split the heads, the MLP and the vocabulary; the other
-    families, FedProx, the eval, the anchors and the result compute on
-    whole leaves.  The tree path (``update_impl="tree"``) keeps whole
+    ``model`` axis larger than 1 the step computes tensor-parallel
+    (``sharding.tensor_parallel``; ``ShardedFlatOps.tp``), under every
+    algorithm and for every family whose plan splits a part: its leaves
+    are gathered over each bucket's other axes only where they keep
+    their ``model`` tile, and the ranks of a ``model`` group split the
+    heads, the MLP, the experts, the SSM heads and the vocabulary
+    (FedProx's anchor is the same model-local tree, its proximal term
+    summed over ``model``); MOON's anchors, the eval and the result
+    compute on whole leaves.  The tree path (``update_impl="tree"``) keeps whole
     leaves on every rank.  Under every layout, where an MoE arch's batch
     is split, each MoE layer dispatches over the batch group
     (``sharding.batch_group``, :meth:`PodBackendMixin.task_over_batch`):
@@ -128,7 +130,8 @@ from repro_torch.launch.mesh import all_gather_into, reduce_scatter_into
 from repro_torch.sharding import rules
 from repro_torch.utils import tree_math as tm
 from repro_torch.utils.device import Device, resolve_device
-from repro_torch.utils.flatten import FlatView, torch_dtype
+from repro_torch.utils.flatten import (FlatView, put_runs, take_runs,
+                                      torch_dtype)
 
 Pytree = Any
 
@@ -449,9 +452,10 @@ class _Layout:
     """How the model's leaves are formed from the rows: ``view`` is a
     ShardedFlatView over the rows' elements whose ``whole_view()`` is the
     leaves' layout (``whole``), and ``parts[bucket]`` lists the view's
-    buckets ``(part, index)`` that a row splits into (``index`` None: the
-    whole row).  The plain layout gathers every bucket over all its
-    axes; the tensor-parallel one keeps the local leaves' ``model`` tile
+    buckets ``(part, runs)`` that a row splits into: the part's
+    ``(offset, size)`` runs of the row (None: the whole row).  The plain
+    layout gathers every bucket over all its axes; the tensor-parallel
+    one keeps the local leaves' ``model`` tile
     (``ShardedFlatView.model_local``)."""
     view: Any
     parts: Dict[str, tuple]
@@ -477,12 +481,14 @@ class ShardedFlatOps(FlatParamOps):
     batch (the gradient then reduces over the batch group).
 
     With ``tp`` (a ``sharding.tensor_parallel.TPContext``: the
-    ``fsdp_tp`` layout of a dense or MoE token arch on a ``model`` axis
-    larger than 1) the step computes tensor-parallel: its loss runs on
-    the model-local tree (:meth:`tp_tree`), gathered over each bucket's
-    axes other than ``model`` for the leaves that keep their ``model``
-    tile and over all its axes for the rest.  The eval, the anchors and
-    the result still gather whole leaves."""
+    ``fsdp_tp`` layout on a ``model`` axis larger than 1, of any arch
+    whose plan splits a part) the step computes tensor-parallel, under
+    every algorithm: its loss runs on the model-local tree
+    (:meth:`tp_tree`), gathered over each bucket's axes other than
+    ``model`` for the leaves that keep their ``model`` tile and over all
+    its axes for the rest; FedProx's anchor is the same model-local tree
+    of the round's start rows (:meth:`prox_anchor`).  MOON's anchors,
+    the eval and the result still gather whole leaves."""
     sharded: Any = None             # the ShardedFlatView
     mesh: Any = None
     split_batch: bool = False
@@ -504,9 +510,7 @@ class ShardedFlatOps(FlatParamOps):
                                    [0] * len(self.sharded.slots))
         view, parts = self.sharded.model_local(
             [self.tp.local(p) for p in tm.tree_paths(shapes)], rules.MODEL)
-        return _Layout(view, {b: tuple(
-            (n, None if i is None else i.to(self.device)) for n, i in ps)
-            for b, ps in parts.items()})
+        return _Layout(view, parts)
 
     @functools.cached_property
     def _coords(self) -> Dict[str, int]:
@@ -553,9 +557,9 @@ class ShardedFlatOps(FlatParamOps):
                  for n in self._whole_names(rows, layout)}
         for name, row in rows.items():
             row = row.detach()
-            for part, index in layout.parts[name]:
+            for part, runs in layout.parts[name]:
                 g = view.group_map[part]
-                sub = row[:g.size] if index is None else row[index]
+                sub = row[:g.size] if runs is None else take_runs(row, runs)
                 if g.axes:
                     full = torch.empty((g.n_shards, sub.shape[-1]),
                                        dtype=sub.dtype, device=sub.device)
@@ -579,12 +583,12 @@ class ShardedFlatOps(FlatParamOps):
             return self._part_grad(layout.view, part, layout.view
                                    .whole_to_rows(part, whole, width), reduce)
         out = None
-        for part, index in parts:
+        for part, runs in parts:
             G = layout.view.whole_to_rows(part, whole)
             g = self._part_grad(layout.view, part, G, reduce)
             if out is None:
                 out = g.new_zeros(width)
-            out.index_copy_(0, index, g)
+            put_runs(out, runs, g)
         return out
 
     def _part_grad(self, view, name: str, G: torch.Tensor,
@@ -674,6 +678,21 @@ class ShardedFlatOps(FlatParamOps):
         tile, whole over the other axes, the rest whole."""
         from repro_torch.sharding.tensor_parallel import TPParams
         return TPParams(self._leaves(bufs, frozen, self._tp_layout), self.tp)
+
+    def prox_anchor(self, bufs: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """FedProx's anchor: the trainable leaves of the round's start
+        rows, by path, gathered as the step's tree has them (under
+        ``tp`` model-local; no gradient), which the proximal term reads
+        leaf for leaf beside the step's (``tensor_parallel.
+        squared_distance``).  The frozen leaves are not gathered: they
+        never move in a round."""
+        if not any(g.axes for g in self.sharded.groups):
+            return super().prox_anchor(bufs)
+        layout = self._plain if self.tp is None else self._tp_layout
+        with torch.no_grad():
+            return layout.whole.trainable_by_path(self._gather(bufs,
+                                                               layout))
 
     def _whole_names(self, names, layout: _Layout) -> List[str]:
         seen = {n.partition("@")[0] for n in names}
@@ -801,14 +820,15 @@ class PodBackendMixin:
                              f"runs {POD_TASK_KINDS})")
         if self.spec.update_impl == "tree":
             return None
-        # FedProx's proximal term reads the whole tree beside the model's:
-        # it keeps gather-then-compute
+        # every algorithm's step computes tensor-parallel where the layout
+        # and the arch allow (FedProx's anchor is the model-local tree:
+        # ShardedFlatOps.prox_anchor); MOON's anchors, the eval and the
+        # result gather whole leaves
         return _sharded_flat_ops(
             task, self.mesh, self.layout,
             ops.fused_interpret(self.spec.update_impl),
             effective_trainable_filter(self.spec),
-            self.batch_shard(self.spec.batch_size) is not None,
-            self.spec.variant != "fedprox")
+            self.batch_shard(self.spec.batch_size) is not None, True)
 
     def n_selected(self, n_clients: int) -> int:
         if self.clients_per_round:

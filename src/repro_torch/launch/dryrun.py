@@ -18,8 +18,8 @@ The port has no SPMD partitioner, so the program captured is the pod's
 (``fl.pod.ShardedFlatOps``): the rank holds its rows of the params (and
 of the f32 momentum for train) as ``rules.param_pspecs`` shards them
 under ``--layout``; the leaves are all-gathered through the pod's own
-collectives — whole, or for the dense and MoE token archs under
-``fsdp_tp`` the model-local tree of a tensor-parallel step
+collectives — whole, or under ``fsdp_tp`` for every arch whose plan
+splits a part the model-local tree of a tensor-parallel step
 (``sharding.tensor_parallel``, ``"tp_compute": true`` in the row); the
 step
 (``make_train_step``, ``make_prefill_step`` or ``make_serve_step``) runs
@@ -29,9 +29,10 @@ place them (a dim they shard otherwise — the cache's ``model`` dim — is
 held sharded and gathered whole before the step); for train the
 gradient is reduce-scattered back to the rows and all-reduced over the
 batch group.  A tensor-parallel step splits the heads (GQA or MLA),
-the MLP, the experts and the vocabulary over ``model`` as XLA's
-partitioner does, and a GQA decode cache keeps the kv heads the rank
-reads (MLA's latent cache stays whole).  A train step's MoE layer
+the MLP, the experts, the SSM heads and the vocabulary (of every
+codebook) over ``model`` as XLA's partitioner does, and a GQA decode
+cache keeps the kv heads the rank reads, an SSM state its heads and
+conv channels (MLA's latent cache stays whole).  A train step's MoE layer
 dispatches over the batch group, whose whole batch sets its capacity;
 its expert GEMMs run on the rank's share of the slots
 (``models.layers.moe``).  Where
@@ -71,6 +72,7 @@ from repro_torch.launch.hlo_analysis import StepCounter, analyze_captured
 from repro_torch.launch.steps import (
     TrainSpec, make_prefill_step, make_serve_step, make_train_step,
 )
+from repro_torch.models.ssm import local_channels
 from repro_torch.models.transformer import lm_loss
 from repro_torch.sharding import rules, tensor_parallel
 from repro_torch.sharding.batch_group import batch_group
@@ -115,31 +117,49 @@ def _rank_leaf(spec: tm.Pytree, meta: torch.Tensor, mesh, batch: int):
     return torch.zeros(shape, dtype=meta.dtype), gathers
 
 
-def _rank_tree(tree, specs, mesh, batch: int, tp=None):
+def _rank_tree(tree, specs, mesh, batch: int, local=None):
     """The rank's leaves of ``tree`` (meta) under ``specs``, and a
     function that gathers each held block whole through the pod's
     all-gather (run inside the capture: the gathers are the step's).
-    Under a ``tp`` that splits the heads, a kv cache leaf ``(..., KH,
-    hd)`` keeps the kv heads this rank reads, narrowed after the gather
-    (``rules.cache_pspecs`` shards the cache's time dim over ``model``,
-    the largest it divides, never its kv heads)."""
+    ``local(path, leaf)`` (see :func:`_cache_local`) then takes a whole
+    leaf's part the rank computes with, after the gather."""
     leaves, treedef = tm.tree_flatten(tree)
     spec_leaves = tm.tree_flatten(specs, is_leaf=rules.is_pspec)[0]
-    held = [_rank_leaf(s, t, mesh, batch) + (
-        tp.kv_range if tp is not None and tp.plan.attn and "kv/" in path
-        else None,)
-        for path, s, t in zip(tm.tree_paths(tree), spec_leaves, leaves)]
+    paths = tm.tree_paths(tree)
+    held = [_rank_leaf(s, t, mesh, batch)
+            for s, t in zip(spec_leaves, leaves)]
 
     def whole():
         out = []
-        for local, gathers, heads in held:
+        for path, (leaf, gathers) in zip(paths, held):
             for d, axes in gathers:
-                local = pod.gather_dim(local, mesh, axes, d)
-            if heads is not None:
-                local = local.narrow(local.dim() - 2, *heads)
-            out.append(local)
+                leaf = pod.gather_dim(leaf, mesh, axes, d)
+            out.append(leaf if local is None else local(path, leaf))
         return tm.tree_unflatten(treedef, out)
     return whole
+
+
+def _cache_local(cfg, tp):
+    """Under a ``tp`` that splits the heads, a GQA kv cache leaf ``(...,
+    KH, hd)`` keeps the kv heads this rank reads, and where it splits the
+    SSM heads the SSM state ``(..., h, p, n)`` and conv history
+    ``(..., conv_dim)`` keep the rank's heads and channels, each taken
+    from the gathered whole leaf (``rules.cache_pspecs`` shards the
+    cache's largest dim it divides over ``model``, not its heads);
+    MLA's latent cache stays whole.  None without a ``tp``."""
+    if tp is None:
+        return None
+    scfg = cfg.ssm_cfg() if cfg.has_ssm else None
+
+    def local(path, t):
+        if tp.plan.attn and cfg.attention != "mla" and "kv/" in path:
+            return t.narrow(t.dim() - 2, *tp.kv_range)
+        if tp.plan.ssm and "ssm/" in path:
+            if path.endswith("/0"):
+                return t.narrow(t.dim() - 3, *tp.ssm_range)
+            return local_channels(t, scfg, tp)
+        return t
+    return local
 
 
 def _row_value_and_grad(fops: pod.ShardedFlatOps, group=None):
@@ -204,10 +224,8 @@ def build_lowered(cfg, shape, mesh, *, n_micro: int = 1,
             return counter
         tok = _rank_tree(b_specs["token"],
                          rules.batch_pspecs(b_specs["token"], mesh), mesh, B)
-        # MLA's latent cache is whole on every rank of a model group
         cache = _rank_tree(b_specs["cache"], rules.cache_pspecs(
-            b_specs["cache"], mesh, B), mesh, B,
-            tp if cfg.attention != "mla" else None)
+            b_specs["cache"], mesh, B), mesh, B, _cache_local(cfg, tp))
         step = make_serve_step(cfg)
         with torch.no_grad(), StepCounter() as counter:
             step(tree(rows), tok(), cache(), shape.seq_len - 1)
@@ -230,8 +248,8 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     row = {"arch": arch, "shape": shape_name, "mesh": mesh_name, "ok": False,
            "layout": layout}
     spec = meshlib.MULTI_POD if multi_pod else meshlib.SINGLE_POD
-    # tensor-parallel compute over model (the dense and MoE token archs
-    # under fsdp_tp), or the pod's gather-then-compute
+    # tensor-parallel compute over model (fsdp_tp, where the arch's plan
+    # splits a part), or the pod's gather-then-compute
     row["tp_compute"] = layout == "fsdp_tp" and tensor_parallel.plan(
         cfg, dict(zip(spec.axes, spec.shape))[rules.MODEL]) is not None
     try:

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.models.transformer import (
     TransformerConfig, decode_step, lm_loss, prefill)
-from repro_torch.sharding.tensor_parallel import context_of
+from repro_torch.sharding.tensor_parallel import TPParams, context_of
 from repro_torch.utils import tree_math as tm
 
 Pytree = Any
@@ -61,12 +61,17 @@ def _split_micro(batch: Dict[str, torch.Tensor], n_micro: int
 def _value_and_grad(cfg: TransformerConfig, params: Pytree, batch):
     """``lm_loss`` and its gradient w.r.t. every floating leaf, in
     ``tree_leaves`` order: zeros for a leaf the loss does not reach and
-    for the non-floating leaves, as ``jax.grad`` gives."""
+    for the non-floating leaves, as ``jax.grad`` gives.  A model-local
+    tree (``tensor_parallel.TPParams``) runs tensor-parallel: the
+    gradient of each leaf is that of the rank's tile, or of the whole
+    leaf (summed over ``model`` where the ranks computed parts of it)."""
+    tp = context_of(params)
     leaves, treedef = tm.tree_flatten(params)
     live = [p.detach().requires_grad_(True) if p.is_floating_point() else p
             for p in leaves]
     with torch.enable_grad():
-        loss, _ = lm_loss(tm.tree_unflatten(treedef, live), cfg, batch)
+        loss, _ = lm_loss(tm.tree_unflatten(treedef, live), cfg, batch,
+                          tp=tp)
         wrt = [p for p in live if p.is_floating_point()]
         grads = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     out = []
@@ -80,11 +85,13 @@ def make_train_step(cfg: TransformerConfig, spec: TrainSpec,
                     value_and_grad: Callable = _value_and_grad) -> Callable:
     """(params, mom, batch) -> (params, mom, metrics).  ``value_and_grad
     (cfg, params, batch) -> (loss, grads in tree_leaves order)`` gives
-    the gradient: by default of ``lm_loss`` over the param tree; the
-    compile analysis passes one over a rank's rows of the flat buckets
-    (``repro_torch.launch.dryrun``)."""
+    the gradient: by default of ``lm_loss`` over the param tree (a
+    model-local tree steps tensor-parallel and comes back as one, with
+    its context); the compile analysis passes one over a rank's rows of
+    the flat buckets (``repro_torch.launch.dryrun``)."""
 
     def train_step(params, mom, batch):
+        tp = context_of(params)
         p_leaves, treedef = tm.tree_flatten(params)
         m_leaves = tm.tree_leaves(mom)
         if spec.n_micro == 1:
@@ -107,8 +114,11 @@ def make_train_step(cfg: TransformerConfig, spec: TrainSpec,
                      for m, p in zip(new_m, p_leaves)]
         new_p = [(p - spec.lr * m).to(p.dtype)
                  for p, m in zip(p_leaves, new_m)]
-        return (tm.tree_unflatten(treedef, new_p),
-                tm.tree_unflatten(treedef, new_m), {"loss": loss})
+        new_params = tm.tree_unflatten(treedef, new_p)
+        if tp is not None:
+            new_params = TPParams(new_params, tp)
+        return (new_params, tm.tree_unflatten(treedef, new_m),
+                {"loss": loss})
 
     return train_step
 

@@ -266,7 +266,7 @@ def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset: int,
 def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
               positions: torch.Tensor,
               kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-              cache_len: Optional[int] = None, tp=None
+              cache_len: Optional[int] = None, tp=None, row_extra=None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence (train/prefill) or incremental (decode) attention.
 
@@ -277,8 +277,13 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
 
     ``tp`` (a ``sharding.tensor_parallel.TPContext`` whose plan splits
     the heads) computes this rank's q heads and the kv heads they read
-    (a cache holds those kv heads only): q, k and v column-parallel, the
-    qkv biases and ``qk_norm`` on the local heads, ``wo`` row-parallel.
+    (a cache holds those kv heads only): q, k and v column-parallel (kv
+    heads that do not split: the rank's columns of ``wk``/``wv``
+    gathered whole, or where |model| does not divide their width the
+    whole projections' columns of the rank's kv head), the qkv biases
+    and ``qk_norm`` on the local heads, ``wo`` row-parallel
+    (``row_extra``, another partial output of the rank, reduced with
+    it).
     """
     B, S, d = x.shape
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -288,8 +293,15 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
         xc = tpl.copy_to_model(x, tp)
         cols = None if tp.plan.kv else slice(lo * hd, (lo + KH) * hd)
         q = tpl.column_linear(p["wq"], x, xc, tp).reshape(B, S, H, hd)
-        k = tpl.column_linear(p["wk"], x, xc, tp, cols).reshape(B, S, KH, hd)
-        v = tpl.column_linear(p["wv"], x, xc, tp, cols).reshape(B, S, KH, hd)
+
+        def kv(w):
+            if not tp.plan.kv_cols:
+                return tpl.column_linear(w, x, xc, tp, cols)
+            # the rank's columns, gathered whole, then its kv head
+            y = tpl.gather_from_model(tpl.column_linear(w, x, xc, tp), tp)
+            return tpl.copy_to_model(y, tp)[..., cols]
+        k = kv(p["wk"]).reshape(B, S, KH, hd)
+        v = kv(p["wv"]).reshape(B, S, KH, hd)
     else:
         q = linear(p["wq"], x).reshape(B, S, H, hd)
         k = linear(p["wk"], x).reshape(B, S, KH, hd)
@@ -316,7 +328,7 @@ def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig,
         new_cache = (kc, vc)
     out = out.reshape(B, S, H * hd)
     if tp is not None and tp.plan.attn:
-        return tpl.row_linear(p["wo"], out, tp), new_cache
+        return tpl.row_linear(p["wo"], out, tp, extra=row_extra), new_cache
     return linear(p["wo"], out), new_cache
 
 

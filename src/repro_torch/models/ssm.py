@@ -8,6 +8,18 @@ or the K8 kernel through ``kernels/ops.py`` (``"pallas"``: the CUDA
 kernel on a CUDA tensor; ``"pallas_interpret"``: its plain version).
 Single-token decode (``ssm_decode_step``) is a plain recurrence, as in
 the JAX package.
+
+Tensor parallelism (``tp``: a ``sharding.tensor_parallel.TPContext``
+whose plan splits the SSM heads; None leaves the whole layer): the
+in-projection is column-parallel on the rank's tile of ``in_proj`` (the
+rules' columns of the packed z, x, B, C, dt), its output all-gathered;
+the rank takes z, x and dt of its heads and all of B and C (one group);
+the conv runs over its x channels and every B, C channel (the whole
+``conv_w``, ``conv_b``); the SSD core on its heads (``A``, ``D``,
+``dt_bias`` sliced); the gated RMSNorm over the whole ``d_inner``
+(``rmsnorm_over_model``); ``out_proj`` row-parallel on the rank's rows
+(the leaf is whole: the rules shard its ``d_model`` columns).  The decode state
+holds the rank's heads and conv channels.
 """
 from __future__ import annotations
 
@@ -22,6 +34,7 @@ from repro_torch.kernels.ref import ssd_ref as ssd_reference  # noqa: F401
 from repro_torch.models.layers import (
     _rand, gen_device, init_linear, init_rmsnorm, linear, normal_init,
     rmsnorm)
+from repro_torch.sharding import tensor_parallel as tpl
 
 Pytree = Any
 
@@ -103,11 +116,14 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None,
 
     dA = dtc * A[None, None, None, :]
     dA_cum = torch.cumsum(dA, dim=2)
-    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j
+    # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j.  The mask
+    # goes in before the exp: above the diagonal cum_i - cum_j > 0 can
+    # overflow (a 128-token chunk at full width), and exp's inf there,
+    # though the forward drops it, would make the backward's 0·inf NaN
     seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]   # (b,nc,l,l,h)
     li = torch.arange(chunk, device=x.device)
     causal = (li[:, None] >= li[None, :])[None, None, :, :, None]
-    Lmat = torch.where(causal, torch.exp(seg), 0.0)
+    Lmat = torch.exp(torch.where(causal, seg, -torch.inf))
     CB = torch.einsum("bclgn,bcmgn->bclmg", Cc, Bc)
     CB = CB.repeat_interleave(hpg, dim=-1)                      # (b,nc,l,l,h)
     M = CB * Lmat * dtc[:, :, None, :, :]
@@ -150,22 +166,84 @@ def _split_proj(cfg: SSMConfig, zxbcdt: torch.Tensor):
                                 - cfg.conv_dim], dim=-1)
 
 
+def _split(tp) -> bool:
+    return tp is not None and tp.plan.ssm
+
+
+def local_channels(t: torch.Tensor, cfg: SSMConfig, tp) -> torch.Tensor:
+    """The rank's conv channels of ``t`` ``(..., conv_dim)``: the x
+    channels of its heads, then every B and C channel."""
+    lo, nh = tp.ssm_range
+    hd = cfg.head_dim
+    return torch.cat([t[..., lo * hd:(lo + nh) * hd], t[..., cfg.d_inner:]],
+                     dim=-1)
+
+
+def _heads(tp):
+    """The slice of the per-head vectors this rank computes."""
+    if not _split(tp):
+        return slice(None)
+    lo, nh = tp.ssm_range
+    return slice(lo, lo + nh)
+
+
+def _in_proj(p: Pytree, x: torch.Tensor, cfg: SSMConfig, tp):
+    """``(z, xBC, dt)`` of the layer's heads (the rank's under ``tp``: the
+    whole packed projection from the gathered column-parallel GEMM, the
+    copy after it summing every rank's use in the backward) and the
+    conv's weight and bias over the same channels."""
+    if not _split(tp):
+        z, xBC, dt = _split_proj(cfg, linear(p["in_proj"], x))
+        return z, xBC, dt, p["conv_w"], p["conv_b"]
+    y = linear(p["in_proj"], tpl.copy_to_model(x, tp))
+    z, xBC, dt = _split_proj(cfg, tpl.copy_to_model(
+        tpl.gather_from_model(y, tp), tp))
+    lo, nh = tp.ssm_range
+    hd = cfg.head_dim
+    return (z[..., lo * hd:(lo + nh) * hd], local_channels(xBC, cfg, tp),
+            dt[..., lo:lo + nh], local_channels(p["conv_w"], cfg, tp),
+            local_channels(p["conv_b"], cfg, tp))
+
+
+def _out(p: Pytree, y: torch.Tensor, z: torch.Tensor, tp, reduce: bool):
+    """The gated RMSNorm and ``out_proj``: under ``tp`` over the whole
+    ``d_inner`` from the rank's heads, ``out_proj`` row-parallel on the
+    rank's rows of the whole leaf (with ``reduce`` False its partial
+    output: the hybrid block reduces it with the attention's;
+    ``out_proj`` has no bias)."""
+    if not _split(tp):
+        return linear(p["out_proj"], rmsnorm(p["out_norm"], y * F.silu(z)))
+    lo, n = tp.rank * y.shape[-1], y.shape[-1]
+    y = tpl.rmsnorm_over_model({"scale": p["out_norm"]["scale"][lo:lo + n]},
+                               y * F.silu(z), tp)
+    rows = {"w": p["out_proj"]["w"][lo:lo + n]}
+    if reduce:
+        return tpl.row_linear(rows, y, tp)
+    return linear(rows, y)
+
+
 def ssm_forward(p: Pytree, x: torch.Tensor, cfg: SSMConfig,
-                return_final_state: bool = False):
-    """Full-sequence forward.  x: (B, S, d_model)."""
+                return_final_state: bool = False, tp=None,
+                reduce: bool = True):
+    """Full-sequence forward.  x: (B, S, d_model).  Under ``tp`` the
+    rank's heads (the module doc); ``reduce`` False returns the rank's
+    partial output, unreduced."""
     Bsz, S, _ = x.shape
-    z, xBC, dt = _split_proj(cfg, linear(p["in_proj"], x))
-    w = p["conv_w"].to(xBC.dtype)                              # (k, conv_dim)
+    z, xBC, dt, w, b = _in_proj(p, x, cfg, tp)
+    raw = xBC
+    heads = _heads(tp)
+    nh = dt.shape[-1]
+    w = w.to(xBC.dtype)                                        # (k, conv_dim)
     pad = F.pad(xBC, (0, 0, cfg.d_conv - 1, 0))
     conv = sum(pad[:, i:i + S] * w[i] for i in range(cfg.d_conv))
-    xBC = F.silu(conv + p["conv_b"].to(xBC.dtype))
+    xBC = F.silu(conv + b.to(xBC.dtype))
     gn = cfg.n_groups * cfg.d_state
-    xs, Bmat, Cmat = torch.split(xBC, [cfg.d_inner, gn, gn], dim=-1)
-    xs = xs.reshape(Bsz, S, cfg.n_heads, cfg.head_dim)
+    xs, Bmat, Cmat = torch.split(xBC, [nh * cfg.head_dim, gn, gn], dim=-1)
+    xs = xs.reshape(Bsz, S, nh, cfg.head_dim)
     Bmat = Bmat.reshape(Bsz, S, cfg.n_groups, cfg.d_state)
     Cmat = Cmat.reshape(Bsz, S, cfg.n_groups, cfg.d_state)
-    dt = softplus(dt.float() + p["dt_bias"])                   # (B, S, nh)
-    A = -torch.exp(p["A_log"])
+    dt = softplus(dt.float() + p["dt_bias"][heads])            # (B, S, nh)
+    A = -torch.exp(p["A_log"][heads])
 
     if cfg.ssd_impl in ("pallas", "pallas_interpret"):
         from repro_torch.kernels import ops as kops
@@ -179,13 +257,15 @@ def ssm_forward(p: Pytree, x: torch.Tensor, cfg: SSMConfig,
     else:
         raise ValueError(f"unknown ssd_impl {cfg.ssd_impl!r}")
 
-    y = y + xs * p["D"][None, None, :, None].to(xs.dtype)
-    y = y.reshape(Bsz, S, cfg.d_inner)
-    y = rmsnorm(p["out_norm"], y * F.silu(z))
-    out = linear(p["out_proj"], y)
+    y = y + xs * p["D"][heads][None, None, :, None].to(xs.dtype)
+    y = y.reshape(Bsz, S, nh * cfg.head_dim)
+    out = _out(p, y, z, tp, reduce)
     if return_final_state:
         # decode conv state = last (d_conv-1) *pre-activation* xBC inputs
-        return out, (final, _tail_conv_inputs(p, x, cfg))
+        # (the rank's channels of the gathered projection under tp)
+        tail = raw[:, -(cfg.d_conv - 1):] if _split(tp) else \
+            _tail_conv_inputs(p, x, cfg)
+        return out, (final, tail)
     return out
 
 
@@ -195,43 +275,61 @@ def _tail_conv_inputs(p: Pytree, x: torch.Tensor, cfg: SSMConfig) -> torch.Tenso
 
 
 def init_ssm_state(cfg: SSMConfig, batch: int, dtype=torch.float32,
-                   device=None):
-    """Decode-time carried state: (ssm_state, conv_state)."""
-    return (torch.zeros(batch, cfg.n_heads, cfg.head_dim, cfg.d_state,
+                   device=None, tp=None):
+    """Decode-time carried state: (ssm_state, conv_state); under a ``tp``
+    that splits the heads, the rank's heads and conv channels."""
+    nh, conv = cfg.n_heads, cfg.conv_dim
+    if _split(tp):
+        nh = tp.ssm_range[1]
+        conv = nh * cfg.head_dim + 2 * cfg.n_groups * cfg.d_state
+    return (torch.zeros(batch, nh, cfg.head_dim, cfg.d_state,
                         dtype=torch.float32, device=device),
-            torch.zeros(batch, cfg.d_conv - 1, cfg.conv_dim, dtype=dtype,
+            torch.zeros(batch, cfg.d_conv - 1, conv, dtype=dtype,
                         device=device))
 
 
-def ssm_decode_step(p: Pytree, x: torch.Tensor, state, cfg: SSMConfig):
+def local_ssm_state(state, cfg: SSMConfig, tp):
+    """The rank's part of a whole decode state (``init_ssm_state``'s
+    layout, any leading dims): its heads and its conv channels."""
+    if not _split(tp):
+        return state
+    ssm_state, conv_state = state
+    lo, nh = tp.ssm_range
+    return (ssm_state.narrow(ssm_state.dim() - 3, lo, nh),
+            local_channels(conv_state, cfg, tp))
+
+
+def ssm_decode_step(p: Pytree, x: torch.Tensor, state, cfg: SSMConfig,
+                    tp=None, reduce: bool = True):
     """Single-token decode.  x: (B, 1, d_model); state from
-    ``init_ssm_state``.  Returns (out, (new_ssm_state, new_conv_state))."""
+    ``init_ssm_state``.  Returns (out, (new_ssm_state, new_conv_state));
+    ``tp`` and ``reduce`` as in :func:`ssm_forward`."""
     ssm_state, conv_state = state
     Bsz = x.shape[0]
-    z, xBC, dt = _split_proj(cfg, linear(p["in_proj"], x))
+    z, xBC, dt, w, b = _in_proj(p, x, cfg, tp)
+    heads = _heads(tp)
+    nh = dt.shape[-1]
     xBC = xBC[:, 0]                                              # (B, conv_dim)
     hist = torch.cat([conv_state, xBC[:, None]], dim=1)          # (B, k, conv_dim)
-    w = p["conv_w"].to(xBC.dtype)
+    w = w.to(xBC.dtype)
     # one rounding of the f32 sum, as XLA's dot_general does for bf16
     conv = torch.einsum("bkc,kc->bc", hist.float(), w.float()).to(xBC.dtype)
-    act = F.silu(conv + p["conv_b"].to(xBC.dtype))
+    act = F.silu(conv + b.to(xBC.dtype))
     gn = cfg.n_groups * cfg.d_state
-    xs, Bmat, Cmat = torch.split(act, [cfg.d_inner, gn, gn], dim=-1)
-    xs = xs.reshape(Bsz, cfg.n_heads, cfg.head_dim)
+    xs, Bmat, Cmat = torch.split(act, [nh * cfg.head_dim, gn, gn], dim=-1)
+    xs = xs.reshape(Bsz, nh, cfg.head_dim)
     Bmat = Bmat.reshape(Bsz, cfg.n_groups, cfg.d_state)
     Cmat = Cmat.reshape(Bsz, cfg.n_groups, cfg.d_state)
-    hpg = cfg.n_heads // cfg.n_groups
+    hpg = nh // cfg.n_groups
     Bh = Bmat.repeat_interleave(hpg, dim=1)
     Ch = Cmat.repeat_interleave(hpg, dim=1)
-    dtv = softplus(dt[:, 0].float() + p["dt_bias"])              # (B, nh)
-    A = -torch.exp(p["A_log"])
+    dtv = softplus(dt[:, 0].float() + p["dt_bias"][heads])       # (B, nh)
+    A = -torch.exp(p["A_log"][heads])
     decay = torch.exp(dtv * A[None, :])
     new_state = ssm_state * decay[:, :, None, None] + \
         dtv[:, :, None, None] * xs.float()[:, :, :, None] * \
         Bh.float()[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", new_state, Ch.float()).to(x.dtype)
-    y = y + xs * p["D"][None, :, None].to(x.dtype)
-    y = y.reshape(Bsz, 1, cfg.d_inner)
-    y = rmsnorm(p["out_norm"], y * F.silu(z))
-    out = linear(p["out_proj"], y)
-    return out, (new_state, hist[:, 1:])
+    y = y + xs * p["D"][heads][None, :, None].to(x.dtype)
+    y = y.reshape(Bsz, 1, nh * cfg.head_dim)
+    return _out(p, y, z, tp, reduce), (new_state, hist[:, 1:])

@@ -30,13 +30,15 @@ JAX package.  ``remat`` is ignored: it trades memory for recompute and
 changes no number.
 
 Tensor parallelism: each entry point takes an optional ``tp`` (a
-``sharding.tensor_parallel.TPContext``; None on one rank and for every
-family but the dense and MoE token archs).  With it the params are a
-rank's model-local tree and the blocks (deepseek's dense-FFN prefix and
-MTP block too) compute its share of the heads (GQA or MLA), the MLP and
-the experts, Megatron style; the vocabulary's embedding and
-cross-entropy run vocabulary-parallel, and ``prefill`` / ``decode_step``
-gather the logits whole.  ``lm_forward`` and ``lm_loss`` also take
+``sharding.tensor_parallel.TPContext``; None on one rank).  With it the
+params are a rank's model-local tree and the blocks (deepseek's
+dense-FFN prefix and MTP block too) compute its share of the heads (GQA
+or MLA), the MLP, the experts and the SSM heads, Megatron style (a
+hybrid block reduces its split branches' partial outputs at once and
+adds a whole branch after the reduce); the vocabulary's embedding (the
+VLM's text tokens too) and cross-entropy (per codebook for audio) run
+vocabulary-parallel, and ``prefill`` / ``decode_step`` gather the
+logits whole.  ``lm_forward`` and ``lm_loss`` also take
 an optional ``group`` (a ``sharding.batch_group.BatchGroup``: the pod's
 ranks over which the batch is split), over which each MoE layer takes
 its capacity, its slots and its aux loss (``layers.moe``).
@@ -229,24 +231,26 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
     if cfg.arch_type == "hybrid":
         # Hymba: attention heads and mamba heads consume the same normed
         # input in parallel; outputs are averaged (arXiv:2411.13676 eq. 3).
+        # Under tp each split branch gives its rank's partial output: when
+        # both split, the SSM's rides into the attention's one reduce;
+        # a whole branch is added once, after the reduce
         xn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
+        both = tp is not None and tp.plan.ssm and tp.plan.attn
+        ssm_out, ssm_cache = _run_ssm(p["ssm"], xn, cache, cfg, tp,
+                                      reduce=not both)
         attn_out, kv = _run_attention(p, xn, cfg, positions, is_global,
                                       cache["kv"] if cache else None,
-                                      cache_len)
+                                      cache_len, tp,
+                                      row_extra=ssm_out if both else None)
         if cache is not None:
-            ssm_out, new_cache["ssm"] = _run_ssm_cached(p["ssm"], xn,
-                                                        cache["ssm"], cfg)
-        else:
-            ssm_out = ssm_forward(p["ssm"], xn, cfg.ssm_cfg())
+            new_cache["ssm"] = ssm_cache
         new_cache["kv"] = kv
-        x = x + 0.5 * (attn_out + ssm_out)
+        x = x + 0.5 * (attn_out if both else attn_out + ssm_out)
     elif cfg.arch_type == "ssm":
         xn = rmsnorm(p["ssm_norm"], x, cfg.norm_eps)
+        out, ssm_cache = _run_ssm(p["ssm"], xn, cache, cfg, tp)
         if cache is not None:
-            out, new_cache["ssm"] = _run_ssm_cached(p["ssm"], xn,
-                                                    cache["ssm"], cfg)
-        else:
-            out = ssm_forward(p["ssm"], xn, cfg.ssm_cfg())
+            new_cache["ssm"] = ssm_cache
         x = x + out
     else:
         xn = rmsnorm(p["attn_norm"], x, cfg.norm_eps)
@@ -265,19 +269,28 @@ def _block_apply(p: Pytree, x: torch.Tensor, cfg: TransformerConfig,
     return x, new_cache, aux
 
 
-def _run_ssm_cached(ssm_params, xn, ssm_state, cfg: TransformerConfig):
-    """Cached SSM: a single token updates the recurrent state; a multi-
-    token call (prefill) runs the chunked scan and emits the final state
-    for the decode steps that follow."""
+def _run_ssm(ssm_params, xn, cache, cfg: TransformerConfig, tp=None,
+             reduce: bool = True):
+    """The SSM branch: ``(out, new state or None)``, uncached or cached
+    (a single token updates the recurrent state; a multi-token call,
+    prefill, runs the chunked scan and emits the final state for the
+    decode steps that follow); under ``tp`` the rank's heads, ``reduce``
+    False leaving its partial output."""
+    scfg = cfg.ssm_cfg()
+    if cache is None:
+        return ssm_forward(ssm_params, xn, scfg, tp=tp, reduce=reduce), None
+    state = cache["ssm"]
     if xn.shape[1] == 1:
-        return ssm_decode_step(ssm_params, xn, ssm_state, cfg.ssm_cfg())
-    out, (final, conv_tail) = ssm_forward(ssm_params, xn, cfg.ssm_cfg(),
-                                          return_final_state=True)
-    return out, (final, conv_tail.to(ssm_state[1].dtype))
+        return ssm_decode_step(ssm_params, xn, state, scfg, tp=tp,
+                               reduce=reduce)
+    out, (final, conv_tail) = ssm_forward(ssm_params, xn, scfg,
+                                          return_final_state=True, tp=tp,
+                                          reduce=reduce)
+    return out, (final, conv_tail.to(state[1].dtype))
 
 
 def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
-                   kv_cache, cache_len, tp=None):
+                   kv_cache, cache_len, tp=None, row_extra=None):
     if cfg.attention == "mla":
         return mla_attention(p["attn"], xn, cfg.mla_cfg(), positions,
                              kv_cache=kv_cache, cache_len=cache_len, tp=tp)
@@ -288,7 +301,7 @@ def _run_attention(p, xn, cfg: TransformerConfig, positions, is_global,
         acfg = dataclasses.replace(
             acfg, window=FULL_WINDOW if is_global else cfg.window)
     return attention(p["attn"], xn, acfg, positions, kv_cache=kv_cache,
-                     cache_len=cache_len, tp=tp)
+                     cache_len=cache_len, tp=tp, row_extra=row_extra)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +383,7 @@ def _embed_inputs(params, cfg: TransformerConfig,
     elif cfg.input_mode == "vlm":
         # stub front end: precomputed patch embeddings, then the tokens'
         pe = batch["patch_embeds"].to(cfg.dtype)             # (B, P, d)
-        x = torch.cat([pe, params["embed"][batch["tokens"]].to(cfg.dtype)],
-                      dim=1)
+        x = torch.cat([pe, _embed(params, cfg, batch["tokens"], tp)], dim=1)
         offset = pe.shape[1]
     elif cfg.input_mode == "embeddings":
         # audio stub: precomputed EnCodec frame embeddings
@@ -452,15 +464,21 @@ def _run_blocks(params, cfg: TransformerConfig, x, positions,
 def _logits(params, cfg: TransformerConfig, x: torch.Tensor,
             tp=None) -> torch.Tensor:
     """The logits; under a ``tp`` that splits the vocabulary, this rank's
-    columns of them."""
+    columns of them (of the flattened ``(codebook, vocab)`` dim for
+    several codebooks, not reshaped)."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    if tp is not None and tp.plan.vocab:
+    split = tp is not None and tp.plan.vocab
+    if split:
         x = tpl.copy_to_model(x, tp)
     logits = torch.matmul(x, head.to(cfg.dtype))
-    if cfg.n_codebooks > 1:
-        B, S, _ = logits.shape
-        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_size)
+    if cfg.n_codebooks > 1 and not split:
+        logits = _codebooks(cfg, logits)
     return logits.to(cfg.logit_dtype)
+
+
+def _codebooks(cfg: TransformerConfig, logits: torch.Tensor) -> torch.Tensor:
+    B, S, _ = logits.shape
+    return logits.reshape(B, S, cfg.n_codebooks, cfg.vocab_size)
 
 
 def lm_forward(params, cfg: TransformerConfig,
@@ -549,8 +567,9 @@ def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
                         device, n: Optional[int] = None, tp=None):
     """The cache of one block, or of ``n`` stacked blocks (a leading
     layer axis): k/v rows (under a ``tp`` that splits the heads, the kv
-    heads this rank reads), MLA's latent rows and rope keys, SSM
-    state."""
+    heads this rank reads), MLA's latent rows and rope keys, SSM state
+    (under a ``tp`` that splits the SSM heads, the rank's heads and conv
+    channels)."""
     lead = () if n is None else (n,)
 
     def zeros(*shape, dtype=cfg.dtype):
@@ -566,7 +585,7 @@ def _layer_cache_struct(cfg: TransformerConfig, batch: int, max_len: int,
                 KH = tp.kv_range[1]
             c["kv"] = tuple(zeros(batch, max_len, KH, hd) for _ in range(2))
     if cfg.has_ssm:
-        one = init_ssm_state(cfg.ssm_cfg(), batch, cfg.dtype, device)
+        one = init_ssm_state(cfg.ssm_cfg(), batch, cfg.dtype, device, tp)
         c["ssm"] = tuple(zeros(*t.shape, dtype=t.dtype) for t in one)
     return c
 
@@ -585,6 +604,8 @@ def _whole_logits(params, cfg: TransformerConfig, x, tp=None):
     logits = _logits(params, cfg, x, tp)
     if tp is not None and tp.plan.vocab:
         logits = tpl.gather_vocab(logits, tp)
+        if cfg.n_codebooks > 1:
+            logits = _codebooks(cfg, logits)
     return logits
 
 

@@ -53,7 +53,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.utils.device import fold_in
-from repro_torch.utils.tree_math import tree_flatten, tree_unflatten
+from repro_torch.utils.tree_math import (tree_flatten, tree_paths,
+                                         tree_unflatten)
 
 Pytree = Any
 
@@ -75,6 +76,34 @@ def torch_dtype(name: str) -> torch.dtype:
 # frozen leaves pack into buckets under this name prefix; the plain
 # bucket name (dtype / dtype@axes) follows it unchanged
 FROZEN_PREFIX = "frozen:"
+
+
+def _merged_runs(runs) -> Tuple[Tuple[int, int], ...]:
+    """``(offset, size)`` runs in order, adjacent ones joined."""
+    out = []
+    for o, k in runs:
+        if out and out[-1][0] + out[-1][1] == o:
+            out[-1] = (out[-1][0], out[-1][1] + k)
+        else:
+            out.append((o, k))
+    return tuple(out)
+
+
+def take_runs(row: torch.Tensor, runs) -> torch.Tensor:
+    """The elements of ``row`` (along its last dim) in ``runs``, in
+    order: ``row[..., index]`` for the index the runs spell, without
+    forming it."""
+    pieces = [row[..., o:o + k] for o, k in runs]
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=-1)
+
+
+def put_runs(out: torch.Tensor, runs, src: torch.Tensor) -> torch.Tensor:
+    """``out[..., index] = src`` for the index ``runs`` spell (in place)."""
+    pos = 0
+    for o, k in runs:
+        out[..., o:o + k].copy_(src[..., pos:pos + k])
+        pos += k
+    return out
 
 
 def is_frozen_bucket(name: str) -> bool:
@@ -233,6 +262,15 @@ class FlatView:
             for i, v in zip(idx, views):
                 leaves[i] = v
         return tree_unflatten(self.treedef, leaves)
+
+    def trainable_by_path(self, bufs: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+        """Views of the trainable buckets ``bufs`` as ``{path: leaf}``
+        (``tree_paths`` of the tree), the frozen leaves left out."""
+        paths = tree_paths(tree_unflatten(self.treedef, [0] * len(self.slots)))
+        return {path: bufs[s.buffer][s.offset:s.offset + s.size].view(
+            s.shape) for path, s in zip(paths, self.slots)
+            if not is_frozen_bucket(s.buffer)}
 
     def flatten_stacked(self, tree: Pytree) -> Dict[str, torch.Tensor]:
         """Pack a tree whose (trainable) leaves carry one shared leading
@@ -486,8 +524,10 @@ class ShardedFlatView:
         from the part's axes, each slot's shape its tile over ``axis``)
         and a ``|whole`` part (its other leaves, gathered over every axis
         as before); ``view.whole_view()`` is the model-local layout.
-        ``parts[bucket]`` lists ``(part, index)``: the part's elements in
-        the bucket's row, ``index`` None when the part is the whole row.
+        ``parts[bucket]`` lists ``(part, runs)``: the part's elements in
+        the bucket's row as ``(offset, size)`` runs in row order (one per
+        run of adjacent leaves; :func:`take_runs`, :func:`put_runs`),
+        ``runs`` None when the part is the whole row.
         A dim tiled by ``axis`` and another axis together has no
         contiguous ``axis`` tile: such a local leaf raises."""
         m = self._axis_size(axis) if axis in dict(self.axis_sizes) else 1
@@ -528,7 +568,7 @@ class ShardedFlatView:
             size = self.group_map[bucket].size
             parts[bucket] = tuple(
                 (name, None if len(by_part) == 1 and cursor[name] == size
-                 else torch.cat([torch.arange(o, o + k) for o, k in r]))
+                 else _merged_runs(r))
                 for name, r in by_part.items())
         return view, parts
 

@@ -81,7 +81,7 @@ from repro_torch.fl.task import lm_task
 from repro_torch.kernels import ops
 from repro_torch.sharding import rules
 from repro_torch.utils import tree_math as tm
-from repro_torch.utils.flatten import FlatView
+from repro_torch.utils.flatten import FlatView, take_runs
 
 ROOT = Path(__file__).resolve().parent.parent
 SEED, ARCH = 0, "qwen1.5-0.5b"
@@ -615,7 +615,7 @@ def _check_row_gradient(tensor_parallel: bool):
                                       split_batch=True)
             want = view.whole_to_rows(g.name, mean)[
                 view.local_rows(coords)[g.name]]
-            for part, index in parts[g.name]:
+            for part, runs in parts[g.name]:
                 # reduce-scatter over data, emulated: rank (d', m)'s
                 # block d
                 total, own = None, ()
@@ -628,7 +628,7 @@ def _check_row_gradient(tensor_parallel: bool):
                 assert own == (("data",) if "data" in
                                lview.group_map[part].axes else ())
                 got = total / 2
-                w = want if index is None else want[index]
+                w = want if runs is None else take_runs(want, runs)
                 torch.testing.assert_close(got, w, rtol=1e-6, atol=1e-7)
                 # summing over the model ranks too would give twice the
                 # mean
