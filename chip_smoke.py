@@ -316,19 +316,23 @@ JSON line per phase:
                      from and to its rows: tp_compute and "tp" on every
                      fsdp_tp phase (FedProx's too), losses and params
                      within ZOO_LOSS_RTOL and ZOO_TP_TOL of replicated's
-                     and P1's changes within ZOO_DELTA_TOL (bf16 drift
-                     bounds: with --pod-sharded-zoo-control, the phase
-                     alone, a control, the gated norm's sum of squares
-                     through reduce_from_model, reads as the sound run
-                     there), frozen rows the fsdp_tp view's per-shard
-                     sizes, K1, K6 and K3 once a bucket row, frozen
-                     leaves kept; (b) mamba2-1.3b at full width and
+                     and P1's changes within ZOO_DELTA_TOL (bf16: drift
+                     and unchanged-leaf bounds), frozen rows the fsdp_tp
+                     view's per-shard sizes, K1, K6 and K3 once a bucket
+                     row, frozen leaves kept; the same runs of the f32
+                     cut to 2 layers at full width within the tighter
+                     ZOO_CUT_* gates, and its control (fsdp_tp's P1 with
+                     the gated norm's sum of squares through
+                     reduce_from_model), whose P1 changes must miss
+                     ZOO_CUT_DELTA_TOL; (b) mamba2-1.3b at full width and
                      depth on (1, 4) served in f32 from each rank's
                      model-local tree (16 SSM heads, a quarter of the
                      vocabulary), batch 2 x prompt 1024 + 8 greedy
-                     tokens: K8 48 launches a prefill on the rank's
-                     heads, the tokens the whole tree's (one process),
-                     logits and SSM state within ZOO_SERVE_TOL; (c)
+                     tokens after a warm-up: K8 48 launches a prefill
+                     on the rank's heads, the tokens the whole tree's
+                     (one process), logits and SSM state within
+                     ZOO_SERVE_TOL; the weights in bf16 (model-local and
+                     whole) read against the whole f32 tree; (c)
                      internvl2-1b (256 patches + 128 tokens),
                      musicgen-medium (128 frames) and hymba-1.5b (128
                      tokens) cut to 2 layers at full width in f32:
@@ -3815,6 +3819,41 @@ SHARDED_GATHERED_BEFORE = 2_765_660_160
 SHARDED_P1_ROW, SHARDED_P2_ROW = 274_989_056, 1_576_960
 
 
+def _run_ranks(name: str, flag: str, world: int, store: str, tmp: str,
+               env=None, timeout: float = 900.0) -> list:
+    """Runs ``world`` ranks of ``chip_smoke.py FLAG R STORE TMP``, each
+    one's output in ``TMP/rank<R>.log``, and returns their reports
+    (``TMP/rank<R>.json``).  As soon as one rank fails, or ``timeout``
+    seconds have passed, it ends every rank (the others would wait in a
+    collective) and fails with the end of each rank's log."""
+    logs = [open(Path(tmp, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r), store,
+         tmp], stdout=f, stderr=subprocess.STDOUT, text=True, env=env)
+        for r, f in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and \
+                all(p.returncode in (None, 0) for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(p.returncode != 0 for p in procs):
+        late = " (out of time)" if time.monotonic() >= deadline else ""
+        raise SystemExit(f"chip_smoke: {name}{late}: " + "\n".join(
+            f"rank {r} exited {p.returncode}:\n"
+            f"{Path(tmp, f'rank{r}.log').read_text()[-3000:]}"
+            for r, p in enumerate(procs)))
+    return [json.loads(Path(tmp, f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
 def pod_sharded_worker(rank: int, store: str, out: str) -> int:
     """One rank of ``pod_sharded`` (``chip_smoke.py --pod-sharded-rank R
     STORE OUT``): joins the four-rank gloo group over the ``file://``
@@ -4012,24 +4051,8 @@ def pod_sharded(torch) -> dict:
     Path(tmp, "data.pkl").write_bytes(pickle.dumps(data))
     store = os.path.join(tmp, "store")
     world = math.prod(SHARDED_MESH)
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"), "--pod-sharded-rank",
-         str(r), store, tmp], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=600))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            raise SystemExit(f"chip_smoke: pod_sharded rank {r} exited "
-                             f"{p.returncode}:\n{err[-3000:]}")
-    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-             for r in range(world)]
+    ranks = _run_ranks("pod_sharded", "--pod-sharded-rank", world, store,
+                       tmp, timeout=600)
     steps = SHARDED_K * SHARDED_STEPS
 
     def phases(layout):
@@ -4472,26 +4495,8 @@ def pod_sharded_moe(torch, control: bool = False) -> dict:
     # four processes share the card: expandable segments keep each
     # one's freed blocks from pinning memory the others need
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"),
-         "--pod-sharded-moe-rank", str(r), store, tmp],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=900))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    failed = [f"rank {r} exited {p.returncode}:\n{err[-2000:]}"
-              for r, (p, (_, err)) in enumerate(zip(procs, outs))
-              if p.returncode != 0]
-    if failed:
-        raise SystemExit("chip_smoke: pod_sharded_moe: " + "\n".join(failed))
-    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-             for r in range(world)]
+    ranks = _run_ranks("pod_sharded_moe", "--pod-sharded-moe-rank", world,
+                       store, tmp, env)
     steps = SHARDED_K * SHARDED_STEPS
 
     def want(layout):
@@ -4692,26 +4697,46 @@ ZOO_STEP_LAYERS, ZOO_STEP_B, ZOO_STEP_LR = 2, 4, 1e-2
 # (a)'s gates, fsdp_tp against replicated in bf16 (pod_sharded_moe's
 # measures): the losses; a leaf's largest gap over its largest magnitude
 # at P2's end and at the FedProx round's; P1's changes from the init, a
-# leaf's L2 gap over its change's L2 norm.  They bound bf16 drift only:
-# an H100 read 3.1e-4, 0.291 (a LoRA leaf), 0.134 and 0.670, and the
-# control 3.3e-4 and 0.672 on the same measures (PERF.md): through
-# 32 layers at this precision it cannot be told apart; (c) holds the
-# split in f32 and refuses the control there
+# leaf's L2 gap over its change's L2 norm.  In bf16 through 32 layers
+# they bound drift and an unchanged leaf (which reads 1.0 on both
+# measures of a leaf) only: an H100 read 3.1e-4, 0.291 (a LoRA leaf),
+# 0.134 and 0.670, and a control with the gated norm's backward left out
+# read 0.672, as the sound run (PERF.md)
 ZOO_LOSS_RTOL = 1e-3
 ZOO_TP_TOL = 0.6
-ZOO_DELTA_TOL = 1.0
+ZOO_DELTA_TOL = 0.85
+# (a)'s cut: the same runs of hymba-1.5b + lora:8 at full width, cut to
+# ZOO_CUT_LAYERS layers, in f32, and the control (fsdp_tp's P1 with the
+# gated norm's sum of squares through reduce_from_model).  The gates on
+# the same measures, the P1 changes' placed between the sound runs' and
+# the control's readings (PERF.md): the control must exceed it
+ZOO_CUT_LAYERS = 2
+ZOO_CUT_LOSS_RTOL = 1e-4
+ZOO_CUT_TP_TOL = 1e-3
+ZOO_CUT_DELTA_TOL = 1e-2
+# the four ranks' time, all three parts (an H100 took 291 s for the
+# phase, PERF.md): a rank still running then is ended
+ZOO_RANKS_TIMEOUT = 480.0
 # (b), f32: the TP logits against the whole tree's, the largest gap over
 # the largest magnitude of a step's logits, and the SSM state's (in_proj's
 # columns, the norm over model and out_proj's rows sum in other orders).
-# In bf16 (an H100, PERF.md) the prefill's logits were 6.7% apart
-# and the first greedy token differed: a random model's near-flat logits
-# and 48 layers of bf16 rounding, not the split
+# The same weights in bf16 are read, not gated: on an H100 (PERF.md)
+# the logits after the prefill were 7.2% off the whole f32 tree's
+# model-local and 6.8% whole, the greedy tokens other in both: bf16
+# rounding, not the split
 ZOO_SERVE_TOL = 1e-3
 # (c), f32: each gradient leaf's and the two-step params' largest gap
 # over the leaf's largest magnitude, and the losses (the CPU tests read
 # ~1e-6); the prefill's logits through K7 (online softmax)
 ZOO_STEP_TOL = 1e-4
 ZOO_PREFILL_TOL = 1e-4
+
+
+def _note(rank: int, what: str) -> None:
+    """A rank's progress, with the seconds since its process started, in
+    its log (``_run_ranks`` shows the log's end if the phase fails)."""
+    print(f"rank {rank} {time.perf_counter() - _T0:.1f} s: {what}",
+          file=sys.stderr, flush=True)
 
 
 def _free_leftovers(torch) -> None:
@@ -4741,10 +4766,27 @@ class _CardLeaves(list):
         return (t.cuda() for t in list.__iter__(self))
 
 
-def _zoo_hymba(torch, rank, data, control, report):
-    """pod_sharded_zoo (a) in one rank: see ``pod_sharded_zoo_worker``."""
-    import torch.distributed as dist
+def _zoo_hymba(torch, rank, data, report):
+    """pod_sharded_zoo (a) in one rank: see ``pod_sharded_zoo_worker``.
+    The whole model in bf16, then the f32 cut with its control under
+    ``report["cut"]``."""
+    import dataclasses
     from repro_torch.configs import get_config, with_peft
+    _zoo_pod_runs(torch, rank, data, with_peft(get_config(ZOO_ARCH),
+                                               ZOO_PEFT), False, report)
+    report["cut"] = {}
+    t0 = time.perf_counter()
+    _zoo_pod_runs(torch, rank, data, with_peft(dataclasses.replace(
+        get_config(ZOO_ARCH), n_layers=ZOO_CUT_LAYERS, dtype=torch.float32,
+        param_dtype=torch.float32), ZOO_PEFT), True, report["cut"])
+    report["cut_s"] = time.perf_counter() - t0
+
+
+def _zoo_pod_runs(torch, rank, data, cfg, control, report):
+    """(a)'s runs of ``cfg`` under each layout, P1 + P2 then FedProx; with
+    ``control``, fsdp_tp's P1 again with the gated norm's sum of squares
+    through ``reduce_from_model`` (an identity backward)."""
+    import torch.distributed as dist
     from repro_torch.fl import pod
     from repro_torch.fl.engine import FlatRows
     from repro_torch.fl.task import lm_task
@@ -4757,7 +4799,6 @@ def _zoo_hymba(torch, rank, data, control, report):
     from repro_torch.sharding import tensor_parallel as tpl
     from repro_torch.utils.tree_math import tree_leaves
 
-    cfg = with_peft(get_config(ZOO_ARCH), ZOO_PEFT)
     task = lm_task(cfg)
     mask = rules.trainable_mask(task.shapes(), "lora")
     mesh = make_mesh(ZOO_MESH, ("data", "model"), "cuda:0")
@@ -4826,6 +4867,8 @@ def _zoo_hymba(torch, rank, data, control, report):
             got["tp_compute"].append(ph.tp_compute)
             got["resident"].append(ph.resident_bytes)
             got["losses"] += [h["loss"] for h in res.history]
+            _note(rank, f"{cfg.n_layers} layers {layout} {phase}: "
+                  f"{got['losses']}")
             end = res.params
             del r, res, ph
             # the four ranks' leftovers back to the card before the whole
@@ -4911,12 +4954,13 @@ def _zoo_serve(torch, rank, report):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.ssm import local_ssm_state
     from repro_torch.models.transformer import decode_step, init_lm, prefill
+    from repro_torch.utils.tree_math import tree_map
 
     cfg = dataclasses.replace(get_config(ZOO_SERVE_ARCH), ssd_impl="pallas",
                               dtype=torch.float32, param_dtype=torch.float32)
+    bf16 = dataclasses.replace(cfg, dtype=torch.bfloat16,
+                               param_dtype=torch.bfloat16)
     mesh = make_mesh(ZOO_SERVE_MESH, ("data", "model"), "cuda:0")
-    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", False, None,
-                                 False, True)
     params = init_lm(cfg, SEED, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size,
@@ -4924,27 +4968,31 @@ def _zoo_serve(torch, rank, report):
                                       generator=gen, device="cuda")}
     T = ZOO_SERVE_S + ZOO_SERVE_NEW
 
-    def generate(tree, tp):
-        """A prefill and ZOO_SERVE_NEW greedy decode steps (no warm-up:
-        the prefill is the process's first through the model-local tree;
-        the whole tree's follows it): the tokens, each step's logits, the
-        SSM state after the prefill, the seconds and the K8 launches of
-        the prefill."""
+    def local(c, tree):
+        """The rank's model-local tree of ``tree`` under ``c``."""
+        fops = pod._sharded_flat_ops(lm_task(c), mesh, "fsdp_tp", False)
+        with torch.no_grad():
+            return fops.tp_tree(fops.flatten(tree))
+
+    def generate(tree, c, tp, new=ZOO_SERVE_NEW):
+        """A prefill and ``new`` greedy decode steps: the tokens, each
+        step's logits, the SSM state after the prefill, the seconds and
+        the K8 launches of the prefill."""
         with torch.no_grad():
             torch.cuda.synchronize()
             k8 = ssd.ssd_scan.launches
             t0 = time.perf_counter()
-            logits, cache, S = prefill(tree, cfg, prompt, T, tp=tp)
+            logits, cache, S = prefill(tree, c, prompt, T, tp=tp)
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
             k8 = ssd.ssd_scan.launches - k8
             state = [t.clone() for t in cache["scan"]["ssm"]]
             steps, toks = [logits.float()], []
             t0 = time.perf_counter()
-            for i in range(ZOO_SERVE_NEW):
+            for i in range(new):
                 tok = torch.argmax(logits[:, -1:], dim=-1)
                 toks.append(tok)
-                logits, cache = decode_step(tree, cfg, tok, cache, S + i,
+                logits, cache = decode_step(tree, c, tok, cache, S + i,
                                             tp=tp)
                 steps.append(logits.float())
             torch.cuda.synchronize()
@@ -4952,13 +5000,20 @@ def _zoo_serve(torch, rank, report):
         return (torch.cat(toks, dim=1), steps, state, prefill_s,
                 decode_s, k8)
 
-    with torch.no_grad():
-        tree = fops.tp_tree(fops.flatten(params))
+    def rel(xs, ys):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(xs, ys)]
+
+    tree = local(cfg, params)
     tp = tree.tp
+    # a warm-up (a prefill and one decode step) before the timed run
+    dist.barrier()
+    generate(tree, cfg, tp, new=1)
     pod.reset_collective_counts()
     ssd.ssd_scan.launches = 0
     dist.barrier()
-    toks, logits, state, prefill_s, decode_s, k8 = generate(tree, tp)
+    toks, logits, state, prefill_s, decode_s, k8 = generate(tree, cfg, tp)
+    _note(rank, f"(b) f32 model-local: prefill {prefill_s:.2f} s")
     got = dict(prefill_ms=prefill_s * 1e3,
                decode_ms_per_step=decode_s * 1e3 / ZOO_SERVE_NEW,
                ssd_launches_per_prefill=k8,
@@ -4974,7 +5029,7 @@ def _zoo_serve(torch, rank, report):
     for r in range(math.prod(ZOO_SERVE_MESH)):
         if r == rank:
             w_toks, w_logits, w_state, w_pre, w_dec, w_k8 = generate(
-                params, None)
+                params, cfg, None)
         dist.barrier()
     mine = local_ssm_state(w_state, cfg.ssm_cfg(), tp)
     got.update(
@@ -4983,13 +5038,32 @@ def _zoo_serve(torch, rank, report):
         whole_ssd_launches_per_prefill=w_k8,
         tokens_equal=bool(torch.equal(toks, w_toks)),
         tokens=toks.tolist(), whole_tokens=w_toks.tolist(),
-        logits_rel=[float((a - b).abs().max() / b.abs().max())
-                    for a, b in zip(logits, w_logits)],
+        logits_rel=rel(logits, w_logits),
         state_rel=[float((a.float() - b.float()).abs().max() /
                          b.float().abs().max()) for a, b in zip(state, mine)],
         state_shapes=[list(t.shape) for t in state])
+    del w_state, mine, state
+    _note(rank, "(b) f32 whole")
+    # bf16 against f32, read not gated: the same weights in a bf16
+    # model's dtypes (the SSM's A_log, D and dt_bias stay f32), the
+    # model-local tree on every rank, then the whole tree on rank 0, each
+    # step's logits against the whole f32 tree's
+    params = tree_map(lambda t, m: t.to(m.dtype), params,
+                      lm_task(bf16).shapes())
+    tree = local(bf16, params)
+    dist.barrier()
+    b_toks, b_logits, _, b_pre, _, _ = generate(tree, bf16, tree.tp)
+    del tree
+    got.update(bf16_tp_logits_rel=rel(b_logits, w_logits),
+               bf16_tp_tokens_equal=bool(torch.equal(b_toks, w_toks)),
+               bf16_tp_prefill_ms=b_pre * 1e3)
+    if rank == 0:
+        b_toks, b_logits, _, _, _, _ = generate(params, bf16, None)
+        got.update(bf16_whole_logits_rel=rel(b_logits, w_logits),
+                   bf16_whole_tokens_equal=bool(torch.equal(b_toks, w_toks)))
+    dist.barrier()
     report["serve"] = got
-    del params, w_state, mine, state
+    del params
     _free_leftovers(torch)
 
 
@@ -5012,8 +5086,7 @@ def _zoo_steps(torch, rank, report):
         cfg = dataclasses.replace(
             get_config(arch), n_layers=ZOO_STEP_LAYERS, dtype=torch.float32,
             param_dtype=torch.float32)
-        fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", False,
-                                     None, False, True)
+        fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", False)
         params = init_lm(cfg, SEED, "cuda")
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         B = ZOO_STEP_B
@@ -5101,27 +5174,29 @@ def pod_sharded_zoo_worker(rank: int, store: str, out: str) -> int:
     --pod-sharded-zoo-rank R STORE OUT``): joins the four-rank gloo group
     over the ``file://`` store on cuda:0 and reads the parent's
     ``llm_setup`` data (vocab 32,000: hymba-1.5b's 32,001 words hold
-    them) and whether to run the control from ``OUT/data.pkl``.  (a) on
-    ZOO_MESH, hymba-1.5b + lora:8 from one seeded init (drawn anew on
-    the card for each run) through ``run_pod_training`` under
-    replicated, then fsdp_tp: P1 1 x 2
-    x 2 relaying the whole model, then P2 1 x 2 x 2 on the adapters,
-    batch 8, lr 0.03; then FedProx P2 1 x 2 x 2 (mu ZOO_PROX_MU) from the
-    init under both; with the control, fsdp_tp's P1 again with the gated
-    norm's sum of squares through ``reduce_from_model``.  (b) on
+    them) from ``OUT/data.pkl``.  (a) on ZOO_MESH, hymba-1.5b + lora:8
+    from one seeded init (drawn anew on the card for each run) through
+    ``run_pod_training`` under replicated, then fsdp_tp: P1 1 x 2 x 2
+    relaying the whole model, then P2 1 x 2 x 2 on the adapters, batch
+    8, lr 0.03; then FedProx P2 1 x 2 x 2 (mu ZOO_PROX_MU) from the init
+    under both; then the same runs of the f32 cut to ZOO_CUT_LAYERS
+    layers, and its control: fsdp_tp's P1 again with the gated norm's
+    sum of squares through ``reduce_from_model``.  (b) on
     ZOO_SERVE_MESH, mamba2-1.3b in f32 with ssd_impl "pallas": the rank's
     model-local tree serves ZOO_SERVE_B x ZOO_SERVE_S + ZOO_SERVE_NEW
-    greedy tokens (K8 on its 16 heads), then each rank in turn serves the
-    whole tree alone.  (c) on ZOO_MESH, ZOO_STEP_ARCHS cut to
+    greedy tokens (K8 on its 16 heads) after a warm-up, then each rank
+    in turn serves the whole tree alone; then the weights in bf16, the
+    model-local tree on every rank and the whole tree on rank 0.  (c) on ZOO_MESH, ZOO_STEP_ARCHS cut to
     ZOO_STEP_LAYERS layers at full width in f32: ``make_train_step`` on
     the model-local tree and on the whole tree, 2 steps of batch
     ZOO_STEP_B, and a prefill through K7 on each.  Writes
     ``OUT/rank<R>.json``: per run the seconds, ms a step, collectives and
     their bytes, K1/K6/K3 launches, resident bytes, peak memory, losses,
     tp_compute; rank 0 the params' and P1 changes' gaps from the
-    replicated run; (b) prefill ms, ms a decode step, K8 launches a
-    prefill, the tokens and logits against the whole tree's, the SSM
-    state against its heads of the whole state; (c) the losses', the
+    replicated run, of the cut's runs and the control's under "cut"; (b)
+    prefill ms, ms a decode step, K8 launches a prefill, the tokens and
+    logits against the whole tree's, the SSM state against its heads of
+    the whole state, the bf16 logits against the whole f32 tree's; (c) the losses', the
     first gradient's and the params' gaps, K7 launches a prefill."""
     import faulthandler
     import pickle
@@ -5132,17 +5207,20 @@ def pod_sharded_zoo_worker(rank: int, store: str, out: str) -> int:
     world = math.prod(ZOO_MESH)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank)
-    data, control = pickle.loads(Path(out, "data.pkl").read_bytes())
+    data = pickle.loads(Path(out, "data.pkl").read_bytes())
     report = {"rank": rank}
     t0 = time.perf_counter()
-    _zoo_hymba(torch, rank, data, control, report)
+    _zoo_hymba(torch, rank, data, report)
     report["hymba_s"] = time.perf_counter() - t0
+    _note(rank, "(a) done")
     t0 = time.perf_counter()
     _zoo_serve(torch, rank, report)
     report["serve_s"] = time.perf_counter() - t0
+    _note(rank, "(b) done")
     t0 = time.perf_counter()
     _zoo_steps(torch, rank, report)
     report["steps_s"] = time.perf_counter() - t0
+    _note(rank, "(c) done")
     Path(out, f"rank{rank}.json").write_text(json.dumps(report))
     dist.barrier()
     dist.destroy_process_group()
@@ -5162,7 +5240,7 @@ def zoo_views():
         for layout in ZOO_LAYOUTS for ph in ("P1", "P2")}
 
 
-def pod_sharded_zoo(torch, control: bool = False) -> list:
+def pod_sharded_zoo(torch) -> list:
     """Phase pod_sharded_zoo: tensor parallelism over ``model`` for the
     SSM, hybrid, VLM and audio zoo, and FedProx under it, on four ranks
     of one card (``pod_sharded_zoo_worker``: gloo over a ``file://``
@@ -5172,9 +5250,10 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
     0), replicated did not; fsdp_tp's losses within ZOO_LOSS_RTOL and
     its params within ZOO_TP_TOL of replicated's, at P2's end and at the
     FedProx round's, its P1 changes within ZOO_DELTA_TOL (L2) of
-    replicated's (bf16 drift bounds; with ``control``,
-    ``--pod-sharded-zoo-control``, the control's readings beside them);
-    each rank's resident frozen rows in P2 the fsdp_tp view's per-shard
+    replicated's (bf16: drift and unchanged-leaf bounds); the f32 cut to
+    ZOO_CUT_LAYERS layers on the same measures within ZOO_CUT_LOSS_RTOL,
+    ZOO_CUT_TP_TOL and ZOO_CUT_DELTA_TOL, its control's P1 changes
+    beyond ZOO_CUT_DELTA_TOL; each rank's resident frozen rows in P2 the fsdp_tp view's per-shard
     sizes; K1, K6 and K3 once a bucket row; the frozen leaves kept.  (b)
     mamba2-1.3b served on (1, 4) in f32: 16 SSM heads a rank, K8
     launched once a layer a prefill (48) on each rank and on the whole
@@ -5197,30 +5276,12 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
     _, data, data_s = llm_setup()
     views = zoo_views()
     tmp = tempfile.mkdtemp(prefix="pod_sharded_zoo_")
-    Path(tmp, "data.pkl").write_bytes(pickle.dumps((data, control)))
+    Path(tmp, "data.pkl").write_bytes(pickle.dumps(data))
     store = os.path.join(tmp, "store")
     world = math.prod(ZOO_MESH)
     env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "chip_smoke.py"),
-         "--pod-sharded-zoo-rank", str(r), store, tmp],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-        for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=900))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    failed = [f"rank {r} exited {p.returncode}:\n{err[-3000:]}"
-              for r, (p, (_, err)) in enumerate(zip(procs, outs))
-              if p.returncode != 0]
-    if failed:
-        raise SystemExit("chip_smoke: pod_sharded_zoo: " + "\n".join(failed))
-    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
-             for r in range(world)]
+    ranks = _run_ranks("pod_sharded_zoo", "--pod-sharded-zoo-rank", world,
+                       store, tmp, env, ZOO_RANKS_TIMEOUT)
     steps = SHARDED_K * ZOO_STEPS
 
     def want(layout, p1=True):
@@ -5239,8 +5300,57 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
 
     def finite(xs):
         return all(math.isfinite(x) for x in xs)
+
+    def loss_gap(a, b):
+        return max(abs(x / y - 1) for x, y in zip(a["losses"], b["losses"]))
+
+    def pair(name, r, rk, loss_rtol):
+        """Gates of a rank's runs of (a) or of its cut (``rk``): fsdp_tp
+        computed tensor-parallel in every phase, replicated did not,
+        frozen leaves kept, finite losses, fsdp_tp's within
+        ``loss_rtol`` of replicated's."""
+        for layout in ZOO_LAYOUTS:
+            tp_on = layout == "fsdp_tp"
+            for key, p1 in ((layout, True), (f"fedprox_{layout}", False)):
+                got = rk[key]
+                if got["tp_compute"] != [tp_on] * (2 if p1 else 1) or \
+                        (got["collectives"]["tp"] > 0) != tp_on:
+                    bad.append(f"rank {r} {name}{key}: tp_compute "
+                               f"{got['tp_compute']}, collectives "
+                               f"{got['collectives']}")
+                if not (got.get("frozen_kept", r != 0) and
+                        finite(got["losses"])):
+                    bad.append(f"rank {r} {name}{key}: frozen leaves "
+                               f"changed or losses {got['losses']}")
+        for key in ("", "fedprox_"):
+            a, b = rk[f"{key}fsdp_tp"], rk[f"{key}replicated"]
+            if not loss_gap(a, b) <= loss_rtol:
+                bad.append(f"rank {r} {name}{key}fsdp_tp losses "
+                           f"{a['losses']} against {b['losses']}")
+
+    def params_gates(name, r0, tp_tol, delta_tol):
+        """Rank 0's gates of fsdp_tp's params against replicated's at P2's
+        and FedProx's ends and of its P1 changes; the readings."""
+        close, moved, prox = (r0[k] for k in (
+            "tp_vs_replicated", "tp_vs_replicated_p1_delta",
+            "fedprox_tp_vs_replicated"))
+        for ph, c in (("P2", close), ("FedProx", prox)):
+            if not (c["dtypes_equal"] and c["rel"] <= tp_tol):
+                bad.append(f"{name}fsdp_tp's {ph} params off replicated's: "
+                           f"{c}")
+        if not moved["l2"] <= delta_tol:
+            bad.append(f"{name}fsdp_tp's P1 changes off replicated's: "
+                       f"{moved}")
+        return dict(
+            loss_gap=loss_gap(r0["fsdp_tp"], r0["replicated"]),
+            fedprox_loss_gap=loss_gap(r0["fedprox_fsdp_tp"],
+                                      r0["fedprox_replicated"]),
+            rel=close["rel"], fedprox_rel=prox["rel"],
+            p1_delta_l2=moved["l2"], p1_delta_rel=moved["rel"])
     for rk in ranks:
         r = rk["rank"]
+        pair("", r, rk, ZOO_LOSS_RTOL)
+        pair("the cut's ", r, rk["cut"], ZOO_CUT_LOSS_RTOL)
         for layout in ZOO_LAYOUTS:
             tp_on = layout == "fsdp_tp"
             for key, p1 in ((layout, True), (f"fedprox_{layout}", False)):
@@ -5248,26 +5358,10 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
                 if got["launches"] != want(layout, p1):
                     bad.append(f"rank {r} {key} launches {got['launches']} "
                                f"!= {want(layout, p1)}")
-                if got["tp_compute"] != [tp_on] * (2 if p1 else 1) or \
-                        (got["collectives"]["tp"] > 0) != tp_on:
-                    bad.append(f"rank {r} {key}: tp_compute "
-                               f"{got['tp_compute']}, collectives "
-                               f"{got['collectives']}")
-                if not (got.get("frozen_kept", r != 0) and
-                        finite(got["losses"])):
-                    bad.append(f"rank {r} {key}: frozen leaves changed or "
-                               f"losses {got['losses']}")
                 if got["resident"][-1]["frozen"] != (
                         frozen_rows if tp_on else frozen_whole):
                     bad.append(f"rank {r} {key} frozen bytes "
                                f"{got['resident'][-1]}")
-            for key in ("", "fedprox_"):
-                a, b = rk[f"{key}fsdp_tp"], rk[f"{key}replicated"]
-                if not all(math.isclose(x, y, rel_tol=ZOO_LOSS_RTOL,
-                                        abs_tol=0.0)
-                           for x, y in zip(a["losses"], b["losses"])):
-                    bad.append(f"rank {r} {key}fsdp_tp losses {a['losses']}"
-                               f" against {b['losses']}")
         sv = rk["serve"]
         if not (sv["ssm_heads"] == 16 and sv["tp_plan"]["ssm"] and
                 sv["ssd_launches_per_prefill"] == 48 and
@@ -5288,35 +5382,27 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
             if not ok:
                 bad.append(f"rank {r} (c) {arch}: {st}")
     r0 = ranks[0]
-    close, moved, prox = (r0[k] for k in (
-        "tp_vs_replicated", "tp_vs_replicated_p1_delta",
-        "fedprox_tp_vs_replicated"))
-    for name, c in (("P2", close), ("FedProx", prox)):
-        if not (c["dtypes_equal"] and c["rel"] <= ZOO_TP_TOL):
-            bad.append(f"fsdp_tp's {name} params off replicated's: {c}")
-    if not moved["l2"] <= ZOO_DELTA_TOL:
-        bad.append(f"fsdp_tp's P1 changes off replicated's: {moved}")
-    readings = dict(
-        loss_gap=max(abs(a / b - 1) for a, b in zip(
-            r0["fsdp_tp"]["losses"], r0["replicated"]["losses"])),
-        fedprox_loss_gap=max(abs(a / b - 1) for a, b in zip(
-            r0["fedprox_fsdp_tp"]["losses"],
-            r0["fedprox_replicated"]["losses"])),
-        rel=close["rel"], fedprox_rel=prox["rel"], p1_delta_l2=moved["l2"],
-        p1_delta_rel=moved["rel"],
-        serve_logits_rel=max(max(rk["serve"]["logits_rel"]) for rk in ranks),
-        serve_state_rel=max(max(rk["serve"]["state_rel"]) for rk in ranks),
+    readings = params_gates("", r0, ZOO_TP_TOL, ZOO_DELTA_TOL)
+    cut = params_gates("the cut's ", r0["cut"], ZOO_CUT_TP_TOL,
+                       ZOO_CUT_DELTA_TOL)
+    ctl = r0["cut"]["control_vs_replicated_p1_delta"]
+    cut.update(control_p1_delta_l2=ctl["l2"], control_p1_delta_rel=ctl["rel"],
+               control_loss_gap=loss_gap(r0["cut"]["control"],
+                                         r0["cut"]["replicated"]))
+    if not ctl["l2"] > ZOO_CUT_DELTA_TOL:
+        bad.append(f"the cut's control passed the P1 changes' gate: {ctl}")
+    serve = [rk["serve"] for rk in ranks]
+    readings.update(
+        cut=cut,
+        serve_logits_rel=max(max(sv["logits_rel"]) for sv in serve),
+        serve_state_rel=max(max(sv["state_rel"]) for sv in serve),
+        serve_bf16_tp_logits_rel=max(max(sv["bf16_tp_logits_rel"])
+                                     for sv in serve),
+        serve_bf16_whole_logits_rel=max(serve[0]["bf16_whole_logits_rel"]),
         steps={arch: {k: max(rk["steps"][arch][k] or 0.0 for rk in ranks)
                       for k in ("grad", "params", "prefill_rel",
                                 "control_grad")}
                for arch in r0["steps"]})
-    if control:         # reported: in bf16 it reads as the sound run
-        ctl = r0["control_vs_replicated_p1_delta"]
-        readings.update(control_p1_delta_l2=ctl["l2"],
-                        control_p1_delta_rel=ctl["rel"],
-                        control_loss_gap=max(abs(a / b - 1) for a, b in zip(
-                            r0["control"]["losses"],
-                            r0["replicated"]["losses"])))
     emit(dict(phase="pod_sharded_zoo", part="hybrid",
               model=f"{ZOO_ARCH} + {ZOO_PEFT}",
               mesh=dict(zip(("data", "model"), ZOO_MESH)),
@@ -5336,7 +5422,13 @@ def pod_sharded_zoo(torch, control: bool = False) -> list:
               frozen_bytes_per_rank={"fsdp_tp": frozen_rows,
                                      "replicated": frozen_whole},
               tp_tol=ZOO_TP_TOL, loss_rtol=ZOO_LOSS_RTOL,
-              delta_tol=ZOO_DELTA_TOL, readings=readings,
+              delta_tol=ZOO_DELTA_TOL,
+              cut=dict(layers=ZOO_CUT_LAYERS, dtype="float32",
+                       loss_rtol=ZOO_CUT_LOSS_RTOL, tp_tol=ZOO_CUT_TP_TOL,
+                       delta_tol=ZOO_CUT_DELTA_TOL,
+                       ms=[rk["cut"]["fsdp_tp"]["ms_per_step"]
+                           for rk in ranks]),
+              readings=readings,
               ranks=[{k: v for k, v in rk.items()
                       if k not in ("serve", "steps")} for rk in ranks],
               card=nvidia_smi()))
@@ -6710,11 +6802,6 @@ def main(argv=None) -> int:
                     "control")
     ap.add_argument("--pod-sharded-zoo-rank", nargs=3, default=None,
                     metavar=("RANK", "STORE", "OUT"), help=argparse.SUPPRESS)
-    # pod_sharded_zoo alone, with its control run (the gated norm's
-    # backward left out, which the P1 changes' gate must refuse)
-    ap.add_argument("--pod-sharded-zoo-control", action="store_true",
-                    help="run the pod_sharded_zoo phase alone, with its "
-                    "control")
     # dryrun_check's lower_pod_round, spawned by the dryrun phase
     ap.add_argument("--lower-pod-round", default=None, metavar="OUT",
                     help=argparse.SUPPRESS)
@@ -6734,11 +6821,6 @@ def main(argv=None) -> int:
     if args.pod_sharded_zoo_rank is not None:
         rank, store, out = args.pod_sharded_zoo_rank
         return pod_sharded_zoo_worker(int(rank), store, out)
-    if args.pod_sharded_zoo_control:
-        from repro_torch.kernels import library
-        library.build_library()
-        pod_sharded_zoo(torch, control=True)
-        return 0
     if args.pod_sharded_moe_control:
         from repro_torch.kernels import library
         library.build_library()

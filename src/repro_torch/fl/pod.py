@@ -779,14 +779,12 @@ def _sharded_view(task: Task, mesh, layout: str,
 @functools.lru_cache(maxsize=32)
 def _sharded_flat_ops(task: Task, mesh, layout: str, interpret: bool,
                       filter_spec: Optional[str] = None,
-                      split_batch: bool = False,
-                      tensor_parallel: bool = False) -> ShardedFlatOps:
+                      split_batch: bool = False) -> ShardedFlatOps:
     sharded, local = _sharded_view(task, mesh, layout, filter_spec)
     return ShardedFlatOps(view=local, interpret=interpret,
                           device=mesh.device, sharded=sharded, mesh=mesh,
                           split_batch=split_batch,
-                          tp=_tp_context(task, mesh, layout)
-                          if tensor_parallel else None)
+                          tp=_tp_context(task, mesh, layout))
 
 
 def _tp_context(task: Task, mesh, layout: str):
@@ -828,7 +826,7 @@ class PodBackendMixin:
             task, self.mesh, self.layout,
             ops.fused_interpret(self.spec.update_impl),
             effective_trainable_filter(self.spec),
-            self.batch_shard(self.spec.batch_size) is not None, True)
+            self.batch_shard(self.spec.batch_size) is not None)
 
     def n_selected(self, n_clients: int) -> int:
         if self.clients_per_round:

@@ -313,8 +313,7 @@ def serve_check(mesh, seed: int, arch: str = "tinyllama-1.1b",
     if ssd_impl is not None:
         cfg = dataclasses.replace(cfg, ssd_impl=ssd_impl)
     params = init_lm(cfg, seed, "cpu")
-    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True,
-                                 None, False, True)
+    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True)
     with torch.no_grad():
         tree = fops.tp_tree(fops.flatten(params))
         tp = tree.tp
@@ -374,8 +373,7 @@ def steps_check(mesh, seed: int, arch: str, control: bool = False,
     from repro_torch.utils import tree_math as tm
     cfg = _reduced(arch, overrides)
     params = init_lm(cfg, seed, "cpu")
-    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True,
-                                 None, False, True)
+    fops = pod._sharded_flat_ops(lm_task(cfg), mesh, "fsdp_tp", True)
     rng = np.random.default_rng(seed)
     B, S, P = 4, 8, 8
 
